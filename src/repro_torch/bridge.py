@@ -1,0 +1,48 @@
+"""Carry JAX-side parameters, stats and configs over to the port.
+
+Takes numpy in (the caller does ``jax.device_get`` / ``np.asarray`` on its
+side), so this module never imports JAX.  The parameter tree keeps the JAX
+pytree's layout: ``descriptor.{type_embed, embed[i].{w,b},
+attn[l].{wq,wk,wv,wo,ln.{gamma,beta}}}``, ``fitting[i].{w,b}``, ``bias``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .dp.common import EnvStats
+from .dp.descriptors import DescriptorConfig
+from .dp.model import DPConfig
+
+
+def params_to_torch(tree, device="cuda"):
+    """Nested dicts/lists of arrays -> the same nesting of fp32 tensors."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_torch(v, dev) for v in tree]
+    return torch.tensor(np.asarray(tree, np.float32), device=dev)
+
+
+def stats_to_torch(stats, device="cuda") -> EnvStats:
+    """An ``EnvStats``-like object (``davg``, ``dstd`` arrays) -> EnvStats."""
+    dev = resolve_device(device)
+    return EnvStats(
+        davg=torch.tensor(np.asarray(stats.davg, np.float32), device=dev),
+        dstd=torch.tensor(np.asarray(stats.dstd, np.float32), device=dev))
+
+
+def config_to_torch(cfg) -> DPConfig:
+    """A JAX ``DPConfig`` -> the port's, field for field.
+
+    ``DescriptorConfig.use_pallas`` is dropped: in the port the tensors'
+    device selects the kernels (CUDA) or their plain versions (CPU).
+    """
+    d = {f.name: getattr(cfg.descriptor, f.name)
+         for f in dataclasses.fields(DescriptorConfig)}
+    return DPConfig(descriptor=DescriptorConfig(**d),
+                    fitting_neuron=tuple(cfg.fitting_neuron), dtype=cfg.dtype)

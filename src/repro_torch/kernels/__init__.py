@@ -1,0 +1,30 @@
+"""Hand-written Hopper kernels of the DP force path, with their plain versions.
+
+- ``env_mat_fwd`` / ``env_mat_bwd``: Triton (``env_mat_triton.py``), replacing
+  ``repro/kernels/env_mat.py::_env_mat_kernel`` / ``_env_mat_bwd_kernel``;
+- ``nbr_attention_stack_fwd`` / ``_bwd``: CUDA C++ for ``sm_90a``
+  (``csrc/nbr_attn.cu``), replacing ``repro/kernels/nbr_attn.py::
+  _stack_fwd_kernel`` / ``_stack_bwd_kernel``.
+
+Importing this package needs neither ``triton`` nor ``nvcc``: kernels are
+compiled at their first launch on a CUDA tensor.
+"""
+from .env_mat import env_mat_bwd, env_mat_fwd
+from .nbr_attn import nbr_attention_stack_bwd, nbr_attention_stack_fwd
+
+KERNELS = {
+    "env_mat_fwd": env_mat_fwd,
+    "env_mat_bwd": env_mat_bwd,
+    "nbr_attention_stack_fwd": nbr_attention_stack_fwd,
+    "nbr_attention_stack_bwd": nbr_attention_stack_bwd,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches counted by each wrapper since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

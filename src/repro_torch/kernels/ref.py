@@ -1,0 +1,225 @@
+"""Plain PyTorch versions of every kernel of the port (the correctness contract).
+
+The CPU runs these (the kernel wrappers take them for CPU tensors), the tests
+hold them against the JAX package, and ``chip_smoke.py`` holds each kernel
+against them on the card.  The forward functions transcribe
+``repro/kernels/ref.py``; the analytic backward functions transcribe the
+Pallas backward kernels (``repro/kernels/env_mat.py::_env_mat_bwd_kernel``,
+``repro/kernels/nbr_attn.py::_layer_bwd`` and the gate expansion of
+``_stack_bwd_kernel``), so the formulas the CUDA/Triton backwards implement
+are checked on the CPU even though the kernels cannot run there.
+"""
+from __future__ import annotations
+
+import torch
+
+# canonical zero-distance clamp: a valid coincident pair sits at r = 1e-6
+# (dp.common.switch_fn's clamp); every env-matrix path shares it
+R2_MIN = 1e-12
+F32 = torch.float32
+NEG = torch.finfo(torch.float32).min   # masked-key score (not -inf: no NaN)
+LN_EPS = 1e-5
+
+
+def round_operand(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Round an fp32 matmul operand to ``dtype`` (bf16) and back; None or
+    fp32 leaves it as it is (``repro_torch.dp.precision`` has the policy)."""
+    if dtype is None or dtype == torch.float32:
+        return x
+    return x.to(dtype).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# env_mat
+# ---------------------------------------------------------------------------
+
+def env_mat_ref(dx, dy, dz, mask, rcut_smth: float, rcut: float):
+    """(s, s*x/r, s*y/r, s*z/r) planes from (N, K) displacement planes."""
+    d2 = dx * dx + dy * dy + dz * dz
+    # valid coincident pairs clamp to r = 1e-6; padded entries sit at r = 1
+    d2 = torch.where(mask > 0, d2.clamp_min(R2_MIN), torch.ones_like(d2))
+    r = torch.sqrt(d2)
+    u = (r - rcut_smth) / (rcut - rcut_smth)
+    uu = u.clamp(0.0, 1.0)
+    poly = uu * uu * uu * (-6 * uu * uu + 15 * uu - 10) + 1.0
+    one = torch.ones_like(r)
+    sw = torch.where(r < rcut, (1.0 / r) * torch.where(r < rcut_smth, one, poly),
+                     torch.zeros_like(r))
+    sw = sw * mask
+    return sw, sw * dx / r, sw * dy / r, sw * dz / r
+
+
+def _switch_parts(r, rcut_smth: float, rcut: float):
+    """h(r) (the [0, 1] polynomial envelope) and h'(r), branch-free."""
+    u = (r - rcut_smth) / (rcut - rcut_smth)
+    uu = u.clamp(0.0, 1.0)
+    poly = uu * uu * uu * (-6.0 * uu * uu + 15.0 * uu - 10.0) + 1.0
+    zero = torch.zeros_like(r)
+    h = torch.where(r < rcut, torch.where(r < rcut_smth, torch.ones_like(r),
+                                          poly), zero)
+    dpoly = -30.0 * uu * uu * (uu - 1.0) * (uu - 1.0) / (rcut - rcut_smth)
+    hp = torch.where((r >= rcut_smth) & (r < rcut), dpoly, zero)
+    return h, hp
+
+
+def env_mat_bwd_ref(dx, dy, dz, mask, gs, gsx, gsy, gsz,
+                    rcut_smth: float, rcut: float):
+    """Analytic VJP of :func:`env_mat_ref`: 8 planes in, (ddx, ddy, ddz) out.
+
+    With h the switch polynomial, s = h/r and q = h/r^2:
+    ``d = x/r * (gs*s' + A*q') + q*gsx`` with ``A = gsx*x + gsy*y + gsz*z``.
+    Below the clamp r does not depend on x, so the r-chain is zeroed there
+    while the direct q*g term stays (huge but finite); padded entries get
+    exactly zero.
+    """
+    d2_raw = dx * dx + dy * dy + dz * dz
+    valid = mask > 0
+    d2 = torch.where(valid, d2_raw.clamp_min(R2_MIN), torch.ones_like(dx))
+    inv_r = torch.rsqrt(d2)
+    r = d2 * inv_r
+    inv_r2 = inv_r * inv_r
+    h, hp = _switch_parts(r, rcut_smth, rcut)
+    ds_dr = hp * inv_r - h * inv_r2
+    dq_dr = hp * inv_r2 - 2.0 * h * inv_r2 * inv_r
+    q = h * inv_r2
+    a = gsx * dx + gsy * dy + gsz * dz
+    zero = torch.zeros_like(dx)
+    live = valid & (d2_raw > R2_MIN)
+    chain = torch.where(live, (gs * ds_dr + a * dq_dr) * inv_r, zero)
+    return (torch.where(valid, chain * dx + q * gsx, zero),
+            torch.where(valid, chain * dy + q * gsy, zero),
+            torch.where(valid, chain * dz + q * gsz, zero))
+
+
+# ---------------------------------------------------------------------------
+# nbr_attention_stack
+# ---------------------------------------------------------------------------
+
+def attn_scale(hd: int) -> torch.Tensor:
+    """1/sqrt(head width), formed in fp32 as the JAX kernel forms it."""
+    return 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=F32))
+
+
+def gate_mul(rx, ry, rz, sw, mask):
+    """(gate, gmul): angular gate r_hat.r_hat^T and the combined score
+    multiplier gate x (sw x sw) x (mask x mask), each (N, K, K)."""
+    gate = (rx[:, :, None] * rx[:, None, :] + ry[:, :, None] * ry[:, None, :]
+            + rz[:, :, None] * rz[:, None, :])
+    gmul = gate * (sw[:, :, None] * sw[:, None, :])
+    return gate, gmul * (mask[:, :, None] * mask[:, None, :])
+
+
+def _layer_core(g, gmul, mask, wq, wk, wv, wo, heads: int, cd):
+    """Forward intermediates of one layer (forward and backward recompute)."""
+    b, k, m = g.shape
+    h = wq.shape[-1]
+    hd = h // heads
+    rc = lambda x: round_operand(x, cd)
+    gc = rc(g)
+    q = (gc @ rc(wq)).reshape(b, k, heads, hd)
+    kk = (gc @ rc(wk)).reshape(b, k, heads, hd)
+    v = (gc @ rc(wv)).reshape(b, k, heads, hd)
+    scale = attn_scale(hd)
+    scores = torch.einsum("bkcd,blcd->bckl", rc(q), rc(kk)) * scale
+    scores = torch.where(mask[:, None, None, :] > 0, scores,
+                         torch.full_like(scores, NEG))
+    p = torch.softmax(scores, dim=-1)
+    w = p * gmul[:, None, :, :]
+    o = torch.einsum("bckl,blcd->bkcd", rc(w), rc(v)).reshape(b, k, h)
+    out = rc(o) @ rc(wo)
+    g1 = g + out
+    mu = g1.mean(-1, keepdim=True)
+    var = ((g1 - mu) ** 2).mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + LN_EPS)
+    xhat = (g1 - mu) * inv
+    return dict(q=q, kk=kk, v=v, p=p, w=w, o=o, inv=inv, xhat=xhat,
+                scale=scale)
+
+
+def nbr_attention_stack_ref(g, rx, ry, rz, sw, mask, wq, wk, wv, wo,
+                            gamma, beta, heads: int = 1,
+                            compute_dtype: str = "float32",
+                            stash: bool = False):
+    """l_a gated se_attention_v2 layers over the neighbour axis.
+
+    g (N, K, M); rx/ry/rz/sw/mask (N, K); stacked params wq/wk/wv (L, M, H),
+    wo (L, H, M), gamma/beta (L, M).  ``compute_dtype`` is the matmul operand
+    type (bf16 operands, fp32 accumulation; softmax, gate, residual and layer
+    norm stay fp32).  With ``stash=True`` returns (out, layer inputs
+    (L, N, K, M)), the residuals the analytic backward consumes.
+    """
+    h = wq.shape[-1]
+    if h % heads:
+        raise ValueError(f"attn_hidden {h} not divisible by heads {heads}")
+    cd = torch.bfloat16 if compute_dtype == "bfloat16" else None
+    _, gmul = gate_mul(rx, ry, rz, sw, mask)
+    inputs = []
+    for l in range(wq.shape[0]):
+        inputs.append(g)
+        c = _layer_core(g, gmul, mask, wq[l], wk[l], wv[l], wo[l], heads, cd)
+        g = (c["xhat"] * gamma[l] + beta[l]) * mask[..., None]
+    if stash:
+        return g, torch.stack(inputs)
+    return g
+
+
+def _layer_bwd(g_in, dg, gmul, mask, wq, wk, wv, wo, gamma, heads: int, cd):
+    """Analytic backward of one layer (``repro/kernels/nbr_attn.py::
+    _layer_bwd``): recomputes the forward, contracts in fp32."""
+    c = _layer_core(g_in, gmul, mask, wq, wk, wv, wo, heads, cd)
+    b, k, m = g_in.shape
+    h = wq.shape[-1]
+    hd = h // heads
+    dln = dg * mask[..., None]
+    dgamma = (dln * c["xhat"]).sum((0, 1))
+    dbeta = dln.sum((0, 1))
+    dxhat = dln * gamma
+    dg1 = c["inv"] * (dxhat - dxhat.mean(-1, keepdim=True)
+                      - c["xhat"] * (dxhat * c["xhat"]).mean(-1, keepdim=True))
+    dwo = torch.einsum("bkh,bkm->hm", c["o"], dg1)
+    do_h = (dg1 @ wo.T).reshape(b, k, heads, hd)
+    dw = torch.einsum("bkcd,blcd->bckl", do_h, c["v"])
+    dv = torch.einsum("bckl,bkcd->blcd", c["w"], do_h).reshape(b, k, h)
+    dp = dw * gmul[:, None, :, :]
+    dgmul = (dw * c["p"]).sum(1)
+    ds = c["p"] * (dp - (dp * c["p"]).sum(-1, keepdim=True)) * c["scale"]
+    dq = torch.einsum("bckl,blcd->bkcd", ds, c["kk"]).reshape(b, k, h)
+    dk = torch.einsum("bckl,bkcd->blcd", ds, c["q"]).reshape(b, k, h)
+    dwq = torch.einsum("bkm,bkh->mh", g_in, dq)
+    dwk = torch.einsum("bkm,bkh->mh", g_in, dk)
+    dwv = torch.einsum("bkm,bkh->mh", g_in, dv)
+    dgin = dg1 + dq @ wq.T + dk @ wk.T + dv @ wv.T
+    return dgin, dgmul, dwq, dwk, dwv, dwo, dgamma, dbeta
+
+
+def nbr_attention_stack_bwd_ref(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
+                                gamma, beta, dout, heads: int = 1,
+                                compute_dtype: str = "float32"):
+    """Analytic VJP of the stack from its layer-input stash (L, N, K, M).
+
+    Returns (dg, drx, dry, drz, dsw, dwq, dwk, dwv, dwo, dgamma, dbeta), all
+    fp32; the mask gets no cotangent.
+    """
+    cd = torch.bfloat16 if compute_dtype == "bfloat16" else None
+    gate, gmul = gate_mul(rx, ry, rz, sw, mask)
+    dg = dout
+    dgmul_acc = torch.zeros_like(gmul)
+    grads = [[None] * wq.shape[0] for _ in range(6)]
+    for l in reversed(range(wq.shape[0])):
+        dg, dgmul, *pg = _layer_bwd(stash[l], dg, gmul, mask, wq[l], wk[l],
+                                    wv[l], wo[l], gamma[l], heads, cd)
+        dgmul_acc = dgmul_acc + dgmul
+        for acc, x in zip(grads, pg):
+            acc[l] = x
+    # gmul = gate * (sw x sw) * (mask x mask): expand the accumulated
+    # cotangent onto the direction planes and the envelope
+    mm = mask[:, :, None] * mask[:, None, :]
+    swsw = sw[:, :, None] * sw[:, None, :]
+    dgate = dgmul_acc * swsw * mm
+    hsw = dgmul_acc * gate * mm
+    dsw = (hsw * sw[:, None, :]).sum(2) + (hsw * sw[:, :, None]).sum(1)
+    sym = dgate + dgate.transpose(1, 2)
+    drx = (sym * rx[:, None, :]).sum(2)
+    dry = (sym * ry[:, None, :]).sum(2)
+    drz = (sym * rz[:, None, :]).sum(2)
+    return (dg, drx, dry, drz, dsw) + tuple(torch.stack(a) for a in grads)
