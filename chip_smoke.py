@@ -3,23 +3,37 @@
 
     python3 chip_smoke.py
 
-Builds the kernels from ``src/repro_torch/kernels`` (nvcc for the CUDA
-sources, Triton at first launch), then runs four phases on the paper's
-DPA-1 at full width (``paper_dpa1_config(ntypes=4, rcut=0.6, sel=64)``,
-fp32, random weights from a seed) over uniform random atoms at 30 atoms/nm^3:
+Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
+source, all started together; Triton at first launch), then runs these
+phases on the paper's DPA-1 at full width (``paper_dpa1_config(ntypes=4,
+rcut=0.6, sel=64)``, fp32, random weights from a seed) over uniform random
+atoms at 30 atoms/nm^3:
 
-1. kernels: each kernel against its plain PyTorch version on the card, at the
-   shapes and on the data the force path gives it (N = 15,668 atoms), with
-   timings (median of 10 runs, CUDA events, L2 flushed before each run);
-2. path parity: the provider on the card against the port on the CPU at
-   2,048 atoms, and one launch of each kernel per force call;
-3. requests: ``DeepmdForceProvider(skin=0.05).compute`` on the 15,668-atom
-   1HCI-sized system (8 drifts inside skin/4, then one that rebuilds);
-4. a ``kernels`` JSON line, then the result line.
+1. kernels: the env-matrix and attention kernels against their plain
+   PyTorch versions on the card, at the shapes and on the data the force
+   path gives them (N = 15,668 atoms; K = 64, 82, and K = 128 from the MD
+   cutoff r_c = 0.8 with sel 128), with timings (median of 10 runs, CUDA
+   events, L2 flushed before each run);
+2. path parity: the single-domain provider on the card against the port on
+   the CPU at 2,048 atoms, and one launch of each of its kernels per call;
+3. requests: ``DeepmdForceProvider(skin=0.05).compute`` on one domain of the
+   15,668-atom 1HCI-sized system (4 drifts inside skin/4, then a rebuild);
+4. dd: the virtual domain decomposition on the same system and model,
+   8 ranks on this card (``suggest_config(n_ranks=8, skin=0.05)``): the
+   ``cell_filter`` kernel against its plain version bit for bit (at the
+   shapes of the cell-list assembly and of the evaluation's re-filter, and
+   on pairs placed at the cutoff), the four model kernels against their
+   plain versions on the exact tensors one DD evaluate gives them (all
+   ranks' capacity rows, fully masked padding rows included; the attention
+   stack in row chunks), cells == dense and stale == fresh bit for bit,
+   DD == single domain within phase 3's gate, then requests through
+   ``DeepmdForceProvider(dd_config=...)``;
+5. a ``kernels`` JSON line, then the result line.
 
 Any failed check raises, and the script exits non-zero.  It needs one CUDA
 card and the repository's ``src/`` beside it; it imports no JAX.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -40,23 +54,29 @@ SEED = 0
 REPS = 10
 F32_PEAK = 67e12          # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12        # H100 SXM bytes/s
+N_RANKS = 8
 TPU_SOURCES = {
     "env_mat_fwd": "src/repro/kernels/env_mat.py:66",
     "env_mat_bwd": "src/repro/kernels/env_mat.py:90",
     "nbr_attention_stack_fwd": "src/repro/kernels/nbr_attn.py:145",
     "nbr_attention_stack_bwd": "src/repro/kernels/nbr_attn.py:164",
+    "cell_filter": "src/repro/kernels/cell_gather.py:26",
 }
+SINGLE_DOMAIN_KERNELS = ("env_mat_fwd", "env_mat_bwd",
+                         "nbr_attention_stack_fwd", "nbr_attention_stack_bwd")
 TPU_FUNCTIONS = {
     "env_mat_fwd": "src/repro/kernels/env_mat.py::_env_mat_kernel",
     "env_mat_bwd": "src/repro/kernels/env_mat.py::_env_mat_bwd_kernel",
     "nbr_attention_stack_fwd": "src/repro/kernels/nbr_attn.py::_stack_fwd_kernel",
     "nbr_attention_stack_bwd": "src/repro/kernels/nbr_attn.py::_stack_bwd_kernel",
+    "cell_filter": "src/repro/kernels/cell_gather.py::_cell_filter_kernel",
 }
 PORT_SOURCES = {
     "env_mat_fwd": ("triton", "src/repro_torch/kernels/env_mat_triton.py"),
     "env_mat_bwd": ("triton", "src/repro_torch/kernels/env_mat_triton.py"),
     "nbr_attention_stack_fwd": ("cuda", "src/repro_torch/kernels/csrc/nbr_attn.cu"),
     "nbr_attention_stack_bwd": ("cuda", "src/repro_torch/kernels/csrc/nbr_attn.cu"),
+    "cell_filter": ("cuda", "src/repro_torch/kernels/csrc/cell_filter.cu"),
 }
 
 
@@ -163,10 +183,11 @@ def attn_bound(attn, backward):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_kernels(model, params, skin):
-    """Every kernel against its plain version at the shapes and on the data
-    of the force path whose list has this skin (K = sel at skin 0, the
-    skin-widened capacity of the provider otherwise)."""
+def phase_kernels(model, params, skin, bf16=False):
+    """The env-matrix and attention kernels against their plain versions at
+    the shapes and on the data of the force path whose list has this skin
+    (K = sel at skin 0, the skin-widened capacity of the provider
+    otherwise); with ``bf16`` also bf16 operands at the path's shape."""
     from repro_torch.core.ddinfer import single_domain_state
     from repro_torch.kernels import env_mat, nbr_attn, ref
     cfg = model.cfg.descriptor
@@ -239,13 +260,14 @@ def phase_kernels(model, params, skin):
 
     # bf16 operands at the path's shapes; heads=2 and parameter gradients
     # at a small shape (the force path uses neither)
-    out = nbr_attn.nbr_attention_stack_fwd(*attn, compute_dtype="bfloat16")
-    want = ref.nbr_attention_stack_ref(*attn, compute_dtype="bfloat16")
-    err = check("nbr_attention_stack_fwd bf16", out, want,
-                atol=2e-2 * float(want.abs().max()))
-    print(json.dumps({"phase": "kernels", "name": "nbr_attention_stack_fwd",
-                      "case": "bfloat16 operands", "max_err": err,
-                      "tol": "atol 2e-2*max|out|"}), flush=True)
+    if bf16:
+        out = nbr_attn.nbr_attention_stack_fwd(*attn, compute_dtype="bfloat16")
+        want = ref.nbr_attention_stack_ref(*attn, compute_dtype="bfloat16")
+        err = check("nbr_attention_stack_fwd bf16", out, want,
+                    atol=2e-2 * float(want.abs().max()))
+        print(json.dumps({"phase": "kernels", "name": "nbr_attention_stack_fwd",
+                          "case": "bfloat16 operands", "K": k, "max_err": err,
+                          "tol": "atol 2e-2*max|out|"}), flush=True)
     small = [a[:64] for a in attn[:6]] + attn[6:]
     for heads in (1, 2):
         out, st = nbr_attn.nbr_attention_stack_fwd(*small, heads=heads,
@@ -262,12 +284,18 @@ def phase_kernels(model, params, skin):
         err_b = max(check(f"bwd heads={heads} [{nm}]", a, b,
                           atol=1e-4 * float(b.abs().max()))
                     for nm, a, b in zip(names, got, exp))
-        print(json.dumps({"phase": "kernels", "case": f"N=64 heads={heads}, "
-                          "parameter gradients", "fwd_max_err": err,
+        print(json.dumps({"phase": "kernels", "case": f"N=64 K={k} "
+                          f"heads={heads}, parameter gradients",
+                          "backward_instance": ("device workspace"
+                                                if nbr_attn.uses_workspace(k, 128)
+                                                else "shared memory"),
+                          "fwd_max_err": err,
                           "bwd_max_err": err_b,
                           "tol": "atol 1e-4*max per output"}), flush=True)
     print(f"[kernels] N={n} K={k}: all four kernels within tolerance",
           flush=True)
+    del attn, env_in, nlist
+    torch.cuda.empty_cache()
     return results
 
 
@@ -291,8 +319,10 @@ def phase_parity(model, params):
         res[dev] = prov.compute(ForceRequest(positions=torch.tensor(coords)))
         counts = kernels.launch_counts()
         want = 1 if mdl is model else 0
-        if any(c != want for c in counts.values()):
-            fail(f"{dev} force call launched {counts}, expected {want} each")
+        if (any(counts[k] != want for k in SINGLE_DOMAIN_KERNELS)
+                or counts["cell_filter"]):
+            fail(f"{dev} force call launched {counts}, expected {want} each "
+                 "(no cell_filter on one domain)")
     e_gpu, e_cpu = float(res[DEVICE].energy), float(res["cpu"].energy)
     if abs(e_gpu - e_cpu) > 1e-5 * abs(e_cpu):
         fail(f"path parity: E card {e_gpu} vs cpu {e_cpu}")
@@ -313,28 +343,26 @@ def _tree(t, fn):
     return fn(t)
 
 
-def phase_requests(model, params):
-    """The main path: 8 evaluate-only requests and one rebuild."""
-    from repro_torch import kernels
-    from repro_torch.backend import ForceRequest
-    from repro_torch.core import DeepmdForceProvider
-    coords, types, box = system(N_PATH, SEED)
-    rng = np.random.default_rng(SEED + 2)
-    prov = DeepmdForceProvider(model, params, np.arange(N_PATH), types, box,
-                               N_PATH, nbr_capacity=model.cfg.descriptor.sel,
-                               skin=SKIN, device=DEVICE)
-    requests = []
-    for _ in range(8):
+def drifts(coords, n_eval, seed):
+    """``n_eval`` drifts inside skin/4 of ``coords``, then one atom moved by
+    the whole skin (a rebuild)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_eval):
         d = rng.normal(0, 1, coords.shape)
-        d *= rng.uniform(0, SKIN / 4, (N_PATH, 1)) / np.linalg.norm(
+        d *= rng.uniform(0, SKIN / 4, (len(coords), 1)) / np.linalg.norm(
             d, axis=1, keepdims=True)
-        requests.append((coords + d).astype(np.float32))
+        out.append((coords + d).astype(np.float32))
     far = coords.copy()
     far[0] += np.float32(SKIN)
-    requests.append(far)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    return out + [far]
+
+
+def run_requests(prov, requests, phase):
+    """Each request through ``prov.compute``, timed on the host clock around
+    a synchronised call; checks finiteness, overflow, growth and
+    translation invariance.  Returns [(kind, ms)]."""
+    from repro_torch.backend import ForceRequest
     times, state = [], None
     for i, pos in enumerate(requests):
         x = torch.tensor(pos, device=DEVICE)
@@ -350,21 +378,39 @@ def phase_requests(model, params):
         fsum = float(f.sum(0).abs().max())
         fabs = float(f.abs().sum(0).max())
         if not (bool(torch.isfinite(f).all()) and bool(torch.isfinite(r.energy))):
-            fail(f"request {i}: non-finite result")
+            fail(f"{phase} request {i}: non-finite result")
         if r.diagnostics["overflow"] or prov.growths:
-            fail(f"request {i}: neighbour capacity overflow")
+            fail(f"{phase} request {i}: capacity overflow")
         if fsum > 1e-4 * fabs:
-            fail(f"request {i}: |sum F| {fsum} > 1e-4 sum|F| {fabs}")
+            fail(f"{phase} request {i}: |sum F| {fsum} > 1e-4 sum|F| {fabs}")
         times.append((kind, ms))
-        print(json.dumps({"phase": "requests", "req": i, "kind": kind,
-                          "ms": ms, "energy": float(r.energy),
-                          "sum_F": fsum, "sum_abs_F": fabs}), flush=True)
+        print(json.dumps({"phase": phase, "req": i, "kind": kind, "ms": ms,
+                          "energy": float(r.energy), "sum_F": fsum,
+                          "sum_abs_F": fabs}), flush=True)
+    if times[-1][0] != "rebuild":
+        fail(f"{phase}: the last drift did not trigger a rebuild")
+    return times
+
+
+def phase_requests(model, params):
+    """The single-domain path: 4 evaluate-only requests and one rebuild."""
+    from repro_torch import kernels
+    from repro_torch.core import DeepmdForceProvider
+    coords, types, box = system(N_PATH, SEED)
+    prov = DeepmdForceProvider(model, params, np.arange(N_PATH), types, box,
+                               N_PATH, nbr_capacity=model.cfg.descriptor.sel,
+                               skin=SKIN, device=DEVICE)
+    requests = drifts(coords, 4, SEED + 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = run_requests(prov, requests, "requests")
     counts = kernels.launch_counts()
     profile_request(prov, requests[-1])         # evaluate-only after rebuild
-    if times[-1][0] != "rebuild":
-        fail("the last drift did not trigger a rebuild")
-    if any(c == 0 for c in counts.values()):
+    if any(counts[k] == 0 for k in SINGLE_DOMAIN_KERNELS):
         fail(f"a kernel of the path was never launched: {counts}")
+    if counts["cell_filter"]:
+        fail(f"the single-domain path launched cell_filter: {counts}")
     evals = [ms for kind, ms in times if kind == "evaluate"]
     print(json.dumps({"phase": "requests", "atoms": N_PATH,
                       "K": prov.nbr_capacity,
@@ -377,7 +423,388 @@ def phase_requests(model, params):
     return counts
 
 
-def profile_request(prov, pos):
+def cutoff_pairs(rcut, n, seed):
+    """Pairs (p, q) whose float32 d^2 = (dx*dx + dy*dy) + dz*dz lands on
+    fp32(rcut*rcut) or one ulp either side of it (numpy float32 arithmetic,
+    no FMA).  Returns p (n, 3), q (n, 3) and the expected flags d^2 < thr."""
+    thr = np.float32(rcut * rcut)
+    targets = {np.nextafter(thr, np.float32(0)), thr,
+               np.nextafter(thr, np.float32(np.inf))}
+    rng = np.random.default_rng(seed)
+    ps, qs, want = [], [], []
+    while len(ps) < n:
+        p = rng.uniform(0.5, 7.5, 3).astype(np.float32)
+        u = rng.normal(size=3)
+        q = (p + rcut * u / np.linalg.norm(u)).astype(np.float32)
+        for step in range(-64, 65):
+            qq = q.copy()
+            qq[0] = q[0] + np.float32(step) * np.spacing(q[0])
+            d = qq - p
+            d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            if d2 in targets:
+                ps.append(p)
+                qs.append(qq)
+                want.append(d2 < thr)
+    return np.array(ps[:n]), np.array(qs[:n]), np.array(want[:n])
+
+
+def cell_filter_bound(idx):
+    """Least time of one cell_filter call: the (R, M) int32 indices read and
+    the (R, M) one-byte flags written, plus 16 bytes of coordinates and mask
+    per row, at the card's memory rate."""
+    r, m = idx.shape
+    return (r * m * 5 + r * 16) / HBM_RATE * 1e3, "bytes"
+
+
+def check_cell_filter(rcut):
+    """The kernel against its plain version on pairs placed at the cutoff
+    and one ulp either side: flags equal bit for bit, and equal to the
+    float32 comparison numpy makes."""
+    from repro_torch.kernels import cell_filter as cf
+    p, q, want = cutoff_pairs(rcut, 3000, SEED + 5)
+    m = len(p)
+    xyz = torch.tensor(np.concatenate([p, q]), device=DEVICE)
+    idx = torch.full((2 * m, 2), -1, dtype=torch.int32, device=DEVICE)
+    idx[:m, 0] = torch.arange(m, 2 * m, device=DEVICE, dtype=torch.int32)
+    idx[:m, 1] = torch.arange(m, device=DEVICE, dtype=torch.int32)  # self
+    mask = torch.ones(2 * m, device=DEVICE)
+    got = cf.cell_filter(xyz, idx, mask, rcut)
+    plain = cf.cell_filter_plain(xyz, idx, mask, rcut)
+    if not torch.equal(got, plain):
+        fail(f"cell_filter at the cutoff ({rcut}): {int((got != plain).sum())}"
+             " flags differ from the plain version")
+    if not np.array_equal(got[:m, 0].cpu().numpy(), want) or got[:, 1].any():
+        fail(f"cell_filter at the cutoff ({rcut}): flags differ from the "
+             "float32 comparison")
+    print(json.dumps({"phase": "dd", "case": "cell_filter pairs at the cutoff",
+                      "rcut": rcut, "pairs": m, "inside": int(want.sum()),
+                      "equal_bitwise": True}), flush=True)
+
+
+def frozen_drift(coords, box, dims, halo, scale=2e-4, seed=SEED + 6):
+    """An in-bound random step with the atoms near a (uniform) plane or a
+    plane +- the halo frozen, so no local/ghost set changes (stale == fresh
+    holds bit for bit only while the selection sets stay)."""
+    frozen = np.zeros(len(coords), bool)
+    for a in range(3):
+        length = float(box[a])
+        planes = np.linspace(0.0, length, dims[a] + 1)
+        crit = np.concatenate([planes % length, (planes + halo) % length,
+                               (planes - halo) % length])
+        d = np.abs(coords[:, a][:, None] - crit[None, :])
+        frozen |= (np.minimum(d, length - d) < 1e-3).any(1)
+    step = np.random.default_rng(seed).uniform(-scale, scale, coords.shape)
+    step[frozen] = 0.0
+    return np.mod(coords + step, box).astype(np.float32)
+
+
+MODEL_KERNELS = (("env_mat", "env_mat_fwd"), ("env_mat", "env_mat_bwd"),
+                 ("nbr_attn", "nbr_attention_stack_fwd"),
+                 ("nbr_attn", "nbr_attention_stack_bwd"))
+
+
+def record_model_kernels(fn):
+    """Run ``fn()`` with each model kernel's wrapper replaced by one that
+    records (args, kwargs, outputs) of every call; returns (fn's result,
+    {name: [calls]}).  The wrappers still launch; their counts, which they
+    keep on the module-level name, go back to them afterwards."""
+    from repro_torch import kernels
+    mods = {m: getattr(kernels, m) for m, _ in MODEL_KERNELS}
+    seen = {name: [] for _, name in MODEL_KERNELS}
+    originals = {name: getattr(mods[m], name) for m, name in MODEL_KERNELS}
+
+    def recorder(name):
+        def rec(*args, **kw):
+            out = originals[name](*args, **kw)
+            seen[name].append((args, kw, out))
+            return out
+        rec.launches = 0
+        return rec
+
+    for m, name in MODEL_KERNELS:
+        setattr(mods[m], name, recorder(name))
+    try:
+        res = fn()
+    finally:
+        for m, name in MODEL_KERNELS:
+            originals[name].launches += getattr(mods[m], name).launches
+            setattr(mods[m], name, originals[name])
+    return res, seen
+
+
+def check_rows(name, got, plain, n, padded, chunk=8192):
+    """Hold kernel outputs ``got`` [(tensor, row axis)] against ``plain(r0,
+    r1)`` (the plain version's outputs on rows r0:r1) chunk by chunk: each
+    output within atol 1e-4 * max|plain| over all rows.  Returns the largest
+    error over all rows and over the rows flagged in ``padded`` (N,)."""
+    errs = [0.0] * len(got)
+    pad_errs = [0.0] * len(got)
+    scales = [0.0] * len(got)
+    for r0 in range(0, n, chunk):
+        r1 = min(n, r0 + chunk)
+        rows_pad = padded[r0:r1]
+        for i, ((t, ax), want) in enumerate(zip(got, plain(r0, r1))):
+            part = t.narrow(ax, r0, r1 - r0)
+            if not bool(torch.isfinite(part).all()):
+                fail(f"{name}[{i}]: non-finite output in rows {r0}:{r1}")
+            err = (part - want).abs()
+            errs[i] = max(errs[i], float(err.max()))
+            scales[i] = max(scales[i], float(want.abs().max()))
+            if bool(rows_pad.any()):
+                pad = err.movedim(ax, 0)[rows_pad]
+                pad_errs[i] = max(pad_errs[i], float(pad.max()))
+    for i, (err, scale) in enumerate(zip(errs, scales)):
+        if err > 1e-4 * scale:
+            fail(f"{name}[{i}]: max err {err:.3e} > 1e-4 * max|plain| "
+                 f"{scale:.3e} at the DD path's shape")
+    return max(errs), max(pad_errs)
+
+
+@torch.no_grad()
+def check_dd_model_kernels(seen):
+    """The four model kernels against their plain versions on the exact
+    tensors one DD evaluate gave them (all ranks' capacity rows, padded
+    rows included): env_mat whole, the attention stack in row chunks."""
+    from repro_torch.kernels import ref
+    for name, calls in seen.items():
+        if len(calls) != 1:
+            fail(f"dd evaluate: {name} launched {len(calls)} times, "
+                 "expected once")
+    args, _, out = seen["env_mat_fwd"][0]
+    mask = args[3]
+    n, k = mask.shape
+    padded = mask.sum(1) == 0
+    lines = []
+
+    def pad_err(outs, wants):
+        if not bool(padded.any()):
+            return 0.0
+        return max(float((o - w).abs()[padded].max())
+                   for o, w in zip(outs, wants))
+
+    want = ref.env_mat_ref(*args)
+    err = max(check(f"dd env_mat_fwd[{i}]", o, w, rtol=1e-5,
+                    atol=1e-6 * float(w.abs().max()))
+              for i, (o, w) in enumerate(zip(out, want)))
+    lines.append(("env_mat_fwd", err, pad_err(out, want),
+                  "rtol 1e-5, atol 1e-6*max"))
+    args, _, out = seen["env_mat_bwd"][0]
+    want = ref.env_mat_bwd_ref(*args)
+    err = max(check(f"dd env_mat_bwd[{i}]", o, w, rtol=2e-4, atol=5e-5)
+              for i, (o, w) in enumerate(zip(out, want)))
+    lines.append(("env_mat_bwd", err, pad_err(out, want),
+                  "rtol 2e-4, atol 5e-5"))
+    del want
+
+    args, kw, (out, stash) = seen["nbr_attention_stack_fwd"][0]
+    attn, opts = args[:12], args[12:]
+    if not kw.get("stash") or tuple(attn[5].shape) != (n, k):
+        fail("dd evaluate: the attention forward saw another list")
+
+    def plain_fwd(r0, r1):
+        rows = [a[r0:r1] for a in attn[:6]]
+        o, s = ref.nbr_attention_stack_ref(*rows, *attn[6:], *opts,
+                                           stash=True)
+        return o, s
+
+    err, pad = check_rows("dd nbr_attention_stack_fwd",
+                          [(out, 0), (stash, 1)], plain_fwd, n, padded)
+    lines.append(("nbr_attention_stack_fwd", err, pad,
+                  "atol 1e-4*max|plain| per output (out, stash)"))
+
+    args, kw, got = seen["nbr_attention_stack_bwd"][0]
+    st, planes, weights, dout = args[0], args[1:6], args[6:12], args[12]
+    if st.data_ptr() != stash.data_ptr():
+        fail("dd evaluate: the attention backward did not take the "
+             "forward's stash")
+
+    def plain_bwd(r0, r1):
+        res = ref.nbr_attention_stack_bwd_ref(
+            st[:, r0:r1], *[p[r0:r1] for p in planes], *weights,
+            dout[r0:r1], heads=kw["heads"],
+            compute_dtype=kw["compute_dtype"])
+        return res[:5]
+
+    err, pad = check_rows("dd nbr_attention_stack_bwd",
+                          [(t, 0) for t in got[:5]], plain_bwd, n, padded)
+    lines.append(("nbr_attention_stack_bwd", err, pad,
+                  "atol 1e-4*max|plain| per output (dg drx dry drz dsw)"))
+    for name, err, pad, tol in lines:
+        print(json.dumps({"phase": "dd", "name": name,
+                          "case": "inputs of one DD evaluate",
+                          "rows": n, "K": k,
+                          "fully_masked_rows": int(padded.sum()),
+                          "stash_elements": stash.numel(),
+                          "max_err": err,
+                          "fully_masked_rows_max_err": pad, "tol": tol}),
+              flush=True)
+
+
+def phase_dd(model, params):
+    """The virtual domain decomposition on this card: 8 ranks, the same
+    15,668-atom system and model as phase 3."""
+    from repro_torch import kernels
+    from repro_torch.core import (DeepmdForceProvider, ForcePipeline,
+                                  ddinfer, pipeline, single_domain_forces,
+                                  suggest_config)
+    from repro_torch.kernels import cell_filter as cf
+    coords, types, box = system(N_PATH, SEED)
+    rcut = model.cfg.descriptor.rcut
+    sel = model.cfg.descriptor.sel
+    t0 = time.perf_counter()
+    cfgs = {fm: suggest_config(N_PATH, box, N_RANKS, rcut, nbr_capacity=sel,
+                               skin=SKIN, force_mode=fm, coords=coords)
+            for fm in ("owner_full", "ghost_reduce")}
+    cfg = cfgs["owner_full"]
+    print(json.dumps({"phase": "dd", "config": dataclasses.asdict(cfg),
+                      "suggest_config_s": time.perf_counter() - t0}),
+          flush=True)
+    x = torch.tensor(coords, device=DEVICE)
+    t = torch.tensor(types, device=DEVICE)
+
+    # -- cell_filter at the path's shapes: record its inputs at both call
+    #    sites (cell-list assembly, evaluation re-filter) during one call
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return cf.cell_filter(*args)
+
+    pipe = ForcePipeline(model, cfg, box, N_PATH)
+    ddinfer.cell_filter = pipeline.cell_filter = record
+    try:
+        e_of, f_of, d_of = pipe.build_force_fn()(params, x, t)
+    finally:
+        ddinfer.cell_filter = pipeline.cell_filter = cf.cell_filter
+    if len(calls) != 2:
+        fail(f"dd: expected 2 cell_filter calls per fused call, got "
+             f"{len(calls)}")
+    rows = {}
+    for site, args in zip(("assembly", "refilter"), calls):
+        got = cf.cell_filter(*args)
+        plain = cf.cell_filter_plain(*args)
+        if not torch.equal(got, plain):
+            fail(f"cell_filter ({site}): {int((got != plain).sum())} flags "
+                 "differ from the plain version")
+        del got, plain
+        torch.cuda.empty_cache()
+        bound = cell_filter_bound(args[1])
+        rows[site] = {"phase": "dd", "name": "cell_filter", "site": site,
+                      "rows": args[1].shape[0], "M": args[1].shape[1],
+                      "max_err": 0.0, "tol": "exact",
+                      "kernel_ms": time_ms(lambda: cf.cell_filter(*args)),
+                      "plain_ms": time_ms(lambda: cf.cell_filter_plain(*args)),
+                      "bound_ms": bound[0], "bound_by": bound[1]}
+        print(json.dumps(rows[site]), flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    for r in (rcut, rcut + SKIN):
+        check_cell_filter(r)
+
+    # -- contracts inside the port
+    out = {("owner_full", "cells"): (e_of, f_of, d_of)}
+    for fm, c in cfgs.items():
+        for method in ("cells", "dense"):
+            if (fm, method) in out:
+                continue
+            fn = ForcePipeline(model, dataclasses.replace(c, nbr_method=method),
+                               box, N_PATH).build_force_fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[(fm, method)] = fn(params, x, t)
+            torch.cuda.synchronize()
+            print(json.dumps({"phase": "dd", "fused_call": [fm, method],
+                              "ms": (time.perf_counter() - t0) * 1e3}),
+                  flush=True)
+    for fm in cfgs:
+        (e_c, f_c, d_c), (e_d, f_d, _) = out[(fm, "cells")], out[(fm, "dense")]
+        if float(e_c) != float(e_d) or not torch.equal(f_c, f_d):
+            fail(f"dd {fm}: cells != dense (dE {float(e_c - e_d):.3e}, "
+                 f"max dF {float((f_c - f_d).abs().max()):.3e})")
+        if int(d_c["overflow"]):
+            fail(f"dd {fm}: overflow {int(d_c['overflow'])}")
+    e_sd, f_sd = single_domain_forces(model, params, x, t,
+                                      torch.tensor(box, device=DEVICE), sel)
+    fmax = float(f_sd.abs().max())
+    gate = {}
+    for fm in cfgs:
+        e, f, _ = out[(fm, "cells")]
+        if abs(float(e) - float(e_sd)) > 1e-5 * abs(float(e_sd)):
+            fail(f"dd {fm}: E {float(e)} vs single domain {float(e_sd)}")
+        gate[fm] = check(f"dd {fm} forces vs single domain", f, f_sd,
+                         atol=1e-4 * fmax)
+        fsum, fabs = float(f.sum(0).abs().max()), float(f.abs().sum(0).max())
+        if fsum > 1e-4 * fabs:
+            fail(f"dd {fm}: |sum F| {fsum} > 1e-4 sum|F| {fabs}")
+    del out
+    torch.cuda.empty_cache()
+    asm, ev = pipe.build_assembly_fn(), pipe.build_evaluation_fn()
+    st0 = asm(x, t)
+    moved = torch.tensor(frozen_drift(coords, box, cfg.grid_dims,
+                                      cfg.halo_eff), device=DEVICE)
+    # the model kernels on the exact tensors this evaluate gives them
+    (e_stale, f_stale, d_stale), seen = record_model_kernels(
+        lambda: ev(params, moved, st0))
+    check_dd_model_kernels(seen)
+    del seen
+    torch.cuda.empty_cache()
+    e_fresh, f_fresh, _ = ev(params, moved, asm(moved, t))
+    if float(e_stale) != float(e_fresh) or not torch.equal(f_stale, f_fresh):
+        fail("dd: stale state != fresh assembly inside skin/2")
+    if bool(d_stale["needs_rebuild"]):
+        fail("dd: a drift of 2e-4 nm asked for a rebuild")
+    g = cfg.n_ranks
+    local = st0.l_mask.reshape(g, -1).sum(1).cpu().tolist()
+    ghost = st0.g_mask.reshape(g, -1).sum(1).cpu().tolist()
+    del st0, f_stale, f_fresh
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "dd", "cells_equal_dense_bitwise": True,
+                      "stale_equal_fresh_bitwise": True,
+                      "E_single": float(e_sd), "E_owner_full": float(e_of),
+                      "F_max_abs_err_vs_single": gate,
+                      "F_tol": "atol 1e-4*max|F|", "E_tol": "rtol 1e-5"}),
+          flush=True)
+
+    # -- requests through the provider
+    prov = DeepmdForceProvider(model, params, np.arange(N_PATH), types, box,
+                               N_PATH, dd_config=cfg, device=DEVICE)
+    requests = drifts(coords, 3, SEED + 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = prov.assemble(x)
+    torch.cuda.synchronize()
+    asm_ms = (time.perf_counter() - t0) * 1e3
+    kernels.reset_launch_counts()
+    prov.evaluate(torch.tensor(requests[0], device=DEVICE), state)
+    per_call = kernels.launch_counts()
+    del state
+    prov._state = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = run_requests(prov, requests, "dd_requests")
+    counts = kernels.launch_counts()
+    profile_request(prov, requests[-1], "dd_profile")  # evaluate-only
+    if any(c == 0 for c in counts.values()):
+        fail(f"dd: a kernel of the path was never launched: {counts}")
+    evals = [ms for kind, ms in times if kind == "evaluate"]
+    c = cfg.local_capacity + cfg.ghost_capacity
+    print(json.dumps({
+        "phase": "dd", "atoms": N_PATH, "ranks": g, "grid": cfg.grid_dims,
+        "force_mode": cfg.force_mode, "K_build": cfg.nbr_capacity,
+        "K_eval": cfg.k_eval, "evaluate_ms_median": statistics.median(evals),
+        "rebuild_ms": times[-1][1], "first_ms": times[0][1],
+        "assembly_ms": asm_ms,
+        "max_memory_allocated_MiB": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "local_per_rank": local, "ghost_per_rank": ghost,
+        "ghost_over_local": sum(ghost) / sum(local),
+        "rows_per_rank_capacity": c, "model_rows": g * c,
+        "launches": counts, "launches_per_evaluate_call": per_call}),
+        flush=True)
+    return rows["refilter"], counts, per_call
+
+
+def profile_request(prov, pos, phase="profile"):
     """One more evaluate-only request under ``torch.profiler``: device time
     by kernel (device-side events only) and the device's idle share of the
     request's wall time."""
@@ -399,7 +826,7 @@ def profile_request(prov, pos):
     rows = sorted(((ms, k) for k, ms in kernels.items()), reverse=True)
     busy = sum(ms for ms, _ in rows)
     print(json.dumps({
-        "phase": "profile", "wall_ms_profiled": wall_ms,
+        "phase": phase, "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy if rows else "not measured",
         "idle_share": 1 - busy / wall_ms if rows else "not measured",
         "top": [{"name": k[:90], "ms": ms} for ms, k in rows[:12]]}),
@@ -426,33 +853,49 @@ def main():
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    logs = build.build("nbr_attn")
+    logs = build.build("nbr_attn", "cell_filter")   # one nvcc each, together
     print(f"[build] nvcc: {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in logs.get("nbr_attn", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
 
     from repro_torch.kernels import nbr_attn
     print(json.dumps({"attention_max_K_at_M128": {
         "forward": nbr_attn.max_k(128, backward=False),
-        "backward": nbr_attn.max_k(128, backward=True)}}), flush=True)
+        "backward_shared_memory": nbr_attn.max_k(128, backward=True),
+        "backward_device_workspace": nbr_attn.max_k(128, True, True),
+        "port_limit": nbr_attn.MAX_K}}), flush=True)
 
     model = DPModel(paper_dpa1_config(ntypes=4, rcut=0.6, sel=64),
                     device=DEVICE)
     params = model.init_params(torch.Generator().manual_seed(SEED))
     phase_kernels(model, params, 0.0)            # single_domain_forces, K = 64
-    kres = phase_kernels(model, params, SKIN)    # the provider's K
+    kres = phase_kernels(model, params, SKIN, bf16=True)  # the provider's K
+    # K = 128: the MD cutoff (r_c = 0.8, ~64 neighbours) with sel 128, where
+    # the backward runs its device-workspace instance
+    model_md = DPModel(paper_dpa1_config(ntypes=4, rcut=0.8, sel=128),
+                       device=DEVICE)
+    phase_kernels(model_md,
+                  model_md.init_params(torch.Generator().manual_seed(SEED)),
+                  0.0)
+    del model_md
     phase_parity(model, params)
-    counts = phase_requests(model, params)
+    counts_sd = phase_requests(model, params)
+    cf_row, counts, per_call = phase_dd(model, params)
+    kres["cell_filter"] = cf_row
 
     rows = []
     for name, r in kres.items():
         route, source = PORT_SOURCES[name]
         rows.append({"name": name, "route": route, "source": source,
                      "replaces": TPU_SOURCES[name], "launches": counts[name],
-                     "max_abs_err": r["max_err"], "ms": r["kernel_ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None})
+                     "launches_per_force_call": per_call[name],
+                     "launches_single_domain": counts_sd[name],
+                     "K": r.get("K"), "max_abs_err": r["max_err"],
+                     "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": None})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

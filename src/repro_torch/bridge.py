@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.ddinfer import DDConfig
 from .device import resolve_device
 from .dp.common import EnvStats
 from .dp.descriptors import DescriptorConfig
@@ -46,3 +47,11 @@ def config_to_torch(cfg) -> DPConfig:
          for f in dataclasses.fields(DescriptorConfig)}
     return DPConfig(descriptor=DescriptorConfig(**d),
                     fitting_neuron=tuple(cfg.fitting_neuron), dtype=cfg.dtype)
+
+
+def dd_config_to_torch(cfg) -> DDConfig:
+    """A JAX ``DDConfig`` -> the port's, field for field.  ``use_pallas`` is
+    dropped (the tensors' device picks kernel or plain version); the port's
+    own checks apply (``k_eval <= 128``, no ``overlap``)."""
+    return DDConfig(**{f.name: getattr(cfg, f.name)
+                       for f in dataclasses.fields(DDConfig)})

@@ -1,7 +1,14 @@
-"""Single-domain DP inference and the force provider."""
-from .ddinfer import (make_padded_batch_fn, masked_neighbor_list,  # noqa: F401
-                      single_domain_forces, single_domain_forces_batched,
-                      single_domain_forces_nlist, single_domain_state)
+"""DP inference: single domain, the virtual domain decomposition on one
+device, the force pipeline and the force provider."""
+from .ddinfer import (DDConfig, DDState, make_padded_batch_fn,  # noqa: F401
+                      masked_neighbor_list, single_domain_forces,
+                      single_domain_forces_batched,
+                      single_domain_forces_nlist, single_domain_state,
+                      suggest_config)
+from .domain import (VirtualGrid, atom_costs, balanced_planes,  # noqa: F401
+                     factor_grid, interior_fraction_estimate,
+                     partition_costs, uniform_grid)
 from .nnpot import DeepmdForceProvider, UnitConversion  # noqa: F401
+from .pipeline import ForcePipeline  # noqa: F401
 from ..backend import (ForceBackend, ForceRequest, ForceResult,  # noqa: F401
                        StatefulForceBackend)

@@ -1,9 +1,12 @@
 """NNPot-style special-force provider with a DeePMD backend (paper Sec. IV-A).
 
-Port of ``repro/core/nnpot.py`` for one domain (``dd_config=None``).
-``DeepmdForceProvider`` owns the model handle, extracts the NN atoms from the
-full position array, converts units, runs inference and scatters forces
-back into engine layout.  With a positive ``skin`` it exposes the amortized
+Port of ``repro/core/nnpot.py``.  ``DeepmdForceProvider`` owns the model
+handle, extracts the NN atoms from the full position array, converts units,
+runs inference and scatters forces back into engine layout: on one domain
+(``dd_config=None``), or distributed over the virtual ranks of a
+:class:`~repro_torch.core.ddinfer.DDConfig` through one
+:class:`~repro_torch.core.pipeline.ForcePipeline` on the device.  With a
+positive skin (``skin``, or ``dd_config.skin``) it exposes the amortized
 two-phase API (``assemble`` / ``evaluate`` / ``needs_rebuild`` / ``grow``)
 the GROMACS ``nstlist`` analogue drives, and :meth:`compute` reuses its
 state across calls.
@@ -19,9 +22,15 @@ import torch
 from ..backend import ForceRequest, ForceResult
 from ..device import resolve_device
 from ..dp.model import DPModel
+from ..kernels.nbr_attn import MAX_K, k_limit_message
 from ..md.neighbors import needs_rebuild as _nlist_needs_rebuild
-from .ddinfer import (single_domain_forces, single_domain_forces_nlist,
-                      single_domain_state)
+from .ddinfer import (DDConfig, single_domain_forces,
+                      single_domain_forces_nlist, single_domain_state)
+from .pipeline import ForcePipeline
+
+# per-step device counters of a distributed evaluation (obs layer keys)
+_COUNTER_KEYS = ("local_count", "ghost_count", "cost_max", "cost_ratio",
+                 "rank_cost", "nbr_occupancy", "rank_occupancy", "max_disp2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,16 +58,25 @@ def _floor_mod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 class DeepmdForceProvider:
-    """Single-domain DP force provider behind the ``ForceBackend`` protocol.
+    """DP force provider behind the ``ForceBackend`` protocol.
 
     ``params`` must lie on ``device`` (default ``"cuda"``; raises without a
-    card unless ``device="cpu"``).  ``skin`` (model length units) enables
-    state reuse: ``assemble`` builds a skin-widened neighbour list,
-    ``evaluate`` reuses it until ``needs_rebuild`` reports an atom moved
-    more than skin/2, and ``grow`` doubles the list capacity after an
-    overflow.
+    card unless ``device="cpu"``).
 
-    Extension hooks (model units, NN group): ``backend_assemble``,
+    * ``dd_config=None``: one domain.  ``skin`` (model length units) enables
+      state reuse: ``assemble`` builds a skin-widened neighbour list,
+      ``evaluate`` reuses it until ``needs_rebuild`` reports an atom moved
+      more than skin/2, and ``grow`` doubles the list capacity after an
+      overflow (past K = 128 it raises: the port's attention limit).
+    * ``dd_config`` (e.g. ``suggest_config(..., skin=...)``): the virtual
+      domain decomposition, ``prod(dd_config.grid_dims)`` ranks on this one
+      device (``mesh`` must stay None: the ranks are virtual).  The state is
+      a :class:`~repro_torch.core.ddinfer.DDState`; ``grow`` doubles every
+      capacity and saturates the model-facing ``k_eval`` at 128.  Without a
+      skin every call runs the fused per-step pipeline.
+
+    Extension hooks (model units, NN group): ``backend_build_fns`` (the
+    distributed functions), and for one domain ``backend_assemble``,
     ``backend_needs_rebuild``, ``backend_evaluate``, ``backend_forces``.
     """
 
@@ -69,11 +87,14 @@ class DeepmdForceProvider:
                  types, box, n_atoms: int, dd_config=None, mesh=None,
                  units: UnitConversion = UnitConversion(),
                  nbr_capacity: int = 64, skin: float = 0.0, device="cuda"):
-        if dd_config is not None or mesh is not None:
-            raise NotImplementedError(
-                "the distributed provider (virtual DD) is not ported yet: "
-                "ROADMAP.md Queue 1 item 4-5 (virtual DD assembly, "
-                "ForcePipeline)")
+        if mesh is not None:
+            raise ValueError(
+                "the port's decomposition ranks are virtual: they run as a "
+                "leading rank axis on one device, so mesh must be None "
+                "(dd_config.grid_dims sets the rank count)")
+        if dd_config is not None and not isinstance(dd_config, DDConfig):
+            raise TypeError(f"dd_config must be a repro_torch DDConfig, got "
+                            f"{type(dd_config).__name__}")
         self.device = resolve_device(device)
         self.model = model
         self.params = params
@@ -87,15 +108,35 @@ class DeepmdForceProvider:
         self.box_model = (torch.as_tensor(box, dtype=torch.float32,
                                           device=self.device)
                           * units.length_to_model)
-        self.skin = skin
-        if skin > 0:
-            # widen the list capacity with the skin volume
-            rcut = model.cfg.descriptor.rcut
-            self.nbr_capacity = int(np.ceil(
-                nbr_capacity * ((rcut + skin) / rcut) ** 3))
+        self.n_nn = len(nn_indices)
+        self.dd_config = dd_config
+        if dd_config is not None:
+            self.skin = dd_config.skin
+        else:
+            self.skin = skin
+            if skin > 0:
+                # widen the list capacity with the skin volume
+                rcut = model.cfg.descriptor.rcut
+                self.nbr_capacity = int(np.ceil(
+                    nbr_capacity * ((rcut + skin) / rcut) ** 3))
+        self.backend_build_fns()
         self._state = None
         self.growths = 0
         self.last_diag: Optional[dict] = None
+
+    def backend_build_fns(self) -> None:
+        """Hook: (re)build the distributed functions from ONE
+        :class:`ForcePipeline` (at init and after every ``grow``); exposed
+        as ``self.pipeline``."""
+        if self.dd_config is None:
+            self.pipeline = None
+            return
+        self.pipeline = ForcePipeline(self.model, self.dd_config,
+                                      self.box_model, self.n_nn)
+        self._dist_fn = self.pipeline.build_force_fn()
+        self._asm_fn = self.pipeline.build_assembly_fn()
+        self._eval_fn = self.pipeline.build_evaluation_fn()
+        self._check_fn = self.pipeline.build_check_fn()
 
     # -- amortized two-phase API ----------------------------------------------
 
@@ -110,7 +151,10 @@ class DeepmdForceProvider:
 
     def assemble(self, positions: torch.Tensor):
         """Assembly phase at the current positions -> reusable state."""
-        return self.backend_assemble(self._to_model(positions))
+        nn_pos = self._to_model(positions)
+        if self.dd_config is not None:
+            return self._asm_fn(nn_pos, self.nn_types)
+        return self.backend_assemble(nn_pos)
 
     def backend_assemble(self, nn_pos: torch.Tensor):
         """Hook: single-domain assembly (model units, NN group)."""
@@ -118,11 +162,17 @@ class DeepmdForceProvider:
                                    self.nbr_capacity, self.skin)
 
     def state_overflow(self, state) -> torch.Tensor:
+        """() bool — static capacities were exceeded; state invalid."""
+        if self.dd_config is not None:
+            return state.overflow > 0
         return state.overflow
 
     def needs_rebuild(self, positions: torch.Tensor, state) -> torch.Tensor:
         """() bool — some atom moved more than skin/2 since assembly."""
-        return self.backend_needs_rebuild(self._to_model(positions), state)
+        nn_pos = self._to_model(positions)
+        if self.dd_config is not None:
+            return self._check_fn(nn_pos, state)
+        return self.backend_needs_rebuild(nn_pos, state)
 
     def backend_needs_rebuild(self, nn_pos: torch.Tensor, state):
         """Hook: single-domain skin displacement check."""
@@ -130,9 +180,16 @@ class DeepmdForceProvider:
 
     def evaluate(self, positions: torch.Tensor, state):
         """(energy, forces (N, 3) engine units, flags) reusing ``state``;
-        ``flags["needs_rebuild"]`` is the skin check at these positions."""
-        e, f_nn, flags = self.backend_evaluate(self._to_model(positions),
-                                               state)
+        ``flags["needs_rebuild"]`` is the skin check at these positions
+        (a distributed evaluation also carries its ``counters``)."""
+        nn_pos = self._to_model(positions)
+        if self.dd_config is not None:
+            e, f_nn, diag = self._eval_fn(self.params, nn_pos, state)
+            flags = {"overflow": diag["overflow"] > 0,
+                     "needs_rebuild": diag["needs_rebuild"],
+                     "counters": {k: diag[k] for k in _COUNTER_KEYS}}
+        else:
+            e, f_nn, flags = self.backend_evaluate(nn_pos, state)
         e, forces = self._to_engine(e, f_nn, positions)
         return e, forces, flags
 
@@ -146,9 +203,25 @@ class DeepmdForceProvider:
         return e, f_nn, flags
 
     def grow(self) -> None:
-        """Double the list capacity after an overflow."""
+        """Double the static capacities after an overflow.  Distributed:
+        every capacity doubles, the model-facing ``k_eval`` saturates at the
+        port's limit of 128 (the build list keeps doubling).  One domain:
+        the list capacity doubles, and past 128 this raises."""
+        if self.dd_config is not None:
+            c = self.dd_config
+            self.dd_config = dataclasses.replace(
+                c, nbr_capacity=2 * c.nbr_capacity,
+                nbr_capacity_eval=min(2 * c.k_eval, MAX_K),
+                local_capacity=2 * c.local_capacity,
+                ghost_capacity=min(2 * c.ghost_capacity, 27 * self.n_nn),
+                cell_capacity=2 * c.cell_capacity,
+                subcell_capacity=2 * c.subcell_capacity)
+            self.backend_build_fns()
+        else:
+            if 2 * self.nbr_capacity > MAX_K:
+                raise ValueError(k_limit_message(2 * self.nbr_capacity))
+            self.nbr_capacity *= 2
         self.growths += 1
-        self.nbr_capacity *= 2
         self._state = None
 
     # -- ForceBackend entry point -----------------------------------------------
@@ -170,9 +243,17 @@ class DeepmdForceProvider:
         positions = torch.as_tensor(request.positions, dtype=torch.float32,
                                     device=self.device)
         if not self.stateful:
-            e, f_nn = self.backend_forces(self._to_model(positions))
+            nn_pos = self._to_model(positions)
+            diag = {}
+            if self.dd_config is not None:
+                e, f_nn, diag = self._dist_fn(self.params, nn_pos,
+                                              self.nn_types)
+                self.last_diag = diag
+            else:
+                e, f_nn = self.backend_forces(nn_pos)
             e, forces = self._to_engine(e, f_nn, positions)
             return ForceResult(energy=e, forces=forces,
+                               diagnostics=dict(diag),
                                tenant=request.tenant, req_id=request.req_id)
         if self._state is None:
             self._state = self.assemble(positions)
@@ -189,7 +270,8 @@ class DeepmdForceProvider:
         else:
             raise RuntimeError("special-force capacity still exceeded after "
                                "8 doublings")
-        self.last_diag = {k: bool(v) for k, v in flags.items()}
+        self.last_diag = {k: bool(v) for k, v in flags.items()
+                          if k != "counters"}
         return ForceResult(energy=e, forces=forces,
                            diagnostics=dict(self.last_diag),
                            tenant=request.tenant, req_id=request.req_id)

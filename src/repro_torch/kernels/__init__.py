@@ -4,11 +4,15 @@
   ``repro/kernels/env_mat.py::_env_mat_kernel`` / ``_env_mat_bwd_kernel``;
 - ``nbr_attention_stack_fwd`` / ``_bwd``: CUDA C++ for ``sm_90a``
   (``csrc/nbr_attn.cu``), replacing ``repro/kernels/nbr_attn.py::
-  _stack_fwd_kernel`` / ``_stack_bwd_kernel``.
+  _stack_fwd_kernel`` / ``_stack_bwd_kernel``;
+- ``cell_filter``: CUDA C++ for ``sm_90a`` (``csrc/cell_filter.cu``),
+  replacing ``repro/kernels/cell_gather.py::_cell_filter_kernel``, with the
+  candidate gather fused in.
 
 Importing this package needs neither ``triton`` nor ``nvcc``: kernels are
 compiled at their first launch on a CUDA tensor.
 """
+from . import cell_filter as _cell_filter_mod
 from .env_mat import env_mat_bwd, env_mat_fwd
 from .nbr_attn import nbr_attention_stack_bwd, nbr_attention_stack_fwd
 
@@ -17,6 +21,7 @@ KERNELS = {
     "env_mat_bwd": env_mat_bwd,
     "nbr_attention_stack_fwd": nbr_attention_stack_fwd,
     "nbr_attention_stack_bwd": nbr_attention_stack_bwd,
+    "cell_filter": _cell_filter_mod.cell_filter,
 }
 
 

@@ -34,7 +34,16 @@
 // keeping a K x K accumulator across layers.
 //
 // Shared memory sets the largest K: see nbr_attn_fwd_smem / _bwd_smem (the
-// Python wrapper raises above the 227 KB a block may use).
+// Python wrapper raises above the 227 KB a block may use).  At M = 128 the
+// forward takes K <= 134 and the backward K <= 89 with every tile in shared
+// memory.  Above that the backward runs a second instance (GMEM): its three
+// K x M tiles (the layer input, read straight from the stash; the incoming
+// cotangent; the pre-norm sum) live in device memory, in a per-CTA workspace
+// that L2 serves, and only the K x K tiles, the chunk buffers and the
+// K-vectors stay in shared memory (K <= 152 at M = 128).  That instance runs
+// a persistent grid of one CTA per workspace slot striding over atoms.  The
+// wrapper picks the shared-memory instance whenever it fits, so K <= 89 runs
+// exactly the code it ran before.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cfloat>
@@ -53,7 +62,7 @@ struct StackArgs {
   const float *wq, *wk, *wv, *wo, *gamma, *beta;
   const float *dout;
   float *out, *stash;
-  float *dg, *drx, *dry, *drz, *dsw, *part;
+  float *dg, *drx, *dry, *drz, *dsw, *part, *ws;
   int n, k, m, h, layers, heads;
   float scale;
 };
@@ -66,6 +75,11 @@ size_t fwd_floats(int k, int m) {
 size_t bwd_floats(int k, int m) {
   return 3 * (size_t)k * (m + 1) + 2 * (size_t)k * (k + 1)
          + 4 * (size_t)k * kLdc + 10 * (size_t)k;
+}
+
+// shared memory of the GMEM backward: the K x M tiles are in device memory
+size_t bwd_gmem_floats(int k) {
+  return 2 * (size_t)k * (k + 1) + 4 * (size_t)k * kLdc + 10 * (size_t)k;
 }
 
 template <bool BF16>
@@ -285,15 +299,17 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(StackArgs a) {
     a.out[nkm + e] = sG[(e / m) * ldm + e % m];
 }
 
-template <bool BF16, bool PARAMS>
+template <bool BF16, bool PARAMS, bool GMEM = false>
 __global__ void __launch_bounds__(kThreads) stack_bwd_kernel(StackArgs a) {
   extern __shared__ float smem[];
   const int k = a.k, m = a.m, h = a.h, L = a.layers, hd = a.h / a.heads;
-  const int ldm = m + 1, ldk = k + 1;
+  // GMEM: the K x M tiles are unpadded rows in device memory
+  const int ldm = GMEM ? m : m + 1, ldk = k + 1;
+  float* ws = GMEM ? a.ws + blockIdx.x * 2 * (size_t)k * m : nullptr;
   float* sG = smem;                 // layer input (stash)           k x ldm
-  float* sD = sG + k * ldm;         // incoming cotangent -> dg1     k x ldm
-  float* sX = sD + k * ldm;         // pre-norm sum -> xhat -> dgin  k x ldm
-  float* sP = sX + k * ldm;         // P -> dgmul                    k x ldk
+  float* sD = GMEM ? ws : sG + k * ldm;      // cotangent -> dg1     k x ldm
+  float* sX = GMEM ? ws + k * m : sD + k * ldm;  // pre-norm sum -> xhat -> dgin
+  float* sP = GMEM ? smem : sX + k * ldm;    // P -> dgmul           k x ldk
   float* sW = sP + k * ldk;         // dW -> ds                      k x ldk
   float* sA = sW + k * ldk;         // chunk buffers                 k x kLdc
   float* sB = sA + k * kLdc;
@@ -336,9 +352,14 @@ __global__ void __launch_bounds__(kThreads) stack_bwd_kernel(StackArgs a) {
       float* pbeta = part + 4 * L * mh + (size_t)L * m + (size_t)l * m;
 
       __syncthreads();
-      for (int e = threadIdx.x; e < k * m; e += blockDim.x) {
-        sG[(e / m) * ldm + e % m] = a.stash[((size_t)l * a.n + atom) * k * m + e];
-        sX[(e / m) * ldm + e % m] = 0.f;
+      if constexpr (GMEM) {
+        sG = a.stash + ((size_t)l * a.n + atom) * k * m;
+        for (int e = threadIdx.x; e < k * m; e += blockDim.x) sX[e] = 0.f;
+      } else {
+        for (int e = threadIdx.x; e < k * m; e += blockDim.x) {
+          sG[(e / m) * ldm + e % m] = a.stash[((size_t)l * a.n + atom) * k * m + e];
+          sX[(e / m) * ldm + e % m] = 0.f;
+        }
       }
       // -- recompute the layer's pre-norm sum into sX --------------------
       for (int hh = 0; hh < a.heads; ++hh) {
@@ -590,6 +611,7 @@ extern "C" {
 
 size_t nbr_attn_fwd_smem(int k, int m) { return sizeof(float) * fwd_floats(k, m); }
 size_t nbr_attn_bwd_smem(int k, int m) { return sizeof(float) * bwd_floats(k, m); }
+size_t nbr_attn_bwd_gmem_smem(int k, int m) { return sizeof(float) * bwd_gmem_floats(k); }
 int nbr_attn_chunk() { return kChunk; }
 // every kernel library exports this name (loaded RTLD_LOCAL, one each)
 const char* error_string(int e) {
@@ -618,25 +640,58 @@ int nbr_attn_bwd(const float* stash, const float* rx, const float* ry,
                  const float* wq, const float* wk, const float* wv,
                  const float* wo, const float* gamma, const float* beta,
                  const float* dout, float* dg, float* drx, float* dry,
-                 float* drz, float* dsw, float* part, int nblk, int n, int k,
-                 int m, int h, int layers, int heads, int bf16, float scale,
-                 void* stream) {
+                 float* drz, float* dsw, float* part, float* ws, int nblk,
+                 int n, int k, int m, int h, int layers, int heads, int bf16,
+                 float scale, void* stream) {
   StackArgs a{};
   a.stash = const_cast<float*>(stash);
   a.rx = rx; a.ry = ry; a.rz = rz; a.sw = sw; a.mask = mask;
   a.wq = wq; a.wk = wk; a.wv = wv; a.wo = wo; a.gamma = gamma; a.beta = beta;
   a.dout = dout; a.dg = dg; a.drx = drx; a.dry = dry; a.drz = drz; a.dsw = dsw;
-  a.part = part;
+  a.part = part; a.ws = ws;
   a.n = n; a.k = k; a.m = m; a.h = h; a.layers = layers; a.heads = heads;
   a.scale = scale;
-  const size_t smem = nbr_attn_bwd_smem(k, m);
   cudaStream_t s = (cudaStream_t)stream;
+  if (ws) {
+    // persistent grid: nblk CTAs, one workspace slot each
+    const size_t smem = nbr_attn_bwd_gmem_smem(k, m);
+    if (part) {
+      auto kern = bf16 ? &stack_bwd_kernel<true, true, true>
+                       : &stack_bwd_kernel<false, true, true>;
+      return launch(kern, nblk, smem, s, a);
+    }
+    auto kern = bf16 ? &stack_bwd_kernel<true, false, true>
+                     : &stack_bwd_kernel<false, false, true>;
+    return launch(kern, nblk, smem, s, a);
+  }
+  const size_t smem = nbr_attn_bwd_smem(k, m);
   if (part) {
     auto kern = bf16 ? &stack_bwd_kernel<true, true> : &stack_bwd_kernel<false, true>;
     return launch(kern, nblk, smem, s, a);
   }
   auto kern = bf16 ? &stack_bwd_kernel<true, false> : &stack_bwd_kernel<false, false>;
   return launch(kern, n, smem, s, a);
+}
+
+// CTAs of the GMEM backward that are resident at once (SMs x blocks per SM):
+// its persistent grid and the number of workspace slots; <= 0 on error
+int nbr_attn_bwd_gmem_blocks(int k, int m, int params, int bf16) {
+  const size_t smem = nbr_attn_bwd_gmem_smem(k, m);
+  auto kern = params ? (bf16 ? &stack_bwd_kernel<true, true, true>
+                             : &stack_bwd_kernel<false, true, true>)
+                     : (bf16 ? &stack_bwd_kernel<true, false, true>
+                             : &stack_bwd_kernel<false, false, true>);
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -1;
+  int per_sm = 0, dev = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    smem) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return -1;
+  return per_sm * sms;
 }
 
 int nbr_attn_reduce(const float* part, float* out, int nblk, long long size,

@@ -11,9 +11,14 @@ does about it.  The plain versions are
 :func:`~repro_torch.kernels.ref.nbr_attention_stack_bwd_ref`.
 
 Dispatch goes by the tensors' device: CUDA tensors launch the kernels (and
-raise if they cannot build or launch, or if K exceeds what shared memory
-holds), CPU tensors take the plain versions.  Each kernel wrapper counts its
-launches in ``<wrapper>.launches``.
+raise if they cannot build or launch, or if K exceeds what the kernels
+take), CPU tensors take the plain versions.  The backward has two template
+instances: the shared-memory one wherever its tiles fit (K <= 89 at
+M = 128), and above that one whose K x M tiles sit in a per-CTA device
+workspace served by L2.  ``MAX_K`` is the neighbour capacity the port's
+model path accepts (``DDConfig`` and the providers' ``grow`` enforce it) on
+every device, so card and CPU results stay comparable.  Each kernel wrapper
+counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -26,6 +31,14 @@ from .ref import attn_scale, nbr_attention_stack_bwd_ref, nbr_attention_stack_re
 
 SMEM_LIMIT = 232_448      # bytes of shared memory one block may use (H100)
 PARAM_GRAD_BLOCKS = 132   # CTAs of a parameter-gradient launch (one per SM)
+MAX_K = 128               # the port's neighbour-capacity limit (both ways)
+
+
+def k_limit_message(k: int) -> str:
+    return (f"neighbour capacity K={k} exceeds the port's limit of {MAX_K}: "
+            "the attention kernels (repro_torch/kernels/csrc/nbr_attn.cu) "
+            f"take K <= {MAX_K} at M = 128 in both directions")
+
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -34,25 +47,42 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("nbr_attn")
     if not getattr(lib, "_bound", False):
         lib.nbr_attn_fwd.argtypes = [_P] * 14 + [_I] * 7 + [_F, _P]
-        lib.nbr_attn_bwd.argtypes = [_P] * 19 + [_I] * 8 + [_F, _P]
+        lib.nbr_attn_bwd.argtypes = [_P] * 20 + [_I] * 8 + [_F, _P]
         lib.nbr_attn_reduce.argtypes = [_P, _P, _I, _LL, _P]
         for fn in (lib.nbr_attn_fwd, lib.nbr_attn_bwd, lib.nbr_attn_reduce):
             fn.restype = _I
-        for fn in (lib.nbr_attn_fwd_smem, lib.nbr_attn_bwd_smem):
+        for fn in (lib.nbr_attn_fwd_smem, lib.nbr_attn_bwd_smem,
+                   lib.nbr_attn_bwd_gmem_smem):
             fn.argtypes = [_I, _I]
             fn.restype = ctypes.c_size_t
+        lib.nbr_attn_bwd_gmem_blocks.argtypes = [_I] * 4
+        lib.nbr_attn_bwd_gmem_blocks.restype = _I
         lib._bound = True
     return lib
 
 
-def max_k(m: int, backward: bool = True) -> int:
-    """Largest neighbour capacity K the kernel takes at embedding width m
-    (the backward keeps more K x M tiles resident than the forward)."""
-    smem = _lib().nbr_attn_bwd_smem if backward else _lib().nbr_attn_fwd_smem
+def _smem_fn(backward: bool, workspace: bool = False):
+    lib = _lib()
+    if not backward:
+        return lib.nbr_attn_fwd_smem
+    return lib.nbr_attn_bwd_gmem_smem if workspace else lib.nbr_attn_bwd_smem
+
+
+def max_k(m: int, backward: bool = True, workspace: bool = False) -> int:
+    """Largest neighbour capacity K a kernel instance takes at embedding
+    width m: the forward, the backward with every tile in shared memory, or
+    (``workspace``) the backward whose K x M tiles live in device memory."""
+    smem = _smem_fn(backward, workspace)
     k = 1
     while smem(k + 1, m) <= SMEM_LIMIT:
         k += 1
     return k
+
+
+def uses_workspace(k: int, m: int) -> bool:
+    """True when the backward at (K, M) runs the device-workspace instance
+    (its shared-memory tiles do not fit)."""
+    return _lib().nbr_attn_bwd_smem(k, m) > SMEM_LIMIT
 
 
 def _validate(g, planes, weights, heads: int, backward: bool):
@@ -70,12 +100,13 @@ def _validate(g, planes, weights, heads: int, backward: bool):
     if h % heads:
         raise ValueError(f"attn_hidden {h} not divisible by heads {heads}")
     lib = _lib()
-    smem = (lib.nbr_attn_bwd_smem if backward else lib.nbr_attn_fwd_smem)(k, m)
+    workspace = backward and uses_workspace(k, m)
+    smem = _smem_fn(backward, workspace)(k, m)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"K={k} at M={m} needs {smem} bytes of shared memory for the "
             f"{'backward' if backward else 'forward'} attention kernel; the "
-            f"largest K it takes is {max_k(m, backward)}")
+            f"largest K it takes is {max_k(m, backward, backward)}")
     return lib, n, k, m, h, layers
 
 
@@ -137,17 +168,24 @@ def nbr_attention_stack_bwd(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
     dg = torch.empty_like(dout)
     dplanes = [torch.empty_like(planes[0]) for _ in range(4)]
     sizes = [layers * m * h] * 4 + [layers * m] * 2
-    if param_grads:
-        nblk = max(1, min(n, PARAM_GRAD_BLOCKS))
-        part = dout.new_zeros((nblk, sum(sizes)))
+    bf16 = int(compute_dtype == "bfloat16")
+    ws = None
+    if uses_workspace(k, m):
+        # persistent grid of the resident CTAs, one workspace slot each
+        nblk = lib.nbr_attn_bwd_gmem_blocks(k, m, int(param_grads), bf16)
+        if nblk <= 0:
+            raise RuntimeError(f"nbr_attn_bwd: no resident CTA at K={k}")
+        nblk = max(1, min(n, nblk))
+        ws = dout.new_empty((nblk, 2, k, m))
     else:
-        nblk, part = 0, None
+        nblk = max(1, min(n, PARAM_GRAD_BLOCKS)) if param_grads else 0
+    part = dout.new_zeros((nblk, sum(sizes))) if param_grads else None
     if n:
         err = lib.nbr_attn_bwd(
             *_ptrs(stash, *planes, *weights, dout, dg, *dplanes),
-            part.data_ptr() if param_grads else None, nblk, n, k, m, h,
-            layers, heads, int(compute_dtype == "bfloat16"),
-            float(attn_scale(h // heads)), _stream())
+            part.data_ptr() if param_grads else None,
+            ws.data_ptr() if ws is not None else None, nblk, n, k, m, h,
+            layers, heads, bf16, float(attn_scale(h // heads)), _stream())
         build.check(err, lib, "nbr_attn_bwd")
         nbr_attention_stack_bwd.launches += 1
     if not param_grads:

@@ -49,6 +49,27 @@ def env_mat_ref(dx, dy, dz, mask, rcut_smth: float, rcut: float):
     return sw, sw * dx / r, sw * dy / r, sw * dz / r
 
 
+def cutoff2(rcut: float, device=None) -> torch.Tensor:
+    """The fp32 threshold ``rcut * rcut``: the square formed in double and
+    rounded once, as JAX rounds a Python-float ``rcut * rcut`` against a
+    float32 array."""
+    return torch.tensor(rcut * rcut, dtype=F32, device=device)
+
+
+def sq_dist(dx, dy, dz):
+    """``dx*dx + dy*dy + dz*dz`` summed left to right: the d^2 every
+    neighbour test of the port compares with its cutoff (the reference's
+    order; the ``cell_filter`` kernel rounds each step the same way)."""
+    return dx * dx + dy * dy + dz * dz
+
+
+def cell_filter_ref(dx, dy, dz, valid, rcut: float):
+    """{0, 1} plane ``d^2 < rcut^2 and valid`` over (C, M) displacement
+    planes (d^2 from :func:`sq_dist`, threshold :func:`cutoff2`)."""
+    d2 = sq_dist(dx, dy, dz)
+    return ((d2 < cutoff2(rcut, dx.device)) & (valid > 0)).to(dx.dtype)
+
+
 def _switch_parts(r, rcut_smth: float, rcut: float):
     """h(r) (the [0, 1] polynomial envelope) and h'(r), branch-free."""
     u = (r - rcut_smth) / (rcut - rcut_smth)

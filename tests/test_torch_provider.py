@@ -194,8 +194,13 @@ def test_provider_without_skin_matches_single_domain(ref):
 
 
 def test_provider_rejects_distributed_config(ref):
+    """The port runs its decomposition on virtual ranks: a device mesh, or a
+    DDConfig that is not the port's, is refused."""
     model, params = _port(ref)
     dd = dataclasses.make_dataclass("DD", [])()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="repro_torch DDConfig"):
         DeepmdForceProvider(model, params, NN, TYPES, BOX, N_ALL,
                             dd_config=dd, device="cpu")
+    with pytest.raises(ValueError, match="virtual"):
+        DeepmdForceProvider(model, params, NN, TYPES, BOX, N_ALL,
+                            mesh=object(), device="cpu")

@@ -1,6 +1,8 @@
-"""Rules of the port: no JAX and nothing of ``repro`` in ``repro_torch`` or
-``chip_smoke.py``; no silent CPU fallback at the entry points; the kernel
-package imports on a machine without ``triton`` or ``nvcc``."""
+"""Rules of the port: no JAX and nothing of ``repro`` in ``repro_torch`` (every
+module, the decomposition layer included) or ``chip_smoke.py``; no silent
+CPU fallback at the entry points, single-domain or distributed; kernel
+wrappers dispatch by the tensors' device; the kernel package imports on a
+machine without ``triton`` or ``nvcc``."""
 import ast
 import os
 import subprocess
@@ -14,6 +16,14 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+DD_MODULES = ("core/domain.py", "core/pipeline.py", "core/ddinfer.py",
+              "md/cells.py", "kernels/cell_filter.py")
+
+
+def test_rule_covers_the_decomposition_modules():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES[:-1]}
+    assert set(DD_MODULES) <= names
 
 
 def _imports(path: Path):
@@ -34,7 +44,7 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch import bridge
-    from repro_torch.core import DeepmdForceProvider
+    from repro_torch.core import DeepmdForceProvider, suggest_config
     from repro_torch.dp import DPConfig, DPModel, EnvStats
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -47,6 +57,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DeepmdForceProvider(model, {}, np.arange(4), np.zeros(4, int),
                             np.ones(3), 4)
+    # the distributed provider follows the same rule
+    box = np.full(3, 4.0)
+    cfg = suggest_config(64, box, 8, 0.6, nbr_capacity=32, skin=0.05)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeepmdForceProvider(model, {}, np.arange(64), np.zeros(64, int), box,
+                            64, dd_config=cfg)
+
+
+def test_cell_filter_wrapper_dispatches_by_device():
+    """CPU tensors take the plain version and count no launch; the kernel
+    module needs no card to import."""
+    from repro_torch.kernels import cell_filter, launch_counts
+    before = launch_counts()["cell_filter"]
+    xyz = torch.rand(6, 3)
+    idx = torch.tensor([[1, -1], [0, 2], [5, 3], [2, 2], [0, 1], [4, 4]],
+                       dtype=torch.int32)
+    flags = cell_filter.cell_filter(xyz, idx, torch.ones(6), 2.0)
+    assert flags.dtype == torch.bool and flags[0, 0] and not flags[0, 1]
+    assert launch_counts()["cell_filter"] == before
 
 
 def test_kernels_import_without_triton_or_nvcc(tmp_path):
