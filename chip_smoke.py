@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's DP force path once on one card.
+"""Drive the PyTorch/H100 port's paths once on one card: the DP force path
+and gemma2-2b token serving.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --phase lm   # the lm phase alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
-source, all started together; Triton at first launch), then runs these
-phases on the paper's DPA-1 at full width (``paper_dpa1_config(ntypes=4,
+source, all started together; Triton at first launch), then runs phases
+1-4 on the paper's DPA-1 at full width (``paper_dpa1_config(ntypes=4,
 rcut=0.6, sel=64)``, fp32, random weights from a seed) over uniform random
-atoms at 30 atoms/nm^3:
+atoms at 30 atoms/nm^3, and phase 5 on gemma2-2b:
 
 1. kernels: the env-matrix and attention kernels against their plain
    PyTorch versions on the card, at the shapes and on the data the force
@@ -28,7 +30,17 @@ atoms at 30 atoms/nm^3:
    stack in row chunks), cells == dense and stale == fresh bit for bit,
    DD == single domain within phase 3's gate, then requests through
    ``DeepmdForceProvider(dd_config=...)``;
-5. a ``kernels`` JSON line, then the result line.
+5. lm: gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
+   bf16, random weights from the port's initialiser), 4 prompts of 6,144
+   random token ids, 32 greedy new tokens through ``launch/serve.py``'s
+   ``serve_tokens``: 26 flash launches per prefill and per decode step; the
+   flash kernel against its plain version on the tensors of a local and a
+   global layer of the prefill and of the last decode step (bf16, and the
+   same inputs in fp32), with times, bounds and SDPA at softcap 0 beside
+   it; decode == forward at full width; card == CPU at a reduced width in
+   fp32; 3 timed request rounds, then a profiled prefill and 4 profiled
+   decode steps;
+6. a ``kernels`` JSON line, then the result line.
 
 Any failed check raises, and the script exits non-zero.  It needs one CUDA
 card and the repository's ``src/`` beside it; it imports no JAX.
@@ -64,6 +76,7 @@ TPU_SOURCES = {
 }
 SINGLE_DOMAIN_KERNELS = ("env_mat_fwd", "env_mat_bwd",
                          "nbr_attention_stack_fwd", "nbr_attention_stack_bwd")
+DP_KERNELS = SINGLE_DOMAIN_KERNELS + ("cell_filter",)
 TPU_FUNCTIONS = {
     "env_mat_fwd": "src/repro/kernels/env_mat.py::_env_mat_kernel",
     "env_mat_bwd": "src/repro/kernels/env_mat.py::_env_mat_bwd_kernel",
@@ -785,7 +798,7 @@ def phase_dd(model, params):
     times = run_requests(prov, requests, "dd_requests")
     counts = kernels.launch_counts()
     profile_request(prov, requests[-1], "dd_profile")  # evaluate-only
-    if any(c == 0 for c in counts.values()):
+    if any(counts[k] == 0 for k in DP_KERNELS):
         fail(f"dd: a kernel of the path was never launched: {counts}")
     evals = [ms for kind, ms in times if kind == "evaluate"]
     c = cfg.local_capacity + cfg.ghost_capacity
@@ -804,33 +817,328 @@ def phase_dd(model, params):
     return rows["refilter"], counts, per_call
 
 
-def profile_request(prov, pos, phase="profile"):
-    """One more evaluate-only request under ``torch.profiler``: device time
-    by kernel (device-side events only) and the device's idle share of the
-    request's wall time."""
+# ---------------------------------------------------------------------------
+# lm: gemma2-2b token serving
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "gemma2-2b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 6_144, 32
+LM_ROUNDS = 3
+BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
+# decode == forward at full width, bf16: both sides round every matmul
+# output, norm and residual to bf16 (step 2^-8 = 3.9e-3), and cuBLAS sums a
+# one-token product and a 6,175-token one in different orders, so single
+# bf16 steps differ and travel through 26 layers; the gate is the CPU
+# test's bf16 gate (tests/test_torch_lm.py), a few bf16 steps of the
+# largest logit
+LM_BF16_TOL = 6e-2
+
+
+def flash_bound(q, k, causal, window, q_offset):
+    """Least time of one flash_attention call: the visible pairs' FLOPs
+    (4 D per pair and q head) at the card's peak for the inputs' type (bf16
+    tensor cores 989, fp32 67 TFLOP/s), against q and o once and the K/V
+    rows some query can see once, at the memory rate."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    pos = q_offset + np.arange(sq, dtype=np.int64)   # first/last visible key
+    hi = np.minimum(sk - 1, pos) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(sq, np.int64)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum()) * b * hq
+    keys = max(0, int(hi.max()) - int(lo.min()) + 1) if sq else 0
+    el = q.element_size()
+    nbytes = el * (2 * q.numel() + 2 * b * hkv * keys * d)
+    peak = BF16_PEAK if q.dtype == torch.bfloat16 else F32_PEAK
+    t_ops, t_bytes = 4 * d * pairs / peak * 1e3, nbytes / HBM_RATE * 1e3
+    bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound, 4 * d * pairs
+
+
+def serve_recording(cfg, params, tokens, new, keep):
+    """``launch.serve.serve_tokens`` with ``flash_attention`` swapped for a
+    recorder: the launches' (Sq, Sk) in order, and the arguments of the
+    calls whose index is in ``keep``.  The recorder still launches; its
+    count goes back to the wrapper afterwards."""
+    from repro_torch.kernels import flash_attn
+    from repro_torch.launch.serve import serve_tokens
+    original = flash_attn.flash_attention
+    shapes, kept = [], {}
+
+    def rec(q, k, v, causal, window, softcap, q_offset):
+        if len(shapes) in keep:
+            kept[len(shapes)] = (q, k, v, causal, window, softcap, q_offset)
+        shapes.append((q.shape[2], k.shape[2]))
+        return original(q, k, v, causal, window, softcap, q_offset)
+
+    rec.launches = 0
+    flash_attn.flash_attention = rec
+    try:
+        res = serve_tokens(cfg, params, tokens, new)
+    finally:
+        original.launches += rec.launches
+        flash_attn.flash_attention = original
+    return res, shapes, kept
+
+
+@torch.no_grad()
+def check_flash(name, args):
+    """The kernel against its plain version on one call's arguments (bf16,
+    and the same inputs in fp32), with times and bounds."""
+    from repro_torch.kernels import flash_attn, ref
+    q, k, v, causal, window, softcap, q_offset = args
+    line = {"phase": "lm", "name": "flash_attention", "case": name,
+            "q": list(q.shape), "k": list(k.shape), "causal": causal,
+            "window": window, "softcap": softcap, "q_offset": q_offset}
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        a = [t.to(dtype) for t in (q, k, v)]
+        got = flash_attn.flash_attention(*a, causal, window, softcap, q_offset)
+        want = ref.attention_ref(*a, causal, window, softcap, q_offset)
+        scale = float(want.float().abs().max())
+        err = check(f"flash_attention {name} {dtype}", got.float(),
+                    want.float(), atol=tol * scale)
+        if not torch.equal(got, flash_attn.flash_attention(
+                *a, causal, window, softcap, q_offset)):
+            fail(f"flash_attention {name} {dtype}: a repeat differs")
+        del got, want
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        bound, flops = flash_bound(a[0], a[1], causal, window, q_offset)
+        line.update({f"{tag}_max_err": err, f"{tag}_tol": f"atol {tol}*max|plain|",
+                     f"{tag}_kernel_ms": time_ms(lambda: flash_attn.flash_attention(
+                         *a, causal, window, softcap, q_offset)),
+                     f"{tag}_plain_ms": time_ms(lambda: ref.attention_ref(
+                         *a, causal, window, softcap, q_offset)),
+                     f"{tag}_bound_ms": bound[0], f"{tag}_bound_by": bound[1],
+                     f"{tag}_visible_pair_flops": flops})
+        del a
+        torch.cuda.empty_cache()
+    print(json.dumps(line), flush=True)
+    return line
+
+
+@torch.no_grad()
+def sdpa_yardstick(args):
+    """One PyTorch call beside the kernel at the global layer's prefill
+    shape with softcap 0 (with softcap 50 no single PyTorch call computes
+    the function): SDPA, causal, GQA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn
+    q, k, v, causal, window, _, q_offset = args
+    if not causal or window or q_offset:
+        fail("sdpa yardstick: expected the global layer's prefill call")
+    got = flash_attn.flash_attention(q, k, v, True, 0, 0.0, 0)
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+    err = check("flash_attention vs sdpa (softcap 0)", got.float(),
+                lib.float(), atol=1e-2 * float(lib.float().abs().max()))
+    line = {"phase": "lm", "name": "flash_attention", "case":
+            "prefill global layer, softcap 0, vs scaled_dot_product_attention",
+            "max_err_vs_sdpa": err,
+            "kernel_ms": time_ms(lambda: flash_attn.flash_attention(
+                q, k, v, True, 0, 0.0, 0)),
+            "sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)),
+            "bound_ms": flash_bound(q, k, True, 0, 0)[0][0]}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def phase_lm():
+    """gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
+    bf16, random weights from the port's initialiser), 4 prompts of 6,144
+    random token ids and 32 greedy new tokens, through the port's
+    ``launch/serve.py``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch, param_count
+    from repro_torch.launch.serve import serve_tokens
+    from repro_torch.lm import model as LM
+    cfg = get_arch(LM_ARCH)
+    n = cfg.n_layers
+    t0 = time.perf_counter()
+    params = LM.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "lm", "arch": cfg.name,
+                      "params": param_count(cfg)[0],
+                      "param_MiB": torch.cuda.memory_allocated() / 2 ** 20,
+                      "init_s": time.perf_counter() - t0}), flush=True)
+    rng = np.random.default_rng(SEED + 7)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)),
+                          device=DEVICE)
+    steps = LM_NEW - 1
+    last = n * steps            # first flash call of the last decode step
+    keep = {0, 1, last, last + 1}
+
+    # -- the main path once, every flash launch counted
+    kernels.reset_launch_counts()
+    res, shapes, kept = serve_recording(cfg, params, tokens, LM_NEW, keep)
+    counts = kernels.launch_counts()
+    prefill_calls = sum(1 for sq, _ in shapes if sq == LM_PROMPT)
+    decode_calls = sum(1 for sq, _ in shapes if sq == 1)
+    if (counts["flash_attention"] != n * LM_NEW or prefill_calls != n
+            or decode_calls != n * steps or len(shapes) != n * LM_NEW):
+        fail(f"lm: flash launches {counts['flash_attention']}, prefill "
+             f"calls {prefill_calls}, decode calls {decode_calls}; expected "
+             f"{n} per prefill and {n} per decode step")
+    if any(c for k, c in counts.items() if k != "flash_attention"):
+        fail(f"lm: the serving path launched DP kernels: {counts}")
+    out = res["tokens"]
+    if tuple(out.shape) != (LM_BATCH, LM_NEW) or not all(
+            bool(torch.isfinite(lg).all()) for lg in res["logits"]):
+        fail("lm: non-finite logits or wrong token shape")
+    print(json.dumps({"phase": "lm", "request": "first",
+                      "flash_launches": counts["flash_attention"],
+                      "per_prefill": prefill_calls,
+                      "per_decode_step": decode_calls // steps,
+                      "prefill_ms": res["prefill_s"] * 1e3,
+                      "decode_ms_per_step": res["decode_s"] / steps * 1e3,
+                      "greedy_tokens_batch0": out[0].tolist()}), flush=True)
+
+    # -- the kernel against its plain version on the path's tensors
+    rows = {"prefill_local": check_flash("prefill local layer", kept[0]),
+            "prefill_global": check_flash("prefill global layer", kept[1]),
+            "decode_local": check_flash("last decode step, local layer",
+                                        kept[last]),
+            "decode_global": check_flash("last decode step, global layer",
+                                         kept[last + 1])}
+    rows["sdpa"] = sdpa_yardstick(kept[1])
+    if kept[0][4] != cfg.window or kept[1][4] != 0 or \
+            kept[last][6] != LM_PROMPT + steps - 1:
+        fail("lm: recorded calls are not the expected layers and positions")
+    del kept
+    torch.cuda.empty_cache()
+
+    # -- decode == forward at full width (batch rows 0-1: the full logits
+    #    of 4 rows would not fit beside the model)
+    fed = torch.cat([tokens, out[:, :-1]], 1)[:2]
+    with torch.no_grad():
+        full, _ = LM.forward(params, cfg, fed)
+    errs = {}
+    want = LM.final_softcap(cfg, res["logits"][0][:2])
+    cases = [("prefill last logits (softcapped)", want, LM_PROMPT - 1),
+             ("decode step 0", res["logits"][1][:2], LM_PROMPT),
+             (f"decode step {steps - 1}", res["logits"][steps][:2],
+              LM_PROMPT + steps - 1)]
+    for name, got, pos in cases:
+        ref_logits = full[:, pos].float()
+        errs[name] = check(f"lm decode == forward, {name}", got.float(),
+                           ref_logits,
+                           atol=LM_BF16_TOL * float(ref_logits.abs().max()))
+    agree = float((full[:, LM_PROMPT - 1:].argmax(-1) == out[:2]).float().mean())
+    print(json.dumps({"phase": "lm", "check": "decode == forward",
+                      "rows": 2, "max_abs_err": errs,
+                      "max_abs_logit": float(full[:, LM_PROMPT - 1:].float().abs().max()),
+                      "tol": f"atol {LM_BF16_TOL}*max|forward logits|",
+                      "greedy_token_agreement": agree}), flush=True)
+    del full, res
+    torch.cuda.empty_cache()
+
+    # -- card against CPU at a reduced width, fp32
+    small = cfg.reduced(n_layers=4, d_model=256, d_ff=512, vocab=1024)
+    p_cpu = LM.init_params(small, torch.Generator().manual_seed(SEED),
+                           device="cpu")
+    p_gpu = _tree(p_cpu, lambda t: t.to(DEVICE))
+    tok = torch.tensor(rng.integers(0, small.vocab, (2, 80)))
+    r_cpu = serve_tokens(small, p_cpu, tok, 8)
+    kernels.reset_launch_counts()
+    r_gpu = serve_tokens(small, p_gpu, tok.to(DEVICE), 8)
+    if kernels.launch_counts()["flash_attention"] != 4 * 8:
+        fail("lm reduced: the card run did not launch 4 flash calls per "
+             "prefill and per decode step")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(r_gpu["logits"], r_cpu["logits"])):
+        err = max(err, check(f"lm card vs cpu step {i}", a.cpu(), b,
+                             atol=1e-4 * float(b.abs().max())))
+    if not torch.equal(r_gpu["tokens"].cpu(), r_cpu["tokens"]):
+        fail("lm reduced: greedy tokens differ between card and CPU")
+    print(json.dumps({"phase": "lm", "check": "card vs cpu", "config":
+                      "gemma2-2b reduced(n_layers=4, d_model=256, d_ff=512,"
+                      " vocab=1024), fp32, batch 2, prompt 80, 8 new",
+                      "max_abs_err": err, "tol": "atol 1e-4*max|logits|"}),
+          flush=True)
+
+    # -- request rounds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(LM_ROUNDS):
+        r = serve_tokens(cfg, params, tokens, LM_NEW)
+        if not torch.equal(r["tokens"], out):
+            fail(f"lm round {i}: greedy tokens differ from the first request")
+        times.append((r["prefill_s"] * 1e3, r["decode_s"] / steps * 1e3))
+        del r
+    pre = statistics.median(t for t, _ in times)
+    dec = statistics.median(t for _, t in times)
+    summary = {"phase": "lm", "arch": cfg.name, "batch": LM_BATCH,
+               "prompt": LM_PROMPT, "new": LM_NEW, "rounds": times,
+               "prefill_ms_median": pre, "decode_ms_per_step_median": dec,
+               "decode_tok_per_s": LM_BATCH / dec * 1e3,
+               "prefill_tok_per_s": LM_BATCH * LM_PROMPT / pre * 1e3,
+               "max_memory_allocated_MiB":
+                   torch.cuda.max_memory_allocated() / 2 ** 20}
+    print(json.dumps(summary), flush=True)
+    profile_lm(cfg, params, tokens)
+    del params
+    torch.cuda.empty_cache()
+    return rows, {"launches": counts["flash_attention"],
+                  "launches_per_prefill": prefill_calls,
+                  "launches_per_decode_step": decode_calls // steps}
+
+
+def device_profile(fn, phase, what):
+    """``fn()`` under ``torch.profiler``: device time by kernel and the
+    device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.backend import ForceRequest
-    x = torch.tensor(pos, device=DEVICE)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prov.compute(ForceRequest(positions=x))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
+    kern = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.name] = kernels.get(ev.name, 0.0) + \
+            kern[ev.name] = kern.get(ev.name, 0.0) + \
                 ev.time_range.elapsed_us() / 1e3
-    rows = sorted(((ms, k) for k, ms in kernels.items()), reverse=True)
+    rows = sorted(((ms, k) for k, ms in kern.items()), reverse=True)
     busy = sum(ms for ms, _ in rows)
     print(json.dumps({
-        "phase": phase, "wall_ms_profiled": wall_ms,
+        "phase": phase, "what": what, "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy if rows else "not measured",
         "idle_share": 1 - busy / wall_ms if rows else "not measured",
         "top": [{"name": k[:90], "ms": ms} for ms, k in rows[:12]]}),
         flush=True)
+
+
+def profile_lm(cfg, params, tokens):
+    """One prefill, then 4 decode steps, each under ``torch.profiler``."""
+    from repro_torch.lm.serve_lib import make_prefill, make_serve_step
+    s = tokens.shape[1]
+    prefill, step = make_prefill(cfg, max_len=s + 5), make_serve_step(cfg)
+    out = {}
+
+    def run_prefill():
+        out["logits"], out["cache"] = prefill(params, tokens)
+
+    def run_decode():
+        tok = out["logits"][:, -1:].argmax(-1)
+        for i in range(4):
+            logits, _ = step(params, out["cache"], tok, s + i)
+            tok = logits.argmax(-1)
+
+    device_profile(run_prefill, "lm_profile", "one prefill")
+    device_profile(run_decode, "lm_profile", "4 decode steps")
+
+
+def profile_request(prov, pos, phase="profile"):
+    """One more evaluate-only request under ``torch.profiler``."""
+    from repro_torch.backend import ForceRequest
+    x = torch.tensor(pos, device=DEVICE)
+    device_profile(lambda: prov.compute(ForceRequest(positions=x)), phase,
+                   "one evaluate-only request")
+
+
+T0 = time.perf_counter()
 
 
 def main():
@@ -853,13 +1161,18 @@ def main():
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    logs = build.build("nbr_attn", "cell_filter")   # one nvcc each, together
+    logs = build.build("nbr_attn", "cell_filter", "flash_attn")  # together
     print(f"[build] nvcc: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
+    lm_only = sys.argv[1:] == ["--phase", "lm"]
+    if lm_only:
+        phase_lm()
+        print("[lm] every check passed (lm phase alone)", flush=True)
+        return 0
     from repro_torch.kernels import nbr_attn
     print(json.dumps({"attention_max_K_at_M128": {
         "forward": nbr_attn.max_k(128, backward=False),
@@ -884,6 +1197,11 @@ def main():
     counts_sd = phase_requests(model, params)
     cf_row, counts, per_call = phase_dd(model, params)
     kres["cell_filter"] = cf_row
+    del model, params
+    torch.cuda.empty_cache()
+    lm_rows, lm_launches = phase_lm()
+    checked = ("prefill_local", "prefill_global", "decode_local",
+               "decode_global")
 
     rows = []
     for name, r in kres.items():
@@ -896,7 +1214,24 @@ def main():
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": None})
+    flash, sdpa = lm_rows["prefill_global"], lm_rows["sdpa"]
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn.py:27",
+        **lm_launches,
+        "shape": "prefill, global layer: q (4, 8, 6144, 256), k/v "
+                 "(4, 4, 6144, 256), bf16, causal, softcap 50",
+        "max_abs_err": max(lm_rows[c]["bf16_max_err"] for c in checked),
+        "ms": flash["bf16_kernel_ms"], "plain_ms": flash["bf16_plain_ms"],
+        "bound_ms": flash["bf16_bound_ms"], "bound_by": flash["bf16_bound_by"],
+        "library_ms": None,
+        "softcap0_kernel_ms": sdpa["kernel_ms"],
+        "softcap0_sdpa_ms": sdpa["sdpa_ms"],
+        "ms_by_call": {c: lm_rows[c]["bf16_kernel_ms"] for c in checked},
+        "bound_ms_by_call": {c: lm_rows[c]["bf16_bound_ms"] for c in checked}})
     print(json.dumps({"kernels": rows}), flush=True)
+    print(f"[chip_smoke] {time.perf_counter() - T0:.1f} s in all", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,11 @@
 """Carry JAX-side parameters, stats and configs over to the port.
 
 Takes numpy in (the caller does ``jax.device_get`` / ``np.asarray`` on its
-side), so this module never imports JAX.  The parameter tree keeps the JAX
-pytree's layout: ``descriptor.{type_embed, embed[i].{w,b},
-attn[l].{wq,wk,wv,wo,ln.{gamma,beta}}}``, ``fitting[i].{w,b}``, ``bias``.
+side), so this module never imports JAX.  The parameter trees keep the JAX
+pytrees' layouts: the DP model's ``descriptor.{type_embed, embed[i].{w,b},
+attn[l].{wq,wk,wv,wo,ln.{gamma,beta}}}``, ``fitting[i].{w,b}``, ``bias``
+(:func:`params_to_torch`, fp32), and the LM's ``embed``, ``final_norm``,
+``prefix[i]``, ``pattern[j]`` (:func:`lm_params_to_torch`, dtypes kept).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .configs.base import ArchConfig
 from .core.ddinfer import DDConfig
 from .device import resolve_device
 from .dp.common import EnvStats
@@ -55,3 +58,31 @@ def dd_config_to_torch(cfg) -> DDConfig:
     own checks apply (``k_eval <= 128``, no ``overlap``)."""
     return DDConfig(**{f.name: getattr(cfg, f.name)
                        for f in dataclasses.fields(DDConfig)})
+
+
+def _leaf_to_torch(a, dev) -> torch.Tensor:
+    """One array, its dtype kept; bf16 (``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` rejects) goes through an int16 view, bit for bit."""
+    a = np.array(a)    # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(dev)
+
+
+def lm_params_to_torch(tree, device="cuda"):
+    """A JAX LM parameter tree (``repro.lm.model.init_params``, as numpy) ->
+    the same nesting of tensors, each leaf keeping its dtype."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_params_to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params_to_torch(v, dev) for v in tree]
+    return _leaf_to_torch(tree, dev)
+
+
+def arch_config_to_torch(cfg) -> ArchConfig:
+    """A JAX ``ArchConfig`` -> the port's, field for field."""
+    return ArchConfig(**{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(ArchConfig)})

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the DP force path, with their plain versions.
+"""Hand-written Hopper kernels of the port, with their plain versions.
 
 - ``env_mat_fwd`` / ``env_mat_bwd``: Triton (``env_mat_triton.py``), replacing
   ``repro/kernels/env_mat.py::_env_mat_kernel`` / ``_env_mat_bwd_kernel``;
@@ -7,12 +7,16 @@
   _stack_fwd_kernel`` / ``_stack_bwd_kernel``;
 - ``cell_filter``: CUDA C++ for ``sm_90a`` (``csrc/cell_filter.cu``),
   replacing ``repro/kernels/cell_gather.py::_cell_filter_kernel``, with the
-  candidate gather fused in.
+  candidate gather fused in;
+- ``flash_attention``: CUDA C++ for ``sm_90a`` (``csrc/flash_attn.cu``),
+  replacing ``repro/kernels/flash_attn.py::_flash_kernel``: the attention of
+  the LM serving path (causal, GQA, sliding window, softcap, q_offset).
 
 Importing this package needs neither ``triton`` nor ``nvcc``: kernels are
 compiled at their first launch on a CUDA tensor.
 """
 from . import cell_filter as _cell_filter_mod
+from . import flash_attn as _flash_attn_mod
 from .env_mat import env_mat_bwd, env_mat_fwd
 from .nbr_attn import nbr_attention_stack_bwd, nbr_attention_stack_fwd
 
@@ -22,6 +26,7 @@ KERNELS = {
     "nbr_attention_stack_fwd": nbr_attention_stack_fwd,
     "nbr_attention_stack_bwd": nbr_attention_stack_bwd,
     "cell_filter": _cell_filter_mod.cell_filter,
+    "flash_attention": _flash_attn_mod.flash_attention,
 }
 
 

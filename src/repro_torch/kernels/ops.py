@@ -6,6 +6,7 @@ padding of the neighbour axis is gone too: the kernels take any K.
 """
 from __future__ import annotations
 
+from . import flash_attn
 from .env_mat import env_mat
 from .nbr_attn import nbr_attention_stack
 
@@ -23,3 +24,11 @@ def nbr_attention_stack_op(g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma,
     wo (L, H, M), gamma/beta (L, M)."""
     return nbr_attention_stack(g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma,
                                beta, heads=heads, compute_dtype=compute_dtype)
+
+
+def attention_op(q, k, v, causal: bool = True, window: int = 0,
+                 softcap: float = 0.0, q_offset: int = 0):
+    """Blockwise attention with causal, GQA, window, softcap and q_offset:
+    q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D).  Forward only."""
+    return flash_attn.flash_attention(q, k, v, causal, window, softcap,
+                                      q_offset)

@@ -244,3 +244,46 @@ def nbr_attention_stack_bwd_ref(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
     dry = (sym * ry[:, None, :]).sum(2)
     drz = (sym * rz[:, None, :]).sum(2)
     return (dg, drx, dry, drz, dsw) + tuple(torch.stack(a) for a in grads)
+
+
+# ---------------------------------------------------------------------------
+# blockwise (flash) attention of the LM substrate
+# ---------------------------------------------------------------------------
+
+ATTN_MASKED = -1e30   # masked score (the reference's)
+
+
+def attention_visible(sq: int, sk: int, causal: bool, window: int,
+                      q_offset: int, device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: key j is visible to query i (absolute position
+    ``q_offset + i``) under the causal and window masks."""
+    q_pos = q_offset + torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    return mask
+
+
+def attention_ref(q, k, v, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0, q_offset: int = 0):
+    """Dense attention with the GQA broadcast and fp32 accumulation
+    (``repro/kernels/ref.py::attention_ref``): q (B, Hq, Sq, D), k/v
+    (B, Hkv, Sk, D) with Hq % Hkv == 0, any Sq and Sk; scores scaled by
+    1/sqrt(D), optionally soft-capped; a row with no visible key gives 0.
+    Returns q's dtype."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    group = hq // hkv
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(F32), k.to(F32)) / d ** 0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    mask = attention_visible(sq, sk, causal, window, q_offset, q.device)
+    s = torch.where(mask, s, torch.full((), ATTN_MASKED, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    w = torch.where(mask.any(-1)[:, None], w, torch.zeros((), device=q.device))
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.to(F32)).to(q.dtype)

@@ -8,14 +8,19 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
 * the attention stack at K = 64, 82 and 128 (the backward's shared-memory
   and device-workspace instances) against its plain version: forward atol
   1e-4 x max|out|, backward atol 1e-4 x max|grad| per output, parameter
-  gradients included.
+  gradients included;
+* ``flash_attention`` against its plain version (the five cases of the
+  reference's flash tests, unmasked keys past a ragged Sk, decode against a
+  cache view, every head dimension the kernel has): atol 1e-4 x max|plain|
+  in fp32, 1e-2 x max|plain| in bf16 (the output is rounded to bf16 on both
+  sides); a repeated call gives the same bits.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import cell_filter as cf
-from repro_torch.kernels import nbr_attn, ref
+from repro_torch.kernels import flash_attn, nbr_attn, ref
 
 
 @pytest.fixture
@@ -88,3 +93,55 @@ def test_attention_stack_on_card_up_to_k128(card, k):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
     assert nbr_attn.uses_workspace(k, m) == (k > 89)
+
+
+FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal, window, cap, off
+    (2, 4, 2, 128, 128, 64, True, 0, 0.0, 0),
+    (1, 8, 2, 200, 200, 64, True, 128, 30.0, 0),
+    (1, 4, 4, 1, 256, 64, False, 0, 0.0, 255),
+    (2, 2, 1, 96, 160, 32, True, 0, 0.0, 64),
+    (1, 2, 2, 64, 64, 128, True, 32, 50.0, 0),
+    (1, 4, 2, 72, 200, 64, False, 0, 0.0, 0),
+    (2, 8, 4, 300, 300, 256, True, 128, 50.0, 0),
+    (1, 4, 1, 9, 400, 256, True, 0, 50.0, 391),
+    # decode with the keys split over CTAs and merged by a second kernel
+    (4, 8, 4, 1, 3000, 256, True, 1024, 50.0, 2999),
+    (3, 2, 2, 1, 777, 128, False, 0, 0.0, 776),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,cap,off",
+                         FLASH_CASES)
+def test_flash_attention_kernel_equals_plain(card, dtype, b, hq, hkv, sq, sk,
+                                             d, causal, window, cap, off):
+    gen = torch.Generator(device=card).manual_seed(sq + sk + d)
+    rnd = lambda *s: torch.randn(*s, device=card, generator=gen).to(dtype)
+    q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d)
+    before = flash_attn.flash_attention.launches
+    got = flash_attn.flash_attention(q, k, v, causal, window, cap, off)
+    assert flash_attn.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v, causal, window, cap, off)
+    assert got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * float(want.float().abs().max()))
+    again = flash_attn.flash_attention(q, k, v, causal, window, cap, off)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_a_cache_view(card):
+    """Decode against a cache sliced to its filled length: the kernel takes
+    the view's strides, no copy, and equals the plain version."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    cache = torch.randn(2, 2, 2, 512, 256, device=card, generator=gen)
+    cache = cache.to(torch.bfloat16)      # {k, v} x (B, Hkv, S_max, D)
+    k, v = cache[0, :, :, :301], cache[1, :, :, :301]
+    assert not k.is_contiguous()
+    q = torch.randn(2, 8, 1, 256, device=card, generator=gen).to(torch.bfloat16)
+    got = flash_attn.flash_attention(q, k, v, True, 128, 50.0, 300)
+    want = ref.attention_ref(q, k, v, True, 128, 50.0, 300)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=1e-2 * float(want.float().abs().max()))

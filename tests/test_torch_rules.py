@@ -88,3 +88,46 @@ def test_kernels_import_without_triton_or_nvcc(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_lm_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch import bridge
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.lm import model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("gemma2-2b").reduced(n_layers=2, d_model=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bridge.lm_params_to_torch({"embed": np.zeros((4, 2), np.float32)})
+    params = model.init_params(cfg, torch.Generator(), device="cpu")
+    assert params["embed"].device.type == "cpu"
+    res = serve.main(["--reduced", "--device", "cpu", "--batch", "1",
+                      "--prompt-len", "5", "--new", "2"])
+    assert tuple(res["tokens"].shape) == (1, 2)
+
+
+def test_lm_unported_parts_raise():
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.lm import model
+    for name in ("deepseek-v3-671b", "rwkv6-3b", "jamba-1.5-large-398b"):
+        cfg = get_arch(name).reduced(n_layers=2, d_model=32)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+            model.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        serve.main(["--backend", "force", "--device", "cpu"])
+
+
+def test_flash_wrapper_dispatches_by_device():
+    """CPU tensors take the plain version, at any head dimension (48 has
+    no kernel instance), and count no launch."""
+    from repro_torch.kernels import flash_attn, launch_counts
+    before = launch_counts()["flash_attention"]
+    q, k = torch.randn(1, 2, 3, 48), torch.randn(1, 1, 5, 48)
+    out = flash_attn.flash_attention(q, k, k, True, 0, 0.0, 2)
+    assert out.shape == q.shape
+    assert launch_counts()["flash_attention"] == before
