@@ -15,7 +15,8 @@ atoms at 30 atoms/nm^3, and phase 5 on gemma2-2b:
    PyTorch versions on the card, at the shapes and on the data the force
    path gives them (N = 15,668 atoms; K = 64, 82, and K = 128 from the MD
    cutoff r_c = 0.8 with sel 128), with timings (median of 10 runs, CUDA
-   events, L2 flushed before each run);
+   events, L2 flushed before each run); the force-path backward also
+   repeated bit for bit and held to exact zeros at the masked slots;
 2. path parity: the single-domain provider on the card against the port on
    the CPU at 2,048 atoms, and one launch of each of its kernels per call;
 3. requests: ``DeepmdForceProvider(skin=0.05).compute`` on one domain of the
@@ -36,8 +37,8 @@ atoms at 30 atoms/nm^3, and phase 5 on gemma2-2b:
    ``serve_tokens``: 26 flash launches per prefill and per decode step; the
    flash kernel against its plain version on the tensors of a local and a
    global layer of the prefill and of the last decode step (bf16, and the
-   same inputs in fp32), with times, bounds and SDPA at softcap 0 beside
-   it; decode == forward at full width; card == CPU at a reduced width in
+   same inputs in fp32), with times, bounds and, at each of the four call
+   shapes, SDPA beside the kernel at softcap 0; decode == forward at full width; card == CPU at a reduced width in
    fp32; 3 timed request rounds, then a profiled prefill and 4 profiled
    decode steps;
 6. a ``kernels`` JSON line, then the result line.
@@ -260,9 +261,27 @@ def phase_kernels(model, params, skin, bf16=False):
     got = nbr_attn.nbr_attention_stack_bwd(want_stash, *attn[1:], dout,
                                            param_grads=False)
     want = ref.nbr_attention_stack_bwd_ref(want_stash, *attn[1:], dout)
+    names = "dg drx dry drz dsw".split()
     err = max(check(f"nbr_attention_stack_bwd[{nm}]", a, b,
                     atol=1e-4 * float(b.abs().max()))
-              for nm, a, b in zip("dg drx dry drz dsw".split(), got, want))
+              for nm, a, b in zip(names, got, want))
+    # the force-path instance: compacted rows, exact zeros at the masked
+    # slots, the same bits on a repeat
+    masked = attn[5] == 0
+    again = nbr_attn.nbr_attention_stack_bwd(want_stash, *attn[1:], dout,
+                                             param_grads=False)
+    for nm, a, b in zip(names, got, again):
+        if not torch.equal(a, b):
+            fail(f"nbr_attention_stack_bwd[{nm}]: a repeat differs")
+        if bool(a[masked].any()):
+            fail(f"nbr_attention_stack_bwd[{nm}]: nonzero at a masked slot")
+    del again
+    print(json.dumps({"phase": "kernels", "name": "nbr_attention_stack_bwd",
+                      "K": k, "valid_per_atom_mean":
+                          float(attn[5].sum(1).float().mean()),
+                      "valid_per_atom_max": int(attn[5].sum(1).max()),
+                      "masked_slots_exact_zero": True,
+                      "repeat_bitwise": True}), flush=True)
     report("nbr_attention_stack_bwd", err, "atol 1e-4*max|grad| per output",
            time_ms(lambda: nbr_attn.nbr_attention_stack_bwd(
                want_stash, *attn[1:], dout, param_grads=False)),
@@ -916,29 +935,48 @@ def check_flash(name, args):
 
 
 @torch.no_grad()
-def sdpa_yardstick(args):
-    """One PyTorch call beside the kernel at the global layer's prefill
-    shape with softcap 0 (with softcap 50 no single PyTorch call computes
-    the function): SDPA, causal, GQA."""
+def sdpa_yardstick(name, args):
+    """One PyTorch call beside the kernel, both at softcap 0 (with softcap
+    50 no single PyTorch call computes the function), on the call's q, k
+    and v: SDPA with GQA; causal at the global prefill, a boolean causal +
+    window mask at the local prefill, and at decode (Sq = 1) the keys the
+    query sees, unmasked."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attn
+    from repro_torch.kernels import flash_attn, ref
     q, k, v, causal, window, _, q_offset = args
-    if not causal or window or q_offset:
-        fail("sdpa yardstick: expected the global layer's prefill call")
-    got = flash_attn.flash_attention(q, k, v, True, 0, 0.0, 0)
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                         enable_gqa=True)
-    err = check("flash_attention vs sdpa (softcap 0)", got.float(),
-                lib.float(), atol=1e-2 * float(lib.float().abs().max()))
+    sq, sk = q.shape[2], k.shape[2]
+    if not causal:
+        fail(f"sdpa yardstick {name}: expected a causal call")
+    if sq > 1 and q_offset == 0 and not window:
+        kw, lk, lv = {"is_causal": True}, k, v
+    elif sq > 1 and q_offset == 0:
+        kw = {"attn_mask": ref.attention_visible(sq, sk, True, window, 0,
+                                                 q.device)}
+        lk, lv = k, v
+    elif sq == 1:
+        lo = max(0, q_offset - window + 1) if window > 0 else 0
+        kw, lk, lv = {}, k[:, :, lo:q_offset + 1], v[:, :, lo:q_offset + 1]
+    else:
+        fail(f"sdpa yardstick {name}: no single SDPA call for this shape")
+
+    def lib():
+        return F.scaled_dot_product_attention(q, lk, lv, enable_gqa=True, **kw)
+
+    def kern():
+        return flash_attn.flash_attention(q, k, v, True, window, 0.0, q_offset)
+
+    got, want = kern(), lib()
+    err = check(f"flash_attention {name} vs sdpa (softcap 0)", got.float(),
+                want.float(), atol=1e-2 * float(want.float().abs().max()))
+    del got, want
     line = {"phase": "lm", "name": "flash_attention", "case":
-            "prefill global layer, softcap 0, vs scaled_dot_product_attention",
-            "max_err_vs_sdpa": err,
-            "kernel_ms": time_ms(lambda: flash_attn.flash_attention(
-                q, k, v, True, 0, 0.0, 0)),
-            "sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)),
-            "bound_ms": flash_bound(q, k, True, 0, 0)[0][0]}
+            f"{name}, softcap 0, vs scaled_dot_product_attention",
+            "max_err_vs_sdpa": err, "kernel_ms": time_ms(kern),
+            "sdpa_ms": time_ms(lib),
+            "bound_ms": flash_bound(q, k, True, window, q_offset)[0][0]}
+    line["kernel_over_sdpa"] = line["kernel_ms"] / line["sdpa_ms"]
     print(json.dumps(line), flush=True)
+    torch.cuda.empty_cache()
     return line
 
 
@@ -1000,7 +1038,10 @@ def phase_lm():
                                         kept[last]),
             "decode_global": check_flash("last decode step, global layer",
                                          kept[last + 1])}
-    rows["sdpa"] = sdpa_yardstick(kept[1])
+    calls = {"prefill_local": kept[0], "prefill_global": kept[1],
+             "decode_local": kept[last], "decode_global": kept[last + 1]}
+    rows["sdpa"] = {c: sdpa_yardstick(c, a) for c, a in calls.items()}
+    del calls
     if kept[0][4] != cfg.window or kept[1][4] != 0 or \
             kept[last][6] != LM_PROMPT + steps - 1:
         fail("lm: recorded calls are not the expected layers and positions")
@@ -1176,8 +1217,10 @@ def main():
     from repro_torch.kernels import nbr_attn
     print(json.dumps({"attention_max_K_at_M128": {
         "forward": nbr_attn.max_k(128, backward=False),
-        "backward_shared_memory": nbr_attn.max_k(128, backward=True),
-        "backward_device_workspace": nbr_attn.max_k(128, True, True),
+        "backward_force_path": nbr_attn.max_k(128, param_grads=False),
+        "backward_param_grads_shared_memory": nbr_attn.max_k(128),
+        "backward_param_grads_device_workspace": nbr_attn.max_k(128, True,
+                                                                True),
         "port_limit": nbr_attn.MAX_K}}), flush=True)
 
     model = DPModel(paper_dpa1_config(ntypes=4, rcut=0.6, sel=64),
@@ -1226,8 +1269,8 @@ def main():
         "ms": flash["bf16_kernel_ms"], "plain_ms": flash["bf16_plain_ms"],
         "bound_ms": flash["bf16_bound_ms"], "bound_by": flash["bf16_bound_by"],
         "library_ms": None,
-        "softcap0_kernel_ms": sdpa["kernel_ms"],
-        "softcap0_sdpa_ms": sdpa["sdpa_ms"],
+        "softcap0_kernel_ms_by_call": {c: sdpa[c]["kernel_ms"] for c in checked},
+        "library_ms_by_call": {c: sdpa[c]["sdpa_ms"] for c in checked},
         "ms_by_call": {c: lm_rows[c]["bf16_kernel_ms"] for c in checked},
         "bound_ms_by_call": {c: lm_rows[c]["bf16_bound_ms"] for c in checked}})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -6,44 +6,69 @@
 //
 // Work: per centre atom, l_a layers of QKV projections (M -> H), K x K
 // scores, softmax x angular gate, value mix, out-projection (H -> M),
-// residual and LayerNorm.  At K = 64, M = 128, H = 256 that is ~21 MFLOP per
-// layer per atom against ~32 KB of activations, so the stack is bound by
-// fp32 operations on the H100, not by bytes.
+// residual and LayerNorm.  Per atom with n valid neighbours and layer: the
+// forward 8nMH + 4n^2 H FLOPs, the backward without parameter gradients
+// (forward recompute included) 16nMH + 12n^2 H, against ~n M words of
+// activations, so the stack is bound by fp32 operations on the H100 (67
+// TFLOP/s outside the tensor cores), not by bytes.  Everything stays fp32
+// (the force gates are E rtol 1e-5, F atol 1e-4 x max|F|): no TF32.
 //
-// Design (first version: plain fp32 FMAs on the CUDA cores, no wgmma/TMA):
-// one CTA per atom keeps the K x M activations G, the pre-norm sum and the
-// K x K score tile in shared memory across all layers, so G is read from
-// and written to device memory once per stack.  Full Q/K/V (3 x K x H) do
-// not fit beside G, so H is streamed in kChunk-wide column chunks:
-// Q_c, K_c -> S += Q_c K_c^T; softmax x gate -> W; V_c -> O_c = W V_c ->
-// out += O_c Wo[c, :].  The gate (r_hat.r_hat^T)(sw x sw)(mask x mask) is
-// recomputed from five K-vectors wherever it is used and never stored.
-// bf16 mode rounds every matmul operand to bf16 where the JAX kernel casts
-// it, and accumulates in fp32.  Masked keys score FLT_MAX below zero (not
-// -inf), so a fully masked row gives a uniform softmax times a zero gate:
-// zeros, never NaN.
+// Which instance runs which code:
 //
-// Backward: the TPU kernel += its parameter gradients into accumulators
-// that persist across a sequential grid; on a GPU that is a race.  Here a
-// param-grad launch runs a fixed number of CTAs, each striding over atoms in
-// a fixed order and owning its own partial sums in device memory; a second
-// kernel adds the partials in block order.  No atomics, so results repeat
-// bit for bit.  The force path asks for no parameter gradients and skips
-// that work (a separate template instance).  The angular-gate cotangent is
-// linear, so it is expanded onto dr_hat / dsw per layer and head instead of
-// keeping a K x K accumulator across layers.
+// * Forward (stack_fwd_kernel, both the force path and training): one CTA
+//   of 512 threads per atom over all K slots keeps the K x M activations,
+//   the pre-norm sum and the K x K scores in shared memory across all
+//   layers; H streamed in kChunk-wide column chunks; the gate
+//   (r_hat.r_hat^T)(sw x sw)(mask x mask) recomputed from five K-vectors
+//   where it is used.  Masked keys score FLT_MAX below zero (not -inf), so
+//   a fully masked row gives zeros, never NaN.  K <= 134 at M = 128.
 //
-// Shared memory sets the largest K: see nbr_attn_fwd_smem / _bwd_smem (the
-// Python wrapper raises above the 227 KB a block may use).  At M = 128 the
-// forward takes K <= 134 and the backward K <= 89 with every tile in shared
-// memory.  Above that the backward runs a second instance (GMEM): its three
-// K x M tiles (the layer input, read straight from the stash; the incoming
-// cotangent; the pre-norm sum) live in device memory, in a per-CTA workspace
-// that L2 serves, and only the K x K tiles, the chunk buffers and the
-// K-vectors stay in shared memory (K <= 152 at M = 128).  That instance runs
-// a persistent grid of one CTA per workspace slot striding over atoms.  The
-// wrapper picks the shared-memory instance whenever it fits, so K <= 89 runs
-// exactly the code it ran before.
+// * Backward, force path (no parameter gradients; nbr_attn_bwd_rows):
+//   compacted rows.  The wrapper (nbr_attn.py::compact_rows) gathers each
+//   atom's valid slots in ascending slot order and stacks them, atoms
+//   longest first, into R rows; the kernels never see a masked slot, and
+//   the wrapper's zero-filled outputs keep exact zeros there (a fully
+//   masked atom costs nothing but that fill).  Dropping the masked slots
+//   changes no sum but by +0 terms: dln = dg * mask is 0 on them, their
+//   keys have p = 0 and their gate row and column are 0.  Per layer, from
+//   the top, seven launches (see the block comment above
+//   nbr_attn_bwd_rows): the four M <-> H projections are GEMMs over all
+//   stacked rows of the pass (rows_gemm_kernel: a 128 x 128 output tile
+//   per 256-thread CTA, 8 x 8 per thread, both operands staged k-major in
+//   shared memory through a 3-stage cp.async ring, so one weight tile
+//   serves 128 rows of many atoms and every inner-loop read is a 16-byte
+//   load); each projection is computed once per layer and kept in device
+//   memory (Q|K|V and dQ|dK|dV as R x 3H, O then dO as R x H) until the
+//   next step has used it.  The n x n attention parts run one CTA per
+//   atom (rows_attn_fwd_kernel, rows_attn_bwd_kernel): P, and
+//   then W = P o gmul, dW, ds and dgmul, are formed once per layer and
+//   head as n x n tiles in shared memory (the gate is evaluated once per
+//   element, never inside a product's depth loop), and every product runs
+//   4 x 4 register tiles with 16-byte shared loads, on 32-column chunks of
+//   the head.  The LayerNorm backward is one warp per row.  Shared memory
+//   per attention CTA is sized by the pass's longest atom: two n x n tiles,
+//   two chunks and ten vectors, 177 KB at n = 128 (one CTA of 256 threads
+//   per SM), 56 KB at n = 64 (four CTAs of 128 threads).  No persistent
+//   grid: atoms go out longest first, so the tail holds the short ones.
+//   K <= 128 = MAX_K in both directions, also for an atom whose 128 slots
+//   are all valid (the limit is nbr_attn_bwd_rows_smem(n) <= 227 KB:
+//   n <= 148).  Passes of at most 2^20 stacked rows (nbr_attn.py::
+//   ROW_PASS) bound the scratch memory
+//   (8.2 KB per row).  No atomics: a repeated call gives the same bits.
+//
+// * Backward with parameter gradients (training, off the force path;
+//   nbr_attn_bwd, stack_bwd_kernel): the earlier design, one 512-thread CTA
+//   per atom over all K slots.  The TPU kernel += its parameter gradients
+//   into accumulators that persist across a sequential grid; on a GPU that
+//   is a race, so a fixed number of CTAs stride over atoms in a fixed order
+//   into their own partial sums, and a second kernel adds the partials in
+//   block order (no atomics).  Shared-memory instance for K <= 89 at
+//   M = 128; above that (GMEM) the three K x M tiles live in a per-CTA
+//   device workspace served by L2 and a persistent grid of one CTA per
+//   workspace slot strides over atoms (K <= 152).
+//
+// bf16 mode (compute_dtype) rounds every matmul operand to bf16 where the
+// JAX kernel casts it and accumulates in fp32, in every instance.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cfloat>
@@ -299,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) stack_fwd_kernel(StackArgs a) {
     a.out[nkm + e] = sG[(e / m) * ldm + e % m];
 }
 
-template <bool BF16, bool PARAMS, bool GMEM = false>
+template <bool BF16, bool GMEM = false>
 __global__ void __launch_bounds__(kThreads) stack_bwd_kernel(StackArgs a) {
   extern __shared__ float smem[];
   const int k = a.k, m = a.m, h = a.h, L = a.layers, hd = a.h / a.heads;
@@ -321,8 +346,7 @@ __global__ void __launch_bounds__(kThreads) stack_bwd_kernel(StackArgs a) {
   const Gate gt{sV, sV + k, sV + 2 * k, sV + 3 * k, sV + 4 * k};
   const float* mk = gt.mk;
   const size_t mh = (size_t)m * h;
-  float* part = PARAMS ? a.part + blockIdx.x * (L * (4 * mh + 2 * (size_t)m))
-                       : nullptr;
+  float* part = a.part + blockIdx.x * (L * (4 * mh + 2 * (size_t)m));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   for (size_t atom = blockIdx.x; atom < (size_t)a.n; atom += gridDim.x) {
@@ -403,7 +427,7 @@ __global__ void __launch_bounds__(kThreads) stack_bwd_kernel(StackArgs a) {
         if (lane == 0) sInv[i] = inv;
       }
       __syncthreads();
-      if constexpr (PARAMS) {
+      {
         for (int c = threadIdx.x; c < m; c += blockDim.x) {
           float sg = 0.f, sb = 0.f;
           for (int r = 0; r < k; ++r) {
@@ -462,7 +486,7 @@ __global__ void __launch_bounds__(kThreads) stack_bwd_kernel(StackArgs a) {
               [&](int r, int d) { return sP[d * ldk + r] * gt.gmul(d, r); },
               [&](int d, int c) { return sB[d * kLdc + c]; },
               [&](int r, int c, float v) { sC[r * kLdc + c] = v; });
-          if constexpr (PARAMS) {
+          {
             block_mm<2, 2>(k, cw, k,
                 [&](int r, int d) { return op<BF16>(sP[r * ldk + d] * gt.gmul(r, d)); },
                 [&](int d, int c) { return op<BF16>(sA[d * kLdc + c]); },
@@ -474,7 +498,7 @@ __global__ void __launch_bounds__(kThreads) stack_bwd_kernel(StackArgs a) {
               [&](int r, int d) { return sC[r * kLdc + d]; },
               [&](int d, int c) { return __ldg(wv + (size_t)c * h + col + d); },
               [&](int r, int c, float v) { sX[r * ldm + c] += v; });
-          if constexpr (PARAMS) {
+          {
             block_mm<4, 2>(m, cw, k,
                 [&](int r, int d) { return sG[d * ldm + r]; },
                 [&](int d, int c) { return sC[d * kLdc + c]; },
@@ -550,7 +574,7 @@ __global__ void __launch_bounds__(kThreads) stack_bwd_kernel(StackArgs a) {
                               : __ldg(wk + (size_t)c * h + col + d - cw);
               },
               [&](int r, int c, float v) { sX[r * ldm + c] += v; });
-          if constexpr (PARAMS) {
+          {
             block_mm<4, 2>(m, cw, k,
                 [&](int r, int d) { return sG[d * ldm + r]; },
                 [&](int d, int c) { return sC[d * kLdc + c]; },
@@ -580,6 +604,584 @@ __global__ void __launch_bounds__(kThreads) stack_bwd_kernel(StackArgs a) {
     }
     __syncthreads();
   }
+}
+
+// ---------------------------------------------------------------------------
+// Force-path backward (no parameter gradients) over compacted rows.
+//
+// The wrapper gathers each atom's valid slots (ascending slot order) and
+// stacks them, atom after atom, into R rows; atoms run longest first.  Per
+// layer, from the top:
+//   1. QKV = G_l[rows] [Wq | Wk | Wv]          rows_gemm (3 launches)
+//   2. O   = (P o gate) V                      rows_attn_fwd, one CTA/atom
+//   3. X   = G_l[rows] + O Wo                  rows_gemm
+//   4. dg1 = LayerNorm backward of X, D        rows_ln_bwd, one warp/row
+//   5. dO  = dg1 Wo^T                          rows_gemm
+//   6. dQ, dK, dV; gate cotangent -> per row   rows_attn_bwd, one CTA/atom
+//   7. D   = dg1 + [dQ dK dV] [Wq Wk Wv]^T     rows_gemm (scattered to dg at
+//                                              the last layer)
+// ---------------------------------------------------------------------------
+
+constexpr int GBM = 128, GBN = 128, GBK = 8, GST = 3, GLD = GBM + 4;
+constexpr int GTHREADS = 256;
+constexpr int ATT_THREADS = 256;      // the most; 128 for atoms of <= 64
+constexpr int CW = 32;                // head columns per streamed chunk
+constexpr int CLD = CW + 4;           // row stride of a row-major chunk
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <bool BF16>
+__device__ __forceinline__ float4 op4(float4 v) {
+  return make_float4(op<BF16>(v.x), op<BF16>(v.y), op<BF16>(v.z),
+                     op<BF16>(v.w));
+}
+
+// C[r] = A[r] B (+ E[r]) over R rows; A row r at a + a_rows[r] * lda (a_rows
+// null: r * lda), the same for E and C.  B is Kd x N, row-major (b[0], ldb),
+// or with b_trans B(k, n) = b[k / seg][n * ldb + k % seg] (the transposes
+// of up to three matrices stacked along k; seg % GBK == 0).
+struct GemmArgs {
+  const float* a;
+  const long long* a_rows;
+  int lda;
+  const float* b[3];
+  int ldb, seg, b_trans;
+  const float* add;
+  const long long* add_rows;
+  int ld_add;
+  float* c;
+  const long long* c_rows;
+  int ldc;
+  int R, N, Kd;
+};
+
+// 128 x 128 output tile per CTA, 8 x 8 per thread (two 4 x 4 quadrants),
+// depth steps of 8 through a 3-stage cp.async ring; both operands are kept
+// k-major in shared memory so every inner-loop read is a 16-byte load.
+template <bool RND>
+__global__ void __launch_bounds__(GTHREADS) rows_gemm_kernel(GemmArgs g) {
+  __shared__ __align__(16) float As[GST][GBK][GLD];
+  __shared__ __align__(16) float Bs[GST][GBK][GLD];
+  const int m0 = blockIdx.x * GBM, n0 = blockIdx.y * GBN;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+
+  // loader: 4 elements of each operand per thread and stage
+  const float* arow[4];
+  bool aok[4], bok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = tid + GTHREADS * i;
+    const int r = m0 + (e >> 3);
+    aok[i] = r < g.R;
+    arow[i] = aok[i] ? g.a + (g.a_rows ? g.a_rows[r] : (long long)r) * g.lda
+                     : g.a;
+    bok[i] = n0 + (g.b_trans ? e >> 3 : e & (GBN - 1)) < g.N;
+  }
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // step `it` issues the loads of depth tile `it` (stage it % GST) and
+  // computes tile it - (GST - 1)
+  const int KT = (g.Kd + GBK - 1) / GBK;
+  for (int it = 0; it < KT + GST - 1; ++it) {
+    const int ct = it - (GST - 1);
+    if (ct >= 0) {
+      cp_async_wait<GST - 2>();
+      __syncthreads();   // tile ct landed; the stage loaded below is consumed
+    }
+    if (it < KT) {
+      const int k0 = it * GBK, st = it % GST;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = tid + GTHREADS * i;
+        {
+          const int kk = e & 7, r = e >> 3, k = k0 + kk;
+          const bool ok = aok[i] && k < g.Kd;
+          cp_async4(&As[st][kk][r], ok ? arow[i] + k : g.a, ok);
+        }
+        if (g.b_trans) {
+          const int kk = e & 7, nl = e >> 3, k = k0 + kk;
+          // (no dynamic index into the parameter array: that would copy it
+          // to the stack)
+          const int sg = k0 / g.seg;
+          const float* bs = sg == 0 ? g.b[0] : sg == 1 ? g.b[1] : g.b[2];
+          const bool ok = bok[i] && k < g.Kd;
+          const float* src =
+              ok ? bs + (long long)(n0 + nl) * g.ldb + (k - sg * g.seg) : g.b[0];
+          cp_async4(&Bs[st][kk][nl], src, ok);
+        } else {
+          const int kk = e >> 7, nl = e & (GBN - 1), k = k0 + kk;
+          const bool ok = bok[i] && k < g.Kd;
+          cp_async4(&Bs[st][kk][nl],
+                    ok ? g.b[0] + (long long)k * g.ldb + n0 + nl : g.b[0], ok);
+        }
+      }
+    }
+    cp_async_commit();
+    if (ct < 0) continue;
+    const int st = ct % GST;
+#pragma unroll
+    for (int kk = 0; kk < GBK; ++kk) {
+      float4 a0 = *reinterpret_cast<const float4*>(&As[st][kk][ty * 4]);
+      float4 a1 = *reinterpret_cast<const float4*>(&As[st][kk][64 + ty * 4]);
+      float4 b0 = *reinterpret_cast<const float4*>(&Bs[st][kk][tx * 4]);
+      float4 b1 = *reinterpret_cast<const float4*>(&Bs[st][kk][64 + tx * 4]);
+      a0 = op4<RND>(a0);
+      a1 = op4<RND>(a1);
+      b0 = op4<RND>(b0);
+      b1 = op4<RND>(b1);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (r >= g.R) continue;
+    float* crow = g.c + (g.c_rows ? g.c_rows[r] : (long long)r) * g.ldc;
+    const float* erow =
+        g.add ? g.add + (g.add_rows ? g.add_rows[r] : (long long)r) * g.ld_add
+              : nullptr;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * 64 + tx * 4;
+      if (n >= g.N) continue;
+      float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                             acc[i][4 * h + 3]);
+      if (erow) {
+        const float4 e = *reinterpret_cast<const float4*>(erow + n);
+        v = make_float4(e.x + v.x, e.y + v.y, e.z + v.z, e.w + v.w);
+      }
+      *reinterpret_cast<float4*>(crow + n) = v;
+    }
+  }
+}
+
+// C (rows x cols) = A B with A stored k-major (at[d * lda + r]) and B
+// row-major (b[d * ldb + c]): 4 x 4 register tiles, 16-byte shared loads.
+// rows and cols are multiples of 4; epi(r0, c0, acc) stores a tile.
+template <bool RND, class Epi>
+__device__ __forceinline__ void mm44(int rows, int cols, int depth,
+                                     const float* at, int lda, const float* b,
+                                     int ldb, Epi epi) {
+  const int tc = cols >> 2, tiles = (rows >> 2) * tc;
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
+    const int r0 = (t / tc) * 4, c0 = (t % tc) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    const float* pa = at + r0;
+    const float* pb = b + c0;
+#pragma unroll 4
+    for (int d = 0; d < depth; ++d) {
+      const float4 a = op4<RND>(*reinterpret_cast<const float4*>(pa + d * lda));
+      const float4 bb = op4<RND>(*reinterpret_cast<const float4*>(pb + d * ldb));
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    epi(r0, c0, acc);
+  }
+}
+
+// Shared memory of the per-atom attention kernels for atoms of at most
+// n_max valid neighbours: two n x n tiles, two column chunks, ten vectors.
+__host__ __device__ inline int rows_np(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline size_t rows_attn_floats(int n_max) {
+  const size_t np = rows_np(n_max), ldn = np + 4;
+  const size_t chunk = CW * ldn > np * CLD ? CW * ldn : np * CLD;
+  return 2 * np * ldn + 2 * chunk + 10 * np;
+}
+
+struct RowsArgs {
+  const float *rx, *ry, *rz, *sw, *mask;   // (N, K) planes
+  const long long* rows;                   // flat slot of each stacked row
+  const long long* start;                  // first stacked row of each atom
+  const long long* count;                  // valid slots of each atom
+  long long r0;                            // stacked row of this pass's row 0
+  const float* qkv;                        // (R, 3H): Q | K | V
+  const float* dO;                         // (R, H)
+  float* out;                              // O (R, H) or dQKV (R, 3H)
+  float* gacc;                             // (R, 4): drx dry drz dsw so far
+  float *drx, *dry, *drz, *dsw;            // (N, K), written at the last layer
+  int h, heads, ldn, first, last;
+  float scale;
+};
+
+// Per-atom set-up: geometry of the valid slots into shared memory.
+struct AtomTiles {
+  float *t1, *t2, *c1, *c2, *rx, *ry, *rz, *sw, *mk, *acc;
+  int n, np;
+  long long base;   // stacked row of the atom's first slot in this pass
+};
+
+__device__ __forceinline__ AtomTiles atom_setup(const RowsArgs& a,
+                                                float* smem, int n_max_ldn) {
+  AtomTiles t;
+  const int atom = blockIdx.x;
+  t.n = (int)a.count[atom];
+  t.np = rows_np(t.n);
+  t.base = a.start[atom] - a.r0;
+  const int ldn = n_max_ldn, np_max = ldn - 4;
+  const size_t chunk = (size_t)CW * ldn > (size_t)np_max * CLD
+                           ? (size_t)CW * ldn : (size_t)np_max * CLD;
+  t.t1 = smem;
+  t.t2 = t.t1 + (size_t)np_max * ldn;
+  t.c1 = t.t2 + (size_t)np_max * ldn;
+  t.c2 = t.c1 + chunk;
+  t.rx = t.c2 + chunk;
+  t.ry = t.rx + np_max;
+  t.rz = t.ry + np_max;
+  t.sw = t.rz + np_max;
+  t.mk = t.sw + np_max;
+  t.acc = t.mk + np_max;    // 4 x np_max, then 1 x np_max spare
+  for (int i = threadIdx.x; i < t.np; i += blockDim.x) {
+    float x = 0.f, y = 0.f, z = 0.f, s = 0.f, m = 0.f;
+    if (i < t.n) {
+      const long long slot = a.rows[t.base + i];
+      x = a.rx[slot]; y = a.ry[slot]; z = a.rz[slot];
+      s = a.sw[slot]; m = a.mask[slot];
+    }
+    t.rx[i] = x; t.ry[i] = y; t.rz[i] = z; t.sw[i] = s; t.mk[i] = m;
+  }
+  return t;
+}
+
+// gmul of the reference: (r_i . r_j) (sw_i sw_j) (mask_i mask_j)
+__device__ __forceinline__ float gmul_at(const AtomTiles& t, int i, int j) {
+  const float gate = t.rx[i] * t.rx[j] + t.ry[i] * t.ry[j] + t.rz[i] * t.rz[j];
+  return gate * (t.sw[i] * t.sw[j]) * (t.mk[i] * t.mk[j]);
+}
+
+// chunk of cw columns of the stacked (R, ld) matrix src, starting at col:
+// transposed (dst[d * ldn + i]) or row-major (dst[i * CLD + d]); rows
+// n..np-1 are zero.  cw is a multiple of 4.
+template <bool BF16>
+__device__ __forceinline__ void load_chunk_t(float* dst, int ldn,
+                                             const float* src, int ld,
+                                             const AtomTiles& t, int col,
+                                             int cw) {
+  const int q4 = cw >> 2;
+  for (int e = threadIdx.x; e < t.np * q4; e += blockDim.x) {
+    const int i = e % t.np, d = (e / t.np) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < t.n)
+      v = op4<BF16>(*reinterpret_cast<const float4*>(
+          src + (t.base + i) * ld + col + d));
+    dst[d * ldn + i] = v.x;
+    dst[(d + 1) * ldn + i] = v.y;
+    dst[(d + 2) * ldn + i] = v.z;
+    dst[(d + 3) * ldn + i] = v.w;
+  }
+}
+template <bool BF16>
+__device__ __forceinline__ void load_chunk(float* dst, const float* src,
+                                           int ld, const AtomTiles& t,
+                                           int col, int cw) {
+  const int q4 = cw >> 2;
+  for (int e = threadIdx.x; e < t.np * q4; e += blockDim.x) {
+    const int i = e / q4, d = (e % q4) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < t.n)
+      v = op4<BF16>(*reinterpret_cast<const float4*>(
+          src + (t.base + i) * ld + col + d));
+    *reinterpret_cast<float4*>(dst + i * CLD + d) = v;
+  }
+}
+
+// t1 <- P = softmax_j(scale * Q_h K_h^T) over the atom's n valid slots
+// (rows and columns n..np-1 of P are zero).  Ends with a barrier.
+template <bool BF16>
+__device__ void rows_scores(const RowsArgs& a, const AtomTiles& t, int col0,
+                            int hd) {
+  const int ldn = a.ldn, ld = 3 * a.h;
+  for (int c0 = 0; c0 < hd; c0 += CW) {
+    const int cw = min(CW, hd - c0);
+    __syncthreads();
+    load_chunk_t<BF16>(t.c1, ldn, a.qkv, ld, t, col0 + c0, cw);
+    load_chunk_t<BF16>(t.c2, ldn, a.qkv, ld, t, a.h + col0 + c0, cw);
+    __syncthreads();
+    mm44<false>(t.np, t.np, cw, t.c1, ldn, t.c2, ldn,
+                [&](int r0, int cc0, const float (&acc)[4][4]) {
+                  for (int i = 0; i < 4; ++i) {
+                    float4* p = reinterpret_cast<float4*>(t.t1 + (r0 + i) * ldn + cc0);
+                    float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+                    if (c0 > 0) {
+                      const float4 o = *p;
+                      v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+                    }
+                    *p = v;
+                  }
+                });
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  for (int i = warp; i < t.np; i += nw) {
+    float* row = t.t1 + i * ldn;
+    if (i >= t.n) {
+      for (int j = lane; j < t.np; j += 32) row[j] = 0.f;
+      continue;
+    }
+    float mx = -FLT_MAX;
+    for (int j = lane; j < t.n; j += 32) mx = fmaxf(mx, row[j] * a.scale);
+    mx = warp_max(mx);
+    float s = 0.f;
+    for (int j = lane; j < t.n; j += 32) {
+      const float e = expf(row[j] * a.scale - mx);
+      row[j] = e;
+      s += e;
+    }
+    s = warp_sum(s);
+    for (int j = lane; j < t.np; j += 32) row[j] = j < t.n ? row[j] / s : 0.f;
+  }
+  __syncthreads();
+}
+
+// O = (P o gmul) V, head by head, for one atom (step 2).
+template <bool BF16>
+__global__ void __launch_bounds__(ATT_THREADS) rows_attn_fwd_kernel(RowsArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const AtomTiles t = atom_setup(a, smem, a.ldn);
+  const int ldn = a.ldn, hd = a.h / a.heads, ld = 3 * a.h;
+  for (int hh = 0; hh < a.heads; ++hh) {
+    const int col0 = hh * hd;
+    rows_scores<BF16>(a, t, col0, hd);
+    // t2 <- W^T, W = P o gmul (the A operand of O = W V, k-major)
+    for (int e = threadIdx.x; e < t.np * t.np; e += blockDim.x) {
+      const int i = e / t.np, j = e % t.np;
+      t.t2[j * ldn + i] = op<BF16>(t.t1[i * ldn + j] * gmul_at(t, i, j));
+    }
+    for (int c0 = 0; c0 < hd; c0 += CW) {
+      const int cw = min(CW, hd - c0);
+      __syncthreads();
+      load_chunk<BF16>(t.c1, a.qkv, ld, t, 2 * a.h + col0 + c0, cw);
+      __syncthreads();
+      mm44<false>(t.np, cw, t.n, t.t2, ldn, t.c1, CLD,
+                  [&](int r0, int cc0, const float (&acc)[4][4]) {
+                    for (int i = 0; i < 4; ++i) {
+                      if (r0 + i >= t.n) break;
+                      *reinterpret_cast<float4*>(
+                          a.out + (t.base + r0 + i) * a.h + col0 + c0 + cc0) =
+                          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+                    }
+                  });
+    }
+  }
+}
+
+// dQ, dK, dV and the gate cotangent of one atom (step 6).
+template <bool BF16>
+__global__ void __launch_bounds__(ATT_THREADS) rows_attn_bwd_kernel(RowsArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const AtomTiles t = atom_setup(a, smem, a.ldn);
+  const int ldn = a.ldn, hd = a.h / a.heads, ld = 3 * a.h, h = a.h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  for (int i = threadIdx.x; i < 4 * t.np; i += blockDim.x) t.acc[i] = 0.f;
+  auto store = [&](int col) {
+    return [&, col](int r0, int cc0, const float (&acc)[4][4]) {
+      for (int i = 0; i < 4; ++i) {
+        if (r0 + i >= t.n) break;
+        *reinterpret_cast<float4*>(a.out + (t.base + r0 + i) * ld + col + cc0) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+    };
+  };
+  for (int hh = 0; hh < a.heads; ++hh) {
+    const int col0 = hh * hd;
+    rows_scores<BF16>(a, t, col0, hd);              // t1 = P
+    for (int e = threadIdx.x; e < t.np * t.np; e += blockDim.x) {
+      const int i = e / t.np, j = e % t.np;         // t2 = W = P o gmul
+      t.t2[i * ldn + j] = t.t1[i * ldn + j] * gmul_at(t, i, j);
+    }
+    // dV_c = W^T dO_c
+    for (int c0 = 0; c0 < hd; c0 += CW) {
+      const int cw = min(CW, hd - c0);
+      __syncthreads();
+      load_chunk<false>(t.c1, a.dO, h, t, col0 + c0, cw);
+      __syncthreads();
+      mm44<false>(t.np, cw, t.n, t.t2, ldn, t.c1, CLD,
+                  store(2 * h + col0 + c0));
+    }
+    // t2 = dW = dO V^T
+    for (int c0 = 0; c0 < hd; c0 += CW) {
+      const int cw = min(CW, hd - c0);
+      __syncthreads();
+      load_chunk_t<false>(t.c1, ldn, a.dO, h, t, col0 + c0, cw);
+      load_chunk_t<false>(t.c2, ldn, a.qkv, ld, t, 2 * h + col0 + c0, cw);
+      __syncthreads();
+      mm44<false>(t.np, t.np, cw, t.c1, ldn, t.c2, ldn,
+                  [&](int r0, int cc0, const float (&acc)[4][4]) {
+                    for (int i = 0; i < 4; ++i) {
+                      float4* p = reinterpret_cast<float4*>(t.t2 + (r0 + i) * ldn + cc0);
+                      float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+                      if (c0 > 0) {
+                        const float4 o = *p;
+                        v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+                      }
+                      *p = v;
+                    }
+                  });
+    }
+    __syncthreads();
+    // softmax backward: t1 <- ds = P (dW gmul - sum_j dW gmul P) scale,
+    // t2 <- dgmul = dW P (zero outside the n x n block)
+    for (int i = warp; i < t.np; i += nw) {
+      float* pr = t.t1 + i * ldn;
+      float* wr = t.t2 + i * ldn;
+      float dot = 0.f;
+      for (int j = lane; j < t.n; j += 32) dot += wr[j] * gmul_at(t, i, j) * pr[j];
+      dot = warp_sum(dot);
+      for (int j = lane; j < t.np; j += 32) {
+        const float dw = wr[j], p = pr[j];
+        pr[j] = p * (dw * gmul_at(t, i, j) - dot) * a.scale;
+        wr[j] = dw * p;
+      }
+    }
+    __syncthreads();
+    // gate expansion of this head's dgmul onto dr_hat and dsw
+    for (int i = threadIdx.x; i < t.n; i += blockDim.x) {
+      float ax = 0.f, ay = 0.f, az = 0.f, as = 0.f;
+      for (int j = 0; j < t.n; ++j) {
+        const float mm = t.mk[i] * t.mk[j];
+        const float swsw = t.sw[i] * t.sw[j];
+        const float gg = t.t2[i * ldn + j] + t.t2[j * ldn + i];
+        const float sym = gg * swsw * mm;
+        ax += sym * t.rx[j];
+        ay += sym * t.ry[j];
+        az += sym * t.rz[j];
+        const float gate = t.rx[i] * t.rx[j] + t.ry[i] * t.ry[j] + t.rz[i] * t.rz[j];
+        as += gg * gate * mm * t.sw[j];
+      }
+      t.acc[i] += ax;
+      t.acc[t.np + i] += ay;
+      t.acc[2 * t.np + i] += az;
+      t.acc[3 * t.np + i] += as;
+    }
+    __syncthreads();
+    // t2 <- ds^T
+    for (int e = threadIdx.x; e < t.np * t.np; e += blockDim.x) {
+      const int i = e / t.np, j = e % t.np;
+      t.t2[j * ldn + i] = t.t1[i * ldn + j];
+    }
+    // dQ_c = ds K_c, dK_c = ds^T Q_c
+    for (int c0 = 0; c0 < hd; c0 += CW) {
+      const int cw = min(CW, hd - c0);
+      __syncthreads();
+      load_chunk<false>(t.c1, a.qkv, ld, t, h + col0 + c0, cw);
+      load_chunk<false>(t.c2, a.qkv, ld, t, col0 + c0, cw);
+      __syncthreads();
+      mm44<false>(t.np, cw, t.n, t.t2, ldn, t.c1, CLD, store(col0 + c0));
+      mm44<false>(t.np, cw, t.n, t.t1, ldn, t.c2, CLD, store(h + col0 + c0));
+    }
+    __syncthreads();
+  }
+  // gate cotangent: summed over layers per stacked row, written to the
+  // (N, K) planes at the last layer
+  for (int i = threadIdx.x; i < t.n; i += blockDim.x) {
+    const long long r = t.base + i;
+    float v[4];
+    for (int q = 0; q < 4; ++q)
+      v[q] = t.acc[q * t.np + i] + (a.first ? 0.f : a.gacc[r * 4 + q]);
+    if (a.last) {
+      const long long slot = a.rows[r];
+      a.drx[slot] = v[0];
+      a.dry[slot] = v[1];
+      a.drz[slot] = v[2];
+      a.dsw[slot] = v[3];
+    } else {
+      for (int q = 0; q < 4; ++q) a.gacc[r * 4 + q] = v[q];
+    }
+  }
+}
+
+// x <- dg1 = LayerNorm backward of the pre-norm rows x (step 4), one warp
+// per row; the cotangent is d[r] (or dout at the slot, at the top layer)
+// times the row's mask.
+__global__ void __launch_bounds__(128) rows_ln_bwd_kernel(
+    float* __restrict__ x, const float* __restrict__ d,
+    const float* __restrict__ dout, const long long* __restrict__ rows,
+    const float* __restrict__ mask, const float* __restrict__ gamma, int R,
+    int m) {
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (r >= R) return;
+  float* xr = x + r * m;
+  const long long slot = rows[r];
+  const float* dr = dout ? dout + slot * m : d + r * m;
+  const float mk = mask[slot];
+  float s = 0.f;
+  for (int j = lane; j < m; j += 32) s += xr[j];
+  const float mu = warp_sum(s) / m;
+  float v = 0.f;
+  for (int j = lane; j < m; j += 32) {
+    const float c = xr[j] - mu;
+    v += c * c;
+  }
+  const float inv = rsqrtf(warp_sum(v) / m + kLnEps);
+  float s1 = 0.f, s2 = 0.f;
+  for (int j = lane; j < m; j += 32) {
+    const float dxh = dr[j] * mk * gamma[j];
+    s1 += dxh;
+    s2 += dxh * (xr[j] - mu) * inv;
+  }
+  const float mean1 = warp_sum(s1) / m, mean2 = warp_sum(s2) / m;
+  for (int j = lane; j < m; j += 32) {
+    const float xhat = (xr[j] - mu) * inv;
+    const float dxh = dr[j] * mk * gamma[j];
+    xr[j] = inv * (dxh - mean1 - xhat * mean2);
+  }
+}
+
+int rows_gemm(const GemmArgs& g, bool rnd, cudaStream_t s) {
+  if (g.R == 0) return 0;
+  dim3 grid((unsigned)((g.R + GBM - 1) / GBM), (unsigned)((g.N + GBN - 1) / GBN));
+  if (rnd)
+    rows_gemm_kernel<true><<<grid, GTHREADS, 0, s>>>(g);
+  else
+    rows_gemm_kernel<false><<<grid, GTHREADS, 0, s>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// one CTA per atom: 128 threads while the pass's longest atom has at most
+// 64 valid slots (several CTAs per SM), else 256
+template <class Kern>
+int launch_rows_attn(Kern kern, int n_atoms, int n_max, size_t smem,
+                     cudaStream_t s, const RowsArgs& a) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = n_max > 64 ? ATT_THREADS : ATT_THREADS / 2;
+  kern<<<n_atoms, threads, smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // out[i] = sum over blocks b (in order) of part[b * size + i]
@@ -612,7 +1214,6 @@ extern "C" {
 size_t nbr_attn_fwd_smem(int k, int m) { return sizeof(float) * fwd_floats(k, m); }
 size_t nbr_attn_bwd_smem(int k, int m) { return sizeof(float) * bwd_floats(k, m); }
 size_t nbr_attn_bwd_gmem_smem(int k, int m) { return sizeof(float) * bwd_gmem_floats(k); }
-int nbr_attn_chunk() { return kChunk; }
 // every kernel library exports this name (loaded RTLD_LOCAL, one each)
 const char* error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
@@ -635,6 +1236,8 @@ int nbr_attn_fwd(const float* g, const float* rx, const float* ry,
   return launch(kern, n, smem, (cudaStream_t)stream, a);
 }
 
+// the parameter-gradient backward (the shared-memory instance, or with ws
+// the device-workspace one over a persistent grid of nblk CTAs)
 int nbr_attn_bwd(const float* stash, const float* rx, const float* ry,
                  const float* rz, const float* sw, const float* mask,
                  const float* wq, const float* wk, const float* wv,
@@ -652,35 +1255,21 @@ int nbr_attn_bwd(const float* stash, const float* rx, const float* ry,
   a.n = n; a.k = k; a.m = m; a.h = h; a.layers = layers; a.heads = heads;
   a.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
   if (ws) {
-    // persistent grid: nblk CTAs, one workspace slot each
-    const size_t smem = nbr_attn_bwd_gmem_smem(k, m);
-    if (part) {
-      auto kern = bf16 ? &stack_bwd_kernel<true, true, true>
-                       : &stack_bwd_kernel<false, true, true>;
-      return launch(kern, nblk, smem, s, a);
-    }
-    auto kern = bf16 ? &stack_bwd_kernel<true, false, true>
-                     : &stack_bwd_kernel<false, false, true>;
-    return launch(kern, nblk, smem, s, a);
-  }
-  const size_t smem = nbr_attn_bwd_smem(k, m);
-  if (part) {
     auto kern = bf16 ? &stack_bwd_kernel<true, true> : &stack_bwd_kernel<false, true>;
-    return launch(kern, nblk, smem, s, a);
+    return launch(kern, nblk, nbr_attn_bwd_gmem_smem(k, m), s, a);
   }
-  auto kern = bf16 ? &stack_bwd_kernel<true, false> : &stack_bwd_kernel<false, false>;
-  return launch(kern, n, smem, s, a);
+  auto kern = bf16 ? &stack_bwd_kernel<true> : &stack_bwd_kernel<false>;
+  return launch(kern, nblk, nbr_attn_bwd_smem(k, m), s, a);
 }
 
-// CTAs of the GMEM backward that are resident at once (SMs x blocks per SM):
-// its persistent grid and the number of workspace slots; <= 0 on error
-int nbr_attn_bwd_gmem_blocks(int k, int m, int params, int bf16) {
+// CTAs of the parameter-gradient GMEM backward that are resident at once
+// (SMs x blocks per SM): its persistent grid and the number of workspace
+// slots; <= 0 on error
+int nbr_attn_bwd_gmem_blocks(int k, int m, int bf16) {
   const size_t smem = nbr_attn_bwd_gmem_smem(k, m);
-  auto kern = params ? (bf16 ? &stack_bwd_kernel<true, true, true>
-                             : &stack_bwd_kernel<false, true, true>)
-                     : (bf16 ? &stack_bwd_kernel<true, false, true>
-                             : &stack_bwd_kernel<false, false, true>);
+  auto kern = bf16 ? &stack_bwd_kernel<true, true> : &stack_bwd_kernel<false, true>;
   if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)
     return -1;
@@ -703,6 +1292,100 @@ int nbr_attn_reduce(const float* part, float* out, int nblk, long long size,
   reduce_partials_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
       part, out, nblk, size);
   return (int)cudaGetLastError();
+}
+
+// The force-path backward over one pass of stacked rows (see rows_gemm and
+// the per-atom kernels above).  rows (R,): flat slot (atom * K + slot) of
+// each stacked row; start/count (A,): first stacked row (relative to r0 via
+// start - r0) and valid slots of each atom of the pass, longest first;
+// n_max: the pass's largest count.  Scratch: qkv and dqkv (R, 3H), ob (R, H),
+// xb and db (R, M), gacc (R, 4).  dg, drx, dry, drz, dsw must hold zeros at
+// the masked slots (the wrapper allocates them zeroed); their valid slots
+// are written here.
+int nbr_attn_bwd_rows(const float* stash, const float* rx, const float* ry,
+                      const float* rz, const float* sw, const float* mask,
+                      const float* wq, const float* wk, const float* wv,
+                      const float* wo, const float* gamma, const float* dout,
+                      float* dg, float* drx, float* dry, float* drz,
+                      float* dsw, const long long* rows,
+                      const long long* start, const long long* count,
+                      long long r0, int n_atoms, int n_rows, int n_max,
+                      float* qkv, float* ob, float* xb, float* db,
+                      float* dqkv, float* gacc, int n, int k, int m, int h,
+                      int layers, int heads, int bf16, float scale,
+                      void* stream) {
+  cudaGetLastError();  // clear an error left by earlier, unrelated work
+  if (n_rows == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t mh = (size_t)m * h, nkm = (size_t)n * k * m;
+  const size_t smem = sizeof(float) * rows_attn_floats(n_max);
+  RowsArgs ra{};
+  ra.rx = rx; ra.ry = ry; ra.rz = rz; ra.sw = sw; ra.mask = mask;
+  ra.rows = rows; ra.start = start; ra.count = count; ra.r0 = r0;
+  ra.qkv = qkv; ra.gacc = gacc;
+  ra.drx = drx; ra.dry = dry; ra.drz = drz; ra.dsw = dsw;
+  ra.h = h; ra.heads = heads; ra.ldn = rows_np(n_max) + 4; ra.scale = scale;
+  auto fwd = bf16 ? &rows_attn_fwd_kernel<true> : &rows_attn_fwd_kernel<false>;
+  auto bwd = bf16 ? &rows_attn_bwd_kernel<true> : &rows_attn_bwd_kernel<false>;
+  int e = 0;
+#define RET_IF(x) if ((e = (x)) != 0) return e
+  for (int l = layers - 1; l >= 0; --l) {
+    const float* st = stash + l * nkm;
+    const float* w3[3] = {wq + l * mh, wk + l * mh, wv + l * mh};
+    const float* wol = wo + l * mh;
+    GemmArgs g{};
+    // 1. QKV = G[rows] W_{q,k,v}
+    for (int p = 0; p < 3; ++p) {
+      g = GemmArgs{};
+      g.a = st; g.a_rows = rows; g.lda = m;
+      g.b[0] = w3[p]; g.ldb = h; g.seg = m; g.b_trans = 0;
+      g.c = qkv + p * h; g.ldc = 3 * h;
+      g.R = n_rows; g.N = h; g.Kd = m;
+      RET_IF(rows_gemm(g, bf16, s));
+    }
+    // 2. O = (P o gmul) V
+    ra.out = ob; ra.dO = nullptr; ra.first = ra.last = 0;
+    RET_IF(launch_rows_attn(fwd, n_atoms, n_max, smem, s, ra));
+    // 3. X = G[rows] + O Wo
+    g = GemmArgs{};
+    g.a = ob; g.lda = h;
+    g.b[0] = wol; g.ldb = m; g.seg = h; g.b_trans = 0;
+    g.add = st; g.add_rows = rows; g.ld_add = m;
+    g.c = xb; g.ldc = m;
+    g.R = n_rows; g.N = m; g.Kd = h;
+    RET_IF(rows_gemm(g, bf16, s));
+    // 4. X <- dg1
+    rows_ln_bwd_kernel<<<(n_rows + 3) / 4, 128, 0, s>>>(
+        xb, db, l == layers - 1 ? dout : nullptr, rows, mask, gamma + l * m,
+        n_rows, m);
+    RET_IF((int)cudaGetLastError());
+    // 5. dO = dg1 Wo^T
+    g = GemmArgs{};
+    g.a = xb; g.lda = m;
+    g.b[0] = wol; g.ldb = m; g.seg = m; g.b_trans = 1;
+    g.c = ob; g.ldc = h;
+    g.R = n_rows; g.N = h; g.Kd = m;
+    RET_IF(rows_gemm(g, false, s));
+    // 6. dQ, dK, dV and the gate cotangent
+    ra.out = dqkv; ra.dO = ob;
+    ra.first = l == layers - 1; ra.last = l == 0;
+    RET_IF(launch_rows_attn(bwd, n_atoms, n_max, smem, s, ra));
+    // 7. D = dg1 + [dQ dK dV] [Wq Wk Wv]^T (to dg at the slots, last layer)
+    g = GemmArgs{};
+    g.a = dqkv; g.lda = 3 * h;
+    g.b[0] = w3[0]; g.b[1] = w3[1]; g.b[2] = w3[2];
+    g.ldb = h; g.seg = h; g.b_trans = 1;
+    g.add = xb; g.ld_add = m;
+    g.c = l == 0 ? dg : db; g.c_rows = l == 0 ? rows : nullptr; g.ldc = m;
+    g.R = n_rows; g.N = m; g.Kd = 3 * h;
+    RET_IF(rows_gemm(g, false, s));
+  }
+#undef RET_IF
+  return 0;
+}
+
+size_t nbr_attn_bwd_rows_smem(int n_max) {
+  return sizeof(float) * rows_attn_floats(n_max);
 }
 
 }  // extern "C"

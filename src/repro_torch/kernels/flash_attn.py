@@ -5,7 +5,9 @@ Replaces the Pallas ``repro/kernels/flash_attn.py::_flash_kernel``
 (``flash_attention``).  The kernel is CUDA C++ for ``sm_90a`` in
 ``csrc/flash_attn.cu`` (built by :mod:`repro_torch.kernels.build`, bound
 with ctypes); that file's header says what bounds it on the H100 and what
-its design does about it.  The plain version is
+its design does about it: bf16 calls with more than 16 query rows per
+KV head (prefill) run on the tensor cores (``mma.sync``, P rounded to bf16
+in registers), decode and fp32 calls on fp32 FMAs.  The plain version is
 :func:`~repro_torch.kernels.ref.attention_ref`.  Forward only, as the TPU
 kernel is.
 

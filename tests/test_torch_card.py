@@ -9,11 +9,20 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   and device-workspace instances) against its plain version: forward atol
   1e-4 x max|out|, backward atol 1e-4 x max|grad| per output, parameter
   gradients included;
+* the force-path attention backward (no parameter gradients; compacted
+  rows) at K = 64, 82 and 128 with atoms of 0, 1 and K valid slots and a
+  non-prefix mask in one batch: atol 1e-4 x max|grad| per output (fp32;
+  2e-2 with bf16 operands, as the forward's bf16 gate), exact zeros at the
+  masked slots, the same bits on a repeat;
 * ``flash_attention`` against its plain version (the five cases of the
   reference's flash tests, unmasked keys past a ragged Sk, decode against a
-  cache view, every head dimension the kernel has): atol 1e-4 x max|plain|
-  in fp32, 1e-2 x max|plain| in bf16 (the output is rounded to bf16 on both
-  sides); a repeated call gives the same bits.
+  cache view, every head dimension the kernel has; in bf16 also the tensor-
+  core prefill's edges: GQA groups 1, 2 and 8, Sq off the 64-row tile,
+  Sk < Sq off the 64-key block, rows with no visible key, a strided cache
+  view): atol 1e-4 x max|plain| in fp32, 1e-2 x max|plain| in bf16 (the
+  output is rounded to bf16 on both sides, and the bf16 kernel rounds the
+  probabilities to bf16 for the PV product); a repeated call gives the
+  same bits.
 """
 import numpy as np
 import pytest
@@ -95,6 +104,45 @@ def test_attention_stack_on_card_up_to_k128(card, k):
     assert nbr_attn.uses_workspace(k, m) == (k > 89)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,heads,dtype", [
+    (64, 1, "float32"), (82, 1, "float32"), (128, 1, "float32"),
+    (82, 2, "float32"), (82, 1, "bfloat16")])
+def test_force_path_backward_on_compacted_rows(card, k, heads, dtype):
+    gen = torch.Generator(device=card).manual_seed(k + heads)
+    rnd = lambda *s: torch.randn(*s, device=card, generator=gen)
+    n, m, h, layers = 40, 128, 256, 3
+    rx, ry, rz = (0.5 * rnd(n, k) for _ in range(3))
+    sw = torch.rand(n, k, device=card, generator=gen)
+    mask = (torch.rand(n, k, device=card, generator=gen) < 0.4).float()
+    mask[0] = 0.0                     # no valid neighbour
+    mask[1] = 0.0
+    mask[1, k // 2] = 1.0             # one, mid-row
+    mask[2] = 1.0                     # all K valid
+    weights = [0.05 * rnd(layers, m, h) for _ in range(3)]
+    weights += [0.05 * rnd(layers, h, m), 1 + 0.1 * rnd(layers, m),
+                0.1 * rnd(layers, m)]
+    args = [rnd(n, k, m), rx, ry, rz, sw, mask, *weights]
+    opts = dict(heads=heads, compute_dtype=dtype)
+    _, stash = ref.nbr_attention_stack_ref(*args, stash=True, **opts)
+    dout = rnd(n, k, m)
+    before = nbr_attn.nbr_attention_stack_bwd.launches
+    got = nbr_attn.nbr_attention_stack_bwd(stash, *args[1:], dout,
+                                           param_grads=False, **opts)
+    assert nbr_attn.nbr_attention_stack_bwd.launches == before + 1
+    assert all(p is None for p in got[5:])
+    exp = ref.nbr_attention_stack_bwd_ref(stash, *args[1:], dout, **opts)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    again = nbr_attn.nbr_attention_stack_bwd(stash, *args[1:], dout,
+                                             param_grads=False, **opts)
+    masked = mask == 0
+    for a, b, c in zip(got[:5], exp[:5], again[:5]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=tol * float(b.abs().max()))
+        assert not bool(a[masked].any())
+        assert torch.equal(a, c)
+
+
 FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal, window, cap, off
     (2, 4, 2, 128, 128, 64, True, 0, 0.0, 0),
     (1, 8, 2, 200, 200, 64, True, 128, 30.0, 0),
@@ -143,5 +191,50 @@ def test_flash_attention_reads_a_cache_view(card):
     q = torch.randn(2, 8, 1, 256, device=card, generator=gen).to(torch.bfloat16)
     got = flash_attn.flash_attention(q, k, v, True, 128, 50.0, 300)
     want = ref.attention_ref(q, k, v, True, 128, 50.0, 300)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=1e-2 * float(want.float().abs().max()))
+
+
+BF16_PREFILL_CASES = [  # b, hq, hkv, sq, sk, d, causal, window, cap, off
+    (2, 4, 4, 100, 100, 64, True, 0, 0.0, 0),       # group 1, Sq off the tile
+    (1, 8, 4, 130, 70, 128, False, 0, 50.0, 0),     # group 2, Sk < Sq, ragged
+    (1, 8, 1, 75, 75, 256, True, 40, 50.0, 0),      # group 8, window, softcap
+    (2, 4, 2, 33, 200, 256, True, 0, 0.0, 150),     # q_offset
+    (1, 4, 2, 64, 50, 64, True, 20, 0.0, 40),       # rows with no visible key
+    (1, 16, 2, 257, 300, 128, True, 96, 30.0, 43),  # group 8, all at once
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,cap,off",
+                         BF16_PREFILL_CASES)
+def test_flash_attention_bf16_tensor_core_prefill(card, b, hq, hkv, sq, sk,
+                                                  d, causal, window, cap,
+                                                  off):
+    gen = torch.Generator(device=card).manual_seed(sq * sk + d)
+    rnd = lambda *s: torch.randn(*s, device=card, generator=gen).to(
+        torch.bfloat16)
+    q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d)
+    got = flash_attn.flash_attention(q, k, v, causal, window, cap, off)
+    want = ref.attention_ref(q, k, v, causal, window, cap, off)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=1e-2 * float(want.float().abs().max()))
+    vis = ref.attention_visible(sq, sk, causal, window, off, card).any(1)
+    assert not bool(got[:, :, ~vis].any())        # no visible key: exactly 0
+    assert torch.equal(got, flash_attn.flash_attention(q, k, v, causal,
+                                                       window, cap, off))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_prefill_reads_a_cache_view(card):
+    gen = torch.Generator(device=card).manual_seed(11)
+    cache = torch.randn(2, 2, 4, 512, 128, device=card, generator=gen)
+    cache = cache.to(torch.bfloat16)      # {k, v} x (B, Hkv, S_max, D)
+    k, v = cache[0, :, :, :200], cache[1, :, :, :200]
+    assert not k.is_contiguous()
+    q = torch.randn(2, 8, 96, 128, device=card, generator=gen)
+    q = q.to(torch.bfloat16)
+    got = flash_attn.flash_attention(q, k, v, True, 64, 50.0, 104)
+    want = ref.attention_ref(q, k, v, True, 64, 50.0, 104)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=1e-2 * float(want.float().abs().max()))
