@@ -15,8 +15,10 @@ atoms at 30 atoms/nm^3, and phase 5 on gemma2-2b:
    PyTorch versions on the card, at the shapes and on the data the force
    path gives them (N = 15,668 atoms; K = 64, 82, and K = 128 from the MD
    cutoff r_c = 0.8 with sel 128), with timings (median of 10 runs, CUDA
-   events, L2 flushed before each run); the force-path backward also
-   repeated bit for bit and held to exact zeros at the masked slots;
+   events, L2 flushed before each run); the forward and the force-path
+   backward (both on compacted rows) also held to exact zeros at the
+   masked slots and repeated bit for bit, the forward also split into
+   passes of 2^16 rows bit for bit;
 2. path parity: the single-domain provider on the card against the port on
    the CPU at 2,048 atoms, and one launch of each of its kernels per call;
 3. requests: ``DeepmdForceProvider(skin=0.05).compute`` on one domain of the
@@ -28,7 +30,8 @@ atoms at 30 atoms/nm^3, and phase 5 on gemma2-2b:
    on pairs placed at the cutoff), the four model kernels against their
    plain versions on the exact tensors one DD evaluate gives them (all
    ranks' capacity rows, fully masked padding rows included; the attention
-   stack in row chunks), cells == dense and stale == fresh bit for bit,
+   stack in row chunks, its stash on the valid rows the forward kept for
+   the backward), cells == dense and stale == fresh bit for bit,
    DD == single domain within phase 3's gate, then requests through
    ``DeepmdForceProvider(dd_config=...)``;
 5. lm: gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
@@ -183,15 +186,16 @@ def attn_bound(attn, backward):
     peak, against each input read once and each output written once."""
     g, mask = attn[0], attn[5]
     layers, m, h = attn[6].shape
-    nv = mask.sum(1).double()
+    nv = (mask > 0).sum(1).double()
     per = (16 * nv * m * h + 12 * nv * nv * h) if backward else \
         (8 * nv * m * h + 4 * nv * nv * h)
     flops = float(layers * per.sum())
     weights = sum(w.numel() for w in attn[6:])
-    # forward: g + 5 planes in, out + stash out; backward: stash + dout +
-    # 5 planes in, dg + 4 planes out
-    words = ((2 + layers) * g.numel() + 5 * mask.numel() if not backward
-             else (2 + layers) * g.numel() + 9 * mask.numel())
+    # forward: g + 5 planes in, out + the stash of the valid rows out;
+    # backward: that stash + dout + 5 planes in, dg + 4 planes out
+    stash = layers * float(nv.sum()) * m
+    words = (2 * g.numel() + stash + 5 * mask.numel() if not backward
+             else 2 * g.numel() + stash + 9 * mask.numel())
     nbytes = 4 * (words + weights)
     t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -201,7 +205,8 @@ def phase_kernels(model, params, skin, bf16=False):
     """The env-matrix and attention kernels against their plain versions at
     the shapes and on the data of the force path whose list has this skin
     (K = sel at skin 0, the skin-widened capacity of the provider
-    otherwise); with ``bf16`` also bf16 operands at the path's shape."""
+    otherwise); with ``bf16`` also bf16 operands at the path's shape, and
+    one forward under ``torch.profiler``."""
     from repro_torch.core.ddinfer import single_domain_state
     from repro_torch.kernels import env_mat, nbr_attn, ref
     cfg = model.cfg.descriptor
@@ -245,14 +250,43 @@ def phase_kernels(model, params, skin, bf16=False):
            time_ms(lambda: ref.env_mat_bwd_ref(*env_in, *cts, rs, rc)),
            env_bound(11, n * k))
 
-    out, stash = nbr_attn.nbr_attention_stack_fwd(*attn, stash=True)
+    fwd = nbr_attn.nbr_attention_stack_fwd
+    out, stash = fwd(*attn, stash=True)
     want, want_stash = ref.nbr_attention_stack_ref(*attn, stash=True)
     scale = float(want.abs().max())
     err = check("nbr_attention_stack_fwd", out, want, atol=1e-4 * scale)
     check("nbr_attention_stack_fwd stash", stash, want_stash,
           atol=1e-4 * float(want_stash.abs().max()))
+    # compacted rows: exact zeros at the masked slots, the same bits on a
+    # repeat (keeping the valid rows' stash, as the force path does) and
+    # in passes of 2^16 stacked rows (other GEMM tiles and CTA widths)
+    masked = attn[5] == 0
+    if bool(out[masked].any()):
+        fail("nbr_attention_stack_fwd: nonzero at a masked slot")
+    again, rs = fwd(*attn, stash="rows")
+    if not torch.equal(again, out):
+        fail("nbr_attention_stack_fwd: a repeat differs")
+    split_rows = 1 << 16
+    n_split = len(nbr_attn.row_passes(rs.count_h, split_rows))
+    full_rows, nbr_attn.ROW_PASS = nbr_attn.ROW_PASS, split_rows
+    try:
+        again = fwd(*attn)
+    finally:
+        nbr_attn.ROW_PASS = full_rows
+    if not torch.equal(again, out):
+        fail(f"nbr_attention_stack_fwd: {n_split} passes differ from one")
+    del again
+    print(json.dumps({"phase": "kernels", "name": "nbr_attention_stack_fwd",
+                      "K": k, "masked_slots_exact_zero": True,
+                      "repeat_bitwise": True, "pass_split_bitwise": True,
+                      "passes": [len(rs.passes), n_split],
+                      "stash_elements_rows": rs.x.numel(),
+                      "stash_elements_dense": stash.numel(),
+                      "kernel_ms_no_stash": time_ms(lambda: fwd(*attn)),
+                      "kernel_ms_dense_stash": time_ms(
+                          lambda: fwd(*attn, stash=True))}), flush=True)
     report("nbr_attention_stack_fwd", err, "atol 1e-4*max|out|",
-           time_ms(lambda: nbr_attn.nbr_attention_stack_fwd(*attn, stash=True)),
+           time_ms(lambda: fwd(*attn, stash="rows")),
            time_ms(lambda: ref.nbr_attention_stack_ref(*attn, stash=True)),
            attn_bound(attn, backward=False))
     del out, want, stash
@@ -267,7 +301,6 @@ def phase_kernels(model, params, skin, bf16=False):
               for nm, a, b in zip(names, got, want))
     # the force-path instance: compacted rows, exact zeros at the masked
     # slots, the same bits on a repeat
-    masked = attn[5] == 0
     again = nbr_attn.nbr_attention_stack_bwd(want_stash, *attn[1:], dout,
                                              param_grads=False)
     for nm, a, b in zip(names, got, again):
@@ -282,17 +315,20 @@ def phase_kernels(model, params, skin, bf16=False):
                       "valid_per_atom_max": int(attn[5].sum(1).max()),
                       "masked_slots_exact_zero": True,
                       "repeat_bitwise": True}), flush=True)
+    # timed as the force path runs it: from the forward's compacted stash
     report("nbr_attention_stack_bwd", err, "atol 1e-4*max|grad| per output",
            time_ms(lambda: nbr_attn.nbr_attention_stack_bwd(
-               want_stash, *attn[1:], dout, param_grads=False)),
+               rs, *attn[1:], dout, param_grads=False)),
            time_ms(lambda: ref.nbr_attention_stack_bwd_ref(
                want_stash, *attn[1:], dout)),
            attn_bound(attn, backward=True))
-    del got, want, want_stash
+    del got, want, want_stash, rs
 
     # bf16 operands at the path's shapes; heads=2 and parameter gradients
     # at a small shape (the force path uses neither)
     if bf16:
+        device_profile(lambda: fwd(*attn, stash="rows"), "kernels_profile",
+                       f"one forward over compacted rows, K = {k}")
         out = nbr_attn.nbr_attention_stack_fwd(*attn, compute_dtype="bfloat16")
         want = ref.nbr_attention_stack_ref(*attn, compute_dtype="bfloat16")
         err = check("nbr_attention_stack_fwd bf16", out, want,
@@ -565,24 +601,30 @@ def record_model_kernels(fn):
 
 
 def check_rows(name, got, plain, n, padded, chunk=8192):
-    """Hold kernel outputs ``got`` [(tensor, row axis)] against ``plain(r0,
-    r1)`` (the plain version's outputs on rows r0:r1) chunk by chunk: each
-    output within atol 1e-4 * max|plain| over all rows.  Returns the largest
-    error over all rows and over the rows flagged in ``padded`` (N,)."""
+    """Hold kernel outputs ``got`` against ``plain(r0, r1)`` (the plain
+    version's outputs on rows r0:r1) chunk by chunk: each output within
+    atol 1e-4 * max|plain| over all rows.  An output is (tensor, row axis),
+    or a function of (r0, r1) giving its part for those rows.  Returns the
+    largest error over all rows and over the rows flagged in ``padded``
+    (N,) of the (tensor, row axis) outputs."""
     errs = [0.0] * len(got)
     pad_errs = [0.0] * len(got)
     scales = [0.0] * len(got)
     for r0 in range(0, n, chunk):
         r1 = min(n, r0 + chunk)
         rows_pad = padded[r0:r1]
-        for i, ((t, ax), want) in enumerate(zip(got, plain(r0, r1))):
-            part = t.narrow(ax, r0, r1 - r0)
+        for i, (out, want) in enumerate(zip(got, plain(r0, r1))):
+            ax = None if callable(out) else out[1]
+            part = out(r0, r1) if ax is None else out[0].narrow(ax, r0,
+                                                                 r1 - r0)
+            if not part.numel():      # rows with no valid slot
+                continue
             if not bool(torch.isfinite(part).all()):
                 fail(f"{name}[{i}]: non-finite output in rows {r0}:{r1}")
             err = (part - want).abs()
             errs[i] = max(errs[i], float(err.max()))
             scales[i] = max(scales[i], float(want.abs().max()))
-            if bool(rows_pad.any()):
+            if ax is not None and bool(rows_pad.any()):
                 pad = err.movedim(ax, 0)[rows_pad]
                 pad_errs[i] = max(pad_errs[i], float(pad.max()))
     for i, (err, scale) in enumerate(zip(errs, scales)):
@@ -597,7 +639,7 @@ def check_dd_model_kernels(seen):
     """The four model kernels against their plain versions on the exact
     tensors one DD evaluate gave them (all ranks' capacity rows, padded
     rows included): env_mat whole, the attention stack in row chunks."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import nbr_attn, ref
     for name, calls in seen.items():
         if len(calls) != 1:
             fail(f"dd evaluate: {name} launched {len(calls)} times, "
@@ -630,29 +672,50 @@ def check_dd_model_kernels(seen):
 
     args, kw, (out, stash) = seen["nbr_attention_stack_fwd"][0]
     attn, opts = args[:12], args[12:]
-    if not kw.get("stash") or tuple(attn[5].shape) != (n, k):
-        fail("dd evaluate: the attention forward saw another list")
+    # the card's autograd keeps the valid rows' stash for the force path;
+    # the plain version (a CPU rehearsal) keeps the dense one
+    rows_kept = DEVICE == "cuda"
+    if kw.get("stash") != ("rows" if rows_kept else True) or \
+            tuple(attn[5].shape) != (n, k):
+        fail("dd evaluate: the attention forward saw another list or kept "
+             "another stash")
+    if rows_kept:
+        x, rows = stash.x, stash.rows
+    else:
+        rows = nbr_attn.compact_rows(attn[5])[3]
+        x = nbr_attn.compact_stash(stash, rows)
+    layers, m = x.shape[0], x.shape[2]
+
+    def atoms(r0, r1):
+        """The stacked rows of atoms r0:r1 (positions in x) and their flat
+        slots counted from atom r0."""
+        sel = torch.nonzero((rows >= r0 * k) & (rows < r1 * k)).reshape(-1)
+        return sel, rows[sel] - r0 * k
 
     def plain_fwd(r0, r1):
-        rows = [a[r0:r1] for a in attn[:6]]
-        o, s = ref.nbr_attention_stack_ref(*rows, *attn[6:], *opts,
-                                           stash=True)
-        return o, s
+        o, s = ref.nbr_attention_stack_ref(*[a[r0:r1] for a in attn[:6]],
+                                           *attn[6:], *opts, stash=True)
+        return o, s.reshape(layers, -1, m)[:, atoms(r0, r1)[1]]
 
     err, pad = check_rows("dd nbr_attention_stack_fwd",
-                          [(out, 0), (stash, 1)], plain_fwd, n, padded)
+                          [(out, 0), lambda r0, r1: x[:, atoms(r0, r1)[0]]],
+                          plain_fwd, n, padded)
     lines.append(("nbr_attention_stack_fwd", err, pad,
-                  "atol 1e-4*max|plain| per output (out, stash)"))
+                  "atol 1e-4*max|plain| per output (out, stash of the "
+                  "valid rows)"))
 
     args, kw, got = seen["nbr_attention_stack_bwd"][0]
     st, planes, weights, dout = args[0], args[1:6], args[6:12], args[12]
-    if st.data_ptr() != stash.data_ptr():
+    if (st.x if rows_kept else st).data_ptr() != \
+            (stash.x if rows_kept else stash).data_ptr():
         fail("dd evaluate: the attention backward did not take the "
              "forward's stash")
 
     def plain_bwd(r0, r1):
+        sel, slots = atoms(r0, r1)
+        dense = nbr_attn.dense_stash(attn[0][r0:r1], x[:, sel], slots)
         res = ref.nbr_attention_stack_bwd_ref(
-            st[:, r0:r1], *[p[r0:r1] for p in planes], *weights,
+            dense, *[p[r0:r1] for p in planes], *weights,
             dout[r0:r1], heads=kw["heads"],
             compute_dtype=kw["compute_dtype"])
         return res[:5]
@@ -666,7 +729,8 @@ def check_dd_model_kernels(seen):
                           "case": "inputs of one DD evaluate",
                           "rows": n, "K": k,
                           "fully_masked_rows": int(padded.sum()),
-                          "stash_elements": stash.numel(),
+                          "stash_elements": x.numel(),
+                          "dense_stash_elements": layers * n * k * m,
                           "max_err": err,
                           "fully_masked_rows_max_err": pad, "tol": tol}),
               flush=True)
@@ -1216,9 +1280,8 @@ def main():
         return 0
     from repro_torch.kernels import nbr_attn
     print(json.dumps({"attention_max_K_at_M128": {
-        "forward": nbr_attn.max_k(128, backward=False),
-        "backward_force_path": nbr_attn.max_k(128, param_grads=False),
-        "backward_param_grads_shared_memory": nbr_attn.max_k(128),
+        "forward_and_backward_force_path": nbr_attn.max_k(128),
+        "backward_param_grads_shared_memory": nbr_attn.max_k(128, True),
         "backward_param_grads_device_workspace": nbr_attn.max_k(128, True,
                                                                 True),
         "port_limit": nbr_attn.MAX_K}}), flush=True)

@@ -15,46 +15,46 @@
 //
 // Which instance runs which code:
 //
-// * Forward (stack_fwd_kernel, both the force path and training): one CTA
-//   of 512 threads per atom over all K slots keeps the K x M activations,
-//   the pre-norm sum and the K x K scores in shared memory across all
-//   layers; H streamed in kChunk-wide column chunks; the gate
-//   (r_hat.r_hat^T)(sw x sw)(mask x mask) recomputed from five K-vectors
-//   where it is used.  Masked keys score FLT_MAX below zero (not -inf), so
-//   a fully masked row gives zeros, never NaN.  K <= 134 at M = 128.
-//
-// * Backward, force path (no parameter gradients; nbr_attn_bwd_rows):
-//   compacted rows.  The wrapper (nbr_attn.py::compact_rows) gathers each
-//   atom's valid slots in ascending slot order and stacks them, atoms
-//   longest first, into R rows; the kernels never see a masked slot, and
-//   the wrapper's zero-filled outputs keep exact zeros there (a fully
-//   masked atom costs nothing but that fill).  Dropping the masked slots
-//   changes no sum but by +0 terms: dln = dg * mask is 0 on them, their
-//   keys have p = 0 and their gate row and column are 0.  Per layer, from
-//   the top, seven launches (see the block comment above
-//   nbr_attn_bwd_rows): the four M <-> H projections are GEMMs over all
-//   stacked rows of the pass (rows_gemm_kernel: a 128 x 128 output tile
-//   per 256-thread CTA, 8 x 8 per thread, both operands staged k-major in
-//   shared memory through a 3-stage cp.async ring, so one weight tile
-//   serves 128 rows of many atoms and every inner-loop read is a 16-byte
-//   load); each projection is computed once per layer and kept in device
-//   memory (Q|K|V and dQ|dK|dV as R x 3H, O then dO as R x H) until the
-//   next step has used it.  The n x n attention parts run one CTA per
-//   atom (rows_attn_fwd_kernel, rows_attn_bwd_kernel): P, and
-//   then W = P o gmul, dW, ds and dgmul, are formed once per layer and
-//   head as n x n tiles in shared memory (the gate is evaluated once per
-//   element, never inside a product's depth loop), and every product runs
-//   4 x 4 register tiles with 16-byte shared loads, on 32-column chunks of
-//   the head.  The LayerNorm backward is one warp per row.  Shared memory
-//   per attention CTA is sized by the pass's longest atom: two n x n tiles,
-//   two chunks and ten vectors, 177 KB at n = 128 (one CTA of 256 threads
-//   per SM), 56 KB at n = 64 (four CTAs of 128 threads).  No persistent
-//   grid: atoms go out longest first, so the tail holds the short ones.
-//   K <= 128 = MAX_K in both directions, also for an atom whose 128 slots
-//   are all valid (the limit is nbr_attn_bwd_rows_smem(n) <= 227 KB:
+// * Compacted rows: the forward (every caller: the force path, inference
+//   and training; nbr_attn_fwd_rows) and the force-path backward (no
+//   parameter gradients; nbr_attn_bwd_rows).  The wrapper
+//   (nbr_attn.py::compact_rows) gathers each atom's valid slots in
+//   ascending slot order and stacks them, atoms longest first, into R rows;
+//   the kernels never see a masked slot, and the wrapper's zero-filled
+//   outputs keep exact zeros there (a fully masked atom costs nothing but
+//   that fill).  Dropping the masked slots changes no sum but by +0 terms:
+//   a masked key has p = 0 and a zero gate column, a masked row's output is
+//   multiplied by its mask, 0, and in the backward dln = dg * mask is 0 on
+//   it.  Per layer the forward runs four steps and the backward seven
+//   (see "The stack over compacted rows" below): the four M <-> H
+//   projections are GEMMs over all stacked rows of the pass
+//   (rows_gemm_kernel: a 128 x 128 output tile per 256-thread CTA, 8 x 8
+//   per thread, both operands staged k-major in shared memory through a
+//   3-stage cp.async ring, so one weight tile serves 128 rows of many atoms
+//   and every inner-loop read is a 16-byte load); each projection is
+//   computed once per layer and kept in device memory (Q|K|V and dQ|dK|dV
+//   as R x 3H, O then dO as R x H) until the next step has used it.  The
+//   n x n attention parts run one CTA per atom (rows_attn_fwd_kernel,
+//   rows_attn_bwd_kernel): P, and then W = P o gmul, dW, ds and dgmul, are
+//   formed once per layer and head as n x n tiles in shared memory (the
+//   gate is evaluated once per element, never inside a product's depth
+//   loop), and every product runs 4 x 4 register tiles with 16-byte shared
+//   loads, on 32-column chunks of the head.  The LayerNorm forward and
+//   backward are one warp per row.  The forward keeps every layer's input
+//   rows (L x R x M, the stash) for the backward, which reads them where it
+//   recomputes steps 1-3 through the same code, so both directions see the
+//   same bits.  Shared memory per attention CTA is sized by the pass's
+//   longest atom: two n x n tiles, two chunks and ten vectors, 177 KB at
+//   n = 128 (one CTA of 256 threads per SM), 56 KB at n = 64 (four CTAs of
+//   128 threads).  No persistent grid: atoms go out longest first, so the
+//   tail holds the short ones.  K <= 128 = MAX_K, also for an atom whose
+//   128 slots are all valid (the limit is nbr_attn_rows_smem(n) <= 227 KB:
 //   n <= 148).  Passes of at most 2^20 stacked rows (nbr_attn.py::
-//   ROW_PASS) bound the scratch memory
-//   (8.2 KB per row).  No atomics: a repeated call gives the same bits.
+//   ROW_PASS) bound the scratch memory (4.6 KB per row forward, 8.2 KB
+//   backward).  No atomics, and every sum over a row's or an atom's terms
+//   runs in an order fixed by that row or atom alone: an atom's result does
+//   not depend on its place in a GEMM tile, its pass or its CTA's width,
+//   and a repeated call gives the same bits.
 //
 // * Backward with parameter gradients (training, off the force path;
 //   nbr_attn_bwd, stack_bwd_kernel): the earlier design, one 512-thread CTA
@@ -76,26 +76,21 @@
 
 namespace {
 
-constexpr int kThreads = 512;      // 16 warps: one CTA per SM at K = 82
+constexpr int kThreads = 512;      // 16 warps (the parameter-gradient backward)
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 16;          // H columns per streamed chunk
 constexpr int kLdc = kChunk + 1;    // padded row stride of chunk buffers
 constexpr float kLnEps = 1e-5f;
 
 struct StackArgs {
-  const float *g, *rx, *ry, *rz, *sw, *mask;
+  const float *rx, *ry, *rz, *sw, *mask;
   const float *wq, *wk, *wv, *wo, *gamma, *beta;
   const float *dout;
-  float *out, *stash;
+  float *stash;
   float *dg, *drx, *dry, *drz, *dsw, *part, *ws;
   int n, k, m, h, layers, heads;
   float scale;
 };
-
-size_t fwd_floats(int k, int m) {
-  return 2 * (size_t)k * (m + 1) + (size_t)k * (k + 1) + 2 * (size_t)k * kLdc
-         + 5 * (size_t)k;
-}
 
 size_t bwd_floats(int k, int m) {
   return 3 * (size_t)k * (m + 1) + 2 * (size_t)k * (k + 1)
@@ -230,98 +225,6 @@ __device__ void scores_softmax(const float* sG, int ldm, const float* wq,
     for (int j = lane; j < k; j += 32) row[j] = row[j] / s;
   }
   __syncthreads();
-}
-
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads) stack_fwd_kernel(StackArgs a) {
-  extern __shared__ float smem[];
-  const int k = a.k, m = a.m, h = a.h, hd = a.h / a.heads;
-  const int ldm = m + 1, ldk = k + 1;
-  float* sG = smem;                 // layer input / output   k x ldm
-  float* sOut = sG + k * ldm;       // out-projection sum     k x ldm
-  float* sS = sOut + k * ldm;       // scores -> P -> W       k x ldk
-  float* sA = sS + k * ldk;         // chunk buffers          k x kLdc
-  float* sB = sA + k * kLdc;
-  float* sV = sB + k * kLdc;        // rx ry rz sw mask       5 x k
-  const Gate gt{sV, sV + k, sV + 2 * k, sV + 3 * k, sV + 4 * k};
-  const float* mk = gt.mk;
-  const size_t atom = blockIdx.x;
-  const size_t nk = atom * k, nkm = nk * m;
-
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    sV[j] = a.rx[nk + j];
-    sV[k + j] = a.ry[nk + j];
-    sV[2 * k + j] = a.rz[nk + j];
-    sV[3 * k + j] = a.sw[nk + j];
-    sV[4 * k + j] = a.mask[nk + j];
-  }
-  for (int e = threadIdx.x; e < k * m; e += blockDim.x)
-    sG[(e / m) * ldm + e % m] = a.g[nkm + e];
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int l = 0; l < a.layers; ++l) {
-    const float* wq = a.wq + (size_t)l * m * h;
-    const float* wk = a.wk + (size_t)l * m * h;
-    const float* wv = a.wv + (size_t)l * m * h;
-    const float* wo = a.wo + (size_t)l * h * m;
-    const float* gamma = a.gamma + (size_t)l * m;
-    const float* beta = a.beta + (size_t)l * m;
-    for (int e = threadIdx.x; e < k * m; e += blockDim.x) {
-      const float x = sG[(e / m) * ldm + e % m];
-      if (a.stash) a.stash[((size_t)l * a.n + atom) * k * m + e] = x;
-      sOut[(e / m) * ldm + e % m] = 0.f;
-    }
-    for (int hh = 0; hh < a.heads; ++hh) {
-      scores_softmax<BF16>(sG, ldm, wq, wk, h, hh * hd, hd, sS, ldk, sA, sB,
-                           k, m, mk, a.scale);
-      for (int e = threadIdx.x; e < k * k; e += blockDim.x) {
-        const int i = e / k, j = e % k;
-        sS[i * ldk + j] *= gt.gmul(i, j);
-      }
-      for (int c0 = 0; c0 < hd; c0 += kChunk) {
-        const int cw = min(kChunk, hd - c0);
-        const int col = hh * hd + c0;
-        __syncthreads();
-        block_mm<2, 2>(k, cw, m,
-            [&](int r, int d) { return op<BF16>(sG[r * ldm + d]); },
-            [&](int d, int c) { return op<BF16>(__ldg(wv + (size_t)d * h + col + c)); },
-            [&](int r, int c, float v) { sA[r * kLdc + c] = v; });
-        __syncthreads();
-        block_mm<2, 2>(k, cw, k,
-            [&](int r, int d) { return op<BF16>(sS[r * ldk + d]); },
-            [&](int d, int c) { return op<BF16>(sA[d * kLdc + c]); },
-            [&](int r, int c, float v) { sB[r * kLdc + c] = v; });
-        __syncthreads();
-        block_mm<4, 4>(k, m, cw,
-            [&](int r, int d) { return op<BF16>(sB[r * kLdc + d]); },
-            [&](int d, int c) { return op<BF16>(__ldg(wo + (size_t)(col + d) * m + c)); },
-            [&](int r, int c, float v) { sOut[r * ldm + c] += v; });
-      }
-      __syncthreads();
-    }
-    // residual + LayerNorm + row mask, one warp per row
-    for (int i = warp; i < k; i += kWarps) {
-      float* gr = sG + i * ldm;
-      const float* orow = sOut + i * ldm;
-      float s = 0.f;
-      for (int j = lane; j < m; j += 32) s += gr[j] + orow[j];
-      const float mu = warp_sum(s) / m;
-      float v = 0.f;
-      for (int j = lane; j < m; j += 32) {
-        const float d = gr[j] + orow[j] - mu;
-        v += d * d;
-      }
-      const float inv = rsqrtf(warp_sum(v) / m + kLnEps);
-      for (int j = lane; j < m; j += 32) {
-        const float x = (gr[j] + orow[j] - mu) * inv;
-        gr[j] = (x * gamma[j] + beta[j]) * mk[i];
-      }
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < k * m; e += blockDim.x)
-    a.out[nkm + e] = sG[(e / m) * ldm + e % m];
 }
 
 template <bool BF16, bool GMEM = false>
@@ -607,15 +510,20 @@ __global__ void __launch_bounds__(kThreads) stack_bwd_kernel(StackArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// Force-path backward (no parameter gradients) over compacted rows.
+// The stack over compacted rows: the forward and the force-path backward
+// (no parameter gradients).
 //
 // The wrapper gathers each atom's valid slots (ascending slot order) and
-// stacks them, atom after atom, into R rows; atoms run longest first.  Per
-// layer, from the top:
-//   1. QKV = G_l[rows] [Wq | Wk | Wv]          rows_gemm (3 launches)
+// stacks them, atom after atom, into R rows; atoms run longest first, in
+// passes of consecutive atoms.  X_l holds layer l's input rows (X_0 =
+// g[rows]); the forward keeps them all (the stash).  Forward, per layer:
+//   1. QKV = X_l [Wq | Wk | Wv]                rows_gemm (3 launches)
 //   2. O   = (P o gate) V                      rows_attn_fwd, one CTA/atom
-//   3. X   = G_l[rows] + O Wo                  rows_gemm
-//   4. dg1 = LayerNorm backward of X, D        rows_ln_bwd, one warp/row
+//   3. Y   = X_l + O Wo                        rows_gemm
+//   4. X_l+1 = (LN(Y) gamma + beta) mask       rows_ln_fwd, one warp/row (to
+//                                              out at the slots, top layer)
+// Backward, per layer from the top: steps 1-3 from the stash, then
+//   4. dg1 = LayerNorm backward of Y, D        rows_ln_bwd, one warp/row
 //   5. dO  = dg1 Wo^T                          rows_gemm
 //   6. dQ, dK, dV; gate cotangent -> per row   rows_attn_bwd, one CTA/atom
 //   7. D   = dg1 + [dQ dK dV] [Wq Wk Wv]^T     rows_gemm (scattered to dg at
@@ -1123,6 +1031,45 @@ __global__ void __launch_bounds__(ATT_THREADS) rows_attn_bwd_kernel(RowsArgs a) 
   }
 }
 
+// x[r] = g[rows[r]]: layer 0's input rows, one warp per row.
+__global__ void __launch_bounds__(128) rows_gather_kernel(
+    const float* __restrict__ g, const long long* __restrict__ rows,
+    float* __restrict__ x, int R, int m) {
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const float* src = g + rows[r] * m;
+  float* dst = x + r * m;
+  for (int j = lane; j < m; j += 32) dst[j] = src[j];
+}
+
+// (LayerNorm(y[r]) gamma + beta) times the row's mask (step 4 of the
+// forward), one warp per row, to dst[r] or, with dst_rows, to the flat slot
+// dst_rows[r] of the (N, K, M) output.
+__global__ void __launch_bounds__(128) rows_ln_fwd_kernel(
+    const float* __restrict__ y, float* __restrict__ dst,
+    const long long* __restrict__ dst_rows, const long long* __restrict__ rows,
+    const float* __restrict__ mask, const float* __restrict__ gamma,
+    const float* __restrict__ beta, int R, int m) {
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const float* yr = y + r * m;
+  const float mk = mask[rows[r]];
+  float s = 0.f;
+  for (int j = lane; j < m; j += 32) s += yr[j];
+  const float mu = warp_sum(s) / m;
+  float v = 0.f;
+  for (int j = lane; j < m; j += 32) {
+    const float c = yr[j] - mu;
+    v += c * c;
+  }
+  const float inv = rsqrtf(warp_sum(v) / m + kLnEps);
+  float* dr = dst + (dst_rows ? dst_rows[r] : r) * m;
+  for (int j = lane; j < m; j += 32)
+    dr[j] = ((yr[j] - mu) * inv * gamma[j] + beta[j]) * mk;
+}
+
 // x <- dg1 = LayerNorm backward of the pre-norm rows x (step 4), one warp
 // per row; the cotangent is d[r] (or dout at the slot, at the top layer)
 // times the row's mask.
@@ -1184,6 +1131,48 @@ int launch_rows_attn(Kern kern, int n_atoms, int n_max, size_t smem,
   return (int)cudaGetLastError();
 }
 
+#define RET_IF(x) if ((e = (x)) != 0) return e
+
+RowsArgs rows_args(const float* rx, const float* ry, const float* rz,
+                   const float* sw, const float* mask, const long long* rows,
+                   const long long* start, const long long* count,
+                   long long r0, int n_max, int h, int heads, float scale) {
+  RowsArgs ra{};
+  ra.rx = rx; ra.ry = ry; ra.rz = rz; ra.sw = sw; ra.mask = mask;
+  ra.rows = rows; ra.start = start; ra.count = count; ra.r0 = r0;
+  ra.h = h; ra.heads = heads; ra.ldn = rows_np(n_max) + 4; ra.scale = scale;
+  return ra;
+}
+
+// Steps 1-3 of one layer over one pass, both directions: qkv = X [Wq Wk
+// Wv], ob = O, y = X + O Wo, X the pass's n_rows input rows at x.
+int layer_rows_fwd(const float* x, const float* wq, const float* wk,
+                   const float* wv, const float* wo, RowsArgs ra, int n_atoms,
+                   int n_rows, int n_max, float* qkv, float* ob, float* y,
+                   int m, int h, int bf16, cudaStream_t s) {
+  int e = 0;
+  const float* w3[3] = {wq, wk, wv};
+  for (int p = 0; p < 3; ++p) {
+    GemmArgs g{};
+    g.a = x; g.lda = m;
+    g.b[0] = w3[p]; g.ldb = h; g.seg = m; g.b_trans = 0;
+    g.c = qkv + p * h; g.ldc = 3 * h;
+    g.R = n_rows; g.N = h; g.Kd = m;
+    RET_IF(rows_gemm(g, bf16, s));
+  }
+  ra.qkv = qkv; ra.out = ob; ra.dO = nullptr; ra.first = ra.last = 0;
+  auto fwd = bf16 ? &rows_attn_fwd_kernel<true> : &rows_attn_fwd_kernel<false>;
+  RET_IF(launch_rows_attn(fwd, n_atoms, n_max,
+                          sizeof(float) * rows_attn_floats(n_max), s, ra));
+  GemmArgs g{};
+  g.a = ob; g.lda = h;
+  g.b[0] = wo; g.ldb = m; g.seg = h; g.b_trans = 0;
+  g.add = x; g.ld_add = m;
+  g.c = y; g.ldc = m;
+  g.R = n_rows; g.N = m; g.Kd = h;
+  return rows_gemm(g, bf16, s);
+}
+
 // out[i] = sum over blocks b (in order) of part[b * size + i]
 __global__ void reduce_partials_kernel(const float* __restrict__ part,
                                        float* __restrict__ out, int nblk,
@@ -1211,29 +1200,11 @@ int launch(Kern kern, int grid, size_t smem, cudaStream_t stream,
 
 extern "C" {
 
-size_t nbr_attn_fwd_smem(int k, int m) { return sizeof(float) * fwd_floats(k, m); }
 size_t nbr_attn_bwd_smem(int k, int m) { return sizeof(float) * bwd_floats(k, m); }
 size_t nbr_attn_bwd_gmem_smem(int k, int m) { return sizeof(float) * bwd_gmem_floats(k); }
 // every kernel library exports this name (loaded RTLD_LOCAL, one each)
 const char* error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
-}
-
-int nbr_attn_fwd(const float* g, const float* rx, const float* ry,
-                 const float* rz, const float* sw, const float* mask,
-                 const float* wq, const float* wk, const float* wv,
-                 const float* wo, const float* gamma, const float* beta,
-                 float* out, float* stash, int n, int k, int m, int h,
-                 int layers, int heads, int bf16, float scale, void* stream) {
-  StackArgs a{};
-  a.g = g; a.rx = rx; a.ry = ry; a.rz = rz; a.sw = sw; a.mask = mask;
-  a.wq = wq; a.wk = wk; a.wv = wv; a.wo = wo; a.gamma = gamma; a.beta = beta;
-  a.out = out; a.stash = stash;
-  a.n = n; a.k = k; a.m = m; a.h = h; a.layers = layers; a.heads = heads;
-  a.scale = scale;
-  const size_t smem = nbr_attn_fwd_smem(k, m);
-  auto kern = bf16 ? &stack_fwd_kernel<true> : &stack_fwd_kernel<false>;
-  return launch(kern, n, smem, (cudaStream_t)stream, a);
 }
 
 // the parameter-gradient backward (the shared-memory instance, or with ws
@@ -1294,80 +1265,97 @@ int nbr_attn_reduce(const float* part, float* out, int nblk, long long size,
   return (int)cudaGetLastError();
 }
 
-// The force-path backward over one pass of stacked rows (see rows_gemm and
-// the per-atom kernels above).  rows (R,): flat slot (atom * K + slot) of
-// each stacked row; start/count (A,): first stacked row (relative to r0 via
+// One pass of stacked rows, both directions (see "The stack over compacted
+// rows" above).  rows (R,): flat slot (atom * K + slot) of each stacked row
+// of the pass; start/count (A,): first stacked row (relative to r0 via
 // start - r0) and valid slots of each atom of the pass, longest first;
-// n_max: the pass's largest count.  Scratch: qkv and dqkv (R, 3H), ob (R, H),
-// xb and db (R, M), gacc (R, 4).  dg, drx, dry, drz, dsw must hold zeros at
-// the masked slots (the wrapper allocates them zeroed); their valid slots
-// are written here.
-int nbr_attn_bwd_rows(const float* stash, const float* rx, const float* ry,
+// n_max: the pass's largest count.  Layer l's input rows are at x + (l %
+// ring) * ld_layer: the stash (ring = layers, x at the pass's first row)
+// or, in a forward that keeps no stash, two scratch buffers (ring = 2).
+
+// The forward.  Scratch: qkv (R, 3H), ob (R, H), y (R, M).  out must hold
+// zeros at the masked slots (the wrapper allocates it zeroed); its valid
+// slots are written here.
+int nbr_attn_fwd_rows(const float* g, const float* rx, const float* ry,
                       const float* rz, const float* sw, const float* mask,
                       const float* wq, const float* wk, const float* wv,
-                      const float* wo, const float* gamma, const float* dout,
-                      float* dg, float* drx, float* dry, float* drz,
-                      float* dsw, const long long* rows,
-                      const long long* start, const long long* count,
-                      long long r0, int n_atoms, int n_rows, int n_max,
-                      float* qkv, float* ob, float* xb, float* db,
-                      float* dqkv, float* gacc, int n, int k, int m, int h,
-                      int layers, int heads, int bf16, float scale,
-                      void* stream) {
+                      const float* wo, const float* gamma, const float* beta,
+                      float* out, float* x, long long ld_layer, int ring,
+                      const long long* rows, const long long* start,
+                      const long long* count, long long r0, int n_atoms,
+                      int n_rows, int n_max, float* qkv, float* ob, float* y,
+                      int m, int h, int layers, int heads, int bf16,
+                      float scale, void* stream) {
   cudaGetLastError();  // clear an error left by earlier, unrelated work
   if (n_rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t mh = (size_t)m * h, nkm = (size_t)n * k * m;
+  const size_t mh = (size_t)m * h;
+  const RowsArgs ra = rows_args(rx, ry, rz, sw, mask, rows, start, count, r0,
+                                n_max, h, heads, scale);
+  const unsigned blocks = (unsigned)((n_rows + 3) / 4);
+  int e = 0;
+  rows_gather_kernel<<<blocks, 128, 0, s>>>(g, rows, x, n_rows, m);
+  RET_IF((int)cudaGetLastError());
+  for (int l = 0; l < layers; ++l) {
+    const float* xl = x + (l % ring) * ld_layer;
+    RET_IF(layer_rows_fwd(xl, wq + l * mh, wk + l * mh, wv + l * mh,
+                          wo + l * mh, ra, n_atoms, n_rows, n_max, qkv, ob, y,
+                          m, h, bf16, s));
+    const bool top = l == layers - 1;
+    rows_ln_fwd_kernel<<<blocks, 128, 0, s>>>(
+        y, top ? out : x + ((l + 1) % ring) * ld_layer, top ? rows : nullptr,
+        rows, mask, gamma + l * m, beta + l * m, n_rows, m);
+    RET_IF((int)cudaGetLastError());
+  }
+  return 0;
+}
+
+// The force-path backward from the forward's stash (ring = layers).
+// Scratch: qkv and dqkv (R, 3H), ob (R, H), xb and db (R, M), gacc (R, 4).
+// dg, drx, dry, drz, dsw must hold zeros at the masked slots (the wrapper
+// allocates them zeroed); their valid slots are written here.
+int nbr_attn_bwd_rows(const float* stash, long long ld_layer, const float* rx,
+                      const float* ry, const float* rz, const float* sw,
+                      const float* mask, const float* wq, const float* wk,
+                      const float* wv, const float* wo, const float* gamma,
+                      const float* dout, float* dg, float* drx, float* dry,
+                      float* drz, float* dsw, const long long* rows,
+                      const long long* start, const long long* count,
+                      long long r0, int n_atoms, int n_rows, int n_max,
+                      float* qkv, float* ob, float* xb, float* db,
+                      float* dqkv, float* gacc, int m, int h, int layers,
+                      int heads, int bf16, float scale, void* stream) {
+  cudaGetLastError();  // clear an error left by earlier, unrelated work
+  if (n_rows == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t mh = (size_t)m * h;
   const size_t smem = sizeof(float) * rows_attn_floats(n_max);
-  RowsArgs ra{};
-  ra.rx = rx; ra.ry = ry; ra.rz = rz; ra.sw = sw; ra.mask = mask;
-  ra.rows = rows; ra.start = start; ra.count = count; ra.r0 = r0;
-  ra.qkv = qkv; ra.gacc = gacc;
+  RowsArgs ra = rows_args(rx, ry, rz, sw, mask, rows, start, count, r0, n_max,
+                          h, heads, scale);
+  ra.gacc = gacc;
   ra.drx = drx; ra.dry = dry; ra.drz = drz; ra.dsw = dsw;
-  ra.h = h; ra.heads = heads; ra.ldn = rows_np(n_max) + 4; ra.scale = scale;
-  auto fwd = bf16 ? &rows_attn_fwd_kernel<true> : &rows_attn_fwd_kernel<false>;
   auto bwd = bf16 ? &rows_attn_bwd_kernel<true> : &rows_attn_bwd_kernel<false>;
   int e = 0;
-#define RET_IF(x) if ((e = (x)) != 0) return e
   for (int l = layers - 1; l >= 0; --l) {
-    const float* st = stash + l * nkm;
     const float* w3[3] = {wq + l * mh, wk + l * mh, wv + l * mh};
     const float* wol = wo + l * mh;
-    GemmArgs g{};
-    // 1. QKV = G[rows] W_{q,k,v}
-    for (int p = 0; p < 3; ++p) {
-      g = GemmArgs{};
-      g.a = st; g.a_rows = rows; g.lda = m;
-      g.b[0] = w3[p]; g.ldb = h; g.seg = m; g.b_trans = 0;
-      g.c = qkv + p * h; g.ldc = 3 * h;
-      g.R = n_rows; g.N = h; g.Kd = m;
-      RET_IF(rows_gemm(g, bf16, s));
-    }
-    // 2. O = (P o gmul) V
-    ra.out = ob; ra.dO = nullptr; ra.first = ra.last = 0;
-    RET_IF(launch_rows_attn(fwd, n_atoms, n_max, smem, s, ra));
-    // 3. X = G[rows] + O Wo
-    g = GemmArgs{};
-    g.a = ob; g.lda = h;
-    g.b[0] = wol; g.ldb = m; g.seg = h; g.b_trans = 0;
-    g.add = st; g.add_rows = rows; g.ld_add = m;
-    g.c = xb; g.ldc = m;
-    g.R = n_rows; g.N = m; g.Kd = h;
-    RET_IF(rows_gemm(g, bf16, s));
-    // 4. X <- dg1
+    // 1-3. Y = X_l + O Wo, with Q|K|V in qkv
+    RET_IF(layer_rows_fwd(stash + l * ld_layer, w3[0], w3[1], w3[2], wol, ra,
+                          n_atoms, n_rows, n_max, qkv, ob, xb, m, h, bf16, s));
+    // 4. Y <- dg1
     rows_ln_bwd_kernel<<<(n_rows + 3) / 4, 128, 0, s>>>(
         xb, db, l == layers - 1 ? dout : nullptr, rows, mask, gamma + l * m,
         n_rows, m);
     RET_IF((int)cudaGetLastError());
     // 5. dO = dg1 Wo^T
-    g = GemmArgs{};
+    GemmArgs g{};
     g.a = xb; g.lda = m;
     g.b[0] = wol; g.ldb = m; g.seg = m; g.b_trans = 1;
     g.c = ob; g.ldc = h;
     g.R = n_rows; g.N = h; g.Kd = m;
     RET_IF(rows_gemm(g, false, s));
     // 6. dQ, dK, dV and the gate cotangent
-    ra.out = dqkv; ra.dO = ob;
+    ra.qkv = qkv; ra.out = dqkv; ra.dO = ob;
     ra.first = l == layers - 1; ra.last = l == 0;
     RET_IF(launch_rows_attn(bwd, n_atoms, n_max, smem, s, ra));
     // 7. D = dg1 + [dQ dK dV] [Wq Wk Wv]^T (to dg at the slots, last layer)
@@ -1380,11 +1368,12 @@ int nbr_attn_bwd_rows(const float* stash, const float* rx, const float* ry,
     g.R = n_rows; g.N = m; g.Kd = 3 * h;
     RET_IF(rows_gemm(g, false, s));
   }
-#undef RET_IF
   return 0;
 }
 
-size_t nbr_attn_bwd_rows_smem(int n_max) {
+// shared memory of the per-atom attention kernels for atoms of at most
+// n_max valid slots (the rows instances' K limit)
+size_t nbr_attn_rows_smem(int n_max) {
   return sizeof(float) * rows_attn_floats(n_max);
 }
 

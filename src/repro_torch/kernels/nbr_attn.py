@@ -11,24 +11,30 @@ does about it.  The plain versions are
 :func:`~repro_torch.kernels.ref.nbr_attention_stack_bwd_ref`.
 
 Dispatch goes by the tensors' device: CUDA tensors launch the kernels (and
-raise if they cannot build or launch, or if K exceeds what the kernels
-take), CPU tensors take the plain versions.  The force path's backward (no
-parameter gradients) runs over compacted rows: :func:`compact_rows` gathers
-each atom's valid neighbour slots in ascending slot order, atoms longest
-first, and the kernels work on those rows only and leave exact zeros at the
-masked slots.  The backward with parameter gradients (training; off the
-force path) keeps two template instances: the shared-memory one wherever
-its tiles fit (K <= 89 at M = 128), and above that one whose K x M tiles sit
-in a per-CTA device workspace served by L2.  ``MAX_K`` is the neighbour
-capacity the port's model path accepts (``DDConfig`` and the providers'
-``grow`` enforce it) on every device, so card and CPU results stay
-comparable.  Each kernel wrapper counts its launches in
-``<wrapper>.launches``: one per call, however many CUDA kernels the call
-runs.
+raise if they cannot build or launch, or on a shape they do not take), CPU
+tensors take the plain versions.  The forward (every caller) and the force
+path's backward (no parameter gradients) run over compacted rows:
+:func:`compact_rows` gathers each atom's valid neighbour slots in ascending
+slot order, atoms longest first, and the kernels work on those rows only
+and leave exact zeros at the masked slots.  The forward keeps each layer's
+input on those rows; on the force path autograd hands that
+:class:`RowStash`, compaction included, to the backward, so a force call
+compacts, and waits for the host, once.  The public functions take and
+return the plain version's (L, N, K, M) stash; :func:`dense_stash` and
+:func:`compact_stash` convert.  The backward with parameter gradients
+(training; off the force path) keeps two template instances over all K
+slots: the shared-memory one wherever its tiles fit (K <= 89 at M = 128),
+and above that one whose K x M tiles sit in a per-CTA device workspace
+served by L2.  ``MAX_K`` is the neighbour capacity the port's model path
+accepts (``DDConfig`` and the providers' ``grow`` enforce it) on every
+device, so card and CPU results stay comparable.  Each kernel wrapper
+counts its launches in ``<wrapper>.launches``: one per call, however many
+CUDA kernels the call runs.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,7 +45,7 @@ from .ref import attn_scale, nbr_attention_stack_bwd_ref, nbr_attention_stack_re
 SMEM_LIMIT = 232_448      # bytes of shared memory one block may use (H100)
 PARAM_GRAD_BLOCKS = 132   # CTAs of a parameter-gradient launch (one per SM)
 MAX_K = 128               # the port's neighbour-capacity limit (both ways)
-ROW_PASS = 1 << 20        # stacked rows per pass of the force-path backward
+ROW_PASS = 1 << 20        # stacked rows per pass of the compacted-row kernels
 
 
 def k_limit_message(k: int) -> str:
@@ -54,47 +60,45 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 def _lib() -> ctypes.CDLL:
     lib = build.load("nbr_attn")
     if not getattr(lib, "_bound", False):
-        lib.nbr_attn_fwd.argtypes = [_P] * 14 + [_I] * 7 + [_F, _P]
+        lib.nbr_attn_fwd_rows.argtypes = ([_P] * 14 + [_LL, _I] + [_P] * 3
+                                          + [_LL] + [_I] * 3 + [_P] * 3
+                                          + [_I] * 5 + [_F, _P])
         lib.nbr_attn_bwd.argtypes = [_P] * 20 + [_I] * 8 + [_F, _P]
-        lib.nbr_attn_bwd_rows.argtypes = ([_P] * 20 + [_LL] + [_I] * 3
-                                          + [_P] * 6 + [_I] * 7 + [_F, _P])
+        lib.nbr_attn_bwd_rows.argtypes = ([_P, _LL] + [_P] * 19 + [_LL]
+                                          + [_I] * 3 + [_P] * 6 + [_I] * 5
+                                          + [_F, _P])
         lib.nbr_attn_reduce.argtypes = [_P, _P, _I, _LL, _P]
-        for fn in (lib.nbr_attn_fwd, lib.nbr_attn_bwd, lib.nbr_attn_bwd_rows,
-                   lib.nbr_attn_reduce):
+        for fn in (lib.nbr_attn_fwd_rows, lib.nbr_attn_bwd,
+                   lib.nbr_attn_bwd_rows, lib.nbr_attn_reduce):
             fn.restype = _I
-        for fn in (lib.nbr_attn_fwd_smem, lib.nbr_attn_bwd_smem,
-                   lib.nbr_attn_bwd_gmem_smem):
+        for fn in (lib.nbr_attn_bwd_smem, lib.nbr_attn_bwd_gmem_smem):
             fn.argtypes = [_I, _I]
             fn.restype = ctypes.c_size_t
-        lib.nbr_attn_bwd_rows_smem.argtypes = [_I]
-        lib.nbr_attn_bwd_rows_smem.restype = ctypes.c_size_t
+        lib.nbr_attn_rows_smem.argtypes = [_I]
+        lib.nbr_attn_rows_smem.restype = ctypes.c_size_t
         lib.nbr_attn_bwd_gmem_blocks.argtypes = [_I] * 3
         lib.nbr_attn_bwd_gmem_blocks.restype = _I
         lib._bound = True
     return lib
 
 
-def _smem(k: int, m: int, backward: bool, workspace: bool,
-          param_grads: bool) -> int:
+def _smem(k: int, m: int, param_grads: bool, workspace: bool) -> int:
     lib = _lib()
-    if not backward:
-        return lib.nbr_attn_fwd_smem(k, m)
     if not param_grads:
-        return lib.nbr_attn_bwd_rows_smem(k)   # an atom with all K valid
+        return lib.nbr_attn_rows_smem(k)   # an atom with all K valid
     if workspace:
         return lib.nbr_attn_bwd_gmem_smem(k, m)
     return lib.nbr_attn_bwd_smem(k, m)
 
 
-def max_k(m: int, backward: bool = True, workspace: bool = False,
-          param_grads: bool = True) -> int:
+def max_k(m: int, param_grads: bool = False, workspace: bool = False) -> int:
     """Largest neighbour capacity K a kernel instance takes at embedding
-    width m: the forward; the force-path backward (``param_grads=False``,
-    compacted rows, every slot of an atom valid); or the backward with
-    parameter gradients, every tile in shared memory or (``workspace``)
-    its K x M tiles in device memory."""
+    width m: the compacted-row kernels (the forward and the force-path
+    backward; every slot of an atom valid), or with ``param_grads`` the
+    backward with parameter gradients, every tile in shared memory or
+    (``workspace``) its K x M tiles in device memory."""
     k = 1
-    while _smem(k + 1, m, backward, workspace, param_grads) <= SMEM_LIMIT:
+    while _smem(k + 1, m, param_grads, workspace) <= SMEM_LIMIT:
         k += 1
     return k
 
@@ -142,8 +146,48 @@ def row_passes(count, max_rows: int = ROW_PASS):
     return passes
 
 
-def _validate(g, planes, weights, heads: int, backward: bool,
-              param_grads: bool = True):
+class RowStash(NamedTuple):
+    """The forward's layer inputs on compacted rows, and the compaction they
+    follow: ``x`` (L, R, M), layer l's input at the R stacked valid slots;
+    ``count``, ``start`` and ``rows`` as :func:`compact_rows` gives them (on
+    the card); ``count_h`` the counts on the host and ``passes`` their
+    :func:`row_passes`."""
+    x: torch.Tensor
+    count: torch.Tensor
+    start: torch.Tensor
+    rows: torch.Tensor
+    count_h: np.ndarray
+    passes: list
+
+
+def _compaction(mask):
+    """(count, start, rows, count_h, passes) of ``mask``: the host copy of
+    the counts is the one host sync of a force call."""
+    _, count, start, rows = compact_rows(mask)
+    count_h = count.cpu().numpy()
+    return count, start, rows, count_h, row_passes(count_h, ROW_PASS)
+
+
+def compact_stash(stash, rows):
+    """(L, R, M): the stacked rows ``rows`` (flat slots, as
+    :func:`compact_rows` gives them) of an (L, N, K, M) stash."""
+    layers, n, k, m = stash.shape
+    return stash.reshape(layers, n * k, m)[:, rows]
+
+
+def dense_stash(g, x, rows):
+    """The plain version's (L, N, K, M) stash from the compacted one ``x``
+    (L, R, M) on the slots ``rows``: layer 0 is g, masked slots included;
+    layers >= 1 hold x's rows and zeros at the masked slots (every layer's
+    output is multiplied by the mask)."""
+    n, k, m = g.shape
+    st = g.new_zeros((x.shape[0], n * k, m))
+    st[0] = g.reshape(n * k, m)
+    st[1:, rows] = x[1:]
+    return st.view(-1, n, k, m)
+
+
+def _validate(g, planes, weights, heads: int, param_grads: bool = False):
     n, k, m = g.shape
     layers, _, h = weights[0].shape
     for t in (g, *planes, *weights):
@@ -157,19 +201,19 @@ def _validate(g, planes, weights, heads: int, backward: bool,
         raise ValueError(f"stacked params must be {shapes}")
     if h % heads:
         raise ValueError(f"attn_hidden {h} not divisible by heads {heads}")
-    if backward and not param_grads and (m % 4 or (h // heads) % 4 or h % 8):
-        raise ValueError(f"the force-path attention backward takes M and the "
-                         f"head width in multiples of 4 and H in multiples of "
-                         f"8; got M={m}, H={h}, heads={heads}")
+    if not param_grads and (m % 4 or (h // heads) % 4 or h % 8):
+        raise ValueError(f"the attention kernels on compacted rows (the "
+                         f"forward and the force-path backward) take M and "
+                         f"the head width in multiples of 4 and H in "
+                         f"multiples of 8; got M={m}, H={h}, heads={heads}")
     lib = _lib()
-    workspace = backward and param_grads and uses_workspace(k, m)
-    smem = _smem(k, m, backward, workspace, param_grads)
+    workspace = param_grads and uses_workspace(k, m)
+    smem = _smem(k, m, param_grads, workspace)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"K={k} at M={m} needs {smem} bytes of shared memory for the "
-            f"{'backward' if backward else 'forward'} attention kernel; the "
-            f"largest K it takes is "
-            f"{max_k(m, backward, backward and param_grads, param_grads)}")
+            f"attention kernels; the largest K they take is "
+            f"{max_k(m, param_grads, param_grads)}")
     return lib, n, k, m, h, layers
 
 
@@ -184,10 +228,15 @@ def _stream() -> int:
 def nbr_attention_stack_fwd(g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma,
                             beta, heads: int = 1,
                             compute_dtype: str = "float32",
-                            stash: bool = False):
-    """Forward stack; with ``stash=True`` also the layer inputs
-    (L, N, K, M) the backward needs.  The CUDA kernel for CUDA tensors."""
+                            stash: bool | str = False):
+    """Forward stack.  With ``stash=True`` also the layer inputs
+    (L, N, K, M) the backward needs, as the plain version gives them; with
+    ``stash="rows"`` (CUDA tensors only) those inputs on the valid slots
+    alone, as a :class:`RowStash` the force-path backward takes.  The CUDA
+    kernels over compacted rows for CUDA tensors."""
     if not g.is_cuda:
+        if stash == "rows":
+            raise ValueError("stash='rows' is the CUDA kernels' layout")
         return nbr_attention_stack_ref(g, rx, ry, rz, sw, mask, wq, wk, wv,
                                        wo, gamma, beta, heads=heads,
                                        compute_dtype=compute_dtype,
@@ -195,17 +244,36 @@ def nbr_attention_stack_fwd(g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma,
     planes = [p.contiguous() for p in (rx, ry, rz, sw, mask)]
     weights = [w.contiguous() for w in (wq, wk, wv, wo, gamma, beta)]
     g = g.contiguous()
-    lib, n, k, m, h, layers = _validate(g, planes, weights, heads, False)
-    out = torch.empty_like(g)
-    st = g.new_empty((layers, n, k, m)) if stash else None
-    if n:
-        err = lib.nbr_attn_fwd(
-            *_ptrs(g, *planes, *weights, out), st.data_ptr() if stash else None,
-            n, k, m, h, layers, heads, int(compute_dtype == "bfloat16"),
-            float(attn_scale(h // heads)), _stream())
-        build.check(err, lib, "nbr_attn_fwd")
+    lib, n, k, m, h, layers = _validate(g, planes, weights, heads)
+    out = torch.zeros_like(g)
+    comp = _compaction(planes[4])
+    count, start, rows, count_h, passes = comp
+    total = passes[-1][3] if passes else 0
+    cap = max((r1 - r0 for _, _, r0, r1 in passes), default=0)
+    keep = stash is not False
+    # layer l's input rows: all of them kept (the stash), or two buffers of
+    # one pass used in turn
+    x = g.new_empty((layers, total, m) if keep else (2, cap, m))
+    ld, ring = (total * m, layers) if keep else (cap * m, 2)
+    qkv, ob, y = g.new_empty(cap, 3 * h), g.new_empty(cap, h), \
+        g.new_empty(cap, m)
+    for a0, a1, r0, r1 in passes:
+        err = lib.nbr_attn_fwd_rows(
+            *_ptrs(g, *planes, *weights, out),
+            x.data_ptr() + (4 * m * r0 if keep else 0), ld, ring,
+            rows.data_ptr() + 8 * r0, start.data_ptr() + 8 * a0,
+            count.data_ptr() + 8 * a0, r0, a1 - a0, r1 - r0,
+            int(count_h[a0]), *_ptrs(qkv, ob, y), m, h, layers, heads,
+            int(compute_dtype == "bfloat16"), float(attn_scale(h // heads)),
+            _stream())
+        build.check(err, lib, "nbr_attn_fwd_rows")
+    if passes:
         nbr_attention_stack_fwd.launches += 1
-    return (out, st) if stash else out
+    if not keep:
+        return out
+    if stash == "rows":
+        return out, RowStash(x, *comp)
+    return out, dense_stash(g, x, rows)
 
 
 def nbr_attention_stack_bwd(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
@@ -213,10 +281,15 @@ def nbr_attention_stack_bwd(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
                             compute_dtype: str = "float32",
                             param_grads: bool = True):
     """(dg, drx, dry, drz, dsw, dwq, dwk, dwv, dwo, dgamma, dbeta); the
-    parameter gradients are None unless ``param_grads``.  The CUDA kernel
-    (plus a deterministic reduction of per-CTA partials when parameter
-    gradients are asked for) for CUDA tensors."""
+    parameter gradients are None unless ``param_grads``.  ``stash`` is the
+    (L, N, K, M) layer-input stash or, for CUDA tensors without parameter
+    gradients, the forward's :class:`RowStash` of this mask.  The CUDA
+    kernels (plus a deterministic reduction of per-CTA partials when
+    parameter gradients are asked for) for CUDA tensors."""
+    rows = isinstance(stash, RowStash)
     if not dout.is_cuda:
+        if rows:
+            raise ValueError("a RowStash is the CUDA kernels' layout")
         res = nbr_attention_stack_bwd_ref(stash, rx, ry, rz, sw, mask, wq, wk,
                                           wv, wo, gamma, beta, dout,
                                           heads=heads,
@@ -224,14 +297,25 @@ def nbr_attention_stack_bwd(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
         return res if param_grads else res[:5] + (None,) * 6
     planes = [p.contiguous() for p in (rx, ry, rz, sw, mask)]
     weights = [w.contiguous() for w in (wq, wk, wv, wo, gamma, beta)]
-    dout, stash = dout.contiguous(), stash.contiguous()
-    lib, n, k, m, h, layers = _validate(dout, planes, weights, heads, True,
+    dout = dout.contiguous()
+    lib, n, k, m, h, layers = _validate(dout, planes, weights, heads,
                                         param_grads)
-    if stash.shape != (layers, n, k, m) or stash.dtype != torch.float32:
-        raise ValueError(f"stash must be ({layers}, {n}, {k}, {m}) float32")
     bf16 = int(compute_dtype == "bfloat16")
     scale = float(attn_scale(h // heads))
+    if rows:
+        if param_grads or stash.x.shape[::2] != (layers, m):
+            raise ValueError(f"a RowStash serves the backward without "
+                             f"parameter gradients, with x of ({layers}, R, "
+                             f"{m})")
+    else:
+        stash = stash.contiguous()
+        if stash.shape != (layers, n, k, m) or stash.dtype != torch.float32:
+            raise ValueError(f"stash must be ({layers}, {n}, {k}, {m}) "
+                             "float32")
     if not param_grads:
+        if not rows:
+            comp = _compaction(planes[4])
+            stash = RowStash(compact_stash(stash, comp[2]), *comp)
         res = _bwd_rows(lib, stash, planes, weights, dout, heads, bf16, scale)
         return res + (None,) * 6
     dg = torch.empty_like(dout)
@@ -264,30 +348,28 @@ def nbr_attention_stack_bwd(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
     return (dg, *dplanes, *pg)
 
 
-def _bwd_rows(lib, stash, planes, weights, dout, heads, bf16, scale):
-    """The force-path backward over compacted rows: (dg, drx, dry, drz,
-    dsw), exact zeros at the masked slots.  Passes of at most ``ROW_PASS``
-    stacked rows bound the scratch memory."""
-    layers, n, k, m = stash.shape
+def _bwd_rows(lib, rs, planes, weights, dout, heads, bf16, scale):
+    """The force-path backward over the compacted rows of the RowStash
+    ``rs``: (dg, drx, dry, drz, dsw), exact zeros at the masked slots.
+    Passes of at most ``ROW_PASS`` stacked rows bound the scratch memory."""
+    layers, total, m = rs.x.shape
     h = weights[0].shape[2]
     dg = torch.zeros_like(dout)
     dplanes = [torch.zeros_like(planes[0]) for _ in range(4)]
-    _, count, start, rows = compact_rows(planes[4])
-    count_h = count.cpu().numpy()
-    passes = row_passes(count_h)
-    if not passes:
+    if not rs.passes:
         return (dg, *dplanes)
-    cap = max(r1 - r0 for _, _, r0, r1 in passes)
+    cap = max(r1 - r0 for _, _, r0, r1 in rs.passes)
     new = lambda *s: dout.new_empty(s)
     qkv, dqkv = new(cap, 3 * h), new(cap, 3 * h)
     ob, xb, db, gacc = new(cap, h), new(cap, m), new(cap, m), new(cap, 4)
-    for a0, a1, r0, r1 in passes:
+    for a0, a1, r0, r1 in rs.passes:
         err = lib.nbr_attn_bwd_rows(
-            *_ptrs(stash, *planes, *weights[:5], dout, dg, *dplanes),
-            rows.data_ptr() + 8 * r0, start.data_ptr() + 8 * a0,
-            count.data_ptr() + 8 * a0, r0, a1 - a0, r1 - r0,
-            int(count_h[a0]), *_ptrs(qkv, ob, xb, db, dqkv, gacc), n, k, m,
-            h, layers, heads, bf16, scale, _stream())
+            rs.x.data_ptr() + 4 * m * r0, total * m,
+            *_ptrs(*planes, *weights[:5], dout, dg, *dplanes),
+            rs.rows.data_ptr() + 8 * r0, rs.start.data_ptr() + 8 * a0,
+            rs.count.data_ptr() + 8 * a0, r0, a1 - a0, r1 - r0,
+            int(rs.count_h[a0]), *_ptrs(qkv, ob, xb, db, dqkv, gacc), m, h,
+            layers, heads, bf16, scale, _stream())
         build.check(err, lib, "nbr_attn_bwd_rows")
     nbr_attention_stack_bwd.launches += 1
     return (dg, *dplanes)
@@ -300,15 +382,21 @@ nbr_attention_stack_bwd.launches = 0
 class NbrAttentionStack(torch.autograd.Function):
     """Differentiable in everything but the mask; the backward skips the
     parameter gradients when autograd does not ask for them (the MD force
-    path)."""
+    path), and then on the card takes the forward's compacted rows."""
 
     @staticmethod
     def forward(ctx, g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma, beta,
                 heads, compute_dtype):
-        out, stash = nbr_attention_stack_fwd(g, rx, ry, rz, sw, mask, wq, wk,
-                                             wv, wo, gamma, beta, heads,
-                                             compute_dtype, stash=True)
-        ctx.save_for_backward(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
+        rows = g.is_cuda and not any(ctx.needs_input_grad[6:12])
+        out, stash = nbr_attention_stack_fwd(
+            g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma, beta, heads,
+            compute_dtype, stash="rows" if rows else True)
+        if rows:
+            ctx.host = stash[4:]          # count_h, passes
+            stash = stash[:4]             # x, count, start, rows
+        else:
+            ctx.host, stash = None, (stash,)
+        ctx.save_for_backward(*stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
                               gamma, beta)
         ctx.cfg = (heads, compute_dtype)
         return out
@@ -316,10 +404,15 @@ class NbrAttentionStack(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         heads, compute_dtype = ctx.cfg
+        saved = ctx.saved_tensors
+        if ctx.host is None:
+            stash, rest = saved[0], saved[1:]
+        else:
+            stash, rest = RowStash(*saved[:4], *ctx.host), saved[4:]
         param_grads = any(ctx.needs_input_grad[6:12])
         (dg, drx, dry, drz, dsw, *pg) = nbr_attention_stack_bwd(
-            *ctx.saved_tensors, dout, heads=heads,
-            compute_dtype=compute_dtype, param_grads=param_grads)
+            stash, *rest, dout, heads=heads, compute_dtype=compute_dtype,
+            param_grads=param_grads)
         return (dg, drx, dry, drz, dsw, None, *pg, None, None)
 
 

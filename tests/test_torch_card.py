@@ -14,6 +14,14 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   non-prefix mask in one batch: atol 1e-4 x max|grad| per output (fp32;
   2e-2 with bf16 operands, as the forward's bf16 gate), exact zeros at the
   masked slots, the same bits on a repeat;
+* the forward on compacted rows at K = 64, 82 and 128, heads 2 and bf16
+  operands, with large g at the masked slots: out and stash atol 1e-4 x
+  max (2e-2 in bf16), stash layer 0 equal to g, exact zeros at the masked
+  slots, the same bits with and without a stash; an atom's bits the same
+  wherever it lands (atoms permuted; small passes, so other GEMM tiles and
+  attention CTAs of 128 threads instead of 256); an all-masked input and
+  N = 0; autograd through ``NbrAttentionStack`` with and without
+  parameter gradients against the plain backward;
 * ``flash_attention`` against its plain version (the five cases of the
   reference's flash tests, unmasked keys past a ragged Sk, decode against a
   cache view, every head dimension the kernel has; in bf16 also the tensor-
@@ -78,19 +86,32 @@ def test_cell_filter_kernel_equals_plain(card, rcut):
     assert torch.equal(got.cpu(), cf.cell_filter_plain(*args, rcut))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [64, 82, 128])
-def test_attention_stack_on_card_up_to_k128(card, k):
-    gen = torch.Generator(device=card).manual_seed(k)
+def _stack_args(card, seed, n, k, p_valid, m=128, h=256, layers=3):
+    """(args of the stack at the path's widths, a randn on its generator)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
     rnd = lambda *s: torch.randn(*s, device=card, generator=gen)
-    n, m, h, layers = 48, 128, 256, 3
     rx, ry, rz = (0.5 * rnd(n, k) for _ in range(3))
     sw = torch.rand(n, k, device=card, generator=gen)
-    mask = (torch.rand(n, k, device=card, generator=gen) < 0.6).float()
+    mask = (torch.rand(n, k, device=card, generator=gen) < p_valid).float()
     weights = [0.05 * rnd(layers, m, h) for _ in range(3)]
     weights += [0.05 * rnd(layers, h, m), 1 + 0.1 * rnd(layers, m),
                 0.1 * rnd(layers, m)]
-    args = [rnd(n, k, m), rx, ry, rz, sw, mask, *weights]
+    return [rnd(n, k, m), rx, ry, rz, sw, mask, *weights], rnd
+
+
+def _edge_atoms(mask):
+    k = mask.shape[1]
+    mask[0] = 0.0                     # no valid neighbour
+    mask[1] = 0.0
+    mask[1, k // 2] = 1.0             # one, mid-row
+    mask[2] = 1.0                     # all K valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 82, 128])
+def test_attention_stack_on_card_up_to_k128(card, k):
+    n, m = 48, 128
+    args, rnd = _stack_args(card, k, n, k, 0.6)
     out, stash = nbr_attn.nbr_attention_stack_fwd(*args, stash=True)
     want, want_stash = ref.nbr_attention_stack_ref(*args, stash=True)
     torch.testing.assert_close(out, want, rtol=0,
@@ -109,20 +130,10 @@ def test_attention_stack_on_card_up_to_k128(card, k):
     (64, 1, "float32"), (82, 1, "float32"), (128, 1, "float32"),
     (82, 2, "float32"), (82, 1, "bfloat16")])
 def test_force_path_backward_on_compacted_rows(card, k, heads, dtype):
-    gen = torch.Generator(device=card).manual_seed(k + heads)
-    rnd = lambda *s: torch.randn(*s, device=card, generator=gen)
-    n, m, h, layers = 40, 128, 256, 3
-    rx, ry, rz = (0.5 * rnd(n, k) for _ in range(3))
-    sw = torch.rand(n, k, device=card, generator=gen)
-    mask = (torch.rand(n, k, device=card, generator=gen) < 0.4).float()
-    mask[0] = 0.0                     # no valid neighbour
-    mask[1] = 0.0
-    mask[1, k // 2] = 1.0             # one, mid-row
-    mask[2] = 1.0                     # all K valid
-    weights = [0.05 * rnd(layers, m, h) for _ in range(3)]
-    weights += [0.05 * rnd(layers, h, m), 1 + 0.1 * rnd(layers, m),
-                0.1 * rnd(layers, m)]
-    args = [rnd(n, k, m), rx, ry, rz, sw, mask, *weights]
+    n, m = 40, 128
+    args, rnd = _stack_args(card, k + heads, n, k, 0.4)
+    mask = args[5]
+    _edge_atoms(mask)
     opts = dict(heads=heads, compute_dtype=dtype)
     _, stash = ref.nbr_attention_stack_ref(*args, stash=True, **opts)
     dout = rnd(n, k, m)
@@ -141,6 +152,97 @@ def test_force_path_backward_on_compacted_rows(card, k, heads, dtype):
                                    atol=tol * float(b.abs().max()))
         assert not bool(a[masked].any())
         assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,heads,dtype", [
+    (64, 1, "float32"), (82, 1, "float32"), (128, 1, "float32"),
+    (82, 2, "float32"), (82, 1, "bfloat16")])
+def test_forward_on_compacted_rows(card, k, heads, dtype):
+    args, _ = _stack_args(card, 3 * k + heads, 40, k, 0.4)
+    mask = args[5]
+    _edge_atoms(mask)
+    masked = mask == 0
+    args[0][masked] = 1e6             # must reach no valid row
+    opts = dict(heads=heads, compute_dtype=dtype)
+    before = nbr_attn.nbr_attention_stack_fwd.launches
+    out, stash = nbr_attn.nbr_attention_stack_fwd(*args, stash=True, **opts)
+    assert nbr_attn.nbr_attention_stack_fwd.launches == before + 1
+    want, want_stash = ref.nbr_attention_stack_ref(*args, stash=True, **opts)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=tol * float(want.abs().max()))
+    assert torch.equal(stash[0], args[0])
+    torch.testing.assert_close(stash[1:], want_stash[1:], rtol=0,
+                               atol=tol * float(want_stash[1:].abs().max()))
+    assert not bool(out[masked].any())
+    assert not bool(stash[1:, masked].any())
+    assert torch.equal(out, nbr_attn.nbr_attention_stack_fwd(*args, **opts))
+    again, rs = nbr_attn.nbr_attention_stack_fwd(*args, stash="rows", **opts)
+    assert torch.equal(out, again)
+    assert rs.x.shape == (3, int(mask.sum()), 128)
+    assert torch.equal(nbr_attn.dense_stash(args[0], rs.x, rs.rows), stash)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [82, 128])
+def test_forward_bits_do_not_depend_on_an_atoms_place(card, k, monkeypatch):
+    n = 64
+    args, _ = _stack_args(card, 5 * k, n, k, 0.5)
+    _edge_atoms(args[5])
+    out = nbr_attn.nbr_attention_stack_fwd(*args)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(k))
+    perm = perm.to(card)
+    moved = nbr_attn.nbr_attention_stack_fwd(*[a[perm] for a in args[:6]],
+                                             *args[6:])
+    assert torch.equal(moved, out[perm])
+    # passes of ~200 rows: the atoms in other GEMM tiles, and those of at
+    # most 64 valid slots in attention CTAs of 128 threads instead of 256
+    counts = args[5].sum(1).sort(descending=True).values.long().cpu()
+    assert len(nbr_attn.row_passes(counts, 200)) > 10
+    assert int(counts[0]) > 64 >= int(counts[-2])
+    monkeypatch.setattr(nbr_attn, "ROW_PASS", 200)
+    assert torch.equal(nbr_attn.nbr_attention_stack_fwd(*args), out)
+
+
+@pytest.mark.cuda
+def test_forward_all_masked_and_empty(card):
+    args, _ = _stack_args(card, 9, 16, 82, 0.0)
+    before = nbr_attn.nbr_attention_stack_fwd.launches
+    out, stash = nbr_attn.nbr_attention_stack_fwd(*args, stash=True)
+    assert nbr_attn.nbr_attention_stack_fwd.launches == before
+    assert not bool(out.any()) and not bool(stash[1:].any())
+    assert torch.equal(stash[0], args[0])
+    empty = [a[:0] for a in args[:6]] + args[6:]
+    out = nbr_attn.nbr_attention_stack_fwd(*empty)
+    assert out.shape == (0, 82, 128)
+    g = args[0].clone().requires_grad_()
+    nbr_attn.nbr_attention_stack(g, *args[1:]).sum().backward()
+    assert not bool(g.grad.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("param_grads", [True, False])
+def test_autograd_through_the_stack(card, param_grads):
+    """Training (parameter gradients: dense stash, the parameter-gradient
+    backward) and the force path (compacted stash handed over) against the
+    plain backward."""
+    args, rnd = _stack_args(card, 21 + param_grads, 32, 82, 0.4)
+    _edge_atoms(args[5])
+    grads = [i for i in range(12) if i != 5 and (param_grads or i < 5)]
+    leaves = [a.clone().requires_grad_(i in grads) for i, a in enumerate(args)]
+    dout = rnd(*args[0].shape)
+    fb, bb = (nbr_attn.nbr_attention_stack_fwd.launches,
+              nbr_attn.nbr_attention_stack_bwd.launches)
+    nbr_attn.nbr_attention_stack(*leaves).backward(dout)
+    assert nbr_attn.nbr_attention_stack_fwd.launches == fb + 1
+    assert nbr_attn.nbr_attention_stack_bwd.launches == bb + 1
+    _, stash = ref.nbr_attention_stack_ref(*args, stash=True)
+    exp = ref.nbr_attention_stack_bwd_ref(stash, *args[1:], dout)
+    for i, want in zip([0, 1, 2, 3, 4, *range(6, 12)], exp):
+        if i in grads:
+            torch.testing.assert_close(leaves[i].grad, want, rtol=0,
+                                       atol=1e-4 * float(want.abs().max()))
 
 
 FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal, window, cap, off
