@@ -2,8 +2,9 @@
 """Drive the PyTorch/H100 port's paths once on one card: the DP force path
 and gemma2-2b token serving.
 
-    python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --phase lm   # the lm phase alone
+    python3 chip_smoke.py                   # every phase
+    python3 chip_smoke.py --phase lm        # the lm phase alone
+    python3 chip_smoke.py --phase kernels   # the DP kernels phase alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
 source, all started together; Triton at first launch), then runs phases
@@ -11,14 +12,17 @@ source, all started together; Triton at first launch), then runs phases
 rcut=0.6, sel=64)``, fp32, random weights from a seed) over uniform random
 atoms at 30 atoms/nm^3, and phase 5 on gemma2-2b:
 
-1. kernels: the env-matrix and attention kernels against their plain
-   PyTorch versions on the card, at the shapes and on the data the force
-   path gives them (N = 15,668 atoms; K = 64, 82, and K = 128 from the MD
-   cutoff r_c = 0.8 with sel 128), with timings (median of 10 runs, CUDA
-   events, L2 flushed before each run); the forward and the force-path
-   backward (both on compacted rows) also held to exact zeros at the
-   masked slots and repeated bit for bit, the forward also split into
-   passes of 2^16 rows bit for bit;
+1. kernels: the env-matrix, attention and force-scatter kernels against
+   their plain PyTorch versions on the card, at the shapes and on the data
+   the force path gives them (N = 15,668 atoms; K = 64, 82, and K = 128
+   from the MD cutoff r_c = 0.8 with sel 128), with timings (median of 10
+   runs, CUDA events, L2 flushed before each run); the forward and the
+   force-path backward (both on compacted rows) also held to exact zeros
+   at the masked slots and repeated bit for bit, the forward also split
+   into passes of 2^16 rows bit for bit; the force scatter (the neighbour
+   gather's backward) bit for bit on one force call's cotangents, timed
+   with its reverse list's build apart and beside PyTorch's indexing
+   backward; at K = 82 the parameter-gradient backward timed;
 2. path parity: the single-domain provider on the card against the port on
    the CPU at 2,048 atoms, and one launch of each of its kernels per call;
 3. requests: ``DeepmdForceProvider(skin=0.05).compute`` on one domain of the
@@ -27,13 +31,14 @@ atoms at 30 atoms/nm^3, and phase 5 on gemma2-2b:
    8 ranks on this card (``suggest_config(n_ranks=8, skin=0.05)``): the
    ``cell_filter`` kernel against its plain version bit for bit (at the
    shapes of the cell-list assembly and of the evaluation's re-filter, and
-   on pairs placed at the cutoff), the four model kernels against their
+   on pairs placed at the cutoff), the five model kernels against their
    plain versions on the exact tensors one DD evaluate gives them (all
    ranks' capacity rows, fully masked padding rows included; the attention
    stack in row chunks, its stash on the valid rows the forward kept for
-   the backward), cells == dense and stale == fresh bit for bit,
+   the backward; both force-scatter calls, the gather's backward and the
+   force reduction, bit for bit), cells == dense and stale == fresh bit for bit,
    DD == single domain within phase 3's gate, then requests through
-   ``DeepmdForceProvider(dd_config=...)``;
+   ``DeepmdForceProvider(dd_config=...)`` and one assembly profiled;
 5. lm: gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
    bf16, random weights from the port's initialiser), 4 prompts of 6,144
    random token ids, 32 greedy new tokens through ``launch/serve.py``'s
@@ -77,9 +82,12 @@ TPU_SOURCES = {
     "nbr_attention_stack_fwd": "src/repro/kernels/nbr_attn.py:145",
     "nbr_attention_stack_bwd": "src/repro/kernels/nbr_attn.py:164",
     "cell_filter": "src/repro/kernels/cell_gather.py:26",
+    # no TPU kernel: XLA scatter-adds the gradient of this gather
+    "force_scatter": "src/repro/dp/model.py:88",
 }
 SINGLE_DOMAIN_KERNELS = ("env_mat_fwd", "env_mat_bwd",
-                         "nbr_attention_stack_fwd", "nbr_attention_stack_bwd")
+                         "nbr_attention_stack_fwd", "nbr_attention_stack_bwd",
+                         "force_scatter")
 DP_KERNELS = SINGLE_DOMAIN_KERNELS + ("cell_filter",)
 TPU_FUNCTIONS = {
     "env_mat_fwd": "src/repro/kernels/env_mat.py::_env_mat_kernel",
@@ -87,6 +95,8 @@ TPU_FUNCTIONS = {
     "nbr_attention_stack_fwd": "src/repro/kernels/nbr_attn.py::_stack_fwd_kernel",
     "nbr_attention_stack_bwd": "src/repro/kernels/nbr_attn.py::_stack_bwd_kernel",
     "cell_filter": "src/repro/kernels/cell_gather.py::_cell_filter_kernel",
+    "force_scatter": "none: XLA's scatter-add of the gradient of coords[safe] "
+                     "(src/repro/dp/model.py::_atomic_e)",
 }
 PORT_SOURCES = {
     "env_mat_fwd": ("triton", "src/repro_torch/kernels/env_mat_triton.py"),
@@ -94,6 +104,7 @@ PORT_SOURCES = {
     "nbr_attention_stack_fwd": ("cuda", "src/repro_torch/kernels/csrc/nbr_attn.cu"),
     "nbr_attention_stack_bwd": ("cuda", "src/repro_torch/kernels/csrc/nbr_attn.cu"),
     "cell_filter": ("cuda", "src/repro_torch/kernels/csrc/cell_filter.cu"),
+    "force_scatter": ("cuda", "src/repro_torch/kernels/csrc/force_scatter.cu"),
 }
 
 
@@ -179,16 +190,19 @@ def env_bound(n_planes, numel):
     return n_planes * numel * 4 / HBM_RATE * 1e3, "bytes"
 
 
-def attn_bound(attn, backward):
+def attn_bound(attn, backward, param_grads=False):
     """Least time for the stack: FLOPs the valid neighbours need (per atom
     with n valid of K: forward 8nMH + 4n^2 H per layer; backward without
-    parameter gradients, recompute included, 16nMH + 12n^2 H) at the fp32
-    peak, against each input read once and each output written once."""
+    parameter gradients, recompute included, 16nMH + 12n^2 H; the parameter
+    gradients add 8nMH) at the fp32 peak, against each input read once and
+    each output written once."""
     g, mask = attn[0], attn[5]
     layers, m, h = attn[6].shape
     nv = (mask > 0).sum(1).double()
     per = (16 * nv * m * h + 12 * nv * nv * h) if backward else \
         (8 * nv * m * h + 4 * nv * nv * h)
+    if param_grads:
+        per = per + 8 * nv * m * h
     flops = float(layers * per.sum())
     weights = sum(w.numel() for w in attn[6:])
     # forward: g + 5 planes in, out + the stash of the valid rows out;
@@ -196,17 +210,18 @@ def attn_bound(attn, backward):
     stash = layers * float(nv.sum()) * m
     words = (2 * g.numel() + stash + 5 * mask.numel() if not backward
              else 2 * g.numel() + stash + 9 * mask.numel())
-    nbytes = 4 * (words + weights)
+    nbytes = 4 * (words + (2 if param_grads else 1) * weights)
     t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_kernels(model, params, skin, bf16=False):
-    """The env-matrix and attention kernels against their plain versions at
-    the shapes and on the data of the force path whose list has this skin
-    (K = sel at skin 0, the skin-widened capacity of the provider
-    otherwise); with ``bf16`` also bf16 operands at the path's shape, and
-    one forward under ``torch.profiler``."""
+def phase_kernels(model, params, skin, main=False):
+    """The env-matrix, attention and force-scatter kernels against their
+    plain versions at the shapes and on the data of the force path whose
+    list has this skin (K = sel at skin 0, the skin-widened capacity of the
+    provider otherwise); with ``main`` (the provider's K) also bf16
+    operands at the path's shape, the parameter-gradient backward timed,
+    one forward under ``torch.profiler`` and the scatter's edge cases."""
     from repro_torch.core.ddinfer import single_domain_state
     from repro_torch.kernels import env_mat, nbr_attn, ref
     cfg = model.cfg.descriptor
@@ -221,13 +236,26 @@ def phase_kernels(model, params, skin, bf16=False):
     rand = lambda *s: torch.randn(*s, device=DEVICE, generator=gen)
     results = {}
 
-    def report(name, err, tol, kernel_ms, plain_ms, bound):
+    def report(name, err, tol, kernel_ms, plain_ms, bound, **extra):
         line = {"phase": "kernels", "name": name, "K": k, "N": n,
                 "tpu_source": TPU_FUNCTIONS[name], "max_err": err, "tol": tol,
                 "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                "bound_ms": bound[0], "bound_by": bound[1]}
+                "bound_ms": bound[0], "bound_by": bound[1], **extra}
         print(json.dumps(line), flush=True)
         results[name] = line
+
+    # the force scatter on the cotangents of one force call on this list
+    _, seen = record_model_kernels(
+        lambda: model.energy_and_forces(params, coords, types, nlist.idx,
+                                        env_in[3], torch.ones_like(coords[:, 0]),
+                                        box), FORCE_SCATTER)
+    calls = seen["force_scatter"]
+    fs_args = calls[0][0]
+    line = check_force_scatter(*fs_args, edge=main)
+    report("force_scatter", 0.0, "exact (bitwise)", line.pop("kernel_ms"),
+           line.pop("plain_ms"), (line.pop("bound_ms"), line.pop("bound_by")),
+           launches_per_force_call=len(calls), **line)
+    del seen, calls, fs_args
 
     rs, rc = cfg.rcut_smth, cfg.rcut
     out = env_mat.env_mat_fwd(*env_in, rs, rc)
@@ -322,11 +350,29 @@ def phase_kernels(model, params, skin, bf16=False):
            time_ms(lambda: ref.nbr_attention_stack_bwd_ref(
                want_stash, *attn[1:], dout)),
            attn_bound(attn, backward=True))
+    if main:
+        # the parameter-gradient backward (training; off the force path)
+        pg = nbr_attn.nbr_attention_stack_bwd(want_stash, *attn[1:], dout,
+                                              param_grads=True)
+        names = "dg drx dry drz dsw dwq dwk dwv dwo dgamma dbeta".split()
+        err = max(check(f"nbr_attention_stack_bwd param_grads [{nm}]", a, b,
+                        atol=1e-4 * float(b.abs().max()))
+                  for nm, a, b in zip(names, pg, want))
+        del pg
+        bound = attn_bound(attn, backward=True, param_grads=True)
+        print(json.dumps({
+            "phase": "kernels", "name": "nbr_attention_stack_bwd",
+            "case": "parameter gradients (stack_bwd_kernel, all K slots)",
+            "K": k, "N": n, "max_err": err,
+            "tol": "atol 1e-4*max|grad| per output",
+            "kernel_ms": time_ms(lambda: nbr_attn.nbr_attention_stack_bwd(
+                want_stash, *attn[1:], dout, param_grads=True)),
+            "bound_ms": bound[0], "bound_by": bound[1]}), flush=True)
     del got, want, want_stash, rs
 
     # bf16 operands at the path's shapes; heads=2 and parameter gradients
     # at a small shape (the force path uses neither)
-    if bf16:
+    if main:
         device_profile(lambda: fwd(*attn, stash="rows"), "kernels_profile",
                        f"one forward over compacted rows, K = {k}")
         out = nbr_attn.nbr_attention_stack_fwd(*attn, compute_dtype="bfloat16")
@@ -360,7 +406,7 @@ def phase_kernels(model, params, skin, bf16=False):
                           "fwd_max_err": err,
                           "bwd_max_err": err_b,
                           "tol": "atol 1e-4*max per output"}), flush=True)
-    print(f"[kernels] N={n} K={k}: all four kernels within tolerance",
+    print(f"[kernels] N={n} K={k}: all five kernels within tolerance",
           flush=True)
     del attn, env_in, nlist
     torch.cuda.empty_cache()
@@ -516,12 +562,15 @@ def cutoff_pairs(rcut, n, seed):
     return np.array(ps[:n]), np.array(qs[:n]), np.array(want[:n])
 
 
-def cell_filter_bound(idx):
-    """Least time of one cell_filter call: the (R, M) int32 indices read and
-    the (R, M) one-byte flags written, plus 16 bytes of coordinates and mask
-    per row, at the card's memory rate."""
+def cell_filter_bound(idx, mask=None):
+    """Least time of one cell_filter call: the int32 indices of the rows
+    whose mask is > 0 read (a row masked out has all flags 0: its indices
+    are not needed; every row without ``mask``) and the (R, M) one-byte
+    flags written, plus 16 bytes of coordinates and mask per row, at the
+    card's memory rate."""
     r, m = idx.shape
-    return (r * m * 5 + r * 16) / HBM_RATE * 1e3, "bytes"
+    live = r if mask is None else int((mask > 0).sum())
+    return (live * m * 4 + r * m + r * 16) / HBM_RATE * 1e3, "bytes"
 
 
 def check_cell_filter(rcut):
@@ -566,20 +615,22 @@ def frozen_drift(coords, box, dims, halo, scale=2e-4, seed=SEED + 6):
     return np.mod(coords + step, box).astype(np.float32)
 
 
+FORCE_SCATTER = (("force_scatter", "force_scatter"),)
 MODEL_KERNELS = (("env_mat", "env_mat_fwd"), ("env_mat", "env_mat_bwd"),
                  ("nbr_attn", "nbr_attention_stack_fwd"),
-                 ("nbr_attn", "nbr_attention_stack_bwd"))
+                 ("nbr_attn", "nbr_attention_stack_bwd")) + FORCE_SCATTER
 
 
-def record_model_kernels(fn):
-    """Run ``fn()`` with each model kernel's wrapper replaced by one that
-    records (args, kwargs, outputs) of every call; returns (fn's result,
-    {name: [calls]}).  The wrappers still launch; their counts, which they
-    keep on the module-level name, go back to them afterwards."""
+def record_model_kernels(fn, which=MODEL_KERNELS):
+    """Run ``fn()`` with each named kernel wrapper (module, name) replaced
+    by one that records (args, kwargs, outputs) of every call; returns
+    (fn's result, {name: [calls]}).  The wrappers still launch; their
+    counts, which they keep on the module-level name, go back to them
+    afterwards."""
     from repro_torch import kernels
-    mods = {m: getattr(kernels, m) for m, _ in MODEL_KERNELS}
-    seen = {name: [] for _, name in MODEL_KERNELS}
-    originals = {name: getattr(mods[m], name) for m, name in MODEL_KERNELS}
+    mods = {m: getattr(kernels, m) for m, _ in which}
+    seen = {name: [] for _, name in which}
+    originals = {name: getattr(mods[m], name) for m, name in which}
 
     def recorder(name):
         def rec(*args, **kw):
@@ -589,15 +640,96 @@ def record_model_kernels(fn):
         rec.launches = 0
         return rec
 
-    for m, name in MODEL_KERNELS:
+    for m, name in which:
         setattr(mods[m], name, recorder(name))
     try:
         res = fn()
     finally:
-        for m, name in MODEL_KERNELS:
+        for m, name in which:
             originals[name].launches += getattr(mods[m], name).launches
             setattr(mods[m], name, originals[name])
     return res, seen
+
+
+def scatter_bound(idx, mask, n, with_list=False):
+    """Least time of the force scatter: the valid slots' 12-byte cotangent
+    rows and their 8-byte reverse-list entries read, the offsets (8 bytes
+    per atom) read, the (n, 3) sums written; ``with_list`` adds idx and
+    mask read once (what building the list needs)."""
+    valid = int(((idx >= 0) & (mask > 0)).sum())
+    nbytes = 20 * valid + 8 * (n + 1) + 12 * n
+    if with_list:
+        nbytes += idx.numel() * (idx.element_size() + mask.element_size())
+    return nbytes / HBM_RATE * 1e3, "bytes"
+
+
+def check_force_scatter(g, idx, mask, n, edge=False):
+    """The force scatter on one force call's cotangents ``g`` (C, K, 3):
+    the kernel bit for bit against the plain version (on CPU copies: on the
+    card ``index_add_`` adds with atomics) and on a repeat, and ``g``
+    exactly 0 at every masked or padded slot (the kernel skips them, so its
+    sums are the full scatter's only then); with ``edge`` also all slots
+    masked and N = 0.  Times (median of 10, L2 flushed): the reverse list's
+    build, the kernel on it, both, the plain version on the card, and
+    PyTorch's indexing backward (``index_put_`` with accumulate, what
+    autograd runs for ``coords[safe]``) with padded slots at atom 0 and,
+    where row i holds atom i's slots (C == n, the gather's backward), at
+    their own atom.  Returns a dict of the numbers."""
+    from repro_torch.kernels import force_scatter as fs
+    got = fs.force_scatter(g, idx, mask, n)
+    want = fs.force_scatter_plain(g.cpu(), idx.cpu(), mask.cpu(), n)
+    if not torch.equal(got.cpu(), want):
+        fail(f"force_scatter: {int((got.cpu() != want).any(1).sum())} atoms "
+             "differ from the plain version")
+    if not torch.equal(fs.force_scatter(g, idx, mask, n), got):
+        fail("force_scatter: a repeat differs")
+    skipped = g[~((idx >= 0) & (mask > 0))]
+    skipped_max = float(skipped.abs().max()) if skipped.numel() else 0.0
+    if skipped_max != 0.0:
+        fail(f"force_scatter: cotangent up to {skipped_max:.3e} at a masked "
+             "or padded slot, which the kernel skips")
+    del skipped
+    if edge:
+        zero = fs.force_scatter(g, idx, torch.zeros_like(mask), n)
+        if tuple(zero.shape) != (n, 3) or bool(zero.any()):
+            fail("force_scatter: nonzero sums with every slot masked")
+        if tuple(fs.force_scatter(g[:0], idx[:0], mask[:0], 0).shape) != (0, 3):
+            fail("force_scatter: wrong shape at N = 0")
+    c, k = idx.shape
+    rl = fs.reverse_list(idx, mask, n)
+    safe_zero = torch.where(idx >= 0, idx.long(), torch.zeros_like(idx.long()))
+
+    def library(safe):
+        return torch.zeros(n, 3, device=g.device).index_put_((safe,), g,
+                                                             accumulate=True)
+
+    lib_err = float((library(safe_zero).cpu() - want).abs().max()) if n else 0.0
+    bound = scatter_bound(idx, mask, n)
+    line = {"valid_slots": int(rl[1][-1]) if n else 0,
+            "padded_slots": int((idx < 0).sum()),
+            "masked_slots": int(((idx >= 0) & ~(mask > 0)).sum()),
+            "repeat_bitwise": True,
+            "masked_slot_cotangent_max_abs": skipped_max,
+            "kernel_ms": time_ms(lambda: fs._launch(g, *rl, n)),
+            "reverse_list_ms": time_ms(lambda: fs.reverse_list(idx, mask, n)),
+            "kernel_with_list_ms": time_ms(
+                lambda: fs.force_scatter(g, idx, mask, n)),
+            "plain_ms": time_ms(lambda: fs.force_scatter_plain(g, idx, mask, n)),
+            "library_ms": time_ms(lambda: library(safe_zero)),
+            "library_max_abs_err": lib_err,
+            "library": "zeros.index_put_((safe,), g, accumulate=True), the "
+                       "backward of coords[safe]; padded slots at atom 0",
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_with_list_ms": scatter_bound(idx, mask, n, True)[0]}
+    if c == n:
+        own = torch.arange(c, device=idx.device)[:, None].expand(c, k)
+        safe_own = torch.where((idx >= 0) & (mask > 0), idx.long(), own)
+        line["library_own_index_ms"] = time_ms(lambda: library(safe_own))
+        line["library"] += (", and (library_own_index_ms) every masked or "
+                            "padded slot at its own atom")
+    if edge:
+        line["all_masked_zero_and_empty"] = True
+    return line
 
 
 def check_rows(name, got, plain, n, padded, chunk=8192):
@@ -636,14 +768,18 @@ def check_rows(name, got, plain, n, padded, chunk=8192):
 
 @torch.no_grad()
 def check_dd_model_kernels(seen):
-    """The four model kernels against their plain versions on the exact
+    """The five model kernels against their plain versions on the exact
     tensors one DD evaluate gave them (all ranks' capacity rows, padded
-    rows included): env_mat whole, the attention stack in row chunks."""
+    rows included): env_mat whole, the attention stack in row chunks, the
+    force scatter's two calls (the gather's backward, then the reduction
+    of the ranks' forces onto the atoms) bit for bit.  Returns the force
+    scatter's lines, {case: line}."""
     from repro_torch.kernels import nbr_attn, ref
     for name, calls in seen.items():
-        if len(calls) != 1:
+        want_calls = 2 if name == "force_scatter" else 1
+        if len(calls) != want_calls:
             fail(f"dd evaluate: {name} launched {len(calls)} times, "
-                 "expected once")
+                 f"expected {want_calls}")
     args, _, out = seen["env_mat_fwd"][0]
     mask = args[3]
     n, k = mask.shape
@@ -734,6 +870,23 @@ def check_dd_model_kernels(seen):
                           "max_err": err,
                           "fully_masked_rows_max_err": pad, "tol": tol}),
               flush=True)
+    scatter = {}
+    for case, (args, _, _) in zip(("gather_backward", "force_reduction"),
+                                  seen["force_scatter"]):
+        rows_k = tuple(args[1].shape)
+        if case == "gather_backward" and rows_k != (n, k):
+            fail(f"dd evaluate: the first force scatter took {rows_k} slots, "
+                 f"not the model's ({n}, {k})")
+        if case == "force_reduction" and rows_k[1] != 1:
+            fail(f"dd evaluate: the second force scatter took {rows_k} slots,"
+                 " not one per force row")
+        scatter[case] = {"phase": "dd", "name": "force_scatter",
+                         "case": f"{case}, inputs of one DD evaluate",
+                         "rows": rows_k[0], "K": rows_k[1], "atoms": args[3],
+                         "max_err": 0.0, "tol": "exact (bitwise)",
+                         **check_force_scatter(*args)}
+        print(json.dumps(scatter[case]), flush=True)
+    return scatter
 
 
 def phase_dd(model, params):
@@ -784,13 +937,16 @@ def phase_dd(model, params):
                  "differ from the plain version")
         del got, plain
         torch.cuda.empty_cache()
-        bound = cell_filter_bound(args[1])
+        bound = cell_filter_bound(args[1], args[2])
         rows[site] = {"phase": "dd", "name": "cell_filter", "site": site,
                       "rows": args[1].shape[0], "M": args[1].shape[1],
                       "max_err": 0.0, "tol": "exact",
                       "kernel_ms": time_ms(lambda: cf.cell_filter(*args)),
                       "plain_ms": time_ms(lambda: cf.cell_filter_plain(*args)),
-                      "bound_ms": bound[0], "bound_by": bound[1]}
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "bound_ms_all_rows": cell_filter_bound(args[1])[0],
+                      "rows_masked_out": int((args[2] <= 0).sum())}
+        rows[site]["share_of_bound"] = bound[0] / rows[site]["kernel_ms"]
         print(json.dumps(rows[site]), flush=True)
     del calls
     torch.cuda.empty_cache()
@@ -841,7 +997,7 @@ def phase_dd(model, params):
     # the model kernels on the exact tensors this evaluate gives them
     (e_stale, f_stale, d_stale), seen = record_model_kernels(
         lambda: ev(params, moved, st0))
-    check_dd_model_kernels(seen)
+    dd_scatter = check_dd_model_kernels(seen)
     del seen
     torch.cuda.empty_cache()
     e_fresh, f_fresh, _ = ev(params, moved, asm(moved, t))
@@ -870,6 +1026,8 @@ def phase_dd(model, params):
     state = prov.assemble(x)
     torch.cuda.synchronize()
     asm_ms = (time.perf_counter() - t0) * 1e3
+    device_profile(lambda: prov.assemble(x), "dd_assembly_profile",
+                   "one cell-list assembly (8 ranks)", host_ops=True)
     kernels.reset_launch_counts()
     prov.evaluate(torch.tensor(requests[0], device=DEVICE), state)
     per_call = kernels.launch_counts()
@@ -897,7 +1055,7 @@ def phase_dd(model, params):
         "rows_per_rank_capacity": c, "model_rows": g * c,
         "launches": counts, "launches_per_evaluate_call": per_call}),
         flush=True)
-    return rows["refilter"], counts, per_call
+    return rows["refilter"], counts, per_call, dd_scatter
 
 
 # ---------------------------------------------------------------------------
@@ -1189,9 +1347,11 @@ def phase_lm():
                   "launches_per_decode_step": decode_calls // steps}
 
 
-def device_profile(fn, phase, what):
+def device_profile(fn, phase, what, host_ops=False):
     """``fn()`` under ``torch.profiler``: device time by kernel and the
-    device's idle share of the wall time."""
+    device's idle share of the wall time; with ``host_ops`` also the
+    PyTorch ops by host time (self, ms) beside their device time.  Returns
+    {kernel name: device ms}."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1207,12 +1367,23 @@ def device_profile(fn, phase, what):
                 ev.time_range.elapsed_us() / 1e3
     rows = sorted(((ms, k) for k, ms in kern.items()), reverse=True)
     busy = sum(ms for ms, _ in rows)
-    print(json.dumps({
-        "phase": phase, "what": what, "wall_ms_profiled": wall_ms,
-        "device_busy_ms": busy if rows else "not measured",
-        "idle_share": 1 - busy / wall_ms if rows else "not measured",
-        "top": [{"name": k[:90], "ms": ms} for ms, k in rows[:12]]}),
-        flush=True)
+    line = {"phase": phase, "what": what, "wall_ms_profiled": wall_ms,
+            "device_busy_ms": busy if rows else "not measured",
+            "idle_share": 1 - busy / wall_ms if rows else "not measured",
+            "top": [{"name": k[:90], "ms": ms} for ms, k in rows[:12]]}
+    if host_ops:
+        ops = []
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0.0)
+            ops.append({"op": ev.key[:60], "count": ev.count,
+                        "host_self_ms": ev.self_cpu_time_total / 1e3,
+                        "device_ms": dev_us / 1e3})
+        ops.sort(key=lambda o: -o["host_self_ms"])
+        line["host_ops"] = ops[:20]
+    print(json.dumps(line), flush=True)
+    return kern
 
 
 def profile_lm(cfg, params, tokens):
@@ -1236,11 +1407,16 @@ def profile_lm(cfg, params, tokens):
 
 
 def profile_request(prov, pos, phase="profile"):
-    """One more evaluate-only request under ``torch.profiler``."""
+    """One more evaluate-only request under ``torch.profiler``; fails if
+    PyTorch's indexing backward ran (the force scatter replaces it)."""
     from repro_torch.backend import ForceRequest
     x = torch.tensor(pos, device=DEVICE)
-    device_profile(lambda: prov.compute(ForceRequest(positions=x)), phase,
-                   "one evaluate-only request")
+    kern = device_profile(lambda: prov.compute(ForceRequest(positions=x)),
+                          phase, "one evaluate-only request")
+    if not kern:
+        fail(f"{phase}: the profiler recorded no device time")
+    if any("indexing_backward" in k for k in kern):
+        fail(f"{phase}: an evaluate ran PyTorch's indexing backward")
 
 
 T0 = time.perf_counter()
@@ -1266,15 +1442,15 @@ def main():
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    logs = build.build("nbr_attn", "cell_filter", "flash_attn")  # together
+    logs = build.build("nbr_attn", "cell_filter", "flash_attn",
+                       "force_scatter")                         # together
     print(f"[build] nvcc: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    lm_only = sys.argv[1:] == ["--phase", "lm"]
-    if lm_only:
+    if sys.argv[1:] == ["--phase", "lm"]:
         phase_lm()
         print("[lm] every check passed (lm phase alone)", flush=True)
         return 0
@@ -1290,7 +1466,7 @@ def main():
                     device=DEVICE)
     params = model.init_params(torch.Generator().manual_seed(SEED))
     phase_kernels(model, params, 0.0)            # single_domain_forces, K = 64
-    kres = phase_kernels(model, params, SKIN, bf16=True)  # the provider's K
+    kres = phase_kernels(model, params, SKIN, main=True)  # the provider's K
     # K = 128: the MD cutoff (r_c = 0.8, ~64 neighbours) with sel 128, where
     # the backward runs its device-workspace instance
     model_md = DPModel(paper_dpa1_config(ntypes=4, rcut=0.8, sel=128),
@@ -1299,9 +1475,12 @@ def main():
                   model_md.init_params(torch.Generator().manual_seed(SEED)),
                   0.0)
     del model_md
+    if sys.argv[1:] == ["--phase", "kernels"]:
+        print("[kernels] every check passed (kernels phase alone)", flush=True)
+        return 0
     phase_parity(model, params)
     counts_sd = phase_requests(model, params)
-    cf_row, counts, per_call = phase_dd(model, params)
+    cf_row, counts, per_call, dd_scatter = phase_dd(model, params)
     kres["cell_filter"] = cf_row
     del model, params
     torch.cuda.empty_cache()
@@ -1310,7 +1489,8 @@ def main():
                "decode_global")
 
     rows = []
-    for name, r in kres.items():
+    for name in DP_KERNELS:
+        r = kres[name]
         route, source = PORT_SOURCES[name]
         rows.append({"name": name, "route": route, "source": source,
                      "replaces": TPU_SOURCES[name], "launches": counts[name],
@@ -1319,7 +1499,19 @@ def main():
                      "K": r.get("K"), "max_abs_err": r["max_err"],
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": None})
+                     "library_ms": r.get("library_ms")})
+        if name == "force_scatter":
+            keys = ("reverse_list_ms", "kernel_with_list_ms",
+                    "bound_with_list_ms", "library_own_index_ms")
+            rows[-1].update({key: r[key] for key in keys})
+            common = ("rows", "K", "kernel_ms", "bound_ms", "plain_ms",
+                      "library_ms", "reverse_list_ms", "kernel_with_list_ms",
+                      "bound_with_list_ms")
+            rows[-1]["dd_evaluate"] = {
+                key: dd_scatter["gather_backward"][key]
+                for key in common + ("library_own_index_ms",)}
+            rows[-1]["dd_force_reduction"] = {
+                key: dd_scatter["force_reduction"][key] for key in common}
     flash, sdpa = lm_rows["prefill_global"], lm_rows["sdpa"]
     rows.append({
         "name": "flash_attention", "route": "cuda",

@@ -32,6 +32,7 @@ import torch
 
 from ..dp.model import DPModel
 from ..kernels.cell_filter import cell_filter
+from ..kernels import force_scatter as fs
 from ..md.neighbors import _topk_list, max_displacement2
 from .ddinfer import (DDConfig, DDState, _assemble_ranks, _make_grid,
                       _pad_atoms, _park)
@@ -119,17 +120,14 @@ def _refilter_compact(buf_coords, nbr_idx, nbr_mask, cfg: DDConfig,
 
 
 def _scatter_rows(n_rows: int, rows: torch.Tensor, vals: torch.Tensor):
-    """(n_rows, 3) sums of ``vals`` (R, 3) by destination ``rows`` (R,), in
-    an order that depends only on the inputs: on the card ``index_put_``
-    with accumulate sorts the rows and sums each run in order; on the CPU
-    that op adds with atomics, in thread order, once it has 32,768 or more
-    elements and several intra-op threads, so the CPU takes ``index_add_``,
-    which adds in row order (the reverse holds on the card, where
-    ``index_add_`` is the atomic one)."""
-    out = torch.zeros(n_rows, 3, dtype=vals.dtype, device=vals.device)
-    if vals.is_cuda:
-        return out.index_put_((rows,), vals, accumulate=True)
-    return out.index_add_(0, rows, vals)
+    """(n_rows, 3) sums of ``vals`` (R, 3) by destination ``rows`` (R,),
+    each from +0.0 in ascending R: the ``force_scatter`` kernel on the card,
+    ``index_add_`` on the CPU, the same bits on both.  (PyTorch's
+    ``index_put_`` with accumulate adds with atomics in thread order on the
+    CPU once it has 32,768 or more elements and several intra-op threads.)"""
+    return fs.force_scatter(vals[:, None], rows[:, None],
+                            torch.ones(len(rows), 1, dtype=vals.dtype,
+                                       device=vals.device), n_rows)
 
 
 def _model_scatter(model: DPModel, params, buf_coords, st: dict, nbr_idx,

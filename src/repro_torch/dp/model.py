@@ -16,6 +16,7 @@ from .common import EnvStats
 from .descriptors import DescriptorConfig, apply_descriptor, init_descriptor
 from .networks import count_params, mlp_apply, mlp_init
 from ..device import resolve_device
+from ..kernels.force_scatter import neighbor_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +88,12 @@ class DPModel:
         return e * atom_mask
 
     def _atomic_e(self, params, coords, types, nbr_idx, nbr_mask, box=None):
-        """(C,) per-atom energies over a buffer; padded-neighbour safe."""
+        """(C,) per-atom energies over a buffer; padded-neighbour safe.  The
+        neighbour gather's gradient is the force scatter
+        (:func:`~repro_torch.kernels.force_scatter.neighbor_gather`): a sum
+        over the valid slots in a fixed order, the CUDA kernel on the card."""
         safe = torch.where(nbr_idx >= 0, nbr_idx, torch.zeros_like(nbr_idx))
-        coords_nbr = coords[safe]
+        coords_nbr = neighbor_gather(coords, nbr_idx, nbr_mask)
         if box is not None:
             dr = coords_nbr - coords[:, None, :]
             dr = dr - box * torch.round(dr / box)

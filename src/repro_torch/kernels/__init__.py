@@ -8,6 +8,9 @@
 - ``cell_filter``: CUDA C++ for ``sm_90a`` (``csrc/cell_filter.cu``),
   replacing ``repro/kernels/cell_gather.py::_cell_filter_kernel``, with the
   candidate gather fused in;
+- ``force_scatter``: CUDA C++ for ``sm_90a`` (``csrc/force_scatter.cu``), the
+  backward of the DP force path's neighbour gather (``neighbor_gather``),
+  where the JAX reference leaves XLA a scatter-add: no TPU kernel;
 - ``flash_attention``: CUDA C++ for ``sm_90a`` (``csrc/flash_attn.cu``),
   replacing ``repro/kernels/flash_attn.py::_flash_kernel``: the attention of
   the LM serving path (causal, GQA, sliding window, softcap, q_offset).
@@ -17,6 +20,7 @@ compiled at their first launch on a CUDA tensor.
 """
 from . import cell_filter as _cell_filter_mod
 from . import flash_attn as _flash_attn_mod
+from . import force_scatter as _force_scatter_mod
 from .env_mat import env_mat_bwd, env_mat_fwd
 from .nbr_attn import nbr_attention_stack_bwd, nbr_attention_stack_fwd
 
@@ -27,6 +31,7 @@ KERNELS = {
     "nbr_attention_stack_bwd": nbr_attention_stack_bwd,
     "cell_filter": _cell_filter_mod.cell_filter,
     "flash_attention": _flash_attn_mod.flash_attention,
+    "force_scatter": _force_scatter_mod.force_scatter,
 }
 
 

@@ -15,34 +15,78 @@
 // gets the same flag as on the CPU, bit for bit.  thr is the fp32 rounding
 // of rcut * rcut formed in double (the wrapper passes it).
 //
-// Bound: device-memory bytes (4 bytes of index in and 1 byte of flag out per
-// entry, plus 16 bytes per row); no reuse, so one thread per entry with a
-// grid-stride loop.  Neighbouring threads read neighbouring indices; the
-// gathered coordinates come from a few cells and hit in L1/L2.
+// Bound: device-memory bytes (4 bytes of index in per entry of a row whose
+// mask is > 0, 1 byte of flag out per entry, 16 bytes per row); no reuse.
+// Design (cell_filter_rows_kernel): one warp per row, so the row index
+// comes from the block and warp numbers (no division per entry) and the
+// row's centre position and mask are read once into registers.  The row's entries are split into a head of at most
+// 3 entries, a body read 16 bytes at a time (int4: four indices) and
+// written 4 flags at a time (uchar4), and a tail of at most 3; the head
+// makes the body start on a 16-byte boundary whatever M is, so every row,
+// M % 4 != 0 included, takes the vector body.  A row whose mask is not > 0
+// writes zeros without reading its indices.  The grid is one block of 8
+// warps per 8 rows, sized to the work.  The gathered coordinates come from
+// a few cells and hit in L1/L2.
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-__global__ void cell_filter_kernel(const float* __restrict__ xyz,
-                                   const int* __restrict__ idx,
-                                   const float* __restrict__ mask,
-                                   unsigned char* __restrict__ out,
-                                   long long total, int m, float thr) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    const long long i = e / m;
-    const int j = __ldg(idx + e);
-    unsigned char flag = 0;
-    if (j >= 0 && j != i && __ldg(mask + i) > 0.f) {
-      const float dx = __fsub_rn(__ldg(xyz + 3 * (long long)j), __ldg(xyz + 3 * i));
-      const float dy = __fsub_rn(__ldg(xyz + 3 * (long long)j + 1), __ldg(xyz + 3 * i + 1));
-      const float dz = __fsub_rn(__ldg(xyz + 3 * (long long)j + 2), __ldg(xyz + 3 * i + 2));
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      flag = d2 < thr;
-    }
-    out[e] = flag;
+constexpr int kThreads = 256;
+constexpr int kRowsPerBlock = kThreads / 32;
+
+__device__ __forceinline__ unsigned char flag(const float* __restrict__ xyz,
+                                              int j, long long i, float xi,
+                                              float yi, float zi, float thr) {
+  if (j < 0 || j == i) return 0;
+  const float dx = __fsub_rn(__ldg(xyz + 3 * (long long)j), xi);
+  const float dy = __fsub_rn(__ldg(xyz + 3 * (long long)j + 1), yi);
+  const float dz = __fsub_rn(__ldg(xyz + 3 * (long long)j + 2), zi);
+  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                             __fmul_rn(dz, dz));
+  return d2 < thr;
+}
+
+// One warp per row.  vec: idx and out are aligned so that the flat entry e
+// is 16-byte aligned in idx exactly when it is 4-byte aligned in out (else
+// every row is read entry by entry).
+__global__ void __launch_bounds__(kThreads)
+cell_filter_rows_kernel(const float* __restrict__ xyz,
+                        const int* __restrict__ idx,
+                        const float* __restrict__ mask,
+                        unsigned char* __restrict__ out, long long rows, int m,
+                        float thr, int vec) {
+  const long long i = (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (i >= rows) return;                 // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int* irow = idx + i * m;
+  unsigned char* orow = out + i * m;
+  // head: the entries before the first 16-byte boundary of the index row
+  const int head =
+      min(m, vec ? (int)(((16 - ((uintptr_t)irow & 15)) & 15) >> 2) : m);
+  const int nvec = (m - head) >> 2;
+  const int tail = head + 4 * nvec;
+  const int4* ivec = reinterpret_cast<const int4*>(irow + head);
+  uchar4* ovec = reinterpret_cast<uchar4*>(orow + head);
+  if (!(__ldg(mask + i) > 0.f)) {        // all flags 0, indices unread
+    for (int c = lane; c < head; c += 32) orow[c] = 0;
+    for (int v = lane; v < nvec; v += 32) ovec[v] = make_uchar4(0, 0, 0, 0);
+    for (int c = tail + lane; c < m; c += 32) orow[c] = 0;
+    return;
   }
+  const float xi = __ldg(xyz + 3 * i), yi = __ldg(xyz + 3 * i + 1),
+              zi = __ldg(xyz + 3 * i + 2);
+  for (int c = lane; c < head; c += 32)
+    orow[c] = flag(xyz, __ldg(irow + c), i, xi, yi, zi, thr);
+  for (int v = lane; v < nvec; v += 32) {
+    const int4 j = __ldg(ivec + v);
+    ovec[v] = make_uchar4(flag(xyz, j.x, i, xi, yi, zi, thr),
+                          flag(xyz, j.y, i, xi, yi, zi, thr),
+                          flag(xyz, j.z, i, xi, yi, zi, thr),
+                          flag(xyz, j.w, i, xi, yi, zi, thr));
+  }
+  for (int c = tail + lane; c < m; c += 32)
+    orow[c] = flag(xyz, __ldg(irow + c), i, xi, yi, zi, thr);
 }
 
 }  // namespace
@@ -56,13 +100,12 @@ int cell_filter(const float* xyz, const int* idx, const float* mask,
                 unsigned char* out, long long rows, int m, float thr,
                 void* stream) {
   cudaGetLastError();  // clear an error left by earlier, unrelated work
-  const long long total = rows * (long long)m;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  if (blocks < 1) blocks = 1;
-  cell_filter_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-      xyz, idx, mask, out, total, m, thr);
+  if (rows > 0 && m > 0) {
+    const int vec = ((uintptr_t)idx & 15) == 0 && ((uintptr_t)out & 3) == 0;
+    const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+    cell_filter_rows_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        xyz, idx, mask, out, rows, m, thr, vec);
+  }
   return (int)cudaGetLastError();
 }
 

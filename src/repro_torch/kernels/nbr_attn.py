@@ -27,9 +27,13 @@ slots: the shared-memory one wherever its tiles fit (K <= 89 at M = 128),
 and above that one whose K x M tiles sit in a per-CTA device workspace
 served by L2.  ``MAX_K`` is the neighbour capacity the port's model path
 accepts (``DDConfig`` and the providers' ``grow`` enforce it) on every
-device, so card and CPU results stay comparable.  Each kernel wrapper
-counts its launches in ``<wrapper>.launches``: one per call, however many
-CUDA kernels the call runs.
+device, so card and CPU results stay comparable.  The compacted-row
+kernels run head widths in multiples of 4 and H in multiples of 8: the
+wrappers zero-pad each head (:func:`pad_heads`, exact) and keep the score
+scale of the true head width; M must be a multiple of 4 on the card (the
+port's rule: the LayerNorm divides by M, so M is not padded).  Each kernel
+wrapper counts its launches in ``<wrapper>.launches``: one per call,
+however many CUDA kernels the call runs.
 """
 from __future__ import annotations
 
@@ -201,11 +205,12 @@ def _validate(g, planes, weights, heads: int, param_grads: bool = False):
         raise ValueError(f"stacked params must be {shapes}")
     if h % heads:
         raise ValueError(f"attn_hidden {h} not divisible by heads {heads}")
-    if not param_grads and (m % 4 or (h // heads) % 4 or h % 8):
+    if not param_grads and m % 4:
         raise ValueError(f"the attention kernels on compacted rows (the "
-                         f"forward and the force-path backward) take M and "
-                         f"the head width in multiples of 4 and H in "
-                         f"multiples of 8; got M={m}, H={h}, heads={heads}")
+                         f"forward and the force-path backward) take the "
+                         f"embedding width M in multiples of 4, the port's "
+                         f"rule on the card (the head width is padded, M is "
+                         f"not: the LayerNorm divides by it); got M={m}")
     lib = _lib()
     workspace = param_grads and uses_workspace(k, m)
     smem = _smem(k, m, param_grads, workspace)
@@ -215,6 +220,37 @@ def _validate(g, planes, weights, heads: int, param_grads: bool = False):
             f"attention kernels; the largest K they take is "
             f"{max_k(m, param_grads, param_grads)}")
     return lib, n, k, m, h, layers
+
+
+def _head_width(h: int, heads: int) -> int:
+    """The head width the compacted-row kernels run: h // heads rounded up
+    to a multiple of 4 (of 8 for an odd number of heads), so that the
+    padded H is a multiple of 8."""
+    step = 4 if heads % 2 == 0 else 8
+    return -(-(h // heads) // step) * step
+
+
+def pad_heads(weights, heads: int):
+    """(wq, wk, wv, wo, gamma, beta) with each head's columns of wq/wk/wv
+    (L, M, H) and rows of wo (L, H, M) zero-padded to :func:`_head_width`.
+    Exact: zero q/k columns add nothing to a score, zero v columns and zero
+    wo rows nothing to the output.  The kernels' score scale stays
+    1/sqrt(the true head width), which the callers pass."""
+    wq, wk, wv, wo, gamma, beta = weights
+    layers, m, h = wq.shape
+    dh, dp = h // heads, _head_width(h, heads)
+    if dp == dh:
+        return list(weights)
+
+    def cols(w):
+        out = w.new_zeros((layers, m, heads, dp))
+        out[..., :dh] = w.reshape(layers, m, heads, dh)
+        return out.reshape(layers, m, heads * dp)
+
+    wo_p = wo.new_zeros((layers, heads, dp, m))
+    wo_p[:, :, :dh] = wo.reshape(layers, heads, dh, m)
+    return [cols(wq), cols(wk), cols(wv), wo_p.reshape(layers, heads * dp, m),
+            gamma, beta]
 
 
 def _ptrs(*ts):
@@ -245,6 +281,9 @@ def nbr_attention_stack_fwd(g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma,
     weights = [w.contiguous() for w in (wq, wk, wv, wo, gamma, beta)]
     g = g.contiguous()
     lib, n, k, m, h, layers = _validate(g, planes, weights, heads)
+    scale = float(attn_scale(h // heads))
+    weights = pad_heads(weights, heads)
+    h = weights[0].shape[2]
     out = torch.zeros_like(g)
     comp = _compaction(planes[4])
     count, start, rows, count_h, passes = comp
@@ -264,8 +303,7 @@ def nbr_attention_stack_fwd(g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma,
             rows.data_ptr() + 8 * r0, start.data_ptr() + 8 * a0,
             count.data_ptr() + 8 * a0, r0, a1 - a0, r1 - r0,
             int(count_h[a0]), *_ptrs(qkv, ob, y), m, h, layers, heads,
-            int(compute_dtype == "bfloat16"), float(attn_scale(h // heads)),
-            _stream())
+            int(compute_dtype == "bfloat16"), scale, _stream())
         build.check(err, lib, "nbr_attn_fwd_rows")
     if passes:
         nbr_attention_stack_fwd.launches += 1
@@ -316,7 +354,8 @@ def nbr_attention_stack_bwd(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
         if not rows:
             comp = _compaction(planes[4])
             stash = RowStash(compact_stash(stash, comp[2]), *comp)
-        res = _bwd_rows(lib, stash, planes, weights, dout, heads, bf16, scale)
+        res = _bwd_rows(lib, stash, planes, pad_heads(weights, heads), dout,
+                        heads, bf16, scale)
         return res + (None,) * 6
     dg = torch.empty_like(dout)
     dplanes = [torch.empty_like(planes[0]) for _ in range(4)]
@@ -382,7 +421,10 @@ nbr_attention_stack_bwd.launches = 0
 class NbrAttentionStack(torch.autograd.Function):
     """Differentiable in everything but the mask; the backward skips the
     parameter gradients when autograd does not ask for them (the MD force
-    path), and then on the card takes the forward's compacted rows."""
+    path), and then on the card takes the forward's compacted rows.  First
+    order only: the stash it reads lies outside autograd's graph, so a
+    second derivative through it would be wrong; a backward asked to build
+    a graph (``create_graph=True``) raises instead."""
 
     @staticmethod
     def forward(ctx, g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma, beta,
@@ -403,6 +445,12 @@ class NbrAttentionStack(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "nbr_attention_stack is differentiable once: its backward "
+                "cannot build a graph for a second derivative "
+                "(create_graph=True), which would miss the terms through "
+                "the forward's stash")
         heads, compute_dtype = ctx.cfg
         saved = ctx.saved_tensors
         if ctx.host is None:

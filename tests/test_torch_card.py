@@ -22,6 +22,18 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   attention CTAs of 128 threads instead of 256); an all-masked input and
   N = 0; autograd through ``NbrAttentionStack`` with and without
   parameter gradients against the plain backward;
+* ``cell_filter``'s row kernel on widths M that are not multiples of 4
+  and on index rows that do not start on a 16-byte boundary: flags equal
+  the plain version bit for bit;
+* the attention kernels on reduced widths whose head width is not a
+  multiple of 4 (or H not one of 8): the wrapper pads the heads; forward,
+  force-path backward and autograd with parameter gradients against the
+  plain version, atol 1e-4 x max, parameter gradients at the true shapes;
+* ``force_scatter`` (the neighbour gather's backward) against its plain
+  version bit for bit at K = 64, 82 and 128, with the atoms relabelled;
+  all slots masked and N = 0; grad-of-grad through ``neighbor_gather``
+  against the CPU (atol 1e-6 x max); the DD force reduction through it
+  equal to the CPU bit for bit;
 * ``flash_attention`` against its plain version (the five cases of the
   reference's flash tests, unmasked keys past a ragged Sk, decode against a
   cache view, every head dimension the kernel has; in bf16 also the tensor-
@@ -38,6 +50,7 @@ import torch
 
 from repro_torch.kernels import cell_filter as cf
 from repro_torch.kernels import flash_attn, nbr_attn, ref
+from repro_torch.kernels import force_scatter as fs
 
 
 @pytest.fixture
@@ -84,6 +97,27 @@ def test_cell_filter_kernel_equals_plain(card, rcut):
     got = cf.cell_filter(*[a.to(card) for a in args], rcut)
     assert cf.cell_filter.launches == before + 1
     assert torch.equal(got.cpu(), cf.cell_filter_plain(*args, rcut))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,offset", [(82, 0), (83, 0), (3, 0), (128, 1),
+                                      (85, 3)])
+def test_cell_filter_rows_of_any_width(card, m, offset):
+    """The row kernel's head, int4 body and tail: every M mod 4, and a
+    contiguous index view that starts ``offset`` entries into its buffer,
+    so its rows are not 16-byte aligned (entry-wise path)."""
+    rng = np.random.default_rng(m + offset)
+    r = 700
+    xyz = rng.uniform(0, 2, (r, 3)).astype(np.float32)
+    flat = torch.tensor(rng.integers(-1, r, r * m + offset).astype(np.int32))
+    mask = (rng.random(r) > 0.2).astype(np.float32)
+    args = [torch.tensor(xyz), flat[offset:].view(r, m), torch.tensor(mask)]
+    idx = flat.to(card)[offset:].view(r, m)
+    assert idx.is_contiguous()
+    assert (idx.data_ptr() % 16 != 0) == (offset % 4 != 0)
+    got = cf.cell_filter(args[0].to(card), idx, args[2].to(card), 0.6)
+    want = cf.cell_filter_plain(*args, 0.6)
+    assert bool(want.any()) and torch.equal(got.cpu(), want)
 
 
 def _stack_args(card, seed, n, k, p_valid, m=128, h=256, layers=3):
@@ -243,6 +277,112 @@ def test_autograd_through_the_stack(card, param_grads):
         if i in grads:
             torch.testing.assert_close(leaves[i].grad, want, rtol=0,
                                        atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,heads", [(32, 2), (12, 2), (20, 1)])
+def test_attention_kernels_pad_the_head_width(card, h, heads):
+    """Reduced widths (M = 16; head widths 16, 6 and 20 with H = 32, 12
+    and 20): the forward, the force-path backward and autograd with
+    parameter gradients against the plain version."""
+    n, k, m = 40, 82, 16
+    args, rnd = _stack_args(card, h + heads, n, k, 0.4, m=m, h=h, layers=2)
+    _edge_atoms(args[5])
+    opts = dict(heads=heads)
+    out, stash = nbr_attn.nbr_attention_stack_fwd(*args, stash=True, **opts)
+    want, want_stash = ref.nbr_attention_stack_ref(*args, stash=True, **opts)
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    dout = rnd(n, k, m)
+    got = nbr_attn.nbr_attention_stack_bwd(want_stash, *args[1:], dout,
+                                           param_grads=False, **opts)
+    exp = ref.nbr_attention_stack_bwd_ref(want_stash, *args[1:], dout, **opts)
+    for a, b in zip(got[:5], exp[:5]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    leaves = [a.clone().requires_grad_(i != 5) for i, a in enumerate(args)]
+    nbr_attn.nbr_attention_stack(*leaves, **opts).backward(dout)
+    for i, b in zip([0, 1, 2, 3, 4, *range(6, 12)], exp):
+        assert leaves[i].grad.shape == args[i].shape
+        torch.testing.assert_close(leaves[i].grad, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def _scatter_args(seed, n, k, p_valid, device="cpu"):
+    """Cotangent rows g (N, K, 3), a -1 padded idx (N, K) and a {0, 1}
+    mask, with large cotangents on the masked slots."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, (n, k)).astype(np.int32)
+    idx[rng.random((n, k)) < 0.2] = -1
+    mask = ((rng.random((n, k)) < p_valid) & (idx >= 0)).astype(np.float32)
+    g = rng.normal(0, 1, (n, k, 3)).astype(np.float32)
+    g[mask == 0] = 1e6
+    return [torch.tensor(a, device=device) for a in (g, idx, mask)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 82, 128])
+def test_force_scatter_kernel_equals_plain(card, k):
+    n = 3000
+    g, idx, mask = _scatter_args(k, n, k, 0.35)
+    before = fs.force_scatter.launches
+    got = fs.force_scatter(g.to(card), idx.to(card), mask.to(card), n)
+    assert fs.force_scatter.launches == before + 1
+    want = fs.force_scatter_plain(g, idx, mask, n)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(fs.force_scatter(g.to(card), idx.to(card),
+                                        mask.to(card), n), got)
+    # atoms relabelled: each atom's sum keeps its bits
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(k))
+    moved = torch.where(idx >= 0, perm[idx.long().clamp_min(0)].int(), idx)
+    got_m = fs.force_scatter(g.to(card), moved.to(card), mask.to(card), n)
+    assert torch.equal(got_m.cpu()[perm], want)
+
+
+@pytest.mark.cuda
+def test_dd_force_reduction_equals_the_cpu_bitwise(card):
+    """The DD force reduction (``pipeline._scatter_rows``) runs the force
+    scatter: 200,000 rows onto 50 atoms, the same bits as on the CPU."""
+    from repro_torch.core import pipeline
+    rng = np.random.default_rng(3)
+    rows = torch.tensor(rng.integers(0, 50, 200_000))
+    vals = torch.tensor(rng.normal(0, 1e3, (200_000, 3)).astype(np.float32))
+    before = fs.force_scatter.launches
+    got = pipeline._scatter_rows(50, rows.to(card), vals.to(card))
+    assert fs.force_scatter.launches == before + 1
+    assert torch.equal(got.cpu(), pipeline._scatter_rows(50, rows, vals))
+
+
+@pytest.mark.cuda
+def test_force_scatter_all_masked_and_empty(card):
+    g, idx, mask = (a.to(card) for a in _scatter_args(5, 200, 82, 0.0))
+    assert not bool(fs.force_scatter(g, idx, mask, 200).any())
+    out = fs.force_scatter(g[:0], idx[:0], mask[:0], 0)
+    assert out.shape == (0, 3)
+
+
+@pytest.mark.cuda
+def test_neighbor_gather_double_backward_on_card(card):
+    """Forces and a force-matching gradient (grad of grad) through the
+    gather on the card against the CPU."""
+    n, k = 500, 82
+    _, idx, mask = _scatter_args(9, n, k, 0.35)
+    rng = np.random.default_rng(10)
+    x = torch.tensor(rng.normal(0, 1, (n, 3)).astype(np.float32))
+    w = torch.tensor(rng.normal(0, 1, (n, k, 3)).astype(np.float32))
+    v = torch.tensor(rng.normal(0, 1, (n, 3)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", card):
+        c = x.to(dev).requires_grad_(True)
+        m = mask.to(dev)
+        y = fs.neighbor_gather(c, idx.to(dev), m)
+        e = (w.to(dev) * y * y * m[..., None]).sum()
+        (f,) = torch.autograd.grad(e, c, create_graph=True)
+        (h,) = torch.autograd.grad((f * v.to(dev)).sum(), c)
+        res[str(dev)] = (f.detach().cpu(), h.cpu())
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))
 
 
 FLASH_CASES = [  # b, hq, hkv, sq, sk, d, causal, window, cap, off
