@@ -5,12 +5,14 @@ and gemma2-2b token serving.
     python3 chip_smoke.py                   # every phase
     python3 chip_smoke.py --phase lm        # the lm phase alone
     python3 chip_smoke.py --phase kernels   # the DP kernels phase alone
+    python3 chip_smoke.py --phase md        # the md phase alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
 source, all started together; Triton at first launch), then runs phases
 1-4 on the paper's DPA-1 at full width (``paper_dpa1_config(ntypes=4,
 rcut=0.6, sel=64)``, fp32, random weights from a seed) over uniform random
-atoms at 30 atoms/nm^3, and phase 5 on gemma2-2b:
+atoms at 30 atoms/nm^3, phase 5 on the MD engine with the same model, and
+phase 6 on gemma2-2b:
 
 1. kernels: the env-matrix, attention and force-scatter kernels against
    their plain PyTorch versions on the card, at the shapes and on the data
@@ -39,7 +41,19 @@ atoms at 30 atoms/nm^3, and phase 5 on gemma2-2b:
    force reduction, bit for bit), cells == dense and stale == fresh bit for bit,
    DD == single domain within phase 3's gate, then requests through
    ``DeepmdForceProvider(dd_config=...)`` and one assembly profiled;
-5. lm: gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
+5. md: the port's MD engine (``repro_torch.md.MDEngine``) on the solvated
+   1HCI stand-in (``build_solvated_protein(3917)``: 62,210 atoms, the
+   15,668 protein atoms the DP group; ``examples/protein_md.py``'s engine
+   settings): a warm-up window, then 20 scan-mode steps timed step by step
+   (evaluate-only and rebuild steps apart), repeated, in step mode (the
+   Fig. 9 split and the DP share) and in windows of 10 steps, all bit for
+   bit; launches per MD step; the memory held between steps held to the
+   first step's, the peak within each step reported;
+   one MD step profiled (no indexing backward); 10 steps on 8 virtual
+   ranks, the first step's DP forces against one domain; at 40 residues
+   the card against the CPU and the DD trajectory with cells against
+   dense, bit for bit;
+6. lm: gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
    bf16, random weights from the port's initialiser), 4 prompts of 6,144
    random token ids, 32 greedy new tokens through ``launch/serve.py``'s
    ``serve_tokens``: 26 flash launches per prefill and per decode step; the
@@ -49,7 +63,8 @@ atoms at 30 atoms/nm^3, and phase 5 on gemma2-2b:
    shapes, SDPA beside the kernel at softcap 0; decode == forward at full width; card == CPU at a reduced width in
    fp32; 3 timed request rounds, then a profiled prefill and 4 profiled
    decode steps;
-6. a ``kernels`` JSON line, then the result line.
+7. a ``kernels`` JSON line (launches per force call, per MD step and per
+   request), then the result line.
 
 Any failed check raises, and the script exits non-zero.  It needs one CUDA
 card and the repository's ``src/`` beside it; it imports no JAX.
@@ -598,6 +613,57 @@ def check_cell_filter(rcut):
                       "equal_bitwise": True}), flush=True)
 
 
+def record_cell_filter(fn):
+    """Run ``fn()`` with the DD path's ``cell_filter`` replaced by one that
+    records its arguments and launches; returns (fn's result, [args])."""
+    from repro_torch.core import ddinfer, pipeline
+    from repro_torch.kernels import cell_filter as cf
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return cf.cell_filter(*args)
+
+    ddinfer.cell_filter = pipeline.cell_filter = record
+    try:
+        res = fn()
+    finally:
+        ddinfer.cell_filter = pipeline.cell_filter = cf.cell_filter
+    return res, calls
+
+
+def check_cell_filter_calls(calls, phase):
+    """The recorded calls of one assembly and one evaluate (the cell-list
+    assembly, then the evaluation's re-filter) against the plain version
+    bit for bit, with times.  Returns {site: line}."""
+    from repro_torch.kernels import cell_filter as cf
+    if len(calls) != 2:
+        fail(f"{phase}: expected 2 cell_filter calls (assembly, re-filter), "
+             f"got {len(calls)}")
+    rows = {}
+    for site, args in zip(("assembly", "refilter"), calls):
+        got = cf.cell_filter(*args)
+        plain = cf.cell_filter_plain(*args)
+        if not torch.equal(got, plain):
+            fail(f"{phase} cell_filter ({site}): "
+                 f"{int((got != plain).sum())} flags differ from the plain "
+                 "version")
+        del got, plain
+        torch.cuda.empty_cache()
+        bound = cell_filter_bound(args[1], args[2])
+        rows[site] = {"phase": phase, "name": "cell_filter", "site": site,
+                      "rows": args[1].shape[0], "M": args[1].shape[1],
+                      "max_err": 0.0, "tol": "exact",
+                      "kernel_ms": time_ms(lambda: cf.cell_filter(*args)),
+                      "plain_ms": time_ms(lambda: cf.cell_filter_plain(*args)),
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "bound_ms_all_rows": cell_filter_bound(args[1])[0],
+                      "rows_masked_out": int((args[2] <= 0).sum())}
+        rows[site]["share_of_bound"] = bound[0] / rows[site]["kernel_ms"]
+        print(json.dumps(rows[site]), flush=True)
+    return rows
+
+
 def frozen_drift(coords, box, dims, halo, scale=2e-4, seed=SEED + 6):
     """An in-bound random step with the atoms near a (uniform) plane or a
     plane +- the halo frozen, so no local/ghost set changes (stale == fresh
@@ -663,7 +729,7 @@ def scatter_bound(idx, mask, n, with_list=False):
     return nbytes / HBM_RATE * 1e3, "bytes"
 
 
-def check_force_scatter(g, idx, mask, n, edge=False):
+def check_force_scatter(g, idx, mask, n, edge=False, library=True):
     """The force scatter on one force call's cotangents ``g`` (C, K, 3):
     the kernel bit for bit against the plain version (on CPU copies: on the
     card ``index_add_`` adds with atomics) and on a repeat, and ``g``
@@ -674,7 +740,9 @@ def check_force_scatter(g, idx, mask, n, edge=False):
     PyTorch's indexing backward (``index_put_`` with accumulate, what
     autograd runs for ``coords[safe]``) with padded slots at atom 0 and,
     where row i holds atom i's slots (C == n, the gather's backward), at
-    their own atom.  Returns a dict of the numbers."""
+    their own atom; ``library=False`` leaves out the two PyTorch timings
+    (each padded slot an atomic add on atom 0: seconds a call at tens of
+    millions of padded slots).  Returns a dict of the numbers."""
     from repro_torch.kernels import force_scatter as fs
     got = fs.force_scatter(g, idx, mask, n)
     want = fs.force_scatter_plain(g.cpu(), idx.cpu(), mask.cpu(), n)
@@ -697,13 +765,6 @@ def check_force_scatter(g, idx, mask, n, edge=False):
             fail("force_scatter: wrong shape at N = 0")
     c, k = idx.shape
     rl = fs.reverse_list(idx, mask, n)
-    safe_zero = torch.where(idx >= 0, idx.long(), torch.zeros_like(idx.long()))
-
-    def library(safe):
-        return torch.zeros(n, 3, device=g.device).index_put_((safe,), g,
-                                                             accumulate=True)
-
-    lib_err = float((library(safe_zero).cpu() - want).abs().max()) if n else 0.0
     bound = scatter_bound(idx, mask, n)
     line = {"valid_slots": int(rl[1][-1]) if n else 0,
             "padded_slots": int((idx < 0).sum()),
@@ -715,20 +776,31 @@ def check_force_scatter(g, idx, mask, n, edge=False):
             "kernel_with_list_ms": time_ms(
                 lambda: fs.force_scatter(g, idx, mask, n)),
             "plain_ms": time_ms(lambda: fs.force_scatter_plain(g, idx, mask, n)),
-            "library_ms": time_ms(lambda: library(safe_zero)),
-            "library_max_abs_err": lib_err,
-            "library": "zeros.index_put_((safe,), g, accumulate=True), the "
-                       "backward of coords[safe]; padded slots at atom 0",
             "bound_ms": bound[0], "bound_by": bound[1],
             "bound_with_list_ms": scatter_bound(idx, mask, n, True)[0]}
+    if edge:
+        line["all_masked_zero_and_empty"] = True
+    if not library:
+        line["library_ms"] = None
+        return line
+
+    def library(safe):
+        return torch.zeros(n, 3, device=g.device).index_put_((safe,), g,
+                                                             accumulate=True)
+
+    safe_zero = torch.where(idx >= 0, idx.long(), torch.zeros_like(idx.long()))
+    line.update({
+        "library_ms": time_ms(lambda: library(safe_zero)),
+        "library_max_abs_err": float((library(safe_zero).cpu() - want)
+                                     .abs().max()) if n else 0.0,
+        "library": "zeros.index_put_((safe,), g, accumulate=True), the "
+                   "backward of coords[safe]; padded slots at atom 0"})
     if c == n:
         own = torch.arange(c, device=idx.device)[:, None].expand(c, k)
         safe_own = torch.where((idx >= 0) & (mask > 0), idx.long(), own)
         line["library_own_index_ms"] = time_ms(lambda: library(safe_own))
         line["library"] += (", and (library_own_index_ms) every masked or "
                             "padded slot at its own atom")
-    if edge:
-        line["all_masked_zero_and_empty"] = True
     return line
 
 
@@ -767,18 +839,18 @@ def check_rows(name, got, plain, n, padded, chunk=8192):
 
 
 @torch.no_grad()
-def check_dd_model_kernels(seen):
+def check_dd_model_kernels(seen, phase="dd"):
     """The five model kernels against their plain versions on the exact
     tensors one DD evaluate gave them (all ranks' capacity rows, padded
     rows included): env_mat whole, the attention stack in row chunks, the
     force scatter's two calls (the gather's backward, then the reduction
-    of the ranks' forces onto the atoms) bit for bit.  Returns the force
-    scatter's lines, {case: line}."""
+    of the ranks' forces onto the atoms) bit for bit.  Lines and failures
+    carry ``phase``.  Returns the force scatter's lines, {case: line}."""
     from repro_torch.kernels import nbr_attn, ref
     for name, calls in seen.items():
         want_calls = 2 if name == "force_scatter" else 1
         if len(calls) != want_calls:
-            fail(f"dd evaluate: {name} launched {len(calls)} times, "
+            fail(f"{phase} evaluate: {name} launched {len(calls)} times, "
                  f"expected {want_calls}")
     args, _, out = seen["env_mat_fwd"][0]
     mask = args[3]
@@ -793,14 +865,14 @@ def check_dd_model_kernels(seen):
                    for o, w in zip(outs, wants))
 
     want = ref.env_mat_ref(*args)
-    err = max(check(f"dd env_mat_fwd[{i}]", o, w, rtol=1e-5,
+    err = max(check(f"{phase} env_mat_fwd[{i}]", o, w, rtol=1e-5,
                     atol=1e-6 * float(w.abs().max()))
               for i, (o, w) in enumerate(zip(out, want)))
     lines.append(("env_mat_fwd", err, pad_err(out, want),
                   "rtol 1e-5, atol 1e-6*max"))
     args, _, out = seen["env_mat_bwd"][0]
     want = ref.env_mat_bwd_ref(*args)
-    err = max(check(f"dd env_mat_bwd[{i}]", o, w, rtol=2e-4, atol=5e-5)
+    err = max(check(f"{phase} env_mat_bwd[{i}]", o, w, rtol=2e-4, atol=5e-5)
               for i, (o, w) in enumerate(zip(out, want)))
     lines.append(("env_mat_bwd", err, pad_err(out, want),
                   "rtol 2e-4, atol 5e-5"))
@@ -813,7 +885,7 @@ def check_dd_model_kernels(seen):
     rows_kept = DEVICE == "cuda"
     if kw.get("stash") != ("rows" if rows_kept else True) or \
             tuple(attn[5].shape) != (n, k):
-        fail("dd evaluate: the attention forward saw another list or kept "
+        fail(f"{phase} evaluate: the attention forward saw another list or kept "
              "another stash")
     if rows_kept:
         x, rows = stash.x, stash.rows
@@ -833,7 +905,7 @@ def check_dd_model_kernels(seen):
                                            *attn[6:], *opts, stash=True)
         return o, s.reshape(layers, -1, m)[:, atoms(r0, r1)[1]]
 
-    err, pad = check_rows("dd nbr_attention_stack_fwd",
+    err, pad = check_rows(f"{phase} nbr_attention_stack_fwd",
                           [(out, 0), lambda r0, r1: x[:, atoms(r0, r1)[0]]],
                           plain_fwd, n, padded)
     lines.append(("nbr_attention_stack_fwd", err, pad,
@@ -844,7 +916,7 @@ def check_dd_model_kernels(seen):
     st, planes, weights, dout = args[0], args[1:6], args[6:12], args[12]
     if (st.x if rows_kept else st).data_ptr() != \
             (stash.x if rows_kept else stash).data_ptr():
-        fail("dd evaluate: the attention backward did not take the "
+        fail(f"{phase} evaluate: the attention backward did not take the "
              "forward's stash")
 
     def plain_bwd(r0, r1):
@@ -856,12 +928,12 @@ def check_dd_model_kernels(seen):
             compute_dtype=kw["compute_dtype"])
         return res[:5]
 
-    err, pad = check_rows("dd nbr_attention_stack_bwd",
+    err, pad = check_rows(f"{phase} nbr_attention_stack_bwd",
                           [(t, 0) for t in got[:5]], plain_bwd, n, padded)
     lines.append(("nbr_attention_stack_bwd", err, pad,
                   "atol 1e-4*max|plain| per output (dg drx dry drz dsw)"))
     for name, err, pad, tol in lines:
-        print(json.dumps({"phase": "dd", "name": name,
+        print(json.dumps({"phase": phase, "name": name,
                           "case": "inputs of one DD evaluate",
                           "rows": n, "K": k,
                           "fully_masked_rows": int(padded.sum()),
@@ -875,12 +947,12 @@ def check_dd_model_kernels(seen):
                                   seen["force_scatter"]):
         rows_k = tuple(args[1].shape)
         if case == "gather_backward" and rows_k != (n, k):
-            fail(f"dd evaluate: the first force scatter took {rows_k} slots, "
+            fail(f"{phase} evaluate: the first force scatter took {rows_k} slots, "
                  f"not the model's ({n}, {k})")
         if case == "force_reduction" and rows_k[1] != 1:
-            fail(f"dd evaluate: the second force scatter took {rows_k} slots,"
+            fail(f"{phase} evaluate: the second force scatter took {rows_k} slots,"
                  " not one per force row")
-        scatter[case] = {"phase": "dd", "name": "force_scatter",
+        scatter[case] = {"phase": phase, "name": "force_scatter",
                          "case": f"{case}, inputs of one DD evaluate",
                          "rows": rows_k[0], "K": rows_k[1], "atoms": args[3],
                          "max_err": 0.0, "tol": "exact (bitwise)",
@@ -894,9 +966,7 @@ def phase_dd(model, params):
     15,668-atom system and model as phase 3."""
     from repro_torch import kernels
     from repro_torch.core import (DeepmdForceProvider, ForcePipeline,
-                                  ddinfer, pipeline, single_domain_forces,
-                                  suggest_config)
-    from repro_torch.kernels import cell_filter as cf
+                                  single_domain_forces, suggest_config)
     coords, types, box = system(N_PATH, SEED)
     rcut = model.cfg.descriptor.rcut
     sel = model.cfg.descriptor.sel
@@ -913,41 +983,10 @@ def phase_dd(model, params):
 
     # -- cell_filter at the path's shapes: record its inputs at both call
     #    sites (cell-list assembly, evaluation re-filter) during one call
-    calls = []
-
-    def record(*args):
-        calls.append(args)
-        return cf.cell_filter(*args)
-
     pipe = ForcePipeline(model, cfg, box, N_PATH)
-    ddinfer.cell_filter = pipeline.cell_filter = record
-    try:
-        e_of, f_of, d_of = pipe.build_force_fn()(params, x, t)
-    finally:
-        ddinfer.cell_filter = pipeline.cell_filter = cf.cell_filter
-    if len(calls) != 2:
-        fail(f"dd: expected 2 cell_filter calls per fused call, got "
-             f"{len(calls)}")
-    rows = {}
-    for site, args in zip(("assembly", "refilter"), calls):
-        got = cf.cell_filter(*args)
-        plain = cf.cell_filter_plain(*args)
-        if not torch.equal(got, plain):
-            fail(f"cell_filter ({site}): {int((got != plain).sum())} flags "
-                 "differ from the plain version")
-        del got, plain
-        torch.cuda.empty_cache()
-        bound = cell_filter_bound(args[1], args[2])
-        rows[site] = {"phase": "dd", "name": "cell_filter", "site": site,
-                      "rows": args[1].shape[0], "M": args[1].shape[1],
-                      "max_err": 0.0, "tol": "exact",
-                      "kernel_ms": time_ms(lambda: cf.cell_filter(*args)),
-                      "plain_ms": time_ms(lambda: cf.cell_filter_plain(*args)),
-                      "bound_ms": bound[0], "bound_by": bound[1],
-                      "bound_ms_all_rows": cell_filter_bound(args[1])[0],
-                      "rows_masked_out": int((args[2] <= 0).sum())}
-        rows[site]["share_of_bound"] = bound[0] / rows[site]["kernel_ms"]
-        print(json.dumps(rows[site]), flush=True)
+    (e_of, f_of, d_of), calls = record_cell_filter(
+        lambda: pipe.build_force_fn()(params, x, t))
+    rows = check_cell_filter_calls(calls, "dd")
     del calls
     torch.cuda.empty_cache()
     for r in (rcut, rcut + SKIN):
@@ -1056,6 +1095,445 @@ def phase_dd(model, params):
         "launches": counts, "launches_per_evaluate_call": per_call}),
         flush=True)
     return rows["refilter"], counts, per_call, dd_scatter
+
+
+# ---------------------------------------------------------------------------
+# md: the MD engine driving the DP provider (the main path's third stage)
+# ---------------------------------------------------------------------------
+
+MD_RESIDUES = 3_917       # the 1HCI stand-in: 15,668 DP atoms (md/system.py)
+MD_WARM, MD_STEPS, MD_DD_STEPS = 5, 20, 10
+MD_SMALL = 40             # residues of the card-vs-CPU and cells-vs-dense runs
+# examples/protein_md.py's engine settings
+MD_CFG = dict(cutoff=0.9, neighbor_capacity=96, dt=0.0005, thermostat_t=200.0)
+MD_POS_TOL = 1e-5         # nm: tests/test_torch_engine.py's gate against JAX
+STATE_KEYS = ("positions", "velocities", "forces", "step")
+
+
+def same_state(a, b):
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in STATE_KEYS)
+
+
+def check_finite_state(name, st):
+    for k in ("positions", "velocities", "forces"):
+        if not bool(torch.isfinite(getattr(st, k)).all()):
+            fail(f"{name}: non-finite {k}")
+
+
+def rebuild_marks(eng):
+    """The engine's rebuild and growth counters: a step rebuilt a list iff
+    they differ before and after it."""
+    d = eng.diagnostics
+    return (d["displacement_rebuilds"], d["special_rebuilds"],
+            d["cadence_rebuilds"], len(d["capacity_growths"]),
+            d["special_growths"])
+
+
+def md_run(eng, start, n, per_step=True):
+    """``eng.run(start, n)`` on the host clock; with ``per_step`` every step
+    ends at a host boundary (``observe_every=1``) where the card is
+    synchronised, the clock read, and the memory read: allocated at the
+    boundary, and the peak since the last boundary (then reset).  Returns (state, wall ms, [(ms,
+    rebuilt)] for steps 2..n: step 1 also carries the pre-loop build,
+    {"allocated": [bytes], "peak": [bytes]} per step)."""
+    stamps, marks = [], []
+    mem = {"allocated": [], "peak": []}
+
+    def observe(s, o):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        marks.append(rebuild_marks(eng))
+        mem["allocated"].append(torch.cuda.memory_allocated())
+        mem["peak"].append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = eng.run(start, n, observe=observe if per_step else None,
+                 observe_every=1)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    steps = [((stamps[i] - stamps[i - 1]) * 1e3, marks[i] != marks[i - 1])
+             for i in range(1, len(stamps))]
+    return st, wall, steps, mem
+
+
+def profile_run_step(eng, start):
+    """Step 2 of ``eng.run(start, 2)``, the step as ``md_run`` times it
+    (windows of one step, its host boundary included), under
+    ``torch.profiler``: the profiler starts at the boundary after step 1
+    and stops at the one after step 2.  Returns (prof, wall ms, whether
+    step 2 rebuilt a list)."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    seen = []
+
+    def observe(s, o):
+        torch.cuda.synchronize()
+        seen.append((time.perf_counter(), rebuild_marks(eng)))
+        if len(seen) == 1:
+            prof.start()
+            seen[0] = (time.perf_counter(), seen[0][1])
+        else:
+            prof.stop()
+
+    eng.run(start, 2, observe=observe, observe_every=1)
+    (t1, m1), (t2, m2) = seen
+    return prof, (t2 - t1) * 1e3, m1 != m2
+
+
+def fresh_step(eng, st):
+    """One scan-mode window of one step from lists built at ``st``: no atom
+    has moved since, so the step evaluates without a rebuild.  A synthetic
+    step, built from the engine's private parts: on the hot stand-in every
+    step that ``MDEngine.run`` takes rebuilds."""
+    nl = eng._build_nlist_grown(st.positions)
+    sp = eng._assemble_special_grown(st.positions) if eng._stateful else None
+    return lambda: eng._run_segment_scan(st, nl, sp, 1)
+
+
+def fresh_step_ms(eng, st, reps=3):
+    """Median host-clock ms (synchronised) of ``fresh_step`` over ``reps``
+    runs, after one warm-up."""
+    fn = fresh_step(eng, st)
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def pair_dr_forms(system, pos, caps=(96, 192, 384, 512)):
+    """The classical forces at list capacities ``caps``, with the port's
+    pair displacements (one (N, 2K) gather table of both ends) and with
+    the reference's broadcast form ``pos[j] - pos[i]`` (j gathered through
+    ``neighbor_gather``, whose backward is a sum over K): for each form,
+    whether every capacity gives the same bits.  Returns {form: bool}."""
+    from repro_torch.kernels.force_scatter import neighbor_gather
+    from repro_torch.md import build_neighbor_list
+    from repro_torch.md import forcefield as ff
+    from repro_torch.md.neighbors import minimum_image
+
+    def broadcast(p, sys_, nl):
+        return minimum_image(neighbor_gather(p, nl.idx, nl.mask)
+                             - p[:, None, :], sys_.box)
+
+    table, out = ff._pair_dr, {}
+    cfg = ff.ForceFieldConfig(cutoff=MD_CFG["cutoff"])
+    try:
+        for name, form in (("table", table), ("broadcast", broadcast)):
+            ff._pair_dr = form
+            forces = []
+            for cap in caps:
+                nl = build_neighbor_list(pos, system.box, cfg.cutoff, cap,
+                                         half=True, skin=0.1,
+                                         cell_cap_scale=cap / caps[0])
+                if bool(nl.overflow):
+                    fail(f"pair_dr_forms: the list overflows at {cap}")
+                forces.append(ff.classical_forces(pos, system, nl, cfg)[1])
+            out[name] = all(torch.equal(forces[0], f) for f in forces[1:])
+    finally:
+        ff._pair_dr = table
+    return out
+
+
+def step_split(steps):
+    ev = [ms for ms, rebuilt in steps if not rebuilt]
+    rb = [ms for ms, rebuilt in steps if rebuilt]
+    return {"evaluate_only_steps": len(ev), "rebuild_steps": len(rb),
+            "evaluate_only_ms_median": statistics.median(ev) if ev else None,
+            "rebuild_ms_median": statistics.median(rb) if rb else None,
+            "step_ms_median": statistics.median(ms for ms, _ in steps)}
+
+
+def phase_md(model, params):
+    """The port's MD engine on the card: the solvated 1HCI stand-in
+    (``build_solvated_protein(3917)``, 62,210 atoms, the 15,668 protein
+    atoms the DP group) with the classical force field on every atom and
+    phases 1-4's DPA-1 on the group, one domain (skin 0.05), then 8
+    virtual ranks; card vs CPU and cells vs dense at 40 residues.  Returns
+    ({kernel: launches per MD step}, single domain and DD)."""
+    from repro_torch import kernels
+    from repro_torch.core import DeepmdForceProvider, suggest_config
+    from repro_torch.launch import protein_md
+    from repro_torch.md import (EngineConfig, MDEngine,
+                                build_solvated_protein, mark_nn_group)
+    from repro_torch.md.forcefield import classical_forces
+    t_phase = t0 = time.perf_counter()
+    system, pos, nn = build_solvated_protein(MD_RESIDUES, device=DEVICE)
+    system = mark_nn_group(system, nn)
+    box = system.box.cpu().numpy()
+    print(json.dumps({"phase": "md", "atoms": system.n_atoms,
+                      "dp_atoms": len(nn), "water": system.n_atoms - len(nn),
+                      "box_nm": box.tolist(),
+                      "build_s": time.perf_counter() - t0}), flush=True)
+    if len(nn) != N_PATH:
+        fail(f"md: DP group of {len(nn)} atoms, expected {N_PATH}")
+    sel = model.cfg.descriptor.sel
+
+    def provider(dd_config=None):
+        return DeepmdForceProvider(model, params, nn, system.types, box,
+                                   system.n_atoms, nbr_capacity=sel,
+                                   skin=SKIN, dd_config=dd_config,
+                                   device=DEVICE)
+
+    prov = provider()
+
+    def engine(special=prov, **kw):
+        return MDEngine(system, EngineConfig(**{**MD_CFG, **kw}),
+                        special_force=special)
+
+    # -- warm-up window, then the main path: 20 scan-mode steps
+    eng = engine()
+    t0 = time.perf_counter()
+    warm = eng.run(eng.init_state(pos, 200.0), MD_WARM)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_diag = dict(eng.diagnostics)
+    eng = engine()
+    kernels.reset_launch_counts()
+    st_a, wall_a, steps_a, mem = md_run(eng, warm, MD_STEPS)
+    counts = kernels.launch_counts()
+    diag_a = dict(eng.diagnostics)
+    eng_b = engine()
+    st_b = md_run(eng_b, warm, MD_STEPS)[0]
+    eng_c = engine(loop_mode="step")
+    st_c = eng_c.run(warm, MD_STEPS)
+    eng_d = engine()
+    st_d, wall_d = md_run(eng_d, warm, MD_STEPS, per_step=False)[:2]
+    tm = eng_c.timings
+    fig9 = {k: tm[k] * 1e3 for k in ("neighbor", "classical", "special",
+                                      "integrate")}
+    total = sum(fig9.values())
+    mib = lambda b: b / 2 ** 20
+    window = eng.config.rebuild_every       # scan mode's first window
+    per_step = {k: counts[k] / MD_STEPS for k in counts}
+    line = {"phase": "md", "mode": "single domain", "atoms": system.n_atoms,
+            "dp_atoms": len(nn), "steps": MD_STEPS,
+            "warm_up": {"steps": MD_WARM, "ms": warm_ms,
+                        "capacity_growths": warm_diag["capacity_growths"]},
+            "neighbor_capacity": eng.config.neighbor_capacity,
+            "dp_K": prov.nbr_capacity,
+            "scan_1_step_windows": {"wall_ms": wall_a, **step_split(steps_a)},
+            "scan_10_step_windows_ms_per_step": wall_d / MD_STEPS,
+            "fig9_split_ms_step_mode": fig9,
+            "dp_share_of_step": fig9["special"] / total,
+            "neighbor_includes": "the pre-loop build of each run",
+            "diagnostics": {k: diag_a[k] for k in (
+                "displacement_rebuilds", "special_rebuilds",
+                "cadence_rebuilds", "capacity_growths", "special_growths",
+                "window_reruns")},
+            "dp_growths": prov.growths,
+            "max_memory_allocated_MiB": mib(max(mem["peak"])),
+            "first_window_peak_MiB": mib(max(mem["peak"][:window])),
+            "peak_MiB_per_step": [mib(b) for b in mem["peak"]],
+            "allocated_at_step_end_MiB": [mib(b) for b in mem["allocated"]],
+            "launches": counts, "launches_per_md_step": per_step,
+            "engine_host_reads_per_step_scan": 1,
+            "repeat_bitwise": same_state(st_a, st_b),
+            "scan_equals_step_bitwise": same_state(st_a, st_c),
+            "windows_of_10_equal_windows_of_1_bitwise": same_state(st_a, st_d)}
+    print(json.dumps(line), flush=True)
+    check_finite_state("md scan", st_a)
+    for k in SINGLE_DOMAIN_KERNELS:
+        if counts[k] == 0:
+            fail(f"md: {k} was never launched in {MD_STEPS} MD steps: {counts}")
+    if counts["cell_filter"] or counts["flash_attention"]:
+        fail(f"md: the single-domain MD path launched {counts}")
+    for key, what in (("repeat_bitwise", "a repeat of the scan-mode steps"),
+                      ("scan_equals_step_bitwise", "step mode"),
+                      ("windows_of_10_equal_windows_of_1_bitwise",
+                       "scan mode in windows of 10 steps")):
+        if not line[key]:
+            fail(f"md: {what} differs from the scan-mode run")
+    # no graph or state survives a step: what stays allocated between steps
+    # is the first step's, and the peak of all steps the first window's
+    # (a step that rebuilds the classical list holds the old one while it
+    # builds the new; the first step after a fresh build does not)
+    if max(mem["allocated"]) > 1.01 * mem["allocated"][0]:
+        fail(f"md: allocated memory between steps grew from "
+             f"{mem['allocated'][0]} to {max(mem['allocated'])} bytes")
+    if max(mem["peak"]) > 1.01 * max(mem["peak"][:window]):
+        fail(f"md: peak memory {max(mem['peak'])} over {MD_STEPS} steps > "
+             f"1.01 x the first window's {max(mem['peak'][:window])}")
+    # the classical force field's force scatters at full width: one
+    # classical_forces call at the grown capacity, its cotangents recorded,
+    # each scatter against the plain version
+    nl = eng.build_nlist(st_a.positions)
+    nlist_bytes = sum(t.nbytes for t in (nl.idx, nl.mask, nl.ref_positions))
+    seen = record_model_kernels(lambda: classical_forces(
+        st_a.positions, system, nl, eng.config.ff), FORCE_SCATTER)[1]
+    terms = {2: "bonds", 3: "angles", 4: "dihedrals",
+             2 * nl.capacity: "pairs"}
+    done = set()
+    for args, _, _ in seen["force_scatter"]:
+        rows, k = args[1].shape
+        term = terms.get(k)
+        if term is None or term in done or \
+                (term == "pairs") != (rows == system.n_atoms):
+            fail(f"md classical: a force scatter over {rows} x {k} slots")
+        done.add(term)
+        # the pair table's padded slots (tens of millions) would pile onto
+        # atom 0 in the library call: it is timed on the bonded tables only
+        print(json.dumps({
+            "phase": "md", "name": "force_scatter",
+            "case": f"classical {term}, one full-width classical_forces call",
+            "rows": rows, "K": k, "atoms": args[3], "max_err": 0.0,
+            "tol": "exact (bitwise)",
+            **check_force_scatter(*args, library=term != "pairs")}),
+            flush=True)
+    if done != set(terms.values()):
+        fail(f"md classical: force scatters for {sorted(done)}")
+    del seen, nl
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "md", "mode": "single domain",
+        "classical_nlist_MiB": mib(nlist_bytes),
+        "neighbor_capacity": eng.config.neighbor_capacity,
+        "peak_rise_after_step_1_MiB": mib(max(mem["peak"][1:])
+                                          - mem["peak"][0]),
+        "why": "a rebuild step builds the new classical list while the old "
+               "one is still referenced (MDEngine.run's loop variable and "
+               "_run_segment_scan's saved window start, which a replay "
+               "needs); step 1, right after the pre-loop build, builds "
+               "none"}), flush=True)
+
+    # one MD step profiled as MDEngine.run takes it (step 2 of a run of 2:
+    # on the hot stand-in a rebuild step), and a synthetic evaluate-only
+    # step (a window of one from freshly built lists), also timed alone
+    eng_r = engine()
+    prof, run_ms, rebuilt = profile_run_step(eng_r, st_a)
+    kern_run = profile_report(
+        prof, run_ms, "md_profile",
+        "step 2 of MDEngine.run(st, 2), windows of one step: "
+        + ("a rebuild step" if rebuilt else "an evaluate-only step"))
+    del prof
+    eng_p = engine()
+    fresh_ms = fresh_step_ms(eng_p, st_a)
+    kern = device_profile(fresh_step(eng_p, st_a), "md_profile",
+                          "a synthetic evaluate-only scan-mode step (a "
+                          "window of 1 from freshly built lists, not a step "
+                          "MDEngine.run takes here)")
+    for what, kk in (("the run's step", kern_run), ("the synthetic step",
+                                                     kern)):
+        if not kk:
+            fail(f"md_profile: the profiler recorded no device time for "
+                 f"{what}")
+        if any("indexing_backward" in k for k in kk):
+            fail(f"md_profile: {what} ran PyTorch's indexing backward")
+    print(json.dumps({"phase": "md", "mode": "single domain",
+                      "profiled_run_step_rebuilt": rebuilt,
+                      "synthetic_evaluate_only_step_ms": fresh_ms}),
+          flush=True)
+    del eng, eng_b, eng_c, eng_d, eng_p, eng_r, st_b, st_c, st_d
+    torch.cuda.empty_cache()
+
+    # -- 8 virtual ranks (cell-list assembly)
+    coords_nn = pos[torch.as_tensor(nn, device=DEVICE)].cpu().numpy()
+    dd = suggest_config(len(nn), box, N_RANKS, model.cfg.descriptor.rcut,
+                        nbr_capacity=sel, skin=SKIN, coords=coords_nn)
+    dd_prov = provider(dd)
+    x = warm.positions
+    # one assembly and evaluate on the column's ranks, the kernels' inputs
+    # recorded: each kernel against its plain version on them below
+    ((e_dd, f_dd, fl_dd), seen), cf_calls = record_cell_filter(
+        lambda: record_model_kernels(
+            lambda: dd_prov.evaluate(x, dd_prov.assemble(x))))
+    e_sd, f_sd, fl_sd = prov.evaluate(x, prov.assemble(x))
+    if bool(fl_dd["overflow"]) or bool(fl_sd["overflow"]):
+        fail("md dd: a capacity overflowed at the first step's positions")
+    if abs(float(e_dd) - float(e_sd)) > 1e-5 * abs(float(e_sd)):
+        fail(f"md dd: E_dp {float(e_dd)} vs single domain {float(e_sd)}")
+    f_err = check("md dd first-step DP forces vs single domain", f_dd, f_sd,
+                  atol=1e-4 * float(f_sd.abs().max()))
+    check_dd_model_kernels(seen, "md dd")
+    check_cell_filter_calls(cf_calls, "md dd")
+    del seen, cf_calls
+    torch.cuda.empty_cache()
+    eng_dd = engine(special=dd_prov)
+    kernels.reset_launch_counts()
+    st_dd, wall_dd, steps_dd, mem_dd = md_run(eng_dd, warm, MD_DD_STEPS)
+    counts_dd = kernels.launch_counts()
+    dd_line = {"phase": "md", "mode": "dd", "ranks": dd.n_ranks,
+               "grid": dd.grid_dims, "K_eval": dd.k_eval,
+               "steps": MD_DD_STEPS, "wall_ms": wall_dd, **step_split(steps_dd),
+               "synthetic_evaluate_only_step_ms": fresh_step_ms(
+                   engine(special=dd_prov), st_dd),
+               "first_step_dp_E": [float(e_dd), float(e_sd)],
+               "first_step_dp_F_max_abs_err_vs_single": f_err,
+               "F_tol": "atol 1e-4*max|F|", "E_tol": "rtol 1e-5",
+               "diagnostics": {k: eng_dd.diagnostics[k] for k in (
+                   "displacement_rebuilds", "special_rebuilds",
+                   "cadence_rebuilds", "capacity_growths",
+                   "special_growths")},
+               "max_memory_allocated_MiB": max(mem_dd["peak"]) / 2 ** 20,
+               "launches": counts_dd,
+               "launches_per_md_step": {k: c / MD_DD_STEPS
+                                        for k, c in counts_dd.items()}}
+    print(json.dumps(dd_line), flush=True)
+    check_finite_state("md dd", st_dd)
+    for k in DP_KERNELS:
+        if counts_dd[k] == 0:
+            fail(f"md dd: {k} was never launched: {counts_dd}")
+    del eng_dd, dd_prov, st_dd, f_dd, f_sd, system, pos, prov, warm, st_a
+    torch.cuda.empty_cache()
+
+    # -- card vs CPU at 40 residues, same start; cells == dense on the card
+    small = {}
+    cpu_model = type(model)(model.cfg, device="cpu")
+    cpu_params = _tree(params, lambda t: t.cpu())
+    start = None
+    for dev, mdl, prm in ((DEVICE, model, params),
+                          ("cpu", cpu_model, cpu_params)):
+        s_sys, s_pos, s_nn = build_solvated_protein(MD_SMALL, device=dev)
+        s_sys = mark_nn_group(s_sys, s_nn)
+        s_prov = DeepmdForceProvider(mdl, prm, s_nn, s_sys.types,
+                                     s_sys.box.cpu().numpy(), s_sys.n_atoms,
+                                     nbr_capacity=sel, skin=SKIN, device=dev)
+        s_eng = MDEngine(s_sys, EngineConfig(**MD_CFG), special_force=s_prov)
+        if dev == DEVICE:
+            forms = pair_dr_forms(s_sys, s_pos)
+            print(json.dumps({"phase": "md", "check": "classical forces at "
+                              "list capacities 96, 192, 384 and 512",
+                              "residues": MD_SMALL,
+                              "pair_table_equal_bitwise": forms["table"],
+                              "broadcast_form_equal_bitwise":
+                                  forms["broadcast"]}), flush=True)
+            if not forms["table"]:
+                fail("md small: the classical forces' bits depend on the "
+                     "list capacity")
+        if start is None:
+            start = s_eng.init_state(s_pos, 200.0)
+            st = start
+        else:
+            st = dataclasses.replace(
+                start, rng=torch.Generator().manual_seed(SEED).get_state(),
+                **{k: getattr(start, k).cpu() for k in STATE_KEYS})
+        small[dev] = (s_eng.run(st, 10), dict(s_eng.diagnostics))
+    (g, g_diag), (c, c_diag) = small[DEVICE], small["cpu"]
+    check_finite_state("md small", g)
+    err = check("md small: card vs CPU positions after 10 steps",
+                g.positions.cpu(), c.positions, atol=MD_POS_TOL)
+    if g_diag != c_diag:
+        fail(f"md small: card diagnostics {g_diag} != CPU {c_diag}")
+    dd_runs = {m: protein_md.main(["--residues", str(MD_SMALL), "--steps",
+                                   "10", "--nbr-method", m, "--device",
+                                   DEVICE], quiet=True)[0]
+               for m in ("cells", "dense")}
+    if not same_state(dd_runs["cells"], dd_runs["dense"]):
+        fail("md small: DD trajectory with cells != dense")
+    print(json.dumps({"phase": "md", "check": "card vs cpu, cells vs dense",
+                      "residues": MD_SMALL, "atoms": int(g.positions.shape[0]),
+                      "steps": 10, "positions_max_abs_err_nm": err,
+                      "tol": f"atol {MD_POS_TOL} nm", "diagnostics_equal": True,
+                      "dd_cells_equal_dense_bitwise": True}), flush=True)
+    print(f"[md] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return per_step, dd_line["launches_per_md_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -1360,6 +1838,13 @@ def device_profile(fn, phase, what, host_ops=False):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_report(prof, wall_ms, phase, what, host_ops)
+
+
+def profile_report(prof, wall_ms, phase, what, host_ops=False):
+    """Print the device time by kernel of a finished ``torch.profiler``
+    run and the device's idle share of ``wall_ms``; returns {kernel name:
+    device ms}."""
     kern = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -1465,6 +1950,10 @@ def main():
     model = DPModel(paper_dpa1_config(ntypes=4, rcut=0.6, sel=64),
                     device=DEVICE)
     params = model.init_params(torch.Generator().manual_seed(SEED))
+    if sys.argv[1:] == ["--phase", "md"]:
+        phase_md(model, params)
+        print("[md] every check passed (md phase alone)", flush=True)
+        return 0
     phase_kernels(model, params, 0.0)            # single_domain_forces, K = 64
     kres = phase_kernels(model, params, SKIN, main=True)  # the provider's K
     # K = 128: the MD cutoff (r_c = 0.8, ~64 neighbours) with sel 128, where
@@ -1482,6 +1971,7 @@ def main():
     counts_sd = phase_requests(model, params)
     cf_row, counts, per_call, dd_scatter = phase_dd(model, params)
     kres["cell_filter"] = cf_row
+    md_sd, md_dd = phase_md(model, params)
     del model, params
     torch.cuda.empty_cache()
     lm_rows, lm_launches = phase_lm()
@@ -1496,6 +1986,8 @@ def main():
                      "replaces": TPU_SOURCES[name], "launches": counts[name],
                      "launches_per_force_call": per_call[name],
                      "launches_single_domain": counts_sd[name],
+                     "launches_per_md_step": md_sd[name],
+                     "launches_per_md_step_dd": md_dd[name],
                      "K": r.get("K"), "max_abs_err": r["max_err"],
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1518,6 +2010,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn.py:27",
         **lm_launches,
+        "launches_per_md_step": md_sd["flash_attention"],
+        "launches_per_md_step_dd": md_dd["flash_attention"],
         "shape": "prefill, global layer: q (4, 8, 6144, 256), k/v "
                  "(4, 4, 6144, 256), bf16, causal, softcap 50",
         "max_abs_err": max(lm_rows[c]["bf16_max_err"] for c in checked),

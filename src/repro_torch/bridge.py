@@ -6,6 +6,8 @@ pytrees' layouts: the DP model's ``descriptor.{type_embed, embed[i].{w,b},
 attn[l].{wq,wk,wv,wo,ln.{gamma,beta}}}``, ``fitting[i].{w,b}``, ``bias``
 (:func:`params_to_torch`, fp32), and the LM's ``embed``, ``final_norm``,
 ``prefix[i]``, ``pattern[j]`` (:func:`lm_params_to_torch`, dtypes kept).
+The MD side carries a ``System`` (:func:`system_to_torch`) and an
+``MDState`` (:func:`md_state_to_torch`) field for field.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from .device import resolve_device
 from .dp.common import EnvStats
 from .dp.descriptors import DescriptorConfig
 from .dp.model import DPConfig
+from .md.integrators import MDState
+from .md.system import System, Topology
 
 
 def params_to_torch(tree, device="cuda"):
@@ -86,3 +90,28 @@ def arch_config_to_torch(cfg) -> ArchConfig:
     """A JAX ``ArchConfig`` -> the port's, field for field."""
     return ArchConfig(**{f.name: getattr(cfg, f.name)
                          for f in dataclasses.fields(ArchConfig)})
+
+
+def _field_tensors(obj, cls, dev, skip=()) -> dict:
+    return {f.name: _leaf_to_torch(getattr(obj, f.name), dev)
+            for f in dataclasses.fields(cls) if f.name not in skip}
+
+
+def system_to_torch(system, device="cuda") -> System:
+    """A JAX ``System`` (its leaves as numpy) -> the port's, field for
+    field, dtypes kept."""
+    dev = resolve_device(device)
+    return System(topology=Topology(**_field_tensors(system.topology,
+                                                     Topology, dev)),
+                  **_field_tensors(system, System, dev, skip=("topology",)))
+
+
+def md_state_to_torch(state, device="cuda", seed: int = 0) -> MDState:
+    """A JAX ``MDState`` (positions, velocities, forces, step; as numpy) ->
+    the port's.  A JAX PRNG key has no torch counterpart: ``rng`` is the
+    state of a generator on ``device`` seeded ``seed``."""
+    dev = resolve_device(device)
+    return MDState(
+        **{k: _leaf_to_torch(getattr(state, k), dev)
+           for k in ("positions", "velocities", "forces", "step")},
+        rng=torch.Generator(device=dev).manual_seed(seed).get_state())

@@ -23,6 +23,7 @@ from ..backend import ForceRequest, ForceResult
 from ..device import resolve_device
 from ..dp.model import DPModel
 from ..kernels.nbr_attn import MAX_K, k_limit_message
+from ..md.integrators import wrap
 from ..md.neighbors import needs_rebuild as _nlist_needs_rebuild
 from .ddinfer import (DDConfig, single_domain_forces,
                       single_domain_forces_nlist, single_domain_state)
@@ -49,12 +50,6 @@ class UnitConversion:
     @property
     def force_to_engine(self) -> float:
         return self.energy_to_engine * self.length_to_model
-
-
-def _floor_mod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``jnp.mod``: fmod (exact) shifted into the divisor's sign."""
-    r = torch.fmod(x, y)
-    return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
 
 
 class DeepmdForceProvider:
@@ -147,7 +142,7 @@ class DeepmdForceProvider:
     def _to_model(self, positions: torch.Tensor) -> torch.Tensor:
         nn_pos = (positions[..., self.nn_indices, :]
                   * self.units.length_to_model)
-        return _floor_mod(nn_pos, self.box_model)
+        return wrap(nn_pos, self.box_model)
 
     def assemble(self, positions: torch.Tensor):
         """Assembly phase at the current positions -> reusable state."""

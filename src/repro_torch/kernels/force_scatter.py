@@ -144,6 +144,13 @@ class _Scatter(torch.autograd.Function):
                 None, None, None)
 
 
+def scatter_sum(g, idx, mask, n: int):
+    """:func:`force_scatter` under autograd (its backward is the gather,
+    zero at the masked slots): (n, 3) ordered per-row sums of ``g`` (C, K,
+    3) that differentiate to ``g``."""
+    return _Scatter.apply(g, idx, mask, n)
+
+
 def neighbor_gather(coords, idx, mask):
     """``coords[idx]`` (C, K, 3) for coords (N, 3), idx (C, K) (-1 padded,
     read as atom 0) and mask (C, K).  Its gradient sums each slot's

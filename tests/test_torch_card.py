@@ -34,6 +34,17 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   all slots masked and N = 0; grad-of-grad through ``neighbor_gather``
   against the CPU (atol 1e-6 x max); the DD force reduction through it
   equal to the CPU bit for bit;
+* the MD engine on the solvated 5-residue protein with the paper's DPA-1
+  (random weights, seed 0): 10 steps on the card against the CPU (positions
+  atol 1e-5 nm, the CPU tests' gate against JAX); scan == step and a
+  repeat bit for bit; the peak memory of 20 steps that of the first
+  window within 1%; the classical forces' gathers launch the force scatter
+  (one per bonded term and one for the pair table) and never PyTorch's indexing
+  backward; the classical forces' bits the same at list capacities 96 and
+  384 (either side of the card's split-reduction threshold of 256);
+* PME on the card: the charge mesh equal to the CPU's bit for bit, the
+  reciprocal energy (rtol 1e-5) and its forces (atol 1e-5 x max|F|)
+  against the CPU, and the same bits on a repeat;
 * ``flash_attention`` against its plain version (the five cases of the
   reference's flash tests, unmasked keys past a ragged Sk, decode against a
   cache view, every head dimension the kernel has; in bf16 also the tensor-
@@ -480,3 +491,158 @@ def test_flash_attention_bf16_prefill_reads_a_cache_view(card):
     want = ref.attention_ref(q, k, v, True, 64, 50.0, 104)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=1e-2 * float(want.float().abs().max()))
+
+
+def _md_small(device, sp_skin=0.08):
+    """The solvated 5-residue protein, marked, with a DPA-1 provider
+    (``sel=32``, weights from seed 0 made on the CPU) on ``device``."""
+    from repro_torch.core import DeepmdForceProvider
+    from repro_torch.dp import DPModel, paper_dpa1_config
+    from repro_torch.md import build_solvated_protein, mark_nn_group
+    system, pos, nn = build_solvated_protein(5, 1.5, device=device)
+    system = mark_nn_group(system, nn)
+    cfg = paper_dpa1_config(ntypes=4, rcut=0.6, sel=32)
+    params = DPModel(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    params = _to(params, device)
+    prov = DeepmdForceProvider(DPModel(cfg, device=device), params, nn,
+                               system.types, system.box, system.n_atoms,
+                               nbr_capacity=48, skin=sp_skin, device=device)
+    return system, pos, prov
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _md_engine(device, **cfg):
+    from repro_torch.md import EngineConfig, MDEngine
+    system, pos, prov = _md_small(device)
+    eng = MDEngine(system, EngineConfig(cutoff=0.9, neighbor_capacity=96,
+                                        dt=0.0005, thermostat_t=200.0, **cfg),
+                   special_force=prov)
+    return eng, pos
+
+
+def _md_run(device, n, **cfg):
+    eng, pos = _md_engine(device, **cfg)
+    return eng.run(eng.init_state(pos, 200.0), n)
+
+
+def _same_state(a, b):
+    return all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("positions", "velocities", "forces", "step"))
+
+
+@pytest.mark.cuda
+def test_md_engine_card_equals_cpu(card):
+    import dataclasses
+    eng_card, pos = _md_engine(card)
+    st0 = eng_card.init_state(pos, 200.0)
+    eng_cpu, _ = _md_engine("cpu")
+    # the card's Maxwell-Boltzmann draw carried to the CPU
+    st0_cpu = dataclasses.replace(
+        st0, rng=torch.Generator().manual_seed(0).get_state(),
+        **{k: getattr(st0, k).cpu()
+           for k in ("positions", "velocities", "forces", "step")})
+    got, want = eng_card.run(st0, 10), eng_cpu.run(st0_cpu, 10)
+    assert bool(torch.isfinite(got.positions).all())
+    assert eng_card.diagnostics == eng_cpu.diagnostics
+    torch.testing.assert_close(got.positions.cpu(), want.positions, rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_md_engine_scan_equals_step_and_repeats_on_card(card):
+    a = _md_run(card, 12)
+    b = _md_run(card, 12)
+    c = _md_run(card, 12, loop_mode="step")
+    assert _same_state(a, b) and _same_state(a, c)
+
+
+@pytest.mark.cuda
+def test_md_engine_peak_memory_stays_at_the_first_window(card):
+    eng, pos = _md_engine(card)
+    st = eng.init_state(pos, 200.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = eng.run(st, 10)
+    first = torch.cuda.max_memory_allocated()
+    eng.run(st, 20)
+    assert torch.cuda.max_memory_allocated() <= 1.01 * first
+
+
+def _classical(device, capacity=96):
+    from repro_torch.md import build_neighbor_list, build_solvated_protein
+    from repro_torch.md.forcefield import ForceFieldConfig, classical_forces
+    system, pos, _ = build_solvated_protein(40, device=device)
+    nl = build_neighbor_list(pos, system.box, 0.9, capacity, half=True,
+                             skin=0.1)
+    return lambda: classical_forces(pos, system, nl,
+                                    ForceFieldConfig(cutoff=0.9)), nl
+
+
+@pytest.mark.cuda
+def test_classical_gathers_launch_the_force_scatter(card):
+    from torch.profiler import ProfilerActivity, profile
+    fn, nl = _classical(card)
+    before = fs.force_scatter.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        e, f = fn()
+        torch.cuda.synchronize()
+    # bond, angle and dihedral one scatter each, and one for the pair
+    # table LJ and Coulomb share
+    assert fs.force_scatter.launches == before + 4
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and not any("indexing_backward" in n for n in names)
+    assert torch.equal(fn()[1], f)
+    fn_cpu, nl_cpu = _classical("cpu")
+    assert torch.equal(nl.idx.cpu(), nl_cpu.idx)
+    f_cpu = fn_cpu()[1]
+    torch.testing.assert_close(f.cpu(), f_cpu, rtol=0,
+                               atol=1e-5 * float(f_cpu.abs().max()))
+
+
+@pytest.mark.cuda
+def test_classical_forces_do_not_depend_on_capacity_on_card(card):
+    assert torch.equal(_classical(card, 96)[0]()[1],
+                       _classical(card, 384)[0]()[1])
+
+
+@pytest.mark.cuda
+def test_pme_on_card_equals_cpu(card):
+    """The PME charge mesh (the ordered force scatter of 320,000 stencil
+    entries) equal to the CPU's bit for bit; the reciprocal energy and its
+    forces against the CPU (rtol 1e-5, atol 1e-5 x max|F|: the FFTs differ)
+    and bit for bit on a repeat."""
+    from repro_torch.md import pme
+    rng = np.random.default_rng(4)
+    box = np.array([2.0, 2.5, 3.0], np.float32)
+    pos = (rng.uniform(0, 1, (5000, 3)) * box).astype(np.float32)
+    q = rng.uniform(-1, 1, 5000).astype(np.float32)
+
+    def run(device):
+        p = torch.tensor(pos, device=device, requires_grad=True)
+        qq, bb = torch.tensor(q, device=device), torch.tensor(box,
+                                                              device=device)
+        mesh = pme.charge_spread(p.detach(), qq, bb, (16, 16, 16))
+        e = pme.pme_reciprocal_energy(p, qq, bb, (16, 16, 16), 4, 3.0)
+        (g,) = torch.autograd.grad(e, p)
+        return mesh, e.detach(), -g
+
+    before = fs.force_scatter.launches
+    mesh, e, f = run(card)
+    assert fs.force_scatter.launches > before
+    again = run(card)
+    assert all(torch.equal(a, b) for a, b in zip((mesh, e, f), again))
+    mesh_cpu, e_cpu, f_cpu = run("cpu")
+    assert torch.equal(mesh.cpu(), mesh_cpu)
+    torch.testing.assert_close(e.cpu(), e_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(f.cpu(), f_cpu, rtol=0,
+                               atol=1e-5 * float(f_cpu.abs().max()))

@@ -131,3 +131,26 @@ def test_flash_wrapper_dispatches_by_device():
     out = flash_attn.flash_attention(q, k, k, True, 0, 0.0, 2)
     assert out.shape == q.shape
     assert launch_counts()["flash_attention"] == before
+
+
+def test_md_entry_points_raise_without_cuda(monkeypatch):
+    """The system constructors, the bridge and the MD entry point default
+    to the card; the engine runs where its system lies."""
+    from repro_torch import bridge
+    from repro_torch.launch import protein_md
+    from repro_torch.md import (EngineConfig, MDEngine, build_solvated_protein,
+                                build_water_box)
+    from repro_torch.md.system import empty_topology
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: build_water_box(3),
+                 lambda: build_solvated_protein(2),
+                 lambda: empty_topology(4),
+                 lambda: protein_md.main(["--residues", "2", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    system, pos = build_water_box(3, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bridge.system_to_torch(system)
+    eng = MDEngine(system, EngineConfig(cutoff=0.3, neighbor_capacity=16))
+    assert eng.device.type == "cpu"
+    assert eng.init_state(pos, 100.0).positions.device.type == "cpu"
