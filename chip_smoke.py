@@ -27,6 +27,8 @@ phase 6 on gemma2-2b:
    backward; at K = 82 the parameter-gradient backward timed;
 2. path parity: the single-domain provider on the card against the port on
    the CPU at 2,048 atoms, and one launch of each of its kernels per call;
+   the same at 160 atoms for a reduced DPA-1 whose embedding width M = 62
+   is not a multiple of 4 (the wrappers pad it for the attention kernels);
 3. requests: ``DeepmdForceProvider(skin=0.05).compute`` on one domain of the
    15,668-atom 1HCI-sized system (4 drifts inside skin/4, then a rebuild);
 4. dd: the virtual domain decomposition on the same system and model,
@@ -56,13 +58,20 @@ phase 6 on gemma2-2b:
 6. lm: gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
    bf16, random weights from the port's initialiser), 4 prompts of 6,144
    random token ids, 32 greedy new tokens through ``launch/serve.py``'s
-   ``serve_tokens``: 26 flash launches per prefill and per decode step; the
-   flash kernel against its plain version on the tensors of a local and a
-   global layer of the prefill and of the last decode step (bf16, and the
-   same inputs in fp32), with times, bounds and, at each of the four call
-   shapes, SDPA beside the kernel at softcap 0; decode == forward at full width; card == CPU at a reduced width in
-   fp32; 3 timed request rounds, then a profiled prefill and 4 profiled
-   decode steps;
+   ``serve_tokens``: an eager request with every attention call recorded
+   (26 ``flash_attention`` launches per prefill, 26 ``flash_decode`` per
+   decode step), then the main path, a request whose decode steps replay a
+   captured CUDA graph (26 ``flash_decode`` launches captured per replay,
+   counted per replay), equal to the eager request bit for bit; the
+   prefill kernel and the decode kernel against their plain versions on
+   the tensors of a local and a global layer of the prefill and of the
+   last decode step (bf16, and the same inputs in fp32), with times,
+   bounds and, at each of the four call shapes, SDPA beside the kernel at
+   softcap 0; the decode kernel at lengths 1, 63, 64, 65 and the cache's
+   capacity with one grid; decode == forward at full width; card == CPU
+   at a reduced width in fp32; 3 timed rounds each of graphed and eager
+   requests, then a profiled prefill, 4 profiled graphed decode steps and
+   4 eager ones;
 7. a ``kernels`` JSON line (launches per force call, per MD step and per
    request), then the result line.
 
@@ -428,20 +437,20 @@ def phase_kernels(model, params, skin, main=False):
     return results
 
 
-def phase_parity(model, params):
+def phase_parity(model, params, n_atoms=N_PARITY, phase="parity"):
     """Provider on the card vs the port on the CPU, same params and coords."""
     from repro_torch import kernels
     from repro_torch.backend import ForceRequest
     from repro_torch.core import DeepmdForceProvider
     from repro_torch.dp import DPModel
-    coords, types, box = system(N_PARITY, SEED + 1)
-    nn = np.arange(N_PARITY)
+    coords, types, box = system(n_atoms, SEED + 1)
+    nn = np.arange(n_atoms)
     cpu_model = DPModel(model.cfg, device="cpu")
     cpu_params = _tree(params, lambda t: t.cpu())
     res = {}
     for dev, mdl, prm in ((DEVICE, model, params), ("cpu", cpu_model,
                                                       cpu_params)):
-        prov = DeepmdForceProvider(mdl, prm, nn, types, box, N_PARITY,
+        prov = DeepmdForceProvider(mdl, prm, nn, types, box, n_atoms,
                                    nbr_capacity=model.cfg.descriptor.sel,
                                    skin=SKIN, device=dev)
         kernels.reset_launch_counts()
@@ -454,14 +463,35 @@ def phase_parity(model, params):
                  "(no cell_filter on one domain)")
     e_gpu, e_cpu = float(res[DEVICE].energy), float(res["cpu"].energy)
     if abs(e_gpu - e_cpu) > 1e-5 * abs(e_cpu):
-        fail(f"path parity: E card {e_gpu} vs cpu {e_cpu}")
+        fail(f"{phase}: E card {e_gpu} vs cpu {e_cpu}")
     f_cpu = res["cpu"].forces
-    err = check("path parity forces", res[DEVICE].forces.cpu(), f_cpu,
+    err = check(f"{phase} forces", res[DEVICE].forces.cpu(), f_cpu,
                 atol=1e-4 * float(f_cpu.abs().max()))
-    print(json.dumps({"phase": "parity", "atoms": N_PARITY, "E_card": e_gpu,
+    desc = model.cfg.descriptor
+    print(json.dumps({"phase": phase, "atoms": n_atoms,
+                      "embedding": list(desc.neuron),
+                      "attention": [desc.attn_layers, desc.attn_hidden,
+                                    desc.attn_heads],
+                      "E_card": e_gpu,
                       "E_cpu": e_cpu, "F_max_abs_err": err,
                       "F_tol": "atol 1e-4*max|F|",
                       "launches_per_force_call": 1}), flush=True)
+
+
+def phase_any_width():
+    """A reduced DPA-1 whose embedding width M = 62 is not a multiple of 4
+    (embedding (30, 62), 2 attention layers of 64 in 2 heads; the wrappers
+    pad M to 64 for the attention kernels) on 160 atoms: the provider on
+    the card against the port on the CPU at the DP gate, one launch of
+    each single-domain kernel."""
+    from repro_torch.dp import DescriptorConfig, DPConfig, DPModel
+    cfg = DPConfig(descriptor=DescriptorConfig(
+        kind="dpa1", rcut=0.6, rcut_smth=0.3, sel=64, ntypes=4,
+        neuron=(30, 62), axis_neuron=16, attn_layers=2, attn_hidden=64,
+        attn_heads=2))
+    model = DPModel(cfg, device=DEVICE)
+    phase_parity(model, model.init_params(torch.Generator().manual_seed(SEED)),
+                 n_atoms=160, phase="any_width")
 
 
 def _tree(t, fn):
@@ -1343,7 +1373,8 @@ def phase_md(model, params):
     for k in SINGLE_DOMAIN_KERNELS:
         if counts[k] == 0:
             fail(f"md: {k} was never launched in {MD_STEPS} MD steps: {counts}")
-    if counts["cell_filter"] or counts["flash_attention"]:
+    if counts["cell_filter"] or counts["flash_attention"] or \
+            counts["flash_decode"]:
         fail(f"md: the single-domain MD path launched {counts}")
     for key, what in (("repeat_bitwise", "a repeat of the scan-mode steps"),
                       ("scan_equals_step_bitwise", "step mode"),
@@ -1574,35 +1605,46 @@ def flash_bound(q, k, causal, window, q_offset):
 
 
 def serve_recording(cfg, params, tokens, new, keep):
-    """``launch.serve.serve_tokens`` with ``flash_attention`` swapped for a
-    recorder: the launches' (Sq, Sk) in order, and the arguments of the
-    calls whose index is in ``keep``.  The recorder still launches; its
-    count goes back to the wrapper afterwards."""
+    """``launch.serve.serve_tokens`` run eagerly (``graph=False``: every
+    attention call is a Python call) with ``flash_attention`` and
+    ``flash_decode`` swapped for recorders: the calls' (wrapper, Sq, Sk) in
+    order, and the arguments of the calls whose index is in ``keep``.  The
+    recorders still launch; their counts go back to the wrappers
+    afterwards."""
     from repro_torch.kernels import flash_attn
     from repro_torch.launch.serve import serve_tokens
-    original = flash_attn.flash_attention
-    shapes, kept = [], {}
+    originals = {name: getattr(flash_attn, name)
+                 for name in ("flash_attention", "flash_decode")}
+    calls, kept = [], {}
 
-    def rec(q, k, v, causal, window, softcap, q_offset):
-        if len(shapes) in keep:
-            kept[len(shapes)] = (q, k, v, causal, window, softcap, q_offset)
-        shapes.append((q.shape[2], k.shape[2]))
-        return original(q, k, v, causal, window, softcap, q_offset)
+    def recorder(name):
+        original = originals[name]
 
-    rec.launches = 0
-    flash_attn.flash_attention = rec
+        def rec(*args):
+            if len(calls) in keep:
+                kept[len(calls)] = args
+            calls.append((name, args[0].shape[2], args[1].shape[2]))
+            return original(*args)
+
+        rec.launches = 0
+        return rec
+
+    recs = {name: recorder(name) for name in originals}
+    for name, rec in recs.items():
+        setattr(flash_attn, name, rec)
     try:
-        res = serve_tokens(cfg, params, tokens, new)
+        res = serve_tokens(cfg, params, tokens, new, graph=False)
     finally:
-        original.launches += rec.launches
-        flash_attn.flash_attention = original
-    return res, shapes, kept
+        for name, original in originals.items():
+            original.launches += recs[name].launches
+            setattr(flash_attn, name, original)
+    return res, calls, kept
 
 
 @torch.no_grad()
 def check_flash(name, args):
-    """The kernel against its plain version on one call's arguments (bf16,
-    and the same inputs in fp32), with times and bounds."""
+    """A prefill call's kernel against its plain version on the call's
+    arguments (bf16, and the same inputs in fp32), with times and bounds."""
     from repro_torch.kernels import flash_attn, ref
     q, k, v, causal, window, softcap, q_offset = args
     line = {"phase": "lm", "name": "flash_attention", "case": name,
@@ -1610,24 +1652,55 @@ def check_flash(name, args):
             "window": window, "softcap": softcap, "q_offset": q_offset}
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
         a = [t.to(dtype) for t in (q, k, v)]
-        got = flash_attn.flash_attention(*a, causal, window, softcap, q_offset)
-        want = ref.attention_ref(*a, causal, window, softcap, q_offset)
-        scale = float(want.float().abs().max())
-        err = check(f"flash_attention {name} {dtype}", got.float(),
-                    want.float(), atol=tol * scale)
-        if not torch.equal(got, flash_attn.flash_attention(
-                *a, causal, window, softcap, q_offset)):
-            fail(f"flash_attention {name} {dtype}: a repeat differs")
-        del got, want
-        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        bound, flops = flash_bound(a[0], a[1], causal, window, q_offset)
-        line.update({f"{tag}_max_err": err, f"{tag}_tol": f"atol {tol}*max|plain|",
-                     f"{tag}_kernel_ms": time_ms(lambda: flash_attn.flash_attention(
-                         *a, causal, window, softcap, q_offset)),
-                     f"{tag}_plain_ms": time_ms(lambda: ref.attention_ref(
-                         *a, causal, window, softcap, q_offset)),
-                     f"{tag}_bound_ms": bound[0], f"{tag}_bound_by": bound[1],
-                     f"{tag}_visible_pair_flops": flops})
+        line.update(kernel_line(
+            dtype, tol, name,
+            lambda: flash_attn.flash_attention(*a, causal, window, softcap,
+                                               q_offset),
+            lambda: ref.attention_ref(*a, causal, window, softcap, q_offset),
+            flash_bound(a[0], a[1], causal, window, q_offset)))
+        del a
+        torch.cuda.empty_cache()
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def kernel_line(dtype, tol, name, kern, plain, bound):
+    """One call's kernel against its plain version (atol tol x max|plain|),
+    a repeat bit for bit, both timed, beside the bound."""
+    got, want = kern(), plain()
+    scale = float(want.float().abs().max())
+    err = check(f"{name} {dtype}", got.float(), want.float(),
+                atol=tol * scale)
+    if not torch.equal(got, kern()):
+        fail(f"{name} {dtype}: a repeat differs")
+    del got, want
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    (bound_ms, bound_by), flops = bound
+    return {f"{tag}_max_err": err, f"{tag}_tol": f"atol {tol}*max|plain|",
+            f"{tag}_kernel_ms": time_ms(kern), f"{tag}_plain_ms": time_ms(plain),
+            f"{tag}_bound_ms": bound_ms, f"{tag}_bound_by": bound_by,
+            f"{tag}_visible_pair_flops": flops}
+
+
+@torch.no_grad()
+def check_decode(name, args):
+    """A decode call's kernel (``flash_decode`` over the whole cache, the
+    position a device tensor) against its plain version on the call's
+    arguments (bf16, and the same inputs in fp32), with times and bounds
+    (the bytes of the K/V rows the query sees)."""
+    from repro_torch.kernels import flash_attn, ref
+    q, kc, vc, pos, window, softcap = args
+    p = int(pos)
+    line = {"phase": "lm", "name": "flash_decode", "case": name,
+            "q": list(q.shape), "k_cache": list(kc.shape), "pos": p,
+            "window": window, "softcap": softcap}
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        a = [t.to(dtype) for t in (q, kc, vc)]
+        line.update(kernel_line(
+            dtype, tol, name,
+            lambda: flash_attn.flash_decode(*a, pos, window, softcap),
+            lambda: ref.decode_ref(*a, p, window, softcap),
+            flash_bound(a[0], a[1][:, :, :p + 1], True, window, p)))
         del a
         torch.cuda.empty_cache()
     print(json.dumps(line), flush=True)
@@ -1635,56 +1708,126 @@ def check_flash(name, args):
 
 
 @torch.no_grad()
+def check_decode_lengths(args):
+    """The decode kernel at lengths 1, 63, 64, 65 and S_max of the last
+    step's cache (bf16, the global and the local layer's window): against
+    the plain version at the bf16 gate, a repeat bit for bit, one split
+    count (the grid) at every length; at the short lengths most splits,
+    and so whole CTAs, see no key."""
+    from repro_torch.kernels import flash_attn, ref
+    q, kc, vc, _, _, softcap = args
+    b, hkv, s_max = kc.shape[0], kc.shape[1], kc.shape[2]
+    splits = flash_attn.decode_splits(
+        b, hkv, s_max, torch.cuda.get_device_properties(0).multi_processor_count)
+    seen, rows = [], []
+    real = flash_attn.decode_splits
+    flash_attn.decode_splits = lambda *a: seen.append(real(*a)) or seen[-1]
+    try:
+        for length in (1, 63, 64, 65, s_max):
+            for window in (0, 4096):
+                pos = torch.tensor(length - 1, device=DEVICE)
+                got = flash_attn.flash_decode(q, kc, vc, pos, window, softcap)
+                want = ref.decode_ref(q, kc, vc, length - 1, window, softcap)
+                err = check(f"flash_decode length {length} window {window}",
+                            got.float(), want.float(),
+                            atol=1e-2 * float(want.float().abs().max()))
+                if not torch.equal(got, flash_attn.flash_decode(
+                        q, kc, vc, pos, window, softcap)):
+                    fail(f"flash_decode length {length}: a repeat differs")
+                ranges = ref.decode_split_ranges(1, length, length - 1, True,
+                                                 window, splits)
+                rows.append({"length": length, "window": window,
+                             "max_abs_err": err,
+                             "splits_without_key": sum(k1 <= k0
+                                                       for k0, k1 in ranges)})
+    finally:
+        flash_attn.decode_splits = real
+    if set(seen) != {splits}:
+        fail(f"flash_decode: split counts {sorted(set(seen))} across "
+             f"lengths, expected {splits} at every length")
+    print(json.dumps({"phase": "lm", "check": "flash_decode hard lengths",
+                      "splits": splits, "ctas": splits * b * hkv,
+                      "tol": "atol 1e-2*max|plain|", "cases": rows}),
+          flush=True)
+
+
+@torch.no_grad()
 def sdpa_yardstick(name, args):
     """One PyTorch call beside the kernel, both at softcap 0 (with softcap
     50 no single PyTorch call computes the function), on the call's q, k
     and v: SDPA with GQA; causal at the global prefill, a boolean causal +
-    window mask at the local prefill, and at decode (Sq = 1) the keys the
-    query sees, unmasked."""
+    window mask at the local prefill, and at decode (the kernel over the
+    whole cache) the keys the query sees, unmasked."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attn, ref
-    q, k, v, causal, window, _, q_offset = args
-    sq, sk = q.shape[2], k.shape[2]
-    if not causal:
-        fail(f"sdpa yardstick {name}: expected a causal call")
-    if sq > 1 and q_offset == 0 and not window:
-        kw, lk, lv = {"is_causal": True}, k, v
-    elif sq > 1 and q_offset == 0:
-        kw = {"attn_mask": ref.attention_visible(sq, sk, True, window, 0,
-                                                 q.device)}
-        lk, lv = k, v
-    elif sq == 1:
+    if len(args) == 6:                       # flash_decode's arguments
+        q, k, v, pos, window, _ = args
+        q_offset = int(pos)
         lo = max(0, q_offset - window + 1) if window > 0 else 0
         kw, lk, lv = {}, k[:, :, lo:q_offset + 1], v[:, :, lo:q_offset + 1]
+        bound_k = k[:, :, :q_offset + 1]
+
+        def kern():
+            return flash_attn.flash_decode(q, k, v, pos, window, 0.0)
     else:
-        fail(f"sdpa yardstick {name}: no single SDPA call for this shape")
+        q, k, v, causal, window, _, q_offset = args
+        sq, sk = q.shape[2], k.shape[2]
+        if not causal or sq == 1 or q_offset:
+            fail(f"sdpa yardstick {name}: expected a causal prefill call")
+        if not window:
+            kw = {"is_causal": True}
+        else:
+            kw = {"attn_mask": ref.attention_visible(sq, sk, True, window, 0,
+                                                     q.device)}
+        lk, lv, bound_k = k, v, k
+
+        def kern():
+            return flash_attn.flash_attention(q, k, v, True, window, 0.0, 0)
 
     def lib():
         return F.scaled_dot_product_attention(q, lk, lv, enable_gqa=True, **kw)
 
-    def kern():
-        return flash_attn.flash_attention(q, k, v, True, window, 0.0, q_offset)
-
     got, want = kern(), lib()
-    err = check(f"flash_attention {name} vs sdpa (softcap 0)", got.float(),
+    err = check(f"{name} vs sdpa (softcap 0)", got.float(),
                 want.float(), atol=1e-2 * float(want.float().abs().max()))
     del got, want
-    line = {"phase": "lm", "name": "flash_attention", "case":
+    line = {"phase": "lm", "name": "flash_decode" if len(args) == 6
+            else "flash_attention", "case":
             f"{name}, softcap 0, vs scaled_dot_product_attention",
             "max_err_vs_sdpa": err, "kernel_ms": time_ms(kern),
             "sdpa_ms": time_ms(lib),
-            "bound_ms": flash_bound(q, k, True, window, q_offset)[0][0]}
+            "bound_ms": flash_bound(q, bound_k, True, window, q_offset)[0][0]}
     line["kernel_over_sdpa"] = line["kernel_ms"] / line["sdpa_ms"]
     print(json.dumps(line), flush=True)
     torch.cuda.empty_cache()
     return line
 
 
+def lm_request_counts(res, n, steps, what):
+    """The launches of one graphed request (counts reset before it): n
+    prefill calls of ``flash_attention``; n ``flash_decode`` calls captured
+    per decode step, replayed ``steps`` times after one eager warm-up
+    step; no DP kernel."""
+    from repro_torch import kernels
+    counts = kernels.launch_counts()
+    if (res.get("graph_launches") != {"flash_decode": n}
+            or counts["flash_attention"] != n
+            or counts["flash_decode"] != n * (steps + 1)
+            or any(c for k, c in counts.items()
+                   if k not in ("flash_attention", "flash_decode"))):
+        fail(f"{what}: launches {counts}, captured per replay "
+             f"{res.get('graph_launches')}; expected {n} flash_attention per "
+             f"prefill and {n} flash_decode per decode step ({steps} "
+             "replays + 1 warm-up step)")
+    return counts
+
+
 def phase_lm():
     """gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
     bf16, random weights from the port's initialiser), 4 prompts of 6,144
     random token ids and 32 greedy new tokens, through the port's
-    ``launch/serve.py``."""
+    ``launch/serve.py``: the decode steps replay a CUDA graph, and run
+    eagerly for the recording, the bitwise comparison and the timing."""
     from repro_torch import kernels
     from repro_torch.configs import get_arch, param_count
     from repro_torch.launch.serve import serve_tokens
@@ -1703,49 +1846,69 @@ def phase_lm():
     tokens = torch.tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)),
                           device=DEVICE)
     steps = LM_NEW - 1
-    last = n * steps            # first flash call of the last decode step
+    last = n * steps            # first decode call of the last decode step
     keep = {0, 1, last, last + 1}
 
-    # -- the main path once, every flash launch counted
+    # -- one eager request, every attention call recorded
     kernels.reset_launch_counts()
-    res, shapes, kept = serve_recording(cfg, params, tokens, LM_NEW, keep)
+    res_eager, calls, kept = serve_recording(cfg, params, tokens, LM_NEW,
+                                             keep)
     counts = kernels.launch_counts()
-    prefill_calls = sum(1 for sq, _ in shapes if sq == LM_PROMPT)
-    decode_calls = sum(1 for sq, _ in shapes if sq == 1)
-    if (counts["flash_attention"] != n * LM_NEW or prefill_calls != n
-            or decode_calls != n * steps or len(shapes) != n * LM_NEW):
-        fail(f"lm: flash launches {counts['flash_attention']}, prefill "
-             f"calls {prefill_calls}, decode calls {decode_calls}; expected "
-             f"{n} per prefill and {n} per decode step")
-    if any(c for k, c in counts.items() if k != "flash_attention"):
-        fail(f"lm: the serving path launched DP kernels: {counts}")
+    prefill_calls = sum(1 for w, sq, _ in calls
+                        if w == "flash_attention" and sq == LM_PROMPT)
+    decode_calls = sum(1 for w, sq, sk in calls if w == "flash_decode"
+                       and sq == 1 and sk == LM_PROMPT + LM_NEW)
+    if (counts["flash_attention"] != n or counts["flash_decode"] != n * steps
+            or prefill_calls != n or decode_calls != n * steps
+            or len(calls) != n * LM_NEW):
+        fail(f"lm eager: launches {counts}, prefill calls {prefill_calls}, "
+             f"decode calls {decode_calls}; expected {n} per prefill and "
+             f"{n} per decode step")
+    if kept[0][4] != cfg.window or kept[1][4] != 0 or \
+            int(kept[last][3]) != LM_PROMPT + steps - 1 or \
+            kept[last][4] != cfg.window or kept[last + 1][4] != 0:
+        fail("lm: recorded calls are not the expected layers and positions")
+
+    # -- the main path: a request whose decode steps replay a CUDA graph
+    kernels.reset_launch_counts()
+    res = serve_tokens(cfg, params, tokens, LM_NEW)
+    counts = lm_request_counts(res, n, steps, "lm graphed request")
+    per_step = res["graph_launches"]["flash_decode"]
     out = res["tokens"]
     if tuple(out.shape) != (LM_BATCH, LM_NEW) or not all(
             bool(torch.isfinite(lg).all()) for lg in res["logits"]):
         fail("lm: non-finite logits or wrong token shape")
-    print(json.dumps({"phase": "lm", "request": "first",
-                      "flash_launches": counts["flash_attention"],
-                      "per_prefill": prefill_calls,
-                      "per_decode_step": decode_calls // steps,
+    same_logits = all(torch.equal(a, b) for a, b in
+                      zip(res["logits"], res_eager["logits"]))
+    if not torch.equal(out, res_eager["tokens"]) or not same_logits:
+        fail("lm: the graphed decode differs from the eager one")
+    print(json.dumps({"phase": "lm", "request": "first (graphed)",
+                      "launches": counts,
+                      "flash_attention_per_prefill": prefill_calls,
+                      "flash_decode_per_decode_step": decode_calls // steps,
+                      "captured_per_replay": res["graph_launches"],
+                      "graph_equals_eager_bitwise": True,
                       "prefill_ms": res["prefill_s"] * 1e3,
+                      "capture_ms": res["capture_s"] * 1e3,
                       "decode_ms_per_step": res["decode_s"] / steps * 1e3,
+                      "eager_decode_ms_per_step_recorded":
+                          res_eager["decode_s"] / steps * 1e3,
                       "greedy_tokens_batch0": out[0].tolist()}), flush=True)
+    del res_eager
+    torch.cuda.empty_cache()
 
-    # -- the kernel against its plain version on the path's tensors
+    # -- the kernels against their plain versions on the path's tensors
     rows = {"prefill_local": check_flash("prefill local layer", kept[0]),
             "prefill_global": check_flash("prefill global layer", kept[1]),
-            "decode_local": check_flash("last decode step, local layer",
-                                        kept[last]),
-            "decode_global": check_flash("last decode step, global layer",
-                                         kept[last + 1])}
+            "decode_local": check_decode("last decode step, local layer",
+                                         kept[last]),
+            "decode_global": check_decode("last decode step, global layer",
+                                          kept[last + 1])}
     calls = {"prefill_local": kept[0], "prefill_global": kept[1],
              "decode_local": kept[last], "decode_global": kept[last + 1]}
     rows["sdpa"] = {c: sdpa_yardstick(c, a) for c, a in calls.items()}
-    del calls
-    if kept[0][4] != cfg.window or kept[1][4] != 0 or \
-            kept[last][6] != LM_PROMPT + steps - 1:
-        fail("lm: recorded calls are not the expected layers and positions")
-    del kept
+    check_decode_lengths(kept[last + 1])
+    del calls, kept
     torch.cuda.empty_cache()
 
     # -- decode == forward at full width (batch rows 0-1: the full logits
@@ -1766,14 +1929,15 @@ def phase_lm():
                            atol=LM_BF16_TOL * float(ref_logits.abs().max()))
     agree = float((full[:, LM_PROMPT - 1:].argmax(-1) == out[:2]).float().mean())
     print(json.dumps({"phase": "lm", "check": "decode == forward",
-                      "rows": 2, "max_abs_err": errs,
+                      "decode": "graphed", "rows": 2, "max_abs_err": errs,
                       "max_abs_logit": float(full[:, LM_PROMPT - 1:].float().abs().max()),
                       "tol": f"atol {LM_BF16_TOL}*max|forward logits|",
                       "greedy_token_agreement": agree}), flush=True)
     del full, res
     torch.cuda.empty_cache()
 
-    # -- card against CPU at a reduced width, fp32
+    # -- card against CPU at a reduced width, fp32 (the card's decode
+    #    graphed)
     small = cfg.reduced(n_layers=4, d_model=256, d_ff=512, vocab=1024)
     p_cpu = LM.init_params(small, torch.Generator().manual_seed(SEED),
                            device="cpu")
@@ -1782,9 +1946,7 @@ def phase_lm():
     r_cpu = serve_tokens(small, p_cpu, tok, 8)
     kernels.reset_launch_counts()
     r_gpu = serve_tokens(small, p_gpu, tok.to(DEVICE), 8)
-    if kernels.launch_counts()["flash_attention"] != 4 * 8:
-        fail("lm reduced: the card run did not launch 4 flash calls per "
-             "prefill and per decode step")
+    lm_request_counts(r_gpu, 4, 7, "lm reduced")
     err = 0.0
     for i, (a, b) in enumerate(zip(r_gpu["logits"], r_cpu["logits"])):
         err = max(err, check(f"lm card vs cpu step {i}", a.cpu(), b,
@@ -1793,36 +1955,53 @@ def phase_lm():
         fail("lm reduced: greedy tokens differ between card and CPU")
     print(json.dumps({"phase": "lm", "check": "card vs cpu", "config":
                       "gemma2-2b reduced(n_layers=4, d_model=256, d_ff=512,"
-                      " vocab=1024), fp32, batch 2, prompt 80, 8 new",
+                      " vocab=1024), fp32, batch 2, prompt 80, 8 new; the "
+                      "card's decode graphed",
                       "max_abs_err": err, "tol": "atol 1e-4*max|logits|"}),
           flush=True)
 
-    # -- request rounds
+    # -- request rounds, graphed and eager in turns
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
+    times = {"graph": [], "eager": []}
     for i in range(LM_ROUNDS):
-        r = serve_tokens(cfg, params, tokens, LM_NEW)
-        if not torch.equal(r["tokens"], out):
-            fail(f"lm round {i}: greedy tokens differ from the first request")
-        times.append((r["prefill_s"] * 1e3, r["decode_s"] / steps * 1e3))
-        del r
-    pre = statistics.median(t for t, _ in times)
-    dec = statistics.median(t for _, t in times)
+        for mode in ("graph", "eager"):
+            r = serve_tokens(cfg, params, tokens, LM_NEW,
+                             graph=mode == "graph")
+            if not torch.equal(r["tokens"], out):
+                fail(f"lm round {i} ({mode}): greedy tokens differ from "
+                     "the first request")
+            times[mode].append({"prefill_ms": r["prefill_s"] * 1e3,
+                                "decode_ms_per_step": r["decode_s"] / steps * 1e3,
+                                "capture_ms": r.get("capture_s", 0.0) * 1e3})
+            del r
+    med = lambda mode, key: statistics.median(t[key] for t in times[mode])
+    pre = med("graph", "prefill_ms")
+    dec = med("graph", "decode_ms_per_step")
     summary = {"phase": "lm", "arch": cfg.name, "batch": LM_BATCH,
                "prompt": LM_PROMPT, "new": LM_NEW, "rounds": times,
                "prefill_ms_median": pre, "decode_ms_per_step_median": dec,
+               "capture_ms_median": med("graph", "capture_ms"),
+               "eager_decode_ms_per_step_median":
+                   med("eager", "decode_ms_per_step"),
+               "eager_prefill_ms_median": med("eager", "prefill_ms"),
                "decode_tok_per_s": LM_BATCH / dec * 1e3,
+               "eager_decode_tok_per_s":
+                   LM_BATCH / med("eager", "decode_ms_per_step") * 1e3,
                "prefill_tok_per_s": LM_BATCH * LM_PROMPT / pre * 1e3,
+               "decode_ms_is": "host clock of the decode loop: the graph's "
+                               "replays (capture apart) or the eager steps",
                "max_memory_allocated_MiB":
                    torch.cuda.max_memory_allocated() / 2 ** 20}
     print(json.dumps(summary), flush=True)
     profile_lm(cfg, params, tokens)
     del params
     torch.cuda.empty_cache()
-    return rows, {"launches": counts["flash_attention"],
-                  "launches_per_prefill": prefill_calls,
-                  "launches_per_decode_step": decode_calls // steps}
+    return rows, {"flash_attention": {"launches": counts["flash_attention"],
+                                      "launches_per_prefill": prefill_calls},
+                  "flash_decode": {"launches": counts["flash_decode"],
+                                   "launches_per_decode_step": per_step,
+                                   "launches_eager_request": decode_calls}}
 
 
 def device_profile(fn, phase, what, host_ops=False):
@@ -1872,23 +2051,39 @@ def profile_report(prof, wall_ms, phase, what, host_ops=False):
 
 
 def profile_lm(cfg, params, tokens):
-    """One prefill, then 4 decode steps, each under ``torch.profiler``."""
+    """One prefill, then 4 decode steps replayed from a CUDA graph (captured
+    before the profiled window) and 4 eager decode steps, each under
+    ``torch.profiler``, the decode steps with the host's ops by time."""
+    from repro_torch.launch.serve import DecodeGraph
     from repro_torch.lm.serve_lib import make_prefill, make_serve_step
     s = tokens.shape[1]
-    prefill, step = make_prefill(cfg, max_len=s + 5), make_serve_step(cfg)
+    prefill, step = make_prefill(cfg, max_len=s + 9), make_serve_step(cfg)
     out = {}
 
     def run_prefill():
         out["logits"], out["cache"] = prefill(params, tokens)
 
-    def run_decode():
-        tok = out["logits"][:, -1:].argmax(-1)
+    device_profile(run_prefill, "lm_profile", "one prefill")
+    graph = DecodeGraph(cfg, params, out["cache"],
+                        out["logits"][:, -1:].argmax(-1), s)
+
+    def run_graphed():
+        for _ in range(4):
+            graph.replay()
+
+    def run_eager():
+        tok = graph.tok.clone()
         for i in range(4):
-            logits, _ = step(params, out["cache"], tok, s + i)
+            logits, _ = step(params, out["cache"], tok, s + 4 + i)
             tok = logits.argmax(-1)
 
-    device_profile(run_prefill, "lm_profile", "one prefill")
-    device_profile(run_decode, "lm_profile", "4 decode steps")
+    kern = device_profile(run_graphed, "lm_profile",
+                          "4 decode steps replayed from the CUDA graph",
+                          host_ops=True)
+    if not any("flash_decode" in k for k in kern):
+        fail("lm_profile: no flash_decode kernel in the graphed steps' trace")
+    device_profile(run_eager, "lm_profile", "4 eager decode steps",
+                   host_ops=True)
 
 
 def profile_request(prov, pos, phase="profile"):
@@ -1931,9 +2126,12 @@ def main():
                        "force_scatter")                         # together
     print(f"[build] nvcc: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
+        entry = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name} {entry}: {line.strip()}", flush=True)
 
     if sys.argv[1:] == ["--phase", "lm"]:
         phase_lm()
@@ -1968,6 +2166,7 @@ def main():
         print("[kernels] every check passed (kernels phase alone)", flush=True)
         return 0
     phase_parity(model, params)
+    phase_any_width()
     counts_sd = phase_requests(model, params)
     cf_row, counts, per_call, dd_scatter = phase_dd(model, params)
     kres["cell_filter"] = cf_row
@@ -1975,8 +2174,6 @@ def main():
     del model, params
     torch.cuda.empty_cache()
     lm_rows, lm_launches = phase_lm()
-    checked = ("prefill_local", "prefill_global", "decode_local",
-               "decode_global")
 
     rows = []
     for name in DP_KERNELS:
@@ -2004,24 +2201,42 @@ def main():
                 for key in common + ("library_own_index_ms",)}
             rows[-1]["dd_force_reduction"] = {
                 key: dd_scatter["force_reduction"][key] for key in common}
-    flash, sdpa = lm_rows["prefill_global"], lm_rows["sdpa"]
-    rows.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
-        "replaces": "src/repro/kernels/flash_attn.py:27",
-        **lm_launches,
-        "launches_per_md_step": md_sd["flash_attention"],
-        "launches_per_md_step_dd": md_dd["flash_attention"],
-        "shape": "prefill, global layer: q (4, 8, 6144, 256), k/v "
-                 "(4, 4, 6144, 256), bf16, causal, softcap 50",
-        "max_abs_err": max(lm_rows[c]["bf16_max_err"] for c in checked),
-        "ms": flash["bf16_kernel_ms"], "plain_ms": flash["bf16_plain_ms"],
-        "bound_ms": flash["bf16_bound_ms"], "bound_by": flash["bf16_bound_by"],
-        "library_ms": None,
-        "softcap0_kernel_ms_by_call": {c: sdpa[c]["kernel_ms"] for c in checked},
-        "library_ms_by_call": {c: sdpa[c]["sdpa_ms"] for c in checked},
-        "ms_by_call": {c: lm_rows[c]["bf16_kernel_ms"] for c in checked},
-        "bound_ms_by_call": {c: lm_rows[c]["bf16_bound_ms"] for c in checked}})
+    sdpa = lm_rows["sdpa"]
+    for name, calls in (("flash_attention", ("prefill_local", "prefill_global")),
+                        ("flash_decode", ("decode_local", "decode_global"))):
+        main_call = lm_rows[calls[1]]       # the global layer's call
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/flash_attn.py:27",
+            **lm_launches[name],
+            "launches_per_md_step": md_sd[name],
+            "launches_per_md_step_dd": md_dd[name],
+            "shape": ("prefill, global layer: q (4, 8, 6144, 256), k/v "
+                      "(4, 4, 6144, 256), bf16, causal, softcap 50"
+                      if name == "flash_attention" else
+                      "decode, last step, global layer: q (4, 8, 1, 256), "
+                      "k/v cache (4, 4, 6176, 256), pos 6174, bf16, "
+                      "softcap 50"),
+            "max_abs_err": max(lm_rows[c]["bf16_max_err"] for c in calls),
+            "ms": main_call["bf16_kernel_ms"],
+            "plain_ms": main_call["bf16_plain_ms"],
+            "bound_ms": main_call["bf16_bound_ms"],
+            "bound_by": main_call["bf16_bound_by"],
+            # SDPA computes the function at softcap 0 only (beside the
+            # kernel at softcap 0, softcap0_kernel_ms_by_call); at the
+            # prefill the kernel's own call has softcap 50 and no library
+            # counterpart
+            "library_ms": (sdpa[calls[1]]["sdpa_ms"]
+                           if name == "flash_decode" else None),
+            "softcap0_kernel_ms_by_call": {c: sdpa[c]["kernel_ms"]
+                                           for c in calls},
+            "library_ms_by_call": {c: sdpa[c]["sdpa_ms"] for c in calls},
+            "ms_by_call": {c: lm_rows[c]["bf16_kernel_ms"] for c in calls},
+            "fp32_ms_by_call": {c: lm_rows[c]["fp32_kernel_ms"]
+                                for c in calls},
+            "bound_ms_by_call": {c: lm_rows[c]["bf16_bound_ms"]
+                                 for c in calls}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"[chip_smoke] {time.perf_counter() - T0:.1f} s in all", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,11 @@
 - ``force_scatter``: CUDA C++ for ``sm_90a`` (``csrc/force_scatter.cu``), the
   backward of the DP force path's neighbour gather (``neighbor_gather``),
   where the JAX reference leaves XLA a scatter-add: no TPU kernel;
-- ``flash_attention``: CUDA C++ for ``sm_90a`` (``csrc/flash_attn.cu``),
-  replacing ``repro/kernels/flash_attn.py::_flash_kernel``: the attention of
-  the LM serving path (causal, GQA, sliding window, softcap, q_offset).
+- ``flash_attention`` / ``flash_decode``: CUDA C++ for ``sm_90a``
+  (``csrc/flash_attn.cu``), replacing ``repro/kernels/flash_attn.py::
+  _flash_kernel``: the attention of the LM serving path (causal, GQA,
+  sliding window, softcap, q_offset); ``flash_decode`` is the decode step's
+  entry over a whole cache, its position a device tensor.
 
 Importing this package needs neither ``triton`` nor ``nvcc``: kernels are
 compiled at their first launch on a CUDA tensor.
@@ -31,6 +33,7 @@ KERNELS = {
     "nbr_attention_stack_bwd": nbr_attention_stack_bwd,
     "cell_filter": _cell_filter_mod.cell_filter,
     "flash_attention": _flash_attn_mod.flash_attention,
+    "flash_decode": _flash_attn_mod.flash_decode,
     "force_scatter": _force_scatter_mod.force_scatter,
 }
 

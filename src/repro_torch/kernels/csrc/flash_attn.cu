@@ -12,12 +12,16 @@
 // which pads K and V to its block and masks only the causal and window
 // conditions, keys j >= Sk are masked explicitly.
 //
-// What bounds it on the H100: at the prefill shapes the visible-pair FLOPs
-// (4 D per pair and q head) against the tensor cores' bf16 peak (989
-// TFLOP/s); at decode (Sq = 1) the bytes of the visible K and V, read once
-// per q-head group.
+// What bounds it on the H100: at prefill (many query rows per KV head) the
+// visible-pair FLOPs (4 D per pair and q head) against the tensor cores'
+// bf16 peak (989 TFLOP/s); at decode (group * Sq <= 16 rows per KV head)
+// the bytes of the visible K and V rows, read once per KV head: ~1 FLOP per
+// byte, so neither the tensor cores nor the FMA rate matter there, only
+// keeping enough loads in flight on every SM (3.35 TB/s over 132 SMs and
+// ~1 us of latency: ~25 KB per SM at all times) and launching no more CTAs
+// than one wave.
 //
-// Three instances, by dtype and rows per KV head (group * Sq):
+// Three kernels, by rows per KV head (group * Sq) and dtype:
 //
 // * bf16 prefill (group * Sq > 16): flash_fwd_mma_kernel, on the tensor
 //   cores.  One CTA of 8 warps per (b, kv head, 128 query rows); each
@@ -43,28 +47,56 @@
 //   memory or by registers: 8 warps per SM).  Registers: the output
 //   accumulator is D / 2 floats per thread (128 at D = 256); -Xptxas -v
 //   (printed by chip_smoke.py) gives the count and spills.
-// * bf16 decode (group * Sq <= 16) and every fp32 call: flash_fwd_kernel,
-//   fp32 FMAs from shared memory, 256 threads as 16 x 16, BQ = 64 rows
-//   (fp32 prefill) or 16 (decode).  Decode is bound by bytes and stays on
-//   this path; fp32 stays off the tensor cores because fp32 inputs there
-//   mean TF32, which would break the fp32 gate (atol 1e-4 x max) of the
-//   card-vs-CPU LM check and tests/test_torch_card.py.  Decode has only
-//   B * Hkv row blocks (16 for gemma2-2b), too few for 132 SMs: there the
-//   visible KV blocks are split over `splits` CTAs per row block, each
-//   writes its unnormalised (acc, m, l), and flash_combine_kernel merges
-//   them in split order.
+// * fp32 prefill (group * Sq > 16): flash_fwd_kernel, fp32 FMAs from shared
+//   memory, 256 threads as 16 x 16, 64 rows per CTA.  fp32 stays off the
+//   tensor cores because fp32 inputs there mean TF32, which would break the
+//   fp32 gate (atol 1e-4 x max) of the card-vs-CPU LM check and
+//   tests/test_torch_card.py.
+// * decode, fp32 and bf16 (group * Sq <= 16): flash_decode_kernel, written
+//   for a call bound by bytes (gemma2-2b: 101 MB of K/V at a 6,175-key
+//   global layer, 30 us at 3.35 TB/s; ~0.2 GFLOP, so fp32 FMAs suffice):
+//   - Grid: one CTA of 8 warps per (split, kv head, b).  The split count is
+//     fixed by the keys given (the cache's capacity S_max at decode), about
+//     two CTAs per SM in all and never more than one wave (gemma2-2b, B = 4,
+//     4 KV heads, 132 SMs: 16 splits, 256 CTAs), at most one per 64-key
+//     block.  Each CTA reads the position from device memory (flash_decode:
+//     queries at *pos.., keys < *pos + Sq), finds the 64-key blocks some
+//     query sees (causal, inside the window, j < length) and takes its even
+//     share of them in order; a CTA with none writes the empty partial
+//     (m = NEG, l = 0).  Nothing the host passes depends on the position,
+//     so a decode step replays as a CUDA graph.
+//   - Rows: only the group's real rows are held, in fp32 registers (R =
+//     group * Sq rounded up to 2, 4, 8 or 16; gemma2-2b: 2); no 16-row tile
+//     of padding.  A warp holds min(R, 4) rows; for R > 4, R / 4 row groups
+//     of warps share each key.
+//   - Stream: K and V rows come through a ring of 4 stages of 16 KB in
+//     shared memory (16 keys of K and V at D = 256 in bf16), filled with
+//     16-byte cp.async copies three stages ahead of the math: up to 48 KB in
+//     flight per CTA, 96 KB per SM.
+//   - Math: each warp takes its slice of every stage's keys; a key's row is
+//     spread over the lanes in 16-byte pieces (at D = 256 in bf16 and up to
+//     2 rows, 16 lanes of 32 bytes: two keys a warp at once), its dot
+//     products summed by xor butterflies (every lane gets the same bits);
+//     softcap through the prefill's ex2-based tanh; an online softmax in
+//     log2 units with one max and one rescale per stage; P V in fp32.
+//   - Merges: the warps' (acc, m, l) merge in key-slice order in shared
+//     memory, the splits' in split order in flash_decode_combine_kernel (one
+//     CTA per output row); no atomics, so a repeated call gives the same
+//     bits.  Workspace: splits * B * Hq * Sq * (D + 2) floats.
+//   - Shared memory: the 64 KB ring (reused for the warps' partials); two
+//     CTAs per SM (__launch_bounds__(256, 2): at most 128 registers a
+//     thread; -Xptxas -v, printed by chip_smoke.py, gives counts and spills).
 //
-// Kept in every instance: the GQA group's q heads are the interleaved rows
-// of one CTA (row r = i * group + g), so one K/V tile serves every q head
-// of the group and K and V are never copied per q head; KV blocks that no
-// row of a query block can see are skipped (causal prefill reads half of
-// K/V, a windowed layer at most its window; the skipped blocks contribute
-// exact zeros); K and V are read through the cache view's strides; no
-// atomics, and the decode splits merge in a fixed order, so a repeated
-// call gives the same bits.
+// Kept in every kernel: the GQA group's q heads are the interleaved rows of
+// one CTA (row r = i * group + g), so one K/V tile serves every q head of
+// the group and K and V are never copied per q head; KV blocks that no row
+// of a CTA can see are never read (causal prefill reads half of K/V, a
+// windowed layer at most its window); K and V are read through the cache
+// view's strides; no atomics.
 //
 // Template instances: flash_fwd_mma_kernel<D>, flash_fwd_kernel<float, D,
-// 16 | 64> and flash_fwd_kernel<bf16, D, 16>, D in {32, 64, 128, 256}.
+// 64>, flash_decode_kernel<float | bf16, D, 2 | 4 | 8 | 16>, D in {32, 64,
+// 128, 256}.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,14 +105,9 @@
 namespace {
 
 constexpr int BK = 64;        // keys per block
-constexpr int DECODE_ROWS = 16;  // row blocks of the decode instance
+constexpr int DECODE_ROWS = 16;  // the decode kernel's rows per KV head
 constexpr int THREADS = 256;  // 16 x 16
 constexpr float NEG = -1e30f;
-
-// rows of the output (and of a split's partials): B * Hq * Sq
-__host__ __device__ inline long long b_rows(int hq, int sq, int b) {
-  return (long long)b * hq * sq;
-}
 
 template <typename T>
 struct Elem;
@@ -93,17 +120,6 @@ struct Elem<float> {
   }
   __device__ static void store(float* p, float a, float b) {
     *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static constexpr int PAD = 2;  // row stride D / 2 + 1 words: conflict-free
-  __device__ static float2 pair(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  __device__ static void store(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
   }
 };
 
@@ -152,8 +168,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
                  int sq, int sk, long long k_bs, long long k_hs,
                  long long v_bs, long long v_hs, int causal, int window,
-                 float softcap, int q_offset, float scale, int splits,
-                 float* __restrict__ ws) {
+                 float softcap, int q_offset, float scale) {
   constexpr int RI = BQ / 16;   // query rows per thread
   constexpr int KJ = BK / 16;   // keys per thread in the score tile
   constexpr int DP = D / 32;    // output column pairs per thread
@@ -167,8 +182,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int group = hq / hkv;
   const int rows = group * sq;
-  const int split = blockIdx.x % splits;
-  const int r0 = (blockIdx.x / splits) * BQ;
+  const int r0 = blockIdx.x * BQ;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
@@ -190,12 +204,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qlo = q_offset + r0 / group, qhi = q_offset + last_row / group;
   const int kv_begin = window > 0 ? max(0, qlo - window + 1) : 0;
   const int kv_end = causal ? min(sk, qhi + 1) : sk;
-  int jb0 = kv_begin / BK;
-  int jb1 = kv_end > kv_begin ? (kv_end + BK - 1) / BK : jb0;
-  // this CTA's share of the blocks when the keys are split (decode)
-  const int per = (jb1 - jb0 + splits - 1) / splits;
-  jb0 = min(jb1, jb0 + split * per);
-  jb1 = min(jb1, jb0 + per);
+  const int jb0 = kv_begin / BK;
+  const int jb1 = kv_end > kv_begin ? (kv_end + BK - 1) / BK : jb0;
 
   float m[RI], l[RI];
   float2 acc[RI][DP];
@@ -304,19 +314,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= rows) continue;
     const long long head = (long long)b * hq + kvh * group + r % group;
     const long long row = head * sq + r / group;
-    if (splits > 1) {
-      // unnormalised partial (acc, m, l) of this split, combined in split
-      // order by flash_combine_kernel
-      float* w = ws + ((long long)split * b_rows(hq, sq, gridDim.z) + row) * (D + 2);
-#pragma unroll
-      for (int jd = 0; jd < DP; ++jd)
-        *reinterpret_cast<float2*>(w + 2 * tx + 32 * jd) = acc[i][jd];
-      if (tx == 0) {
-        w[D] = m[i];
-        w[D + 1] = l[i];
-      }
-      continue;
-    }
     const float l_safe = l[i] > 0.f ? l[i] : 1.f;
     T* dst = o + row * D;
 #pragma unroll
@@ -325,7 +322,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      acc[i][jd].y / l_safe);
   }
 }
-
 // ---------------------------------------------------------------------------
 // bf16 prefill on tensor cores: mma.sync.m16n8k16 (bf16 in, fp32 sums) fed
 // by ldmatrix, K/V double-buffered in shared memory with cp.async.
@@ -617,72 +613,438 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
       1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
+// ---------------------------------------------------------------------------
+// Decode (group * Sq <= 16 rows per KV head), fp32 and bf16: a ring of
+// cp.async stages in shared memory, the group's real rows in registers, the
+// length from device memory, a grid fixed by the keys given.
+// ---------------------------------------------------------------------------
 
-// One output row per CTA, one column per thread: the splits' partials
-// merged in split order (m = max m_s, l = sum l_s e^(m_s - m), the same for
-// acc), so a repeated call gives the same bits.
-template <typename T, int D>
-__global__ void __launch_bounds__(D)
-flash_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
-                     long long n_rows, int splits) {
-  const long long row = blockIdx.x;
-  const int d = threadIdx.x;
-  float m = NEG;
-  for (int s = 0; s < splits; ++s)
-    m = fmaxf(m, ws[((long long)s * n_rows + row) * (D + 2) + D]);
-  float l = 0.f, acc = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float* w = ws + ((long long)s * n_rows + row) * (D + 2);
-    const float a = expf(w[D] - m);
-    l += w[D + 1] * a;
-    acc += w[d] * a;
+constexpr int DEC_THREADS = 256;                  // 8 warps
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_STAGES = 4;
+constexpr int DEC_STAGE_BYTES = 16384;            // K and V rows of one stage
+constexpr int DEC_SMEM = DEC_STAGES * DEC_STAGE_BYTES;
+
+// 16 bytes of T as floats
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ static void to_float(uint4 u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
   }
-  const float out = acc / (l > 0.f ? l : 1.f);
-  if constexpr (sizeof(T) == 4) {
-    o[row * D + d] = out;
-  } else {
-    o[row * D + d] = __float2bfloat16_rn(out);
+  __device__ static float store(float x) { return x; }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void to_float(uint4 u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);            // element 2i
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);  // element 2i + 1
+    }
+  }
+  __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16_rn(x); }
+};
+
+// E contiguous elements of T (16-byte aligned) as floats
+template <typename T, int E>
+__device__ __forceinline__ void load_f(const T* p, float (&f)[E]) {
+  constexpr int N = Vec16<T>::N;
+#pragma unroll
+  for (int c = 0; c < E / N; ++c)
+    Vec16<T>::to_float(*reinterpret_cast<const uint4*>(p + c * N), f + c * N);
+}
+
+// How a key row of D elements of T is spread over a warp for R rows: EPL
+// elements a lane (at least one 16-byte piece; 16 bf16 at D = 256 for at
+// most 2 rows, so a warp reads two keys at once and a score's butterfly has
+// 4 steps, not 5; more rows would spill their registers), LPK lanes a key,
+// KPW keys a warp at once; KS keys of K and of V in one stage of
+// DEC_STAGE_BYTES.
+template <typename T, int D, int R>
+struct DecodeShape {
+  static constexpr int VEC = 16 / (int)sizeof(T);
+  static constexpr int PER = D / (sizeof(T) == 2 && R <= 2 ? 16 : 32);
+  static constexpr int EPL = PER > VEC ? PER : VEC;
+  static constexpr int LPK = D / EPL;
+  static constexpr int KPW = 32 / LPK;
+  static constexpr int KS = DEC_STAGE_BYTES / (2 * D * (int)sizeof(T));
+};
+
+// The keys [k0, k1) of split `split` of `splits`: the 64-key blocks that
+// hold keys [lo, hi) divided evenly, in order (kernels/ref.py::
+// decode_split_ranges is the same arithmetic); k0 >= k1 when it has none.
+__device__ __forceinline__ void split_range(int lo, int hi, int split,
+                                            int splits, int& k0, int& k1) {
+  const int jb0 = lo / BK, jb1 = hi > lo ? (hi + BK - 1) / BK : jb0;
+  const int per = (jb1 - jb0 + splits - 1) / splits;
+  const int b0 = jb0 + split * per, b1 = min(jb1, b0 + per);
+  k0 = max(lo, b0 * BK);
+  k1 = min(hi, b1 * BK);
+}
+
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* ws;               // splits x (B Hq Sq) x (D + 2) partials
+  const long long* pos;    // device position (flash_decode) or null
+  int hq, hkv, sq, sk;
+  long long k_bs, k_hs, v_bs, v_hs;
+  int causal, window, q_offset, splits;
+  float scale, softcap;
+};
+
+// One CTA per (split, kv head, b); R = the group's rows rounded up to 2, 4,
+// 8 or 16.  Warp w holds RW = min(R, 4) rows (row group w % G) and takes
+// key slice w / G of every stage.
+template <typename T, int D, int R>
+__global__ void __launch_bounds__(DEC_THREADS, 2)
+flash_decode_kernel(const DecodeArgs a) {
+  using S = DecodeShape<T, D, R>;
+  constexpr int EPL = S::EPL, LPK = S::LPK, KPW = S::KPW, KS = S::KS;
+  constexpr int RW = R < 4 ? R : 4;
+  constexpr int G = R / RW;
+  constexpr int KSL = DEC_WARPS / G;          // key slices
+  constexpr int KPS = KS / KSL;               // keys of a slice per stage
+  constexpr int NIT = KPS / KPW;
+  constexpr int CH = D / S::VEC;              // 16-byte pieces per row
+  static_assert(KPS % KPW == 0 && NIT >= 1, "stage too small");
+  static_assert(DEC_WARPS * RW * (D + 2) * 4 <= DEC_SMEM, "partials");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);       // stage s: K at s*2*KS*D, V after
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = warp % G, slice = warp / G;
+  const int sub = lane / LPK;                 // which of the warp's KPW keys
+  const int c0 = (lane % LPK) * EPL;          // this lane's first column
+  const int group = a.hq / a.hkv, rows = group * a.sq;
+
+  int q_offset = a.q_offset, kv_len = a.sk;
+  if (a.pos != nullptr) {
+    q_offset = (int)*a.pos;
+    kv_len = min(a.sk, q_offset + a.sq);
+  }
+  // keys some row can see, and this split's share of them
+  const int lo = a.window > 0 ? max(0, q_offset - a.window + 1) : 0;
+  const int hi = a.causal ? min(kv_len, q_offset + a.sq) : kv_len;
+  int k0, k1;
+  split_range(lo, hi, split, a.splits, k0, k1);
+  const int n_st = k1 > k0 ? (k1 - k0 + KS - 1) / KS : 0;
+
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_bs + kvh * a.k_hs;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_bs + kvh * a.v_hs;
+  auto load_stage = [&](int st) {
+    T* kd = ring + (st % DEC_STAGES) * 2 * KS * D;
+    T* vd = kd + KS * D;
+    const int base = k0 + st * KS;
+    for (int e = tid; e < KS * CH; e += DEC_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool ok = base + r < k1;
+      const long long off = ok ? (long long)(base + r) * D + c * S::VEC : 0;
+      cp_async16(kd + r * D + c * S::VEC, kb + off, ok ? 16 : 0);
+      cp_async16(vd + r * D + c * S::VEC, vb + off, ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < DEC_STAGES - 1; ++st) {
+    if (st < n_st) load_stage(st);
+    cp_async_commit();
+  }
+
+  // this warp's rows: row r is query r / group of q head kvh * group +
+  // r % group; rows past the group's are zeros and see no key
+  float qr[RW][EPL];
+  int qpos[RW];
+  bool real[RW];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = rg * RW + i;
+    real[i] = r < rows;
+    qpos[i] = q_offset + r / group;
+    if (real[i]) {
+      const long long head = (long long)b * a.hq + kvh * group + r % group;
+      load_f<T, EPL>(static_cast<const T*>(a.q) + (head * a.sq + r / group) * D + c0,
+                     qr[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) qr[i][e] = 0.f;
+    }
+  }
+
+  const float sl2 = a.scale * LOG2E;
+  const float cap_in = a.softcap > 0.f ? a.scale / a.softcap : 0.f;
+  const float cap_out = a.softcap * LOG2E;
+  float m[RW], l[RW], acc[RW][EPL];            // m in log2 units
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait<DEC_STAGES - 2>();
+    __syncthreads();   // stage st has landed; stage st - 1 is consumed
+    if (st + DEC_STAGES - 1 < n_st) load_stage(st + DEC_STAGES - 1);
+    cp_async_commit();
+    const T* kt = ring + (st % DEC_STAGES) * 2 * KS * D;
+    const T* vt = kt + KS * D;
+    const int first = slice * KPS + sub;      // stage row of iteration 0
+
+    float x[NIT][RW], mx[RW];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) mx[i] = NEG;
+#pragma unroll
+    for (int it = 0; it < NIT; ++it) {
+      const int j = first + it * KPW;
+      const int key = k0 + st * KS + j;
+      float kf[EPL];
+      load_f<T, EPL>(kt + j * D + c0, kf);
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) d = fmaf(qr[i][e], kf[e], d);
+        // butterfly over the key's lanes: each of them gets the same bits
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, off);
+        const float xv = a.softcap > 0.f ? cap_out * tanh_exp(d * cap_in) : d * sl2;
+        const bool vis = real[i] && key < k1 && (!a.causal || qpos[i] >= key) &&
+                         (a.window <= 0 || qpos[i] - key < a.window);
+        x[it][i] = vis ? xv : NEG;
+        mx[i] = fmaxf(mx[i], x[it][i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+#pragma unroll
+      for (int off = 16; off >= LPK; off >>= 1)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+      const float m_new = fmaxf(m[i], mx[i]);
+      const float alpha = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[i][e] *= alpha;
+    }
+#pragma unroll
+    for (int it = 0; it < NIT; ++it) {
+      float vf[EPL];
+      load_f<T, EPL>(vt + (first + it * KPW) * D + c0, vf);
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        // a masked key is NEG: p = 0 exactly, also while m is NEG
+        const float p = x[it][i] > 0.5f * NEG ? exp2f(x[it][i] - m[i]) : 0.f;
+        l[i] += p;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[i][e] = fmaf(p, vf[e], acc[i][e]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: it takes the warps' partials
+
+  // the warp's KPW key lanes summed (butterfly: every lane the same bits),
+  // then its (acc, m, l) per row to shared memory
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+#pragma unroll
+    for (int off = 16; off >= LPK; off >>= 1) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], off);
+    }
+  }
+  float* part = reinterpret_cast<float*>(smem);   // [warp][i][D + 2]
+  if (sub == 0) {
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      float* w = part + (warp * RW + i) * (D + 2);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) w[c0 + e] = acc[i][e];
+      if (lane == 0) {
+        w[D] = m[i];
+        w[D + 1] = l[i];
+      }
+    }
+  }
+  __syncthreads();
+
+  // the key slices merged in slice order, per row and column
+  const long long n_rows = (long long)gridDim.z * a.hq * a.sq;
+  for (int e = tid; e < rows * D; e += DEC_THREADS) {
+    const int r = e / D, d = e % D;
+    const int i = r % RW, g = r / RW;
+    float mm = NEG;
+#pragma unroll
+    for (int s = 0; s < KSL; ++s)
+      mm = fmaxf(mm, part[((s * G + g) * RW + i) * (D + 2) + D]);
+    float ll = 0.f, aa = 0.f;
+#pragma unroll
+    for (int s = 0; s < KSL; ++s) {
+      const float* w = part + ((s * G + g) * RW + i) * (D + 2);
+      const float f = exp2f(w[D] - mm);
+      ll = fmaf(w[D + 1], f, ll);
+      aa = fmaf(w[d], f, aa);
+    }
+    const long long head = (long long)b * a.hq + kvh * group + r % group;
+    const long long row = head * a.sq + r / group;
+    if (a.splits == 1) {
+      static_cast<T*>(a.o)[row * D + d] = Vec16<T>::store(ll > 0.f ? aa / ll : 0.f);
+    } else {
+      // this split's unnormalised partial, merged in split order by
+      // flash_decode_combine_kernel
+      float* w = a.ws + ((long long)split * n_rows + row) * (D + 2);
+      w[d] = aa;
+      if (d == 0) {
+        w[D] = mm;
+        w[D + 1] = ll;
+      }
+    }
   }
 }
 
-template <typename T, int D, int BQ>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, long long k_bs, long long k_hs,
-           long long v_bs, long long v_hs, int causal, int window,
-           float softcap, int q_offset, int splits, float* ws,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, D, BQ>();
-  auto kern = flash_fwd_kernel<T, D, BQ>;
+// One output row per CTA, one column per thread: the splits' partials (m in
+// log2 units) merged in split order: m = max m_s, l = sum l_s 2^(m_s - m),
+// the same for acc.  Every split's (m, l) is loaded at once and the column
+// loads are unrolled, so the merge costs a few round trips to L2, not one
+// per split.  A row no split saw (l = 0) gives exactly 0.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+flash_decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
+                            long long n_rows, int splits) {
+  extern __shared__ float wl[];                  // [splits] weights, [splits] l
+  __shared__ float lsum;
+  const long long row = blockIdx.x, stride = n_rows * (D + 2);
+  const float* w = ws + row * (D + 2);
+  const int d = threadIdx.x;
+  for (int s = d; s < splits; s += D) {
+    wl[s] = w[s * stride + D];
+    wl[splits + s] = w[s * stride + D + 1];
+  }
+  __syncthreads();
+  if (d == 0) {
+    float m = NEG;
+    for (int s = 0; s < splits; ++s) m = fmaxf(m, wl[s]);
+    float l = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float f = exp2f(wl[s] - m);
+      wl[s] = f;
+      l = fmaf(wl[splits + s], f, l);
+    }
+    lsum = l;
+  }
+  __syncthreads();
+  float acc = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < splits; ++s) acc = fmaf(w[s * stride + d], wl[s], acc);
+  o[row * D + d] = Vec16<T>::store(lsum > 0.f ? acc / lsum : 0.f);
+}
+
+template <typename T, int D, int R>
+int launch_decode(const DecodeArgs& a, int b, cudaStream_t stream) {
+  auto kern = flash_decode_kernel<T, D, R>;
+  // once per instance, at its first (eager) call: a captured call only
+  // launches
+  static cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, DEC_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((unsigned)a.splits, (unsigned)a.hkv, (unsigned)b);
+  kern<<<grid, DEC_THREADS, DEC_SMEM, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return (int)e;
+  const long long n_rows = (long long)b * a.hq * a.sq;
+  flash_decode_combine_kernel<T, D>
+      <<<(unsigned)n_rows, D, 2 * a.splits * sizeof(float), stream>>>(
+          a.ws, static_cast<T*>(a.o), n_rows, a.splits);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int decode_by_rows(const DecodeArgs& a, int b, cudaStream_t st) {
+  const int rows = a.hq / a.hkv * a.sq;
+  if (rows <= 2) return launch_decode<T, D, 2>(a, b, st);
+  if (rows <= 4) return launch_decode<T, D, 4>(a, b, st);
+  if (rows <= 8) return launch_decode<T, D, 8>(a, b, st);
+  return launch_decode<T, D, 16>(a, b, st);
+}
+
+template <typename T>
+int decode_by_dim(int d, const DecodeArgs& a, int b, cudaStream_t st) {
+  switch (d) {
+    case 32: return decode_by_rows<T, 32>(a, b, st);
+    case 64: return decode_by_rows<T, 64>(a, b, st);
+    case 128: return decode_by_rows<T, 128>(a, b, st);
+    case 256: return decode_by_rows<T, 256>(a, b, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, void* o, int b,
+                int hq, int hkv, int sq, int sk, long long k_bs, long long k_hs,
+                long long v_bs, long long v_hs, int causal, int window,
+                float softcap, int q_offset, cudaStream_t stream) {
+  constexpr int BQ = 64;
+  constexpr size_t smem = smem_bytes<float, D, BQ>();
+  auto kern = flash_fwd_kernel<float, D, BQ>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long rows = (long long)(hq / hkv) * sq;
-  dim3 grid((unsigned)((rows + BQ - 1) / BQ * splits), (unsigned)hkv,
-            (unsigned)b);
+  dim3 grid((unsigned)((rows + BQ - 1) / BQ), (unsigned)hkv, (unsigned)b);
   kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, sk, k_bs,
-      k_hs, v_bs, v_hs, causal, window, softcap, q_offset,
-      1.0f / sqrtf((float)D), splits, ws);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  const long long n_rows = b_rows(hq, sq, b);
-  flash_combine_kernel<T, D><<<(unsigned)n_rows, D, 0, stream>>>(
-      ws, static_cast<T*>(o), n_rows, splits);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, sk,
+      k_bs, k_hs, v_bs, v_hs, causal, window, softcap, q_offset,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int BQ>
-int by_dim(int d, const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, long long k_bs, long long k_hs,
-           long long v_bs, long long v_hs, int causal, int window,
-           float softcap, int q_offset, int splits, float* ws,
-           cudaStream_t st) {
-#define FLASH_CASE(DD)                                                        \
-  case DD:                                                                    \
-    return launch<T, DD, BQ>(q, k, v, o, b, hq, hkv, sq, sk, k_bs, k_hs,      \
-                             v_bs, v_hs, causal, window, softcap, q_offset,   \
-                             splits, ws, st);
+}  // namespace
+
+extern "C" {
+
+// every kernel library exports this name (loaded RTLD_LOCAL, one each)
+const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
+
+// Prefill: Hq / Hkv * Sq > 16 rows per KV head.  dtype 0 = float32, 1 =
+// bfloat16.  q and o are contiguous (B, Hq, Sq, D); k and v have rows of D
+// contiguous elements and the given batch and head strides (elements), so a
+// cache sliced to its filled length needs no copy.
+int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
+                   int dtype, int b, int hq, int hkv, int sq, int sk, int d,
+                   long long k_bs, long long k_hs, long long v_bs,
+                   long long v_hs, int causal, int window, float softcap,
+                   int q_offset, void* stream) {
+  cudaGetLastError();  // clear an error left by earlier, unrelated work
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((long long)(hq / hkv) * sq <= DECODE_ROWS || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+#define FLASH_CASE(DD)                                                       \
+  case DD:                                                                   \
+    return dtype == 0                                                        \
+               ? launch_fp32<DD>(q, k, v, o, b, hq, hkv, sq, sk, k_bs, k_hs, \
+                                 v_bs, v_hs, causal, window, softcap,        \
+                                 q_offset, st)                               \
+               : launch_mma<DD>(q, k, v, o, b, hq, hkv, sq, sk, k_bs, k_hs,  \
+                                v_bs, v_hs, causal, window, softcap,         \
+                                q_offset, st);
   switch (d) {
     FLASH_CASE(32)
     FLASH_CASE(64)
@@ -694,56 +1056,35 @@ int by_dim(int d, const void* q, const void* k, const void* v, void* o, int b,
 #undef FLASH_CASE
 }
 
-}  // namespace
-
-extern "C" {
-
-// every kernel library exports this name (loaded RTLD_LOCAL, one each)
-const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
-
-// dtype 0 = float32, 1 = bfloat16.  q and o are contiguous (B, Hq, Sq, D);
-// k and v have rows of D contiguous elements and the given batch and head
-// strides (elements), so a cache sliced to its filled length needs no copy.
-// `splits` > 1 (decode only, Hq / Hkv * Sq <= 16) divides each row block's
-// visible KV blocks over that many CTAs; `ws` then holds
-// splits * B * Hq * Sq * (D + 2) floats of partials (else it may be null).
-int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                   int dtype, int b, int hq, int hkv, int sq, int sk, int d,
-                   long long k_bs, long long k_hs, long long v_bs,
-                   long long v_hs, int causal, int window, float softcap,
-                   int q_offset, int splits, void* ws, void* stream) {
+// Decode: Hq / Hkv * Sq <= 16 rows per KV head, fp32 or bf16, layouts as in
+// flash_attn_fwd.  With `pos` (a device int64) the queries sit at *pos ..
+// *pos + Sq - 1 and see keys < min(Sk, *pos + Sq), causally (q_offset and
+// causal are then ignored); without it, at q_offset and keys < Sk.  The
+// grid is `splits` CTAs per (b, kv head); with splits > 1 `ws` holds
+// splits * B * Hq * Sq * (D + 2) floats of partials.
+int flash_attn_decode(const void* q, const void* k, const void* v, void* o,
+                      int dtype, int b, int hq, int hkv, int sq, int sk, int d,
+                      long long k_bs, long long k_hs, long long v_bs,
+                      long long v_hs, int causal, int window, float softcap,
+                      int q_offset, const void* pos, int splits, void* ws,
+                      void* stream) {
   cudaGetLastError();  // clear an error left by earlier, unrelated work
   cudaStream_t st = (cudaStream_t)stream;
-  float* w = static_cast<float*>(ws);
-  const bool decode = (long long)(hq / hkv) * sq <= DECODE_ROWS;
-  if (splits < 1 || (splits > 1 && (!decode || w == nullptr)))
+  if ((long long)(hq / hkv) * sq > DECODE_ROWS || splits < 1 ||
+      (splits > 1 && ws == nullptr) || 2 * splits * sizeof(float) > 49152)
     return (int)cudaErrorInvalidValue;
-#define FLASH_ARGS d, q, k, v, o, b, hq, hkv, sq, sk, k_bs, k_hs, v_bs, v_hs, \
-                   causal, window, softcap, q_offset, splits, w, st
-  if (dtype == 0)
-    return decode ? by_dim<float, DECODE_ROWS>(FLASH_ARGS)
-                  : by_dim<float, 64>(FLASH_ARGS);
-#undef FLASH_ARGS
-  if (dtype == 1 && decode) {
-    return by_dim<__nv_bfloat16, DECODE_ROWS>(
-        d, q, k, v, o, b, hq, hkv, sq, sk, k_bs, k_hs, v_bs, v_hs, causal,
-        window, softcap, q_offset, splits, w, st);
-  }
-  if (dtype == 1) {
-#define MMA_CASE(DD)                                                        \
-  case DD:                                                                  \
-    return launch_mma<DD>(q, k, v, o, b, hq, hkv, sq, sk, k_bs, k_hs, v_bs, \
-                          v_hs, causal, window, softcap, q_offset, st);
-    switch (d) {
-      MMA_CASE(32)
-      MMA_CASE(64)
-      MMA_CASE(128)
-      MMA_CASE(256)
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-#undef MMA_CASE
-  }
+  DecodeArgs a{};
+  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.ws = static_cast<float*>(ws);
+  a.pos = static_cast<const long long*>(pos);
+  a.hq = hq; a.hkv = hkv; a.sq = sq; a.sk = sk;
+  a.k_bs = k_bs; a.k_hs = k_hs; a.v_bs = v_bs; a.v_hs = v_hs;
+  a.causal = pos != nullptr || causal;
+  a.window = window; a.q_offset = q_offset; a.splits = splits;
+  a.scale = 1.0f / sqrtf((float)d);
+  a.softcap = softcap;
+  if (dtype == 0) return decode_by_dim<float>(d, a, b, st);
+  if (dtype == 1) return decode_by_dim<__nv_bfloat16>(d, a, b, st);
   return (int)cudaErrorInvalidValue;
 }
 

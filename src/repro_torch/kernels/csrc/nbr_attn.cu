@@ -40,7 +40,10 @@
 //   gate is evaluated once per element, never inside a product's depth
 //   loop), and every product runs 4 x 4 register tiles with 16-byte shared
 //   loads, on 32-column chunks of the head.  The LayerNorm forward and
-//   backward are one warp per row.  The forward keeps every layer's input
+//   backward are one warp per row.  Rows are M wide with M a multiple of 4
+//   (16-byte rows): the wrapper zero-pads any other width, and the
+//   LayerNorm takes the true width apart from the row stride, so its
+//   statistics see the true columns only and the padded ones stay 0.  The forward keeps every layer's input
 //   rows (L x R x M, the stash) for the backward, which reads them where it
 //   recomputes steps 1-3 through the same code, so both directions see the
 //   same bits.  Shared memory per attention CTA is sized by the pass's
@@ -1045,39 +1048,42 @@ __global__ void __launch_bounds__(128) rows_gather_kernel(
 
 // (LayerNorm(y[r]) gamma + beta) times the row's mask (step 4 of the
 // forward), one warp per row, to dst[r] or, with dst_rows, to the flat slot
-// dst_rows[r] of the (N, K, M) output.
+// dst_rows[r] of the (N, K, M) output.  Rows have the padded width m (the
+// row stride); the statistics run over the true width mt <= m, and the
+// padded columns are written as exact zeros.
 __global__ void __launch_bounds__(128) rows_ln_fwd_kernel(
     const float* __restrict__ y, float* __restrict__ dst,
     const long long* __restrict__ dst_rows, const long long* __restrict__ rows,
     const float* __restrict__ mask, const float* __restrict__ gamma,
-    const float* __restrict__ beta, int R, int m) {
+    const float* __restrict__ beta, int R, int m, int mt) {
   const int lane = threadIdx.x & 31;
   const long long r = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
   if (r >= R) return;
   const float* yr = y + r * m;
   const float mk = mask[rows[r]];
   float s = 0.f;
-  for (int j = lane; j < m; j += 32) s += yr[j];
-  const float mu = warp_sum(s) / m;
+  for (int j = lane; j < mt; j += 32) s += yr[j];
+  const float mu = warp_sum(s) / mt;
   float v = 0.f;
-  for (int j = lane; j < m; j += 32) {
+  for (int j = lane; j < mt; j += 32) {
     const float c = yr[j] - mu;
     v += c * c;
   }
-  const float inv = rsqrtf(warp_sum(v) / m + kLnEps);
+  const float inv = rsqrtf(warp_sum(v) / mt + kLnEps);
   float* dr = dst + (dst_rows ? dst_rows[r] : r) * m;
   for (int j = lane; j < m; j += 32)
-    dr[j] = ((yr[j] - mu) * inv * gamma[j] + beta[j]) * mk;
+    dr[j] = j < mt ? ((yr[j] - mu) * inv * gamma[j] + beta[j]) * mk : 0.f;
 }
 
 // x <- dg1 = LayerNorm backward of the pre-norm rows x (step 4), one warp
 // per row; the cotangent is d[r] (or dout at the slot, at the top layer)
-// times the row's mask.
+// times the row's mask.  As in the forward: stride m, statistics over the
+// true width mt, exact zeros in the padded columns.
 __global__ void __launch_bounds__(128) rows_ln_bwd_kernel(
     float* __restrict__ x, const float* __restrict__ d,
     const float* __restrict__ dout, const long long* __restrict__ rows,
     const float* __restrict__ mask, const float* __restrict__ gamma, int R,
-    int m) {
+    int m, int mt) {
   const int lane = threadIdx.x & 31;
   const long long r = (long long)blockIdx.x * 4 + (threadIdx.x >> 5);
   if (r >= R) return;
@@ -1086,25 +1092,25 @@ __global__ void __launch_bounds__(128) rows_ln_bwd_kernel(
   const float* dr = dout ? dout + slot * m : d + r * m;
   const float mk = mask[slot];
   float s = 0.f;
-  for (int j = lane; j < m; j += 32) s += xr[j];
-  const float mu = warp_sum(s) / m;
+  for (int j = lane; j < mt; j += 32) s += xr[j];
+  const float mu = warp_sum(s) / mt;
   float v = 0.f;
-  for (int j = lane; j < m; j += 32) {
+  for (int j = lane; j < mt; j += 32) {
     const float c = xr[j] - mu;
     v += c * c;
   }
-  const float inv = rsqrtf(warp_sum(v) / m + kLnEps);
+  const float inv = rsqrtf(warp_sum(v) / mt + kLnEps);
   float s1 = 0.f, s2 = 0.f;
-  for (int j = lane; j < m; j += 32) {
+  for (int j = lane; j < mt; j += 32) {
     const float dxh = dr[j] * mk * gamma[j];
     s1 += dxh;
     s2 += dxh * (xr[j] - mu) * inv;
   }
-  const float mean1 = warp_sum(s1) / m, mean2 = warp_sum(s2) / m;
+  const float mean1 = warp_sum(s1) / mt, mean2 = warp_sum(s2) / mt;
   for (int j = lane; j < m; j += 32) {
     const float xhat = (xr[j] - mu) * inv;
     const float dxh = dr[j] * mk * gamma[j];
-    xr[j] = inv * (dxh - mean1 - xhat * mean2);
+    xr[j] = j < mt ? inv * (dxh - mean1 - xhat * mean2) : 0.f;
   }
 }
 
@@ -1284,8 +1290,8 @@ int nbr_attn_fwd_rows(const float* g, const float* rx, const float* ry,
                       const long long* rows, const long long* start,
                       const long long* count, long long r0, int n_atoms,
                       int n_rows, int n_max, float* qkv, float* ob, float* y,
-                      int m, int h, int layers, int heads, int bf16,
-                      float scale, void* stream) {
+                      int m, int m_true, int h, int layers, int heads,
+                      int bf16, float scale, void* stream) {
   cudaGetLastError();  // clear an error left by earlier, unrelated work
   if (n_rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1304,7 +1310,7 @@ int nbr_attn_fwd_rows(const float* g, const float* rx, const float* ry,
     const bool top = l == layers - 1;
     rows_ln_fwd_kernel<<<blocks, 128, 0, s>>>(
         y, top ? out : x + ((l + 1) % ring) * ld_layer, top ? rows : nullptr,
-        rows, mask, gamma + l * m, beta + l * m, n_rows, m);
+        rows, mask, gamma + l * m, beta + l * m, n_rows, m, m_true);
     RET_IF((int)cudaGetLastError());
   }
   return 0;
@@ -1323,8 +1329,9 @@ int nbr_attn_bwd_rows(const float* stash, long long ld_layer, const float* rx,
                       const long long* start, const long long* count,
                       long long r0, int n_atoms, int n_rows, int n_max,
                       float* qkv, float* ob, float* xb, float* db,
-                      float* dqkv, float* gacc, int m, int h, int layers,
-                      int heads, int bf16, float scale, void* stream) {
+                      float* dqkv, float* gacc, int m, int m_true, int h,
+                      int layers, int heads, int bf16, float scale,
+                      void* stream) {
   cudaGetLastError();  // clear an error left by earlier, unrelated work
   if (n_rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1345,7 +1352,7 @@ int nbr_attn_bwd_rows(const float* stash, long long ld_layer, const float* rx,
     // 4. Y <- dg1
     rows_ln_bwd_kernel<<<(n_rows + 3) / 4, 128, 0, s>>>(
         xb, db, l == layers - 1 ? dout : nullptr, rows, mask, gamma + l * m,
-        n_rows, m);
+        n_rows, m, m_true);
     RET_IF((int)cudaGetLastError());
     // 5. dO = dg1 Wo^T
     GemmArgs g{};

@@ -1,40 +1,54 @@
-"""Blockwise (flash) attention of the LM substrate: CUDA kernel and plain
-version.
+"""Blockwise (flash) attention of the LM substrate: CUDA kernels and plain
+versions.
 
 Replaces the Pallas ``repro/kernels/flash_attn.py::_flash_kernel``
-(``flash_attention``).  The kernel is CUDA C++ for ``sm_90a`` in
+(``flash_attention``).  The kernels are CUDA C++ for ``sm_90a`` in
 ``csrc/flash_attn.cu`` (built by :mod:`repro_torch.kernels.build`, bound
-with ctypes); that file's header says what bounds it on the H100 and what
-its design does about it: bf16 calls with more than 16 query rows per
-KV head (prefill) run on the tensor cores (``mma.sync``, P rounded to bf16
-in registers), decode and fp32 calls on fp32 FMAs.  The plain version is
-:func:`~repro_torch.kernels.ref.attention_ref`.  Forward only, as the TPU
+with ctypes); that file's header says what bounds them on the H100 and what
+their design does about it: bf16 prefill (more than 16 query rows per KV
+head) on the tensor cores (``mma.sync``, P rounded to bf16 in registers),
+fp32 prefill on fp32 FMAs, and decode (at most 16 rows per KV head, fp32 or
+bf16) in a kernel bound by bytes that streams K/V through a cp.async ring.
+The plain versions are :func:`~repro_torch.kernels.ref.attention_ref` and
+:func:`~repro_torch.kernels.ref.decode_ref`.  Forward only, as the TPU
 kernel is.
 
-Dispatch goes by the tensors' device: CUDA tensors launch the kernel (and
-raise if it cannot build or launch, or on a head dimension it has no
-instance for), CPU tensors take the plain version.  Unlike the Pallas
-wrapper, any Sq and Sk are taken without padding, keys past Sk are masked
-(the Pallas kernel attends to its zero padding when ``causal=False``), and
-K and V are read per KV head (no copy per q head).  K and V may be views
-whose rows are contiguous, such as a cache sliced to its filled length.
-At decode (at most 16 query rows per KV head) the visible KV blocks are
-split over several CTAs and their partials merged by a second kernel in a
-fixed order (``key_splits``; the workspace is allocated here).  The wrapper
-counts its launches in ``flash_attention.launches``, one per call.
+Two entry points:
+
+* :func:`flash_attention` (q, k, v, causal, window, softcap, q_offset):
+  host ints, any Sq and Sk, the TPU kernel's signature;
+* :func:`flash_decode` (q, k_cache, v_cache, pos, window, softcap): decode
+  over a whole cache, the position a 0-d int64 tensor on the card (queries
+  at ``pos``.., keys ``< pos + Sq``, causal).  Nothing on the host depends
+  on ``pos``: the grid is fixed by the cache's capacity, the SM count is
+  read once and the split workspace is kept per shape, so a decode step
+  that calls it can be captured and replayed as a CUDA graph.
+
+Dispatch goes by the tensors' device: CUDA tensors launch a kernel (and
+raise if it cannot build or launch, or on a shape it has no instance for),
+CPU tensors take the plain version.  Unlike the Pallas wrapper, any Sq and
+Sk are taken without padding, keys past Sk (or the decode length) are
+masked (the Pallas kernel attends to its zero padding when
+``causal=False``), and K and V are read per KV head (no copy per q head).
+K and V may be views whose rows are contiguous, such as a cache sliced to
+its filled length.  At decode the visible KV blocks are split over several
+CTAs (:func:`decode_splits`) and their partials merged in split order by
+a second kernel.  Each wrapper counts its launches in
+``<wrapper>.launches``, one per call.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
-from .ref import attention_ref
+from .ref import attention_ref, decode_ref
 
-HEAD_DIMS = (32, 64, 128, 256)   # the kernel's template instances
+HEAD_DIMS = (32, 64, 128, 256)   # the kernels' template instances
 BK = 64                          # keys per KV block (csrc/flash_attn.cu)
-DECODE_ROWS = 16                 # rows of the decode instance's row block
+DECODE_ROWS = 16                 # the decode kernel's most rows per KV head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -43,73 +57,150 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attn")
     if not getattr(lib, "_bound", False):
         lib.flash_attn_fwd.argtypes = ([_P] * 4 + [_I] * 7 + [_LL] * 4
-                                       + [_I, _I, _F, _I, _I, _P, _P])
-        lib.flash_attn_fwd.restype = _I
+                                       + [_I, _I, _F, _I, _P])
+        lib.flash_attn_decode.argtypes = ([_P] * 4 + [_I] * 7 + [_LL] * 4
+                                          + [_I, _I, _F, _I, _P, _I, _P, _P])
+        for fn in (lib.flash_attn_fwd, lib.flash_attn_decode):
+            fn.restype = _I
         lib._bound = True
     return lib
 
 
-def key_splits(b, hq, hkv, sq, sk, causal, window, q_offset, sms) -> int:
-    """CTAs over which the decode instance (Hq / Hkv * Sq <= 16 rows per
-    KV head) divides the visible KV blocks: about two CTAs per SM (``sms``
-    of them) in all, at most one per block; 1 for every other call."""
-    if (hq // hkv) * sq > DECODE_ROWS:
-        return 1
-    begin = max(0, q_offset - window + 1) if window > 0 else 0
-    end = min(sk, q_offset + sq) if causal else sk
-    blocks = (end + BK - 1) // BK - begin // BK if end > begin else 0
-    return max(1, min(blocks, -(-2 * sms // (b * hkv))))
+def decode_splits(b: int, hkv: int, sk: int, sms: int) -> int:
+    """CTAs per (b, KV head) of the decode kernel over ``sk`` keys (the
+    cache's capacity at decode): about two CTAs per SM (``sms`` of them) in
+    all, never more than one wave, and at most one per 64-key block."""
+    blocks = -(-sk // BK)
+    return max(1, min(blocks, (2 * sms) // max(1, b * hkv)))
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def _workspace(device, splits: int, rows: int, d: int) -> torch.Tensor:
+    """The split partials' buffer of one shape, splits x rows x (D + 2)
+    floats, kept for every later call (a captured graph keeps its address).
+    Calls of one shape share it, so they go on one stream."""
+    return torch.empty((splits, rows, d + 2), dtype=torch.float32,
+                       device=device)
+
+
+def _check_qkv(what, q, k, v):
+    b, hq, sq, d = q.shape
+    if (k.dim() != 4 or k.shape[0] != b or v.shape != k.shape
+            or k.shape[3] != d or hq % k.shape[1]):
+        raise ValueError(f"{what} takes q (B, Hq, Sq, D) and k/v "
+                         f"(B, Hkv, Sk, D) with Hq % Hkv == 0; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what} has instances for D in {HEAD_DIMS}, "
+                         f"not D={d}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what} takes float32 or bfloat16 q, k, v "
+                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (k.device == v.device == q.device):
+        raise ValueError(f"{what} inputs lie on different devices")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(f"{what} is forward only (as the TPU kernel is); "
+                           "call it under torch.no_grad()")
+
+
+def _rows_ok(t: torch.Tensor) -> bool:
+    """Rows of D contiguous elements, 16-byte aligned (the kernels' loads)."""
+    return (t.stride(3) == 1 and t.stride(2) == t.shape[3]
+            and t.data_ptr() % 16 == 0)
+
+
+def _decode_launch(q, k, v, causal, window, softcap, q_offset, pos):
+    """The decode kernel (Hq / Hkv * Sq <= 16); ``pos`` a device int64 or
+    None (then ``q_offset`` and ``causal`` hold)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    splits = decode_splits(b, hkv, sk, _sm_count(q.device))
+    ws = _workspace(q.device, splits, b * hq * sq, d) if splits > 1 else None
+    lib = _lib()
+    err = lib.flash_attn_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), int(bool(causal)), int(window),
+        float(softcap), int(q_offset), None if pos is None else pos.data_ptr(),
+        splits, None if ws is None else ws.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, lib, "flash_attention decode")
+    return out
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0):
     """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), Hq % Hkv == 0 -> (B, Hq, Sq, D)
     in q's dtype (float32 or bfloat16).  ``q_offset`` is the absolute
-    position of query 0 (decode).  The CUDA kernel for CUDA tensors."""
+    position of query 0 (decode).  A CUDA kernel for CUDA tensors: the
+    prefill kernels above 16 query rows per KV head, the decode kernel at or
+    below."""
     if not q.is_cuda:
         return attention_ref(q, k, v, causal, window, softcap, q_offset)
+    _check_qkv("flash_attention", q, k, v)
     b, hq, sq, d = q.shape
-    _, hkv, sk, _ = k.shape
-    if (k.shape[0] != b or v.shape != k.shape or k.shape[3] != d
-            or hq % hkv):
-        raise ValueError(f"flash_attention takes q (B, Hq, Sq, D) and k/v "
-                         f"(B, Hkv, Sk, D) with Hq % Hkv == 0; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention has instances for D in {HEAD_DIMS}, "
-                         f"not D={d}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention takes float32 or bfloat16 q, k, v "
-                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (k.device == v.device == q.device):
-        raise ValueError("flash_attention inputs lie on different devices")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention is forward only (as the TPU "
-                           "kernel is); call it under torch.no_grad()")
-    # rows of D contiguous elements, 16-byte aligned (the kernel's loads)
+    hkv, sk = k.shape[1], k.shape[2]
     q = q.contiguous()
     q = q if q.data_ptr() % 16 == 0 else q.clone()
-    k, v = (t if t.stride(3) == 1 and t.stride(2) == d
-            and t.data_ptr() % 16 == 0
-            else t.clone(memory_format=torch.contiguous_format)
+    k, v = (t if _rows_ok(t) else t.clone(memory_format=torch.contiguous_format)
             for t in (k, v))
-    out = torch.empty_like(q)
-    if out.numel():
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits = key_splits(b, hq, hkv, sq, sk, causal, window, q_offset, sms)
-        ws = (torch.empty((splits, b * hq * sq, d + 2), dtype=torch.float32,
-                          device=q.device) if splits > 1 else None)
+    if not q.numel():
+        return torch.empty_like(q)
+    if (hq // hkv) * sq <= DECODE_ROWS:
+        out = _decode_launch(q, k, v, causal, window, softcap, q_offset, None)
+    else:
+        out = torch.empty_like(q)
         lib = _lib()
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), int(bool(causal)), int(window),
-            float(softcap), int(q_offset), splits,
-            None if ws is None else ws.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1), int(bool(causal)),
+            int(window), float(softcap), int(q_offset),
+            torch.cuda.current_stream(q.device).cuda_stream)
         build.check(err, lib, "flash_attention")
-        flash_attention.launches += 1
+    flash_attention.launches += 1
+    return out
+
+
+def flash_decode(q, k_cache, v_cache, pos, window: int = 0,
+                 softcap: float = 0.0):
+    """Decode attention over a whole cache: q (B, Hq, Sq, D) at absolute
+    positions pos .. pos + Sq - 1 against k_cache/v_cache (B, Hkv, S_max,
+    D), keys ``< pos + Sq`` (rows past them are never read), causal, with
+    the optional window and softcap.  ``pos`` is a 0-d int64 tensor (the
+    reference's traced ``pos``).  The decode kernel for CUDA tensors (Hq /
+    Hkv * Sq <= 16; the cache's rows contiguous and 16-byte aligned, as
+    ``serve_lib.init_cache`` makes them), the plain version for CPU ones."""
+    if not q.is_cuda:
+        return decode_ref(q, k_cache, v_cache, pos, window, softcap)
+    _check_qkv("flash_decode", q, k_cache, v_cache)
+    b, hq, sq, d = q.shape
+    if (hq // k_cache.shape[1]) * sq > DECODE_ROWS:
+        raise ValueError(f"flash_decode takes at most {DECODE_ROWS} query "
+                         f"rows per KV head (Hq / Hkv * Sq); got "
+                         f"{(hq // k_cache.shape[1]) * sq}")
+    if (not isinstance(pos, torch.Tensor) or pos.dim() != 0
+            or pos.dtype != torch.int64 or pos.device != q.device):
+        raise ValueError("flash_decode takes pos as a 0-d int64 tensor on "
+                         "q's device")
+    if not (_rows_ok(k_cache) and _rows_ok(v_cache)):
+        raise ValueError("flash_decode reads cache rows of D contiguous, "
+                         "16-byte aligned elements")
+    q = q.contiguous()
+    if q.data_ptr() % 16:
+        raise ValueError("flash_decode reads q from a 16-byte aligned address")
+    if not q.numel():
+        return torch.empty_like(q)
+    out = _decode_launch(q, k_cache, v_cache, True, window, softcap, 0, pos)
+    flash_decode.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_decode.launches = 0

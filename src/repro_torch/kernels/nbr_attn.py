@@ -28,10 +28,12 @@ and above that one whose K x M tiles sit in a per-CTA device workspace
 served by L2.  ``MAX_K`` is the neighbour capacity the port's model path
 accepts (``DDConfig`` and the providers' ``grow`` enforce it) on every
 device, so card and CPU results stay comparable.  The compacted-row
-kernels run head widths in multiples of 4 and H in multiples of 8: the
-wrappers zero-pad each head (:func:`pad_heads`, exact) and keep the score
-scale of the true head width; M must be a multiple of 4 on the card (the
-port's rule: the LayerNorm divides by M, so M is not padded).  Each kernel
+kernels run head widths in multiples of 4, H in multiples of 8 and M in
+multiples of 4: the wrappers zero-pad each head (:func:`pad_heads`, exact;
+the score scale stays that of the true head width) and the embedding width
+(:func:`pad_embedding`; the LayerNorm kernels take the true M apart from
+the padded row stride and keep the padded columns at exact zeros), so any
+M runs on the card.  Each kernel
 wrapper counts its launches in ``<wrapper>.launches``: one per call,
 however many CUDA kernels the call runs.
 """
@@ -66,10 +68,10 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_bound", False):
         lib.nbr_attn_fwd_rows.argtypes = ([_P] * 14 + [_LL, _I] + [_P] * 3
                                           + [_LL] + [_I] * 3 + [_P] * 3
-                                          + [_I] * 5 + [_F, _P])
+                                          + [_I] * 6 + [_F, _P])
         lib.nbr_attn_bwd.argtypes = [_P] * 20 + [_I] * 8 + [_F, _P]
         lib.nbr_attn_bwd_rows.argtypes = ([_P, _LL] + [_P] * 19 + [_LL]
-                                          + [_I] * 3 + [_P] * 6 + [_I] * 5
+                                          + [_I] * 3 + [_P] * 6 + [_I] * 6
                                           + [_F, _P])
         lib.nbr_attn_reduce.argtypes = [_P, _P, _I, _LL, _P]
         for fn in (lib.nbr_attn_fwd_rows, lib.nbr_attn_bwd,
@@ -205,12 +207,6 @@ def _validate(g, planes, weights, heads: int, param_grads: bool = False):
         raise ValueError(f"stacked params must be {shapes}")
     if h % heads:
         raise ValueError(f"attn_hidden {h} not divisible by heads {heads}")
-    if not param_grads and m % 4:
-        raise ValueError(f"the attention kernels on compacted rows (the "
-                         f"forward and the force-path backward) take the "
-                         f"embedding width M in multiples of 4, the port's "
-                         f"rule on the card (the head width is padded, M is "
-                         f"not: the LayerNorm divides by it); got M={m}")
     lib = _lib()
     workspace = param_grads and uses_workspace(k, m)
     smem = _smem(k, m, param_grads, workspace)
@@ -253,6 +249,36 @@ def pad_heads(weights, heads: int):
             gamma, beta]
 
 
+def padded_width(m: int) -> int:
+    """The embedding width the compacted-row kernels run: M rounded up to a
+    multiple of 4."""
+    return -(-m // 4) * 4
+
+
+def pad_embedding(g, weights, mp: int):
+    """g (..., M) with zero columns up to width ``mp``, and (wq, wk, wv, wo,
+    gamma, beta) with zero rows of wq/wk/wv (L, M, H), zero columns of wo
+    (L, H, M) and zeros in gamma and beta.  Exact: the zero columns add
+    nothing to q, k and v, the out-projection writes zeros there, and with
+    gamma = beta = 0 the LayerNorm's output there is 0 (its statistics run
+    over the true M, which the kernels are given apart)."""
+    m = g.shape[-1]
+    if mp == m:
+        return g, list(weights)
+    wq, wk, wv, wo, gamma, beta = weights
+    rows = lambda w: torch.nn.functional.pad(w, (0, 0, 0, mp - m))
+    return _pad_cols(g, mp), [rows(wq), rows(wk), rows(wv), _pad_cols(wo, mp),
+                              _pad_cols(gamma, mp), _pad_cols(beta, mp)]
+
+
+def _pad_cols(t, width: int):
+    """``t`` with zero columns (last axis) up to ``width`` (``t`` itself
+    when it has that width)."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
 def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
@@ -282,7 +308,9 @@ def nbr_attention_stack_fwd(g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma,
     g = g.contiguous()
     lib, n, k, m, h, layers = _validate(g, planes, weights, heads)
     scale = float(attn_scale(h // heads))
-    weights = pad_heads(weights, heads)
+    mp = padded_width(m)
+    g_in = g
+    g, weights = pad_embedding(g, pad_heads(weights, heads), mp)
     h = weights[0].shape[2]
     out = torch.zeros_like(g)
     comp = _compaction(planes[4])
@@ -292,26 +320,28 @@ def nbr_attention_stack_fwd(g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma,
     keep = stash is not False
     # layer l's input rows: all of them kept (the stash), or two buffers of
     # one pass used in turn
-    x = g.new_empty((layers, total, m) if keep else (2, cap, m))
-    ld, ring = (total * m, layers) if keep else (cap * m, 2)
+    x = g.new_empty((layers, total, mp) if keep else (2, cap, mp))
+    ld, ring = (total * mp, layers) if keep else (cap * mp, 2)
     qkv, ob, y = g.new_empty(cap, 3 * h), g.new_empty(cap, h), \
-        g.new_empty(cap, m)
+        g.new_empty(cap, mp)
     for a0, a1, r0, r1 in passes:
         err = lib.nbr_attn_fwd_rows(
             *_ptrs(g, *planes, *weights, out),
-            x.data_ptr() + (4 * m * r0 if keep else 0), ld, ring,
+            x.data_ptr() + (4 * mp * r0 if keep else 0), ld, ring,
             rows.data_ptr() + 8 * r0, start.data_ptr() + 8 * a0,
             count.data_ptr() + 8 * a0, r0, a1 - a0, r1 - r0,
-            int(count_h[a0]), *_ptrs(qkv, ob, y), m, h, layers, heads,
+            int(count_h[a0]), *_ptrs(qkv, ob, y), mp, m, h, layers, heads,
             int(compute_dtype == "bfloat16"), scale, _stream())
         build.check(err, lib, "nbr_attn_fwd_rows")
     if passes:
         nbr_attention_stack_fwd.launches += 1
+    if mp != m:
+        out = out[..., :m].contiguous()
     if not keep:
         return out
     if stash == "rows":
         return out, RowStash(x, *comp)
-    return out, dense_stash(g, x, rows)
+    return out, dense_stash(g_in, x[..., :m], rows)
 
 
 def nbr_attention_stack_bwd(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
@@ -340,11 +370,12 @@ def nbr_attention_stack_bwd(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
                                         param_grads)
     bf16 = int(compute_dtype == "bfloat16")
     scale = float(attn_scale(h // heads))
+    mp = padded_width(m)
     if rows:
-        if param_grads or stash.x.shape[::2] != (layers, m):
+        if param_grads or stash.x.shape[::2] != (layers, mp):
             raise ValueError(f"a RowStash serves the backward without "
                              f"parameter gradients, with x of ({layers}, R, "
-                             f"{m})")
+                             f"{mp})")
     else:
         stash = stash.contiguous()
         if stash.shape != (layers, n, k, m) or stash.dtype != torch.float32:
@@ -353,10 +384,14 @@ def nbr_attention_stack_bwd(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
     if not param_grads:
         if not rows:
             comp = _compaction(planes[4])
-            stash = RowStash(compact_stash(stash, comp[2]), *comp)
-        res = _bwd_rows(lib, stash, planes, pad_heads(weights, heads), dout,
-                        heads, bf16, scale)
-        return res + (None,) * 6
+            stash = RowStash(_pad_cols(compact_stash(stash, comp[2]), mp),
+                             *comp)
+        dout, weights = pad_embedding(dout, pad_heads(weights, heads), mp)
+        dg, *dplanes = _bwd_rows(lib, stash, planes, weights, dout, heads,
+                                 bf16, scale, m)
+        if mp != m:
+            dg = dg[..., :m].contiguous()
+        return (dg, *dplanes) + (None,) * 6
     dg = torch.empty_like(dout)
     dplanes = [torch.empty_like(planes[0]) for _ in range(4)]
     sizes = [layers * m * h] * 4 + [layers * m] * 2
@@ -387,10 +422,11 @@ def nbr_attention_stack_bwd(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
     return (dg, *dplanes, *pg)
 
 
-def _bwd_rows(lib, rs, planes, weights, dout, heads, bf16, scale):
+def _bwd_rows(lib, rs, planes, weights, dout, heads, bf16, scale, m_true):
     """The force-path backward over the compacted rows of the RowStash
-    ``rs``: (dg, drx, dry, drz, dsw), exact zeros at the masked slots.
-    Passes of at most ``ROW_PASS`` stacked rows bound the scratch memory."""
+    ``rs``: (dg, drx, dry, drz, dsw), exact zeros at the masked slots; rows,
+    weights and dout at the padded width, ``m_true`` the true one.  Passes
+    of at most ``ROW_PASS`` stacked rows bound the scratch memory."""
     layers, total, m = rs.x.shape
     h = weights[0].shape[2]
     dg = torch.zeros_like(dout)
@@ -407,8 +443,8 @@ def _bwd_rows(lib, rs, planes, weights, dout, heads, bf16, scale):
             *_ptrs(*planes, *weights[:5], dout, dg, *dplanes),
             rs.rows.data_ptr() + 8 * r0, rs.start.data_ptr() + 8 * a0,
             rs.count.data_ptr() + 8 * a0, r0, a1 - a0, r1 - r0,
-            int(rs.count_h[a0]), *_ptrs(qkv, ob, xb, db, dqkv, gacc), m, h,
-            layers, heads, bf16, scale, _stream())
+            int(rs.count_h[a0]), *_ptrs(qkv, ob, xb, db, dqkv, gacc), m,
+            m_true, h, layers, heads, bf16, scale, _stream())
         build.check(err, lib, "nbr_attn_bwd_rows")
     nbr_attention_stack_bwd.launches += 1
     return (dg, *dplanes)

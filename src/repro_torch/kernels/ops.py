@@ -32,3 +32,10 @@ def attention_op(q, k, v, causal: bool = True, window: int = 0,
     q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D).  Forward only."""
     return flash_attn.flash_attention(q, k, v, causal, window, softcap,
                                       q_offset)
+
+
+def decode_attention_op(q, k_cache, v_cache, pos, window: int = 0,
+                        softcap: float = 0.0):
+    """Decode attention over a whole cache, the position a 0-d int64 tensor
+    (``flash_attn.flash_decode``): causal, keys < pos + Sq.  Forward only."""
+    return flash_attn.flash_decode(q, k_cache, v_cache, pos, window, softcap)

@@ -130,8 +130,19 @@ def gate_mul(rx, ry, rz, sw, mask):
     return gate, gmul * (mask[:, :, None] * mask[:, None, :])
 
 
-def _layer_core(g, gmul, mask, wq, wk, wv, wo, heads: int, cd):
-    """Forward intermediates of one layer (forward and backward recompute)."""
+def _ln_cols(m: int, m_true, device):
+    """None, or the (M,) mask of the true columns of a width padded from
+    ``m_true`` to ``m`` (the LayerNorm's statistics run over those)."""
+    if m_true is None or m_true == m:
+        return None
+    return torch.arange(m, device=device) < m_true
+
+
+def _layer_core(g, gmul, mask, wq, wk, wv, wo, heads: int, cd, m_true=None):
+    """Forward intermediates of one layer (forward and backward recompute).
+    With ``m_true`` < M the embedding width is zero-padded (the CUDA
+    kernels' layout): the LayerNorm's statistics run over the first
+    ``m_true`` columns and xhat is 0 in the others."""
     b, k, m = g.shape
     h = wq.shape[-1]
     hd = h // heads
@@ -149,25 +160,35 @@ def _layer_core(g, gmul, mask, wq, wk, wv, wo, heads: int, cd):
     o = torch.einsum("bckl,blcd->bkcd", rc(w), rc(v)).reshape(b, k, h)
     out = rc(o) @ rc(wo)
     g1 = g + out
-    mu = g1.mean(-1, keepdim=True)
-    var = ((g1 - mu) ** 2).mean(-1, keepdim=True)
+    cols = _ln_cols(m, m_true, g.device)
+    if cols is None:
+        mu = g1.mean(-1, keepdim=True)
+        var = ((g1 - mu) ** 2).mean(-1, keepdim=True)
+    else:
+        mu = g1[..., :m_true].mean(-1, keepdim=True)
+        var = ((g1[..., :m_true] - mu) ** 2).mean(-1, keepdim=True)
     inv = torch.rsqrt(var + LN_EPS)
     xhat = (g1 - mu) * inv
+    if cols is not None:
+        xhat = torch.where(cols, xhat, torch.zeros((), device=g.device))
     return dict(q=q, kk=kk, v=v, p=p, w=w, o=o, inv=inv, xhat=xhat,
-                scale=scale)
+                scale=scale, cols=cols)
 
 
 def nbr_attention_stack_ref(g, rx, ry, rz, sw, mask, wq, wk, wv, wo,
                             gamma, beta, heads: int = 1,
                             compute_dtype: str = "float32",
-                            stash: bool = False):
+                            stash: bool = False, m_true=None):
     """l_a gated se_attention_v2 layers over the neighbour axis.
 
     g (N, K, M); rx/ry/rz/sw/mask (N, K); stacked params wq/wk/wv (L, M, H),
     wo (L, H, M), gamma/beta (L, M).  ``compute_dtype`` is the matmul operand
     type (bf16 operands, fp32 accumulation; softmax, gate, residual and layer
     norm stay fp32).  With ``stash=True`` returns (out, layer inputs
-    (L, N, K, M)), the residuals the analytic backward consumes.
+    (L, N, K, M)), the residuals the analytic backward consumes.  ``m_true``
+    (< M) marks inputs zero-padded from that width as the CUDA kernels run
+    them (``nbr_attn.pad_embedding``): the LayerNorm then normalises over
+    the true columns and the padded ones stay 0.
     """
     h = wq.shape[-1]
     if h % heads:
@@ -177,17 +198,19 @@ def nbr_attention_stack_ref(g, rx, ry, rz, sw, mask, wq, wk, wv, wo,
     inputs = []
     for l in range(wq.shape[0]):
         inputs.append(g)
-        c = _layer_core(g, gmul, mask, wq[l], wk[l], wv[l], wo[l], heads, cd)
+        c = _layer_core(g, gmul, mask, wq[l], wk[l], wv[l], wo[l], heads, cd,
+                        m_true)
         g = (c["xhat"] * gamma[l] + beta[l]) * mask[..., None]
     if stash:
         return g, torch.stack(inputs)
     return g
 
 
-def _layer_bwd(g_in, dg, gmul, mask, wq, wk, wv, wo, gamma, heads: int, cd):
+def _layer_bwd(g_in, dg, gmul, mask, wq, wk, wv, wo, gamma, heads: int, cd,
+               m_true=None):
     """Analytic backward of one layer (``repro/kernels/nbr_attn.py::
     _layer_bwd``): recomputes the forward, contracts in fp32."""
-    c = _layer_core(g_in, gmul, mask, wq, wk, wv, wo, heads, cd)
+    c = _layer_core(g_in, gmul, mask, wq, wk, wv, wo, heads, cd, m_true)
     b, k, m = g_in.shape
     h = wq.shape[-1]
     hd = h // heads
@@ -195,8 +218,13 @@ def _layer_bwd(g_in, dg, gmul, mask, wq, wk, wv, wo, gamma, heads: int, cd):
     dgamma = (dln * c["xhat"]).sum((0, 1))
     dbeta = dln.sum((0, 1))
     dxhat = dln * gamma
-    dg1 = c["inv"] * (dxhat - dxhat.mean(-1, keepdim=True)
-                      - c["xhat"] * (dxhat * c["xhat"]).mean(-1, keepdim=True))
+    if c["cols"] is None:
+        mean = lambda t: t.mean(-1, keepdim=True)
+    else:
+        mean = lambda t: t[..., :m_true].mean(-1, keepdim=True)
+    dg1 = c["inv"] * (dxhat - mean(dxhat) - c["xhat"] * mean(dxhat * c["xhat"]))
+    if c["cols"] is not None:
+        dg1 = torch.where(c["cols"], dg1, torch.zeros((), device=dg1.device))
     dwo = torch.einsum("bkh,bkm->hm", c["o"], dg1)
     do_h = (dg1 @ wo.T).reshape(b, k, heads, hd)
     dw = torch.einsum("bkcd,blcd->bckl", do_h, c["v"])
@@ -215,11 +243,12 @@ def _layer_bwd(g_in, dg, gmul, mask, wq, wk, wv, wo, gamma, heads: int, cd):
 
 def nbr_attention_stack_bwd_ref(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
                                 gamma, beta, dout, heads: int = 1,
-                                compute_dtype: str = "float32"):
+                                compute_dtype: str = "float32", m_true=None):
     """Analytic VJP of the stack from its layer-input stash (L, N, K, M).
 
     Returns (dg, drx, dry, drz, dsw, dwq, dwk, dwv, dwo, dgamma, dbeta), all
-    fp32; the mask gets no cotangent.
+    fp32; the mask gets no cotangent.  ``m_true``: as in the forward (dg is
+    0 in the padded columns).
     """
     cd = torch.bfloat16 if compute_dtype == "bfloat16" else None
     gate, gmul = gate_mul(rx, ry, rz, sw, mask)
@@ -228,7 +257,7 @@ def nbr_attention_stack_bwd_ref(stash, rx, ry, rz, sw, mask, wq, wk, wv, wo,
     grads = [[None] * wq.shape[0] for _ in range(6)]
     for l in reversed(range(wq.shape[0])):
         dg, dgmul, *pg = _layer_bwd(stash[l], dg, gmul, mask, wq[l], wk[l],
-                                    wv[l], wo[l], gamma[l], heads, cd)
+                                    wv[l], wo[l], gamma[l], heads, cd, m_true)
         dgmul_acc = dgmul_acc + dgmul
         for acc, x in zip(grads, pg):
             acc[l] = x
@@ -287,3 +316,74 @@ def attention_ref(q, k, v, causal: bool = True, window: int = 0,
     w = torch.softmax(s, dim=-1)
     w = torch.where(mask.any(-1)[:, None], w, torch.zeros((), device=q.device))
     return torch.einsum("bhqk,bhkd->bhqd", w, v.to(F32)).to(q.dtype)
+
+
+def decode_ref(q, k_cache, v_cache, pos, window: int = 0,
+               softcap: float = 0.0):
+    """``flash_decode``'s plain version: q (B, Hq, Sq, D) at positions
+    pos .. pos + Sq - 1 against the cache's keys < pos + Sq, causal; ``pos``
+    a 0-d integer tensor (read on the host) or an int."""
+    p = int(pos)
+    n = min(k_cache.shape[2], p + q.shape[2])
+    return attention_ref(q, k_cache[:, :, :n], v_cache[:, :, :n], True,
+                         window, softcap, p)
+
+
+def decode_split_ranges(sq: int, kv_len: int, q_offset: int, causal: bool,
+                        window: int, splits: int, block: int = 64):
+    """The decode kernel's key range [k0, k1) for each of ``splits`` CTAs
+    (``csrc/flash_attn.cu::split_range``): the ``block``-key blocks that
+    hold the keys some query sees, divided evenly and in order; an empty
+    range (k0 >= k1) where a split has none."""
+    lo = max(0, q_offset - window + 1) if window > 0 else 0
+    hi = min(kv_len, q_offset + sq) if causal else kv_len
+    jb0 = lo // block
+    jb1 = -(-hi // block) if hi > lo else jb0
+    per = -(-(jb1 - jb0) // splits)
+    out = []
+    for s in range(splits):
+        b0 = jb0 + s * per
+        out.append((max(lo, b0 * block), min(hi, min(jb1, b0 + per) * block)))
+    return out
+
+
+def attention_split_ref(q, k, v, causal: bool, window: int, softcap: float,
+                        q_offset: int, splits: int):
+    """Plain split-and-merge attention, the decode kernel's structure: each
+    split's unnormalised (acc, m, l) over its key range
+    (:func:`decode_split_ranges`), merged in split order as the combine
+    kernel merges them (m = max m_s, l = sum l_s e^(m_s - m), the same for
+    acc).  An empty split contributes (0, -inf, 0); a row no split sees
+    gives 0.  Same arguments as :func:`attention_ref`."""
+    b, hq, sq, d = q.shape
+    group = hq // k.shape[1]
+    k = k.repeat_interleave(group, dim=1).to(F32)
+    v = v.repeat_interleave(group, dim=1).to(F32)
+    vis = attention_visible(sq, k.shape[2], causal, window, q_offset,
+                            q.device)
+    parts = []
+    for k0, k1 in decode_split_ranges(sq, k.shape[2], q_offset, causal,
+                                      window, splits):
+        if k1 <= k0:
+            parts.append((q.new_zeros((b, hq, sq, d), dtype=F32),
+                          q.new_full((b, hq, sq, 1), float("-inf"), dtype=F32),
+                          q.new_zeros((b, hq, sq, 1), dtype=F32)))
+            continue
+        s = torch.einsum("bhqd,bhkd->bhqk", q.to(F32), k[:, :, k0:k1]) / d ** 0.5
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(vis[:, k0:k1], s,
+                        torch.full((), float("-inf"), device=q.device))
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - torch.where(m > float("-inf"), m, 0.0))
+        parts.append((torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, k0:k1]), m,
+                      p.sum(-1, keepdim=True)))
+    m = torch.stack([pm for _, pm, _ in parts]).amax(0)
+    m0 = torch.where(m > float("-inf"), m, 0.0)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for pa, pm, pl in parts:
+        f = torch.exp(pm - m0)
+        acc, l = acc + pa * f, l + pl * f
+    out = torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+    return out.to(q.dtype)

@@ -10,6 +10,13 @@ Weights are random, from the port's initialiser (``--seed``); the prompts
 are token ids drawn from the same seed, so no tokenizer or checkpoint is
 needed.  ``--backend force`` (the DP force server) is not ported yet
 (ROADMAP Queue 1 item 10).
+
+On the card the decode step runs as a CUDA graph, the port's counterpart
+of the reference's ``jax.jit`` of ``make_serve_step``: :class:`DecodeGraph`
+captures it once per request over the request's cache, with the tokens and
+the position as static device tensors and the greedy argmax inside, and
+each further step replays it (``serve_tokens(..., graph=False)`` runs the
+step op by op).
 """
 from __future__ import annotations
 
@@ -27,17 +34,76 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve_tokens(cfg, params, tokens, new: int) -> dict:
+class DecodeGraph:
+    """The greedy decode step ``make_serve_step(cfg)`` captured once as a
+    CUDA graph over ``cache``: static inputs ``tok`` (B, 1) and ``pos`` (a
+    0-d int64 tensor), both advanced inside the graph (the argmax of the
+    step's logits becomes the next token, pos + 1 the next position), and
+    ``logits`` (B, V), the step's last logits, a static output that each
+    replay overwrites.
+
+    Before the capture, one eager step on the capture stream at the first
+    position runs the lazy set-up (kernel builds, library handles, the
+    decode workspace); it writes the cache entry that the first replay
+    writes again with the same bits.  The capture launches nothing, so the
+    kernel launch counts it made are taken back and counted again at every
+    replay (``launches``: per replay, by wrapper)."""
+
+    def __init__(self, cfg, params, cache, tok, pos: int):
+        from .. import kernels
+        from ..lm.serve_lib import make_serve_step
+        dev = tok.device
+        step = make_serve_step(cfg)
+        self.tok = tok.clone()
+        self.pos = torch.tensor(pos, dtype=torch.int64, device=dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            step(params, cache, self.tok, self.pos)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        before = kernels.launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            logits, _ = step(params, cache, self.tok, self.pos)
+            self.logits = logits[:, -1]
+            self.tok.copy_(logits.argmax(-1))
+            self.pos.add_(1)
+        after = kernels.launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+        for name, n in self.launches.items():
+            kernels.KERNELS[name].launches -= n
+        _sync(dev)
+        self.capture_s = time.perf_counter() - t0
+
+    def replay(self):
+        """One decode step: the next token in ``tok``, its position's logits
+        in ``logits``."""
+        from .. import kernels
+        self.graph.replay()
+        for name, n in self.launches.items():
+            kernels.KERNELS[name].launches += n
+
+
+def serve_tokens(cfg, params, tokens, new: int, graph=None) -> dict:
     """Prefill ``tokens`` (B, S) into a cache of length S + new, then greedy
     decode: ``new`` tokens per sequence, the first from the prefill's last
-    logits, each further one from a decode step.  Returns the tokens
-    (B, new), every step's logits [(B, V)] (the prefill's first), the cache
-    and the host-clock seconds of the prefill and of the decode steps."""
+    logits, each further one from a decode step.  The steps replay a
+    :class:`DecodeGraph` captured for this request (``graph``; default: on
+    CUDA tensors) or run eagerly (CPU tensors, or ``graph=False``).
+    Returns the tokens (B, new), every step's logits [(B, V)] (the
+    prefill's first), the cache, the host-clock seconds of the prefill and
+    of the decode loop (``decode_s``, the replays or eager steps only), and
+    with a graph the seconds of its set-up and capture (``capture_s``) and
+    its launches per replay (``graph_launches``)."""
     from ..lm.serve_lib import make_prefill, make_serve_step
     b, s = tokens.shape
-    prefill = make_prefill(cfg, max_len=s + new)
-    serve = make_serve_step(cfg)
     dev = tokens.device
+    graph = dev.type == "cuda" if graph is None else graph
+    if graph and dev.type != "cuda":
+        raise ValueError("a CUDA graph decodes on a CUDA device only")
+    prefill = make_prefill(cfg, max_len=s + new)
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = prefill(params, tokens)
@@ -45,16 +111,27 @@ def serve_tokens(cfg, params, tokens, new: int) -> dict:
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     out, step_logits = [tok], [logits[:, -1]]
-    t0 = time.perf_counter()
-    for i in range(new - 1):
-        logits, cache = serve(params, cache, tok, s + i)
-        tok = logits.argmax(-1)
-        out.append(tok)
-        step_logits.append(logits[:, -1])
+    res = {}
+    if graph and new > 1:
+        g = DecodeGraph(cfg, params, cache, tok, s)
+        res.update(capture_s=g.capture_s, graph_launches=g.launches)
+        t0 = time.perf_counter()
+        for _ in range(new - 1):
+            g.replay()
+            out.append(g.tok.clone())
+            step_logits.append(g.logits.clone())
+    else:
+        serve = make_serve_step(cfg)
+        t0 = time.perf_counter()
+        for i in range(new - 1):
+            logits, cache = serve(params, cache, tok, s + i)
+            tok = logits.argmax(-1)
+            out.append(tok)
+            step_logits.append(logits[:, -1])
     _sync(dev)
-    return {"tokens": torch.cat(out, 1), "logits": step_logits,
-            "cache": cache, "prefill_s": prefill_s,
-            "decode_s": time.perf_counter() - t0}
+    res.update(tokens=torch.cat(out, 1), logits=step_logits, cache=cache,
+               prefill_s=prefill_s, decode_s=time.perf_counter() - t0)
+    return res
 
 
 def main_lm(args):
@@ -75,6 +152,9 @@ def main_lm(args):
     res = serve_tokens(cfg, params, tokens, args.new)
     steps = args.new - 1
     print(f"prefill {args.batch}x{args.prompt_len} in {res['prefill_s']:.2f}s")
+    if "capture_s" in res:
+        print(f"decode step captured as a CUDA graph in "
+              f"{res['capture_s']:.2f}s")
     print(f"decoded {steps} steps in {res['decode_s']:.2f}s "
           f"({steps * args.batch / max(res['decode_s'], 1e-9):.1f} tok/s)")
     print("greedy tokens (batch 0):", res["tokens"][0, :16].tolist())

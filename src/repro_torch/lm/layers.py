@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig, LayerSpec
-from ..kernels.ops import attention_op
+from ..kernels.ops import attention_op, decode_attention_op
 
 ATTN_MIXERS = ("attn", "attn_local")
 
@@ -147,17 +147,30 @@ def attention_layer(p, x, cfg: ArchConfig, spec: LayerSpec, positions,
     return torch.einsum("bhse,hed->bsd", o, p["wo"])
 
 
+def decode_position(pos, device) -> torch.Tensor:
+    """``pos`` as the decode path takes it: a 0-d int64 tensor on
+    ``device`` (an int is copied there, another integer type cast)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64)
+    return torch.tensor(pos, dtype=torch.int64, device=device)
+
+
 def attention_decode(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos):
     """One-token decode.  cache = {"k","v"} (B, Hkv, S_max, hd), written in
-    place at position ``pos`` (an int)."""
-    positions = torch.full((x.shape[0], 1), pos, device=x.device)
-    q, k_new, v_new = attention_qkv(p, x, cfg, positions)
-    cache["k"][:, :, pos] = k_new[:, :, 0]
-    cache["v"][:, :, pos] = v_new[:, :, 0]
-    o = chunked_attention(q, cache["k"], cache["v"], causal=True,
-                          window=layer_window(cfg, spec),
-                          softcap=cfg.attn_softcap, q_offset=pos,
-                          kv_len=pos + 1)
+    place at position ``pos``, an int or a 0-d integer tensor (the
+    reference's traced ``pos``).  Nothing here reads it on the host: the
+    rope angles take it on the device, the cache write is an
+    ``index_copy_`` at it (the reference's ``dynamic_update_slice_in_dim``)
+    and the attention runs over the whole cache with the length pos + 1
+    read by the kernel (``flash_decode``; its plain version on the CPU)."""
+    pos = decode_position(pos, x.device)
+    q, k_new, v_new = attention_qkv(p, x, cfg, pos.expand(x.shape[0], 1))
+    idx = pos.reshape(1)
+    cache["k"].index_copy_(2, idx, k_new)
+    cache["v"].index_copy_(2, idx, v_new)
+    o = decode_attention_op(q, cache["k"], cache["v"], pos,
+                            window=layer_window(cfg, spec),
+                            softcap=cfg.attn_softcap)
     return torch.einsum("bhse,hed->bsd", o, p["wo"]), cache
 
 

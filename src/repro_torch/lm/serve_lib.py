@@ -56,13 +56,17 @@ def decode_layer(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos):
 
 
 def make_serve_step(cfg: ArchConfig, mesh=None):
-    """serve_step(params, cache, tokens (B,1), pos int) ->
-    (logits (B,1,V), cache); the cache is written in place."""
+    """serve_step(params, cache, tokens (B,1), pos) -> (logits (B,1,V),
+    cache); the cache is written in place.  ``pos`` is an int or a 0-d
+    integer tensor, as the reference's ``pos ()``: the step reads it on the
+    device only, so on the card it can be captured as a CUDA graph whose
+    ``pos`` and ``tokens`` are static tensors (``launch/serve.py``)."""
     if mesh is not None:
         raise L.unported("a serving mesh")
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
+        pos = L.decode_position(pos, tokens.device)
         x = params["embed"][tokens]
         for (layer_p, spec), c in zip(M.layers_in_order(params, cfg),
                                       layer_caches(cache, cfg)):

@@ -53,7 +53,18 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   view): atol 1e-4 x max|plain| in fp32, 1e-2 x max|plain| in bf16 (the
   output is rounded to bf16 on both sides, and the bf16 kernel rounds the
   probabilities to bf16 for the PV product); a repeated call gives the
-  same bits.
+  same bits;
+* ``flash_decode`` (the decode kernel over a whole cache, the position a
+  device tensor) against its plain version: GQA groups 1, 2 and 8 (and two
+  queries a step), fp32 and bf16, lengths 1, 63, 64, 65 and the capacity,
+  window and softcap, at the same gates; the split count (the grid) the
+  same at every length, a repeat the same bits; the decode instance of
+  ``flash_attention`` gives exactly 0 for a row with no visible key;
+* a reduced gemma2 decode step captured as a CUDA graph (``launch/serve.py
+  ::DecodeGraph``) gives the eager step's tokens and logits bit for bit;
+* the attention kernels at embedding widths M = 30 and 62 (padded to a
+  multiple of 4 by the wrappers): forward and force-path backward against
+  the plain version, atol 1e-4 x max, exact zeros at the masked slots.
 """
 import numpy as np
 import pytest
@@ -491,6 +502,134 @@ def test_flash_attention_bf16_prefill_reads_a_cache_view(card):
     want = ref.attention_ref(q, k, v, True, 64, 50.0, 104)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=1e-2 * float(want.float().abs().max()))
+
+
+DECODE_CASES = [  # hq, hkv, sq, window, cap
+    (4, 4, 1, 0, 0.0),          # group 1
+    (8, 4, 1, 0, 50.0),         # group 2: gemma2-2b's global layers
+    (8, 4, 1, 4096, 50.0),      # and its local ones
+    (8, 1, 1, 96, 30.0),        # group 8
+    (4, 2, 2, 0, 50.0),         # two queries a step
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,sq,window,cap", DECODE_CASES)
+def test_flash_decode_kernel_equals_plain(card, monkeypatch, dtype, hq, hkv,
+                                          sq, window, cap):
+    """A cache of 6,176 rows (gemma2-2b's S_max), the queries at the end of
+    the first 1, 63, 64, 65 and 6,176 keys; the rows past them hold data
+    that must not count.  One grid for every length; a repeat, the same
+    bits."""
+    b, s_max, d = 2, 6176, 256
+    gen = torch.Generator(device=card).manual_seed(hq * 10 + sq + window)
+    rnd = lambda *s: torch.randn(*s, device=card, generator=gen).to(dtype)
+    kc, vc = rnd(b, hkv, s_max, d), rnd(b, hkv, s_max, d)
+    splits = []
+    real = flash_attn.decode_splits
+    monkeypatch.setattr(flash_attn, "decode_splits",
+                        lambda *a: splits.append(real(*a)) or splits[-1])
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for length in (1, 63, 64, 65, s_max):
+        if length < sq:
+            continue
+        q = rnd(b, hq, sq, d)
+        pos = torch.tensor(length - sq, device=card)
+        before = flash_attn.flash_decode.launches
+        got = flash_attn.flash_decode(q, kc, vc, pos, window, cap)
+        assert flash_attn.flash_decode.launches == before + 1
+        want = ref.decode_ref(q, kc, vc, pos, window, cap)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol * float(want.float().abs().max()))
+        assert torch.equal(got, flash_attn.flash_decode(q, kc, vc, pos,
+                                                        window, cap))
+    assert len(set(splits)) == 1 and splits[0] > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_row_without_visible_key_is_zero(card, dtype):
+    """Window 4 at q_offset 10 over 6 keys: query i (position 10 + i) would
+    see keys 7 + i .. 10 + i, none of which exist, so every row is exactly
+    0; then a window that cuts the keys, against the plain version."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, device=card, generator=gen).to(dtype)
+    q, k, v = rnd(1, 4, 3, 64), rnd(1, 2, 6, 64), rnd(1, 2, 6, 64)
+    out = flash_attn.flash_attention(q, k, v, True, 4, 0.0, 10)
+    assert torch.equal(out, torch.zeros_like(out))
+    q, k, v = rnd(2, 8, 2, 64), rnd(2, 4, 40, 64), rnd(2, 4, 40, 64)
+    out = flash_attn.flash_attention(q, k, v, True, 8, 50.0, 38)
+    want = ref.attention_ref(q, k, v, True, 8, 50.0, 38)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=0,
+                               atol=tol * float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_captured_decode_step_equals_eager(card):
+    """Reduced gemma2 (bf16, 4 layers): a request whose decode steps replay
+    a captured CUDA graph gives the eager request's tokens and every
+    step's logits bit for bit; the graph launches the decode kernel once a
+    layer per replay, counted."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_tokens
+    from repro_torch.lm import model as LM
+    cfg = get_arch("gemma2-2b").reduced(n_layers=4, d_model=256, d_ff=512,
+                                        vocab=1024, dtype="bfloat16")
+    params = LM.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                            device=card)
+    tok = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                         (2, 70)), device=card)
+    eager = serve_tokens(cfg, params, tok, 9, graph=False)
+    before = flash_attn.flash_decode.launches
+    graphed = serve_tokens(cfg, params, tok, 9)
+    assert graphed["graph_launches"] == {"flash_decode": 4}
+    # 8 replays of 4 launches, and the warm-up step's 4
+    assert flash_attn.flash_decode.launches == before + 4 * 9
+    assert torch.equal(graphed["tokens"], eager["tokens"])
+    assert all(torch.equal(a, b) for a, b in zip(graphed["logits"],
+                                                 eager["logits"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [30, 62])
+def test_attention_kernels_take_any_embedding_width(card, m):
+    """M = 30 and 62 (not multiples of 4): the wrappers pad M, the
+    LayerNorm kernels normalise over the true M; forward and force-path
+    backward against the plain version, exact zeros at the masked slots."""
+    n, k = 40, 82
+    args, rnd = _stack_args(card, m, n, k, 0.4, m=m, h=64, layers=2)
+    _edge_atoms(args[5])
+    masked = args[5] == 0
+    before = nbr_attn.nbr_attention_stack_fwd.launches
+    out, stash = nbr_attn.nbr_attention_stack_fwd(*args, stash=True, heads=2)
+    assert nbr_attn.nbr_attention_stack_fwd.launches == before + 1
+    want, want_stash = ref.nbr_attention_stack_ref(*args, stash=True,
+                                                   heads=2)
+    assert out.shape == want.shape and stash.shape == want_stash.shape
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    torch.testing.assert_close(stash, want_stash, rtol=0,
+                               atol=1e-4 * float(want_stash.abs().max()))
+    assert not bool(out[masked].any())
+    dout = rnd(n, k, m)
+    got = nbr_attn.nbr_attention_stack_bwd(want_stash, *args[1:], dout,
+                                           heads=2, param_grads=False)
+    exp = ref.nbr_attention_stack_bwd_ref(want_stash, *args[1:], dout,
+                                          heads=2)
+    assert got[0].shape == (n, k, m)
+    for a, b in zip(got[:5], exp[:5]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+        assert not bool(a[masked].any())
+    # the force path through autograd: the forward's padded row stash
+    leaves = [a.clone().requires_grad_(i < 5) for i, a in enumerate(args)]
+    nbr_attn.nbr_attention_stack(*leaves, heads=2).backward(dout)
+    for i in range(5):
+        torch.testing.assert_close(leaves[i].grad, exp[i], rtol=0,
+                                   atol=1e-4 * float(exp[i].abs().max()))
 
 
 def _md_small(device, sp_skin=0.08):

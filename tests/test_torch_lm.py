@@ -95,6 +95,32 @@ def test_prefill_and_decode_match_jax(models):
         _close(tl, jl, dtype, f"decode logits at {t}")
 
 
+def test_serve_step_takes_pos_as_a_tensor(models):
+    """``pos`` as a 0-d tensor (the reference's traced ``pos ()``): the same
+    bits as the int form on the CPU, logits and cache, and the JAX jitted
+    step's logits at the dtype's gate."""
+    dtype, jcfg, jparams, tcfg, tparams, tokens = models
+    ml = PROMPT + NEW
+    _, jc = JS.make_prefill(jcfg, max_len=ml, remat="none")(
+        jparams, jnp.asarray(tokens[:, :PROMPT]))
+    _, c_int = TS.make_prefill(tcfg, max_len=ml)(
+        tparams, torch.tensor(tokens[:, :PROMPT]))
+    c_pos = {part: [{k: t.clone() for k, t in c.items()} for c in caches]
+             for part, caches in c_int.items()}
+    jstep = jax.jit(JS.make_serve_step(jcfg))
+    tstep = TS.make_serve_step(tcfg)
+    for t in range(PROMPT, ml):
+        tok = torch.tensor(tokens[:, t:t + 1])
+        a, c_int = tstep(tparams, c_int, tok, t)
+        b, c_pos = tstep(tparams, c_pos, tok, torch.tensor(t, dtype=torch.int32))
+        assert torch.equal(a, b), f"pos tensor vs int at {t}"
+        jl, jc = jstep(jparams, jc, jnp.asarray(tokens[:, t:t + 1]),
+                       jnp.int32(t))
+        _close(b, jl, dtype, f"decode logits at {t}, pos a tensor")
+    for a, b in zip(c_int["pattern"], c_pos["pattern"]):
+        assert all(torch.equal(a[k], b[k]) for k in ("k", "v"))
+
+
 def test_decode_equals_forward_in_the_port(models):
     dtype, _, _, tcfg, tparams, tokens = models
     tok = torch.tensor(tokens)
