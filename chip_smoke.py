@@ -6,6 +6,7 @@ and gemma2-2b token serving.
     python3 chip_smoke.py --phase lm        # the lm phase alone
     python3 chip_smoke.py --phase kernels   # the DP kernels phase alone
     python3 chip_smoke.py --phase md        # the md phase alone
+    python3 chip_smoke.py --phase guard     # the guard phase alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
 source, all started together; Triton at first launch), then runs phases
@@ -41,8 +42,12 @@ phase 6 on gemma2-2b:
    stack in row chunks, its stash on the valid rows the forward kept for
    the backward; both force-scatter calls, the gather's backward and the
    force reduction, bit for bit), cells == dense and stale == fresh bit for bit,
-   DD == single domain within phase 3's gate, then requests through
-   ``DeepmdForceProvider(dd_config=...)`` and one assembly profiled;
+   DD == single domain within phase 3's gate, the fused force function
+   split into the paper's Fig.-12 phases by its prefix probes
+   (``ForcePipeline.build_phase_probes`` + ``obs.timed_prefix_phases``:
+   gather, assembly, inference, force_reduce; median of 3), then requests
+   through ``DeepmdForceProvider(dd_config=...)`` and one assembly
+   profiled;
 5. md: the port's MD engine (``repro_torch.md.MDEngine``) on the solvated
    1HCI stand-in (``build_solvated_protein(3917)``: 62,210 atoms, the
    15,668 protein atoms the DP group; ``examples/protein_md.py``'s engine
@@ -55,7 +60,19 @@ phase 6 on gemma2-2b:
    ranks, the first step's DP forces against one domain; at 40 residues
    the card against the CPU and the DD trajectory with cells against
    dense, bit for bit;
-6. lm: gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
+6. guard: guarded MD on the same stand-in and model, 10 steps a run from
+   the md phase's 5-step warm-up: guards on and quiet, and obs on (spans,
+   per-step counters, calibrated stage timings, the trace flushed and
+   validated), each equal to the unguarded run bit for bit, their ms per
+   step beside it (the variants alternated, twice); an engine-level
+   ``nan_force`` inside the window rolled back and replayed to the same
+   bits (one trip, one rollback; the replayed window's cost); checkpoints
+   every 5 steps through an ``AsyncCheckpointer`` whose newest save is
+   truncated: ``restore_latest`` falls back and the resumed run gives the
+   same bits (the save's own ms apart); on 8 virtual ranks (5 steps) a
+   rank-3 ``nan_force`` through the pipeline's fault hook recovers bit
+   for bit; every kernel of each guarded path launched;
+7. lm: gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
    bf16, random weights from the port's initialiser), 4 prompts of 6,144
    random token ids, 32 greedy new tokens through ``launch/serve.py``'s
    ``serve_tokens``: an eager request with every attention call recorded
@@ -72,8 +89,8 @@ phase 6 on gemma2-2b:
    at a reduced width in fp32; 3 timed rounds each of graphed and eager
    requests, then a profiled prefill, 4 profiled graphed decode steps and
    4 eager ones;
-7. a ``kernels`` JSON line (launches per force call, per MD step and per
-   request), then the result line.
+8. a ``kernels`` JSON line (launches per force call, per MD step, per
+   guarded MD run and per request), then the result line.
 
 Any failed check raises, and the script exits non-zero.  It needs one CUDA
 card and the repository's ``src/`` beside it; it imports no JAX.
@@ -991,6 +1008,36 @@ def check_dd_model_kernels(seen, phase="dd"):
     return scatter
 
 
+def fig12_split(pipe, params, x, t):
+    """The paper's Fig.-12 phase split of one fused force call: the prefix
+    probes of ``pipe`` (gather, assembly, inference, force_reduce; the last
+    is the fused force function itself, bit for bit) timed by
+    ``obs.timed_prefix_phases`` (median of 3, synchronised)."""
+    from repro_torch.obs import ObsConfig, Tracer, report, timed_prefix_phases
+    probes = pipe.build_phase_probes()
+    e0, f0, _ = probes["force_reduce"](params, x, t)
+    e1, f1, _ = pipe.build_force_fn()(params, x, t)
+    if not (torch.equal(e0, e1) and torch.equal(f0, f1)):
+        fail("dd fig12: the last phase probe differs from the force function")
+    tracer = Tracer(ObsConfig(enabled=True))
+    split = timed_prefix_phases(
+        tracer, {k: (lambda fn=fn: fn(params, x, t))
+                 for k, fn in probes.items()})
+    frac = report.stage_fractions(tracer.events)
+    print(json.dumps({"phase": "dd", "fig12_split_ms":
+                      {k: v * 1e3 for k, v in split.items()},
+                      "fig12_shares": {k: a["fraction"]
+                                       for k, a in frac.items()},
+                      "fused_call_ms": sum(split.values()) * 1e3,
+                      "paper": "> 90% of the time in inference",
+                      "probe_is": "the pipeline run through the phase, "
+                                  "median of 3 synchronised calls; a "
+                                  "phase's ms is its probe's minus the "
+                                  "previous probe's"}), flush=True)
+    del probes
+    torch.cuda.empty_cache()
+
+
 def phase_dd(model, params):
     """The virtual domain decomposition on this card: 8 ranks, the same
     15,668-atom system and model as phase 3."""
@@ -1085,6 +1132,7 @@ def phase_dd(model, params):
                       "F_max_abs_err_vs_single": gate,
                       "F_tol": "atol 1e-4*max|F|", "E_tol": "rtol 1e-5"}),
           flush=True)
+    fig12_split(pipe, params, x, t)
 
     # -- requests through the provider
     prov = DeepmdForceProvider(model, params, np.arange(N_PATH), types, box,
@@ -1220,7 +1268,8 @@ def fresh_step(eng, st):
     step that ``MDEngine.run`` takes rebuilds."""
     nl = eng._build_nlist_grown(st.positions)
     sp = eng._assemble_special_grown(st.positions) if eng._stateful else None
-    return lambda: eng._run_segment_scan(st, nl, sp, 1)
+    step0 = int(st.step)
+    return lambda: eng._run_segment_scan(st, nl, sp, 1, step0)
 
 
 def fresh_step_ms(eng, st, reps=3):
@@ -1565,6 +1614,233 @@ def phase_md(model, params):
                       "dd_cells_equal_dense_bitwise": True}), flush=True)
     print(f"[md] {time.perf_counter() - t_phase:.1f} s", flush=True)
     return per_step, dd_line["launches_per_md_step"]
+
+
+# ---------------------------------------------------------------------------
+# guard: guarded MD (fault injection, rollback-and-replay, CRC-checked
+# checkpoints) and the engine's observability on the MD stand-in
+# ---------------------------------------------------------------------------
+
+GUARD_STEPS, GUARD_DD_STEPS = 10, 5
+GUARD_FAULT_AT = 3          # steps into the timed run (inside its window)
+
+
+def timed_run(eng, start, n):
+    """``eng.run(start, n)``, synchronised: (state, wall ms, the windows'
+    ms (``timings["scan"]``, the window's verdict read included))."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = eng.run(start, n)
+    torch.cuda.synchronize()
+    return st, (time.perf_counter() - t0) * 1e3, eng.timings["scan"] * 1e3
+
+
+def phase_guard(model, params):
+    """Guarded MD on the 62,210-atom stand-in at full width (the md phase's
+    system, model and engine settings), 10 steps a run from a 5-step warm
+    state: guards on and quiet == unguarded; an engine-level ``nan_force``
+    inside the window recovers bit for bit; obs on == obs off with a trace
+    that validates; ``checkpoint_every=5`` through an ``AsyncCheckpointer``
+    whose newest save is truncated falls back and resumes bit for bit; on
+    8 virtual ranks (5 steps) a rank-3 ``nan_force`` through the pipeline's
+    fault hook recovers bit for bit.  Times each variant (ms per MD step)
+    and the replayed window.  Returns ({kernel: launches} of the guarded
+    single-domain path, of the guarded DD path)."""
+    import os
+    import tempfile
+    import warnings
+    from repro_torch import kernels
+    from repro_torch.ckpt import AsyncCheckpointer
+    from repro_torch.core import DeepmdForceProvider, suggest_config
+    from repro_torch.health import FaultPlan, FaultSpec, GuardConfig
+    from repro_torch.md import (EngineConfig, MDEngine,
+                                build_solvated_protein, mark_nn_group)
+    from repro_torch.md.engine import state_tree
+    from repro_torch.obs import ObsConfig, export, report
+    t_phase = time.perf_counter()
+    system, pos, nn = build_solvated_protein(MD_RESIDUES, device=DEVICE)
+    system = mark_nn_group(system, nn)
+    box = system.box.cpu().numpy()
+    sel = model.cfg.descriptor.sel
+
+    def provider(dd_config=None, hook=None):
+        return DeepmdForceProvider(model, params, nn, system.types, box,
+                                   system.n_atoms, nbr_capacity=sel,
+                                   skin=SKIN, dd_config=dd_config,
+                                   device=DEVICE, fault_hook=hook)
+
+    prov = provider()
+
+    def engine(special=prov, **kw):
+        cfg = {k: kw.pop(k) for k in list(kw) if k in
+               ("checkpoint_every", "checkpoint_path", "loop_mode")}
+        return MDEngine(system, EngineConfig(**{**MD_CFG, **cfg}),
+                        special_force=special, **kw)
+
+    eng = engine()
+    warm = eng.run(eng.init_state(pos, 200.0), MD_WARM)
+    step0 = int(warm.step)
+    fault_step = step0 + GUARD_FAULT_AT
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_guard_")
+    trace_dir = os.path.join(tmp.name, "trace")
+    # the variants alternate (off, guard, obs, off, guard, obs) in one call
+    runs = {"off": [], "guard": [], "obs": []}
+    engines = {}
+    for _ in range(2):
+        for tag, kw in (("off", {}),
+                        ("guard", dict(guard=GuardConfig(enabled=True))),
+                        ("obs", dict(obs=ObsConfig(enabled=True,
+                                                   trace_dir=trace_dir)))):
+            engines[tag] = engine(**kw)
+            runs[tag].append(timed_run(engines[tag], warm, GUARD_STEPS))
+    ref = runs["off"][0][0]
+    for tag in runs:
+        for st, _, _ in runs[tag]:
+            if not same_state(st, ref):
+                fail(f"guard: {tag} run differs from the unguarded run")
+    check_finite_state("guard", ref)
+    # the trace the obs run flushed: validates, renders, one step record
+    # per step, the calibrated stage spans present
+    events = export.read_jsonl(os.path.join(trace_dir, "events.jsonl"))
+    export.validate_events(events)
+    steps = [e["step"] for e in events if e["type"] == "step"]
+    if steps != list(range(step0, step0 + GUARD_STEPS)):
+        fail(f"guard obs: step records {steps}")
+    frac = report.stage_fractions(events)
+    if set(frac) != {"scan.neighbor", "scan.classical", "scan.inference",
+                     "scan.integrate"}:
+        fail(f"guard obs: calibrated stages {sorted(frac)}")
+    phases = report.phase_table(events)
+
+    # an engine-level NaN inside the window: rollback, replay, same bits
+    plan = FaultPlan([FaultSpec("nan_force", step=fault_step)])
+    eng_f = engine(guard=GuardConfig(enabled=True), faults=plan)
+    kernels.reset_launch_counts()
+    st_f, wall_f, scan_f = timed_run(eng_f, warm, GUARD_STEPS)
+    counts_sd = kernels.launch_counts()
+    d = eng_f.diagnostics
+    if not (plan.faults[0].fired and d["guard_trips"] == 1
+            and d["guard_rollbacks"] == 1 and d["window_reruns"] == 1):
+        fail(f"guard: nan_force at step {fault_step}: {d}")
+    if not same_state(st_f, ref):
+        fail("guard: the recovered run differs from the fault-free run")
+    for k in SINGLE_DOMAIN_KERNELS:
+        if counts_sd[k] == 0:
+            fail(f"guard: {k} was never launched in the guarded run: "
+                 f"{counts_sd}")
+
+    # checkpoints every 5 steps, the newest truncated: fall back, resume
+    ck_root = os.path.join(tmp.name, "ck")
+    cplan = FaultPlan([FaultSpec("truncate_ckpt",
+                                 step=step0 + GUARD_STEPS)])
+    ck = AsyncCheckpointer(ck_root, keep=5, fault_plan=cplan)
+    save_ms = []
+    save = ck.save
+
+    def timed_save(tree, step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(tree, step)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+
+    ck.save = timed_save
+    eng_c = engine(checkpoint_every=5, checkpointer=ck)
+    st_c, wall_c, scan_c = timed_run(eng_c, warm, GUARD_STEPS)
+    t0 = time.perf_counter()
+    ck.wait()
+    write_tail_ms = (time.perf_counter() - t0) * 1e3
+    if not same_state(st_c, ref):
+        fail("guard: the checkpointed run differs from the unguarded run")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tree, cstep = ck.restore_latest(state_tree(warm))
+    if not (cplan.faults[0].fired and cstep == step0 + GUARD_STEPS - 5
+            and any("corrupt" in str(w.message) for w in caught)):
+        fail(f"guard: restore_latest gave step {cstep} "
+             f"(fired {cplan.faults[0].fired})")
+    resumed = engine(checkpoint_every=5).run(
+        MDEngine.restore(os.path.join(ck_root, f"step_{cstep:09d}"),
+                         device=DEVICE), step0 + GUARD_STEPS - cstep)
+    if not (same_state(resumed, ref)
+            and torch.equal(tree["positions"], MDEngine.restore(
+                os.path.join(ck_root, f"step_{cstep:09d}"),
+                DEVICE).positions)):
+        fail("guard: the restart from the fallback checkpoint differs")
+    ckpt_neighbor_ms = eng_c.timings["neighbor"] * 1e3
+    del engines, eng_f, eng_c, tree
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    def per_step(rs, i):
+        return [r[i] / GUARD_STEPS for r in rs]
+
+    line = {"phase": "guard", "mode": "single domain",
+            "atoms": system.n_atoms, "dp_atoms": len(nn),
+            "steps": GUARD_STEPS, "start_step": step0,
+            "wall_ms_per_step": {t: per_step(r, 1) for t, r in runs.items()},
+            "window_ms_per_step": {t: per_step(r, 2)
+                                   for t, r in runs.items()},
+            "wall_ms_per_step_is": "eng.run(warm, 10) synchronised, the "
+                                   "pre-loop build (and with obs the "
+                                   "calibration probes) included",
+            "window_ms_is": "timings['scan']: the windows, each ending "
+                            "in its one verdict read",
+            "guard_on_equals_off_bitwise": True,
+            "obs_on_equals_off_bitwise": True,
+            "nan_force": {"step": fault_step, "guard_trips": d["guard_trips"],
+                          "guard_rollbacks": d["guard_rollbacks"],
+                          "wall_ms": wall_f, "window_ms": scan_f,
+                          "rollback_ms": wall_f - runs["guard"][1][1],
+                          "rollback_window_ms": scan_f - runs["guard"][1][2],
+                          "recovered_bitwise": True,
+                          "launches": counts_sd},
+            "checkpoint_every_5": {
+                "wall_ms_per_step": wall_c / GUARD_STEPS,
+                "window_ms_per_step": scan_c / GUARD_STEPS,
+                "save_ms_caller_thread": save_ms,
+                "write_tail_ms": write_tail_ms,
+                "neighbor_ms_incl_rebuild_after_saves": ckpt_neighbor_ms,
+                "truncated_step": step0 + GUARD_STEPS,
+                "restored_step": cstep, "resumed_bitwise": True},
+            "obs_trace": {"events": len(events), "step_records": len(steps),
+                          "stage_fractions": frac,
+                          "phase_table": phases}}
+    print(json.dumps(line), flush=True)
+
+    # -- 8 virtual ranks: a rank-3 NaN through the pipeline's fault hook
+    coords_nn = pos[torch.as_tensor(nn, device=DEVICE)].cpu().numpy()
+    dd = suggest_config(len(nn), box, N_RANKS, model.cfg.descriptor.rcut,
+                        nbr_capacity=sel, skin=SKIN, coords=coords_nn)
+    st_ref, wall_ref, scan_ref = timed_run(engine(special=provider(dd)), warm,
+                                           GUARD_DD_STEPS)
+    rplan = FaultPlan([FaultSpec("nan_force", step=step0 + 2, rank=3)])
+    eng_r = engine(special=provider(dd, rplan.pipeline_hook()),
+                   guard=GuardConfig(enabled=True), faults=rplan)
+    kernels.reset_launch_counts()
+    st_r, wall_r, scan_r = timed_run(eng_r, warm, GUARD_DD_STEPS)
+    counts_dd = kernels.launch_counts()
+    dr = eng_r.diagnostics
+    if not (rplan.faults[0].fired and dr["guard_trips"] == 1
+            and dr["guard_rollbacks"] == 1):
+        fail(f"guard dd: rank fault: {dr}")
+    if not same_state(st_r, st_ref):
+        fail("guard dd: the recovered 8-rank run differs from the "
+             "fault-free one")
+    for k in DP_KERNELS:
+        if counts_dd[k] == 0:
+            fail(f"guard dd: {k} was never launched: {counts_dd}")
+    print(json.dumps({"phase": "guard", "mode": "dd", "ranks": dd.n_ranks,
+                      "steps": GUARD_DD_STEPS, "fault": "nan_force rank 3 "
+                      f"at step {step0 + 2}",
+                      "wall_ms": {"fault_free": wall_ref, "recovered": wall_r},
+                      "window_ms": {"fault_free": scan_ref,
+                                    "recovered": scan_r},
+                      "rollback_ms": wall_r - wall_ref,
+                      "guard_trips": dr["guard_trips"],
+                      "recovered_bitwise": True, "launches": counts_dd}),
+          flush=True)
+    print(f"[guard] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts_sd, counts_dd
 
 
 # ---------------------------------------------------------------------------
@@ -2152,6 +2428,10 @@ def main():
         phase_md(model, params)
         print("[md] every check passed (md phase alone)", flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "guard"]:
+        phase_guard(model, params)
+        print("[guard] every check passed (guard phase alone)", flush=True)
+        return 0
     phase_kernels(model, params, 0.0)            # single_domain_forces, K = 64
     kres = phase_kernels(model, params, SKIN, main=True)  # the provider's K
     # K = 128: the MD cutoff (r_c = 0.8, ~64 neighbours) with sel 128, where
@@ -2171,6 +2451,7 @@ def main():
     cf_row, counts, per_call, dd_scatter = phase_dd(model, params)
     kres["cell_filter"] = cf_row
     md_sd, md_dd = phase_md(model, params)
+    guard_sd, guard_dd = phase_guard(model, params)
     del model, params
     torch.cuda.empty_cache()
     lm_rows, lm_launches = phase_lm()
@@ -2185,6 +2466,8 @@ def main():
                      "launches_single_domain": counts_sd[name],
                      "launches_per_md_step": md_sd[name],
                      "launches_per_md_step_dd": md_dd[name],
+                     "launches_guarded_md": guard_sd[name],
+                     "launches_guarded_md_dd": guard_dd[name],
                      "K": r.get("K"), "max_abs_err": r["max_err"],
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2212,6 +2495,8 @@ def main():
             **lm_launches[name],
             "launches_per_md_step": md_sd[name],
             "launches_per_md_step_dd": md_dd[name],
+            "launches_guarded_md": guard_sd[name],
+            "launches_guarded_md_dd": guard_dd[name],
             "shape": ("prefill, global layer: q (4, 8, 6144, 256), k/v "
                       "(4, 4, 6144, 256), bf16, causal, softcap 50"
                       if name == "flash_attention" else

@@ -29,9 +29,11 @@ from .ddinfer import (DDConfig, single_domain_forces,
                       single_domain_forces_nlist, single_domain_state)
 from .pipeline import ForcePipeline
 
-# per-step device counters of a distributed evaluation (obs layer keys)
+# DD diag entries surfaced as per-step observability counters (see
+# repro_torch.obs.trace): everything the Fig. 12 / imbalance reports read
 _COUNTER_KEYS = ("local_count", "ghost_count", "cost_max", "cost_ratio",
-                 "rank_cost", "nbr_occupancy", "rank_occupancy", "max_disp2")
+                 "rank_cost", "nbr_occupancy", "rank_occupancy", "max_disp2",
+                 "interior_frac", "rank_nonfinite")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +72,10 @@ class DeepmdForceProvider:
       capacity and saturates the model-facing ``k_eval`` at 128.  Without a
       skin every call runs the fused per-step pipeline.
 
+    ``fault_hook`` (``health.FaultPlan.pipeline_hook()``) is threaded into
+    every :class:`ForcePipeline` the provider builds: the rank-targeted
+    fault seam; without it the computation is unchanged.
+
     Extension hooks (model units, NN group): ``backend_build_fns`` (the
     distributed functions), and for one domain ``backend_assemble``,
     ``backend_needs_rebuild``, ``backend_evaluate``, ``backend_forces``.
@@ -81,7 +87,8 @@ class DeepmdForceProvider:
     def __init__(self, model: DPModel, params, nn_indices: np.ndarray,
                  types, box, n_atoms: int, dd_config=None, mesh=None,
                  units: UnitConversion = UnitConversion(),
-                 nbr_capacity: int = 64, skin: float = 0.0, device="cuda"):
+                 nbr_capacity: int = 64, skin: float = 0.0, device="cuda",
+                 fault_hook=None):
         if mesh is not None:
             raise ValueError(
                 "the port's decomposition ranks are virtual: they run as a "
@@ -105,6 +112,7 @@ class DeepmdForceProvider:
                           * units.length_to_model)
         self.n_nn = len(nn_indices)
         self.dd_config = dd_config
+        self.fault_hook = fault_hook
         if dd_config is not None:
             self.skin = dd_config.skin
         else:
@@ -127,7 +135,8 @@ class DeepmdForceProvider:
             self.pipeline = None
             return
         self.pipeline = ForcePipeline(self.model, self.dd_config,
-                                      self.box_model, self.n_nn)
+                                      self.box_model, self.n_nn,
+                                      fault_hook=self.fault_hook)
         self._dist_fn = self.pipeline.build_force_fn()
         self._asm_fn = self.pipeline.build_assembly_fn()
         self._eval_fn = self.pipeline.build_evaluation_fn()
@@ -182,7 +191,8 @@ class DeepmdForceProvider:
             e, f_nn, diag = self._eval_fn(self.params, nn_pos, state)
             flags = {"overflow": diag["overflow"] > 0,
                      "needs_rebuild": diag["needs_rebuild"],
-                     "counters": {k: diag[k] for k in _COUNTER_KEYS}}
+                     "counters": {k: diag[k] for k in _COUNTER_KEYS
+                                  if k in diag}}
         else:
             e, f_nn, flags = self.backend_evaluate(nn_pos, state)
         e, forces = self._to_engine(e, f_nn, positions)

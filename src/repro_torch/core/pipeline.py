@@ -20,8 +20,13 @@ ranks, pmax a max, psum_scatter a sum followed by a slice).  All ranks'
 buffers go through the model as one flattened (G*C)-row batch, so each
 model kernel launches once per force call.
 
-Not ported yet (ROADMAP Queue 1 item 5): the comms/compute overlap mode,
-replica batching, the phase probes and the health fault hook.
+Also here: the health layer's ``fault_hook`` seam on the pre-reduce
+per-rank forces (:meth:`ForcePipeline._post_eval`), the per-rank
+``rank_nonfinite`` diagnostic, and the prefix phase probes
+(:meth:`ForcePipeline.build_phase_probes`, the paper's Fig. 12 split with
+:func:`repro_torch.obs.timed_prefix_phases`).  Not ported yet: the
+comms/compute overlap mode (ROADMAP Queue 1 item 5) and replica batching
+(item 7).
 """
 from __future__ import annotations
 
@@ -193,12 +198,15 @@ def _evaluate_rank(model: DPModel, params, coords_all, ref_all, st: dict,
 @dataclasses.dataclass(frozen=True)
 class Stage:
     """One pipeline stage: a body over a context dict, with its in/out keys
-    declared."""
+    declared and an optional probe reducer (a per-rank value that depends
+    on every expensive output of the stage, which a prefix probe through
+    this stage returns)."""
 
     name: str
     inputs: tuple
     outputs: tuple
     body: Callable            # body(ctx) -> None (mutates ctx)
+    probe: Optional[Callable] = None   # probe(ctx) -> (G,) per-rank values
 
 
 class ForcePipeline:
@@ -207,12 +215,14 @@ class ForcePipeline:
 
     The ``build_*`` methods return functions with the JAX signatures:
     ``build_force_fn`` (fused per-step), ``build_assembly_fn`` +
-    ``build_evaluation_fn`` + ``build_check_fn`` (amortized split).
-    ``model=None`` builds a check-only pipeline.
+    ``build_evaluation_fn`` + ``build_check_fn`` (amortized split),
+    ``build_phase_probes``.  ``model=None`` builds a check-only pipeline.
+    ``fault_hook`` (``health.FaultPlan.pipeline_hook``) sees the per-rank
+    results before the force reduction; without it nothing changes.
     """
 
     def __init__(self, model: Optional[DPModel], cfg: DDConfig, box,
-                 n_atoms: int):
+                 n_atoms: int, fault_hook=None):
         box = torch.as_tensor(box, dtype=F32)
         cfg.validate(box.cpu().numpy())
         self.ax = _AxisOps(cfg.n_ranks)
@@ -223,6 +233,7 @@ class ForcePipeline:
         self.n_pad = cfg.padded_atoms(n_atoms)
         self.chunk = self.n_pad // cfg.n_ranks
         self.rcut = model.cfg.descriptor.rcut if model is not None else 0.0
+        self.fault_hook = fault_hook
         self.stages = self._fused_stages()
 
     def _require_model(self, what: str) -> None:
@@ -257,6 +268,8 @@ class ForcePipeline:
              ctx["stats"]) = _evaluate_rank(model, ctx["params"], coords,
                                             coords, ctx["st"],
                                             self._box(coords), cfg, rcut)
+            ctx["e_local"], ctx["f_global"] = self._post_eval(
+                ctx["e_local"], ctx["f_global"])
 
         def reduce(ctx):
             st = ctx["st"]
@@ -269,6 +282,7 @@ class ForcePipeline:
                     "ghost_count": ax.psum(g_count),
                     "cost_max": cost_max,
                     "rank_cost": ax.gather_ranks(l_count + g_count),
+                    "rank_nonfinite": self._rank_nonfinite(ctx["f_global"]),
                     **self._occupancy_diag(ctx["stats"]),
                     "overflow": ax.psum(ovf.to(torch.int32))}
             diag["cost_ratio"] = (
@@ -277,14 +291,47 @@ class ForcePipeline:
                                   1).to(F32))
             ctx["diag"] = diag
 
+        g = cfg.n_ranks
+
+        def per_rank(x):
+            return x.reshape(g, -1).sum(1)
+
         return (
-            Stage("gather", ("coords_shard",), ("coords_all",), gather),
-            Stage("assembly", ("coords_all", "types_all"), ("st",), assemble),
+            Stage("gather", ("coords_shard",), ("coords_all",), gather,
+                  probe=lambda ctx: ctx["coords_all"].sum().expand(g)),
+            Stage("assembly", ("coords_all", "types_all"), ("st",), assemble,
+                  probe=lambda ctx: (
+                      per_rank(ctx["st"]["nbr_idx"]).to(F32)
+                      + per_rank(ctx["st"]["nbr_mask"]).to(F32)
+                      + ctx["st"]["local_count"].to(F32)
+                      + ctx["st"]["ghost_count"].to(F32))),
             Stage("inference", ("params", "coords_all", "st"),
-                  ("e_local", "f_global", "trim_ovf", "stats"), evaluate),
+                  ("e_local", "f_global", "trim_ovf", "stats"), evaluate,
+                  probe=lambda ctx: (ctx["e_local"]
+                                     + per_rank(ctx["f_global"]))),
             Stage("force_reduce", ("e_local", "f_global", "st"),
                   ("energy", "forces", "diag"), reduce),
         )
+
+    def _post_eval(self, e_local, f_global):
+        """Fault-injection seam on the pre-reduce per-rank results.
+
+        The hook (``health.FaultPlan.pipeline_hook``) poisons a target
+        rank's slice of ``f_global`` (G, n, 3) before the force reduction,
+        so the failure propagates the way a real blown rank's would.  It
+        reads its armed/unfired specs at each call: with nothing armed it
+        returns its inputs."""
+        if self.fault_hook is None:
+            return e_local, f_global
+        rank = torch.arange(self.cfg.n_ranks, device=f_global.device)
+        return self.fault_hook(rank, 0, e_local, f_global)
+
+    def _rank_nonfinite(self, f_global):
+        """Per-rank count of non-finite entries in the pre-reduce force
+        scatter (G,) int32: the per-rank attribution signal for blown
+        evaluations."""
+        bad = (~torch.isfinite(f_global)).sum((-2, -1)).to(torch.int32)
+        return self.ax.gather_ranks(bad)
 
     def _reduce_forces(self, e_local, f_global):
         ax, cfg = self.ax, self.cfg
@@ -368,9 +415,11 @@ class ForcePipeline:
             e_local, f_global, trim_ovf, stats = _evaluate_rank(
                 model, params, coords_all, st.ref, st_d,
                 self._box(coords), cfg, rcut)
+            e_local, f_global = self._post_eval(e_local, f_global)
             energy, forces = self._reduce_forces(e_local, f_global)
             disp2 = self._disp2(coords_all, st.ref)
-            diag = self._eval_diag(st, st_d, trim_ovf, stats, disp2)
+            diag = self._eval_diag(st, st_d, trim_ovf, stats, disp2,
+                                   f_global)
             return energy, forces[:n_atoms], diag
 
         return evaluate
@@ -390,7 +439,7 @@ class ForcePipeline:
         return (disp2 > half) | (overflow > 0)
 
     def _eval_diag(self, st: DDState, st_d: dict, trim_ovf, stats,
-                   disp2) -> dict:
+                   disp2, f_global) -> dict:
         ax, cfg = self.ax, self.cfg
         overflow = st.overflow + ax.psum(trim_ovf.to(torch.int32))
         total = st.local_count + st.ghost_count
@@ -399,6 +448,7 @@ class ForcePipeline:
         return {"local_count": st.local_count, "ghost_count": st.ghost_count,
                 "overflow": overflow, "max_disp2": disp2,
                 "cost_max": st.cost_max, "rank_cost": rank_cost,
+                "rank_nonfinite": self._rank_nonfinite(f_global),
                 **self._occupancy_diag(stats),
                 # max/mean per-rank Eq.-8 cost: the load-imbalance figure
                 "cost_ratio": st.cost_max * cfg.n_ranks
@@ -415,3 +465,29 @@ class ForcePipeline:
                                        st.overflow)
 
         return check
+
+    def build_phase_probes(self) -> dict:
+        """Prefix probes attributing the fused force function's cost to its
+        stages: a walk over ``self.stages``, probe *k* running the pipeline
+        through stage *k* and returning that stage's per-rank probe values
+        (G,), so successive wall-time differences
+        (:func:`repro_torch.obs.timed_prefix_phases`) measure the paper's
+        Fig. 12 shares.  The last entry IS :meth:`build_force_fn`."""
+        self._require_model("build_phase_probes")
+        probes = {}
+        for i, stage in enumerate(self.stages):
+            if stage.probe is None:
+                continue
+            prefix = self.stages[: i + 1]
+
+            def fn(params, coords, types, _prefix=prefix, _stage=stage):
+                shards, types_p = self._shard(coords, types)
+                ctx = {"params": params, "coords_shard": shards,
+                       "types_all": types_p}
+                for s in _prefix:
+                    s.body(ctx)
+                return _stage.probe(ctx)
+
+            probes[stage.name] = fn
+        probes[self.stages[-1].name] = self.build_force_fn()
+        return probes

@@ -1,13 +1,17 @@
 """Health monitors: cheap device-side invariant checks.
 
 Port of ``repro/health/guards.py``.  ``GuardConfig`` is off by default;
-with ``enabled=False`` the engine runs no check.  The port's engine refuses
-``enabled=True`` until rollback and checkpoints land (ROADMAP item 8), but
-:func:`step_guard_trip` is whole here and held against the JAX package.
+with ``enabled=False`` the engine runs no check and carries no flag.  With
+``enabled=True`` the per-step check :func:`step_guard_trip` runs inside
+every step of the engine's windows (and of the per-step loop): its result
+is a per-trajectory boolean flag OR-reduced on the device across the
+window and read with the window's ``nlist_overflow`` / ``sp_overflow``
+flags, in the same host read.
 
 The checks are *outputs only*: nothing they compute feeds back into the
 physics, so an enabled-but-quiet run is bitwise-identical to an unguarded
-one.
+one.  Recovery from a tripped flag is the engine's job (the verdict ->
+policy table in :mod:`repro_torch.health.verdict`).
 """
 from __future__ import annotations
 

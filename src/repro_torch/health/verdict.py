@@ -12,10 +12,14 @@ verdict kind           policy              meaning / action
 ``capacity_overflow``  ``grow_replay``     double the overflowed capacity,
                                            replay the window from its saved
                                            start
-``guard_trip``         ``rollback_replay`` roll back to the window start and
-                                           replay (guards: ROADMAP item 8)
+``guard_trip``         ``rollback_replay`` roll back to the window start (or
+                                           the last verified checkpoint if
+                                           the start is tainted) and replay:
+                                           first at the original dt, then
+                                           with dt shrunk by
+                                           ``GuardConfig.dt_shrink``
 ``unrecoverable``      ``emergency_dump``  write an emergency checkpoint and
-                                           raise (ROADMAP item 8)
+                                           diagnostics bundle, then raise
 =====================  ==================  ===================================
 
 ``trip_mask`` is shaped like the engine's ``_batch_shape`` so a batched

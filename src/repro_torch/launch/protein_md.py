@@ -11,12 +11,15 @@ DP evaluation over ``--ranks`` virtual ranks.
 
 Prints E_dp, the temperature and the gyration radii of the DP group at
 every fifth step, with the decomposition's ghost count and overflow flag.
-Weights are random, from a seeded ``torch.Generator``.  ``--ckpt-dir`` is
-not ported yet (ROADMAP Queue 1 item 8).
+Weights are random, from a seeded ``torch.Generator``.  ``--ckpt-dir DIR``
+checkpoints the state to DIR every 10 steps (``checkpoint_path``, as the
+reference's example); when DIR already holds a checkpoint the run resumes
+from it and runs ``--steps`` more steps.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -48,10 +51,6 @@ def parse_args(argv=None):
 def main(argv=None, quiet: bool = False):
     """Run the MD entry point; returns (final MDState, engine)."""
     args = parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise NotImplementedError(
-            "--ckpt-dir (checkpoint/restart) is not ported yet (ROADMAP "
-            "Queue 1 item 8 (ckpt/ and health/))")
     dev = resolve_device(args.device)
     say = (lambda *a: None) if quiet else print
     system, positions, nn_idx = build_solvated_protein(args.residues,
@@ -76,9 +75,15 @@ def main(argv=None, quiet: bool = False):
                                    system.n_atoms, dd_config=dd, device=dev)
     eng = MDEngine(system,
                    EngineConfig(cutoff=0.9, neighbor_capacity=96, dt=0.0005,
-                                thermostat_t=200.0),
+                                thermostat_t=200.0,
+                                checkpoint_every=10 if args.ckpt_dir else 0,
+                                checkpoint_path=args.ckpt_dir),
                    special_force=provider)
     state = eng.init_state(positions, 200.0)
+    if args.ckpt_dir and os.path.exists(os.path.join(args.ckpt_dir,
+                                                     "manifest.json")):
+        state = MDEngine.restore(args.ckpt_dir, device=dev)
+        say(f"[restore] resumed from step {int(state.step)}")
     sel = system.nn_mask
 
     def observe(s, obs):

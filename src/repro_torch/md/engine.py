@@ -5,55 +5,69 @@ domain decomposition / load balance, (3) position exchange, (4)
 neighbor-list construction, (5) interaction evaluation, (6) special force
 (NNPot), (7) force reduction + update, (8) output.  Stages (2), (3) and the
 NN part of (6) live in ``repro_torch.core``; this module owns the host
-loop and the classical interactions.  It runs on the device of its
-``System``; the special force must live there too.
+loop, the classical interactions, and checkpoint/restart fault tolerance.
+It runs on the device of its ``System``; the special force must live there
+too.
 
 Two host-loop modes (``EngineConfig.loop_mode``), over the reference's
-window boundaries (``_segment_len``: rebuild cadence, observation, end of
-run):
+window boundaries (``_segment_len``: rebuild cadence, observation,
+checkpoint, end of run):
 
 ``"scan"`` (default)
     Each window runs its steps back to back with no per-stage
     synchronisation.  Where JAX folds the displacement-triggered rebuilds
     into ``lax.cond`` branches, the port branches on the host: one host
     read per step fetches both rebuild flags (the classical list's and the
-    special force's state's).  A list that overflows inside a window flags
-    the window, which is replayed from its saved start after the capacity
-    grows (the ``WindowVerdict`` -> ``RECOVERY_POLICY`` dispatch).
+    special force's state's).  Everything else a window reports stays on
+    the device until its end: the overflow flags, the guard-trip flag and
+    the observability counters come back in one host read with the
+    window's verdict.
 
 ``"step"``
     One host round trip per stage, the neighbor / classical / special /
     integrate stages timed apart (synchronised), growth inline: the
     paper-Fig.-9 overhead decomposition.
 
+Every window ends in a :class:`~repro_torch.health.WindowVerdict`
+dispatched through ``RECOVERY_POLICY``: capacity overflow grows and
+replays the window from its saved start; a numerical guard trip
+(``GuardConfig``: NaN/Inf, displacement bound, temperature ceiling,
+energy jump) rolls back to the window start, or to the last verified
+``AsyncCheckpointer`` step when the start itself is tainted, and replays,
+first at the original dt (an injected one-shot fault then replays bit for
+bit fault-free) and then with a shrunk dt; exhausted recovery dumps an
+emergency checkpoint and a diagnostics bundle before raising.
+``repro_torch.health.FaultPlan`` injects faults deterministically.
+``obs`` (an ``ObsConfig`` or ``Tracer``) records spans, per-step counters
+and, in scan mode, calibrated per-stage timings.
+
 No graph outlives a step: the run is under ``torch.no_grad`` and the force
-calls differentiate inside their own ``enable_grad``.  Not ported yet, and
-refused when asked for: observability (``obs``, ROADMAP Queue 1 item 9),
-guards, fault injection, checkpoints and emergency dumps (item 8).
+calls differentiate inside their own ``enable_grad``.  A replica-batched
+engine (``_batch_shape`` other than ``()``, ROADMAP Queue 1 item 7) is not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..backend import ForceBackend, ForceRequest
-from ..health import GuardConfig, WindowVerdict
+from ..device import resolve_device
+from ..health import (GuardConfig, GuardTripError, WindowVerdict,
+                      dump_emergency, step_guard_trip)
+from ..obs import Tracer
+from ..obs.trace import read_host
 from . import observables
 from .forcefield import ForceFieldConfig, classical_forces
 from .integrators import (MDState, berendsen_rescale, init_velocities,
                           leapfrog_step)
 from .neighbors import NeighborList, build_neighbor_list, needs_rebuild
 from .system import System
-
-_ITEM_8 = "ROADMAP Queue 1 item 8 (ckpt/ and health/)"
-_ITEM_9 = "ROADMAP Queue 1 item 9 (obs/)"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 @dataclasses.dataclass
@@ -65,11 +79,11 @@ class EngineConfig:
     rebuild_every: int = 10            # also displacement-triggered
     thermostat_t: Optional[float] = None
     thermostat_tau: float = 0.5
-    checkpoint_every: int = 0          # steps; 0 = off (item 8)
+    checkpoint_every: int = 0          # steps; 0 = off
     checkpoint_path: Optional[str] = None
     loop_mode: str = "scan"            # "scan" (windows) | "step"
     max_capacity_growths: int = 6      # doublings before giving up
-    emergency_path: Optional[str] = None  # unrecoverable-verdict dumps (item 8)
+    emergency_path: Optional[str] = None  # unrecoverable-verdict dump root
     ff: ForceFieldConfig = dataclasses.field(default_factory=ForceFieldConfig)
 
 
@@ -83,15 +97,27 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
         b.index if b.index is not None else cur)
 
 
+def state_tree(state: MDState) -> dict:
+    """The state's fields as a dict of its own tensors (what a checkpoint
+    holds; ``dataclasses.asdict`` would deep-copy them)."""
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+
+
 class MDEngine:
     """Host-side loop of the MD engine.
 
+    Fault tolerance: ``checkpoint_every`` snapshots (positions, velocities,
+    forces, step, rng) via ``repro_torch.ckpt`` (to ``checkpoint_path``
+    and/or an ``AsyncCheckpointer``); ``MDEngine.restore`` resumes a run
+    bit for bit (deterministic integrator, stored generator state).
+
     The window machinery (segments between host boundaries, displacement
-    rebuilds inside them, grow-and-replay on overflow, observe cadence) is
-    meant to be shared with a replica-batched engine: per-trajectory flags
-    are shaped ``_batch_shape`` (``()`` here), host decisions reduce with
-    any()/sum(), and the rebuild check / integrator / observation packaging
-    are overridable hooks.
+    rebuilds inside them, grow-and-replay on overflow, rollback-and-replay
+    on a guard trip, observe and checkpoint cadence) is meant to be shared
+    with a replica-batched engine: per-trajectory flags are shaped
+    ``_batch_shape`` (``()`` here), host decisions reduce with any()/sum(),
+    and the rebuild check / integrator / observation packaging are
+    overridable hooks.
     """
 
     _batch_shape: tuple = ()        # leading shape of per-trajectory flags
@@ -101,20 +127,6 @@ class MDEngine:
                  special_force: Optional[ForceBackend] = None,
                  obs=None, guard: Optional[GuardConfig] = None,
                  faults=None, checkpointer=None):
-        if obs is not None:
-            raise _not_ported("observability (obs)", _ITEM_9)
-        if guard is not None and guard.enabled:
-            raise _not_ported("guarded execution (guard.enabled)", _ITEM_8)
-        if faults is not None:
-            raise _not_ported("fault injection (faults)", _ITEM_8)
-        if checkpointer is not None:
-            raise _not_ported("asynchronous checkpoints (checkpointer)",
-                              _ITEM_8)
-        if config.checkpoint_every or config.checkpoint_path:
-            raise _not_ported("checkpoints (checkpoint_every, "
-                              "checkpoint_path)", _ITEM_8)
-        if config.emergency_path:
-            raise _not_ported("emergency dumps (emergency_path)", _ITEM_8)
         self.system = system
         self.device = system.device
         sp_dev = getattr(special_force, "device", None)
@@ -126,6 +138,15 @@ class MDEngine:
                 "and moves no force between devices")
         self.config = config
         self.special_force = special_force
+        # obs is a Tracer, an ObsConfig, or None (disabled); decided at
+        # construction, like the reference's trace-time choice
+        self.tracer = Tracer.ensure(obs)
+        # a disabled guard computes and carries nothing: the unguarded run
+        self.guard = guard if guard is not None else GuardConfig()
+        self._guard_on = bool(self.guard.enabled)
+        self.faults = faults                 # Optional[health.FaultPlan]
+        self.checkpointer = checkpointer     # Optional[AsyncCheckpointer]
+        self._last_state = None              # for emergency dumps
         self._stateful = bool(getattr(special_force, "stateful", False))
         # host-side backends block on host round trips: per-step loop
         self._host_special = bool(getattr(special_force, "host_side", False))
@@ -135,6 +156,12 @@ class MDEngine:
         self.diagnostics: dict = self._init_diagnostics()
 
     def _init_timings(self) -> dict:
+        # timings and per-step counter records share a lifetime (per run):
+        # clearing them together keeps a second run() from leaking the
+        # previous run's step counters into the next trace
+        tracer = getattr(self, "tracer", None)
+        if tracer is not None:
+            tracer.clear_steps()
         return {"classical": 0.0, "special": 0.0, "integrate": 0.0,
                 "neighbor": 0.0, "scan": 0.0}
 
@@ -145,14 +172,19 @@ class MDEngine:
                 "special_rebuilds": 0,
                 "cadence_rebuilds": 0,
                 "window_reruns": 0,
+                "guard_trips": 0,
+                "guard_rollbacks": 0,
+                "checkpoint_restores": 0,
                 "emergency_dumps": []}
 
     def reset(self) -> None:
-        """Zero ``timings`` and ``diagnostics``.  ``run`` resets ``timings``
-        on entry (they are per-run); ``diagnostics`` are cumulative across
-        runs (capacity growths outlive the run that triggered them)."""
+        """Zero ``timings`` and ``diagnostics`` and clear the tracer's event
+        buffer.  ``run`` resets ``timings`` on entry (they are per-run);
+        ``diagnostics`` are cumulative across runs (capacity growths
+        outlive the run that triggered them)."""
         self.timings = self._init_timings()
         self.diagnostics = self._init_diagnostics()
+        self.tracer.reset()
 
     def _sync(self) -> None:
         """Wait for the device (``jax.block_until_ready`` in the reference)."""
@@ -190,14 +222,20 @@ class MDEngine:
         self._integrate_fn = (
             lambda state, f: self._integrate_one(state, f, cfg.thermostat_t))
 
-    def _step_parts(self, state: MDState, nlist: NeighborList, sp_state):
+    def _step_parts(self, state: MDState, nlist: NeighborList, sp_state,
+                    e_prev=None):
         """One step from already-valid lists: the scan windows' core.
 
         Returns (new_state, nlist_out, sp_state_out, e_cl, e_sp, rb, sp_rb,
-        sp_ovf): ``rb`` and ``sp_rb`` are host bools, fetched together in
-        the step's one host read; ``sp_ovf`` stays on the device.  The
-        special force is evaluated before the classical list is rebuilt
-        (the two are independent), so both flags are known at once.
+        sp_ovf, trip, rec): ``rb`` and ``sp_rb`` are host bools, fetched
+        together in the step's one host read; ``sp_ovf``, ``trip`` (the
+        guard flag, None with the guard off) and the counter record ``rec``
+        (empty unless ``tracer.wants_counters``) stay on the device.
+        ``e_prev`` is the previous step's total potential energy for the
+        energy-jump guard.  The special force is evaluated before the
+        classical list is rebuilt (the two are independent), so both
+        rebuild flags are known at once; injected faults gate on
+        ``state.step`` on the device.
         """
         special = self.special_force
         rb = self._check_rebuild(nlist, state.positions).any()
@@ -205,6 +243,7 @@ class MDEngine:
         sp_ovf = torch.zeros(self._batch_shape, dtype=torch.bool,
                              device=self.device)
         f_sp, sp_rb = None, False
+        sp_counters: dict = {}
         if special is not None and self._stateful:
             # evaluate first: the displacement check comes out of the
             # evaluation's own flags; when it fires, the stale result is
@@ -225,12 +264,28 @@ class MDEngine:
                     e_sp, f_sp, fl = special.evaluate(state.positions,
                                                       sp_state)
                 sp_ovf = torch.as_tensor(fl["overflow"], device=self.device)
+                sp_counters = fl.get("counters", {})
             else:
                 e_sp, f_sp = self._eval_special_stateless(state.positions,
                                                           self.system.box)
             f = f + f_sp
+        if self.faults is not None:
+            # exact-step injection seam; a fully fired plan returns f
+            f, sp_ovf = self.faults.apply_engine(state.step, f, sp_ovf)
         new = self._integrate_fn(state, f)
-        return new, nlist, sp_state, e_cl, e_sp, rb, sp_rb, sp_ovf
+        trip = None
+        if self._guard_on:
+            trip = step_guard_trip(self.guard, state.positions, new,
+                                   self.system.masses, self.system.box,
+                                   e_cl + e_sp, e_prev)
+        rec = {}
+        if self.tracer.wants_counters:
+            rec = {"e_classical": e_cl, "e_special": e_sp,
+                   "rebuild": rb, "sp_rebuild": sp_rb,
+                   "nlist_overflow": nlist.overflow, "sp_overflow": sp_ovf,
+                   **sp_counters}
+        return (new, nlist, sp_state, e_cl, e_sp, rb, sp_rb, sp_ovf, trip,
+                rec)
 
     def _check_rebuild(self, nlist: NeighborList, positions) -> torch.Tensor:
         """Displacement-triggered rebuild flag(s), shaped ``_batch_shape``."""
@@ -239,22 +294,41 @@ class MDEngine:
 
     def _run_window(self, k: int, state, nlist, sp_state):
         """``k`` steps back to back (JAX's ``lax.scan`` window): returns the
-        carry and the window's flags (rebuild counts on the host, overflow
-        flags on the device)."""
+        carry, the window's flags (rebuild counts on the host, overflow and
+        guard flags on the device) and the per-step counters stacked along
+        the step axis (``{}`` with the tracer off)."""
+        bs = self._batch_shape
         flags = {"rebuilds": 0, "sp_rebuilds": 0,
-                 "nlist_overflow": torch.zeros(self._batch_shape,
-                                               dtype=torch.bool,
+                 "nlist_overflow": torch.zeros(bs, dtype=torch.bool,
                                                device=self.device)}
         flags["sp_overflow"] = flags["nlist_overflow"]
+        e_prev = None
+        if self._guard_on:
+            flags["guard_trip"] = flags["nlist_overflow"]
+            # NaN disables the first step's energy-jump comparison
+            # (IEEE: NaN > thr is False) without a first-step flag
+            e_prev = torch.full(bs, float("nan"), device=self.device)
         e_cl = e_sp = None
+        recs = []
         for _ in range(k):
-            (state, nlist, sp_state, e_cl, e_sp, rb, sp_rb,
-             sp_ovf) = self._step_parts(state, nlist, sp_state)
+            (state, nlist, sp_state, e_cl, e_sp, rb, sp_rb, sp_ovf, trip,
+             rec) = self._step_parts(state, nlist, sp_state, e_prev=e_prev)
             flags["rebuilds"] += int(rb)
             flags["sp_rebuilds"] += int(sp_rb)
             flags["nlist_overflow"] = flags["nlist_overflow"] | nlist.overflow
             flags["sp_overflow"] = flags["sp_overflow"] | sp_ovf
-        return state, nlist, sp_state, flags, e_cl, e_sp
+            if self._guard_on:
+                flags["guard_trip"] = flags["guard_trip"] | trip
+                e_prev = e_cl + e_sp
+            if rec:
+                recs.append(rec)
+        stacked = {}
+        for key in (recs[0] if recs else ()):
+            vals = [r[key] for r in recs]
+            stacked[key] = (torch.stack(vals)
+                            if isinstance(vals[0], torch.Tensor)
+                            else np.asarray(vals))
+        return state, nlist, sp_state, flags, e_cl, e_sp, stacked
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -315,10 +389,10 @@ class MDEngine:
 
     # -- main loop ---------------------------------------------------------
 
-    def _segment_len(self, i: int, n_steps: int, observing: bool,
-                     observe_every: int) -> int:
-        """Steps until the next host boundary (rebuild cadence, observe, or
-        end of run), counting from relative step ``i``."""
+    def _segment_len(self, i: int, abs_step: int, n_steps: int,
+                     observing: bool, observe_every: int) -> int:
+        """Steps until the next host boundary (rebuild cadence, observe,
+        checkpoint, or end of run), counting from relative step ``i``."""
         cfg = self.config
         ends = [n_steps]
         re = cfg.rebuild_every
@@ -330,159 +404,470 @@ class MDEngine:
             # observation happens after relative steps 1, 1+obs, 1+2*obs, ...
             ends.append(i + 1 if i % observe_every == 0
                         else ((i - 1) // observe_every + 1) * observe_every + 1)
+        if cfg.checkpoint_every and (cfg.checkpoint_path
+                                     or self.checkpointer is not None):
+            # abs_step is the absolute step count at relative step i
+            ce = cfg.checkpoint_every
+            ends.append(i + (-abs_step - 1) % ce + 1)
         return max(1, min(e for e in ends if e > i) - i)
 
-    def _window_verdict(self, flags) -> WindowVerdict:
-        """Host-side verdict for one finished window's device flags (one
-        host read).  Guards are refused, so no guard trip arises."""
-        nlist_ovf, sp_ovf = torch.stack([flags["nlist_overflow"].any(),
-                                         flags["sp_overflow"].any()]).tolist()
+    def _window_verdict(self, flags, recs=None):
+        """Host-side verdict for one finished window: the overflow flags,
+        the guard flag and the stacked counters ``recs`` come back in ONE
+        host read.  Returns (verdict, host counters).
+
+        Capacity overflow takes precedence over a guard trip: an overflowed
+        window computed truncated forces, so any trip it reports is judged
+        afresh on the grown replay."""
+        recs = recs or {}
+        vals = [flags["nlist_overflow"].any(), flags["sp_overflow"].any()]
+        if "guard_trip" in flags:
+            vals.append(flags["guard_trip"])
+        host = read_host(vals + list(recs.values()))
+        nlist_ovf, sp_ovf = bool(host[0]), bool(host[1])
+        host_recs = dict(zip(recs, host[len(vals):]))
         if nlist_ovf or sp_ovf:
             return WindowVerdict("capacity_overflow",
                                  detail={"nlist": nlist_ovf,
-                                         "special": sp_ovf})
-        return WindowVerdict("ok")
+                                         "special": sp_ovf}), host_recs
+        if "guard_trip" in flags and bool(host[2].any()):
+            return WindowVerdict("guard_trip", trip_mask=host[2]), host_recs
+        return WindowVerdict("ok"), host_recs
 
-    def _run_segment_scan(self, state, nlist, sp_state, k: int):
+    def _run_segment_scan(self, state, nlist, sp_state, k: int,
+                          step0: Optional[int] = None):
         """One window, dispatched through the ``WindowVerdict`` ->
-        ``RECOVERY_POLICY`` table: commit, or grow and replay from the
-        window's saved start on capacity overflow."""
+        ``RECOVERY_POLICY`` table: commit / grow-and-replay on capacity
+        overflow / rollback-and-replay on a guard trip (escalating to an
+        emergency dump when recovery is exhausted).  ``step0`` is the
+        window's absolute start step, known to the caller (read from the
+        state when None)."""
+        tracer = self.tracer
         start = (state, nlist, sp_state)
-        while True:
-            t0 = time.perf_counter()
-            (state, nlist, sp_state, flags, e_cl,
-             e_sp) = self._run_window(k, *start)
-            self._sync()
-            self.timings["scan"] += time.perf_counter() - t0
-            verdict = self._window_verdict(flags)
-            if verdict.policy == "commit":
-                self.diagnostics["displacement_rebuilds"] += flags["rebuilds"]
-                self.diagnostics["special_rebuilds"] += flags["sp_rebuilds"]
-                return state, nlist, sp_state, e_cl, e_sp
-            self.diagnostics["window_reruns"] += 1
-            state0, nlist0, sp_state0 = start
-            # grow whichever capacity overflowed: correctness over
-            # throughput on the rare growth event
-            if verdict.detail["nlist"]:
-                self._grow_neighbor_capacity()
-                nlist0 = self._build_nlist_grown(state0.positions)
-            if self._stateful and verdict.detail["special"]:
-                self.special_force.grow()
-                self.diagnostics["special_growths"] += 1
-                sp_state0 = self._assemble_special_grown(state0.positions)
-            start = (state0, nlist0, sp_state0)
+        if step0 is None:
+            step0 = self._abs_step(state)
+        committed = None   # first tripped window's results, for masking
+        mask0 = None
+        rollbacks = 0
+        dt0 = self.config.dt
+        try:
+            while True:
+                t0 = time.perf_counter()
+                with tracer.span("scan_window", phase="scan", steps=k):
+                    (state, nlist, sp_state, flags, e_cl, e_sp,
+                     recs) = self._run_window(k, *start)
+                    verdict, host_recs = self._window_verdict(flags, recs)
+                self.timings["scan"] += time.perf_counter() - t0
+                if verdict.policy == "commit":
+                    self.diagnostics["displacement_rebuilds"] += flags[
+                        "rebuilds"]
+                    self.diagnostics["special_rebuilds"] += flags[
+                        "sp_rebuilds"]
+                    tracer.record_window(step0, k, host_recs)
+                    out = (state, nlist, sp_state, e_cl, e_sp)
+                    if committed is not None:
+                        out = self._merge_rollback(committed, out, mask0)
+                        tracer.registry.counter("guard.recoveries").inc()
+                    return out
+                self.diagnostics["window_reruns"] += 1
+                if verdict.policy == "grow_replay":
+                    state0, nlist0, sp_state0 = start
+                    injected = self._consume_faults(step0, k,
+                                                    kinds=("overflow_flag",))
+                    if not injected:
+                        # grow whichever capacity overflowed: correctness
+                        # over throughput on the rare growth event
+                        if verdict.detail["nlist"]:
+                            self._grow_neighbor_capacity()
+                            nlist0 = self._build_nlist_grown(state0.positions)
+                        if self._stateful and verdict.detail["special"]:
+                            self.special_force.grow()
+                            self.diagnostics["special_growths"] += 1
+                            sp_state0 = self._assemble_special_grown(
+                                state0.positions)
+                    # injected flag: disarmed above, replay unchanged
+                    start = (state0, nlist0, sp_state0)
+                    continue
+                # rollback_replay: a numerical guard tripped
+                if committed is None:
+                    committed = (state, nlist, sp_state, e_cl, e_sp)
+                    mask0 = verdict.trip_mask
+                start = self._guard_rollback(start, step0, k,
+                                             verdict.trip_mask, rollbacks,
+                                             dt0)
+                rollbacks += 1
+        finally:
+            if self.config.dt != dt0:
+                self._set_dt(dt0)
 
-    def _run_segment_step(self, state, nlist, sp_state, k: int):
-        """The per-step host loop over one segment (capacity overflow is
-        handled inline per step; guard rollback is item 8's)."""
-        return self._attempt_segment_step(state, nlist, sp_state, k)
+    def _run_segment_step(self, state, nlist, sp_state, k: int,
+                          step0: Optional[int] = None):
+        """Per-step host loop wrapped in the same verdict -> policy recovery
+        as the scan path: guard trips roll back to the segment start and
+        replay (capacity overflow is handled inline per step).  A replayed
+        segment re-records its step counters."""
+        start = (state, nlist, sp_state)
+        if step0 is None:
+            step0 = self._abs_step(state)
+        committed = None
+        mask0 = None
+        rollbacks = 0
+        dt0 = self.config.dt
+        try:
+            while True:
+                state, nlist, sp_state, e_cl, e_sp, trip = (
+                    self._attempt_segment_step(*start, k, step0))
+                trip = None if trip is None else trip.cpu().numpy()
+                if trip is None or not trip.any():
+                    out = (state, nlist, sp_state, e_cl, e_sp)
+                    if committed is not None:
+                        out = self._merge_rollback(committed, out, mask0)
+                        self.tracer.registry.counter(
+                            "guard.recoveries").inc()
+                    return out
+                self.diagnostics["window_reruns"] += 1
+                if committed is None:
+                    committed = (state, nlist, sp_state, e_cl, e_sp)
+                    mask0 = trip
+                start = self._guard_rollback(start, step0, k, trip,
+                                             rollbacks, dt0)
+                rollbacks += 1
+        finally:
+            if self.config.dt != dt0:
+                self._set_dt(dt0)
 
-    def _attempt_segment_step(self, state, nlist, sp_state, k: int):
-        """One per-step segment: the Fig.-9 stage timers, each stage
-        synchronised."""
+    def _attempt_segment_step(self, state, nlist, sp_state, k: int,
+                              step0: int = 0):
+        """One per-step segment attempt: the Fig.-9 stage timers, each stage
+        synchronised; guard trips accumulated across all ``k`` steps (as
+        the scan window's OR-reduce: no early abort, so scan and step
+        recovery see the same verdicts)."""
         cfg = self.config
         special = self.special_force
+        tracer = self.tracer
+        want = tracer.wants_counters
         e_cl = e_sp = torch.zeros(self._batch_shape, device=self.device)
-        for _ in range(k):
+        trip = None
+        e_prev = (torch.full(self._batch_shape, float("nan"),
+                             device=self.device) if self._guard_on else None)
+        for j in range(k):
+            rec = {"rebuild": 0, "sp_rebuild": 0} if want else {}
             t0 = time.perf_counter()
-            if bool(self._check_rebuild(nlist, state.positions).any()):
-                nlist = self._build_nlist_grown(state.positions)
-                self.diagnostics["displacement_rebuilds"] += 1
-            self._sync()
+            with tracer.span("neighbor", phase="neighbor"):
+                if bool(self._check_rebuild(nlist, state.positions).any()):
+                    nlist = self._build_nlist_grown(state.positions)
+                    self.diagnostics["displacement_rebuilds"] += 1
+                    if want:
+                        rec["rebuild"] = 1
+                self._sync()
             self.timings["neighbor"] += time.perf_counter() - t0
 
             t0 = time.perf_counter()
-            e_cl, f = self._classical_fn(state.positions, nlist)
-            self._sync()
+            with tracer.span("classical", phase="classical"):
+                e_cl, f = self._classical_fn(state.positions, nlist)
+                self._sync()
             self.timings["classical"] += time.perf_counter() - t0
 
             if special is not None:
                 t0 = time.perf_counter()
-                if self._stateful:
-                    e_sp, f_sp, fl = special.evaluate(state.positions,
-                                                      sp_state)
-                    if bool(torch.as_tensor(fl["needs_rebuild"]).any()):
-                        sp_state = self._assemble_special_grown(
-                            state.positions)
-                        self.diagnostics["special_rebuilds"] += 1
+                with tracer.span("special", phase="inference"):
+                    if self._stateful:
                         e_sp, f_sp, fl = special.evaluate(state.positions,
                                                           sp_state)
-                    while bool(torch.as_tensor(fl["overflow"]).any()):
-                        # evaluation-side overflow (e.g. k_eval trim): grow
-                        # and recompute, as the scan replay does
-                        special.grow()
-                        self.diagnostics["special_growths"] += 1
-                        if self.diagnostics["special_growths"] > (
-                                cfg.max_capacity_growths):
-                            self._emergency(
-                                "special-force capacity still exceeded "
-                                f"after {cfg.max_capacity_growths} doublings")
-                        sp_state = self._assemble_special_grown(
-                            state.positions)
-                        e_sp, f_sp, fl = special.evaluate(state.positions,
-                                                          sp_state)
-                else:
-                    e_sp, f_sp = self._eval_special_stateless(
-                        state.positions, self.system.box)
-                f = f + f_sp
-                self._sync()
+                        if bool(torch.as_tensor(fl["needs_rebuild"]).any()):
+                            sp_state = self._assemble_special_grown(
+                                state.positions)
+                            self.diagnostics["special_rebuilds"] += 1
+                            if want:
+                                rec["sp_rebuild"] = 1
+                            e_sp, f_sp, fl = special.evaluate(state.positions,
+                                                              sp_state)
+                        while bool(torch.as_tensor(fl["overflow"]).any()):
+                            # evaluation-side overflow (e.g. k_eval trim):
+                            # grow and recompute, as the scan replay does
+                            special.grow()
+                            self.diagnostics["special_growths"] += 1
+                            if self.diagnostics["special_growths"] > (
+                                    cfg.max_capacity_growths):
+                                self._emergency(
+                                    "special-force capacity still exceeded "
+                                    f"after {cfg.max_capacity_growths} "
+                                    "doublings", state=state)
+                            sp_state = self._assemble_special_grown(
+                                state.positions)
+                            e_sp, f_sp, fl = special.evaluate(state.positions,
+                                                              sp_state)
+                        if want:
+                            rec.update(fl.get("counters", {}))
+                    else:
+                        e_sp, f_sp = self._eval_special_stateless(
+                            state.positions, self.system.box)
+                    f = f + f_sp
+                    self._sync()
                 self.timings["special"] += time.perf_counter() - t0
 
+            if self.faults is not None:
+                # step-mode injection: nan faults only (overflow_flag needs
+                # the scan window's flag plumbing)
+                f, _ = self.faults.apply_engine(
+                    state.step, f, torch.zeros(self._batch_shape,
+                                               dtype=torch.bool,
+                                               device=self.device))
             t0 = time.perf_counter()
-            state = self._integrate_fn(state, f)
-            self._sync()
+            with tracer.span("integrate", phase="integrate"):
+                prev = state
+                state = self._integrate_fn(state, f)
+                self._sync()
             self.timings["integrate"] += time.perf_counter() - t0
-        return state, nlist, sp_state, e_cl, e_sp
+            if self._guard_on:
+                t = step_guard_trip(self.guard, prev.positions, state,
+                                    self.system.masses, self.system.box,
+                                    e_cl + e_sp, e_prev)
+                trip = t if trip is None else (trip | t)
+                e_prev = e_cl + e_sp
+            if want:
+                tracer.record_step(step0 + j, rec)
+        return state, nlist, sp_state, e_cl, e_sp, trip
 
-    def _emergency(self, reason: str):
-        """Unrecoverable verdict: record it and raise (the emergency
-        checkpoint and diagnostics bundle are item 8's)."""
-        self.diagnostics["emergency_dumps"].append(reason)
-        raise RuntimeError(reason)
+    # -- guard recovery (rollback-and-replay, emergency dumps) -------------
+
+    def _guard_rollback(self, start, step0: int, k: int, mask,
+                        rollbacks: int, dt0: float):
+        """Shared rollback bookkeeping for both loop modes: count the trips,
+        disarm one-shot injected faults covering the window, choose the
+        replay start (window start, or the last verified checkpoint when
+        the start itself is tainted), and shrink dt from the second replay
+        on.  Returns the replay's start tuple; escalates to an emergency
+        dump once ``GuardConfig.max_rollbacks`` is exhausted."""
+        n_trips = int(np.sum(mask))
+        self.diagnostics["guard_trips"] += n_trips
+        self._note_guard_trips(mask)
+        self.tracer.registry.counter("guard.trips").inc(n_trips)
+        if rollbacks >= self.guard.max_rollbacks:
+            self._emergency(
+                f"guard trips persist after {rollbacks} rollback replays "
+                f"(window start step {step0}, length {k}, "
+                f"trips={np.asarray(mask).tolist()})",
+                state=start[0], raise_cls=GuardTripError)
+        self.diagnostics["guard_rollbacks"] += 1
+        # one-shot injected faults covering this window: fire them, so the
+        # replay runs fault-free
+        self._consume_faults(step0, k)
+        start = self._rollback_start(start, step0)
+        if rollbacks >= 1:
+            # the first replay keeps the original dt (transient-fault
+            # hypothesis: keeps the bitwise replay of injected faults);
+            # later replays shrink it (instability hypothesis);
+            # _run_segment_* restores dt0 on exit
+            self._set_dt(dt0 * self.guard.dt_shrink ** rollbacks)
+        return start
+
+    def _consume_faults(self, step0: int, k: int, kinds=None) -> list:
+        """Fire injected MD-path faults in [step0, step0+k).  The seams read
+        the plan at every call, so the replay runs without them."""
+        if self.faults is None:
+            return []
+        return self.faults.consume_in_window(step0, step0 + k, kinds)
+
+    def _rollback_start(self, start, step0: int):
+        """The replay's start tuple: the window start when healthy, else
+        the newest verified ``AsyncCheckpointer`` step caught up to
+        ``step0``.  The catch-up re-integrates the committed trajectory bit
+        for bit: faults are already disarmed, and checkpoint boundaries are
+        clean rebuild points (``run`` rebuilds the neighbour and special
+        state right after saving), so the committed continuation and this
+        freshly built replay see the same inputs."""
+        state0 = start[0]
+        if self._state_healthy(state0):
+            return start
+        if self.checkpointer is None:
+            self._emergency(
+                "window-start state is non-finite and no checkpointer is "
+                "attached — cannot roll back", state=state0,
+                raise_cls=GuardTripError)
+        tree, cstep = self.checkpointer.restore_latest(state_tree(state0))
+        if tree is None or cstep > step0:
+            self._emergency(
+                "window-start state is non-finite and no verified "
+                f"checkpoint at or before step {step0} exists",
+                state=state0, raise_cls=GuardTripError)
+        self.diagnostics["checkpoint_restores"] += 1
+        state0 = MDState(**tree)
+        nlist0 = self._build_nlist_grown(state0.positions)
+        sp_state0 = (self._assemble_special_grown(state0.positions)
+                     if self._stateful else None)
+        catchup = step0 - cstep
+        if catchup:
+            state0, nlist0, sp_state0 = self._run_window(
+                catchup, state0, nlist0, sp_state0)[:3]
+            self._sync()
+        return (state0, nlist0, sp_state0)
+
+    def _state_healthy(self, state) -> bool:
+        return bool(torch.isfinite(state.positions).all()
+                    & torch.isfinite(state.velocities).all())
+
+    def _merge_rollback(self, committed, replayed, mask):
+        """Select between the committed and replayed window results:
+        tripped trajectories (mask True) take the replay, untripped keep
+        the original (a batched engine's per-replica masking).  A scalar
+        engine's mask is ``()``, so the replay wins wholesale."""
+        if np.ndim(mask) == 0:
+            return replayed
+        raise NotImplementedError(
+            "per-replica masked recovery needs the replica-batched engine "
+            "(ROADMAP Queue 1 item 7)")
+
+    def _note_guard_trips(self, mask) -> None:
+        """Per-trajectory trip attribution hook (batched-engine override)."""
+
+    def _set_dt(self, dt: float) -> None:
+        """Swap the integration timestep (the step functions read it from
+        the config at each call)."""
+        self.config.dt = float(dt)
+
+    def _emergency_root(self) -> Optional[str]:
+        cfg = self.config
+        if cfg.emergency_path:
+            return cfg.emergency_path
+        if self.checkpointer is not None:
+            return os.path.join(self.checkpointer.root, "emergency")
+        if cfg.checkpoint_path:
+            return cfg.checkpoint_path + ".emergency"
+        return None
+
+    def _emergency(self, reason: str, state=None, raise_cls=RuntimeError):
+        """Unrecoverable-verdict exit: dump an emergency checkpoint plus a
+        diagnostics bundle (when a dump root is configured and a state is
+        known), then raise with the dump path in the message."""
+        state = state if state is not None else self._last_state
+        root = self._emergency_root()
+        path = None
+        if root is not None and state is not None:
+            step = self._abs_step(state)
+            bundle = {"reason": reason, "step": step,
+                      "diagnostics": self.diagnostics,
+                      "timings": self.timings,
+                      "config": dataclasses.asdict(self.config),
+                      "faults": (self.faults.summary()
+                                 if self.faults is not None else None)}
+            path = dump_emergency(root, state_tree(state), bundle, step=step)
+        self.diagnostics["emergency_dumps"].append(path or reason)
+        if path is not None:
+            reason = f"{reason} (emergency checkpoint: {path})"
+        raise raise_cls(reason)
+
+    def _calibrate_phases(self, state, nlist, sp_state) -> None:
+        """In-window phase attribution for scan-mode runs (Fig. 9
+        fractions): times each stage once, warm and synchronised, at the
+        run's own state, and records the durations as ``calibrated`` spans
+        (phases ``scan.neighbor`` / ``scan.classical`` / ``scan.inference``
+        / ``scan.integrate``) that decompose the ``scan`` bucket."""
+        tracer = self.tracer
+        if not (tracer.enabled and tracer.config.calibrate):
+            return
+        probes: dict[str, Callable] = {
+            "scan.neighbor": lambda: self._check_rebuild(
+                nlist, state.positions),
+            "scan.classical": lambda: self._classical_fn(
+                state.positions, nlist),
+        }
+        special = self.special_force
+        if special is not None:
+            if self._stateful:
+                probes["scan.inference"] = lambda: special.evaluate(
+                    state.positions, sp_state)
+            else:
+                probes["scan.inference"] = lambda: (
+                    self._eval_special_stateless(state.positions,
+                                                 self.system.box))
+        probes["scan.integrate"] = lambda: self._integrate_fn(state,
+                                                              state.forces)
+        for name, thunk in probes.items():
+            thunk()                              # warm pass
+            self._sync()
+            t0 = time.perf_counter()
+            thunk()
+            self._sync()
+            tracer.add_span(name, time.perf_counter() - t0, phase=name,
+                            calibrated=True)
+
+    def _rebuild_lists(self, state, span: str):
+        """Build the classical list and the special state afresh (timed
+        into ``neighbor``)."""
+        t0 = time.perf_counter()
+        with self.tracer.span(span, phase="neighbor"):
+            nlist = self._build_nlist_grown(state.positions)
+            sp_state = None
+            if self._stateful:
+                sp_state = self._assemble_special_grown(state.positions)
+        self.timings["neighbor"] += time.perf_counter() - t0
+        return nlist, sp_state
 
     @torch.no_grad()
     def run(self, state: MDState, n_steps: int,
             observe: Optional[Callable[[MDState, dict], None]] = None,
             observe_every: int = 10) -> MDState:
         cfg = self.config
+        tracer = self.tracer
         if not _same_device(state.positions.device, self.device):
             raise ValueError(f"state on {state.positions.device}, the "
                              f"system on {self.device}")
+        self._last_state = state
         # timings are per-run; diagnostics stay cumulative (see reset())
         self.timings = self._init_timings()
         scan_mode = cfg.loop_mode != "step" and not self._host_special
-        t0 = time.perf_counter()
-        nlist = self._build_nlist_grown(state.positions)
-        sp_state = None
-        if self._stateful:
-            sp_state = self._assemble_special_grown(state.positions)
-        self.timings["neighbor"] += time.perf_counter() - t0
+        tracer.meta(kind="run", engine=type(self).__name__,
+                    loop_mode="scan" if scan_mode else "step",
+                    n_steps=int(n_steps),
+                    n_atoms=int(self.system.masses.shape[0]))
+        tracer.start_capture()
+        # the absolute step, read once: windows advance it on the host
+        abs_step = self._abs_step(state)
+        nlist, sp_state = self._rebuild_lists(state, "build")
+        if scan_mode:
+            self._calibrate_phases(state, nlist, sp_state)
 
         i = 0
         while i < n_steps:
             if i > 0 and i % cfg.rebuild_every == 0:
                 # cadence rebuild on the host (the redundant step-0 rebuild
                 # right after the pre-loop build is skipped)
-                t0 = time.perf_counter()
-                nlist = self._build_nlist_grown(state.positions)
-                if self._stateful:
-                    sp_state = self._assemble_special_grown(state.positions)
+                nlist, sp_state = self._rebuild_lists(state,
+                                                      "cadence_rebuild")
                 self.diagnostics["cadence_rebuilds"] += 1
-                self.timings["neighbor"] += time.perf_counter() - t0
 
-            k = self._segment_len(i, n_steps, observe is not None,
+            k = self._segment_len(i, abs_step, n_steps, observe is not None,
                                   observe_every)
-            if scan_mode:
-                state, nlist, sp_state, e_cl, e_sp = self._run_segment_scan(
-                    state, nlist, sp_state, k)
-            else:
-                state, nlist, sp_state, e_cl, e_sp = self._run_segment_step(
-                    state, nlist, sp_state, k)
+            if self.faults is not None:
+                # arm the rank-targeted faults of this window (the pipeline
+                # hook reads the armed set at each call)
+                self.faults.sync_window(abs_step, k)
+            segment = (self._run_segment_scan if scan_mode
+                       else self._run_segment_step)
+            state, nlist, sp_state, e_cl, e_sp = segment(
+                state, nlist, sp_state, k, abs_step)
             i += k
+            abs_step += k
             state = self._post_segment(state, e_cl, e_sp, i)
+            self._last_state = state
 
             if observe is not None and (i - 1) % observe_every == 0:
                 observe(state, self._observation(state, e_cl, e_sp))
+
+            if cfg.checkpoint_every and abs_step % cfg.checkpoint_every == 0:
+                if self.checkpointer is not None:
+                    self.checkpointer.save(state_tree(state), abs_step)
+                if cfg.checkpoint_path:
+                    self.checkpoint(state, cfg.checkpoint_path)
+                # a checkpoint boundary is a clean rebuild point: the
+                # continuation depends only on the saved state, so a
+                # restart or rollback from this checkpoint replays the
+                # committed continuation bit for bit (see _rollback_start)
+                nlist, sp_state = self._rebuild_lists(state,
+                                                      "checkpoint_rebuild")
+        tracer.stop_capture()
+        tracer.flush()  # no-op unless ObsConfig.trace_dir is set
         return state
 
     # -- batched-engine hooks ----------------------------------------------
@@ -506,8 +891,19 @@ class MDEngine:
     # -- fault tolerance ----------------------------------------------------
 
     def checkpoint(self, state: MDState, path: str) -> None:
-        raise _not_ported("MDEngine.checkpoint", _ITEM_8)
+        from ..ckpt.checkpoint import save_pytree
+        save_pytree(path, state_tree(state))
 
     @staticmethod
-    def restore(path: str) -> MDState:
-        raise _not_ported("MDEngine.restore", _ITEM_8)
+    def restore(path: str, device="cuda") -> MDState:
+        """The state saved at ``path`` (a checkpoint, an
+        ``AsyncCheckpointer`` step directory or an emergency dump), on
+        ``device`` (default the card; raises without one unless
+        ``device="cpu"``).  ``rng`` stays a host tensor (a generator
+        state)."""
+        from ..ckpt.checkpoint import load_pytree
+        dev = resolve_device(device)
+        d = load_pytree(path)
+        return MDState(**{k: torch.as_tensor(v, device="cpu" if k == "rng"
+                                             else dev)
+                          for k, v in d.items()})

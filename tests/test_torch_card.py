@@ -64,7 +64,16 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   ::DecodeGraph``) gives the eager step's tokens and logits bit for bit;
 * the attention kernels at embedding widths M = 30 and 62 (padded to a
   multiple of 4 by the wrappers): forward and force-path backward against
-  the plain version, atol 1e-4 x max, exact zeros at the masked slots.
+  the plain version, atol 1e-4 x max, exact zeros at the masked slots;
+* guarded MD on the solvated 20-residue protein (326 atoms): an injected
+  ``nan_force`` (engine-level, and rank-level on 8 virtual ranks) recovers
+  to the fault-free run bit for bit in both loop modes, every DP kernel
+  launched in the faulted run; guards quiet == unguarded; an
+  ``AsyncCheckpointer`` restart falls back past a truncated checkpoint and
+  resumes bit for bit; non-finite positions through the cell lists, the DD
+  assembly and PME raise no device-side assert; an instrumented run with a
+  ``torch.profiler`` capture keeps its bits and the trace holds the
+  engine's spans and the device kernels.
 """
 import numpy as np
 import pytest
@@ -785,3 +794,162 @@ def test_pme_on_card_equals_cpu(card):
     torch.testing.assert_close(e.cpu(), e_cpu, rtol=1e-5, atol=0)
     torch.testing.assert_close(f.cpu(), f_cpu, rtol=0,
                                atol=1e-5 * float(f_cpu.abs().max()))
+
+
+# -- guarded MD: NaN recovery and checkpoint restart on the card ---------------
+
+def _guarded_md(device, ranks=0, hook=None, residues=20):
+    """The solvated 20-residue protein (326 atoms, 80 in the DP group),
+    marked, with the paper's DPA-1 (``sel=32``, weights from seed 0 made on
+    the CPU) on one domain (skin 0.08) or ``ranks`` virtual ranks (skin
+    0.04, ``fault_hook`` threaded in)."""
+    from repro_torch.core import DeepmdForceProvider, suggest_config
+    from repro_torch.dp import DPModel, paper_dpa1_config
+    from repro_torch.md import build_solvated_protein, mark_nn_group
+    system, pos, nn = build_solvated_protein(residues, device=device)
+    system = mark_nn_group(system, nn)
+    cfg = paper_dpa1_config(ntypes=4, rcut=0.6, sel=32)
+    params = _to(DPModel(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0)), device)
+    box = system.box.cpu().numpy()
+    dd = None
+    if ranks:
+        dd = suggest_config(len(nn), box, ranks, 0.6, nbr_capacity=48,
+                            slack=2.5, skin=0.04, force_mode="ghost_reduce",
+                            coords=pos.cpu().numpy()[nn])
+    prov = DeepmdForceProvider(DPModel(cfg, device=device), params, nn,
+                               system.types, box, system.n_atoms,
+                               nbr_capacity=48, skin=0.08, dd_config=dd,
+                               device=device, fault_hook=hook)
+    return system, pos, prov
+
+
+def _guarded_run(device, n, mode="scan", ranks=0, plan=None, guard=False,
+                 **cfg):
+    from repro_torch.health import GuardConfig
+    from repro_torch.md import EngineConfig, MDEngine
+    hook = plan.pipeline_hook() if plan is not None and ranks else None
+    system, pos, prov = _guarded_md(device, ranks, hook)
+    eng = MDEngine(system, EngineConfig(cutoff=0.9, neighbor_capacity=96,
+                                        dt=0.0005, thermostat_t=200.0,
+                                        loop_mode=mode, **cfg),
+                   special_force=prov, faults=plan,
+                   guard=GuardConfig(enabled=guard))
+    return eng, eng.run(eng.init_state(pos, 200.0), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [0, 8])
+@pytest.mark.parametrize("mode", ["scan", "step"])
+def test_guarded_md_nan_recovers_bitwise_on_card(card, mode, ranks):
+    """An engine-level ``nan_force`` (and on 8 ranks a rank-3 one through
+    the pipeline's fault hook) inside a window: the rest of the window runs
+    every kernel on non-finite positions, the guard trips, and the replay
+    equals the fault-free run bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.health import FaultPlan, FaultSpec
+    _, ref_st = _guarded_run(card, 8, mode, ranks)
+    specs = [FaultSpec("nan_force", step=3)]
+    if ranks:
+        specs.append(FaultSpec("nan_force", step=3, rank=3))
+    for spec in specs:
+        plan = FaultPlan([spec])
+        kernels.reset_launch_counts()
+        eng, out = _guarded_run(card, 8, mode, ranks, plan, guard=True)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert plan.faults[0].fired
+        assert eng.diagnostics["guard_trips"] == 1
+        assert eng.diagnostics["guard_rollbacks"] == 1
+        assert _same_state(out, ref_st), spec
+        want = ("env_mat_fwd", "env_mat_bwd", "nbr_attention_stack_fwd",
+                "nbr_attention_stack_bwd", "force_scatter") + (
+            ("cell_filter",) if ranks else ())
+        assert all(counts[k] > 0 for k in want), counts
+
+
+@pytest.mark.cuda
+def test_guards_quiet_and_checkpoint_restart_on_card(card, tmp_path):
+    """Guards on and quiet == unguarded; checkpoints every 4 steps with the
+    newest (step 8) truncated: the restore falls back to step 4, and 4 more
+    steps from there on the card equal the uninterrupted 8, bit for bit."""
+    import os
+    import warnings
+    from repro_torch.ckpt import AsyncCheckpointer
+    from repro_torch.health import FaultPlan, FaultSpec
+    from repro_torch.md import MDEngine
+    from repro_torch.md.engine import state_tree
+    _, ref_st = _guarded_run(card, 8)
+    _, quiet = _guarded_run(card, 8, guard=True)
+    assert _same_state(quiet, ref_st)
+    plan = FaultPlan([FaultSpec("truncate_ckpt", step=8)])
+    ck = AsyncCheckpointer(str(tmp_path), keep=5, fault_plan=plan)
+    from repro_torch.md import EngineConfig
+    system, pos, prov = _guarded_md(card)
+    eng = MDEngine(system, EngineConfig(cutoff=0.9, neighbor_capacity=96,
+                                        dt=0.0005, thermostat_t=200.0,
+                                        checkpoint_every=4),
+                   special_force=prov, checkpointer=ck)
+    start = eng.init_state(pos, 200.0)
+    full = eng.run(start, 8)
+    assert _same_state(full, ref_st)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tree, step = ck.restore_latest(state_tree(start))
+    assert plan.faults[0].fired and step == 4
+    assert tree["positions"].device == start.positions.device
+    mid = MDEngine.restore(os.path.join(str(tmp_path), "step_000000004"),
+                           device=card)
+    assert torch.equal(mid.positions, tree["positions"])
+    assert mid.rng.device.type == "cpu"
+    eng2 = MDEngine(system, EngineConfig(cutoff=0.9, neighbor_capacity=96,
+                                         dt=0.0005, thermostat_t=200.0,
+                                         checkpoint_every=4),
+                    special_force=_guarded_md(card)[2])
+    assert _same_state(eng2.run(mid, 4), ref_st)
+
+
+@pytest.mark.cuda
+def test_nonfinite_positions_stay_in_range_on_card(card):
+    """The classical cell list, the DD assembly and evaluate (cells), and
+    the PME spread at positions with NaN and Inf entries on the card: no
+    device-side assert (which would poison the context for any rollback)."""
+    from repro_torch.md import build_neighbor_list, pme
+    system, pos, prov = _guarded_md(card, ranks=8)
+    bad = pos.clone()
+    bad[3] = float("nan")
+    bad[7, 1] = float("inf")
+    for x in (bad, torch.full_like(pos, float("nan"))):
+        nl = build_neighbor_list(x, system.box, 0.9, 96, half=True, skin=0.1)
+        st = prov.assemble(x)
+        e, f, fl = prov.evaluate(x, st)
+        q = pme.charge_spread(x, torch.ones(len(x), device=card), system.box,
+                              (8, 8, 8))
+        torch.cuda.synchronize()
+        n = len(x)
+        assert bool(((nl.idx >= -1) & (nl.idx < n)).all())
+        assert f.shape == (n, 3) and q.shape == (8, 8, 8)
+    # the context is still healthy
+    assert float(torch.ones(4, device=card).sum()) == 4.0
+
+
+@pytest.mark.cuda
+def test_obs_profiler_capture_on_card(card, tmp_path):
+    """An instrumented run on the card with ``xla_trace_dir``: the
+    ``torch.profiler`` trace holds the engine's spans and device kernels,
+    and the run's bits equal an uninstrumented run's."""
+    import json
+    from repro_torch.md import EngineConfig, MDEngine
+    from repro_torch.obs import ObsConfig
+    system, pos, prov = _guarded_md(card)
+    _, ref_st = _guarded_run(card, 4)
+    eng = MDEngine(system, EngineConfig(cutoff=0.9, neighbor_capacity=96,
+                                        dt=0.0005, thermostat_t=200.0),
+                   special_force=prov,
+                   obs=ObsConfig(enabled=True, xla_trace_dir=str(tmp_path)))
+    st = eng.run(eng.init_state(pos, 200.0), 4)
+    assert _same_state(st, ref_st)
+    events = json.load(open(tmp_path / "torch_trace.json"))["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"build", "scan_window"} <= names
+    assert any(e.get("cat") == "kernel" for e in events)

@@ -17,10 +17,13 @@
 * the DD trajectory (``repro_torch.launch.protein_md``, 8 virtual ranks)
   with cell-list assembly equal to the dense oracle bit for bit, with four
   intra-op threads;
-* refusals: the options of the items not ported yet raise, naming them.
+* the options of items 8 and 9 (guards, faults, checkpoints, emergency
+  dumps, obs) are taken and leave a quiet run's bits as they were;
+  checkpoint and restore round-trip; ``protein_md --ckpt-dir`` writes.
 """
 import contextlib
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -35,12 +38,14 @@ from repro.md import MDEngine as JEngine
 from repro.md import build_solvated_protein as jbuild
 from repro.md import mark_nn_group as jmark
 from repro_torch import bridge
+from repro_torch.ckpt import AsyncCheckpointer
 from repro_torch.core import DeepmdForceProvider
 from repro_torch.dp import DPModel
-from repro_torch.health import GuardConfig
+from repro_torch.health import FaultPlan, GuardConfig
 from repro_torch.launch import protein_md
 from repro_torch.md import (EngineConfig, MDEngine, build_solvated_protein,
                             mark_nn_group)
+from repro_torch.obs import ObsConfig
 
 # small CPU tensors: one intra-op thread keeps parallel test workers
 # from oversubscribing the cores
@@ -246,32 +251,58 @@ def test_dd_trajectory_cells_equal_dense_bitwise_with_four_threads():
 # refusals and device rules
 # ---------------------------------------------------------------------------
 
+# These two tests held the refusals of items 8 and 9 until those items
+# landed; they now hold that every such option is taken and works.
 REFUSED = {
-    "obs": (dict(obs=object()), {}, "item 9"),
-    "guard": (dict(guard=GuardConfig(enabled=True)), {}, "item 8"),
-    "faults": (dict(faults=object()), {}, "item 8"),
-    "checkpointer": (dict(checkpointer=object()), {}, "item 8"),
-    "checkpoint_every": ({}, dict(checkpoint_every=4), "item 8"),
-    "checkpoint_path": ({}, dict(checkpoint_path="ck"), "item 8"),
-    "emergency_path": ({}, dict(emergency_path="dump"), "item 8"),
+    "obs": (lambda d: dict(obs=ObsConfig(enabled=True)), {}),
+    "guard": (lambda d: dict(guard=GuardConfig(enabled=True)), {}),
+    "faults": (lambda d: dict(faults=FaultPlan([])), {}),
+    "checkpointer": (lambda d: dict(checkpointer=AsyncCheckpointer(d)),
+                     dict(checkpoint_every=2)),
+    "checkpoint_every": (lambda d: {}, dict(checkpoint_every=2)),
+    "checkpoint_path": (lambda d: {}, dict(checkpoint_every=2,
+                                           checkpoint_path="ck")),
+    "emergency_path": (lambda d: {}, dict(emergency_path="dump")),
 }
 
 
 @pytest.mark.parametrize("what", list(REFUSED))
-def test_unported_options_raise_naming_their_item(ref, what):
-    kw, cfg, item = REFUSED[what]
-    with pytest.raises(NotImplementedError, match=item):
-        MDEngine(ref["system"], EngineConfig(**{**_CFG, **cfg}), **kw)
+def test_unported_options_raise_naming_their_item(ref, what, tmp_path):
+    kw, cfg = REFUSED[what]
+    cfg = {k: str(tmp_path / v) if k.endswith("_path") else v
+           for k, v in cfg.items()}
+    eng = MDEngine(ref["system"], EngineConfig(**{**_CFG, **cfg}),
+                   **kw(str(tmp_path / "async")))
+    plain = _engine(ref, special=False).run(_start(ref), 4)
+    assert _same_bits(eng.run(_start(ref), 4), plain)
+    if "checkpoint_path" in cfg:
+        assert _same_bits(MDEngine.restore(cfg["checkpoint_path"], "cpu"),
+                          plain)
+    if what == "checkpointer":
+        eng.checkpointer.wait()
+        assert sorted(os.listdir(tmp_path / "async")) == [
+            "step_000000002", "step_000000004"]
+    if what == "obs":
+        assert [e["step"] for e in eng.tracer.events
+                if e["type"] == "step"] == [0, 1, 2, 3]
 
 
-def test_checkpoint_restore_and_ckpt_dir_raise_naming_item_8(ref):
+def test_checkpoint_restore_and_ckpt_dir_raise_naming_item_8(ref, tmp_path,
+                                                            monkeypatch):
     eng = _engine(ref, special=False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.checkpoint(_start(ref), "ck")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        MDEngine.restore("ck")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        protein_md.main(["--device", "cpu", "--ckpt-dir", "ck"])
+    st = eng.run(_start(ref), 3)
+    eng.checkpoint(st, str(tmp_path / "ck"))
+    back = MDEngine.restore(str(tmp_path / "ck"), device="cpu")
+    assert _same_bits(back, st) and torch.equal(back.rng, st.rng)
+    # restore defaults to the card, and raises without one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MDEngine.restore(str(tmp_path / "ck"))
+    monkeypatch.undo()
+    protein_md.main(["--device", "cpu", "--residues", "3", "--steps", "10",
+                     "--ranks", "2", "--ckpt-dir", str(tmp_path / "run")],
+                    quiet=True)
+    assert int(MDEngine.restore(str(tmp_path / "run"), "cpu").step) == 10
     # a disabled guard is the unguarded engine
     MDEngine(ref["system"], EngineConfig(**_CFG), guard=GuardConfig())
 
