@@ -292,7 +292,7 @@ def phase_kernels(model, params, skin, main=False):
                                         box), FORCE_SCATTER)
     calls = seen["force_scatter"]
     fs_args = calls[0][0]
-    line = check_force_scatter(*fs_args, edge=main)
+    line = check_force_scatter(*fs_args, edge=main, profile=main)
     report("force_scatter", 0.0, "exact (bitwise)", line.pop("kernel_ms"),
            line.pop("plain_ms"), (line.pop("bound_ms"), line.pop("bound_by")),
            launches_per_force_call=len(calls), **line)
@@ -764,19 +764,45 @@ def record_model_kernels(fn, which=MODEL_KERNELS):
     return res, seen
 
 
-def scatter_bound(idx, mask, n, with_list=False):
+def scatter_calls_by_shape(fn):
+    """Run ``fn()`` with ``force_scatter`` replaced by a wrapper that tallies
+    its calls by the (rows, K) of their index table and calls through, so
+    the launches of a run split by call site; returns (fn's result,
+    {(rows, K): calls}).  The launches go back to the wrapper's count."""
+    from repro_torch.kernels import force_scatter as fs
+    original, tally = fs.force_scatter, {}
+
+    def rec(g, idx, mask, n):
+        shape = tuple(idx.shape)
+        tally[shape] = tally.get(shape, 0) + 1
+        return original(g, idx, mask, n)
+
+    rec.launches = 0
+    fs.force_scatter = rec
+    try:
+        res = fn()
+    finally:
+        fs.force_scatter = original
+        original.launches += rec.launches
+    return res, tally
+
+
+def scatter_bound(idx, mask, n, with_list=False, entry_bytes=4):
     """Least time of the force scatter: the valid slots' 12-byte cotangent
-    rows and their 8-byte reverse-list entries read, the offsets (8 bytes
-    per atom) read, the (n, 3) sums written; ``with_list`` adds idx and
-    mask read once (what building the list needs)."""
+    rows and their reverse-list entries read, the offsets read (one entry
+    per atom), the (n, 3) sums written; ``with_list`` adds idx and mask
+    read once (what building the list needs).  The list's entries and
+    offsets are 4 bytes (int32); ``entry_bytes=8`` gives the bound of an
+    int64 list, as counted before the list became int32."""
     valid = int(((idx >= 0) & (mask > 0)).sum())
-    nbytes = 20 * valid + 8 * (n + 1) + 12 * n
+    nbytes = (12 + entry_bytes) * valid + entry_bytes * (n + 1) + 12 * n
     if with_list:
         nbytes += idx.numel() * (idx.element_size() + mask.element_size())
     return nbytes / HBM_RATE * 1e3, "bytes"
 
 
-def check_force_scatter(g, idx, mask, n, edge=False, library=True):
+def check_force_scatter(g, idx, mask, n, edge=False, library=True,
+                        profile=False):
     """The force scatter on one force call's cotangents ``g`` (C, K, 3):
     the kernel bit for bit against the plain version (on CPU copies: on the
     card ``index_add_`` adds with atomics) and on a repeat, and ``g``
@@ -789,7 +815,13 @@ def check_force_scatter(g, idx, mask, n, edge=False, library=True):
     where row i holds atom i's slots (C == n, the gather's backward), at
     their own atom; ``library=False`` leaves out the two PyTorch timings
     (each padded slot an atomic add on atom 0: seconds a call at tens of
-    millions of padded slots).  Returns a dict of the numbers."""
+    millions of padded slots).  With ``profile``, one call under
+    ``torch.profiler`` splits its device time by kernel (the list's sort
+    passes, offsets and sums).  The card's list (``_build_list``) is held
+    against ``reverse_list`` element for element; ``reverse_list_ms`` times
+    the card's list, ``plain_list_ms`` ``reverse_list`` (a stable
+    ``torch.sort``, the card's list before it was written by hand).
+    Returns a dict of the numbers."""
     from repro_torch.kernels import force_scatter as fs
     got = fs.force_scatter(g, idx, mask, n)
     want = fs.force_scatter_plain(g.cpu(), idx.cpu(), mask.cpu(), n)
@@ -811,20 +843,38 @@ def check_force_scatter(g, idx, mask, n, edge=False, library=True):
         if tuple(fs.force_scatter(g[:0], idx[:0], mask[:0], 0).shape) != (0, 3):
             fail("force_scatter: wrong shape at N = 0")
     c, k = idx.shape
-    rl = fs.reverse_list(idx, mask, n)
+    # the card's list (the hand-written sort) against the plain one
+    rl = fs._build_list(idx, mask, n)
+    want_perm, want_off = fs.reverse_list(idx, mask, n)
+    valid = int(want_off[-1]) if n else 0
+    if not (torch.equal(rl[1].long(), want_off)
+            and torch.equal(rl[0][:valid].long(), want_perm[:valid])):
+        fail("force_scatter: the card's reverse list differs from "
+             "reverse_list")
+    del want_perm, want_off
     bound = scatter_bound(idx, mask, n)
-    line = {"valid_slots": int(rl[1][-1]) if n else 0,
+    line = {"valid_slots": valid,
             "padded_slots": int((idx < 0).sum()),
             "masked_slots": int(((idx >= 0) & ~(mask > 0)).sum()),
-            "repeat_bitwise": True,
+            "repeat_bitwise": True, "list_equal_reverse_list": True,
             "masked_slot_cotangent_max_abs": skipped_max,
             "kernel_ms": time_ms(lambda: fs._launch(g, *rl, n)),
-            "reverse_list_ms": time_ms(lambda: fs.reverse_list(idx, mask, n)),
+            "reverse_list_ms": time_ms(lambda: fs._build_list(idx, mask, n)),
             "kernel_with_list_ms": time_ms(
                 lambda: fs.force_scatter(g, idx, mask, n)),
             "plain_ms": time_ms(lambda: fs.force_scatter_plain(g, idx, mask, n)),
+            "plain_list_ms": time_ms(lambda: fs.reverse_list(idx, mask, n)),
             "bound_ms": bound[0], "bound_by": bound[1],
-            "bound_with_list_ms": scatter_bound(idx, mask, n, True)[0]}
+            "bound_with_list_ms": scatter_bound(idx, mask, n, True)[0],
+            "bound_ms_int64_list": scatter_bound(idx, mask, n,
+                                                 entry_bytes=8)[0],
+            "bound_with_list_ms_int64_list": scatter_bound(
+                idx, mask, n, True, entry_bytes=8)[0]}
+    del rl
+    if profile:
+        line["profile_kernel_ms"] = device_profile(
+            lambda: fs.force_scatter(g, idx, mask, n), "force_scatter_profile",
+            f"one force_scatter call over {c} x {k} slots onto {n} atoms")
     if edge:
         line["all_masked_zero_and_empty"] = True
     if not library:
@@ -1336,7 +1386,8 @@ def phase_md(model, params):
     atoms the DP group) with the classical force field on every atom and
     phases 1-4's DPA-1 on the group, one domain (skin 0.05), then 8
     virtual ranks; card vs CPU and cells vs dense at 40 residues.  Returns
-    ({kernel: launches per MD step}, single domain and DD)."""
+    ({kernel: launches per MD step}, single domain and DD) and the classical
+    pair table's force-scatter numbers."""
     from repro_torch import kernels
     from repro_torch.core import DeepmdForceProvider, suggest_config
     from repro_torch.launch import protein_md
@@ -1379,8 +1430,10 @@ def phase_md(model, params):
     st_a, wall_a, steps_a, mem = md_run(eng, warm, MD_STEPS)
     counts = kernels.launch_counts()
     diag_a = dict(eng.diagnostics)
+    # the same run again, its force scatters tallied by call site
     eng_b = engine()
-    st_b = md_run(eng_b, warm, MD_STEPS)[0]
+    st_b, by_shape = scatter_calls_by_shape(
+        lambda: md_run(eng_b, warm, MD_STEPS)[0])
     eng_c = engine(loop_mode="step")
     st_c = eng_c.run(warm, MD_STEPS)
     eng_d = engine()
@@ -1392,15 +1445,31 @@ def phase_md(model, params):
     mib = lambda b: b / 2 ** 20
     window = eng.config.rebuild_every       # scan mode's first window
     per_step = {k: counts[k] / MD_STEPS for k in counts}
+    cap = eng.config.neighbor_capacity
+    sites = {}
+    for (rows, k), calls in by_shape.items():
+        site = ("classical pairs" if (rows, k) == (system.n_atoms, 2 * cap)
+                else {2: "bonds", 3: "angles", 4: "dihedrals"}.get(k)
+                if rows < system.n_atoms else None) or \
+            ("dp gather" if (rows, k) == (len(nn), prov.nbr_capacity)
+             else f"{rows} x {k}")
+        sites[site] = sites.get(site, 0) + calls / MD_STEPS
+    if abs(sum(sites.values()) - per_step["force_scatter"]) > 1e-9:
+        fail(f"md: force scatters by call site {sites} do not add up to "
+             f"{per_step['force_scatter']} per step")
+    split_a = step_split(steps_a)
     line = {"phase": "md", "mode": "single domain", "atoms": system.n_atoms,
             "dp_atoms": len(nn), "steps": MD_STEPS,
             "warm_up": {"steps": MD_WARM, "ms": warm_ms,
                         "capacity_growths": warm_diag["capacity_growths"]},
             "neighbor_capacity": eng.config.neighbor_capacity,
             "dp_K": prov.nbr_capacity,
-            "scan_1_step_windows": {"wall_ms": wall_a, **step_split(steps_a)},
+            "scan_1_step_windows": {"wall_ms": wall_a, **split_a},
             "scan_10_step_windows_ms_per_step": wall_d / MD_STEPS,
             "fig9_split_ms_step_mode": fig9,
+            "md_step_ms_median": split_a["step_ms_median"],
+            "classical_ms_per_step_step_mode": fig9["classical"] / MD_STEPS,
+            "force_scatter_launches_per_md_step_by_site": sites,
             "dp_share_of_step": fig9["special"] / total,
             "neighbor_includes": "the pre-loop build of each run",
             "diagnostics": {k: diag_a[k] for k in (
@@ -1460,13 +1529,23 @@ def phase_md(model, params):
         done.add(term)
         # the pair table's padded slots (tens of millions) would pile onto
         # atom 0 in the library call: it is timed on the bonded tables only
-        print(json.dumps({
-            "phase": "md", "name": "force_scatter",
-            "case": f"classical {term}, one full-width classical_forces call",
-            "rows": rows, "K": k, "atoms": args[3], "max_err": 0.0,
-            "tol": "exact (bitwise)",
-            **check_force_scatter(*args, library=term != "pairs")}),
-            flush=True)
+        row = {"phase": "md", "name": "force_scatter",
+               "case": f"classical {term}, one full-width classical_forces "
+                       "call",
+               "rows": rows, "K": k, "atoms": args[3], "max_err": 0.0,
+               "tol": "exact (bitwise)",
+               **check_force_scatter(*args, library=term != "pairs")}
+        print(json.dumps(row), flush=True)
+        if term == "pairs":
+            md_pairs = {key: row[key] for key in (
+                "rows", "K", "kernel_ms", "reverse_list_ms",
+                "kernel_with_list_ms", "bound_ms", "bound_with_list_ms",
+                "plain_ms", "plain_list_ms", "bound_ms_int64_list",
+                "bound_with_list_ms_int64_list")}
+            md_pairs["launches_per_md_step"] = sites["classical pairs"]
+            md_pairs["md_step_ms_median"] = split_a["step_ms_median"]
+            md_pairs["classical_ms_per_step_step_mode"] = \
+                fig9["classical"] / MD_STEPS
     if done != set(terms.values()):
         fail(f"md classical: force scatters for {sorted(done)}")
     del seen, nl
@@ -1613,7 +1692,7 @@ def phase_md(model, params):
                       "tol": f"atol {MD_POS_TOL} nm", "diagnostics_equal": True,
                       "dd_cells_equal_dense_bitwise": True}), flush=True)
     print(f"[md] {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return per_step, dd_line["launches_per_md_step"]
+    return per_step, dd_line["launches_per_md_step"], md_pairs
 
 
 # ---------------------------------------------------------------------------
@@ -2450,7 +2529,7 @@ def main():
     counts_sd = phase_requests(model, params)
     cf_row, counts, per_call, dd_scatter = phase_dd(model, params)
     kres["cell_filter"] = cf_row
-    md_sd, md_dd = phase_md(model, params)
+    md_sd, md_dd, md_pairs = phase_md(model, params)
     guard_sd, guard_dd = phase_guard(model, params)
     del model, params
     torch.cuda.empty_cache()
@@ -2474,16 +2553,18 @@ def main():
                      "library_ms": r.get("library_ms")})
         if name == "force_scatter":
             keys = ("reverse_list_ms", "kernel_with_list_ms",
-                    "bound_with_list_ms", "library_own_index_ms")
+                    "bound_with_list_ms", "library_own_index_ms",
+                    "plain_list_ms")
             rows[-1].update({key: r[key] for key in keys})
             common = ("rows", "K", "kernel_ms", "bound_ms", "plain_ms",
                       "library_ms", "reverse_list_ms", "kernel_with_list_ms",
-                      "bound_with_list_ms")
+                      "bound_with_list_ms", "plain_list_ms")
             rows[-1]["dd_evaluate"] = {
                 key: dd_scatter["gather_backward"][key]
                 for key in common + ("library_own_index_ms",)}
             rows[-1]["dd_force_reduction"] = {
                 key: dd_scatter["force_reduction"][key] for key in common}
+            rows[-1]["md_pairs"] = md_pairs
     sdpa = lm_rows["sdpa"]
     for name, calls in (("flash_attention", ("prefill_local", "prefill_global")),
                         ("flash_decode", ("decode_local", "decode_global"))):

@@ -9,8 +9,11 @@
   replacing ``repro/kernels/cell_gather.py::_cell_filter_kernel``, with the
   candidate gather fused in;
 - ``force_scatter``: CUDA C++ for ``sm_90a`` (``csrc/force_scatter.cu``), the
-  backward of the DP force path's neighbour gather (``neighbor_gather``),
-  where the JAX reference leaves XLA a scatter-add: no TPU kernel;
+  backward of the neighbour gather (``neighbor_gather``: the DP force path,
+  the classical pair and bonded tables) and the DD force reduction, where
+  the JAX reference leaves XLA a scatter-add: no TPU kernel; its reverse
+  list is a stable radix sort written by hand, its sums one add chain per
+  (atom, component);
 - ``flash_attention`` / ``flash_decode``: CUDA C++ for ``sm_90a``
   (``csrc/flash_attn.cu``), replacing ``repro/kernels/flash_attn.py::
   _flash_kernel``: the attention of the LM serving path (causal, GQA,

@@ -13,14 +13,16 @@ cotangent rows ``g[i, k]`` over the slots with ``idx[i, k] == j`` and
 and padded slots add nothing: the DP model's cotangent there is +0.0, so
 the sums are those of the full scatter.
 
-The kernel is CUDA C++ for ``sm_90a`` in ``csrc/force_scatter.cu`` (built
+The kernels are CUDA C++ for ``sm_90a`` in ``csrc/force_scatter.cu`` (built
 by :mod:`repro_torch.kernels.build`, bound with ctypes); its header says
-what bounds it (bytes) and why its sums have the plain version's bits.  It
-walks a reverse list that :func:`reverse_list` builds per call from
-``(idx, mask)`` (a stable sort: bookkeeping, no arithmetic); the list is not
-cached, since the mask changes at every evaluate.  The plain version is
-:func:`force_scatter_plain`, ``index_add_`` over the valid slots in
-ascending flat order.
+what bounds them (bytes) and why the sums have the plain version's bits.
+:func:`_build_list` builds the reverse list on the card from ``(idx,
+mask)`` with a stable radix sort written by hand over the valid slots only
+(bookkeeping, no arithmetic), and :func:`_launch` sums each atom's
+segment; the list is not cached, since the mask changes at every evaluate.
+:func:`reverse_list` is the list's plain version (a stable ``torch.sort``)
+and :func:`force_scatter_plain` the sums', ``index_add_`` over the valid
+slots in ascending flat order.
 
 Dispatch goes by the tensors' device: CUDA tensors launch the kernel (and
 raise if it cannot build or launch), CPU tensors take the plain version.
@@ -34,14 +36,19 @@ import torch
 
 from . import build
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+TILE = 4096                 # slots per block of the list's sort (csrc)
+MAX_SLOTS = 2 ** 31 - 1     # list entries and places are 32-bit
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("force_scatter")
     if not getattr(lib, "_bound", False):
-        lib.force_scatter.argtypes = [_P, _P, _P, _P, _I, _P]
-        lib.force_scatter.restype = _I
+        for name in ("force_scatter_list_i32", "force_scatter_list_i64"):
+            getattr(lib, name).argtypes = [_P, _P, _L, _I] + [_P] * 10
+            getattr(lib, name).restype = _I
+        lib.force_scatter_sum.argtypes = [_P, _P, _P, _P, _I, _P]
+        lib.force_scatter_sum.restype = _I
         lib._bound = True
     return lib
 
@@ -75,7 +82,8 @@ def reverse_list(idx, mask, n: int):
 def force_scatter(g, idx, mask, n: int):
     """(n, 3) per-atom sums of the cotangent rows ``g`` (C, K, 3) float32 of
     the valid slots (``idx`` (C, K) >= 0, ``mask`` (C, K) > 0).  The CUDA
-    kernel for CUDA tensors, over the :func:`reverse_list` built here."""
+    kernels for CUDA tensors: the list built by :func:`_build_list`, the
+    sums by :func:`_launch`."""
     if not g.is_cuda:
         return force_scatter_plain(g, idx, mask, n)
     if (g.dtype != torch.float32 or g.shape != (*idx.shape, 3)
@@ -87,18 +95,56 @@ def force_scatter(g, idx, mask, n: int):
             f"{tuple(idx.shape)} {idx.dtype}, mask {tuple(mask.shape)}")
     if not (idx.device == g.device == mask.device):
         raise ValueError("force_scatter inputs lie on different devices")
-    return _launch(g, *reverse_list(idx, mask, n), n)
+    return _launch(g, *_build_list(idx, mask, n), n)
+
+
+def _build_list(idx, mask, n: int):
+    """The reverse list of :func:`reverse_list` built on the card by the
+    hand-written radix sort: (perm, off) int32, atom j's valid slots
+    ``perm[off[j]:off[j + 1]]`` ascending; ``perm`` has C*K entries, of
+    which the first ``off[n]`` are the list.  Slots whose index lies outside
+    [0, n) are dropped with the masked ones."""
+    if not idx.is_cuda:
+        raise ValueError("_build_list builds the list on the card; "
+                         "reverse_list is its plain version")
+    slots = idx.numel()
+    if slots > MAX_SLOTS or not 0 <= n < MAX_SLOTS:
+        raise ValueError(f"force_scatter takes fewer than 2^31 slots and "
+                         f"atoms; got {slots} slots, n = {n}")
+    if mask.dtype != torch.float32:
+        mask = (mask > 0).to(torch.float32)
+    # the first pass reads 16 bytes a load: a view starting off a 16-byte
+    # boundary is copied
+    idx, mask = (t.reshape(-1).contiguous() for t in (idx, mask))
+    idx, mask = (t.clone() if t.data_ptr() % 16 else t for t in (idx, mask))
+    nb = -(-slots // TILE)
+    sizes = (slots, slots, slots, slots, 256 * nb, nb, 256, 1, n + 1)
+    ws = torch.empty(sum(sizes), dtype=torch.int32, device=idx.device)
+    keys, perm, tmp_k, tmp_v, hist, count, total, nvalid, off = ws.split(sizes)
+    if n:
+        lib = _lib()
+        fn = (lib.force_scatter_list_i32 if idx.dtype == torch.int32
+              else lib.force_scatter_list_i64)
+        err = fn(idx.data_ptr(), mask.data_ptr(), slots, n,
+                 *(t.data_ptr() for t in (keys, perm, tmp_k, tmp_v, hist,
+                                          count, total, nvalid, off)),
+                 torch.cuda.current_stream().cuda_stream)
+        build.check(err, lib, "force_scatter list")
+    else:
+        off.zero_()
+    return perm, off
 
 
 def _launch(g, perm, off, n: int):
-    """The kernel alone, over a built reverse list ``(perm, off)``."""
+    """The sums alone, over a built reverse list ``(perm, off)`` (int32, as
+    :func:`_build_list` gives it)."""
     g = g.contiguous()
     out = g.new_empty((n, 3))
     if n:
         lib = _lib()
-        err = lib.force_scatter(g.data_ptr(), perm.data_ptr(), off.data_ptr(),
-                                out.data_ptr(), n,
-                                torch.cuda.current_stream().cuda_stream)
+        err = lib.force_scatter_sum(g.data_ptr(), perm.data_ptr(),
+                                    off.data_ptr(), out.data_ptr(), n,
+                                    torch.cuda.current_stream().cuda_stream)
         build.check(err, lib, "force_scatter")
         force_scatter.launches += 1
     return out

@@ -34,6 +34,14 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   all slots masked and N = 0; grad-of-grad through ``neighbor_gather``
   against the CPU (atol 1e-6 x max); the DD force reduction through it
   equal to the CPU bit for bit;
+* the force scatter's list, built on the card by the hand-written radix
+  sort, equal to ``reverse_list`` element for element, and its sums equal
+  to ``force_scatter_plain`` bit for bit (and on a repeat), with int32 and
+  int64 indices, on a pair-table-shaped input, a pile-up (every valid slot
+  on one atom), segments of 0, 1, 31, 32, 33 and 1,025 entries, K = 1 with
+  80% of the atoms empty, and n at 65,535, 65,536 and 65,537 (the digit
+  count changes above 65,536); no ``torch.sort``, ``argsort`` or
+  ``searchsorted`` runs in a call on the card; 2^31 slots raise;
 * the MD engine on the solvated 5-residue protein with the paper's DPA-1
   (random weights, seed 0): 10 steps on the card against the CPU (positions
   atol 1e-5 nm, the CPU tests' gate against JAX); scan == step and a
@@ -390,6 +398,111 @@ def test_force_scatter_all_masked_and_empty(card):
     assert not bool(fs.force_scatter(g, idx, mask, 200).any())
     out = fs.force_scatter(g[:0], idx[:0], mask[:0], 0)
     assert out.shape == (0, 3)
+
+
+def _list_case(case, seed):
+    """(idx, mask, n) for the card's list: the shapes its stable sort has to
+    get right."""
+    rng = np.random.default_rng(seed)
+    if case == "pair_table":             # (N, 2K), own half masked too
+        n, k = 3000, 96
+        nbr = rng.integers(0, n, (n, k))
+        nbr[rng.random((n, k)) < 0.45] = -1
+        m = (rng.random((n, k)) < 0.8) & (nbr >= 0)
+        own = np.broadcast_to(np.arange(n)[:, None], (n, k))
+        return (np.stack([own, nbr], -1).reshape(n, 2 * k),
+                np.repeat(m, 2, 1), n)
+    if case == "pile_up":                # every valid slot on one atom
+        n = 500
+        idx = np.where(rng.random((4000, 82)) < 0.3, -1, 321)
+        return idx, (rng.random(idx.shape) < 0.8) & (idx >= 0), n
+    if case == "segments":               # atoms 0-5 hold exactly these
+        n, lengths = 2000, (0, 1, 31, 32, 33, 1025)
+        idx = rng.integers(len(lengths), n, 60_000)
+        spots = rng.permutation(len(idx))
+        start = 0
+        for atom, length in enumerate(lengths):
+            idx[spots[start:start + length]] = atom
+            start += length
+        return idx[:, None], np.ones((len(idx), 1), bool), n
+    if case == "k1_sparse":              # the DD force reduction's shape
+        n = 125_376
+        idx = rng.choice(n, n // 5, replace=False)
+        return idx[:, None], np.ones((len(idx), 1), bool), n
+    n = int(case[1:])                    # n at the digit-count boundary
+    idx = np.where(rng.random((3000, 40)) < 0.5, n - 1 - rng.integers(
+        0, 300, (3000, 40)), rng.integers(0, n, (3000, 40)))
+    idx[rng.random(idx.shape) < 0.2] = -1
+    return idx, (rng.random(idx.shape) < 0.7) & (idx >= 0), n
+
+
+LIST_CASES = ["pair_table", "pile_up", "segments", "k1_sparse", "n65535",
+              "n65536", "n65537"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", LIST_CASES)
+def test_force_scatter_list_and_sums_on_card(card, case, dtype):
+    """The card's list is ``reverse_list`` element for element, and the
+    sums over it are the plain version's bits, on a repeat too."""
+    idx, mask, n = _list_case(case, LIST_CASES.index(case))
+    rng = np.random.default_rng(7)
+    g = rng.normal(0, 1, (*idx.shape, 3)).astype(np.float32)
+    g[~mask] = 1e6
+    idx = torch.tensor(idx, dtype=dtype)
+    mask = torch.tensor(mask, dtype=torch.float32)
+    g = torch.tensor(g)
+    want_perm, want_off = fs.reverse_list(idx, mask, n)
+    perm, off = fs._build_list(idx.to(card), mask.to(card), n)
+    assert perm.dtype == off.dtype == torch.int32
+    assert torch.equal(off.cpu().long(), want_off)
+    valid = int(want_off[-1])
+    assert torch.equal(perm[:valid].cpu().long(), want_perm[:valid])
+    if case == "segments":
+        assert want_off[1:7].tolist() == [0, 1, 32, 64, 97, 1122]
+    before = fs.force_scatter.launches
+    got = fs.force_scatter(g.to(card), idx.to(card), mask.to(card), n)
+    assert fs.force_scatter.launches == before + 1
+    assert torch.equal(got.cpu(), fs.force_scatter_plain(g, idx, mask, n))
+    assert torch.equal(fs.force_scatter(g.to(card), idx.to(card),
+                                        mask.to(card), n), got)
+
+
+@pytest.mark.cuda
+def test_force_scatter_on_card_runs_no_library_sort(card, monkeypatch):
+    """The list is the hand-written kernels' alone: a call on the card with
+    ``torch.sort``, ``argsort`` and ``searchsorted`` made to raise gives the
+    plain version's bits."""
+    g, idx, mask = _scatter_args(11, 3000, 82, 0.35)
+    want = fs.force_scatter_plain(g, idx, mask, 3000)
+    args = (g.to(card), idx.to(card), mask.to(card))
+
+    def refuse(*a, **kw):
+        raise AssertionError("a library sort ran on the card path")
+
+    for owner in (torch, torch.Tensor):
+        for name in ("sort", "argsort", "searchsorted"):
+            if hasattr(owner, name):
+                monkeypatch.setattr(owner, name, refuse)
+    got = fs.force_scatter(*args, 3000)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_force_scatter_refuses_2_31_slots(card):
+    """List entries are 32-bit: 2^31 slots (stride-0 views, nothing
+    allocated) raise before any launch."""
+    c, k = 2 ** 16, 2 ** 15
+    g = torch.zeros(1, 1, 3, device=card).expand(c, k, 3)
+    idx = torch.zeros(1, 1, dtype=torch.int32, device=card).expand(c, k)
+    mask = torch.ones(1, 1, device=card).expand(c, k)
+    before = fs.force_scatter.launches
+    with pytest.raises(ValueError, match="2\\^31"):
+        fs.force_scatter(g, idx, mask, 10)
+    assert fs.force_scatter.launches == before
 
 
 @pytest.mark.cuda

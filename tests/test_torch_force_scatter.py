@@ -23,6 +23,11 @@ and the port's forces through it against the JAX package.
 * With 4 intra-op threads, ten force calls on 1,200 atoms at K = 64
   (76,800 slots, above the 32,768 elements where PyTorch's CPU
   accumulate adds with atomics) give the same bits.
+* The reverse list's order and the plain sums' bits on the shapes the
+  card's list has to sort stably: a classical pair table (N, 2K) whose
+  own-index half holds masked slots that still point at an atom, a pile-up
+  (every valid slot on one atom) and one segment of 1,500 entries among
+  short ones.
 """
 import contextlib
 
@@ -275,3 +280,61 @@ def test_forces_repeat_bitwise_with_four_threads():
                 for _ in range(10)]
     e0, f0 = runs[0]
     assert all(float(e) == float(e0) and torch.equal(f, f0) for e, f in runs)
+
+
+def _pair_table(seed, n, k):
+    """The classical force field's pair table (N, 2K): (own i, neighbour
+    j) per slot of a -1 padded list, both ends under the pair's mask, so
+    the own half keeps pointing at atom i where the pair is masked."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, n, (n, k)).astype(np.int32)
+    nbr[rng.random((n, k)) < 0.4] = -1
+    m = ((rng.random((n, k)) < 0.8) & (nbr >= 0)).astype(np.float32)
+    own = np.broadcast_to(np.arange(n, dtype=np.int32)[:, None], (n, k))
+    return np.stack([own, nbr], -1).reshape(n, 2 * k), np.repeat(m, 2, 1)
+
+
+def _pile_up(seed, n, slots):
+    """Every valid slot on atom 7; padded and masked slots around it."""
+    rng = np.random.default_rng(seed)
+    idx = np.where(rng.random((slots, 1)) < 0.2, -1, 7).astype(np.int32)
+    return idx, ((rng.random((slots, 1)) < 0.9) & (idx >= 0)).astype(
+        np.float32)
+
+
+def _long_segment(seed, n, slots, length=1500):
+    """Atom 42 holds ``length`` slots spread over the table; the others
+    hold a few each."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, (slots, 1)).astype(np.int32)
+    idx[idx == 42] = 43
+    idx[rng.choice(slots, length, replace=False)] = 42
+    return idx, np.ones((slots, 1), np.float32)
+
+
+@pytest.mark.parametrize("case,n", [("pair_table", 60), ("pile_up", 40),
+                                    ("long_segment", 120)])
+def test_reverse_list_orders_every_segment(case, n):
+    idx, mask = {"pair_table": lambda: _pair_table(4, n, 24),
+                 "pile_up": lambda: _pile_up(5, n, 3000),
+                 "long_segment": lambda: _long_segment(6, n, 4000)}[case]()
+    rng = np.random.default_rng(n)
+    g = rng.normal(0, 1, (*idx.shape, 3)).astype(np.float32)
+    g[mask == 0] = 1e6
+    perm, off = fs.reverse_list(T(idx), T(mask), n)
+    flat, valid = idx.ravel(), (idx.ravel() >= 0) & (mask.ravel() > 0)
+    order = np.flatnonzero(valid)
+    order = order[np.argsort(flat[order], kind="stable")]
+    assert np.array_equal(perm[:int(off[-1])].numpy(), order)
+    assert np.array_equal(off.numpy(), np.searchsorted(
+        flat[order], np.arange(n + 1)))
+    lengths = np.diff(off.numpy())
+    assert lengths.max() >= {"pair_table": 20, "pile_up": 2000,
+                             "long_segment": 1500}[case]
+    # the plain sums: one float32 add per valid slot, in list order
+    seq = np.zeros((n, 3), np.float32)
+    rows = g.reshape(-1, 3)
+    for s in order:
+        seq[flat[s]] = seq[flat[s]] + rows[s]
+    assert np.array_equal(
+        fs.force_scatter_plain(T(g), T(idx), T(mask), n).numpy(), seq)
