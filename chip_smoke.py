@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's paths once on one card: the DP force path
-and gemma2-2b token serving.
+"""Drive the PyTorch/H100 port's paths once on one card: the DP force path,
+DPA-1 training and gemma2-2b token serving.
 
     python3 chip_smoke.py                   # every phase
     python3 chip_smoke.py --phase lm        # the lm phase alone
     python3 chip_smoke.py --phase kernels   # the DP kernels phase alone
     python3 chip_smoke.py --phase md        # the md phase alone
     python3 chip_smoke.py --phase guard     # the guard phase alone
+    python3 chip_smoke.py --phase train     # the train phase alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
 source, all started together; Triton at first launch), then runs phases
 1-4 on the paper's DPA-1 at full width (``paper_dpa1_config(ntypes=4,
 rcut=0.6, sel=64)``, fp32, random weights from a seed) over uniform random
-atoms at 30 atoms/nm^3, phase 5 on the MD engine with the same model, and
-phase 6 on gemma2-2b:
+atoms at 30 atoms/nm^3, phases 5-6 on the MD engine with the same model,
+phase 7 trains the DPA-1 and phase 8 serves gemma2-2b:
 
 1. kernels: the env-matrix, attention and force-scatter kernels against
    their plain PyTorch versions on the card, at the shapes and on the data
@@ -72,7 +73,25 @@ phase 6 on gemma2-2b:
    same bits (the save's own ms apart); on 8 virtual ranks (5 steps) a
    rank-3 ``nan_force`` through the pipeline's fault hook recovers bit
    for bit; every kernel of each guarded path launched;
-7. lm: gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
+7. train: DPA-1 force-matching training (``repro_torch.dp.train``, the
+   paper's Fig. 7 pipeline) at the paper's width: the reference example's
+   run (``paper_dpa1_config(ntypes=4, rcut=0.6, sel=24)``,
+   ``make_dataset(128, n_atoms=32, seed=0)``, split 0.15, batch 8, lr0
+   2e-3, 20 steps, evaluated every 10) through ``train`` with its history
+   printed and every value finite; a run restored from its step-10
+   checkpoint ending with the uninterrupted run's parameters bit for bit;
+   the first two steps' loss, gradient and gradient norm on the card
+   against the port on the CPU (the CPU tests' gates); 11 of its steps
+   timed (ms per step, median of steps 2-10); then a timed run at
+   the MD model's capacity (sel 64, 8 frames of 256 atoms a step: ms per
+   step, median of steps 2-10, synchronised; a ``force_rmse`` call's ms;
+   peak memory); one step of each run and one ``force_rmse`` call under
+   ``torch.profiler`` (device time by kernel, idle share, host ops).  The loss takes the training route (the env matrix and
+   the attention stack in plain PyTorch under autograd, the force scatter
+   in both orders): a training step must launch the force scatter and no
+   model kernel, a ``force_rmse`` call (the kernel route) each of the
+   env-matrix, attention and force-scatter kernels;
+8. lm: gemma2-2b at full width (26 layers, d_model 2304, vocab 256000,
    bf16, random weights from the port's initialiser), 4 prompts of 6,144
    random token ids, 32 greedy new tokens through ``launch/serve.py``'s
    ``serve_tokens``: an eager request with every attention call recorded
@@ -89,8 +108,9 @@ phase 6 on gemma2-2b:
    at a reduced width in fp32; 3 timed rounds each of graphed and eager
    requests, then a profiled prefill, 4 profiled graphed decode steps and
    4 eager ones;
-8. a ``kernels`` JSON line (launches per force call, per MD step, per
-   guarded MD run and per request), then the result line.
+9. a ``kernels`` JSON line (launches per force call, per MD step, per
+   guarded MD run, per training step and ``force_rmse`` call, and per
+   request), then the result line.
 
 Any failed check raises, and the script exits non-zero.  It needs one CUDA
 card and the repository's ``src/`` beside it; it imports no JAX.
@@ -1058,6 +1078,46 @@ def check_dd_model_kernels(seen, phase="dd"):
     return scatter
 
 
+def to_cpu(obj):
+    """A copy of ``obj`` with every tensor in it (through dicts, lists,
+    tuples, named tuples and dataclasses) detached and on the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_cpu(v) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_cpu(v) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: to_cpu(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def save_fig12_mismatch(pipe, params, x, t, probe_out, fn_out):
+    """Both results of a fused DD call that differed, the inputs, and each
+    stage's context (the pipeline's stages run one by one, as the prefix
+    probes run them), saved to ``build/diagnostics/fig12_mismatch.pt``
+    beside this script; returns the path."""
+    shards, types_p = pipe._shard(x, t)
+    ctx = {"params": params, "coords_shard": shards, "types_all": types_p}
+    stages = {}
+    for stage in pipe.stages:
+        stage.body(ctx)
+        stages[stage.name] = to_cpu({k: v for k, v in ctx.items()
+                                     if k != "params"})
+    out = Path(__file__).resolve().parent / "build" / "diagnostics"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "fig12_mismatch.pt"
+    torch.save({"probe_force_reduce": to_cpu(probe_out),
+                "force_fn": to_cpu(fn_out), "coords": to_cpu(x),
+                "types": to_cpu(t), "params": to_cpu(params),
+                "stages": stages}, path)
+    return path
+
+
 def fig12_split(pipe, params, x, t):
     """The paper's Fig.-12 phase split of one fused force call: the prefix
     probes of ``pipe`` (gather, assembly, inference, force_reduce; the last
@@ -1065,10 +1125,14 @@ def fig12_split(pipe, params, x, t):
     ``obs.timed_prefix_phases`` (median of 3, synchronised)."""
     from repro_torch.obs import ObsConfig, Tracer, report, timed_prefix_phases
     probes = pipe.build_phase_probes()
-    e0, f0, _ = probes["force_reduce"](params, x, t)
-    e1, f1, _ = pipe.build_force_fn()(params, x, t)
+    probe_out = probes["force_reduce"](params, x, t)
+    fn_out = pipe.build_force_fn()(params, x, t)
+    (e0, f0, _), (e1, f1, _) = probe_out, fn_out
     if not (torch.equal(e0, e1) and torch.equal(f0, f1)):
-        fail("dd fig12: the last phase probe differs from the force function")
+        path = save_fig12_mismatch(pipe, params, x, t, probe_out, fn_out)
+        fail("dd fig12: the last phase probe differs from the force "
+             f"function; both results, the inputs and each stage's "
+             f"tensors are saved in {path}")
     tracer = Tracer(ObsConfig(enabled=True))
     split = timed_prefix_phases(
         tracer, {k: (lambda fn=fn: fn(params, x, t))
@@ -1923,6 +1987,418 @@ def phase_guard(model, params):
 
 
 # ---------------------------------------------------------------------------
+# train: DPA-1 force-matching training (the paper's Fig. 7 pipeline)
+# ---------------------------------------------------------------------------
+
+# the reference example's run (examples/train_dpa1.py) and a timed run at
+# the MD model's capacity (sel 64; 8 frames of 256 atoms = 2,048 a step)
+TRAIN_EXAMPLE = dict(frames=128, atoms=32, sel=24, batch=8, lr0=2e-3,
+                     steps=20, eval_every=10)
+TRAIN_TIMED = dict(frames=64, atoms=256, sel=64, batch=8, steps=11)
+# tests/test_torch_train.py's gates against JAX: the loss rtol 1e-5, each
+# gradient leaf atol 2e-5 x max|leaf|; the global norm sums the leaves
+TRAIN_LOSS_RTOL, TRAIN_GRAD_ATOL = 1e-5, 2e-5
+TRAIN_ROUTE = {"loss": "second_order: env matrix and attention stack in "
+                       "plain PyTorch under autograd (the reference's jnp "
+                       "training route), the neighbour gather's force "
+                       "scatter kernel in both orders",
+               "force_rmse": "kernels, first order (env_mat, "
+                             "nbr_attention_stack, force_scatter)"}
+TRAIN_LOSS_KERNELS = ("force_scatter",)
+TRAIN_NO_KERNELS = ("env_mat_fwd", "env_mat_bwd", "nbr_attention_stack_fwd",
+                    "nbr_attention_stack_bwd", "cell_filter")
+
+
+def train_counts(fn, where):
+    """(fn's result, launches by kernel, force-scatter calls by call site)
+    of one call of ``fn``, with the counts reset just before it and read
+    just after it (synchronised); the sites are named by ``where`` from
+    the (rows, K) of their index table."""
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res, by_shape = scatter_calls_by_shape(fn)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if sum(by_shape.values()) != counts["force_scatter"]:
+        fail(f"train {where}: force scatter calls by site {by_shape} do not "
+             f"add up to its {counts['force_scatter']} launches")
+    return res, counts, _sites(where, by_shape)
+
+
+def _sites(where, by_shape):
+    return {f"{where} gather backward {rows}x{k}": n
+            for (rows, k), n in by_shape.items()}
+
+
+def _per(counts, n):
+    return {k: v / n for k, v in counts.items()}
+
+
+def train_run_counts(fn):
+    """One training run ``fn()`` (``train`` as a user calls it) with the
+    counts reset just before it and read just after it, and ``force_rmse``
+    wrapped so that the launches of its evaluations are told apart from
+    the steps'.  Returns (fn's result, launches of the whole run, of its
+    steps, of its force_rmse calls, their force-scatter calls by (rows,
+    K), the number of force_rmse calls)."""
+    import importlib
+    from repro_torch import kernels
+    dtrain = importlib.import_module("repro_torch.dp.train")
+    original = dtrain.force_rmse
+    inside = {k: 0 for k in kernels.KERNELS}
+    inside_shapes, calls = {}, [0]
+
+    def counted(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        out, by_shape = scatter_calls_by_shape(
+            lambda: original(*args, **kwargs))
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        for k in inside:
+            inside[k] += after[k] - before[k]
+        for shape, n in by_shape.items():
+            inside_shapes[shape] = inside_shapes.get(shape, 0) + n
+        calls[0] += 1
+        return out
+
+    dtrain.force_rmse = counted
+    try:
+        res, counts, _ = train_counts(fn, "train run")
+    finally:
+        dtrain.force_rmse = original
+    # the force scatter's launches go to the wrapper while it is in place,
+    # so its share inside force_rmse is the tally's
+    inside["force_scatter"] = sum(inside_shapes.values())
+    steps = {k: counts[k] - inside[k] for k in counts}
+    return res, counts, steps, inside, inside_shapes, calls[0]
+
+
+def check_step_launches(step_counts, what):
+    """Training steps launch the gather's force scatter and no model
+    kernel (the training route)."""
+    for k in TRAIN_LOSS_KERNELS:
+        if step_counts[k] == 0:
+            fail(f"train {what}: the training steps never launched {k}: "
+                 f"{step_counts}")
+    for k in TRAIN_NO_KERNELS:
+        if step_counts[k]:
+            fail(f"train {what}: a training step launched {k}: {step_counts}")
+
+
+def check_rmse_launches(rmse_counts, what):
+    """force_rmse launches rows 1-4 and 7 (the kernel route) and no cell
+    filter."""
+    for k in SINGLE_DOMAIN_KERNELS:
+        if rmse_counts[k] == 0:
+            fail(f"train {what}: force_rmse never launched {k}: {rmse_counts}")
+    if rmse_counts["cell_filter"]:
+        fail(f"train {what}: force_rmse launched cell_filter: {rmse_counts}")
+
+
+def train_setup(spec, device):
+    """Dataset (seed 0), split 0.15, the paper's DPA-1 at ``spec``'s sel
+    with env stats from the training set, and the initial parameters
+    (``torch.Generator`` seeded 0, energy bias fitted) on ``device``."""
+    from repro_torch.data import make_dataset
+    from repro_torch.dp import DPModel, fit_env_stats, paper_dpa1_config
+    from repro_torch.dp.train import fit_energy_bias
+    t0 = time.perf_counter()
+    data = make_dataset(spec["frames"], n_atoms=spec["atoms"], seed=0,
+                        device=device)
+    tr, va = data.split(0.15)
+    cfg = paper_dpa1_config(ntypes=4, rcut=0.6, sel=spec["sel"])
+    model = DPModel(cfg, fit_env_stats(cfg, tr, device=device), device=device)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    params["bias"] = torch.as_tensor(fit_energy_bias(tr, 4), device=device)
+    return tr, va, model, params, (time.perf_counter() - t0) * 1e3
+
+
+def train_steps(model, params, arrays, cfg, steps, timed=False):
+    """``steps`` Adam steps from ``params``, each as ``train`` takes it
+    (the step's batch selected on the device, its step counter made, the
+    step); returns (params, per-step [loss, global gradient norm, grads,
+    ms]).  With ``timed`` each step is synchronised at both ends, so its
+    ms covers all of it, the batch selection included."""
+    from repro_torch.dp.train import make_train_step, select_batch
+    from repro_torch.optim import adam, exponential_decay, global_norm
+    lr_fn = exponential_decay(cfg.lr0, cfg.decay_steps, cfg.decay_rate)
+    opt = adam(lr_fn)
+    step_fn = make_train_step(model, cfg, lr_fn, opt)
+    state = opt.init(params)
+    dev = model.device
+    out = []
+    for step in range(steps):
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, _, _, grads = step_fn(
+            params, state, select_batch(arrays, cfg, step),
+            torch.tensor(step, dtype=torch.int32, device=dev))
+        if timed:
+            torch.cuda.synchronize()
+        out.append((loss, grads, (time.perf_counter() - t0) * 1e3))
+    return params, [(float(loss), float(global_norm(grads)), grads, ms)
+                    for loss, grads, ms in out]
+
+
+def check_train_steps(card, cpu, what):
+    """Training steps on the card against the port's on the CPU from the
+    same parameters and batches: the loss rtol TRAIN_LOSS_RTOL, the global
+    gradient norm rtol TRAIN_GRAD_ATOL, each gradient leaf atol
+    TRAIN_GRAD_ATOL x max|leaf|.  Returns the largest leaf error over its
+    leaf's max."""
+    from repro_torch.optim.adam import tree_leaves
+    grad_err = 0.0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if abs(a[0] - b[0]) > TRAIN_LOSS_RTOL * abs(b[0]):
+            fail(f"train {what}: step {i} loss card {a[0]} vs cpu {b[0]}")
+        if abs(a[1] - b[1]) > TRAIN_GRAD_ATOL * abs(b[1]):
+            fail(f"train {what}: step {i} gradient norm card {a[1]} vs cpu "
+                 f"{b[1]}")
+        for ga, gb in zip(tree_leaves(a[2]), tree_leaves(b[2])):
+            scale = float(gb.abs().max()) or 1.0
+            grad_err = max(grad_err, check(
+                f"train {what} step {i} gradient", ga.cpu(), gb,
+                atol=TRAIN_GRAD_ATOL * scale) / scale)
+    return grad_err
+
+
+def check_force_rmse(model, params, arrays, got, what, frames=32):
+    """The force calls behind ``force_rmse(model, params, arrays, frames)``
+    on the card against the port's on the CPU with the same parameters and
+    arrays, at the DP gate (F atol 1e-4 x max|F| per call), and ``got``
+    (the card's force_rmse) against force_rmse's sum over the CPU's
+    forces.  Forces within d of each other everywhere give RMSEs within d,
+    so the RMSE's gate is 1e-4 x the largest max|F|.  Returns (the CPU's
+    RMSE, the largest force error over its call's max|F|)."""
+    from repro_torch.dp import DPModel
+    from repro_torch.dp.train import EVAL_CHUNK
+    cpu_model = DPModel(model.cfg, model.stats, device="cpu")
+    p_cpu = _tree(params, lambda t: t.cpu())
+    a_cpu = {k: v.cpu() for k, v in arrays.items()}
+    n = min(frames, len(arrays["energies"]))
+    fmax = err = sq = 0.0
+    count = 0
+    for lo in range(0, n, EVAL_CHUNK):
+        sl = slice(lo, min(lo + EVAL_CHUNK, n))
+        f_card, f_cpu = (
+            m.energy_and_forces_batched(
+                p, a["coords"][sl], a["types"][sl], a["nbr_idx"][sl],
+                a["nbr_mask"][sl], torch.ones(a["coords"][sl].shape[:2],
+                                              device=a["coords"].device))[1]
+            for m, p, a in ((model, params, arrays),
+                            (cpu_model, p_cpu, a_cpu)))
+        scale = float(f_cpu.abs().max())
+        err = max(err, check(f"train {what} force_rmse forces, frames "
+                             f"{sl.start}-{sl.stop}", f_card.cpu(), f_cpu,
+                             atol=1e-4 * scale) / scale)
+        fmax = max(fmax, scale)
+        sq += float(((f_cpu - a_cpu["forces"][sl]) ** 2).sum())
+        count += f_cpu.numel()
+    want = float(np.sqrt(sq / count))   # force_rmse's sum, on the CPU
+    if abs(got - want) > 1e-4 * fmax:
+        fail(f"train {what}: force_rmse card {got} vs cpu {want} "
+             f"(gate 1e-4 x max|F| = {1e-4 * fmax:.3e})")
+    return want, err
+
+
+def phase_train():
+    """The example's run through ``train`` on the card (its history, the
+    launches of its steps and of its ``force_rmse`` calls, its force RMSEs
+    at the mid-run checkpoint and at the end against the CPU, a restart
+    from that checkpoint bit for bit, the first two steps against the
+    port on the CPU, 11 timed steps), then the timed run at sel 64 (11
+    timed steps, the first against the CPU; three timed ``force_rmse``
+    calls, held against the CPU)."""
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import load_pytree
+    from repro_torch.dp import DPModel, TrainConfig, force_rmse, train
+    from repro_torch.dp.train import prepare_batches
+    from repro_torch.optim import adam, exponential_decay
+    from repro_torch.optim.adam import tree_leaves
+    t_phase = time.perf_counter()
+    ex = TRAIN_EXAMPLE
+    tr, va, model, params0, setup_ms = train_setup(ex, DEVICE)
+    cfg = TrainConfig(n_steps=ex["steps"], eval_every=ex["eval_every"],
+                      batch_size=ex["batch"], lr0=ex["lr0"],
+                      checkpoint_every=ex["steps"] // 2)
+    d = model.cfg.descriptor
+    # the arrays that train() builds, for the checks against the CPU
+    arrays = prepare_batches(tr, d.rcut, d.sel, DEVICE)
+    arrays_va = prepare_batches(va, d.rcut, d.sel, DEVICE)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    try:
+        full_dir, resumed_dir = Path(tmp.name, "full"), Path(tmp.name, "resumed")
+        # the main path: train() as a user calls it
+        hist = []
+        t0 = time.perf_counter()
+        (params, _), counts, step_counts, rmse_counts, rmse_shapes, n_rmse = \
+            train_run_counts(lambda: train(model, tr, va, dataclasses.replace(
+                cfg, checkpoint_dir=str(full_dir)), log=hist.append))
+        run_ms = (time.perf_counter() - t0) * 1e3
+        for rec in hist:
+            if not all(np.isfinite(v) for v in rec.values()):
+                fail(f"train: non-finite history record {rec}")
+            print(json.dumps({"phase": "train", "run": "example", **rec}),
+                  flush=True)
+        check_step_launches(step_counts, "example run")
+        check_rmse_launches(rmse_counts, "example run")
+        # the history's force RMSEs at the mid-run checkpoint and at the end
+        mid = f"step_{cfg.checkpoint_every:09d}"
+        opt_like = adam(exponential_decay(cfg.lr0, cfg.decay_steps,
+                                          cfg.decay_rate)).init(params)
+        mid_params = load_pytree(str(full_dir / mid), like={
+            "params": params, "opt": opt_like})["params"]
+        by_step = {rec["step"]: rec for rec in hist}
+        rmse_checks = []
+        for step, p in ((cfg.checkpoint_every, mid_params),
+                        (cfg.n_steps - 1, params)):
+            for key, arr in (("rmse_f_train", arrays),
+                             ("rmse_f_valid", arrays_va)):
+                got = by_step[step][key]
+                want, err = check_force_rmse(model, p, arr, got,
+                                             f"example step {step} {key}")
+                rmse_checks.append({"step": step, "key": key, "card": got,
+                                    "cpu": want, "F_max_err_over_max": err})
+        # a restart from the mid-run checkpoint
+        shutil.copytree(full_dir / mid, resumed_dir / mid)
+        resumed, hist_b = train(model, tr, va, dataclasses.replace(
+            cfg, checkpoint_dir=str(resumed_dir)))
+        diffs = [float((a - b).abs().max())
+                 for a, b in zip(tree_leaves(resumed), tree_leaves(params))]
+        if max(diffs) != 0.0 or hist_b[-1]["loss"] != hist[-1]["loss"]:
+            fail(f"train: the run restored from {mid} ends {max(diffs):.3e} "
+                 "away from the uninterrupted run (required: bit for bit)")
+    finally:
+        tmp.cleanup()
+    # the first two steps on the card against the port on the CPU
+    cpu_model = DPModel(model.cfg, model.stats, device="cpu")
+    _, card = train_steps(model, params0, arrays, cfg, 2)
+    _, cpu = train_steps(cpu_model, _tree(params0, lambda t: t.cpu()),
+                         {k: v.cpu() for k, v in arrays.items()}, cfg, 2)
+    grad_err = check_train_steps(card, cpu, "example")
+    (_, timed), timed_counts, timed_sites = train_counts(
+        lambda: train_steps(model, params0, arrays, cfg, 11, timed=True),
+        "training step")
+    check_step_launches(timed_counts, "example, timed steps")
+    if timed[0][0] != card[0][0]:
+        fail("train: a repeated first step gave another loss")
+    device_profile(lambda: train_steps(model, params0, arrays, cfg, 1),
+                   "train", "one training step, example run (256 atoms, "
+                   "sel 24)", host_ops=True)
+    print(json.dumps({
+        "phase": "train", "run": "example", "route": TRAIN_ROUTE,
+        "config": "paper_dpa1_config(ntypes=4, rcut=0.6, sel=24), "
+                  "make_dataset(128, n_atoms=32, seed=0), split 0.15, "
+                  "TrainConfig(batch_size=8, lr0=2e-3), 20 steps, "
+                  "eval_every=10",
+        "setup_ms": setup_ms, "train_ms": run_ms,
+        "ms_per_train_step_median_steps_2_10":
+            statistics.median(s[3] for s in timed[2:11]),
+        "ms_per_train_step_covers": "the batch selection and the step, "
+                                    "synchronised at both ends",
+        "loss_card_vs_cpu": [[a[0], b[0]] for a, b in zip(card, cpu)],
+        "grad_norm_card_vs_cpu": [[a[1], b[1]] for a, b in zip(card, cpu)],
+        "grad_max_err_over_max": grad_err,
+        "tol": f"loss rtol {TRAIN_LOSS_RTOL}, each gradient leaf atol "
+               f"{TRAIN_GRAD_ATOL} x max|leaf|, norm rtol {TRAIN_GRAD_ATOL}",
+        "force_rmse_card_vs_cpu": rmse_checks,
+        "force_rmse_tol": "forces atol 1e-4 x max|F| per call, the RMSE "
+                          "within 1e-4 x max|F|",
+        "restart_from": f"step {cfg.checkpoint_every}",
+        "restart_equals_uninterrupted": "bit for bit",
+        "launches_train_run": counts,
+        "force_rmse_calls_in_train_run": n_rmse,
+        "launches_per_train_step": _per(step_counts, cfg.n_steps),
+        "launches_per_force_rmse": _per(rmse_counts, n_rmse),
+        "force_scatter_per_force_rmse_by_site": _per(
+            _sites("force_rmse", rmse_shapes), n_rmse),
+        "launches_per_timed_step": _per(timed_counts, 11),
+        "force_scatter_per_timed_step_by_site": _per(timed_sites, 11)}),
+        flush=True)
+    del model, params, params0, arrays, arrays_va, cpu_model
+    torch.cuda.empty_cache()
+
+    # the timed run at the MD model's capacity
+    tm = TRAIN_TIMED
+    n = tm["steps"]
+    tr, _, model, params0, setup_ms = train_setup(tm, DEVICE)
+    cfg = TrainConfig(batch_size=tm["batch"], lr0=2e-3)
+    arrays = prepare_batches(tr, model.cfg.descriptor.rcut,
+                             model.cfg.descriptor.sel, DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (params, steps), step_counts, step_sites = train_counts(
+        lambda: train_steps(model, params0, arrays, cfg, n, timed=True),
+        "training step")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(s[0]) and np.isfinite(s[1]) for s in steps):
+        fail("train timed: non-finite loss or gradient")
+    check_step_launches(step_counts, "timed")
+    # its first step against the port on the CPU
+    _, cpu = train_steps(DPModel(model.cfg, model.stats, device="cpu"),
+                         _tree(params0, lambda t: t.cpu()),
+                         {k: v.cpu() for k, v in arrays.items()}, cfg, 1)
+    grad_err = check_train_steps(steps[:1], cpu, "timed")
+
+    def timed_rmse():
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rmse = force_rmse(model, params, arrays, 32)
+            torch.cuda.synchronize()
+            out.append((rmse, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    rmse_runs, rmse_counts, rmse_sites = train_counts(timed_rmse,
+                                                      "force_rmse")
+    check_rmse_launches(rmse_counts, "timed")
+    rmse = rmse_runs[0][0]
+    if any(r != rmse for r, _ in rmse_runs):
+        fail(f"train timed: repeated force_rmse calls differ: {rmse_runs}")
+    rmse_cpu, f_err = check_force_rmse(model, params, arrays, rmse, "timed")
+    device_profile(lambda: train_steps(model, params, arrays, cfg, 1),
+                   "train", "one training step, timed run (2,048 atoms, "
+                   "sel 64)", host_ops=True)
+    device_profile(lambda: force_rmse(model, params, arrays, 32), "train",
+                   "one force_rmse call, timed run (32 frames)")
+    print(json.dumps({
+        "phase": "train", "run": "timed", "route": TRAIN_ROUTE,
+        "config": "paper_dpa1_config(ntypes=4, rcut=0.6, sel=64), "
+                  "make_dataset(64, n_atoms=256, seed=0), split 0.15, "
+                  "TrainConfig(batch_size=8, lr0=2e-3)",
+        "atoms_per_step": tm["batch"] * tm["atoms"], "setup_ms": setup_ms,
+        "ms_per_train_step_median_steps_2_10":
+            statistics.median(s[3] for s in steps[2:11]),
+        "ms_per_train_step_covers": "the batch selection and the step, "
+                                    "synchronised at both ends",
+        "ms_per_train_step": [s[3] for s in steps],
+        "loss": [s[0] for s in steps], "grad_norm": [s[1] for s in steps],
+        "first_step_card_vs_cpu": {"loss": [steps[0][0], cpu[0][0]],
+                                   "grad_norm": [steps[0][1], cpu[0][1]],
+                                   "grad_max_err_over_max": grad_err},
+        "force_rmse_ms_median_of_3": statistics.median(
+            ms for _, ms in rmse_runs),
+        "force_rmse_frames": 32, "force_rmse": rmse,
+        "force_rmse_cpu": rmse_cpu, "force_rmse_F_max_err_over_max": f_err,
+        "peak_memory_MiB": peak / 2 ** 20,
+        "peak_above_data_and_params_MiB": (peak - base) / 2 ** 20,
+        "launches_per_train_step": _per(step_counts, n),
+        "force_scatter_per_train_step_by_site": _per(step_sites, n),
+        "launches_per_force_rmse": _per(rmse_counts, 3),
+        "force_scatter_per_force_rmse_by_site": _per(rmse_sites, 3)}),
+        flush=True)
+    print(f"[train] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"train_step": _per(step_counts, n),
+            "force_rmse": _per(rmse_counts, 3), "train_run": counts}
+
+
+# ---------------------------------------------------------------------------
 # lm: gemma2-2b token serving
 # ---------------------------------------------------------------------------
 
@@ -2379,14 +2855,16 @@ def profile_report(prof, wall_ms, phase, what, host_ops=False):
     """Print the device time by kernel of a finished ``torch.profiler``
     run and the device's idle share of ``wall_ms``; returns {kernel name:
     device ms}."""
-    kern = {}
+    kern, n_kernels = {}, 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             kern[ev.name] = kern.get(ev.name, 0.0) + \
                 ev.time_range.elapsed_us() / 1e3
+            n_kernels += 1
     rows = sorted(((ms, k) for k, ms in kern.items()), reverse=True)
     busy = sum(ms for ms, _ in rows)
     line = {"phase": phase, "what": what, "wall_ms_profiled": wall_ms,
+            "device_kernels": n_kernels,
             "device_busy_ms": busy if rows else "not measured",
             "idle_share": 1 - busy / wall_ms if rows else "not measured",
             "top": [{"name": k[:90], "ms": ms} for ms, k in rows[:12]]}
@@ -2492,6 +2970,10 @@ def main():
         phase_lm()
         print("[lm] every check passed (lm phase alone)", flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "train"]:
+        phase_train()
+        print("[train] every check passed (train phase alone)", flush=True)
+        return 0
     from repro_torch.kernels import nbr_attn
     print(json.dumps({"attention_max_K_at_M128": {
         "forward_and_backward_force_path": nbr_attn.max_k(128),
@@ -2533,6 +3015,8 @@ def main():
     guard_sd, guard_dd = phase_guard(model, params)
     del model, params
     torch.cuda.empty_cache()
+    train_launches = phase_train()
+    torch.cuda.empty_cache()
     lm_rows, lm_launches = phase_lm()
 
     rows = []
@@ -2547,6 +3031,11 @@ def main():
                      "launches_per_md_step_dd": md_dd[name],
                      "launches_guarded_md": guard_sd[name],
                      "launches_guarded_md_dd": guard_dd[name],
+                     "launches_per_train_step":
+                         train_launches["train_step"][name],
+                     "launches_per_force_rmse":
+                         train_launches["force_rmse"][name],
+                     "launches_train_run": train_launches["train_run"][name],
                      "K": r.get("K"), "max_abs_err": r["max_err"],
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2578,6 +3067,8 @@ def main():
             "launches_per_md_step_dd": md_dd[name],
             "launches_guarded_md": guard_sd[name],
             "launches_guarded_md_dd": guard_dd[name],
+            "launches_per_train_step": train_launches["train_step"][name],
+            "launches_per_force_rmse": train_launches["force_rmse"][name],
             "shape": ("prefill, global layer: q (4, 8, 6144, 256), k/v "
                       "(4, 4, 6144, 256), bf16, causal, softcap 50"
                       if name == "flash_attention" else

@@ -7,7 +7,9 @@ attn[l].{wq,wk,wv,wo,ln.{gamma,beta}}}``, ``fitting[i].{w,b}``, ``bias``
 (:func:`params_to_torch`, fp32), and the LM's ``embed``, ``final_norm``,
 ``prefix[i]``, ``pattern[j]`` (:func:`lm_params_to_torch`, dtypes kept).
 The MD side carries a ``System`` (:func:`system_to_torch`) and an
-``MDState`` (:func:`md_state_to_torch`) field for field.
+``MDState`` (:func:`md_state_to_torch`) field for field; training carries
+an optimizer's state (:func:`opt_state_to_torch`) and a ``Dataset``
+(:func:`dataset_to_torch`).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from .configs.base import ArchConfig
 from .core.ddinfer import DDConfig
+from .data.synthetic import Dataset
 from .device import resolve_device
 from .dp.common import EnvStats
 from .dp.descriptors import DescriptorConfig
@@ -115,3 +118,17 @@ def md_state_to_torch(state, device="cuda", seed: int = 0) -> MDState:
         **{k: _leaf_to_torch(getattr(state, k), dev)
            for k in ("positions", "velocities", "forces", "step")},
         rng=torch.Generator(device=dev).manual_seed(seed).get_state())
+
+
+def opt_state_to_torch(state, device="cuda"):
+    """A JAX optimizer state (``repro.optim``'s ``adam``/``adamw``,
+    ``sgd`` or ``adam8bit``, as numpy) -> the port's, each leaf keeping
+    its dtype: fp32 moments, the int32 ``count``, ``adam8bit``'s int8
+    codes, fp32 scales and bf16 second moments."""
+    return lm_params_to_torch(state, device)
+
+
+def dataset_to_torch(data) -> Dataset:
+    """A JAX ``Dataset`` -> the port's (numpy fields, dtypes kept)."""
+    return Dataset(**{f.name: np.array(getattr(data, f.name))
+                      for f in dataclasses.fields(Dataset)})

@@ -15,6 +15,16 @@ from ..device import resolve_device
 from ..kernels.ref import R2_MIN
 
 
+def type_rows(table: torch.Tensor, types: torch.Tensor) -> torch.Tensor:
+    """``table[types]`` (padding types -1 read as 0) as a one-hot product:
+    the same values, and a gradient to ``table`` that is a matrix product,
+    which repeats bit for bit on the CPU with several threads (indexing's
+    backward adds there in thread order).  The training route's lookup."""
+    onehot = torch.nn.functional.one_hot(types.clamp_min(0).long(),
+                                         table.shape[0])
+    return onehot.to(table.dtype) @ table
+
+
 def switch_fn(r: torch.Tensor, rcut_smth: float, rcut: float) -> torch.Tensor:
     """DeePMD smooth switching: 1/r below rcut_smth, poly-decayed to 0 at rcut."""
     u = (r - rcut_smth) / (rcut - rcut_smth)

@@ -4,11 +4,16 @@ DP-SE : D^i = (G^i)^T R~ (R~)^T G^i_<           (bilinear reduction)
 DPA-1 : the same reduction, with G^i refined by l_a gated self-attention
         layers over the neighbour axis (se_attention_v2).
 
-The port has one path, the JAX kernel path (``_env_planes_pallas``): the
+The default route is the JAX kernel path (``_env_planes_pallas``): the
 env-matrix planes come from :func:`repro_torch.kernels.ops.env_mat_op` and
 the attention stack from ``nbr_attention_stack_op``; the tensors' device
 picks the Hopper kernels (CUDA) or their plain versions (CPU).  JAX's
-``DescriptorConfig.use_pallas`` therefore does not exist here.
+``DescriptorConfig.use_pallas`` therefore does not exist here.  The
+kernels' autograd Functions are differentiable once, so the caller that
+needs a second derivative (force-matching training) asks for
+``second_order=True``: the reference's own training route, its jnp path
+(:func:`~repro_torch.dp.common.env_matrix_shifted` and
+:func:`~repro_torch.kernels.ref.nbr_attention_stack_ref`) under autograd.
 """
 from __future__ import annotations
 
@@ -18,9 +23,10 @@ import math
 import torch
 
 from . import precision
-from .common import EnvStats, _guarded_env
+from .common import EnvStats, _guarded_env, env_matrix_shifted, type_rows
 from .networks import layer_norm_init, mlp_apply, mlp_init
 from ..kernels.ops import env_mat_op, nbr_attention_stack_op
+from ..kernels.ref import nbr_attention_stack_ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,24 +104,39 @@ def _env_planes(coords_center, coords_nbr, nbr_mask, cfg: DescriptorConfig):
 
 def apply_descriptor(params: dict, cfg: DescriptorConfig, stats: EnvStats,
                      coords_center, coords_nbr, types_center, types_nbr,
-                     nbr_mask, dtype: str = "float32") -> torch.Tensor:
+                     nbr_mask, dtype: str = "float32",
+                     second_order: bool = False) -> torch.Tensor:
     """D^i for every centre atom: coords_center (N, 3); coords_nbr (N, K, 3)
     pre-gathered with image shifts applied; types (-1 padding); nbr_mask
     (N, K).  Returns (N, M1*M2) fp32 — ``dtype`` only lowers the matmul
-    operand precision inside."""
+    operand precision inside.
+
+    ``second_order=True`` computes the env matrix and the attention stack
+    in plain PyTorch under autograd (the reference's jnp path, which its
+    training takes), so the result can be differentiated twice; the
+    default takes the kernels, whose Functions raise when asked to."""
     cfg.validate()
     cd = precision.compute_dtype(dtype)
-    R, r_hat, dist, sw = _env_planes(coords_center, coords_nbr, nbr_mask, cfg)
+    if second_order:
+        R, r_hat, dist, sw = env_matrix_shifted(coords_center, coords_nbr,
+                                                nbr_mask, cfg.rcut_smth,
+                                                cfg.rcut)
+    else:
+        R, r_hat, dist, sw = _env_planes(coords_center, coords_nbr, nbr_mask,
+                                         cfg)
     R = stats.normalize(R, types_center) * nbr_mask[..., None]
 
-    t_emb = params["type_embed"][types_nbr.clamp_min(0)]
+    t_emb = (type_rows(params["type_embed"], types_nbr) if second_order
+             else params["type_embed"][types_nbr.clamp_min(0)])
     feat = torch.cat([sw[..., None], t_emb * nbr_mask[..., None]], -1)
     g = mlp_apply(params["embed"], feat, compute_dtype=cd)   # (N, K, M1)
     g = g * nbr_mask[..., None]
 
     if cfg.kind == "dpa1" and cfg.attn_layers > 0:
         sw_env = sw * dist  # the [0, 1] polynomial envelope from s(r)
-        g = nbr_attention_stack_op(
+        stack = nbr_attention_stack_ref if second_order else \
+            nbr_attention_stack_op
+        g = stack(
             g, r_hat[..., 0], r_hat[..., 1], r_hat[..., 2], sw_env, nbr_mask,
             *_stack_params(params["attn"]), heads=cfg.attn_heads,
             compute_dtype=dtype)

@@ -3,6 +3,14 @@
 Port of ``repro/dp/model.py``.  E = sum_i m_i e_i over local atoms and
 F = -dE/dr by reverse-mode autograd (``torch.autograd.grad``), so forces on
 ghost atoms come out of the same gradient.
+
+``second_order=True`` (``energy_and_forces``, ``energy_and_forces_batched``)
+is the training route: the descriptor in plain PyTorch
+(the reference's jnp path, which its training takes: ``use_pallas`` is
+False there) and forces that keep their graph (``create_graph=True``), so
+a loss on them differentiates to the parameters.  The default is the
+kernel route, first order, for every MD, DD, serving and evaluation
+caller; no path switches route on its own.
 """
 from __future__ import annotations
 
@@ -12,7 +20,7 @@ from typing import Optional
 import torch
 
 from . import precision
-from .common import EnvStats
+from .common import EnvStats, type_rows
 from .descriptors import DescriptorConfig, apply_descriptor, init_descriptor
 from .networks import count_params, mlp_apply, mlp_init
 from ..device import resolve_device
@@ -75,19 +83,23 @@ class DPModel:
     # -- core forward ---------------------------------------------------------
 
     def atomic_energies(self, params, coords_center, coords_nbr, types_center,
-                        types_nbr, nbr_mask, atom_mask) -> torch.Tensor:
+                        types_nbr, nbr_mask, atom_mask,
+                        second_order: bool = False) -> torch.Tensor:
         """e_i for every centre atom (padded atoms -> 0)."""
         desc = apply_descriptor(params["descriptor"], self.cfg.descriptor,
                                 self.stats, coords_center, coords_nbr,
                                 types_center, types_nbr, nbr_mask,
-                                dtype=self.cfg.dtype)
+                                dtype=self.cfg.dtype,
+                                second_order=second_order)
         e = mlp_apply(params["fitting"], desc,
                       compute_dtype=precision.compute_dtype(self.cfg.dtype)
                       )[..., 0]
-        e = e + params["bias"][types_center.clamp_min(0)]
+        e = e + (type_rows(params["bias"], types_center) if second_order
+                 else params["bias"][types_center.clamp_min(0)])
         return e * atom_mask
 
-    def _atomic_e(self, params, coords, types, nbr_idx, nbr_mask, box=None):
+    def _atomic_e(self, params, coords, types, nbr_idx, nbr_mask, box=None,
+                  second_order: bool = False):
         """(C,) per-atom energies over a buffer; padded-neighbour safe.  The
         neighbour gather's gradient is the force scatter
         (:func:`~repro_torch.kernels.force_scatter.neighbor_gather`): a sum
@@ -100,7 +112,8 @@ class DPModel:
             coords_nbr = coords[:, None, :] + dr
         return self.atomic_energies(params, coords, coords_nbr, types,
                                     types[safe], nbr_mask,
-                                    torch.ones_like(coords[:, 0]))
+                                    torch.ones_like(coords[:, 0]),
+                                    second_order)
 
     def total_energy(self, params, coords, types, nbr_idx, nbr_mask,
                      local_mask, box=None) -> torch.Tensor:
@@ -110,19 +123,20 @@ class DPModel:
         return (e * local_mask).sum()
 
     @staticmethod
-    def _grad(out, coords):
-        (g,) = torch.autograd.grad(out, coords)
+    def _grad(out, coords, create_graph: bool = False):
+        (g,) = torch.autograd.grad(out, coords, create_graph=create_graph)
         return g
 
     def energy_and_forces(self, params, coords, types, nbr_idx, nbr_mask,
-                          local_mask, box=None):
-        """(E, forces on every buffer atom, ghosts included)."""
+                          local_mask, box=None, second_order: bool = False):
+        """(E, forces on every buffer atom, ghosts included).  With
+        ``second_order`` both keep their graph to the parameters."""
         with torch.enable_grad():
             c = coords.detach().requires_grad_(True)
-            e = self.total_energy(params, c, types, nbr_idx, nbr_mask,
-                                  local_mask, box)
-            g = self._grad(e, c)
-        return e.detach(), -g
+            e = (self._atomic_e(params, c, types, nbr_idx, nbr_mask, box,
+                                second_order) * local_mask).sum()
+            g = self._grad(e, c, create_graph=second_order)
+        return (e if second_order else e.detach()), -g
 
     def energy_and_forces_dual(self, params, coords, types, nbr_idx, nbr_mask,
                                force_mask, report_mask, box=None):
@@ -135,12 +149,14 @@ class DPModel:
         return (e.detach() * report_mask).sum(), -g
 
     def energy_and_forces_batched(self, params, coords, types, nbr_idx,
-                                  nbr_mask, local_mask, box=None):
+                                  nbr_mask, local_mask, box=None,
+                                  second_order: bool = False):
         """Replica-batched :meth:`energy_and_forces`: coords (R, C, 3),
         nbr_idx/nbr_mask (R, C, K), local_mask (R, C); ``types`` shared (C,)
         or per replica (R, C).  The replicas are laid out as one (R*C)-atom
         buffer with offset neighbour indices, so each kernel launches once
-        for all of them.  Returns (energy (R,), forces (R, C, 3))."""
+        for all of them.  Returns (energy (R,), forces (R, C, 3)); with
+        ``second_order`` both keep their graph to the parameters."""
         r, c = coords.shape[:2]
         off = (torch.arange(r, device=nbr_idx.device) * c)[:, None, None]
         flat_idx = torch.where(nbr_idx >= 0, nbr_idx + off, nbr_idx)
@@ -148,10 +164,11 @@ class DPModel:
         with torch.enable_grad():
             x = coords.detach().reshape(r * c, 3).requires_grad_(True)
             e = self._atomic_e(params, x, flat_types, flat_idx.reshape(r * c, -1),
-                               nbr_mask.reshape(r * c, -1), box)
+                               nbr_mask.reshape(r * c, -1), box, second_order)
             energy = (e * local_mask.reshape(r * c)).reshape(r, c).sum(1)
-            g = self._grad(energy.sum(), x)
-        return energy.detach(), -g.reshape(r, c, 3)
+            g = self._grad(energy.sum(), x, create_graph=second_order)
+        return ((energy if second_order else energy.detach()),
+                -g.reshape(r, c, 3))
 
     def energy_forces_virial(self, params, coords, types, nbr_idx, nbr_mask,
                              local_mask, box=None):

@@ -70,7 +70,12 @@ env_mat_bwd.launches = 0
 
 class EnvMat(torch.autograd.Function):
     """Differentiable in dx/dy/dz through the analytic backward; the mask
-    gets no cotangent (it selects, it is not a coordinate function)."""
+    gets no cotangent (it selects, it is not a coordinate function).  First
+    order only: on the card the backward is a kernel whose result carries
+    no graph, so a backward asked to build one (``create_graph=True``)
+    raises on every device rather than drop the second-order terms there
+    and keep them on the CPU.  Training takes the plain route
+    (``apply_descriptor(second_order=True)``)."""
 
     @staticmethod
     def forward(ctx, dx, dy, dz, mask, rcut_smth, rcut):
@@ -80,6 +85,12 @@ class EnvMat(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gs, gsx, gsy, gsz):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "env_mat is differentiable once: its backward cannot build "
+                "a graph for a second derivative (create_graph=True), which "
+                "on the card would miss the terms through the kernel's "
+                "backward")
         dx, dy, dz, mask = ctx.saved_tensors
         if not any(ctx.needs_input_grad[:3]):
             return None, None, None, None, None, None

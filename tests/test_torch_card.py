@@ -81,7 +81,15 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   resumes bit for bit; non-finite positions through the cell lists, the DD
   assembly and PME raise no device-side assert; an instrumented run with a
   ``torch.profiler`` capture keeps its bits and the trace holds the
-  engine's spans and the device kernels.
+  engine's spans and the device kernels;
+* the env matrix's autograd Function raises when a backward is asked to
+  build a graph (``create_graph=True``);
+* DPA-1 training on a narrow model: two steps of the second-order route on
+  the card against the CPU (loss rtol 1e-5, each gradient leaf atol 2e-5 x
+  max|leaf|), a step launching the force scatter once and no model
+  kernel, ``force_rmse`` launching each single-domain kernel once per 16
+  frames; ``train`` restored from a mid-run checkpoint ending with the
+  uninterrupted run's parameters bit for bit.
 """
 import numpy as np
 import pytest
@@ -1066,3 +1074,113 @@ def test_obs_profiler_capture_on_card(card, tmp_path):
     names = {e.get("name") for e in events}
     assert {"build", "scan_window"} <= names
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+@pytest.mark.cuda
+def test_env_mat_second_derivative_raises_on_card(card):
+    """The env matrix's backward is a kernel whose result carries no graph:
+    a backward asked to build one (``create_graph=True``) raises on the
+    card, as on the CPU."""
+    from repro_torch.kernels import env_mat
+    gen = torch.Generator(device=card).manual_seed(4)
+    d = [(0.3 * torch.randn(64, 24, device=card, generator=gen))
+         .requires_grad_(True) for _ in range(3)]
+    mask = torch.ones(64, 24, device=card)
+    s = sum(p.sum() for p in env_mat.env_mat(*d, mask, 0.3, 0.6))
+    with pytest.raises(RuntimeError, match="env_mat is differentiable once"):
+        torch.autograd.grad(s, d, create_graph=True)
+
+
+def _train_example(device, frames=32, atoms=24, sel=16):
+    """A narrow DPA-1 and its oracle data, split 0.25, on ``device``."""
+    from repro_torch.data import make_dataset
+    from repro_torch.dp import DescriptorConfig, DPConfig, DPModel
+    from repro_torch.dp import fit_env_stats
+    data = make_dataset(frames, n_atoms=atoms, seed=0, device="cpu")
+    tr, va = data.split(0.25)
+    cfg = DPConfig(descriptor=DescriptorConfig(
+        kind="dpa1", rcut=0.6, rcut_smth=0.3, sel=sel, ntypes=4,
+        neuron=(8, 16), axis_neuron=4, attn_layers=2, attn_hidden=32,
+        attn_heads=2), fitting_neuron=(24, 24))
+    model = DPModel(cfg, fit_env_stats(cfg, tr, device="cpu"), device=device)
+    return tr, va, model
+
+
+@pytest.mark.cuda
+def test_training_step_on_card_equals_cpu(card):
+    """Two training steps (the second-order route) on the card against the
+    port on the CPU from the same parameters and batches: the loss rtol
+    1e-5 and each gradient leaf atol 2e-5 x max|leaf| (the CPU tests'
+    gates against JAX); a step launches the force scatter once and no
+    model kernel; ``force_rmse`` (the kernel route) launches each
+    single-domain kernel once per 16 frames."""
+    from repro_torch import kernels
+    from repro_torch.dp.train import (TrainConfig, batch_indices, force_rmse,
+                                      make_train_step, prepare_batches)
+    from repro_torch.optim import adam, exponential_decay
+    from repro_torch.optim.adam import tree_leaves, tree_map
+    tr, _, model = _train_example(card)
+    cfg = TrainConfig(batch_size=4, lr0=2e-3)
+    arrays = prepare_batches(tr, 0.6, 16, "cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = type(model)(model.cfg, model.stats, device=dev)
+        lr_fn = exponential_decay(cfg.lr0, cfg.decay_steps, cfg.decay_rate)
+        opt = adam(lr_fn)
+        step_fn = make_train_step(m, cfg, lr_fn, opt)
+        p = tree_map(lambda t: t.to(dev), params)
+        st = opt.init(p)
+        arr = {k: v.to(dev) for k, v in arrays.items()}
+        rec = []
+        for step in range(2):
+            sel = torch.as_tensor(batch_indices(cfg, len(tr.energies), step),
+                                  device=dev)
+            kernels.reset_launch_counts()
+            p, st, loss, _, _, grads = step_fn(
+                p, st, {k: v[sel] for k, v in arr.items()},
+                torch.tensor(step, dtype=torch.int32, device=dev))
+            torch.cuda.synchronize()
+            rec.append((float(loss), [g.cpu() for g in tree_leaves(grads)],
+                        kernels.launch_counts()))
+        out[dev] = (rec, m, p, arr)
+    for (lc, gc, _), (lg, gg, counts) in zip(out["cpu"][0], out["cuda"][0]):
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        for a, b in zip(gg, gc):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=2e-5 * float(b.abs().max()))
+        assert counts["force_scatter"] == 1
+        assert all(counts[k] == 0 for k in (
+            "env_mat_fwd", "env_mat_bwd", "nbr_attention_stack_fwd",
+            "nbr_attention_stack_bwd", "cell_filter"))
+    _, m, p, arr = out["cuda"]
+    kernels.reset_launch_counts()
+    rmse = force_rmse(m, p, arr, 32)
+    counts = kernels.launch_counts()
+    chunks = -(-min(32, len(tr.energies)) // 16)
+    assert np.isfinite(rmse)
+    for k in ("env_mat_fwd", "env_mat_bwd", "nbr_attention_stack_fwd",
+              "nbr_attention_stack_bwd", "force_scatter"):
+        assert counts[k] == chunks
+
+
+@pytest.mark.cuda
+def test_training_restart_on_card_bitwise(card, tmp_path):
+    """``train`` on the card, 6 steps with a checkpoint at step 3: a run
+    restored from it ends with the uninterrupted run's parameters and
+    last record, bit for bit."""
+    import shutil
+    from repro_torch.dp import TrainConfig, train
+    from repro_torch.optim.adam import tree_leaves
+    tr, va, model = _train_example(card)
+    cfg = dict(n_steps=6, eval_every=5, batch_size=4, lr0=2e-3,
+               checkpoint_every=3)
+    full, hist = train(model, tr, va, TrainConfig(
+        **cfg, checkpoint_dir=str(tmp_path / "a")))
+    shutil.copytree(tmp_path / "a" / "step_000000003",
+                    tmp_path / "b" / "step_000000003")
+    resumed, hist_b = train(model, tr, va, TrainConfig(
+        **cfg, checkpoint_dir=str(tmp_path / "b")))
+    assert hist_b[-1] == dict(hist[-1], wall_s=hist_b[-1]["wall_s"])
+    for a, b in zip(tree_leaves(resumed), tree_leaves(full)):
+        assert torch.equal(a, b)

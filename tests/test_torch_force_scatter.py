@@ -17,9 +17,11 @@ and the port's forces through it against the JAX package.
   slots that still hold an atom), at the gates of ``test_torch_model.py``
   (E rtol 1e-5; F rtol 1e-5 with atol 1e-5 x max|F|); a force-matching
   gradient (grad of grad through the gather) against ``jax.grad`` at the
-  same gate per parameter, on the model without attention layers: the
-  attention stack's autograd Function is first order and raises when
-  differentiated twice (also tested).
+  same gate per parameter, on the model without attention layers, through
+  the training route (``second_order=True``: the plain env matrix under
+  autograd); the kernel route's autograd Functions (the attention stack,
+  the env matrix) are first order and raise when differentiated twice
+  (also tested).
 * With 4 intra-op threads, ten force calls on 1,200 atoms at K = 64
   (76,800 slots, above the 32,768 elements where PyTorch's CPU
   accumulate adds with atomics) give the same bits.
@@ -227,11 +229,10 @@ def test_force_matching_gradient_matches_jax(ref):
     leaves = [v.clone().requires_grad_(True) for v in leaves]
     params = jax.tree_util.tree_unflatten(tree, leaves)
     idx, mask = ref["lists"]["refiltered"]
-    c = T(POS).requires_grad_(True)
-    e = model.total_energy(params, c, T(TYPES), T(idx), T(mask),
-                           torch.ones(N), box=T(BOX))
-    (g,) = torch.autograd.grad(e, c, create_graph=True)
-    grads = torch.autograd.grad((-g * T(ref["w"])).sum(), leaves,
+    _, f = model.energy_and_forces(params, T(POS), T(TYPES), T(idx),
+                                   T(mask), torch.ones(N), box=T(BOX),
+                                   second_order=True)
+    grads = torch.autograd.grad((f * T(ref["w"])).sum(), leaves,
                                 allow_unused=True)
     want = jax.tree_util.tree_leaves(ref["force_loss_grad"])
     assert len(want) == len(grads)
@@ -254,6 +255,24 @@ def test_second_derivative_through_attention_raises(ref):
     e = model.total_energy(params, c, T(TYPES), T(idx), T(mask),
                            torch.ones(N), box=T(BOX))
     with pytest.raises(RuntimeError, match="differentiable once"):
+        torch.autograd.grad(e, c, create_graph=True)
+
+
+def test_second_derivative_through_env_mat_raises(ref):
+    """The env matrix's backward is first order on every device (on the
+    card it is a kernel whose result carries no graph): forces with
+    ``create_graph=True`` on the kernel route raise, here on a model
+    without attention layers, so the env matrix is the first Function the
+    backward reaches."""
+    model, params = _port(ref, attn_layers=0)
+    params = jax.tree_util.tree_map(
+        lambda v: v.clone().requires_grad_(True), params,
+        is_leaf=lambda v: isinstance(v, torch.Tensor))
+    idx, mask = ref["lists"]["fresh"]
+    c = T(POS).requires_grad_(True)
+    e = model.total_energy(params, c, T(TYPES), T(idx), T(mask),
+                           torch.ones(N), box=T(BOX))
+    with pytest.raises(RuntimeError, match="env_mat is differentiable once"):
         torch.autograd.grad(e, c, create_graph=True)
 
 
