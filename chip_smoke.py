@@ -8,13 +8,16 @@ DPA-1 training and gemma2-2b token serving.
     python3 chip_smoke.py --phase md        # the md phase alone
     python3 chip_smoke.py --phase guard     # the guard phase alone
     python3 chip_smoke.py --phase train     # the train phase alone
+    python3 chip_smoke.py --phase ensemble  # the ensemble phase alone
+    python3 chip_smoke.py --phase serve     # the serve phase alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
 source, all started together; Triton at first launch), then runs phases
 1-4 on the paper's DPA-1 at full width (``paper_dpa1_config(ntypes=4,
 rcut=0.6, sel=64)``, fp32, random weights from a seed) over uniform random
 atoms at 30 atoms/nm^3, phases 5-6 on the MD engine with the same model,
-phase 7 trains the DPA-1 and phase 8 serves gemma2-2b:
+phase 7 trains the DPA-1, phase 8 serves gemma2-2b, and phases 9-10 run
+replica ensembles and DP force serving (run after phase 6):
 
 1. kernels: the env-matrix, attention and force-scatter kernels against
    their plain PyTorch versions on the card, at the shapes and on the data
@@ -108,9 +111,32 @@ phase 7 trains the DPA-1 and phase 8 serves gemma2-2b:
    at a reduced width in fp32; 3 timed rounds each of graphed and eager
    requests, then a profiled prefill, 4 profiled graphed decode steps and
    4 eager ones;
-9. a ``kernels`` JSON line (launches per force call, per MD step, per
-   guarded MD run, per training step and ``force_rmse`` call, and per
-   request), then the result line.
+9. ensemble: on the md phase's stand-in, 4 replicas through one
+   ``BatchedDeepmdProvider`` call (one domain) against the unbatched
+   provider, each kernel launched once per call as at R = 1 and held
+   against its plain version on the call's tensors; REMD
+   (``EnsembleEngine``, R = 4, geometric 300-420 K ladder, exchange every 5
+   steps; 5 warm-up, 20 timed steps); exchange off, R = 2 against two
+   ``MDEngine`` runs; 2 replicas x 4 virtual ranks against one domain,
+   per-replica rebuild flags, a ``nan_force`` on rank 2 of replica 1
+   recovered with only replica 1 tripped; then the overlap evaluation on
+   the dd phase's 8 ranks: == sequential bit for bit (build and drifted
+   positions), ``interior_frac``, a trimmed and a tiny
+   ``overlap_capacity``, both timed, each pass's kernels held;
+10. serve: a ``ForceServer`` (full-width model, atom bucket 4,096, batch
+   buckets 1, 2, 4) for 4 MD client threads through
+   ``RemoteForceProvider`` on a solvated protein with a 4,096-atom DP
+   group (after a warm-up, a window of 400 requests: requests/s, p50/p99
+   of the requests' own latencies, every dispatch's launches counted on
+   the server's stream); a batch of 4 against ``evaluate_direct``; ms and
+   launches per executor call at batch 1, 2, 4;
+   an expired deadline, a full queue and a ``serve_fail`` each failing only
+   their own request or batch; the ``pipeline_executor_factory`` route at
+   batch 2 x 4 virtual ranks;
+11. a ``kernels`` JSON line (launches per force call, per MD step, per
+   guarded MD run, per training step and ``force_rmse`` call, per
+   request, per batched force call, per ensemble step, per served
+   dispatch and per overlap evaluation), then the result line.
 
 Any failed check raises, and the script exits non-zero.  It needs one CUDA
 card and the repository's ``src/`` beside it; it imports no JAX.
@@ -699,16 +725,17 @@ def record_cell_filter(fn):
     return res, calls
 
 
-def check_cell_filter_calls(calls, phase):
+def check_cell_filter_calls(calls, phase, sites=("assembly", "refilter")):
     """The recorded calls of one assembly and one evaluate (the cell-list
-    assembly, then the evaluation's re-filter) against the plain version
-    bit for bit, with times.  Returns {site: line}."""
+    assembly, then the evaluation's re-filter; or the given ``sites``)
+    against the plain version bit for bit, with times.  Returns {site:
+    line}."""
     from repro_torch.kernels import cell_filter as cf
-    if len(calls) != 2:
-        fail(f"{phase}: expected 2 cell_filter calls (assembly, re-filter), "
+    if len(calls) != len(sites):
+        fail(f"{phase}: expected {len(sites)} cell_filter calls {sites}, "
              f"got {len(calls)}")
     rows = {}
-    for site, args in zip(("assembly", "refilter"), calls):
+    for site, args in zip(sites, calls):
         got = cf.cell_filter(*args)
         plain = cf.cell_filter_plain(*args)
         if not torch.equal(got, plain):
@@ -754,21 +781,26 @@ MODEL_KERNELS = (("env_mat", "env_mat_fwd"), ("env_mat", "env_mat_bwd"),
                  ("nbr_attn", "nbr_attention_stack_bwd")) + FORCE_SCATTER
 
 
-def record_model_kernels(fn, which=MODEL_KERNELS):
+def record_model_kernels(fn, which=MODEL_KERNELS, keep=None):
     """Run ``fn()`` with each named kernel wrapper (module, name) replaced
-    by one that records (args, kwargs, outputs) of every call; returns
-    (fn's result, {name: [calls]}).  The wrappers still launch; their
-    counts, which they keep on the module-level name, go back to them
-    afterwards."""
+    by one that records (args, kwargs, outputs) of every call (with
+    ``keep``, only the calls i of a kernel for which ``keep(name, i)``);
+    returns (fn's result, {name: [calls]}).  The wrappers still launch;
+    their counts, which they keep on the module-level name, go back to
+    them afterwards."""
     from repro_torch import kernels
     mods = {m: getattr(kernels, m) for m, _ in which}
     seen = {name: [] for _, name in which}
     originals = {name: getattr(mods[m], name) for m, name in which}
 
+    made = {name: 0 for _, name in which}
+
     def recorder(name):
         def rec(*args, **kw):
             out = originals[name](*args, **kw)
-            seen[name].append((args, kw, out))
+            if keep is None or keep(name, made[name]):
+                seen[name].append((args, kw, out))
+            made[name] += 1
             return out
         rec.launches = 0
         return rec
@@ -956,16 +988,19 @@ def check_rows(name, got, plain, n, padded, chunk=8192):
 
 
 @torch.no_grad()
-def check_dd_model_kernels(seen, phase="dd"):
+def check_dd_model_kernels(seen, phase="dd",
+                           scatter_cases=("gather_backward",
+                                          "force_reduction")):
     """The five model kernels against their plain versions on the exact
     tensors one DD evaluate gave them (all ranks' capacity rows, padded
     rows included): env_mat whole, the attention stack in row chunks, the
-    force scatter's two calls (the gather's backward, then the reduction
-    of the ranks' forces onto the atoms) bit for bit.  Lines and failures
-    carry ``phase``.  Returns the force scatter's lines, {case: line}."""
+    force scatter's calls (``scatter_cases``: the gather's backward, then
+    the reduction of the ranks' forces onto the atoms; a single-domain call
+    has the first only) bit for bit.  Lines and failures carry ``phase``.
+    Returns the force scatter's lines, {case: line}."""
     from repro_torch.kernels import nbr_attn, ref
     for name, calls in seen.items():
-        want_calls = 2 if name == "force_scatter" else 1
+        want_calls = len(scatter_cases) if name == "force_scatter" else 1
         if len(calls) != want_calls:
             fail(f"{phase} evaluate: {name} launched {len(calls)} times, "
                  f"expected {want_calls}")
@@ -1060,8 +1095,7 @@ def check_dd_model_kernels(seen, phase="dd"):
                           "fully_masked_rows_max_err": pad, "tol": tol}),
               flush=True)
     scatter = {}
-    for case, (args, _, _) in zip(("gather_backward", "force_reduction"),
-                                  seen["force_scatter"]):
+    for case, (args, _, _) in zip(scatter_cases, seen["force_scatter"]):
         rows_k = tuple(args[1].shape)
         if case == "gather_backward" and rows_k != (n, k):
             fail(f"{phase} evaluate: the first force scatter took {rows_k} slots, "
@@ -1101,7 +1135,7 @@ def save_fig12_mismatch(pipe, params, x, t, probe_out, fn_out):
     stage's context (the pipeline's stages run one by one, as the prefix
     probes run them), saved to ``build/diagnostics/fig12_mismatch.pt``
     beside this script; returns the path."""
-    shards, types_p = pipe._shard(x, t)
+    shards, types_p = pipe._shard(pipe._in(x), t)
     ctx = {"params": params, "coords_shard": shards, "types_all": types_p}
     stages = {}
     for stage in pipe.stages:
@@ -1984,6 +2018,842 @@ def phase_guard(model, params):
           flush=True)
     print(f"[guard] {time.perf_counter() - t_phase:.1f} s", flush=True)
     return counts_sd, counts_dd
+
+
+# ---------------------------------------------------------------------------
+# ensemble: replica batching (single domain and DD), REMD, and the
+# comms/compute overlap evaluation
+# ---------------------------------------------------------------------------
+
+ENS_R = 4                 # replicas of the batched single-domain call, REMD
+ENS_LADDER = (300.0, 420.0)
+ENS_EXCHANGE = 5          # steps between exchange attempts
+ENS_IND_STEPS = 5         # exchange-off R = 2 vs two MDEngine runs
+ENS_DD = (2, 4)           # replicas x virtual ranks of the batched DD call
+ENS_FAULT_STEPS = 6       # the guarded batched-DD runs (fault at step 5)
+ENS_NOISE = 0.002         # nm: the replicas' offsets from the stand-in
+
+
+def host_ms(fn, reps=3):
+    """Median host-clock ms of ``fn()`` over ``reps`` synchronised runs,
+    after one warm-up (for calls that sync on the host inside)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def launches_of(fn):
+    """({kernel: launches}, fn's result) of one call of ``fn``."""
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    return kernels.launch_counts(), res
+
+
+def check_launch_pattern(counts, want, what):
+    """Every kernel of ``want`` launched exactly that often, every other
+    DP kernel not at all."""
+    for k in DP_KERNELS:
+        if counts[k] != want.get(k, 0):
+            fail(f"{what}: {k} launched {counts[k]} times, expected "
+                 f"{want.get(k, 0)} ({counts})")
+
+
+def replica_positions(pos, box, r):
+    """``r`` replicas of the stand-in: the positions themselves, then
+    offsets of ENS_NOISE nm (normal, seeded) wrapped into the box."""
+    from repro_torch.md.integrators import wrap
+    rng = np.random.default_rng(SEED + 7)
+    out = [pos]
+    for _ in range(r - 1):
+        d = torch.tensor(rng.normal(0, ENS_NOISE, tuple(pos.shape)).astype(
+            np.float32), device=pos.device)
+        out.append(wrap(pos + d, box))
+    return torch.stack(out)
+
+
+def gemm_rows_by_m(model, params, n, k, copies=4):
+    """Whether the model's two MLPs give each row the same bits when the
+    batch holds ``copies`` copies of the same rows (M x ``copies``): the
+    embedding net on (n, k) neighbour features, the fitting net on (n,)
+    descriptors (random inputs from a seeded generator, on the card).  A
+    False names the op that makes a batched force call differ from the
+    unbatched one in its last bits."""
+    from repro_torch.dp.networks import mlp_apply
+    cfg = model.cfg.descriptor
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    feat = torch.randn(n * k, 1 + cfg.type_embed_dim, generator=gen,
+                       device=DEVICE)
+    desc = torch.randn(n, cfg.out_dim, generator=gen, device=DEVICE)
+    out = {}
+    with torch.no_grad():
+        for name, net, x in (("embedding", params["descriptor"]["embed"],
+                              feat), ("fitting", params["fitting"], desc)):
+            one = mlp_apply(net, x)
+            many = mlp_apply(net, torch.cat([x] * copies))
+            out[name] = all(torch.equal(one, part)
+                            for part in many.split(len(x)))
+    return out
+
+
+def phase_ensemble(model, params):
+    """Replica batching and REMD on the 62,210-atom stand-in (its 15,668
+    DP atoms), then the overlap evaluation on the dd phase's system.
+
+    (a) R = 4 replicas through one ``BatchedDeepmdProvider`` call (one
+    domain, skin 0.05) against the unbatched provider per replica; the
+    kernels' launches per call against R = 1's; the kernels against their
+    plain versions on the call's tensors; peak memory.  (b) REMD:
+    ``EnsembleEngine`` with R = 4 on a geometric 300-420 K ladder, exchange
+    every 5 steps, 5 warm-up and 20 timed steps (ms per ensemble step,
+    launches per step, exchange statistics); exchange off, R = 2 against
+    two ``MDEngine`` runs.  (c) R = 2 x 4 virtual ranks: forces against one
+    domain, per-replica rebuild flags, a ``nan_force`` on rank 2 of
+    replica 1 recovered with only replica 1 tripped, the kernels against
+    their plain versions, peak memory.  (d) the overlap evaluation (8
+    ranks, the dd phase's 15,668 random atoms): == sequential bit for bit
+    at the build and drifted positions, ``interior_frac``, a trimmed and a
+    tiny ``overlap_capacity``, both evaluations timed, each pass's kernels
+    against their plain versions.  Returns {"batched_force_call",
+    "ensemble_step", "overlap_evaluation": {kernel: launches}}."""
+    from repro_torch.core import (DeepmdForceProvider, ForcePipeline,
+                                  suggest_config)
+    from repro_torch.core import pipeline as tpipe
+    from repro_torch.ensemble import (BatchedDeepmdProvider, EnsembleConfig,
+                                      EnsembleEngine, geometric_ladder)
+    from repro_torch.health import FaultPlan, FaultSpec, GuardConfig
+    from repro_torch.md import (EngineConfig, MDEngine,
+                                build_solvated_protein, mark_nn_group)
+    t_phase = time.perf_counter()
+    msys, pos, nn = build_solvated_protein(MD_RESIDUES, device=DEVICE)
+    msys = mark_nn_group(msys, nn)
+    box = msys.box.cpu().numpy()
+    sel = model.cfg.descriptor.sel
+    rcut = model.cfg.descriptor.rcut
+    mib = lambda b: b / 2 ** 20
+    out = {}
+
+    def batched(r, dd=None, hook=None):
+        return BatchedDeepmdProvider(model, params, nn, msys.types, box,
+                                     msys.n_atoms, n_replicas=r,
+                                     nbr_capacity=sel, skin=SKIN,
+                                     dd_config=dd, device=DEVICE,
+                                     fault_hook=hook)
+
+    single = DeepmdForceProvider(model, params, nn, msys.types, box,
+                                 msys.n_atoms, nbr_capacity=sel, skin=SKIN,
+                                 device=DEVICE)
+
+    # -- (a) R = 4 through one batched single-domain call
+    xs = replica_positions(pos, msys.box, ENS_R)
+    bprov = batched(ENS_R)
+    st_b = bprov.assemble(xs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per_call, (e_b, f_b, fl_b) = launches_of(lambda: bprov.evaluate(xs, st_b))
+    peak_b = torch.cuda.max_memory_allocated()
+    if bool(fl_b["overflow"].any()) or bool(fl_b["needs_rebuild"].any()):
+        fail(f"ensemble batched: flags {fl_b}")
+    singles, errs, bitwise = [], [], []
+    per_call_1 = None
+    for r in range(ENS_R):
+        st_r = single.assemble(xs[r])
+        counts_1, (e_r, f_r, _) = launches_of(
+            lambda: single.evaluate(xs[r], st_r))
+        per_call_1 = per_call_1 or counts_1
+        if abs(float(e_b[r]) - float(e_r)) > 1e-5 * abs(float(e_r)):
+            fail(f"ensemble batched: replica {r} E {float(e_b[r])} vs "
+                 f"unbatched {float(e_r)}")
+        errs.append(check(f"ensemble batched replica {r} forces vs "
+                          "unbatched", f_b[r], f_r,
+                          atol=1e-4 * float(f_r.abs().max())))
+        bitwise.append(bool(torch.equal(f_b[r], f_r))
+                       and float(e_b[r]) == float(e_r))
+        singles.append(f_r)
+    del st_r
+    want = {k: 1 for k in SINGLE_DOMAIN_KERNELS}
+    check_launch_pattern(per_call, want, "ensemble batched force call")
+    check_launch_pattern(per_call_1, want, "ensemble R = 1 force call")
+    gemm_bits = gemm_rows_by_m(model, params, len(nn), bprov.nbr_capacity)
+    ms_b = host_ms(lambda: bprov.evaluate(xs, st_b))
+    ms_1 = host_ms(lambda: single.evaluate(xs[0], single.assemble(xs[0])))
+    st0 = single.assemble(xs[0])
+    ms_1_eval = host_ms(lambda: single.evaluate(xs[0], st0))
+    del st0
+    _, seen = record_model_kernels(lambda: bprov.evaluate(xs, st_b))
+    check_dd_model_kernels(seen, "ensemble batched",
+                           scatter_cases=("gather_backward",))
+    del seen
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "ensemble", "case": "batched single domain",
+        "replicas": ENS_R, "dp_atoms": len(nn), "K": bprov.nbr_capacity,
+        "model_rows": ENS_R * len(nn),
+        "E_tol": "rtol 1e-5", "F_tol": "atol 1e-4*max|F|",
+        "F_max_abs_err_vs_unbatched": errs,
+        "bitwise_vs_unbatched": bitwise,
+        "mlp_rows_bitwise_at_4x_rows": gemm_bits,
+        "launches_per_batched_force_call": per_call,
+        "launches_per_unbatched_force_call": per_call_1,
+        "batched_evaluate_ms": ms_b, "unbatched_evaluate_ms": ms_1_eval,
+        "unbatched_assemble_and_evaluate_ms": ms_1,
+        "batched_ms_per_replica": ms_b / ENS_R,
+        "max_memory_allocated_MiB": mib(peak_b)}), flush=True)
+    out["batched_force_call"] = per_call
+    del st_b
+
+    # -- (b) REMD: R = 4 on a geometric ladder, exchange every 5 steps
+    temps = geometric_ladder(*ENS_LADDER, ENS_R)
+
+    def ensemble(r, temps_r, ex, special, **kw):
+        cfg = {**MD_CFG, "thermostat_t": temps_r[0]}
+        return EnsembleEngine(msys, EngineConfig(**cfg),
+                              EnsembleConfig(n_replicas=r, temps=temps_r,
+                                             exchange_interval=ex),
+                              special_force=special, **kw)
+
+    eng = ensemble(ENS_R, temps, ENS_EXCHANGE, bprov)
+    warm = eng.run(eng.init_state(pos), MD_WARM)
+    eng = ensemble(ENS_R, temps, ENS_EXCHANGE, bprov)
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    st_e, wall_e, steps_e, mem_e = md_run(eng, warm, MD_STEPS)
+    counts_e = kernels.launch_counts()
+    check_finite_state("ensemble remd", st_e)
+    d = eng.diagnostics
+    split_e = step_split(steps_e)
+    per_step = {k: c / MD_STEPS for k, c in counts_e.items()}
+    for k in SINGLE_DOMAIN_KERNELS:
+        if counts_e[k] == 0:
+            fail(f"ensemble remd: {k} was never launched: {counts_e}")
+    if sorted(st_e.ladder.tolist()) != list(range(ENS_R)):
+        fail(f"ensemble remd: ladder {st_e.ladder.tolist()} is no "
+             "permutation")
+    line_b = {"phase": "ensemble", "case": "remd", "replicas": ENS_R,
+              "atoms": msys.n_atoms, "dp_atoms": len(nn),
+              "ladder_K": list(temps), "exchange_interval": ENS_EXCHANGE,
+              "steps": MD_STEPS, "wall_ms": wall_e, **split_e,
+              "ensemble_step_ms_median": split_e["step_ms_median"],
+              "ms_per_replica_step": split_e["step_ms_median"] / ENS_R,
+              "single_replica_step": "the md phase's md_step_ms_median",
+              "exchange_attempts": d["exchange_attempts"],
+              "exchange_accepts": d["exchange_accepts"],
+              "pair_attempts": d["pair_attempts"].tolist(),
+              "pair_accepts": d["pair_accepts"].tolist(),
+              "final_ladder": st_e.ladder.tolist(),
+              "diagnostics": {k: d[k] for k in (
+                  "displacement_rebuilds", "special_rebuilds",
+                  "cadence_rebuilds", "capacity_growths", "special_growths")},
+              "max_memory_allocated_MiB": mib(max(mem_e["peak"])),
+              "launches_per_ensemble_step": per_step}
+    print(json.dumps(line_b), flush=True)
+    out["ensemble_step"] = per_step
+    # the batched classical path at R x 62,210 atoms: each force scatter
+    # (the pair table's takes the 3-pass list) against its plain version,
+    # and each replica's forces against an unbatched call, bit for bit
+    nl = eng.build_nlist(st_e.positions)
+    (e_c, f_c), seen = record_model_kernels(
+        lambda: eng._classical_batched(st_e.positions, nl), FORCE_SCATTER)
+    cap = nl.idx.shape[-1]
+    terms = {2: "bonds", 3: "angles", 4: "dihedrals", 2 * cap: "pairs"}
+    for args, _, _ in seen["force_scatter"]:
+        rows, k = args[1].shape
+        term = terms.get(k)
+        row = {"phase": "ensemble", "name": "force_scatter",
+               "case": f"batched classical {term}, {ENS_R} replicas",
+               "rows": rows, "K": k, "atoms": args[3], "max_err": 0.0,
+               "tol": "exact (bitwise)",
+               **check_force_scatter(*args, library=term != "pairs")}
+        print(json.dumps(row), flush=True)
+    del seen
+    same = []
+    for r in range(ENS_R):
+        one = type(nl)(idx=nl.idx[r], mask=nl.mask[r],
+                       ref_positions=nl.ref_positions[r],
+                       overflow=nl.overflow[r])
+        e1, f1 = eng._classical_one(st_e.positions[r], one)
+        same.append(bool(torch.equal(f1, f_c[r])) and float(e1) ==
+                    float(e_c[r]))
+    print(json.dumps({"phase": "ensemble",
+                      "case": "batched classical forces vs one replica",
+                      "atoms": ENS_R * msys.n_atoms,
+                      "bitwise_per_replica": same}), flush=True)
+    if not all(same):
+        fail(f"ensemble: batched classical forces differ from the "
+             f"unbatched ones ({same})")
+    del eng, warm, st_e, bprov, nl, e_c, f_c
+    torch.cuda.empty_cache()
+
+    # exchange off: R = 2 batched == two MDEngine runs
+    b2 = batched(2)
+    eng2 = ensemble(2, temps[:2], 0, b2)
+    st2 = eng2.run(eng2.init_state(pos), ENS_IND_STEPS)
+    errs, bitwise = [], []
+    for r in range(2):
+        t_r = float(np.float32(temps[r]))
+        eng1 = MDEngine(msys, EngineConfig(**{**MD_CFG, "thermostat_t": t_r}),
+                        special_force=single)
+        st1 = eng1.run(eng1.init_state(pos, t_r, seed=r), ENS_IND_STEPS)
+        errs.append(check(f"ensemble exchange-off replica {r} positions vs "
+                          "MDEngine", st2.positions[r], st1.positions,
+                          atol=MD_POS_TOL))
+        bitwise.append(all(torch.equal(getattr(st2, k)[r], getattr(st1, k))
+                           for k in STATE_KEYS))
+    print(json.dumps({"phase": "ensemble",
+                      "case": "exchange off, R = 2 vs two MDEngine runs",
+                      "steps": ENS_IND_STEPS,
+                      "positions_max_abs_err_nm": errs,
+                      "tol": f"atol {MD_POS_TOL} nm",
+                      "bitwise": bitwise}), flush=True)
+    del eng2, st2, b2, eng1, st1
+    torch.cuda.empty_cache()
+
+    # -- (c) R = 2 x 4 virtual ranks of the DP group
+    r_dd, g_dd = ENS_DD
+    coords_nn = pos[torch.as_tensor(nn, device=DEVICE)].cpu().numpy()
+    dd4 = suggest_config(len(nn), box, g_dd, rcut, nbr_capacity=sel,
+                         skin=SKIN, coords=coords_nn)
+    dprov = batched(r_dd, dd4)
+    x2 = xs[:r_dd]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st_d = dprov.assemble(x2)
+    per_call_dd, (e_d, f_d, fl_d) = launches_of(lambda: dprov.evaluate(x2,
+                                                                       st_d))
+    peak_d = torch.cuda.max_memory_allocated()
+    if bool(fl_d["overflow"].any()):
+        fail(f"ensemble dd: overflow {fl_d}")
+    errs = [check(f"ensemble dd replica {r} forces vs one domain", f_d[r],
+                  singles[r], atol=1e-4 * float(singles[r].abs().max()))
+            for r in range(r_dd)]
+    check_launch_pattern(per_call_dd, {**want, "force_scatter": 2,
+                                       "cell_filter": 1},
+                         "ensemble dd evaluate")
+    far = x2.clone()
+    far[1, int(nn[0]), 0] += SKIN
+    flags = dprov.needs_rebuild(far, st_d).tolist()
+    if flags != [False, True]:
+        fail(f"ensemble dd: rebuild flags {flags} after moving an atom of "
+             "replica 1 by the skin")
+    (_, seen), cf_calls = record_cell_filter(
+        lambda: record_model_kernels(lambda: dprov.evaluate(
+            x2, dprov.assemble(x2))))
+    check_dd_model_kernels(seen, "ensemble dd")
+    check_cell_filter_calls(cf_calls, "ensemble dd")
+    del seen, cf_calls, st_d
+    torch.cuda.empty_cache()
+    # a nan_force on rank 2 of replica 1: only replica 1 trips, and the
+    # ensemble ends on the fault-free bits
+    runs = {}
+    for name in ("clean", "faulted"):
+        plan = FaultPlan([FaultSpec("nan_force", step=5, rank=2, replica=1)]
+                         if name == "faulted" else [])
+        eng = ensemble(r_dd, temps[:r_dd], 0,
+                       batched(r_dd, dd4, plan.pipeline_hook()),
+                       guard=GuardConfig(enabled=True), faults=plan)
+        runs[name] = (eng.run(eng.init_state(pos), ENS_FAULT_STEPS), eng,
+                      plan)
+    (st_c, _, _), (st_f, eng_f, plan) = runs["clean"], runs["faulted"]
+    trips = eng_f.diagnostics["replica_guard_trips"].tolist()
+    if not plan.faults[0].fired or trips != [0, 1]:
+        fail(f"ensemble dd fault: fired {plan.faults[0].fired}, replica "
+             f"trips {trips}")
+    if not all(torch.equal(getattr(st_c, k), getattr(st_f, k))
+               for k in (*STATE_KEYS, "ladder")):
+        fail("ensemble dd fault: the recovered ensemble differs from the "
+             "fault-free run")
+    print(json.dumps({
+        "phase": "ensemble", "case": "batched dd", "replicas": r_dd,
+        "ranks": g_dd, "grid": dd4.grid_dims, "K_eval": dd4.k_eval,
+        "model_rows": r_dd * dd4.n_ranks * (dd4.local_capacity
+                                            + dd4.ghost_capacity),
+        "F_max_abs_err_vs_one_domain": errs, "F_tol": "atol 1e-4*max|F|",
+        "rebuild_flags_after_moving_replica_1": flags,
+        "fault": "nan_force step 5, rank 2, replica 1",
+        "replica_guard_trips": trips,
+        "recovered_equals_fault_free_bitwise": True,
+        "launches_per_batched_dd_evaluate": per_call_dd,
+        "max_memory_allocated_MiB": mib(peak_d)}), flush=True)
+    del runs, st_c, st_f, eng_f, eng, dprov, xs, x2, far, singles, single
+    del msys, pos
+    torch.cuda.empty_cache()
+
+    # -- (d) overlap: 8 ranks on the dd phase's system
+    coords, types, box_r = system(N_PATH, SEED)
+    cfg8 = suggest_config(N_PATH, box_r, N_RANKS, rcut, nbr_capacity=sel,
+                          skin=SKIN, coords=coords)
+    pipe = ForcePipeline(model, cfg8, box_r, N_PATH)
+    ev = pipe.build_evaluation_fn()
+    x = torch.tensor(coords, device=DEVICE)
+    t = torch.tensor(types, device=DEVICE)
+    st = pipe.build_assembly_fn()(x, t)
+    masks = tpipe._overlap_masks(cfg8, tpipe._st_dict(st, pipe.ax))
+    c_full = cfg8.local_capacity + cfg8.ghost_capacity
+    sources = ((st.buf_mask.reshape(N_RANKS, -1) > 0) & ~masks[3]).sum(1)
+    c_trim = min(c_full, -(-int(sources.max()) // 64) * 64)
+
+    def overlap(**kw):
+        return ForcePipeline(model, dataclasses.replace(cfg8, overlap=True,
+                                                        **kw),
+                             box_r, N_PATH).build_evaluation_fn()
+
+    ov = overlap()
+    moved = torch.tensor(frozen_drift(coords, box_r, cfg8.grid_dims,
+                                      cfg8.halo_eff), device=DEVICE)
+    res = {}
+    for where, y in (("build", x), ("drifted", moved)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0, f0, d0 = ev(params, y, st)
+        torch.cuda.synchronize()
+        peak0 = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e1, f1, d1 = ov(params, y, st)
+        torch.cuda.synchronize()
+        peak1 = torch.cuda.max_memory_allocated()
+        if float(e0) != float(e1) or not torch.equal(f0, f1):
+            fail(f"ensemble overlap ({where}): overlap != sequential (dE "
+                 f"{float(e1 - e0):.3e}, max dF "
+                 f"{float((f1 - f0).abs().max()):.3e})")
+        if int(d1["overflow"]) or bool(d1["needs_rebuild"]):
+            fail(f"ensemble overlap ({where}): overflow or rebuild flagged")
+        res[where] = (e0, f0, float(d1["interior_frac"]), peak0, peak1)
+    e0, f0, frac, peak0, peak1 = res["build"]
+    e4, f4, d4 = overlap(overlap_capacity=c_trim)(params, x, st)
+    trim_df = float((f4 - f0).abs().max())
+    trim_de = abs(float(e4 - e0)) / abs(float(e0))
+    if int(d4["overflow"]) or trim_df > 1e-5 * float(f0.abs().max()) or \
+            trim_de > 1e-5:
+        fail(f"ensemble overlap trimmed to {c_trim}: overflow "
+             f"{int(d4['overflow'])}, dF {trim_df:.3e}, dE {trim_de:.3e}")
+    _, _, d5 = overlap(overlap_capacity=8)(params, x, st)
+    if not int(d5["overflow"]):
+        fail("ensemble overlap: a capacity of 8 rows raised no overflow")
+    del f4, d4, d5
+    per_ov, _ = launches_of(lambda: ov(params, x, st))
+    check_launch_pattern(per_ov, {**{k: 2 for k in SINGLE_DOMAIN_KERNELS},
+                                  "force_scatter": 3, "cell_filter": 2},
+                         "ensemble overlap evaluation")
+    ms_seq = host_ms(lambda: ev(params, x, st))
+    ms_ov = host_ms(lambda: ov(params, x, st))
+    # each pass's kernels on the tensors it gave them
+    model_names = [n for _, n in MODEL_KERNELS if n != "force_scatter"]
+    for label, idx, sc in (("pass A", (0,), (0,)), ("pass B", (1,), (1, 2))):
+        _, seen = record_model_kernels(
+            lambda: ov(params, x, st),
+            keep=lambda name, i, idx=idx, sc=sc: i in (
+                sc if name == "force_scatter" else idx))
+        cases = (("gather_backward",) if label == "pass A"
+                 else ("gather_backward", "force_reduction"))
+        check_dd_model_kernels(seen, f"ensemble overlap {label}",
+                               scatter_cases=cases)
+        del seen
+        torch.cuda.empty_cache()
+    _, cf_calls = record_cell_filter(lambda: ov(params, x, st))
+    check_cell_filter_calls(cf_calls, "ensemble overlap",
+                            sites=("pass_a_refilter", "pass_b_refilter"))
+    del cf_calls
+    print(json.dumps({
+        "phase": "ensemble", "case": "overlap", "ranks": N_RANKS,
+        "atoms": N_PATH, "rows_per_rank_capacity": c_full,
+        "bitwise_vs_sequential": {"build": True, "drifted": True},
+        "interior_frac": frac, "interior_frac_drifted": res["drifted"][2],
+        "trimmed_capacity": c_trim, "trimmed_F_max_abs_err": trim_df,
+        "trimmed_E_rel_err": trim_de, "tiny_capacity_overflow": True,
+        "sequential_evaluate_ms": ms_seq, "overlap_evaluate_ms": ms_ov,
+        "overlap_extra_ms": ms_ov - ms_seq,
+        "sequential_peak_MiB": mib(peak0), "overlap_peak_MiB": mib(peak1),
+        "launches_per_overlap_evaluation": per_ov,
+        "model_kernels_checked": model_names}), flush=True)
+    out["overlap_evaluation"] = per_ov
+    del st, res, f0, e0
+    torch.cuda.empty_cache()
+    print(f"[ensemble] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serve: multi-tenant force serving (ForceServer + RemoteForceProvider)
+# ---------------------------------------------------------------------------
+
+SERVE_RESIDUES = 1_024    # a solvated protein whose DP group is 4,096 atoms
+SERVE_CLIENTS = 4
+SERVE_WARM, SERVE_STEPS = 5, 100   # client MD steps before / in the window
+SERVE_BATCHES = (1, 2, 4)
+SERVE_K = 96              # the served lists' capacity (<= 128)
+
+
+def _stream_key():
+    """The CUDA stream current on the calling thread (a backward runs on
+    its forward's stream, whichever thread the autograd engine uses)."""
+    return torch.cuda.current_stream().stream_id
+
+
+def stream_tally(fn, which=MODEL_KERNELS):
+    """Run ``fn(tally)`` with each named kernel wrapper (module, name)
+    replaced by one that calls through and adds one to
+    ``tally[stream][name]`` for the stream current at the call, so the
+    launches of a run in which several threads launch split by stream;
+    returns fn's result.  Meanwhile the wrappers' launches count on the
+    module-level name, the replacement; they go back to the wrappers'
+    counts afterwards."""
+    from repro_torch import kernels
+    mods = {m: getattr(kernels, m) for m, _ in which}
+    originals = {name: getattr(mods[m], name) for m, name in which}
+    tally = {}
+
+    def counter(name):
+        def rec(*args, **kw):
+            per = tally.setdefault(_stream_key(), {})
+            per[name] = per.get(name, 0) + 1
+            return originals[name](*args, **kw)
+        rec.launches = 0
+        return rec
+
+    for m, name in which:
+        setattr(mods[m], name, counter(name))
+    try:
+        return fn(tally)
+    finally:
+        for m, name in which:
+            originals[name].launches += getattr(mods[m], name).launches
+            setattr(mods[m], name, originals[name])
+
+
+def phase_serve(model, params):
+    """Force serving with the full-width model: 4 client MD threads
+    (``RemoteForceProvider``) against one ``ForceServer`` (atom bucket
+    4,096, batch buckets 1, 2, 4); every served result of a batch of 4
+    against ``evaluate_direct`` on the same request; an expired deadline, a
+    full queue and a ``serve_fail`` failing only their own request or
+    batch; the ``pipeline_executor_factory`` route at batch 2 x 4 virtual
+    ranks; ms and launches per executor call at batch 1/2/4 (each model
+    kernel once whatever the batch; the batch-4 call's kernels against
+    their plain versions); then the clients' served run: SERVE_WARM steps
+    each, then a window of SERVE_STEPS steps each in which requests/s,
+    p50/p99 of every request's own latency and the launches of every
+    dispatch (counted on the server's stream inside the dispatch) are
+    read.  Returns {kernel: launches per served dispatch} (every dispatch
+    of the window launches the same)."""
+    import threading
+    from repro_torch.backend import ForceRequest
+    from repro_torch.core import suggest_config
+    from repro_torch.health import FaultPlan, FaultSpec
+    from repro_torch.md import build_solvated_protein, mark_nn_group
+    from repro_torch.md.integrators import wrap
+    from repro_torch.serve import (ForceServer, ServeConfig,
+                                   ServerOverloaded, pad_group,
+                                   pipeline_executor_factory)
+    t_phase = time.perf_counter()
+    msys, pos, nn = build_solvated_protein(SERVE_RESIDUES, device=DEVICE)
+    msys = mark_nn_group(msys, nn)
+    n_dp = len(nn)
+    box = msys.box.cpu()
+    types_nn = msys.types.cpu()[torch.as_tensor(nn)]
+    sel = model.cfg.descriptor.sel
+    rcut = model.cfg.descriptor.rcut
+    server = ForceServer(model, params, ServeConfig(
+        atom_buckets=(n_dp,), batch_buckets=SERVE_BATCHES,
+        nbr_capacity=SERVE_K, batch_window_s=0.05))
+    t0 = time.perf_counter()
+    server.warmup()
+    warm_s = time.perf_counter() - t0
+    xs = replica_positions(pos, msys.box, max(SERVE_BATCHES))
+
+    def request(k, tenant="direct"):
+        nn_pos = wrap(xs[k].cpu()[torch.as_tensor(nn)], box)
+        return ForceRequest(positions=nn_pos, box=box, types=types_nn,
+                            tenant=tenant)
+
+    try:
+        # every served result of one batch of 4 vs evaluate_direct
+        reqs = [request(k, f"parity{k}") for k in range(max(SERVE_BATCHES))]
+        futs = [server.submit(r) for r in reqs]
+        got = [f.result(120.0) for f in futs]
+        sizes = [g.diagnostics.get("batch_size") for g in got]
+        errs = []
+        for req, res in zip(reqs, got):
+            direct = server.evaluate_direct(req)
+            if not (res.ok and direct.ok):
+                fail(f"serve: {res.error or direct.error}")
+            if abs(float(res.energy) - float(direct.energy)) > \
+                    1e-5 * abs(float(direct.energy)):
+                fail(f"serve: E {float(res.energy)} vs direct "
+                     f"{float(direct.energy)}")
+            errs.append(check("serve: served vs direct forces", res.forces,
+                              direct.forces,
+                              atol=1e-4 * float(direct.forces.abs().max())))
+        # ms and launches of one executor call at each batch bucket (the
+        # bucket function called on this thread, outside the queue)
+        per_dispatch, ms_dispatch = {}, {}
+        for b in SERVE_BATCHES:
+            arrs = [torch.as_tensor(a, device=DEVICE) for a in
+                    pad_group(reqs[:b], n_dp, SERVE_BATCHES)]
+            fn = server._bucket_fn(n_dp, b)
+            with torch.no_grad():
+                per_dispatch[b], _ = launches_of(lambda: fn(params, *arrs))
+                ms_dispatch[b] = host_ms(lambda: fn(params, *arrs))
+            check_launch_pattern(per_dispatch[b],
+                                 {k: 1 for k in SINGLE_DOMAIN_KERNELS},
+                                 f"serve executor at batch {b}")
+            if b == max(SERVE_BATCHES):
+                with torch.no_grad():
+                    _, seen = record_model_kernels(lambda: fn(params, *arrs))
+                check_dd_model_kernels(seen, "serve batch 4",
+                                       scatter_cases=("gather_backward",))
+                del seen
+        print(json.dumps({"phase": "serve", "dp_atoms": n_dp,
+                          "atoms": msys.n_atoms, "K": SERVE_K,
+                          "warmup_s": warm_s,
+                          "parity_batch_sizes": sizes,
+                          "F_max_abs_err_vs_direct": errs,
+                          "F_tol": "atol 1e-4*max|F|", "E_tol": "rtol 1e-5",
+                          "executor_ms_by_batch": ms_dispatch,
+                          "executor_launches_by_batch": per_dispatch}),
+              flush=True)
+
+        served = serve_clients(server, msys, nn, box, xs)
+    finally:
+        server.stop()
+
+    # degradation: an expired deadline, a full queue and a serve_fail each
+    # fail only their own request or batch (512 random atoms a request)
+    sc, st_, sb = system(512, SEED + 8)
+    small = [ForceRequest(positions=torch.tensor(sc), box=torch.tensor(sb),
+                          types=torch.tensor(st_), tenant=f"s{i}")
+             for i in range(4)]
+    plan = FaultPlan([FaultSpec("serve_fail", nth=3)])
+    srv = ForceServer(model, params, ServeConfig(
+        atom_buckets=(512,), batch_buckets=(1, 2), nbr_capacity=SERVE_K,
+        queue_bound=1, batch_window_s=0.001), fault_plan=plan)
+    try:
+        ok0 = srv.compute(small[0])                          # dispatch 1
+        late = dataclasses.replace(small[1], deadline=time.monotonic() - 1)
+        r_late = srv.submit(late).result(60.0)
+        real = srv._bucket_fn(512, 1)
+        release = threading.Event()
+
+        def slow(*a):
+            release.wait(60.0)
+            return real(*a)
+
+        srv._fns[(512, 1)] = srv._fns[(512, 2)] = slow
+        f_a = srv.submit(dataclasses.replace(small[2], deadline=None))
+        time.sleep(0.3)                                      # dispatch 2
+        f_b = srv.submit(dataclasses.replace(small[3], deadline=None))
+        try:
+            srv.submit(dataclasses.replace(small[0], deadline=None,
+                                           tenant="burst"))
+            fail("serve: a full queue accepted a request")
+        except ServerOverloaded:
+            pass
+        release.set()
+        r_a, r_b = f_a.result(60.0), f_b.result(60.0)       # dispatches 2, 3
+        srv._fns[(512, 1)] = srv._fns[(512, 2)] = real
+        r_after = srv.compute(dataclasses.replace(small[0], deadline=None))
+    finally:
+        srv.stop()
+    outcome = {"first": ok0.ok, "expired": r_late.ok, "queued_a": r_a.ok,
+               "failed_batch": r_b.ok, "after": r_after.ok}
+    if outcome != {"first": True, "expired": False, "queued_a": True,
+                   "failed_batch": False, "after": True} or \
+            "deadline" not in r_late.error or "injected" not in r_b.error:
+        fail(f"serve degradation: {outcome} ({r_late.error}; {r_b.error})")
+    print(json.dumps({"phase": "serve", "case": "degradation",
+                      "outcomes_ok": outcome,
+                      "rejected_when_full": True}), flush=True)
+
+    # the pipeline executor: batch 2 x 4 virtual ranks of the DP group
+    coords_nn = xs[0][torch.as_tensor(nn, device=DEVICE)].cpu().numpy()
+    factory = pipeline_executor_factory(
+        model, box.numpy(), types_nn.numpy(),
+        lambda nb, ranks: suggest_config(nb, box.numpy(), ranks, rcut,
+                                         nbr_capacity=sel, coords=coords_nn),
+        ranks_for=lambda b: 4)
+    psrv = ForceServer(model, params, ServeConfig(
+        atom_buckets=(n_dp,), batch_buckets=(2,), nbr_capacity=SERVE_K,
+        batch_window_s=0.2), executor_factory=factory)
+    dsrv = ForceServer(model, params, ServeConfig(
+        atom_buckets=(n_dp,), batch_buckets=(1,), nbr_capacity=SERVE_K))
+    try:
+        reqs = [request(k, f"pipe{k}") for k in range(2)]
+        from repro_torch import kernels
+        kernels.reset_launch_counts()
+        futs = [psrv.submit(r) for r in reqs]
+        got = [f.result(300.0) for f in futs]
+        counts_p = kernels.launch_counts()
+        errs = []
+        for req, res in zip(reqs, got):
+            direct = dsrv.evaluate_direct(req)
+            if not res.ok or res.diagnostics["batch_size"] != 2:
+                fail(f"serve pipeline route: {res.error} "
+                     f"{res.diagnostics}")
+            if abs(float(res.energy) - float(direct.energy)) > \
+                    1e-5 * abs(float(direct.energy)):
+                fail(f"serve pipeline route: E {float(res.energy)} vs "
+                     f"{float(direct.energy)}")
+            errs.append(check("serve pipeline route forces vs direct",
+                              res.forces, direct.forces,
+                              atol=1e-4 * float(direct.forces.abs().max())))
+        check_launch_pattern(counts_p, {**{k: 1 for k in
+                                           SINGLE_DOMAIN_KERNELS},
+                                        "force_scatter": 2, "cell_filter": 2},
+                             "serve pipeline dispatch")
+        pipe = psrv._fns[(n_dp, 2)].pipeline
+        print(json.dumps({"phase": "serve", "case": "pipeline executor",
+                          "batch": 2, "ranks": pipe.cfg.n_ranks,
+                          "grid": pipe.cfg.grid_dims,
+                          "F_max_abs_err_vs_direct": errs,
+                          "launches_per_dispatch": counts_p}), flush=True)
+    finally:
+        psrv.stop()
+        dsrv.stop()
+    torch.cuda.empty_cache()
+    print(f"[serve] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return served
+
+
+def serve_clients(server, msys, nn, box, xs):
+    """SERVE_CLIENTS MD threads, each through a ``RemoteForceProvider``,
+    against ``server``: SERVE_WARM steps each, then (all clients released
+    together, counts and tallies reset) SERVE_STEPS steps each.  Every
+    request of the window is timed from its submit to its answer
+    (``ForceServer._settle``), every dispatch's launches are read inside
+    it on the server's stream (the clients' own classical force scatters
+    run on theirs), and each model kernel and the DP scatter must launch
+    exactly once in every dispatch.  Returns that {kernel: launches}."""
+    import threading
+    from repro_torch import kernels
+    from repro_torch.md import EngineConfig, MDEngine
+    from repro_torch.serve import RemoteForceProvider
+    window = {"t0": None}
+    latencies, dispatches, errors = [], [], []
+    settle = server._settle
+
+    def timed_settle(fut, result, event):
+        settle(fut, result, event)
+        if window["t0"] is not None and fut.t_submit >= window["t0"]:
+            latencies.append((fut.request.tenant, event,
+                              result.diagnostics["latency_s"]))
+
+    def per_dispatch(fn, tally):
+        def run(params_, coords, *rest):
+            key = _stream_key()
+            before = dict(tally.get(key, {}))
+            out = fn(params_, coords, *rest)
+            after = tally.get(key, {})
+            dispatches.append((int(coords.shape[0]), {
+                k: after.get(k, 0) - before.get(k, 0) for k in DP_KERNELS}))
+            return out
+        return run
+
+    def start_window():
+        # every client has its warm-up answers: no dispatch is in flight
+        kernels.reset_launch_counts()
+        for m, name in MODEL_KERNELS:    # stream_tally's stand-ins count
+            getattr(getattr(kernels, m), name).launches = 0
+        tally.clear()
+        dispatches.clear()
+        window["t0"] = time.monotonic()
+
+    barrier = threading.Barrier(SERVE_CLIENTS, action=start_window)
+
+    def client(i):
+        try:
+            prov = RemoteForceProvider(server, nn, msys.types, box,
+                                       msys.n_atoms, tenant=f"sim{i}",
+                                       timeout_s=120.0)
+            eng = MDEngine(msys, EngineConfig(**MD_CFG), special_force=prov)
+            st = eng.run(eng.init_state(xs[i], 200.0, seed=i), SERVE_WARM)
+            barrier.wait(300.0)
+            st = eng.run(st, SERVE_STEPS)
+            check_finite_state(f"serve client {i}", st)
+        except Exception as e:  # noqa: BLE001 — reported after the join
+            errors.append(e)
+            barrier.abort()
+
+    def served_run(tally_):
+        nonlocal tally
+        tally = tally_
+        fns = dict(server._fns)
+        for key, fn in fns.items():
+            server._fns[key] = per_dispatch(fn, tally)
+        server._settle = timed_settle
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        try:
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            torch.cuda.synchronize()
+            return time.monotonic() - window["t0"]
+        finally:
+            server._fns.update(fns)
+            server._settle = settle
+
+    tally = None
+    wall = stream_tally(served_run)
+    counts = kernels.launch_counts()
+    if errors:
+        raise errors[0]
+    n_req = SERVE_CLIENTS * SERVE_STEPS
+    if len(latencies) != n_req or any(ev != "complete"
+                                      for _, ev, _ in latencies):
+        fail(f"serve clients: {len(latencies)} answers in the window for "
+             f"{n_req} requests, events "
+             f"{sorted({ev for _, ev, _ in latencies})}")
+    want = {k: 1 for k in SINGLE_DOMAIN_KERNELS}
+    for b, got in dispatches:
+        check_launch_pattern(got, want, f"served dispatch of batch {b}")
+    if sum(b for b, _ in dispatches) < n_req:
+        fail(f"serve clients: {len(dispatches)} dispatches of "
+             f"{sum(b for b, _ in dispatches)} rows for {n_req} requests")
+    # every launch of the window is one the tallies saw, and the model
+    # kernels launched in the dispatches only
+    seen = {k: sum(per.get(k, 0) for per in tally.values())
+            for k in DP_KERNELS}
+    for k in DP_KERNELS:
+        if seen[k] != counts[k]:
+            fail(f"serve clients: {k} launched {counts[k]} times, "
+                 f"{seen[k]} calls tallied")
+        in_dispatch = sum(got[k] for _, got in dispatches)
+        if k != "force_scatter" and in_dispatch != counts[k]:
+            fail(f"serve clients: {k} launched {counts[k]} times, "
+                 f"{in_dispatch} of them in dispatches")
+    lat = np.array([x for _, _, x in latencies]) * 1e3
+    by_tenant = {}
+    for t, _, x in latencies:
+        by_tenant.setdefault(t, []).append(x * 1e3)
+    sizes = [b for b, _ in dispatches]
+    per = {k: want.get(k, 0) for k in kernels.KERNELS}
+    print(json.dumps({
+        "phase": "serve", "case": "md clients", "clients": SERVE_CLIENTS,
+        "warmup_steps": SERVE_WARM, "steps": SERVE_STEPS,
+        "requests": n_req, "window_s": wall,
+        "requests_per_s": n_req / wall, "dispatches": len(dispatches),
+        "mean_batch": n_req / len(dispatches),
+        "batch_sizes": {b: sizes.count(b) for b in sorted(set(sizes))},
+        "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                       "p99": float(np.percentile(lat, 99)),
+                       "max": float(lat.max()), "mean": float(lat.mean())},
+        "latency_how": "each request's submit-to-answer time, over every "
+                       "request of the window (numpy percentile, linear)",
+        "p50_latency_ms_by_tenant": {t: float(np.percentile(v, 50))
+                                     for t, v in sorted(by_tenant.items())},
+        "launches_per_served_dispatch": per,
+        "force_scatter_launches_outside_dispatches":
+            counts["force_scatter"] - len(dispatches),
+        "launches": counts}), flush=True)
+    return per
 
 
 # ---------------------------------------------------------------------------
@@ -2993,6 +3863,15 @@ def main():
         phase_guard(model, params)
         print("[guard] every check passed (guard phase alone)", flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "ensemble"]:
+        phase_ensemble(model, params)
+        print("[ensemble] every check passed (ensemble phase alone)",
+              flush=True)
+        return 0
+    if sys.argv[1:] == ["--phase", "serve"]:
+        phase_serve(model, params)
+        print("[serve] every check passed (serve phase alone)", flush=True)
+        return 0
     phase_kernels(model, params, 0.0)            # single_domain_forces, K = 64
     kres = phase_kernels(model, params, SKIN, main=True)  # the provider's K
     # K = 128: the MD cutoff (r_c = 0.8, ~64 neighbours) with sel 128, where
@@ -3013,11 +3892,22 @@ def main():
     kres["cell_filter"] = cf_row
     md_sd, md_dd, md_pairs = phase_md(model, params)
     guard_sd, guard_dd = phase_guard(model, params)
+    ens = phase_ensemble(model, params)
+    torch.cuda.empty_cache()
+    serve_launches = phase_serve(model, params)
     del model, params
     torch.cuda.empty_cache()
     train_launches = phase_train()
     torch.cuda.empty_cache()
     lm_rows, lm_launches = phase_lm()
+
+    def new_launches(name):
+        return {"launches_per_batched_force_call":
+                    ens["batched_force_call"][name],
+                "launches_per_ensemble_step": ens["ensemble_step"][name],
+                "launches_per_served_dispatch": serve_launches[name],
+                "launches_per_overlap_evaluation":
+                    ens["overlap_evaluation"][name]}
 
     rows = []
     for name in DP_KERNELS:
@@ -3036,6 +3926,7 @@ def main():
                      "launches_per_force_rmse":
                          train_launches["force_rmse"][name],
                      "launches_train_run": train_launches["train_run"][name],
+                     **new_launches(name),
                      "K": r.get("K"), "max_abs_err": r["max_err"],
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3069,6 +3960,7 @@ def main():
             "launches_guarded_md_dd": guard_dd[name],
             "launches_per_train_step": train_launches["train_step"][name],
             "launches_per_force_rmse": train_launches["force_rmse"][name],
+            **new_launches(name),
             "shape": ("prefill, global layer: q (4, 8, 6144, 256), k/v "
                       "(4, 4, 6144, 256), bf16, causal, softcap 50"
                       if name == "flash_attention" else

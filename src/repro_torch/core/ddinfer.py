@@ -17,6 +17,7 @@ the exact cutoff at the current positions.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -28,7 +29,7 @@ from ..kernels.ref import cutoff2, sq_dist
 from ..md import cells as cellmod
 from ..md.neighbors import (NeighborList, ROW_CHUNK, _topk_list,
                             brute_force_neighbor_list, dense_scan,
-                            minimum_image)
+                            minimum_image, stack_neighbor_lists)
 from .domain import (IMAGE_SHIFTS, VirtualGrid, atom_costs, balanced_planes,
                      bin_atoms, factor_grid, select_ghosts,
                      select_ghosts_cells, select_local, select_local_cells,
@@ -64,9 +65,10 @@ class DDConfig:
     subcell_capacity: int = 0
     skin: float = 0.0            # Verlet buffer; 0 = rebuild every step
     nbr_capacity_eval: int = 0   # K after exact-cutoff compaction (0 = K)
-    overlap: bool = False        # not ported (ROADMAP Queue 1 item 5)
-    overlap_capacity: int = 0
-    overlap_min_interior: float = 0.25
+    overlap: bool = False        # interior pass + boundary pass (pipeline.py)
+    overlap_capacity: int = 0    # boundary-pass sub-buffer rows (0 = full C)
+    overlap_min_interior: float = 0.25  # advisory: below this interior
+    #   fraction the split cannot hide the gather
 
     def __post_init__(self):
         if len(self.grid_dims) != 3 or min(self.grid_dims) < 1:
@@ -90,11 +92,11 @@ class DDConfig:
             raise ValueError(
                 f"k_eval {self.k_eval}: " + k_limit_message(self.k_eval)
                 + "; cap nbr_capacity_eval at 128")
-        if self.overlap:
+        if self.overlap and self.force_mode != "owner_full":
             raise ValueError(
-                "overlap=True is not ported yet: the comms/compute overlap "
-                "evaluation is ROADMAP.md Queue 1 item 5 (left for a later "
-                "slice); build the sequential evaluation")
+                "overlap=True requires force_mode='owner_full': the interior "
+                "pass reproduces a row's force only where the 2 r_c halo "
+                "makes every ghost descriptor exact")
         if self.overlap_capacity < 0 or not (
                 0.0 <= self.overlap_min_interior <= 1.0):
             raise ValueError(
@@ -421,6 +423,15 @@ def _assemble_ranks(coords_all, types_all, box, grid: VirtualGrid,
     the replicated coordinate buffer, which may be padded to a rank
     multiple (``n_real`` marks the real atoms).  Halos and the list cutoff
     are widened by ``cfg.skin``."""
+    st = _select_ranks(coords_all, types_all, box, grid, cfg, ranks, n_real)
+    return _rank_lists(st, cfg, rcut)
+
+
+def _select_ranks(coords_all, types_all, box, grid: VirtualGrid,
+                  cfg: DDConfig, ranks, n_real: int) -> dict:
+    """The selection half of :func:`_assemble_ranks`: index sets, shifts,
+    masks, counts and the parked subdomain buffers, stacked along a leading
+    rank axis (no neighbour list yet)."""
     n = coords_all.shape[0]
     dev = coords_all.device
     box = torch.as_tensor(box, dtype=F32, device=dev)
@@ -451,7 +462,14 @@ def _assemble_ranks(coords_all, types_all, box, grid: VirtualGrid,
                          ("origin", lo - torch.tensor(cfg.halo_eff, dtype=F32,
                                                       device=dev))):
             cols[key].append(val)
-    st = {k: torch.stack(v) for k, v in cols.items()}
+    return {k: torch.stack(v) for k, v in cols.items()}
+
+
+def _rank_lists(st: dict, cfg: DDConfig, rcut: float) -> dict:
+    """The list half of :func:`_assemble_ranks`: the subdomain neighbour
+    lists of every stacked buffer in ``st`` (one ``cell_filter`` launch for
+    all of them, whichever replicas and ranks they belong to) and the
+    overflow flags."""
     r_list = rcut + cfg.skin
     if cfg.nbr_method == "cells":
         nbr_idx, nbr_take, nbr_overflow = _subdomain_nbr_list_cells(
@@ -465,7 +483,7 @@ def _assemble_ranks(coords_all, types_all, box, grid: VirtualGrid,
                 | (st["local_count"] > cfg.local_capacity)
                 | (st["ghost_count"] > cfg.ghost_capacity))
     del st["origin"]
-    st.update(nbr_idx=nbr_idx, nbr_mask=nbr_take.to(coords_all.dtype),
+    st.update(nbr_idx=nbr_idx, nbr_mask=nbr_take.to(st["buf_coords"].dtype),
               overflow=overflow)
     return st
 
@@ -524,72 +542,161 @@ def make_padded_batch_fn(model: DPModel, n_max: int, nbr_capacity: int):
     """Bucket evaluator for force serving: f(params, coords (B, n_max, 3),
     types (B, n_max), mask (B, n_max), box (B, 3)) -> (energy (B,),
     forces (B, n_max, 3), overflow (B,) bool).  Each row is one independent
-    request padded to ``n_max``; padding atoms take part in nothing."""
+    request padded to ``n_max`` (its own types and box); padding atoms take
+    part in nothing.  The lists are built row by row; the B rows then go
+    through the model as one (B*n_max)-atom batch (offset neighbour ids,
+    each row's box on its atoms), so each model kernel launches once per
+    dispatch whatever B."""
     rcut = model.cfg.descriptor.rcut
 
     def fn(params, coords, types, mask, box):
-        if coords.shape[-2] != n_max:
-            raise ValueError(f"rows hold {coords.shape[-2]} atoms, bucket "
-                             f"is {n_max}")
-        es, fs, overs = [], [], []
-        for c, t, m, b in zip(coords, types, mask, box):
-            idx, nmask, over = masked_neighbor_list(c, b, rcut, nbr_capacity, m)
-            e, f = model.energy_and_forces(params, c, t, idx, nmask,
-                                           local_mask=m, box=b)
-            es.append(e)
-            fs.append(f * m[:, None])
-            overs.append(over)
-        return torch.stack(es), torch.stack(fs), torch.stack(overs)
+        b, n = coords.shape[:2]
+        if n != n_max:
+            raise ValueError(f"rows hold {n} atoms, bucket is {n_max}")
+        lists = [masked_neighbor_list(c, bx, rcut, nbr_capacity, m)
+                 for c, bx, m in zip(coords, box, mask)]
+        idx = torch.stack([nl[0] for nl in lists])
+        nmask = torch.stack([nl[1] for nl in lists])
+        box_rows = box[:, None, None, :].expand(b, n, 1, 3).reshape(
+            b * n, 1, 3)
+        e, f = model.energy_and_forces_batched(params, coords, types, idx,
+                                               nmask, mask, box=box_rows)
+        return e, f * mask[..., None], torch.stack([nl[2] for nl in lists])
 
     return fn
 
 
-def single_domain_forces_batched(model: DPModel, params, coords, types, box,
-                                 nbr_capacity: int):
-    """Replica-batched single-domain reference: coords (R, N, 3) ->
-    (energy (R,), forces (R, N, 3)) through one batched model call."""
-    box = torch.as_tensor(box, dtype=coords.dtype, device=coords.device)
-    rcut = model.cfg.descriptor.rcut
-    lists = [brute_force_neighbor_list(c, box, rcut, nbr_capacity)
-             for c in coords]
-    idx = torch.stack([nl.idx for nl in lists])
-    mask = torch.stack([nl.mask for nl in lists])
-    local = torch.ones(coords.shape[:2], dtype=coords.dtype,
-                       device=coords.device)
-    return model.energy_and_forces_batched(params, coords, types, idx, mask,
+def _with_replicas(coords):
+    """(``coords`` with a leading replica axis, whether one was added)."""
+    return (coords[None], True) if coords.dim() == 2 else (coords, False)
+
+
+def _single_domain_call(model: DPModel, params, xs, types, box, idx, mask,
+                        one: bool):
+    """One batched model call over the replicas of ``xs`` (R, N, 3) with
+    their lists (R, N, K): each replica's atoms all local.  ``one`` drops
+    the replica axis again (R = 1 is the unbatched call's layout and bits)."""
+    local = torch.ones(xs.shape[:2], dtype=xs.dtype, device=xs.device)
+    e, f = model.energy_and_forces_batched(params, xs, types, idx, mask,
                                            local, box=box)
+    return (e[0], f[0]) if one else (e, f)
 
 
 def single_domain_forces(model: DPModel, params, coords, types, box,
                          nbr_capacity: int):
-    """Reference path: one domain, PBC minimum image (stock-NNPot analogue)."""
+    """Reference path: one domain, PBC minimum image (stock-NNPot analogue).
+    ``coords`` is (N, 3), or (R, N, 3) for R replicas -> (energy (R,),
+    forces (R, N, 3)) through one model call (lists built per replica)."""
     box = torch.as_tensor(box, dtype=coords.dtype, device=coords.device)
-    nl = brute_force_neighbor_list(coords, box, model.cfg.descriptor.rcut,
-                                   nbr_capacity)
-    local = torch.ones_like(coords[:, 0])
-    return model.energy_and_forces(params, coords, types, nl.idx, nl.mask,
-                                   local, box=box)
+    xs, one = _with_replicas(coords)
+    lists = [brute_force_neighbor_list(c, box, model.cfg.descriptor.rcut,
+                                       nbr_capacity) for c in xs]
+    return _single_domain_call(model, params, xs, types, box,
+                               torch.stack([nl.idx for nl in lists]),
+                               torch.stack([nl.mask for nl in lists]), one)
+
+
+single_domain_forces_batched = single_domain_forces  # the (R, N, 3) name
 
 
 def single_domain_state(model: DPModel, coords, box, nbr_capacity: int,
                         skin: float) -> NeighborList:
     """Assembly phase: a full skin-widened list (its ``ref_positions`` are
-    the reuse reference)."""
+    the reuse reference); for (R, N, 3) ``coords`` the replicas' lists
+    stacked (every field with a leading replica axis)."""
     box = torch.as_tensor(box, dtype=coords.dtype, device=coords.device)
-    return brute_force_neighbor_list(coords, box,
-                                     model.cfg.descriptor.rcut + skin,
-                                     nbr_capacity)
+    xs, one = _with_replicas(coords)
+    lists = [brute_force_neighbor_list(c, box,
+                                       model.cfg.descriptor.rcut + skin,
+                                       nbr_capacity) for c in xs]
+    return lists[0] if one else stack_neighbor_lists(lists)
+
+
+def refilter_mask(coords, box, rcut: float, idx, mask):
+    """``mask`` kept only at the slots within ``rcut`` at ``coords``:
+    (R, N, 3) positions, (R, N, K) list."""
+    safe = torch.where(idx >= 0, idx, torch.zeros_like(idx)).long()
+    nbr = torch.gather(coords, 1, safe.reshape(len(coords), -1, 1)
+                       .expand(-1, -1, 3)).reshape(*safe.shape, 3)
+    dr = minimum_image(nbr - coords[:, :, None, :], box)
+    return mask * ((dr * dr).sum(-1) < rcut ** 2)
 
 
 def single_domain_forces_nlist(model: DPModel, params, coords, types, box,
                                nlist: NeighborList):
     """Evaluation phase: reuse a (possibly stale) skin-widened list,
-    re-filtered to the exact cutoff at the current positions."""
+    re-filtered to the exact cutoff at the current positions.  ``coords``
+    (N, 3) with its list, or (R, N, 3) with a stacked one."""
     box = torch.as_tensor(box, dtype=coords.dtype, device=coords.device)
-    rcut = model.cfg.descriptor.rcut
-    safe = torch.where(nlist.idx >= 0, nlist.idx, torch.zeros_like(nlist.idx))
-    dr = minimum_image(coords[safe] - coords[:, None, :], box)
-    mask = nlist.mask * ((dr * dr).sum(-1) < rcut ** 2)
-    local = torch.ones_like(coords[:, 0])
-    return model.energy_and_forces(params, coords, types, nlist.idx, mask,
-                                   local, box=box)
+    xs, one = _with_replicas(coords)
+    idx, mask = ((nlist.idx[None], nlist.mask[None]) if one
+                 else (nlist.idx, nlist.mask))
+    mask = refilter_mask(xs, box, model.cfg.descriptor.rcut, idx, mask)
+    return _single_domain_call(model, params, xs, types, box, idx, mask, one)
+
+
+# ---------------------------------------------------------------------------
+# Replica-batched functions: warn-once shims over the pipeline's replica
+# transform (``ForcePipeline(..., n_replicas=R)``), as in the reference.
+# ``mesh`` stays in the signatures and must be None: replicas and ranks are
+# virtual axes of one device.
+# ---------------------------------------------------------------------------
+
+_DEPRECATION_WARNED: set = set()
+
+
+def _warn_shim(old: str, new: str) -> None:
+    if old in _DEPRECATION_WARNED:
+        return
+    _DEPRECATION_WARNED.add(old)
+    warnings.warn(
+        f"repro_torch.core.ddinfer.{old} is a deprecation shim over "
+        f"repro_torch.core.pipeline.ForcePipeline.{new}(); build a "
+        "ForcePipeline(..., n_replicas=R) instead", DeprecationWarning,
+        stacklevel=3)
+
+
+def _pipeline(model, cfg: DDConfig, mesh, box, n_atoms: int,
+              n_replicas: int):
+    from .pipeline import ForcePipeline     # pipeline imports this module
+    return ForcePipeline(model, cfg, box, n_atoms, n_replicas=n_replicas,
+                         mesh=mesh)
+
+
+def make_batched_assembly_fn(model: DPModel, cfg: DDConfig, mesh, box,
+                             n_atoms: int, n_replicas: int):
+    """Deprecation shim: replica-batched ``build_assembly_fn()``:
+    f(coords (R, N, 3), types (N,)) -> DDState whose every leaf carries a
+    leading replica axis."""
+    _warn_shim("make_batched_assembly_fn", "build_assembly_fn")
+    return _pipeline(model, cfg, mesh, box, n_atoms,
+                     n_replicas).build_assembly_fn()
+
+
+def make_batched_evaluation_fn(model: DPModel, cfg: DDConfig, mesh, box,
+                               n_atoms: int, n_replicas: int):
+    """Deprecation shim: replica-batched ``build_evaluation_fn()``:
+    f(params, coords (R, N, 3), state) -> (energy (R,), forces (R, N, 3),
+    diag of (R,) leaves)."""
+    _warn_shim("make_batched_evaluation_fn", "build_evaluation_fn")
+    return _pipeline(model, cfg, mesh, box, n_atoms,
+                     n_replicas).build_evaluation_fn()
+
+
+def make_batched_check_fn(cfg: DDConfig, mesh, box, n_atoms: int,
+                          n_replicas: int):
+    """Deprecation shim: replica-batched ``build_check_fn()``:
+    f(coords (R, N, 3), state) -> (R,) bool per-replica rebuild flags."""
+    _warn_shim("make_batched_check_fn", "build_check_fn")
+    return _pipeline(None, cfg, mesh, box, n_atoms,
+                     n_replicas).build_check_fn()
+
+
+def make_batched_force_fn(model: DPModel, cfg: DDConfig, mesh, box,
+                          n_atoms: int, n_replicas: int):
+    """Deprecation shim: replica-batched ``build_force_fn()`` (fused
+    per-step assembly + evaluation): f(params, coords (R, N, 3),
+    types (N,)) -> (energy (R,), forces (R, N, 3), diag of (R,) leaves)."""
+    _warn_shim("make_batched_force_fn", "build_force_fn")
+    return _pipeline(model, cfg, mesh, box, n_atoms,
+                     n_replicas).build_force_fn()

@@ -36,6 +36,11 @@ _COUNTER_KEYS = ("local_count", "ghost_count", "cost_max", "cost_ratio",
                  "interior_frac", "rank_nonfinite")
 
 
+def _any(flag) -> bool:
+    """A flag of any trajectory (a replica-batched provider's are (R,))."""
+    return bool(torch.as_tensor(flag).any())
+
+
 @dataclasses.dataclass(frozen=True)
 class UnitConversion:
     """GROMACS (nm, kJ/mol) <-> model native units (DeePMD: Angstrom, eV).
@@ -263,11 +268,11 @@ class DeepmdForceProvider:
         if self._state is None:
             self._state = self.assemble(positions)
         e, forces, flags = self.evaluate(positions, self._state)
-        if bool(flags["needs_rebuild"]):
+        if _any(flags["needs_rebuild"]):
             self._state = self.assemble(positions)
             e, forces, flags = self.evaluate(positions, self._state)
         for _ in range(8):
-            if not bool(flags["overflow"]):
+            if not _any(flags["overflow"]):
                 break
             self.grow()
             self._state = self.assemble(positions)
@@ -275,7 +280,7 @@ class DeepmdForceProvider:
         else:
             raise RuntimeError("special-force capacity still exceeded after "
                                "8 doublings")
-        self.last_diag = {k: bool(v) for k, v in flags.items()
+        self.last_diag = {k: _any(v) for k, v in flags.items()
                           if k != "counters"}
         return ForceResult(energy=e, forces=forces,
                            diagnostics=dict(self.last_diag),

@@ -1,7 +1,7 @@
 """The distributed force pipeline on virtual ranks: one set of stage bodies,
 several entry functions.
 
-Port of the sequential path of ``repro/core/pipeline.py``.  The stages are
+Port of ``repro/core/pipeline.py``.  The stages are
 
     gather  ->  assemble  ->  evaluate  ->  reduce
 
@@ -16,17 +16,39 @@ Port of the sequential path of ``repro/core/pipeline.py``.  The stages are
 The G = ``prod(cfg.grid_dims)`` ranks are virtual: they live on one device
 as a leading rank axis, and :class:`_AxisOps` implements the collectives as
 tensor ops over it (all-gather is the replicated buffer, psum a sum over
-ranks, pmax a max, psum_scatter a sum followed by a slice).  All ranks'
-buffers go through the model as one flattened (G*C)-row batch, so each
-model kernel launches once per force call.
+ranks, pmax a max, psum_scatter a sum followed by a slice).
+
+Replica batching (``n_replicas=R``) is a transform of the same bodies, not
+a second copy of them: the stage bodies always see R replicas (R = 1
+unbatched), their per-rank tensors stacked replica-major as R*G rows of
+the rank axis, and every collective reduces over the G ranks of each
+replica.  Positions arrive as (R, N, 3); energies return as (R,), forces as
+(R, N, 3) and every per-trajectory diagnostic as (R,) (``rank_cost`` and
+the other per-rank vectors as (R, G)).  All R*G buffers go through the
+model as one flattened (R*G*C)-row batch (atom ids offset by the replica's
+and the rank's position), so each model kernel and each force-scatter site
+launches once per force call whatever R.  The port has no device mesh:
+both replicas and ranks are virtual axes of one device, every replica is
+resident (the reference's ``_replica_layout`` reduces to R % 1 == 0).
+
+Comms/compute overlap (``DDConfig.overlap``) splits the amortized
+evaluation at the assemble/evaluate seam into an interior pass (pass A:
+the local rows only, fed by the partition collective, no dependence on the
+all-gather) and a boundary pass (pass B, after the gather), merged per row
+by ``where`` (:func:`_evaluate_rank_overlap`).  Row classes come from the
+assembled state alone (:func:`_overlap_masks`).  On one device the
+all-gather is a reshape, so pass A hides nothing and is extra work; the
+semantics are the reference's, bit for bit at the default full-size pass B
+(``overlap_capacity = 0``), whose operands are the sequential evaluate's,
+and within ulps under a trimmed ``overlap_capacity`` (overflow flagged in
+``diag["overflow"]``).  Pass A keeps the sequential (C, K) shapes, ghost
+rows parked and ghost-pointing slots masked, so every GEMM sees the same M.
 
 Also here: the health layer's ``fault_hook`` seam on the pre-reduce
 per-rank forces (:meth:`ForcePipeline._post_eval`), the per-rank
 ``rank_nonfinite`` diagnostic, and the prefix phase probes
 (:meth:`ForcePipeline.build_phase_probes`, the paper's Fig. 12 split with
-:func:`repro_torch.obs.timed_prefix_phases`).  Not ported yet: the
-comms/compute overlap mode (ROADMAP Queue 1 item 5) and replica batching
-(item 7).
+:func:`repro_torch.obs.timed_prefix_phases`).
 """
 from __future__ import annotations
 
@@ -39,76 +61,112 @@ from ..dp.model import DPModel
 from ..kernels.cell_filter import cell_filter
 from ..kernels import force_scatter as fs
 from ..md.neighbors import _topk_list, max_displacement2
-from .ddinfer import (DDConfig, DDState, _assemble_ranks, _make_grid,
-                      _pad_atoms, _park)
+from .ddinfer import (DDConfig, DDState, _make_grid, _pad_atoms,
+                      _pad_types, _park, _rank_lists, _select_ranks)
 
 F32 = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
 class _AxisOps:
-    """Collectives over a leading virtual-rank axis on one device."""
+    """Collectives over the virtual (replica, rank) axes of one device.
+    Per-rank values are stacked replica-major along one leading axis of
+    ``n_rep * n_ranks`` rows; each collective reduces the ranks of each
+    replica and returns a leading replica axis."""
 
     n_ranks: int
+    n_rep: int = 1
 
     def all_gather(self, x):
-        """(G, chunk, ...) shards -> the replicated (G*chunk, ...) buffer."""
-        return x.reshape(-1, *x.shape[2:])
+        """(R, G, chunk, ...) shards -> the replicated (R, G*chunk, ...)."""
+        return x.reshape(self.n_rep, -1, *x.shape[3:])
 
     def gather_ranks(self, x):
-        """Per-rank values (G,) -> the replicated rank vector."""
-        return x
+        """Per-rank values (R*G, ...) -> (R, G, ...)."""
+        return x.reshape(self.n_rep, self.n_ranks, *x.shape[1:])
 
     def psum(self, x):
-        return x.sum(0)
+        return self.gather_ranks(x).sum(1)
 
     def pmax(self, x):
-        return x.amax(0)
+        return self.gather_ranks(x).amax(1)
 
     def psum_scatter(self, x):
-        """(G, n_pad, ...) -> each rank's summed shard (G, chunk, ...)."""
-        s = x.sum(0)
-        return s.reshape(self.n_ranks, -1, *s.shape[1:])
+        """(R*G, n_pad, ...) -> each rank's summed shard (R, G, chunk, ...)."""
+        s = self.psum(x)
+        return s.reshape(self.n_rep, self.n_ranks, -1, *s.shape[2:])
 
 
-def _st_dict(st: DDState, cfg: DDConfig) -> dict:
-    """Per-rank view of a state: every stacked leaf reshaped to (G, ...)."""
-    g = cfg.n_ranks
+_STATE_LEAVES = ("l_idx", "l_mask", "g_idx", "g_shift", "g_mask",
+                 "buf_types", "buf_mask", "nbr_idx", "nbr_mask")
+
+
+def _st_dict(st: DDState, ax: _AxisOps) -> dict:
+    """Per-rank view of a state: every stacked leaf ((G*cap, ...), or
+    (R, G*cap, ...) batched) reshaped to (R*G, cap, ...)."""
+    rg = ax.n_rep * ax.n_ranks
     out = {}
-    for name in ("l_idx", "l_mask", "g_idx", "g_shift", "g_mask", "buf_types",
-                 "buf_mask", "nbr_idx", "nbr_mask"):
+    for name in _STATE_LEAVES:
         v = getattr(st, name)
-        out[name] = v.reshape(g, -1, *v.shape[1:])
+        trail = v.shape[-1:] if name in ("g_shift", "nbr_idx",
+                                         "nbr_mask") else ()
+        out[name] = v.reshape(rg, -1, *trail)
     return out
+
+
+def _replica_layout(n_replicas: int, mesh=None) -> int:
+    """The layout check of the reference's ``_replica_layout`` on one
+    device: no mesh (ranks and replicas are virtual axes), every replica
+    resident.  Returns the replicas per device group (all of them)."""
+    if mesh is not None:
+        raise ValueError(
+            "the port's ranks and replicas are virtual axes of one "
+            "device: mesh must be None (dd_config.grid_dims sets the "
+            "ranks, n_replicas the replicas)")
+    if n_replicas < 0:
+        raise ValueError(f"n_replicas must be >= 0, got {n_replicas}")
+    return max(n_replicas, 1)
+
+
+def _flat_rows(idx, ax: _AxisOps, n: int):
+    """Per-replica atom ids (R*G, cap) -> ids into the (R*n)-row flattened
+    coordinate buffer (offset by the replica's position)."""
+    rep = torch.arange(ax.n_rep, device=idx.device).repeat_interleave(
+        ax.n_ranks)
+    return idx.long() + (rep * n)[:, None]
 
 
 # ---------------------------------------------------------------------------
 # evaluate stage: buffer rebuild + exact-cutoff re-filter + DP inference,
-# for all ranks at once
+# for all replicas' ranks at once
 # ---------------------------------------------------------------------------
 
-def _rebuild_buffer(coords_all, ref_all, st: dict, box, cfg: DDConfig):
-    """Subdomain buffers (G, C, 3) at fresh positions: ``current + (shift -
-    img) * box`` with ``img`` the integer box crossing since the reference —
-    an exact unwrap, so with ``ref_all is coords_all`` the assembly-time
-    buffers come back bit for bit."""
+def _rebuild_buffer(coords_all, ref_all, st: dict, box, ax: _AxisOps):
+    """Subdomain buffers (R*G, C, 3) at fresh positions: ``current +
+    (shift - img) * box`` with ``img`` the integer box crossing since the
+    reference — an exact unwrap, so with ``ref_all is coords_all`` the
+    assembly-time buffers come back bit for bit.  ``coords_all`` and
+    ``ref_all`` are (R, n, 3)."""
     dtype = coords_all.dtype
-    l_idx, g_idx = st["l_idx"].long(), st["g_idx"].long()
-    img_l = torch.round((coords_all[l_idx] - ref_all[l_idx]) / box)
-    img_g = torch.round((coords_all[g_idx] - ref_all[g_idx]) / box)
-    buf_l = coords_all[l_idx] - img_l.to(dtype) * box
-    buf_g = coords_all[g_idx] + (st["g_shift"].to(dtype) - img_g) * box
+    n = coords_all.shape[1]
+    cur, ref = coords_all.reshape(-1, 3), ref_all.reshape(-1, 3)
+    l_idx, g_idx = _flat_rows(st["l_idx"], ax, n), _flat_rows(st["g_idx"],
+                                                              ax, n)
+    img_l = torch.round((cur[l_idx] - ref[l_idx]) / box)
+    img_g = torch.round((cur[g_idx] - ref[g_idx]) / box)
+    buf_l = cur[l_idx] - img_l.to(dtype) * box
+    buf_g = cur[g_idx] + (st["g_shift"].to(dtype) - img_g) * box
     return _park(torch.cat([buf_l, buf_g], 1), st["buf_mask"], box)
 
 
 def _refilter_compact(buf_coords, nbr_idx, nbr_mask, cfg: DDConfig,
                       rcut: float):
-    """Re-filter the (skin-widened, possibly stale) lists (G, C, K) to the
+    """Re-filter the (skin-widened, possibly stale) lists (RG, C, K) to the
     exact cutoff with the ``cell_filter`` kernel (one launch for all
-    ranks) and compact canonically: surviving entries by ascending buffer
+    buffers) and compact canonically: surviving entries by ascending buffer
     index, zeroed tail, trimmed to ``k_eval``.  The model input then depends
     only on the within-cutoff pair set, so a stale list gives the forces of
-    a fresh one bit for bit.  Returns (idx, mask, trim_overflow (G,))."""
+    a fresh one bit for bit.  Returns (idx, mask, trim_overflow (RG,))."""
     g, c, k = nbr_idx.shape
     dev = buf_coords.device
     off = (torch.arange(g, device=dev, dtype=torch.int32) * c)[:, None, None]
@@ -135,9 +193,52 @@ def _scatter_rows(n_rows: int, rows: torch.Tensor, vals: torch.Tensor):
                                        device=vals.device), n_rows)
 
 
+def _buffer_model(model: DPModel, params, buf_coords, types, nbr_idx,
+                  nbr_mask, force_mask):
+    """DP inference over every buffer (RG, C, 3) as one (RG*C)-row batch:
+    per-row energies (RG, C) and the forces -d(sum e * force_mask)/dx
+    (RG, C, 3) in the coordinate dtype (fp32)."""
+    g, c, _ = buf_coords.shape
+    dev, dtype = buf_coords.device, buf_coords.dtype
+    off = (torch.arange(g, device=dev, dtype=torch.int32) * c)[:, None, None]
+    flat_idx = (nbr_idx + off).reshape(g * c, -1)
+    with torch.enable_grad():
+        x = buf_coords.detach().reshape(g * c, 3).requires_grad_(True)
+        e = model._atomic_e(params, x, types.reshape(g * c), flat_idx,
+                            nbr_mask.reshape(g * c, -1))
+        e_rows = e.reshape(g, c)
+        (grad,) = torch.autograd.grad((e_rows * force_mask).sum(), x)
+    return e_rows.detach(), (-grad).to(dtype).reshape(g, c, 3)
+
+
+def _local_mask(st: dict, cfg: DDConfig, dtype):
+    l_mask = st["l_mask"].to(dtype)
+    return torch.cat([l_mask, torch.zeros(l_mask.shape[0], cfg.ghost_capacity,
+                                          dtype=dtype, device=l_mask.device)],
+                     1)
+
+
+def _scatter_local(st: dict, f_buf, cfg: DDConfig, n: int, ghosts: bool):
+    """Scatter every rank's buffer forces (RG, C, 3) into its (n, 3) global
+    array (local rows; ghost rows too with ``ghosts``), all ranks in one
+    force-scatter launch.  Returns f_global (RG, n, 3)."""
+    g = f_buf.shape[0]
+    dev, dtype = f_buf.device, f_buf.dtype
+    cl = cfg.local_capacity
+    rank_off = (torch.arange(g, device=dev) * n)[:, None]
+    rows = [(st["l_idx"].long() + rank_off).reshape(-1)]
+    vals = [(f_buf[:, :cl] * st["l_mask"].to(dtype)[..., None]).reshape(-1, 3)]
+    if ghosts:
+        rows.append((st["g_idx"].long() + rank_off).reshape(-1))
+        vals.append((f_buf[:, cl:]
+                     * st["g_mask"].to(dtype)[..., None]).reshape(-1, 3))
+    f_global = _scatter_rows(g * n, torch.cat(rows), torch.cat(vals))
+    return f_global.reshape(g, n, 3)
+
+
 def _model_scatter(model: DPModel, params, buf_coords, st: dict, nbr_idx,
                    nbr_mask, cfg: DDConfig, n: int):
-    """DP inference over all ranks' buffers as one (G*C)-row batch, and the
+    """DP inference over all buffers as one (RG*C)-row batch, and the
     scatter of each rank's forces into its (n, 3) global array.
 
     owner_full (paper Sec. IV-A): the 2 r_c halo makes every first-layer
@@ -146,53 +247,227 @@ def _model_scatter(model: DPModel, params, buf_coords, st: dict, nbr_idx,
     ghost_reduce (Eq. 7): energy over local rows only; partial forces land
     on ghosts and are summed onto their owners by collective 2.  The scatter
     (:func:`_scatter_rows`) sums in an order fixed by its inputs.
-    Returns (e_local (G,), f_global (G, n, 3))."""
-    g, c, _ = buf_coords.shape
-    dev, dtype = buf_coords.device, buf_coords.dtype
-    cl = cfg.local_capacity
-    l_mask = st["l_mask"].to(dtype)
-    local_mask = torch.cat([l_mask, torch.zeros(g, cfg.ghost_capacity,
-                                                dtype=dtype, device=dev)], 1)
+    Returns (e_local (RG,), f_global (RG, n, 3))."""
+    dtype = buf_coords.dtype
+    local_mask = _local_mask(st, cfg, dtype)
     force_mask = (st["buf_mask"].to(dtype) if cfg.force_mode == "owner_full"
                   else local_mask)
-    off = (torch.arange(g, device=dev, dtype=torch.int32) * c)[:, None, None]
-    flat_idx = (nbr_idx + off).reshape(g * c, -1)
-    with torch.enable_grad():
-        x = buf_coords.detach().reshape(g * c, 3).requires_grad_(True)
-        e = model._atomic_e(params, x, st["buf_types"].reshape(g * c),
-                            flat_idx, nbr_mask.reshape(g * c, -1))
-        e_rows = e.reshape(g, c)
-        (grad,) = torch.autograd.grad((e_rows * force_mask).sum(), x)
-    e_local = (e_rows.detach() * local_mask).sum(1)
-    # force reduction stays in the coordinate dtype (fp32)
-    f_buf = (-grad).to(dtype).reshape(g, c, 3)
-    rank_off = (torch.arange(g, device=dev) * n)[:, None]
-    rows = [(st["l_idx"].long() + rank_off).reshape(-1)]
-    vals = [(f_buf[:, :cl] * l_mask[..., None]).reshape(-1, 3)]
-    if cfg.force_mode != "owner_full":
-        rows.append((st["g_idx"].long() + rank_off).reshape(-1))
-        vals.append((f_buf[:, cl:]
-                     * st["g_mask"].to(dtype)[..., None]).reshape(-1, 3))
-    f_global = _scatter_rows(g * n, torch.cat(rows), torch.cat(vals))
-    return e_local, f_global.reshape(g, n, 3)
+    e_rows, f_buf = _buffer_model(model, params, buf_coords, st["buf_types"],
+                                  nbr_idx, nbr_mask, force_mask)
+    e_local = (e_rows * local_mask).sum(1)
+    f_global = _scatter_local(st, f_buf, cfg, n,
+                              ghosts=cfg.force_mode != "owner_full")
+    return e_local, f_global
+
+
+def _stats(nbr_mask, st: dict, cfg: DDConfig):
+    """Occupancy of the model-facing list over the slots valid rows paid
+    for, per rank."""
+    k_eval = min(cfg.k_eval, st["nbr_idx"].shape[-1])
+    return {"nbr_fill": (nbr_mask > 0).sum((1, 2)).to(F32),
+            "nbr_slots": st["buf_mask"].sum(1) * k_eval}
 
 
 def _evaluate_rank(model: DPModel, params, coords_all, ref_all, st: dict,
-                   box, cfg: DDConfig, rcut: float):
+                   box, cfg: DDConfig, rcut: float, ax: _AxisOps):
     """Sequential evaluate stage for all ranks: reuse the assembled state at
     fresh positions (rebuild -> re-filter -> inference -> scatter).
-    Returns (e_local (G,), f_global (G, n, 3), trim_overflow (G,), stats)."""
-    n = coords_all.shape[0]
-    buf_coords = _rebuild_buffer(coords_all, ref_all, st, box, cfg)
+    Returns (e_local (RG,), f_global (RG, n, 3), trim_overflow (RG,),
+    stats)."""
+    n = coords_all.shape[1]
+    buf_coords = _rebuild_buffer(coords_all, ref_all, st, box, ax)
     nbr_idx, nbr_mask, trim_overflow = _refilter_compact(
         buf_coords, st["nbr_idx"], st["nbr_mask"], cfg, rcut)
     e_local, f_global = _model_scatter(model, params, buf_coords, st,
                                        nbr_idx, nbr_mask, cfg, n)
-    # occupancy of the model-facing list over the slots valid rows paid for
-    k_eval = min(cfg.k_eval, st["nbr_idx"].shape[-1])
-    stats = {"nbr_fill": (nbr_mask > 0).sum((1, 2)).to(F32),
-             "nbr_slots": st["buf_mask"].sum(1) * k_eval}
-    return e_local, f_global, trim_overflow, stats
+    return e_local, f_global, trim_overflow, _stats(nbr_mask, st, cfg)
+
+
+# ---------------------------------------------------------------------------
+# overlap evaluate: interior pass (pre-gather) + boundary pass (post-gather)
+# ---------------------------------------------------------------------------
+
+def _overlap_masks(cfg: DDConfig, st: dict):
+    """Row classification from the assembled state alone (pre-gather), for
+    every rank (RG, C) at once.
+
+        gfree(i)    local row whose build-list neighbours are all local rows
+        interior(i) gfree and every neighbour gfree (its force is ghost-free)
+        deep(i)     interior and every neighbour interior
+        deep2(i)    deep and every neighbour deep
+
+    Propagated over the *build* (skin-widened) list, whose membership is
+    symmetric whenever assembly did not overflow, so ``interior`` rows
+    receive force contributions only from ``gfree`` rows and ``deep`` rows
+    contribute only to ``interior`` rows."""
+    c = st["buf_mask"].shape[1]
+    rowvalid = st["buf_mask"] > 0
+    local_row = (torch.arange(c, device=rowvalid.device)
+                 < cfg.local_capacity)[None, :].expand_as(rowvalid)
+    m = st["nbr_mask"] > 0
+    idx = st["nbr_idx"].long()
+    g = idx.shape[0]
+
+    def allnbr(flag):
+        nb = torch.gather(flag, 1, idx.reshape(g, -1)).reshape(idx.shape)
+        return torch.where(m, nb, torch.ones_like(nb)).all(2)
+
+    gfree = rowvalid & local_row & allnbr(local_row)
+    interior = gfree & allnbr(gfree)
+    deep = interior & allnbr(interior)
+    deep2 = deep & allnbr(deep)
+    return gfree, interior, deep, deep2
+
+
+def _route_contrib(coords_shard, l_slot, chunk: int):
+    """Partition-stage send buffers of every source rank: rank s's shard
+    coordinates (``coords_shard`` (R, G, chunk, 3)) placed at every routing
+    slot it owns (``l_slot`` (R, G*Cl), every rank's local atom ids), zeros
+    elsewhere: (R, G, G*Cl, 3).  Summed over the sources and scattered, they
+    hand each rank exactly ``coords_all[l_idx]`` (one writer per slot)
+    without the all-gather."""
+    r, g = coords_shard.shape[:2]
+    src = torch.arange(g, device=l_slot.device)[None, :, None]
+    slot = l_slot.long()[:, None, :]
+    mine = torch.div(slot, chunk, rounding_mode="floor") == src
+    off = torch.clamp(slot - src * chunk, 0, chunk - 1)
+    vals = torch.gather(coords_shard, 2,
+                        off[..., None].expand(r, g, off.shape[2], 3))
+    return torch.where(mine[..., None], vals, torch.zeros_like(vals))
+
+
+def _partition(coords_shard, l_slot, ax: _AxisOps, chunk: int):
+    """The overlap collective: the shards (R, G, chunk, 3) and the
+    replicated routing table (R, G*Cl) -> every rank's exact local
+    coordinates (R*G, Cl, 3), as the reference's tiled ``psum_scatter`` of
+    the send buffers delivers them."""
+    rg = ax.n_rep * ax.n_ranks
+    contrib = _route_contrib(coords_shard, l_slot, chunk)
+    return ax.psum_scatter(contrib.reshape(rg, -1, 3)).reshape(rg, -1, 3)
+
+
+def _evaluate_interior(model: DPModel, params, cur_l, ref_all, st: dict,
+                       box, cfg: DDConfig, rcut: float, gfree, ax: _AxisOps):
+    """Pass A: exact current local coordinates ``cur_l`` (RG, Cl, 3, from
+    the partition collective), ghost rows parked, ghost-pointing list slots
+    masked: no dependence on the all-gather.  The buffers keep the
+    sequential (C, K) shapes, so every GEMM sees the sequential M and the
+    per-row energies of gfree rows, and the accumulated forces of interior
+    rows, are the sequential ones (ghost rows feed exactly-zero cotangents
+    and masked slots, so their parked values reach no gfree row).  The
+    compaction sorts by buffer index and ghost rows follow every local row,
+    so masking the ghost slots only drops each list's tail: the local
+    entries keep their slots, and the force scatter its order.  Returns
+    (e_rows (RG, Cl), f_rows (RG, Cl, 3))."""
+    cl = cfg.local_capacity
+    dtype = cur_l.dtype
+    n = ref_all.shape[1]
+    ref_l = ref_all.reshape(-1, 3)[_flat_rows(st["l_idx"], ax, n)]
+    img_l = torch.round((cur_l - ref_l) / box)
+    buf_l = cur_l - img_l.to(dtype) * box
+    g = cur_l.shape[0]
+    row_mask = _local_mask(st, cfg, dtype)
+    buf = _park(torch.cat([buf_l, torch.zeros(g, cfg.ghost_capacity, 3,
+                                              dtype=dtype,
+                                              device=cur_l.device)], 1),
+                row_mask, box)
+    idx = st["nbr_idx"]
+    mask = st["nbr_mask"] * (idx < cl)
+    idx = torch.where(mask > 0, idx, torch.zeros_like(idx))
+    idx, mask, _ = _refilter_compact(buf, idx, mask, cfg, rcut)
+    e_rows, f_rows = _buffer_model(model, params, buf, st["buf_types"], idx,
+                                   mask, gfree.to(dtype))
+    return e_rows[:, :cl], f_rows[:, :cl]
+
+
+def _evaluate_boundary(model: DPModel, params, buf_coords, st: dict,
+                       nbr_idx, nbr_mask, cfg: DDConfig, deep, deep2):
+    """Pass B over every rank (RG, C).  At the full sub-buffer size (the
+    default ``overlap_capacity = 0``) the pass is operand for operand the
+    sequential evaluate (the untouched buffers, every valid row a centre),
+    so its rows are the sequential ones bit for bit.  A trimmed capacity
+    compacts the non-deep rows plus their neighbour closure (the non-deep2
+    rows, order kept) into a static (RG, c_sub) sub-buffer, remaps the
+    re-filtered lists into it and evaluates only the non-deep centres:
+    other operand shapes, so ulp-level.  Returns full-shape per-row
+    energies and forces (exact for every non-deep row) and the sub-buffer
+    overflow flag (RG,)."""
+    g, c, _ = buf_coords.shape
+    dev, dtype = buf_coords.device, buf_coords.dtype
+    c_sub = min(cfg.overlap_capacity or c, c)
+    if c_sub == c:
+        e_rows, f_rows = _buffer_model(model, params, buf_coords,
+                                       st["buf_types"], nbr_idx, nbr_mask,
+                                       st["buf_mask"].to(dtype))
+        return e_rows, f_rows, torch.zeros(g, dtype=torch.bool, device=dev)
+    rowvalid = st["buf_mask"] > 0
+    centers = rowvalid & ~deep          # rows whose output pass A cannot give
+    sources = rowvalid & ~deep2         # centres plus every row they gather
+    order = torch.arange(c, device=dev, dtype=F32)[None, :].expand(g, c)
+    score = torch.where(sources, -order, torch.full_like(order,
+                                                         float("-inf")))
+    _, sel = torch.topk(score, c_sub, dim=1, sorted=True)
+    take = torch.gather(sources, 1, sel)
+    sub_overflow = sources.sum(1) > c_sub
+    sel = torch.where(take, sel, torch.zeros_like(sel))
+    # full-index -> sub-index map; padding slots routed to a spill column
+    inv = torch.zeros(g, c + 1, dtype=torch.int32, device=dev)
+    slots = torch.arange(c_sub, dtype=torch.int32, device=dev)
+    inv.scatter_(1, torch.where(take, sel, torch.full_like(sel, c)),
+                 slots[None, :].expand(g, c_sub).contiguous())
+    rows3 = sel[..., None].expand(g, c_sub, 3)
+    coords_sub = torch.gather(buf_coords, 1, rows3)
+    center_bf = (torch.gather(centers, 1, sel) & take).to(dtype)
+    k = nbr_idx.shape[-1]
+    rows_k = sel[..., None].expand(g, c_sub, k)
+    nbr_sub = torch.gather(nbr_idx.long(), 1, rows_k)
+    idx_sub = torch.gather(inv, 1, nbr_sub.reshape(g, -1)).reshape(g, c_sub, k)
+    mask_sub = torch.gather(nbr_mask, 1, rows_k) * center_bf[..., None]
+    idx_sub = torch.where(mask_sub > 0, idx_sub, torch.zeros_like(idx_sub))
+    types_sub = torch.gather(st["buf_types"], 1, sel)
+    e_sub, f_sub = _buffer_model(model, params, coords_sub, types_sub,
+                                 idx_sub, mask_sub, center_bf)
+    dest = torch.where(take, sel, torch.full_like(sel, c))
+    e_rows = torch.zeros(g, c + 1, dtype=dtype, device=dev).scatter_(
+        1, dest, e_sub * center_bf)[:, :c]
+    f_rows = torch.zeros(g, c + 1, 3, dtype=dtype, device=dev).scatter_(
+        1, dest[..., None].expand(g, c_sub, 3),
+        f_sub * center_bf[..., None])[:, :c]
+    return e_rows, f_rows, sub_overflow
+
+
+def _evaluate_rank_overlap(model: DPModel, params, coords_all, ref_all,
+                           st: dict, box, cfg: DDConfig, rcut: float,
+                           e_rows_a, f_rows_a, masks, ax: _AxisOps):
+    """Merge pass A (computed pre-gather) with pass B into the sequential
+    evaluate-stage outputs: per-row selects, never adds — pass A's forces on
+    interior rows, pass B's elsewhere; the energy from pass B's rows at the
+    full size (bit for bit), from pass A's on gfree rows when trimmed.
+    Returns (e_local (RG,), f_global (RG, n, 3), overflow (RG,), stats,
+    n_interior (RG,))."""
+    gfree, interior, deep, deep2 = masks
+    n = coords_all.shape[1]
+    dtype = coords_all.dtype
+    cl = cfg.local_capacity
+    buf_coords = _rebuild_buffer(coords_all, ref_all, st, box, ax)
+    nbr_idx, nbr_mask, trim_overflow = _refilter_compact(
+        buf_coords, st["nbr_idx"], st["nbr_mask"], cfg, rcut)
+    e_rows_b, f_rows_b, sub_overflow = _evaluate_boundary(
+        model, params, buf_coords, st, nbr_idx, nbr_mask, cfg, deep, deep2)
+    c = buf_coords.shape[1]
+    local_mask = _local_mask(st, cfg, dtype)
+    if min(cfg.overlap_capacity or c, c) == c:
+        e_rows = e_rows_b
+    else:
+        e_rows = torch.cat([torch.where(gfree[:, :cl], e_rows_a,
+                                        e_rows_b[:, :cl]),
+                            torch.zeros_like(e_rows_b[:, cl:])], 1)
+    e_local = (e_rows * local_mask).sum(1)
+    f_l = torch.where(interior[:, :cl, None], f_rows_a, f_rows_b[:, :cl])
+    f_global = _scatter_local(st, f_l, cfg, n, ghosts=False)
+    n_int = (interior[:, :cl] & st["l_mask"]).sum(1)
+    return (e_local, f_global, trim_overflow | sub_overflow,
+            _stats(nbr_mask, st, cfg), n_int)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,26 +481,32 @@ class Stage:
     inputs: tuple
     outputs: tuple
     body: Callable            # body(ctx) -> None (mutates ctx)
-    probe: Optional[Callable] = None   # probe(ctx) -> (G,) per-rank values
+    probe: Optional[Callable] = None   # probe(ctx) -> (R*G,) per-rank values
 
 
 class ForcePipeline:
     """The distributed force pipeline for one (model, DDConfig, box,
-    n_atoms) tuple, on ``prod(cfg.grid_dims)`` virtual ranks of one device.
+    n_atoms) tuple, on ``prod(cfg.grid_dims)`` virtual ranks of one device,
+    optionally replica-batched (``n_replicas`` > 0: every input and output
+    gains a leading replica axis, every DDState leaf too).
 
     The ``build_*`` methods return functions with the JAX signatures:
     ``build_force_fn`` (fused per-step), ``build_assembly_fn`` +
     ``build_evaluation_fn`` + ``build_check_fn`` (amortized split),
     ``build_phase_probes``.  ``model=None`` builds a check-only pipeline.
     ``fault_hook`` (``health.FaultPlan.pipeline_hook``) sees the per-rank
-    results before the force reduction; without it nothing changes.
+    results before the force reduction; without it nothing changes.  There
+    is no device mesh: ``mesh`` must be None.
     """
 
     def __init__(self, model: Optional[DPModel], cfg: DDConfig, box,
-                 n_atoms: int, fault_hook=None):
+                 n_atoms: int, fault_hook=None, *, n_replicas: int = 0,
+                 mesh=None):
         box = torch.as_tensor(box, dtype=F32)
         cfg.validate(box.cpu().numpy())
-        self.ax = _AxisOps(cfg.n_ranks)
+        self.batched = n_replicas > 0
+        self.n_replicas = int(n_replicas)
+        self.ax = _AxisOps(cfg.n_ranks, _replica_layout(self.n_replicas, mesh))
         self.model = model
         self.cfg = cfg
         self.box = box
@@ -244,30 +525,79 @@ class ForcePipeline:
     def _box(self, like: torch.Tensor) -> torch.Tensor:
         return self.box.to(like.device)
 
+    # -- layout at the entry points ------------------------------------------
+
+    def _in(self, coords):
+        """Caller positions -> (R, N, 3)."""
+        want = 3 if self.batched else 2
+        if coords.dim() != want or (self.batched and coords.shape[0]
+                                    != self.n_replicas):
+            lead = f"({self.n_replicas}, N, 3)" if self.batched else "(N, 3)"
+            raise ValueError(f"positions of shape {tuple(coords.shape)}; "
+                             f"this pipeline takes {lead}")
+        return coords if self.batched else coords[None]
+
+    def _out(self, x):
+        """A per-replica result (R, ...) -> the caller's layout."""
+        if self.batched:
+            return x
+        if isinstance(x, dict):
+            return {k: self._out(v) for k, v in x.items()}
+        return x[0]
+
+    def _shard(self, coords, types=None):
+        """(R, N, 3) -> padded rank shards (R, G, chunk, 3) (and the padded
+        shared types)."""
+        box = self._box(coords)
+        g = self.cfg.n_ranks
+        padded = torch.stack([_pad_atoms(c, self.n_pad, box) for c in coords])
+        shards = padded.reshape(coords.shape[0], g, self.chunk, 3)
+        if types is None:
+            return shards
+        return shards, _pad_types(types, self.n_pad)
+
+    def _state_in(self, st: DDState):
+        """A DDState in the caller's layout -> (per-rank dict, ref
+        (R, n_pad, 3), and its whole-replica leaves shaped (R,))."""
+        r = self.ax.n_rep
+        whole = {k: getattr(st, k).reshape(r)
+                 for k in ("local_count", "ghost_count", "cost_max",
+                           "overflow")}
+        return _st_dict(st, self.ax), st.ref.reshape(r, self.n_pad, 3), whole
+
     # -- stage bodies (ctx maps names -> tensors) ----------------------------
+
+    def _assemble(self, coords_all, types_all):
+        """Assembly of every replica's ranks: selection per replica (its
+        own planes), then the lists of all R*G buffers in one call."""
+        cfg = self.cfg
+        box = self._box(coords_all)
+        parts = []
+        for c in coords_all:
+            grid = _make_grid(c, box, cfg, self.n_atoms)
+            parts.append(_select_ranks(c, types_all, box, grid, cfg,
+                                       range(cfg.n_ranks), self.n_atoms))
+        st = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        st = _rank_lists(st, cfg, self.rcut)
+        st.pop("buf_coords")
+        return st
 
     def _fused_stages(self) -> tuple:
         model, cfg, ax = self.model, self.cfg, self.ax
-        rcut, n_atoms = self.rcut, self.n_atoms
+        rcut = self.rcut
 
         def gather(ctx):
             ctx["coords_all"] = ax.all_gather(ctx["coords_shard"])
 
         def assemble(ctx):
-            coords = ctx["coords_all"]
-            box = self._box(coords)
-            grid = _make_grid(coords, box, cfg, n_atoms)
-            st = _assemble_ranks(coords, ctx["types_all"], box, grid, cfg,
-                                 rcut, range(cfg.n_ranks), n_atoms)
-            st.pop("buf_coords")
-            ctx["st"] = st
+            ctx["st"] = self._assemble(ctx["coords_all"], ctx["types_all"])
 
         def evaluate(ctx):
             coords = ctx["coords_all"]
             (ctx["e_local"], ctx["f_global"], ctx["trim_ovf"],
              ctx["stats"]) = _evaluate_rank(model, ctx["params"], coords,
                                             coords, ctx["st"],
-                                            self._box(coords), cfg, rcut)
+                                            self._box(coords), cfg, rcut, ax)
             ctx["e_local"], ctx["f_global"] = self._post_eval(
                 ctx["e_local"], ctx["f_global"])
 
@@ -291,14 +621,13 @@ class ForcePipeline:
                                   1).to(F32))
             ctx["diag"] = diag
 
-        g = cfg.n_ranks
-
         def per_rank(x):
-            return x.reshape(g, -1).sum(1)
+            return x.reshape(ax.n_rep * ax.n_ranks, -1).sum(1)
 
         return (
             Stage("gather", ("coords_shard",), ("coords_all",), gather,
-                  probe=lambda ctx: ctx["coords_all"].sum().expand(g)),
+                  probe=lambda ctx: ctx["coords_all"].sum(
+                      (1, 2)).repeat_interleave(ax.n_ranks)),
             Stage("assembly", ("coords_all", "types_all"), ("st",), assemble,
                   probe=lambda ctx: (
                       per_rank(ctx["st"]["nbr_idx"]).to(F32)
@@ -317,18 +646,28 @@ class ForcePipeline:
         """Fault-injection seam on the pre-reduce per-rank results.
 
         The hook (``health.FaultPlan.pipeline_hook``) poisons a target
-        rank's slice of ``f_global`` (G, n, 3) before the force reduction,
-        so the failure propagates the way a real blown rank's would.  It
-        reads its armed/unfired specs at each call: with nothing armed it
-        returns its inputs."""
+        rank's slice of ``f_global`` before the force reduction, so the
+        failure propagates the way a real blown rank's would.  It is called
+        as ``hook(rank, rep0, e_local, f_global)`` with the per-rank layout
+        (G,) / (G, n, 3) unbatched and (R, G) / (R, G, n, 3) batched, and
+        ``rep0`` the first resident replica (0: every replica lives on this
+        device).  It reads its armed/unfired specs at each call: with
+        nothing armed it returns its inputs."""
         if self.fault_hook is None:
             return e_local, f_global
-        rank = torch.arange(self.cfg.n_ranks, device=f_global.device)
-        return self.fault_hook(rank, 0, e_local, f_global)
+        ax = self.ax
+        rank = torch.arange(ax.n_ranks, device=f_global.device)
+        e, f = ax.gather_ranks(e_local), ax.gather_ranks(f_global)
+        if self.batched:
+            rank = rank.expand(ax.n_rep, ax.n_ranks)
+            e, f = self.fault_hook(rank, 0, e, f)
+        else:
+            e, f = self.fault_hook(rank, 0, e[0], f[0])
+        return e.reshape(e_local.shape), f.reshape(f_global.shape)
 
     def _rank_nonfinite(self, f_global):
         """Per-rank count of non-finite entries in the pre-reduce force
-        scatter (G,) int32: the per-rank attribution signal for blown
+        scatter (R, G) int32: the per-rank attribution signal for blown
         evaluations."""
         bad = (~torch.isfinite(f_global)).sum((-2, -1)).to(torch.int32)
         return self.ax.gather_ranks(bad)
@@ -350,16 +689,14 @@ class ForcePipeline:
                 "rank_occupancy": ax.gather_ranks(
                     fill / torch.clamp_min(slots, 1.0))}
 
-    def _shard(self, coords, types=None):
-        """Pad to a rank multiple and cut the atom axis into rank shards."""
-        box = self._box(coords)
-        if types is None:
-            coords_p = _pad_atoms(coords, self.n_pad, box)
-            return coords_p.reshape(self.cfg.n_ranks, self.chunk, 3)
-        coords_p, types_p = _pad_atoms(coords, self.n_pad, box, types)
-        return coords_p.reshape(self.cfg.n_ranks, self.chunk, 3), types_p
-
     # -- entry functions: thin compositions over the stage bodies ------------
+
+    def _run(self, stages, params, coords, types):
+        shards, types_p = self._shard(self._in(coords), types)
+        ctx = {"params": params, "coords_shard": shards, "types_all": types_p}
+        for stage in stages:
+            stage.body(ctx)
+        return ctx
 
     def build_force_fn(self):
         """Fused per-step function: f(params, coords, types) ->
@@ -368,101 +705,141 @@ class ForcePipeline:
         stages, n_atoms = self.stages, self.n_atoms
 
         def fn(params, coords, types):
-            shards, types_p = self._shard(coords, types)
-            ctx = {"params": params, "coords_shard": shards,
-                   "types_all": types_p}
-            for stage in stages:
-                stage.body(ctx)
-            return ctx["energy"], ctx["forces"][:n_atoms], ctx["diag"]
+            ctx = self._run(stages, params, coords, types)
+            return (self._out(ctx["energy"]),
+                    self._out(ctx["forces"][:, :n_atoms]),
+                    self._out(ctx["diag"]))
 
         return fn
 
     def build_assembly_fn(self):
-        """Assembly function: f(coords, types) -> DDState."""
+        """Assembly function: f(coords, types) -> DDState (leaves with a
+        leading replica axis when batched)."""
         self._require_model("build_assembly_fn")
         ax = self.ax
         gather_s, assemble_s = self.stages[0], self.stages[1]
+        r = ax.n_rep
 
         def assemble(coords, types):
-            shards, types_p = self._shard(coords, types)
-            ctx = {"coords_shard": shards, "types_all": types_p}
-            gather_s.body(ctx)
-            assemble_s.body(ctx)
+            ctx = self._run((gather_s, assemble_s), None, coords, types)
             st = ctx["st"]
-            flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in st.items()
-                    if k not in ("local_count", "ghost_count", "overflow")}
+            whole = ("local_count", "ghost_count", "overflow")
+            flat = {k: v.reshape(r, -1, *v.shape[2:]) for k, v in st.items()
+                    if k not in whole}
             return DDState(
-                l_slot=ax.all_gather(st["l_idx"]),
-                cost_max=ax.pmax(st["local_count"] + st["ghost_count"]),
-                local_count=ax.psum(st["local_count"]),
-                ghost_count=ax.psum(st["ghost_count"]),
-                overflow=ax.psum(st["overflow"].to(torch.int32)),
-                ref=ctx["coords_all"], **flat)
+                l_slot=self._out(flat["l_idx"]),
+                cost_max=self._out(ax.pmax(st["local_count"]
+                                           + st["ghost_count"])),
+                local_count=self._out(ax.psum(st["local_count"])),
+                ghost_count=self._out(ax.psum(st["ghost_count"])),
+                overflow=self._out(ax.psum(st["overflow"].to(torch.int32))),
+                ref=self._out(ctx["coords_all"]),
+                **{k: self._out(v) for k, v in flat.items()})
 
         return assemble
 
     def build_evaluation_fn(self):
         """Evaluation function: f(params, coords, state) ->
-        (energy, forces, diag), reusing the assembled state."""
+        (energy, forces, diag), reusing the assembled state.  With
+        ``cfg.overlap`` the partition collective and the interior pass run
+        before the gather, the boundary pass and the merge after it."""
         self._require_model("build_evaluation_fn")
+        if self.cfg.overlap:
+            return self._build_evaluation_overlap()
         model, cfg, ax, rcut = self.model, self.cfg, self.ax, self.rcut
         n_atoms = self.n_atoms
 
         def evaluate(params, coords, st: DDState):
-            shards = self._shard(coords)
+            shards = self._shard(self._in(coords))
             coords_all = ax.all_gather(shards)               # collective 1
-            st_d = _st_dict(st, cfg)
+            st_d, ref, whole = self._state_in(st)
             e_local, f_global, trim_ovf, stats = _evaluate_rank(
-                model, params, coords_all, st.ref, st_d,
-                self._box(coords), cfg, rcut)
+                model, params, coords_all, ref, st_d, self._box(coords), cfg,
+                rcut, ax)
             e_local, f_global = self._post_eval(e_local, f_global)
             energy, forces = self._reduce_forces(e_local, f_global)
-            disp2 = self._disp2(coords_all, st.ref)
-            diag = self._eval_diag(st, st_d, trim_ovf, stats, disp2,
+            disp2 = self._disp2(coords_all, ref)
+            diag = self._eval_diag(whole, st_d, trim_ovf, stats, disp2,
                                    f_global)
-            return energy, forces[:n_atoms], diag
+            return (self._out(energy), self._out(forces[:, :n_atoms]),
+                    self._out(diag))
+
+        return evaluate
+
+    def _build_evaluation_overlap(self):
+        model, cfg, ax, rcut = self.model, self.cfg, self.ax, self.rcut
+        n_atoms, chunk = self.n_atoms, self.chunk
+
+        def evaluate(params, coords, st: DDState):
+            shards = self._shard(self._in(coords))
+            st_d, ref, whole = self._state_in(st)
+            box = self._box(coords)
+            # row classes from the state alone: known before the gather
+            masks = _overlap_masks(cfg, st_d)
+            l_slot = st.l_slot.reshape(ax.n_rep, -1)
+            cur_l = _partition(shards, l_slot, ax, chunk)  # overlap collective
+            # pass A: nothing below depends on the all-gather
+            e_a, f_a = _evaluate_interior(model, params, cur_l, ref, st_d,
+                                          box, cfg, rcut, masks[0], ax)
+            coords_all = ax.all_gather(shards)               # collective 1
+            e_local, f_global, trim_ovf, stats, n_int = _evaluate_rank_overlap(
+                model, params, coords_all, ref, st_d, box, cfg, rcut, e_a,
+                f_a, masks, ax)
+            e_local, f_global = self._post_eval(e_local, f_global)
+            energy, forces = self._reduce_forces(e_local, f_global)
+            disp2 = self._disp2(coords_all, ref)
+            diag = self._eval_diag(whole, st_d, trim_ovf, stats, disp2,
+                                   f_global)
+            n_loc = st_d["l_mask"].sum(-1).to(torch.int32)
+            diag["interior_frac"] = (
+                ax.psum(n_int.to(torch.int32)).to(F32)
+                / torch.clamp_min(ax.psum(n_loc), 1).to(F32))
+            return (self._out(energy), self._out(forces[:, :n_atoms]),
+                    self._out(diag))
 
         return evaluate
 
     def _disp2(self, coords_all, ref):
-        """Max squared displacement since ``ref`` over every rank's shard
-        (pmax of the per-shard maxima)."""
-        box = self._box(coords_all)
-        shards = coords_all.reshape(self.cfg.n_ranks, self.chunk, 3)
-        ref_shards = ref.reshape(self.cfg.n_ranks, self.chunk, 3)
-        return self.ax.pmax(torch.stack([
-            max_displacement2(c, r, box) for c, r in zip(shards, ref_shards)]))
+        """Max squared displacement since ``ref`` over every rank's shard,
+        per replica (R,) (a max is exact in any grouping, so this is the
+        pmax of the per-shard maxima)."""
+        return max_displacement2(coords_all, ref, self._box(coords_all))
 
     def _needs_rebuild(self, disp2, overflow):
         half = torch.tensor((0.5 * self.cfg.skin) ** 2, dtype=F32,
                             device=disp2.device)
         return (disp2 > half) | (overflow > 0)
 
-    def _eval_diag(self, st: DDState, st_d: dict, trim_ovf, stats,
+    def _eval_diag(self, whole: dict, st_d: dict, trim_ovf, stats,
                    disp2, f_global) -> dict:
         ax, cfg = self.ax, self.cfg
-        overflow = st.overflow + ax.psum(trim_ovf.to(torch.int32))
-        total = st.local_count + st.ghost_count
+        overflow = whole["overflow"] + ax.psum(trim_ovf.to(torch.int32))
+        total = whole["local_count"] + whole["ghost_count"]
         rank_cost = ax.gather_ranks(st_d["l_mask"].sum(-1).to(torch.int32)
                                     + st_d["g_mask"].sum(-1).to(torch.int32))
-        return {"local_count": st.local_count, "ghost_count": st.ghost_count,
+        return {"local_count": whole["local_count"],
+                "ghost_count": whole["ghost_count"],
                 "overflow": overflow, "max_disp2": disp2,
-                "cost_max": st.cost_max, "rank_cost": rank_cost,
+                "cost_max": whole["cost_max"], "rank_cost": rank_cost,
                 "rank_nonfinite": self._rank_nonfinite(f_global),
                 **self._occupancy_diag(stats),
                 # max/mean per-rank Eq.-8 cost: the load-imbalance figure
-                "cost_ratio": st.cost_max * cfg.n_ranks
+                "cost_ratio": whole["cost_max"] * cfg.n_ranks
                               / torch.clamp_min(total, 1).to(F32),
-                "needs_rebuild": self._needs_rebuild(disp2, st.overflow)}
+                "needs_rebuild": self._needs_rebuild(disp2,
+                                                     whole["overflow"])}
 
     def build_check_fn(self):
-        """Standalone rebuild check: f(coords, state) -> () bool — some atom
-        moved more than skin/2 since ``state.ref``, or the build overflowed."""
+        """Standalone rebuild check: f(coords, state) -> bool (per replica,
+        (R,), when batched) — some atom moved more than skin/2 since
+        ``state.ref``, or the build overflowed."""
 
         def check(coords, st: DDState):
-            coords_all = self.ax.all_gather(self._shard(coords))
-            return self._needs_rebuild(self._disp2(coords_all, st.ref),
-                                       st.overflow)
+            coords_all = self.ax.all_gather(self._shard(self._in(coords)))
+            r = self.ax.n_rep
+            ref = st.ref.reshape(r, self.n_pad, 3)
+            return self._out(self._needs_rebuild(
+                self._disp2(coords_all, ref), st.overflow.reshape(r)))
 
         return check
 
@@ -470,7 +847,7 @@ class ForcePipeline:
         """Prefix probes attributing the fused force function's cost to its
         stages: a walk over ``self.stages``, probe *k* running the pipeline
         through stage *k* and returning that stage's per-rank probe values
-        (G,), so successive wall-time differences
+        ((G,), or (R, G) batched), so successive wall-time differences
         (:func:`repro_torch.obs.timed_prefix_phases`) measure the paper's
         Fig. 12 shares.  The last entry IS :meth:`build_force_fn`."""
         self._require_model("build_phase_probes")
@@ -481,12 +858,8 @@ class ForcePipeline:
             prefix = self.stages[: i + 1]
 
             def fn(params, coords, types, _prefix=prefix, _stage=stage):
-                shards, types_p = self._shard(coords, types)
-                ctx = {"params": params, "coords_shard": shards,
-                       "types_all": types_p}
-                for s in _prefix:
-                    s.body(ctx)
-                return _stage.probe(ctx)
+                ctx = self._run(_prefix, params, coords, types)
+                return self._out(self.ax.gather_ranks(_stage.probe(ctx)))
 
             probes[stage.name] = fn
         probes[self.stages[-1].name] = self.build_force_fn()

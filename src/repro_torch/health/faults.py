@@ -24,8 +24,8 @@ entries threaded through the subsystems under test:
     detects the injection and replays *without* growing (scan mode only).
 ``serve_fail`` / ``serve_delay``
     Raise / sleep ``delay_s`` before the ``nth``-th dispatched serve batch
-    (:meth:`FaultPlan.before_bucket_eval`; the port's server is ROADMAP
-    Queue 1 item 10).
+    (:meth:`FaultPlan.before_bucket_eval`, called by
+    ``repro_torch.serve.ForceServer`` before each bucket evaluation).
 ``truncate_ckpt``
     After the ``nth``-th (or step-matching) ``AsyncCheckpointer`` save,
     truncate the written shard file — exercises CRC verification and
@@ -191,13 +191,15 @@ class FaultPlan:
 
         Called once per evaluation, before the force reduction, as
         ``hook(rank, rep0, e_local, f_global)``: ``rank`` is the virtual
-        rank of each row of the leading rank axis (a (G,) tensor), ``rep0``
-        the index of the first resident replica (0 unbatched), ``f_global``
-        the per-rank pre-reduce forces (G, n, 3).  Armed specs poison rank
-        ``r``'s slice; the armed/unfired set is read at each call, so once
-        the engine fires a spec the hook returns its inputs.  (``replica``
-        targets wait for the port's replica-batched pipeline, ROADMAP
-        Queue 1 item 7.)
+        rank of each row of the per-rank axis ((G,), or (R, G) from a
+        replica-batched pipeline), ``rep0`` the index of the first resident
+        replica (0: the port keeps every replica on its one device), and
+        ``f_global`` the per-rank pre-reduce forces ((G, n, 3), or
+        (R, G, n, 3) batched).  Armed specs poison rank ``r``'s slice, and
+        with ``replica`` set (batched) only that replica's: the other
+        replicas compute what an unfaulted call computes.  The
+        armed/unfired set is read at each call, so once the engine fires a
+        spec the hook returns its inputs.
         """
         plan = self
 
@@ -206,7 +208,12 @@ class FaultPlan:
                 if (s.kind != "nan_force" or s.rank is None
                         or s.fired or not s.armed):
                     continue
-                bad = torch.as_tensor(rank, device=f_global.device) == s.rank
+                rank_t = torch.as_tensor(rank, device=f_global.device)
+                bad = rank_t == s.rank
+                if s.replica is not None and f_global.ndim == 4:
+                    resident = rep0 + torch.arange(f_global.shape[0],
+                                                   device=f_global.device)
+                    bad = bad & (resident == s.replica)[:, None]
                 bad = bad.reshape(bad.shape + (1,) * (f_global.ndim
                                                       - bad.ndim))
                 f_global = torch.where(

@@ -1,15 +1,19 @@
 """Serving entry point of the port (``repro/launch/serve.py``): LM token
 serving, batched prefill plus greedy decode, for the attention/dense-MLP
-architectures of the :mod:`repro_torch.configs` registry.
+architectures of the :mod:`repro_torch.configs` registry, and DP force
+serving (``--backend force``): a :class:`repro_torch.serve.ForceServer`
+with ``--clients`` MD simulations on threads, each driving its DP group
+through a :class:`repro_torch.serve.RemoteForceProvider`.
 
 Usage:
   python -m repro_torch.launch.serve                       # gemma2-2b, card
   python -m repro_torch.launch.serve --reduced --device cpu --batch 2 --new 8
+  python -m repro_torch.launch.serve --backend force       # DPA-1, card
+  python -m repro_torch.launch.serve --backend force --reduced --device cpu
 
 Weights are random, from the port's initialiser (``--seed``); the prompts
 are token ids drawn from the same seed, so no tokenizer or checkpoint is
-needed.  ``--backend force`` (the DP force server) is not ported yet
-(ROADMAP Queue 1 item 10).
+needed.
 
 On the card the decode step runs as a CUDA graph, the port's counterpart
 of the reference's ``jax.jit`` of ``make_serve_step``: :class:`DecodeGraph`
@@ -161,6 +165,80 @@ def main_lm(args):
     return res
 
 
+def main_force(args):
+    """DP force serving: ``--clients`` MD threads against one server;
+    prints per-tenant metrics and returns {"snapshot", "totals", "s"}."""
+    import threading
+
+    from ..device import resolve_device
+    from ..dp import DPModel, paper_dpa1_config
+    from ..md import (EngineConfig, MDEngine, build_solvated_protein,
+                      mark_nn_group)
+    from ..serve import ForceServer, RemoteForceProvider, ServeConfig
+
+    dev = resolve_device(args.device)
+    # the served evaluator: the paper's DPA-1 (reduced shrinks sel so the
+    # CPU demo stays interactive)
+    cfg = (paper_dpa1_config(ntypes=4, rcut=0.6, sel=32) if args.reduced
+           else paper_dpa1_config(ntypes=4))
+    model = DPModel(cfg, device=dev)
+    params = model.init_params(torch.Generator().manual_seed(args.seed))
+    system, pos, nn_idx = build_solvated_protein(
+        args.protein_atoms, water_per_protein_atom=2.0, device=dev)
+    system = mark_nn_group(system, nn_idx)
+    serve_cfg = ServeConfig(queue_bound=args.queue_bound,
+                            batch_window_s=args.batch_window_ms * 1e-3,
+                            default_timeout_s=args.timeout_s,
+                            nbr_capacity=48)
+    server = ForceServer(model, params, serve_cfg)
+    print(f"force server up on {dev}: atom buckets "
+          f"{serve_cfg.atom_buckets}, batch buckets "
+          f"{serve_cfg.batch_buckets}, queue bound {serve_cfg.queue_bound}")
+    errors = []
+
+    def run_client(tid: int):
+        try:
+            provider = RemoteForceProvider(
+                server, nn_idx, system.types, system.box, system.n_atoms,
+                tenant=f"sim{tid}", timeout_s=args.timeout_s)
+            eng = MDEngine(system, EngineConfig(cutoff=0.9,
+                                                neighbor_capacity=96,
+                                                dt=0.0005, thermostat_t=300.0),
+                           special_force=provider)
+            eng.run(eng.init_state(pos, 300.0, seed=tid), args.steps)
+        except Exception as e:  # noqa: BLE001 — reported after the join
+            errors.append(e)
+
+    t0 = time.time()
+    threads = [threading.Thread(target=run_client, args=(i,), daemon=True)
+               for i in range(args.clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dt = time.time() - t0
+    snap = server.metrics.snapshot()
+    totals = server.metrics.totals()
+    server.stop()
+    if errors:
+        raise errors[0]
+    print(f"\n{args.clients} MD clients x {args.steps} steps "
+          f"in {dt:.2f}s ({totals['completed'] / max(dt, 1e-9):.1f} req/s)")
+    hdr = ("tenant", "submitted", "completed", "timeouts", "errors",
+           "rejected", "max_depth", "mean_lat_ms", "p50_ms", "p99_ms", "rps")
+    print(("{:>10}" * len(hdr)).format(*hdr))
+    for tenant in sorted(snap):
+        s = snap[tenant]
+        print("{:>10}{:>10}{:>10}{:>10}{:>10}{:>10}{:>10}"
+              "{:>10.1f}{:>10.1f}{:>10.1f}{:>10.2f}"
+              .format(tenant, s["submitted"], s["completed"], s["timeouts"],
+                      s["errors"], s["rejected"], s["max_queue_depth"],
+                      1e3 * s["mean_latency_s"], 1e3 * s["p50_latency_s"],
+                      1e3 * s["p99_latency_s"], s["rps"]))
+    print("totals:", totals)
+    return {"snapshot": snap, "totals": totals, "s": dt}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", default="auto",
@@ -177,13 +255,21 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--clients", type=int, default=4,
+                    help="force serving: concurrent MD client threads")
+    ap.add_argument("--steps", type=int, default=10,
+                    help="force serving: MD steps per client")
+    ap.add_argument("--protein-atoms", type=int, default=6,
+                    help="force serving: residues of the solvated protein")
+    ap.add_argument("--queue-bound", type=int, default=64)
+    ap.add_argument("--batch-window-ms", type=float, default=2.0)
+    ap.add_argument("--timeout-s", type=float, default=60.0)
     args = ap.parse_args(argv)
     backend = args.backend
     if backend == "auto":
         backend = "force" if args.arch in FORCE_ARCHS else "lm"
     if backend == "force":
-        raise NotImplementedError(
-            "force serving is not ported yet (ROADMAP Queue 1 item 10)")
+        return main_force(args)
     return main_lm(args)
 
 

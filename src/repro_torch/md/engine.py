@@ -42,9 +42,12 @@ emergency checkpoint and a diagnostics bundle before raising.
 and, in scan mode, calibrated per-stage timings.
 
 No graph outlives a step: the run is under ``torch.no_grad`` and the force
-calls differentiate inside their own ``enable_grad``.  A replica-batched
-engine (``_batch_shape`` other than ``()``, ROADMAP Queue 1 item 7) is not
-ported yet.
+calls differentiate inside their own ``enable_grad``.  The window machinery
+is shared with the replica-batched engine
+(:class:`repro_torch.ensemble.EnsembleEngine`): per-trajectory flags are
+shaped ``_batch_shape``, any replica's rebuild or trip flag drives the host
+decision, and a guard-trip recovery is masked per replica
+(:meth:`MDEngine._merge_rollback`).
 """
 from __future__ import annotations
 
@@ -121,6 +124,7 @@ class MDEngine:
     """
 
     _batch_shape: tuple = ()        # leading shape of per-trajectory flags
+    _state_type = MDState           # the state a checkpoint restores to
     _extra_boundary_every: int = 0  # extra host boundary (replica exchange)
 
     def __init__(self, system: System, config: EngineConfig,
@@ -322,6 +326,11 @@ class MDEngine:
                 e_prev = e_cl + e_sp
             if rec:
                 recs.append(rec)
+        if self._guard_on:
+            # per trajectory: the window ended non-finite (its overflow
+            # flags then carry no capacity information, see _window_verdict)
+            flags["nonfinite"] = ~torch.isfinite(
+                state.positions).flatten(-2).all(-1)
         stacked = {}
         for key in (recs[0] if recs else ()):
             vals = [r[key] for r in recs]
@@ -418,9 +427,17 @@ class MDEngine:
 
         Capacity overflow takes precedence over a guard trip: an overflowed
         window computed truncated forces, so any trip it reports is judged
-        afresh on the grown replay."""
+        afresh on the grown replay.  Except where a trajectory ended the
+        window non-finite (guard on): NaN or Inf coordinates bin nowhere, so
+        their overflow flags say nothing of the capacities; that
+        trajectory's trip decides, and its replay judges any overflow
+        afresh (growing on them would double every capacity up to the
+        growth limit while the fault stays armed)."""
         recs = recs or {}
-        vals = [flags["nlist_overflow"].any(), flags["sp_overflow"].any()]
+        ovf = [flags["nlist_overflow"], flags["sp_overflow"]]
+        if "nonfinite" in flags:
+            ovf = [o & ~flags["nonfinite"] for o in ovf]
+        vals = [ovf[0].any(), ovf[1].any()]
         if "guard_trip" in flags:
             vals.append(flags["guard_trip"])
         host = read_host(vals + list(recs.values()))
@@ -582,7 +599,8 @@ class MDEngine:
                                 rec["sp_rebuild"] = 1
                             e_sp, f_sp, fl = special.evaluate(state.positions,
                                                               sp_state)
-                        while bool(torch.as_tensor(fl["overflow"]).any()):
+                        while bool(self._capacity_overflow(
+                                fl["overflow"], state.positions)):
                             # evaluation-side overflow (e.g. k_eval trim):
                             # grow and recompute, as the scan replay does
                             special.grow()
@@ -692,7 +710,7 @@ class MDEngine:
                 f"checkpoint at or before step {step0} exists",
                 state=state0, raise_cls=GuardTripError)
         self.diagnostics["checkpoint_restores"] += 1
-        state0 = MDState(**tree)
+        state0 = self._state_from_tree(tree)
         nlist0 = self._build_nlist_grown(state0.positions)
         sp_state0 = (self._assemble_special_grown(state0.positions)
                      if self._stateful else None)
@@ -703,20 +721,49 @@ class MDEngine:
             self._sync()
         return (state0, nlist0, sp_state0)
 
+    def _capacity_overflow(self, overflow, positions) -> torch.Tensor:
+        """Any overflow of a trajectory whose positions are finite (with
+        the guard on; a non-finite one's flags say nothing of the
+        capacities, see ``_window_verdict``)."""
+        overflow = torch.as_tensor(overflow, device=self.device)
+        if self._guard_on:
+            overflow = overflow & torch.isfinite(positions).flatten(-2).all(-1)
+        return overflow.any()
+
     def _state_healthy(self, state) -> bool:
         return bool(torch.isfinite(state.positions).all()
                     & torch.isfinite(state.velocities).all())
 
     def _merge_rollback(self, committed, replayed, mask):
-        """Select between the committed and replayed window results:
-        tripped trajectories (mask True) take the replay, untripped keep
-        the original (a batched engine's per-replica masking).  A scalar
+        """Leaf-wise select between the committed and replayed window
+        results: tripped trajectories (mask True) take the replay,
+        untripped keep the original (a batched engine's per-replica
+        masking: every leaf carries a leading replica axis).  A scalar
         engine's mask is ``()``, so the replay wins wholesale."""
         if np.ndim(mask) == 0:
             return replayed
-        raise NotImplementedError(
-            "per-replica masked recovery needs the replica-batched engine "
-            "(ROADMAP Queue 1 item 7)")
+        m = torch.as_tensor(np.asarray(mask, bool))
+
+        def sel(old, new):
+            if isinstance(new, torch.Tensor):
+                if (not isinstance(old, torch.Tensor) or old.shape != new.shape
+                        or new.dim() == 0 or new.shape[0] != m.shape[0]):
+                    return new          # regrown capacities: the replay's
+                mm = m.to(new.device).reshape(m.shape + (1,) * (new.dim() - 1))
+                return torch.where(mm, new, old)
+            if isinstance(new, tuple):
+                return tuple(sel(o, n) for o, n in zip(old, new))
+            if dataclasses.is_dataclass(new) and not isinstance(new, type):
+                return dataclasses.replace(new, **{
+                    f.name: sel(getattr(old, f.name), getattr(new, f.name))
+                    for f in dataclasses.fields(new) if f.init})
+            return new
+
+        return sel(committed, replayed)
+
+    def _state_from_tree(self, tree):
+        """A state from a checkpoint's tree."""
+        return self._state_type(**tree)
 
     def _note_guard_trips(self, mask) -> None:
         """Per-trajectory trip attribution hook (batched-engine override)."""
@@ -894,16 +941,16 @@ class MDEngine:
         from ..ckpt.checkpoint import save_pytree
         save_pytree(path, state_tree(state))
 
-    @staticmethod
-    def restore(path: str, device="cuda") -> MDState:
+    @classmethod
+    def restore(cls, path: str, device="cuda"):
         """The state saved at ``path`` (a checkpoint, an
-        ``AsyncCheckpointer`` step directory or an emergency dump), on
-        ``device`` (default the card; raises without one unless
-        ``device="cpu"``).  ``rng`` stays a host tensor (a generator
-        state)."""
+        ``AsyncCheckpointer`` step directory or an emergency dump), as this
+        engine's state type, on ``device`` (default the card; raises
+        without one unless ``device="cpu"``).  ``rng`` stays a host tensor
+        (generator states)."""
         from ..ckpt.checkpoint import load_pytree
         dev = resolve_device(device)
         d = load_pytree(path)
-        return MDState(**{k: torch.as_tensor(v, device="cpu" if k == "rng"
-                                             else dev)
-                          for k, v in d.items()})
+        return cls._state_type(**{
+            k: torch.as_tensor(v, device="cpu" if k == "rng" else dev)
+            for k, v in d.items()})

@@ -15,6 +15,16 @@ on the card and the CPU, on every repeat and at any list capacity, and no
 pile-up of the padded slots on atom 0.  The scatter skips the masked slots;
 the double-``where`` guards below make their cotangent exactly 0, so the
 sums are those of the full scatter.
+
+Replica batching (:func:`replicate_system`, :func:`classical_forces_batched`)
+lays R replicas out as one (R*N)-atom system whose atom ids are offset by
+r*N, as JAX's ``vmap`` effectively does: each gather, and so each force
+scatter, launches once per call for all replicas, and each atom's force
+still sums its own replica's slots in the same ascending order.  The
+energies reduce per replica (``rep``), each replica's terms as one run's,
+and the dihedral angle's ``atan2`` runs per replica (PyTorch's CPU
+``atan2`` rounds an element by its position in the vector loop; every
+other elementwise op here gives the same bits at any position).
 """
 from __future__ import annotations
 
@@ -25,7 +35,7 @@ import torch
 
 from ..kernels.force_scatter import neighbor_gather
 from .neighbors import NeighborList, minimum_image
-from .system import COULOMB, System
+from .system import COULOMB, System, Topology
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +59,16 @@ def _gather_terms(pos, table, mask):
     return neighbor_gather(pos, table, mask[:, None].expand(table.shape))
 
 
-def bond_energy(pos, box, bonds, params, mask):
+def _rsum(x, rep=None):
+    """``x.sum()``, or with ``rep`` replicas laid out along the leading
+    axis, the (rep,) sums of each replica's block (each block summed as an
+    unbatched run sums its whole array)."""
+    if rep is None:
+        return x.sum()
+    return torch.stack([b.sum() for b in x.reshape(rep, -1, *x.shape[1:])])
+
+
+def bond_energy(pos, box, bonds, params, mask, rep=None):
     p = _gather_terms(pos, bonds, mask)
     dr = minimum_image(p[:, 1] - p[:, 0], box)
     # double-where: masked (padded) entries see a safe r so the backward pass
@@ -57,10 +76,10 @@ def bond_energy(pos, box, bonds, params, mask):
     r2 = torch.where(mask > 0, (dr ** 2).sum(-1), 1.0)
     r = torch.sqrt(r2)
     r0, k = params[:, 0], params[:, 1]
-    return (0.5 * k * (r - r0) ** 2 * mask).sum()
+    return _rsum(0.5 * k * (r - r0) ** 2 * mask, rep)
 
 
-def angle_energy(pos, box, angles, params, mask):
+def angle_energy(pos, box, angles, params, mask, rep=None):
     p = _gather_terms(pos, angles, mask)
     v1 = minimum_image(p[:, 0] - p[:, 1], box)
     v2 = minimum_image(p[:, 2] - p[:, 1], box)
@@ -68,10 +87,10 @@ def angle_energy(pos, box, angles, params, mask):
     cos = (v1 * v2).sum(-1) / torch.sqrt(torch.where(mask > 0, nn, 1.0))
     theta = torch.arccos(torch.clamp(cos, -1 + 1e-7, 1 - 1e-7))
     t0, k = params[:, 0], params[:, 1]
-    return (0.5 * k * (theta - t0) ** 2 * mask).sum()
+    return _rsum(0.5 * k * (theta - t0) ** 2 * mask, rep)
 
 
-def dihedral_energy(pos, box, dihedrals, params, mask):
+def dihedral_energy(pos, box, dihedrals, params, mask, rep=None):
     """Periodic proper dihedral: k (1 + cos(mult*phi - phi0))."""
     p = _gather_terms(pos, dihedrals, mask)
     b1 = minimum_image(p[:, 1] - p[:, 0], box)
@@ -83,17 +102,22 @@ def dihedral_energy(pos, box, dihedrals, params, mask):
     m1 = torch.linalg.cross(n1, b2 / nb2)
     x = torch.where(mask > 0, (n1 * n2).sum(-1), 1.0)
     y = torch.where(mask > 0, (m1 * n2).sum(-1), 0.0)
-    phi = torch.atan2(y, x)
+    if rep is None:
+        phi = torch.atan2(y, x)
+    else:
+        phi = torch.cat([torch.atan2(a, b) for a, b in
+                         zip(y.reshape(rep, -1), x.reshape(rep, -1))])
     phi0, k, mult = params[:, 0], params[:, 1], params[:, 2]
-    return (k * (1 + torch.cos(mult * phi - phi0)) * mask).sum()
+    return _rsum(k * (1 + torch.cos(mult * phi - phi0)) * mask, rep)
 
 
-def bonded_energy(pos, box, topology) -> torch.Tensor:
+def bonded_energy(pos, box, topology, rep=None) -> torch.Tensor:
     t = topology
-    return (bond_energy(pos, box, t.bonds, t.bond_params, t.bond_mask)
-            + angle_energy(pos, box, t.angles, t.angle_params, t.angle_mask)
+    return (bond_energy(pos, box, t.bonds, t.bond_params, t.bond_mask, rep)
+            + angle_energy(pos, box, t.angles, t.angle_params, t.angle_mask,
+                           rep)
             + dihedral_energy(pos, box, t.dihedrals, t.dihedral_params,
-                              t.dihedral_mask))
+                              t.dihedral_mask, rep))
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +166,8 @@ def _pairs(pos, system: System, nlist: NeighborList, cutoff: float):
     return _safe(nlist.idx), r2, mask
 
 
-def _lj(system: System, safe, r2, mask, cutoff: float, half: bool):
+def _lj(system: System, safe, r2, mask, cutoff: float, half: bool,
+        rep=None):
     r2 = torch.where(mask > 0, r2, 1.0)
 
     # Lorentz-Berthelot combining rules from per-type tables.
@@ -159,7 +184,7 @@ def _lj(system: System, safe, r2, mask, cutoff: float, half: bool):
     # shift so E(r_c) = 0 (GROMACS potential-shift modifier)
     src6 = (sig ** 2 / cutoff ** 2) ** 3
     e = e - 4.0 * eps * (src6 ** 2 - src6)
-    total = (e * mask).sum()
+    total = _rsum(e * mask, rep)
     return total if half else 0.5 * total
 
 
@@ -169,7 +194,7 @@ def lj_energy(pos: torch.Tensor, system: System, nlist: NeighborList,
 
 
 def _coulomb(system: System, safe, r2, mask, cfg: ForceFieldConfig,
-             half: bool):
+             half: bool, rep=None):
     rc = cfg.cutoff
     r = torch.sqrt(torch.where(mask > 0, r2, 1.0))
     qq = system.charges[:, None] * system.charges[safe]
@@ -183,7 +208,7 @@ def _coulomb(system: System, safe, r2, mask, cfg: ForceFieldConfig,
         k_rf = (eps - 1.0) / (2 * eps + 1.0) / rc ** 3
         c_rf = 1.0 / rc + k_rf * rc ** 2
         e = COULOMB * qq * (1.0 / r + k_rf * r2 - c_rf)
-    total = (e * mask).sum()
+    total = _rsum(e * mask, rep)
     return total if half else 0.5 * total
 
 
@@ -199,19 +224,25 @@ def coulomb_energy(pos: torch.Tensor, system: System, nlist: NeighborList,
 # ---------------------------------------------------------------------------
 
 def classical_energy(pos: torch.Tensor, system: System, nlist: NeighborList,
-                     cfg: ForceFieldConfig, half: bool = True) -> torch.Tensor:
-    e = bonded_energy(pos, system.box, system.topology)
+                     cfg: ForceFieldConfig, half: bool = True,
+                     rep=None) -> torch.Tensor:
+    """E (), or with ``rep`` (a :func:`replicate_system` layout of ``rep``
+    replicas) the per-replica energies (rep,)."""
+    e = bonded_energy(pos, system.box, system.topology, rep)
     pairs = _pairs(pos, system, nlist, cfg.cutoff)
-    e = e + _lj(system, *pairs, cfg.cutoff, half)
-    e = e + _coulomb(system, *pairs, cfg, half)
+    e = e + _lj(system, *pairs, cfg.cutoff, half, rep)
+    e = e + _coulomb(system, *pairs, cfg, half, rep)
     if cfg.use_pme:
         from .pme import pme_reciprocal_energy
-        e = e + pme_reciprocal_energy(pos, system.charges, system.box,
-                                      cfg.pme_grid, cfg.pme_order,
-                                      cfg.ewald_beta)
+        n = pos.shape[0] // (rep or 1)
+        recip = [pme_reciprocal_energy(p, q, system.box, cfg.pme_grid,
+                                       cfg.pme_order, cfg.ewald_beta)
+                 for p, q in zip(pos.reshape(-1, n, 3),
+                                 system.charges.reshape(-1, n))]
+        e = e + (recip[0] if rep is None else torch.stack(recip))
         # Ewald self-energy
         e = e - (COULOMB * cfg.ewald_beta / math.sqrt(math.pi)
-                 * (system.charges ** 2).sum())
+                 * _rsum(system.charges ** 2, rep))
     return e
 
 
@@ -222,3 +253,63 @@ def classical_forces(pos, system, nlist, cfg, half: bool = True):
         e = classical_energy(p, system, nlist, cfg, half)
         (g,) = torch.autograd.grad(e, p)
     return e.detach(), -g
+
+
+def replicate_system(system: System, n_rep: int) -> System:
+    """R replicas of ``system`` as one (R*N)-atom system: per-atom arrays
+    tiled, every topology table and the exclusions offset by r*N (their -1
+    padding kept)."""
+    n = system.n_atoms
+    dev = system.box.device
+
+    def tile(t):
+        return t.repeat(n_rep, *([1] * (t.dim() - 1)))
+
+    def offset(t):
+        off = (torch.arange(n_rep, device=dev, dtype=t.dtype) * n).reshape(
+            n_rep, *([1] * t.dim()))
+        big = t[None].expand(n_rep, *t.shape)
+        return torch.where(big >= 0, big + off, big).reshape(-1,
+                                                              *t.shape[1:])
+
+    t = system.topology
+    topo = Topology(bonds=offset(t.bonds), bond_params=tile(t.bond_params),
+                    bond_mask=tile(t.bond_mask), angles=offset(t.angles),
+                    angle_params=tile(t.angle_params),
+                    angle_mask=tile(t.angle_mask),
+                    dihedrals=offset(t.dihedrals),
+                    dihedral_params=tile(t.dihedral_params),
+                    dihedral_mask=tile(t.dihedral_mask),
+                    exclusions=offset(t.exclusions))
+    return dataclasses.replace(system, types=tile(system.types),
+                               masses=tile(system.masses),
+                               charges=tile(system.charges),
+                               nn_mask=tile(system.nn_mask), topology=topo)
+
+
+def flatten_nlist(nlist: NeighborList) -> NeighborList:
+    """A batched list (R, N, K) as one list over the (R*N)-atom layout of
+    :func:`replicate_system` (neighbour ids offset by r*N)."""
+    r, n, k = nlist.idx.shape
+    off = (torch.arange(r, device=nlist.idx.device,
+                        dtype=nlist.idx.dtype) * n)[:, None, None]
+    idx = torch.where(nlist.idx >= 0, nlist.idx + off, nlist.idx)
+    return NeighborList(idx=idx.reshape(r * n, k),
+                        mask=nlist.mask.reshape(r * n, k),
+                        ref_positions=nlist.ref_positions.reshape(r * n, 3),
+                        overflow=nlist.overflow.any())
+
+
+def classical_forces_batched(pos, rep_system: System, nlist: NeighborList,
+                             cfg, half: bool = True):
+    """R trajectories at once: ``pos`` (R, N, 3), ``rep_system`` from
+    :func:`replicate_system`, ``nlist`` batched (R, N, K).  Returns
+    (E (R,), F (R, N, 3)), both detached; each gather and force scatter
+    launches once for all replicas."""
+    r, n, _ = pos.shape
+    flat = flatten_nlist(nlist)
+    with torch.enable_grad():
+        p = pos.detach().reshape(r * n, 3).requires_grad_(True)
+        e = classical_energy(p, rep_system, flat, cfg, half, rep=r)
+        (g,) = torch.autograd.grad(e.sum(), p)
+    return e.detach(), -g.reshape(r, n, 3)

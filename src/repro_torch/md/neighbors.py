@@ -164,14 +164,27 @@ def build_neighbor_list(pos: torch.Tensor, box, cutoff: float, capacity: int,
 
 def max_displacement2(pos: torch.Tensor, ref: torch.Tensor,
                       box: torch.Tensor) -> torch.Tensor:
-    """Max squared minimum-image displacement since ``ref``."""
+    """Max squared minimum-image displacement since ``ref``, per trajectory
+    (positions (..., N, 3) -> (...); a max is exact in any order)."""
     dr = minimum_image(pos - ref, box)
-    return (dr * dr).sum(-1).max()
+    return (dr * dr).sum(-1).amax(-1)
 
 
 def needs_rebuild(nlist: NeighborList, pos: torch.Tensor, box: torch.Tensor,
                   skin: float) -> torch.Tensor:
-    """True when an atom moved > skin/2 since the list was built."""
+    """True when an atom moved > skin/2 since the list was built (per
+    trajectory of a batched list)."""
     disp2 = max_displacement2(pos, nlist.ref_positions, box)
     half = torch.tensor(skin, dtype=torch.float32, device=pos.device) * 0.5
     return (disp2 > half * half) | nlist.overflow
+
+
+def stack_neighbor_lists(lists) -> NeighborList:
+    """Per-replica lists (same capacity) as one batched list: every field
+    gains a leading replica axis (``overflow`` (R,))."""
+    return NeighborList(idx=torch.stack([nl.idx for nl in lists]),
+                        mask=torch.stack([nl.mask for nl in lists]),
+                        ref_positions=torch.stack([nl.ref_positions
+                                                   for nl in lists]),
+                        overflow=torch.stack([nl.overflow for nl in lists]))
+

@@ -330,7 +330,8 @@ _ERRORS = {
     "k_eval_wider": (dict(nbr_capacity_eval=9), "cannot widen it"),
     "k_eval_limit": (dict(nbr_capacity=200, nbr_capacity_eval=129),
                      "port's limit of 128"),
-    "overlap": (dict(overlap=True), "Queue 1 item 5"),
+    "overlap": (dict(overlap=True, force_mode="ghost_reduce"),
+                "requires force_mode='owner_full'"),
     "overlap_capacity": (dict(overlap_capacity=-1), "overlap_capacity"),
 }
 

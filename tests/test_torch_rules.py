@@ -118,8 +118,10 @@ def test_lm_unported_parts_raise():
         cfg = get_arch(name).reduced(n_layers=2, d_model=32)
         with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
             model.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        serve.main(["--backend", "force", "--device", "cpu"])
+    # DP force serving is ported: the CPU run serves its client's steps
+    res = serve.main(["--backend", "force", "--device", "cpu", "--reduced",
+                      "--clients", "1", "--steps", "1"])
+    assert res["totals"]["completed"] == res["totals"]["submitted"] == 1
 
 
 def test_flash_wrapper_dispatches_by_device():
