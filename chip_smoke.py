@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port's paths once on one card: the DP force path,
-DPA-1 training and gemma2-2b token serving.
+DPA-1 training, gemma2-2b token serving and the other LM architectures
+(MLA, MoE, Mamba, RWKV6, cross-attention, the encoder and MTP).
 
     python3 chip_smoke.py                   # every phase
     python3 chip_smoke.py --phase lm        # the lm phase alone
+    python3 chip_smoke.py --phase lm_archs  # the lm_archs phase alone
     python3 chip_smoke.py --phase kernels   # the DP kernels phase alone
     python3 chip_smoke.py --phase md        # the md phase alone
     python3 chip_smoke.py --phase guard     # the guard phase alone
@@ -133,10 +135,28 @@ replica ensembles and DP force serving (run after phase 6):
    an expired deadline, a full queue and a ``serve_fail`` each failing only
    their own request or batch; the ``pipeline_executor_factory`` route at
    batch 2 x 4 virtual ranks;
-11. a ``kernels`` JSON line (launches per force call, per MD step, per
+11. lm_archs: deepseek-v3 (4 layers: 3 dense MLA + 1 MoE MLA, and the MTP
+   head; B 2, prompt 1,024, 8 new), jamba-1.5-large (2 layers: mamba/dense,
+   mamba/MoE; B 2, prompt 2,048, 8 new), rwkv6-3b (all 32 layers; B 4,
+   prompt 2,048, 16 new) and whisper-medium (24 encoder + 24 decoder
+   layers, 1,500 frames of the context stub; B 4, prompt 448, 16 new), each
+   at its published width in bf16 with random weights from the port's
+   initialiser, alone (parameters freed before the next): the launches of
+   one prefill, the main path (a request whose decode steps replay a CUDA
+   graph; every launch accounted for) equal to an eager request bit for
+   bit, a second timed pair, decode == forward at the bf16 gate (for the
+   MoE archs at capacity factor 8.0, no drop; at the published 1.25
+   reported, not gated), ``mtp_logits`` finite, the card against the port
+   on the CPU at a reduced fp32 width the kernel has heads for, and
+   MLA's (192, 128) ``flash_attention`` instance against its plain version
+   on the first MLA prefill call's tensors (bf16 and fp32, a repeat bit for
+   bit, times, bound and SDPA's time);
+12. a ``kernels`` JSON line (launches per force call, per MD step, per
    guarded MD run, per training step and ``force_rmse`` call, per
    request, per batched force call, per ensemble step, per served
-   dispatch and per overlap evaluation), then the result line.
+   dispatch and per overlap evaluation; ``flash_attention`` and
+   ``flash_decode`` also per prefill and decode step of each lm_archs
+   architecture, and the MLA instance's numbers), then the result line.
 
 Any failed check raises, and the script exits non-zero.  It needs one CUDA
 card and the repository's ``src/`` beside it; it imports no JAX.
@@ -3285,12 +3305,14 @@ BF16_PEAK = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
 LM_BF16_TOL = 6e-2
 
 
-def flash_bound(q, k, causal, window, q_offset):
+def flash_bound(q, k, causal, window, q_offset, dv=None):
     """Least time of one flash_attention call: the visible pairs' FLOPs
-    (4 D per pair and q head) at the card's peak for the inputs' type (bf16
-    tensor cores 989, fp32 67 TFLOP/s), against q and o once and the K/V
-    rows some query can see once, at the memory rate."""
+    (2 (D + DV) per pair and q head: Q K^T and P V) at the card's peak for
+    the inputs' type (bf16 tensor cores 989, fp32 67 TFLOP/s), against q
+    and o once and the K/V rows some query can see once, at the memory
+    rate.  ``dv``: the value width (default D)."""
     b, hq, sq, d = q.shape
+    dv = d if dv is None else dv
     hkv, sk = k.shape[1], k.shape[2]
     pos = q_offset + np.arange(sq, dtype=np.int64)   # first/last visible key
     hi = np.minimum(sk - 1, pos) if causal else np.full(sq, sk - 1)
@@ -3298,11 +3320,12 @@ def flash_bound(q, k, causal, window, q_offset):
     pairs = int(np.clip(hi - lo + 1, 0, None).sum()) * b * hq
     keys = max(0, int(hi.max()) - int(lo.min()) + 1) if sq else 0
     el = q.element_size()
-    nbytes = el * (2 * q.numel() + 2 * b * hkv * keys * d)
+    nbytes = el * (b * hq * sq * (d + dv) + b * hkv * keys * (d + dv))
     peak = BF16_PEAK if q.dtype == torch.bfloat16 else F32_PEAK
-    t_ops, t_bytes = 4 * d * pairs / peak * 1e3, nbytes / HBM_RATE * 1e3
+    flops = 2 * (d + dv) * pairs
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
     bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    return bound, 4 * d * pairs
+    return bound, flops
 
 
 def serve_recording(cfg, params, tokens, new, keep):
@@ -3705,6 +3728,388 @@ def phase_lm():
                                    "launches_eager_request": decode_calls}}
 
 
+# ---------------------------------------------------------------------------
+# lm_archs: the other mixers at full width
+# ---------------------------------------------------------------------------
+
+# (arch, layers run (None: all), batch, prompt, new tokens); each at its
+# published width, depth cut where one card cannot hold the model
+LM_ARCHS = (
+    ("deepseek-v3-671b", 4, 2, 1024, 8),       # 3 dense MLA + 1 MoE MLA, MTP
+    ("jamba-1.5-large-398b", 2, 2, 2048, 8),   # mamba/dense, mamba/MoE
+    ("rwkv6-3b", None, 4, 2048, 16),
+    ("whisper-medium", None, 4, 448, 16),      # 24 + 24 layers, 1500 frames
+)
+# card == CPU: reduced widths whose heads the kernel has instances for
+# (hd 64; MLA's (192, 128)), fp32
+LM_ARCH_SMALL = dict(n_layers=4, d_model=256, d_ff=512, vocab=1024)
+LM_ARCH_SMALL_MLA = dict(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
+MLA_DIMS = (192, 128)
+
+
+def n_params(tree):
+    if isinstance(tree, dict):
+        return sum(n_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(n_params(v) for v in tree)
+    return tree.numel()
+
+
+def record_first_mla_call(fn):
+    """``fn()`` with ``flash_attention`` swapped for a recorder that keeps
+    the arguments of its first call with MLA's (D, DV); the recorder still
+    launches, and its count goes back to the wrapper."""
+    from repro_torch.kernels import flash_attn
+    original = flash_attn.flash_attention
+    kept = []
+
+    def rec(q, k, v, *rest):
+        if not kept and (q.shape[3], v.shape[3]) == MLA_DIMS:
+            kept.append((q, k, v, *rest))
+        return original(q, k, v, *rest)
+
+    rec.launches = 0
+    flash_attn.flash_attention = rec
+    try:
+        out = fn()
+    finally:
+        original.launches += rec.launches
+        flash_attn.flash_attention = original
+    return out, kept[0] if kept else None
+
+
+@torch.no_grad()
+def check_mla_instance(args):
+    """The (192, 128) instance against its plain version on the first MLA
+    prefill call's q, k, v (bf16, and the same inputs in fp32) at the
+    existing gates, a repeat bit for bit, times beside the bound, and SDPA
+    beside it (PyTorch's SDPA takes a value width other than the query's).
+    """
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn, ref
+    q, k, v, causal, window, softcap, q_offset = args
+    line = {"phase": "lm_archs", "name": "flash_attention",
+            "case": "MLA (192, 128) instance, deepseek-v3 prefill, layer 0",
+            "q": list(q.shape), "k": list(k.shape), "v": list(v.shape),
+            "causal": causal}
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        a = [t.to(dtype) for t in (q, k, v)]
+        line.update(kernel_line(
+            dtype, tol, "flash_attention MLA",
+            lambda: flash_attn.flash_attention(*a, causal, window, softcap,
+                                               q_offset),
+            lambda: ref.attention_ref(*a, causal, window, softcap, q_offset),
+            flash_bound(a[0], a[1], causal, window, q_offset, a[2].shape[3])))
+        del a
+        torch.cuda.empty_cache()
+
+    def lib():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    want = lib().float()
+    line["library_max_err"] = check(
+        "MLA instance vs sdpa", flash_attn.flash_attention(
+            q, k, v, causal, window, softcap, q_offset).float(),
+        want, atol=1e-2 * float(want.abs().max()))
+    line["library_ms"] = time_ms(lib)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def launches_now():
+    from repro_torch import kernels
+    return {k: n for k, n in kernels.launch_counts().items() if n}
+
+
+def lm_arch_request(cfg, params, tokens, new, ctx, graph):
+    from repro_torch.launch.serve import serve_tokens
+    r = serve_tokens(cfg, params, tokens, new, graph=graph, context=ctx)
+    if not all(bool(torch.isfinite(lg).all()) for lg in r["logits"]):
+        fail(f"lm_archs {cfg.name}: non-finite logits")
+    return r
+
+
+def record_routing(fn):
+    """``fn()`` with ``lm.layers.moe_route`` recording every MoE call's
+    router scores (T, E) and chosen experts (T, k), in call order."""
+    from repro_torch.lm import layers as L
+    original, calls = L.moe_route, []
+
+    def rec(p, xf, cfg):
+        out = original(p, xf, cfg)
+        logits = xf.to(torch.float32) @ p["router"]
+        scores = (torch.sigmoid(logits) if cfg.router_scores == "sigmoid"
+                  else torch.softmax(logits, -1))
+        calls.append((scores, out[1]))
+        return out
+
+    L.moe_route = rec
+    try:
+        return fn(), calls
+    finally:
+        L.moe_route = original
+
+
+def routing_flips(cfg, prompt, steps, req_calls, fwd_calls):
+    """Per (row, step) the MoE layers whose expert set differs between the
+    request (its prefill's call at step 0, then one call per decode step)
+    and ``forward`` at the same position; the score noise delta (max
+    |score difference| over every compared token and expert); and for
+    each flip the forward's own margin, max score of the experts only it
+    chose minus min score of those only the request chose, which a flip
+    caused by the noise keeps <= 2 delta."""
+    n_moe = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
+    b = req_calls[0][0].shape[0] // prompt
+    total = fwd_calls[0][0].shape[0] // b
+    flips, delta = {}, 0.0
+    for layer in range(n_moe):
+        f_sc, f_top = fwd_calls[layer]
+        for i in range(steps + 1):
+            r_sc, r_top = req_calls[layer if i == 0 else n_moe * i + layer]
+            for row in range(b):
+                ri = row * prompt + prompt - 1 if i == 0 else row
+                fi = row * total + prompt - 1 + i
+                delta = max(delta, float((r_sc[ri] - f_sc[fi]).abs().max()))
+                rs, fs = set(r_top[ri].tolist()), set(f_top[fi].tolist())
+                if rs != fs:
+                    only_f, only_r = sorted(fs - rs), sorted(rs - fs)
+                    margin = float(f_sc[fi, only_f].max() - f_sc[fi, only_r].min())
+                    flips.setdefault((row, i), []).append(
+                        {"layer": layer, "forward_only": only_f,
+                         "request_only": only_r, "forward_margin": margin})
+    return flips, delta
+
+
+def decode_vs_forward(cfg, params, tokens, ctx, res, what, routing=None):
+    """The request's prefill and decode logits against ``forward`` over the
+    prompt and the fed tokens: max |err| per step and the max |logit|.
+    With ``routing`` (the request's MoE calls, recorded eagerly), the
+    (row, step) positions whose experts differ from the forward's in some
+    MoE layer are listed and kept out of the max: a flip between experts
+    whose scores lie within the bf16 noise of the two computations moves
+    that token's logits by more than the gate, and says nothing of the
+    rest."""
+    from repro_torch.lm import model as LM
+    prompt = tokens.shape[1]
+    steps = len(res["logits"]) - 1
+    fed = torch.cat([tokens, res["tokens"][:, :-1]], 1)
+    with torch.no_grad():
+        (full, _), fwd_calls = record_routing(
+            lambda: LM.forward(params, cfg, fed, ctx))
+    want = full[:, prompt - 1:].float()
+    scale = float(want.abs().max())
+    err = torch.stack([(LM.final_softcap(cfg, lg).float() - want[:, i])
+                       .abs().amax(-1) for i, lg in enumerate(res["logits"])],
+                      1)                                      # (B, steps + 1)
+    out = {"what": what, "max_abs_logit": scale, "tol": LM_BF16_TOL * scale,
+           "greedy_token_agreement":
+               float((want.argmax(-1) == res["tokens"]).float().mean())}
+    if routing is not None:
+        flips, delta = routing_flips(cfg, prompt, steps, routing, fwd_calls)
+        keep = torch.ones_like(err, dtype=torch.bool)
+        for row, i in flips:
+            keep[row, i] = False
+        out.update({"routing_score_noise": delta,
+                    "routing_flips": [{"row": r, "step": i,
+                                       "max_abs_err": float(err[r, i]),
+                                       "layers": v}
+                                      for (r, i), v in sorted(flips.items())],
+                    "positions": err.numel(),
+                    "positions_gated": int(keep.sum())})
+        err = torch.where(keep, err, torch.zeros_like(err))
+    out.update(max_abs_err=float(err.max()),
+               per_step=err.amax(0).tolist())
+    del full, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_arch_card_vs_cpu(name):
+    """The same port on the card (decode graphed) and on the CPU, at a
+    reduced fp32 width whose heads the kernel has instances for: every
+    step's logits at the CPU tests' fp32 gate, the tokens equal."""
+    import dataclasses as dc
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import context_stub, serve_tokens
+    from repro_torch.lm import model as LM
+    over = dict(LM_ARCH_SMALL)
+    if get_arch(name).mla:
+        over.update(LM_ARCH_SMALL_MLA)
+    small = get_arch(name).reduced(**over)
+    p_cpu = LM.init_params(small, torch.Generator().manual_seed(SEED),
+                           device="cpu")
+    p_gpu = _tree(p_cpu, lambda t: t.to(DEVICE))
+    rng = np.random.default_rng(SEED + 12)
+    tok = torch.tensor(rng.integers(0, small.vocab, (2, 40)))
+    ctx = context_stub(small, 2, rng, "cpu")
+    r_cpu = serve_tokens(small, p_cpu, tok, 8, context=ctx)
+    kernels.reset_launch_counts()
+    r_gpu = serve_tokens(small, p_gpu, tok.to(DEVICE), 8,
+                         context=None if ctx is None else ctx.to(DEVICE))
+    launches = launches_now()
+    err = 0.0
+    for i, (a, b) in enumerate(zip(r_gpu["logits"], r_cpu["logits"])):
+        err = max(err, check(f"lm_archs {name} card vs cpu step {i}", a.cpu(),
+                             b, atol=1e-4 * float(b.abs().max())))
+    if not torch.equal(r_gpu["tokens"].cpu(), r_cpu["tokens"]):
+        fail(f"lm_archs {name} reduced: greedy tokens differ, card and CPU")
+    full = dc.asdict(get_arch(name))
+    cut = {k: v for k, v in dc.asdict(small).items()
+           if v != full[k] and k != "name"}
+    return {"config_changes": cut, "batch": 2, "prompt": 40,
+            "new": 8, "max_abs_err": err, "tol": "atol 1e-4*max|cpu logits|",
+            "launches_card": launches}
+
+
+def lm_arch(name, layers, batch, prompt, new):
+    """One architecture at full width: init, the launches of one prefill,
+    the main path (a graphed request) against an eager one bit for bit, a
+    second timed pair, decode == forward, card == CPU (reduced), and for
+    deepseek the MLA instance against its plain version."""
+    import dataclasses as dc
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import context_stub
+    from repro_torch.lm import model as LM
+    from repro_torch.lm.serve_lib import make_prefill
+    cfg = get_arch(name)
+    if layers is not None:
+        cfg = dc.replace(cfg, n_layers=layers)
+    steps = new - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    line = {"phase": "lm_archs", "arch": name, "layers": cfg.n_layers,
+            "depth_cut": (f"{cfg.n_layers} of {get_arch(name).n_layers} "
+                          "layers" if layers is not None else "none"),
+            "params": n_params(params),
+            "param_MiB": torch.cuda.memory_allocated() / 2 ** 20,
+            "init_s": time.perf_counter() - t0, "batch": batch,
+            "prompt": prompt, "new": new, "dtype": cfg.dtype}
+    rng = np.random.default_rng(SEED + 11)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (batch, prompt)),
+                          device=DEVICE)
+    ctx = context_stub(cfg, batch, rng, DEVICE)
+    if ctx is not None:
+        line["context"] = list(ctx.shape)
+
+    # -- one prefill's launches (a request of one token: the prefill only)
+    kernels.reset_launch_counts()
+    _, mla_args = record_first_mla_call(
+        lambda: lm_arch_request(cfg, params, tokens, 1, ctx, False))
+    per_prefill = launches_now()
+
+    # -- the main path: a request whose decode steps replay a CUDA graph
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = lm_arch_request(cfg, params, tokens, new, ctx, None)
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    counts = kernels.launch_counts()
+    per_step = res["graph_launches"]
+    want = {k: per_prefill.get(k, 0) + (steps + 1) * per_step.get(k, 0)
+            for k in counts}
+    if counts != want:
+        fail(f"lm_archs {name}: launches {counts}, expected {want} (a "
+             f"prefill's {per_prefill}, {per_step} per decode step over "
+             f"{steps} replays and the warm-up step)")
+    if name.startswith(("deepseek", "whisper")) and \
+            not per_prefill.get("flash_attention"):
+        fail(f"lm_archs {name}: the prefill launched no flash_attention")
+
+    # -- an eager request: the same tokens and logits, bit for bit
+    eager = lm_arch_request(cfg, params, tokens, new, ctx, False)
+    same = torch.equal(res["tokens"], eager["tokens"]) and all(
+        torch.equal(a, b) for a, b in zip(res["logits"], eager["logits"]))
+    if not same:
+        fail(f"lm_archs {name}: the graphed decode differs from the eager one")
+    timed = {"graph": lm_arch_request(cfg, params, tokens, new, ctx, None),
+             "eager": lm_arch_request(cfg, params, tokens, new, ctx, False)}
+    line.update({
+        "launches_per_prefill": per_prefill,
+        "launches_per_decode_step": per_step,
+        "graph_equals_eager_bitwise": same,
+        "prefill_ms": [r["prefill_s"] * 1e3 for r in (res, eager,
+                                                      *timed.values())],
+        "decode_ms_per_step_graphed": [r["decode_s"] / steps * 1e3
+                                       for r in (res, timed["graph"])],
+        "decode_ms_per_step_eager": [r["decode_s"] / steps * 1e3
+                                     for r in (eager, timed["eager"])],
+        "capture_ms": [r["capture_s"] * 1e3 for r in (res, timed["graph"])],
+        "serve_peak_MiB": serve_peak,
+        "greedy_tokens_batch0": res["tokens"][0].tolist()})
+    del eager, timed
+    torch.cuda.empty_cache()
+    pre = make_prefill(cfg, max_len=prompt + new)
+    device_profile(lambda: pre(params, tokens, ctx), "lm_archs_profile",
+                   f"{name}: one prefill")
+
+    # -- decode == forward (no-drop capacity for MoE: at the published 1.25
+    #    the prefill drops tokens that a decode step does not)
+    checks = [decode_vs_forward(cfg, params, tokens, ctx, res,
+                                f"capacity {cfg.capacity_factor}")]
+    if cfg.n_experts:
+        # no drop; the eager request (graphed == eager above) records the
+        # routing of its prefill and of each decode step
+        cfg8 = dc.replace(cfg, capacity_factor=8.0)
+        res8, routing = record_routing(
+            lambda: lm_arch_request(cfg8, params, tokens, new, ctx, False))
+        checks[0]["gated"] = False
+        checks.append(decode_vs_forward(cfg8, params, tokens, ctx, res8,
+                                        "capacity 8.0 (no drop)", routing))
+        del res8, routing
+    line["decode_vs_forward"] = checks
+    for c in checks:
+        c.setdefault("gated", True)
+        bad = [f for f in c.get("routing_flips", ())
+               if any(v["forward_margin"] > 2 * c["routing_score_noise"]
+                      for v in f["layers"])]
+        if c["gated"] and (c["max_abs_err"] > c["tol"] or bad):
+            print(json.dumps(line), flush=True)
+            fail(f"lm_archs {name} decode == forward ({c['what']}): max err "
+                 f"{c['max_abs_err']:.4g} (tol {c['tol']:.4g}); routing "
+                 f"flips beyond the score noise: {bad}")
+    if cfg.mtp:
+        with torch.no_grad():
+            _, hidden, _ = LM.forward(params, cfg, tokens, ctx,
+                                      return_hidden=True)
+            kernels.reset_launch_counts()
+            mtp = LM.mtp_logits(params, cfg, hidden[:, :-1], tokens[:, 1:])
+        if tuple(mtp.shape) != (batch, prompt - 1, cfg.vocab) or \
+                not bool(torch.isfinite(mtp).all()):
+            fail(f"lm_archs {name}: mtp_logits {tuple(mtp.shape)}, finite "
+                 f"{bool(torch.isfinite(mtp).all())}")
+        line["mtp_logits"] = {"shape": list(mtp.shape), "finite": True,
+                              "launches": launches_now()}
+        del hidden, mtp
+    line["peak_MiB"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    mla = check_mla_instance(mla_args) if mla_args is not None else None
+    if cfg.mla and mla is None:
+        fail(f"lm_archs {name}: no MLA call with (D, DV) = {MLA_DIMS}")
+    del params, res, mla_args
+    torch.cuda.empty_cache()
+    line["card_vs_cpu"] = lm_arch_card_vs_cpu(name)
+    print(json.dumps(line), flush=True)
+    return line, mla
+
+
+def phase_lm_archs():
+    """deepseek-v3 (4 layers and MTP), jamba (2 layers), rwkv6-3b and
+    whisper-medium at their published widths, bf16, random weights from the
+    port's initialiser, one at a time (parameters freed before the next)."""
+    t0 = time.perf_counter()
+    lines, mla = {}, None
+    for spec in LM_ARCHS:
+        lines[spec[0]], m = lm_arch(*spec)
+        mla = mla or m
+    print(json.dumps({"phase": "lm_archs", "s": time.perf_counter() - t0}),
+          flush=True)
+    return lines, mla
+
+
 def device_profile(fn, phase, what, host_ops=False):
     """``fn()`` under ``torch.profiler``: device time by kernel and the
     device's idle share of the wall time; with ``host_ops`` also the
@@ -3840,6 +4245,11 @@ def main():
         phase_lm()
         print("[lm] every check passed (lm phase alone)", flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "lm_archs"]:
+        phase_lm_archs()
+        print("[lm_archs] every check passed (lm_archs phase alone)",
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "train"]:
         phase_train()
         print("[train] every check passed (train phase alone)", flush=True)
@@ -3900,6 +4310,12 @@ def main():
     train_launches = phase_train()
     torch.cuda.empty_cache()
     lm_rows, lm_launches = phase_lm()
+    torch.cuda.empty_cache()
+    arch_lines, mla = phase_lm_archs()
+    arch_launches = {
+        kind: {name: line[f"launches_per_{kind}"]
+               for name, line in arch_lines.items()}
+        for kind in ("prefill", "decode_step")}
 
     def new_launches(name):
         return {"launches_per_batched_force_call":
@@ -3985,7 +4401,29 @@ def main():
             "fp32_ms_by_call": {c: lm_rows[c]["fp32_kernel_ms"]
                                 for c in calls},
             "bound_ms_by_call": {c: lm_rows[c]["bf16_bound_ms"]
-                                 for c in calls}})
+                                 for c in calls},
+            # the lm_archs phase: launches by architecture (0 where its
+            # path has no attention or its decode is plain)
+            "launches_per_prefill_lm_archs": {
+                a: n.get(name, 0) for a, n in arch_launches["prefill"].items()},
+            "launches_per_decode_step_lm_archs": {
+                a: n.get(name, 0)
+                for a, n in arch_launches["decode_step"].items()}})
+        if name == "flash_attention":
+            rows[-1]["mla_instance"] = {
+                "shape": "q/k (2, 128, 1024, 192), v (2, 128, 1024, 128), "
+                         "bf16, causal (deepseek-v3 prefill, layer 0)",
+                "launches_per_prefill": arch_launches["prefill"][
+                    "deepseek-v3-671b"].get(name, 0),
+                "max_abs_err": mla["bf16_max_err"],
+                "fp32_max_abs_err": mla["fp32_max_err"],
+                "ms": mla["bf16_kernel_ms"], "fp32_ms": mla["fp32_kernel_ms"],
+                "plain_ms": mla["bf16_plain_ms"],
+                "fp32_plain_ms": mla["fp32_plain_ms"],
+                "bound_ms": mla["bf16_bound_ms"],
+                "bound_by": mla["bf16_bound_by"],
+                "fp32_bound_ms": mla["fp32_bound_ms"],
+                "library_ms": mla["library_ms"]}
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"[chip_smoke] {time.perf_counter() - T0:.1f} s in all", flush=True)
     print(json.dumps({"ok": True, "device": {

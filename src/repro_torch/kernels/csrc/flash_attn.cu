@@ -3,7 +3,9 @@
 //
 // Replaces repro/kernels/flash_attn.py::_flash_kernel (flash_attention):
 // q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) with Hq % Hkv == 0, fp32 or bf16 in,
-// output in q's type.  Scores s = (q . k) / sqrt(D) in fp32, optionally
+// output in q's type; the prefill kernels also take a value width DV other
+// than D (MLA: q/k 192, v 128, as the JAX LM's chunked_attention does; the
+// output is then (B, Hq, Sq, DV)).  Scores s = (q . k) / sqrt(D) in fp32, optionally
 // soft-capped (softcap * tanh(s / softcap)); key j is visible to query i
 // (absolute position q_offset + i) when j < Sk, and, as asked, causally
 // (q_offset + i >= j) and inside the window ((q_offset + i) - j < window).
@@ -44,9 +46,10 @@
 //   ldmatrix reads conflict-free at every D.  Shared memory: Q 128 x D plus
 //   two stages of K and V, (128 + 4 * 64) * (D + 8) * 2 bytes: 198 KB at
 //   D = 256, 102 KB at D = 128 (one CTA per SM either way, by shared
-//   memory or by registers: 8 warps per SM).  Registers: the output
-//   accumulator is D / 2 floats per thread (128 at D = 256); -Xptxas -v
-//   (printed by chip_smoke.py) gives the count and spills.
+//   memory or by registers: 8 warps per SM); at (DK, DV) = (192, 128), Q and
+//   K rows of DK + 8 and V rows of DV + 8 elements, 134 KB.  Registers: the
+//   output accumulator is DV / 2 floats per thread (128 at D = 256);
+//   -Xptxas -v (printed by chip_smoke.py) gives the count and spills.
 // * fp32 prefill (group * Sq > 16): flash_fwd_kernel, fp32 FMAs from shared
 //   memory, 256 threads as 16 x 16, 64 rows per CTA.  fp32 stays off the
 //   tensor cores because fp32 inputs there mean TF32, which would break the
@@ -94,8 +97,13 @@
 // windowed layer at most its window); K and V are read through the cache
 // view's strides; no atomics.
 //
-// Template instances: flash_fwd_mma_kernel<D>, flash_fwd_kernel<float, D,
-// 64>, flash_decode_kernel<float | bf16, D, 2 | 4 | 8 | 16>, D in {32, 64,
+// Calls with DK != DV go to the prefill kernels at every Sq, also at 16 or
+// fewer rows per KV head (MLA has Hq = Hkv, so a prompt of up to 16 tokens):
+// the decode kernel keeps one width.
+//
+// Template instances: flash_fwd_mma_kernel<DK, DV>, flash_fwd_kernel<float,
+// DK, DV, 64> with (DK, DV) = (D, D) and (192, 128),
+// flash_decode_kernel<float | bf16, D, 2 | 4 | 8 | 16>, D in {32, 64,
 // 128, 256}.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,10 +131,10 @@ struct Elem<float> {
   }
 };
 
-template <typename T, int D, int BQ>
+template <typename T, int DK, int DV, int BQ>
 constexpr size_t smem_bytes() {
-  return (size_t)(BQ + BK) * (D + Elem<T>::PAD) * sizeof(T) +
-         (size_t)BK * D * sizeof(T) + (size_t)BQ * (BK + 16) * sizeof(float);
+  return (size_t)(BQ + BK) * (DK + Elem<T>::PAD) * sizeof(T) +
+         (size_t)BK * DV * sizeof(T) + (size_t)BQ * (BK + 16) * sizeof(float);
 }
 
 // ROWS rows of D elements into shared memory rows of stride `ld`: row r
@@ -162,7 +170,7 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, RowPtr row_ptr) {
   }
 }
 
-template <typename T, int D, int BQ>
+template <typename T, int DK, int DV, int BQ>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
@@ -171,14 +179,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float softcap, int q_offset, float scale) {
   constexpr int RI = BQ / 16;   // query rows per thread
   constexpr int KJ = BK / 16;   // keys per thread in the score tile
-  constexpr int DP = D / 32;    // output column pairs per thread
-  constexpr int QS = D + Elem<T>::PAD;
+  constexpr int DP = DV / 32;   // output column pairs per thread
+  constexpr int QS = DK + Elem<T>::PAD;
   constexpr int PS = BK + 16;
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   T* ks = qs + BQ * QS;
   T* vs = ks + BK * QS;
-  float* ps = reinterpret_cast<float*>(vs + BK * D);
+  float* ps = reinterpret_cast<float*>(vs + BK * DV);
 
   const int group = hq / hkv;
   const int rows = group * sq;
@@ -188,11 +196,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Q rows of the block: row r is query i = r / group of q head
   // kvh * group + r % group
-  load_tile<T, D, BQ>(qs, QS, [&](int rr) -> const T* {
+  load_tile<T, DK, BQ>(qs, QS, [&](int rr) -> const T* {
     const int r = r0 + rr;
     if (r >= rows) return nullptr;
     const long long head = (long long)b * hq + kvh * group + r % group;
-    return q + (head * sq + r / group) * D;
+    return q + (head * sq + r / group) * DK;
   });
 
   int qpos[RI];
@@ -223,11 +231,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int c0 = jb * BK;
     __syncthreads();  // the previous block's tiles are consumed
     const int valid = min(BK, sk - c0);
-    load_tile<T, D, BK>(ks, QS, [&](int r) -> const T* {
-      return r < valid ? kb + (long long)(c0 + r) * D : nullptr;
+    load_tile<T, DK, BK>(ks, QS, [&](int r) -> const T* {
+      return r < valid ? kb + (long long)(c0 + r) * DK : nullptr;
     });
-    load_tile<T, D, BK>(vs, D, [&](int r) -> const T* {
-      return r < valid ? vb + (long long)(c0 + r) * D : nullptr;
+    load_tile<T, DV, BK>(vs, DV, [&](int r) -> const T* {
+      return r < valid ? vb + (long long)(c0 + r) * DV : nullptr;
     });
     __syncthreads();
 
@@ -237,7 +245,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 2) {
+    for (int d = 0; d < DK; d += 2) {
       float2 qa[RI], kk[KJ];
 #pragma unroll
       for (int i = 0; i < RI; ++i) qa[i] = Elem<T>::pair(qs + (ty + 16 * i) * QS + d);
@@ -298,7 +306,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < RI; ++i) p[i] = ps[(ty + 16 * i) * PS + c];
 #pragma unroll
       for (int jd = 0; jd < DP; ++jd) {
-        const float2 vv = Elem<T>::pair(vs + c * D + 2 * tx + 32 * jd);
+        const float2 vv = Elem<T>::pair(vs + c * DV + 2 * tx + 32 * jd);
 #pragma unroll
         for (int i = 0; i < RI; ++i) {
           acc[i][jd].x = fmaf(p[i], vv.x, acc[i][jd].x);
@@ -315,7 +323,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long head = (long long)b * hq + kvh * group + r % group;
     const long long row = head * sq + r / group;
     const float l_safe = l[i] > 0.f ? l[i] : 1.f;
-    T* dst = o + row * D;
+    T* dst = o + row * DV;
 #pragma unroll
     for (int jd = 0; jd < DP; ++jd)
       Elem<T>::store(dst + 2 * tx + 32 * jd, acc[i][jd].x / l_safe,
@@ -376,13 +384,15 @@ __device__ __forceinline__ float tanh_exp(float x) {
   return 1.f - __fdividef(2.f, __expf(2.f * x) + 1.f);
 }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t mma_smem_bytes() {
-  // Q plus two stages of K and V, rows padded by 16 bytes (D + 8 elements)
-  return (size_t)(MMA_BQ + 4 * BK) * (D + 8) * sizeof(__nv_bfloat16);
+  // Q plus two stages of K and V, rows padded by 16 bytes (width + 8
+  // elements)
+  return ((size_t)(MMA_BQ + 2 * BK) * (DK + 8) + (size_t)2 * BK * (DV + 8)) *
+         sizeof(__nv_bfloat16);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(MMA_THREADS, 1)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -391,9 +401,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      int sk, long long k_bs, long long k_hs, long long v_bs,
                      long long v_hs, int causal, int window, float softcap,
                      int q_offset, float scale) {
-  constexpr int LDS = D + 8;      // smem row stride (elements)
-  constexpr int CH = D / 8;       // 16-byte pieces per row
-  constexpr int NT = D / 8;       // n-tiles of the output
+  constexpr int LDS = DK + 8;     // smem row stride of Q and K (elements)
+  constexpr int LDV = DV + 8;     // and of V
+  constexpr int CH = DK / 8;      // 16-byte pieces per row of Q and K
+  constexpr int CHV = DV / 8;     // and of V
+  constexpr int NT = DV / 8;      // n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ks = qs + MMA_BQ * LDS;        // 2 stages
@@ -413,7 +425,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* src = q;
     if (r < rows) {
       const long long head = (long long)b * hq + kvh * group + r % group;
-      src = q + (head * sq + r / group) * D + c * 8;
+      src = q + (head * sq + r / group) * DK + c * 8;
     }
     cp_async16(qs + rr * LDS + c * 8, src, r < rows ? 16 : 0);
   }
@@ -431,13 +443,18 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   auto load_kv = [&](int jb, int stage) {
     const int c0 = jb * BK;
     __nv_bfloat16* kd = ks + stage * BK * LDS;
-    __nv_bfloat16* vd = vs + stage * BK * LDS;
+    __nv_bfloat16* vd = vs + stage * BK * LDV;
     for (int e = tid; e < BK * CH; e += MMA_THREADS) {
       const int rr = e / CH, c = e % CH;
       const bool ok = c0 + rr < sk;
-      const long long off = ok ? (long long)(c0 + rr) * D + c * 8 : 0;
+      const long long off = ok ? (long long)(c0 + rr) * DK + c * 8 : 0;
       cp_async16(kd + rr * LDS + c * 8, kb + off, ok ? 16 : 0);
-      cp_async16(vd + rr * LDS + c * 8, vb + off, ok ? 16 : 0);
+    }
+    for (int e = tid; e < BK * CHV; e += MMA_THREADS) {
+      const int rr = e / CHV, c = e % CHV;
+      const bool ok = c0 + rr < sk;
+      const long long off = ok ? (long long)(c0 + rr) * DV + c * 8 : 0;
+      cp_async16(vd + rr * LDV + c * 8, vb + off, ok ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -471,7 +488,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
     const __nv_bfloat16* kt = ks + stage * BK * LDS;
-    const __nv_bfloat16* vt = vs + stage * BK * LDS;
+    const __nv_bfloat16* vt = vs + stage * BK * LDV;
     const int c0 = jb * BK;
 
     float s[8][4];
@@ -480,7 +497,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       uint32_t a[4];
       ldsm_x4(a, qs + (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
@@ -560,9 +577,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
       const int mi = lane >> 3;
 #pragma unroll
-      for (int dt = 0; dt < D / 16; ++dt) {
+      for (int dt = 0; dt < DV / 16; ++dt) {
         uint32_t bf[4];
-        ldsm_x4_t(bf, vt + (kc * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + dt * 16 +
+        ldsm_x4_t(bf, vt + (kc * 16 + (mi & 1) * 8 + (lane & 7)) * LDV + dt * 16 +
                           (mi >> 1) * 8);
         mma_bf16(oacc[2 * dt], a, bf[0], bf[1]);
         mma_bf16(oacc[2 * dt + 1], a, bf[2], bf[3]);
@@ -584,7 +601,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = row_lo + 8 * half;
     if (r >= rows) continue;
     const long long head = (long long)b * hq + kvh * group + r % group;
-    __nv_bfloat16* dst = o + (head * sq + r / group) * D + 2 * t;
+    __nv_bfloat16* dst = o + (head * sq + r / group) * DV + 2 * t;
     const float inv = half ? inv_hi : inv_lo;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -593,13 +610,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
                int hq, int hkv, int sq, int sk, long long k_bs, long long k_hs,
                long long v_bs, long long v_hs, int causal, int window,
                float softcap, int q_offset, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  auto kern = flash_fwd_mma_kernel<D>;
+  constexpr size_t smem = mma_smem_bytes<DK, DV>();
+  auto kern = flash_fwd_mma_kernel<DK, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -610,7 +627,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), hq,
       hkv, sq, sk, k_bs, k_hs, v_bs, v_hs, causal, window, softcap, q_offset,
-      1.0f / sqrtf((float)D));
+      1.0f / sqrtf((float)DK));
   return (int)cudaGetLastError();
 }
 // ---------------------------------------------------------------------------
@@ -995,14 +1012,14 @@ int decode_by_dim(int d, const DecodeArgs& a, int b, cudaStream_t st) {
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, int b,
                 int hq, int hkv, int sq, int sk, long long k_bs, long long k_hs,
                 long long v_bs, long long v_hs, int causal, int window,
                 float softcap, int q_offset, cudaStream_t stream) {
   constexpr int BQ = 64;
-  constexpr size_t smem = smem_bytes<float, D, BQ>();
-  auto kern = flash_fwd_kernel<float, D, BQ>;
+  constexpr size_t smem = smem_bytes<float, DK, DV, BQ>();
+  auto kern = flash_fwd_kernel<float, DK, DV, BQ>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -1012,7 +1029,7 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, sk,
       k_bs, k_hs, v_bs, v_hs, causal, window, softcap, q_offset,
-      1.0f / sqrtf((float)D));
+      1.0f / sqrtf((float)DK));
   return (int)cudaGetLastError();
 }
 
@@ -1023,37 +1040,38 @@ extern "C" {
 // every kernel library exports this name (loaded RTLD_LOCAL, one each)
 const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// Prefill: Hq / Hkv * Sq > 16 rows per KV head.  dtype 0 = float32, 1 =
-// bfloat16.  q and o are contiguous (B, Hq, Sq, D); k and v have rows of D
-// contiguous elements and the given batch and head strides (elements), so a
-// cache sliced to its filled length needs no copy.
+// Prefill: Hq / Hkv * Sq > 16 rows per KV head, or any Sq when the value
+// width dv differs from the query/key width d (the decode kernel has no such
+// instance).  dtype 0 = float32, 1 = bfloat16.  q is contiguous (B, Hq, Sq,
+// d), o (B, Hq, Sq, dv); k and v have rows of d and dv contiguous elements
+// and the given batch and head strides (elements), so a cache sliced to its
+// filled length needs no copy.
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                    int dtype, int b, int hq, int hkv, int sq, int sk, int d,
-                   long long k_bs, long long k_hs, long long v_bs,
+                   int dv, long long k_bs, long long k_hs, long long v_bs,
                    long long v_hs, int causal, int window, float softcap,
                    int q_offset, void* stream) {
   cudaGetLastError();  // clear an error left by earlier, unrelated work
   cudaStream_t st = (cudaStream_t)stream;
-  if ((long long)(hq / hkv) * sq <= DECODE_ROWS || (dtype != 0 && dtype != 1))
+  if ((d == dv && (long long)(hq / hkv) * sq <= DECODE_ROWS) ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-#define FLASH_CASE(DD)                                                       \
-  case DD:                                                                   \
+#define FLASH_CASE(DK, DV)                                                   \
+  if (d == DK && dv == DV)                                                   \
     return dtype == 0                                                        \
-               ? launch_fp32<DD>(q, k, v, o, b, hq, hkv, sq, sk, k_bs, k_hs, \
-                                 v_bs, v_hs, causal, window, softcap,        \
-                                 q_offset, st)                               \
-               : launch_mma<DD>(q, k, v, o, b, hq, hkv, sq, sk, k_bs, k_hs,  \
-                                v_bs, v_hs, causal, window, softcap,         \
-                                q_offset, st);
-  switch (d) {
-    FLASH_CASE(32)
-    FLASH_CASE(64)
-    FLASH_CASE(128)
-    FLASH_CASE(256)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+               ? launch_fp32<DK, DV>(q, k, v, o, b, hq, hkv, sq, sk, k_bs,   \
+                                     k_hs, v_bs, v_hs, causal, window,       \
+                                     softcap, q_offset, st)                  \
+               : launch_mma<DK, DV>(q, k, v, o, b, hq, hkv, sq, sk, k_bs,    \
+                                    k_hs, v_bs, v_hs, causal, window,        \
+                                    softcap, q_offset, st);
+  FLASH_CASE(32, 32)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(256, 256)
+  FLASH_CASE(192, 128)   // MLA (deepseek-v3): qk_nope + qk_rope, v_head_dim
 #undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // Decode: Hq / Hkv * Sq <= 16 rows per KV head, fp32 or bf16, layouts as in

@@ -16,7 +16,9 @@ kernel is.
 Two entry points:
 
 * :func:`flash_attention` (q, k, v, causal, window, softcap, q_offset):
-  host ints, any Sq and Sk, the TPU kernel's signature;
+  host ints, any Sq and Sk, the TPU kernel's signature; v may have its own
+  head width (MLA's (192, 128): the prefill kernels at every Sq, since the
+  decode kernel keeps one width);
 * :func:`flash_decode` (q, k_cache, v_cache, pos, window, softcap): decode
   over a whole cache, the position a 0-d int64 tensor on the card (queries
   at ``pos``.., keys ``< pos + Sq``, causal).  Nothing on the host depends
@@ -46,7 +48,10 @@ import torch
 from . import build
 from .ref import attention_ref, decode_ref
 
-HEAD_DIMS = (32, 64, 128, 256)   # the kernels' template instances
+HEAD_DIMS = (32, 64, 128, 256)   # the kernels' template instances (D = DV)
+# (D, DV) instances of the prefill kernels: equal widths, and MLA's
+# qk_nope + qk_rope = 192 with v_head_dim = 128 (deepseek-v3)
+QK_V_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 BK = 64                          # keys per KV block (csrc/flash_attn.cu)
 DECODE_ROWS = 16                 # the decode kernel's most rows per KV head
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,7 +61,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attn")
     if not getattr(lib, "_bound", False):
-        lib.flash_attn_fwd.argtypes = ([_P] * 4 + [_I] * 7 + [_LL] * 4
+        lib.flash_attn_fwd.argtypes = ([_P] * 4 + [_I] * 8 + [_LL] * 4
                                        + [_I, _I, _F, _I, _P])
         lib.flash_attn_decode.argtypes = ([_P] * 4 + [_I] * 7 + [_LL] * 4
                                           + [_I, _I, _F, _I, _P, _I, _P, _P])
@@ -88,16 +93,17 @@ def _workspace(device, splits: int, rows: int, d: int) -> torch.Tensor:
                        device=device)
 
 
-def _check_qkv(what, q, k, v):
+def _check_qkv(what, q, k, v, instances=QK_V_DIMS):
     b, hq, sq, d = q.shape
-    if (k.dim() != 4 or k.shape[0] != b or v.shape != k.shape
-            or k.shape[3] != d or hq % k.shape[1]):
-        raise ValueError(f"{what} takes q (B, Hq, Sq, D) and k/v "
-                         f"(B, Hkv, Sk, D) with Hq % Hkv == 0; got "
+    if (k.dim() != 4 or v.dim() != 4 or k.shape[0] != b
+            or v.shape[:3] != k.shape[:3] or k.shape[3] != d
+            or hq % k.shape[1]):
+        raise ValueError(f"{what} takes q (B, Hq, Sq, D), k (B, Hkv, Sk, D) "
+                         f"and v (B, Hkv, Sk, DV) with Hq % Hkv == 0; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what} has instances for D in {HEAD_DIMS}, "
-                         f"not D={d}")
+    if (d, v.shape[3]) not in instances:
+        raise ValueError(f"{what} has instances for (D, DV) in {instances}, "
+                         f"not ({d}, {v.shape[3]})")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{what} takes float32 or bfloat16 q, k, v "
                          f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -136,30 +142,30 @@ def _decode_launch(q, k, v, causal, window, softcap, q_offset, pos):
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0):
-    """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), Hq % Hkv == 0 -> (B, Hq, Sq, D)
-    in q's dtype (float32 or bfloat16).  ``q_offset`` is the absolute
-    position of query 0 (decode).  A CUDA kernel for CUDA tensors: the
-    prefill kernels above 16 query rows per KV head, the decode kernel at or
-    below."""
+    """q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, DV), Hq % Hkv
+    == 0 -> (B, Hq, Sq, DV) in q's dtype (float32 or bfloat16); scores
+    scaled by 1/sqrt(D).  ``q_offset`` is the absolute position of query 0
+    (decode).  A CUDA kernel for CUDA tensors: the prefill kernels above 16
+    query rows per KV head or when DV != D, the decode kernel otherwise."""
     if not q.is_cuda:
         return attention_ref(q, k, v, causal, window, softcap, q_offset)
     _check_qkv("flash_attention", q, k, v)
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     q = q.contiguous()
     q = q if q.data_ptr() % 16 == 0 else q.clone()
     k, v = (t if _rows_ok(t) else t.clone(memory_format=torch.contiguous_format)
             for t in (k, v))
     if not q.numel():
-        return torch.empty_like(q)
-    if (hq // hkv) * sq <= DECODE_ROWS:
+        return q.new_empty((b, hq, sq, dv))
+    if dv == d and (hq // hkv) * sq <= DECODE_ROWS:
         out = _decode_launch(q, k, v, causal, window, softcap, q_offset, None)
     else:
-        out = torch.empty_like(q)
+        out = q.new_empty((b, hq, sq, dv))
         lib = _lib()
         err = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, k.stride(0),
+            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv, k.stride(0),
             k.stride(1), v.stride(0), v.stride(1), int(bool(causal)),
             int(window), float(softcap), int(q_offset),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -179,7 +185,8 @@ def flash_decode(q, k_cache, v_cache, pos, window: int = 0,
     ``serve_lib.init_cache`` makes them), the plain version for CPU ones."""
     if not q.is_cuda:
         return decode_ref(q, k_cache, v_cache, pos, window, softcap)
-    _check_qkv("flash_decode", q, k_cache, v_cache)
+    _check_qkv("flash_decode", q, k_cache, v_cache,
+               tuple((d, d) for d in HEAD_DIMS))
     b, hq, sq, d = q.shape
     if (hq // k_cache.shape[1]) * sq > DECODE_ROWS:
         raise ValueError(f"flash_decode takes at most {DECODE_ROWS} query "

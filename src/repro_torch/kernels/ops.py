@@ -29,7 +29,8 @@ def nbr_attention_stack_op(g, rx, ry, rz, sw, mask, wq, wk, wv, wo, gamma,
 def attention_op(q, k, v, causal: bool = True, window: int = 0,
                  softcap: float = 0.0, q_offset: int = 0):
     """Blockwise attention with causal, GQA, window, softcap and q_offset:
-    q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D).  Forward only."""
+    q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, DV) (DV != D for
+    MLA).  Forward only."""
     return flash_attn.flash_attention(q, k, v, causal, window, softcap,
                                       q_offset)
 

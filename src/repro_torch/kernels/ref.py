@@ -299,10 +299,11 @@ def attention_visible(sq: int, sk: int, causal: bool, window: int,
 def attention_ref(q, k, v, causal: bool = True, window: int = 0,
                   softcap: float = 0.0, q_offset: int = 0):
     """Dense attention with the GQA broadcast and fp32 accumulation
-    (``repro/kernels/ref.py::attention_ref``): q (B, Hq, Sq, D), k/v
-    (B, Hkv, Sk, D) with Hq % Hkv == 0, any Sq and Sk; scores scaled by
-    1/sqrt(D), optionally soft-capped; a row with no visible key gives 0.
-    Returns q's dtype."""
+    (``repro/kernels/ref.py::attention_ref``): q (B, Hq, Sq, D), k
+    (B, Hkv, Sk, D), v (B, Hkv, Sk, DV) with Hq % Hkv == 0, any Sq and Sk
+    (DV may differ from D, as in MLA); scores scaled by 1/sqrt(D),
+    optionally soft-capped; a row with no visible key gives 0.  Returns
+    (B, Hq, Sq, DV) in q's dtype."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     group = hq // hkv

@@ -1,13 +1,16 @@
 """Serving entry point of the port (``repro/launch/serve.py``): LM token
-serving, batched prefill plus greedy decode, for the attention/dense-MLP
-architectures of the :mod:`repro_torch.configs` registry, and DP force
-serving (``--backend force``): a :class:`repro_torch.serve.ForceServer`
-with ``--clients`` MD simulations on threads, each driving its DP group
-through a :class:`repro_torch.serve.RemoteForceProvider`.
+serving, batched prefill plus greedy decode, for every architecture of the
+:mod:`repro_torch.configs` registry (whisper and the vision model with the
+reference's context stub: frame or patch embeddings drawn from ``--seed``),
+and DP force serving (``--backend force``): a
+:class:`repro_torch.serve.ForceServer` with ``--clients`` MD simulations on
+threads, each driving its DP group through a
+:class:`repro_torch.serve.RemoteForceProvider`.
 
 Usage:
   python -m repro_torch.launch.serve                       # gemma2-2b, card
   python -m repro_torch.launch.serve --reduced --device cpu --batch 2 --new 8
+  python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced --device cpu
   python -m repro_torch.launch.serve --backend force       # DPA-1, card
   python -m repro_torch.launch.serve --backend force --reduced --device cpu
 
@@ -38,6 +41,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def recurrent_leaves(cache) -> list:
+    """The cache's recurrent-state tensors (``serve_lib.RECURRENT``), which a
+    decode step advances; raises on a leaf of a kind it does not know."""
+    from ..lm.serve_lib import POSITIONAL, RECURRENT, STATIC
+    out = []
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, name)
+        elif name in RECURRENT:
+            out.append(node)
+        elif name not in POSITIONAL + STATIC:
+            raise ValueError(f"DecodeGraph: cannot tell how a decode step "
+                             f"writes the cache leaf {name!r}")
+    walk(cache)
+    return out
+
+
 class DecodeGraph:
     """The greedy decode step ``make_serve_step(cfg)`` captured once as a
     CUDA graph over ``cache``: static inputs ``tok`` (B, 1) and ``pos`` (a
@@ -48,10 +73,13 @@ class DecodeGraph:
 
     Before the capture, one eager step on the capture stream at the first
     position runs the lazy set-up (kernel builds, library handles, the
-    decode workspace); it writes the cache entry that the first replay
-    writes again with the same bits.  The capture launches nothing, so the
-    kernel launch counts it made are taken back and counted again at every
-    replay (``launches``: per replay, by wrapper)."""
+    decode workspace).  It writes the positional cache entry that the first
+    replay writes again with the same bits, and advances the recurrent
+    state (Mamba's ``conv``/``ssm``, RWKV's ``S``/``shift``/``cmix_shift``),
+    which is saved before it and restored after it, so that the first
+    replay starts from the prefill's state.  The capture launches nothing,
+    so the kernel launch counts it made are taken back and counted again at
+    every replay (``launches``: per replay, by wrapper)."""
 
     def __init__(self, cfg, params, cache, tok, pos: int):
         from .. import kernels
@@ -60,12 +88,17 @@ class DecodeGraph:
         step = make_serve_step(cfg)
         self.tok = tok.clone()
         self.pos = torch.tensor(pos, dtype=torch.int64, device=dev)
+        state = recurrent_leaves(cache)
+        saved = [t.clone() for t in state]
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         t0 = time.perf_counter()
         with torch.cuda.stream(stream):
             step(params, cache, self.tok, self.pos)
+            for live, kept in zip(state, saved):
+                live.copy_(kept)
         torch.cuda.current_stream(dev).wait_stream(stream)
+        del saved
         before = kernels.launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=stream):
@@ -90,12 +123,30 @@ class DecodeGraph:
             kernels.KERNELS[name].launches += n
 
 
-def serve_tokens(cfg, params, tokens, new: int, graph=None) -> dict:
-    """Prefill ``tokens`` (B, S) into a cache of length S + new, then greedy
-    decode: ``new`` tokens per sequence, the first from the prefill's last
-    logits, each further one from a decode step.  The steps replay a
-    :class:`DecodeGraph` captured for this request (``graph``; default: on
-    CUDA tensors) or run eagerly (CPU tensors, or ``graph=False``).
+def context_stub(cfg, batch: int, rng, device):
+    """The reference's modality stub for ``cfg``: (B, T, D) fp32 frame
+    embeddings (whisper, T audio frames) or patch embeddings (the vision
+    model, T image tokens) drawn N(0, 1) from ``rng``; None for a text-only
+    architecture."""
+    if cfg.enc_dec:
+        t = cfg.n_audio_frames
+    elif cfg.cross_attn_every and cfg.family == "vlm":
+        t = cfg.n_image_tokens
+    else:
+        return None
+    return torch.tensor(rng.normal(0, 1, (batch, t, cfg.d_model)),
+                        dtype=torch.float32, device=device)
+
+
+def serve_tokens(cfg, params, tokens, new: int, graph=None,
+                 context=None) -> dict:
+    """Prefill ``tokens`` (B, S) (with ``context``, the frame or patch
+    embeddings of an architecture that cross-attends) into a cache of
+    length S + new, then greedy decode: ``new`` tokens per sequence, the
+    first from the prefill's last logits, each further one from a decode
+    step.  The steps replay a :class:`DecodeGraph` captured for this
+    request (``graph``; default: on CUDA tensors) or run eagerly (CPU
+    tensors, or ``graph=False``).
     Returns the tokens (B, new), every step's logits [(B, V)] (the
     prefill's first), the cache, the host-clock seconds of the prefill and
     of the decode loop (``decode_s``, the replays or eager steps only), and
@@ -110,7 +161,7 @@ def serve_tokens(cfg, params, tokens, new: int, graph=None) -> dict:
     prefill = make_prefill(cfg, max_len=s + new)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, tokens)
+    logits, cache = prefill(params, tokens, context)
     tok = logits[:, -1:].argmax(-1)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -153,7 +204,8 @@ def main_lm(args):
     tokens = torch.tensor(rng.integers(0, cfg.vocab, (args.batch,
                                                       args.prompt_len)),
                           device=dev)
-    res = serve_tokens(cfg, params, tokens, args.new)
+    ctx = context_stub(cfg, args.batch, rng, dev)
+    res = serve_tokens(cfg, params, tokens, args.new, context=ctx)
     steps = args.new - 1
     print(f"prefill {args.batch}x{args.prompt_len} in {res['prefill_s']:.2f}s")
     if "capture_s" in res:

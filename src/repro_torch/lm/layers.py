@@ -1,20 +1,26 @@
-"""LM building blocks of the attention and dense-MLP families
-(``repro/lm/layers.py``).
+"""LM building blocks (``repro/lm/layers.py``): attention variants, MLA,
+cross-attention, the dense MLP and MoE, Mamba, RWKV6 and its channel mix.
 
 Apply-style functions over parameter dicts, with the JAX module's names and
 layouts: activations (B, S, D); attention heads split as (B, H, S, hd);
-parameters in ``cfg.dtype`` (bf16 by default), norms, rope angles and the
-attention's softmax in fp32.  Every sequence mixer has a prefill form (full
-sequence) and a decode form (one token against a cache); ``serve_lib``
-wires the latter.
+parameters in ``cfg.dtype`` (bf16 by default), norms, rope angles, the
+attention's softmax, router scores and the recurrent scans in fp32.  Every
+sequence mixer has a prefill form (full sequence) and a decode form (one
+token against a cache or state); ``serve_lib`` wires the latter.  The decode
+forms write their cache or state in place and read the position on the
+device only, so a decode step can be captured as a CUDA graph.
 
 The attention itself is ``kernels.ops.attention_op``: the hand-written
-flash kernel on CUDA tensors, its plain version on CPU tensors.  Not
-ported: the mla, mamba, rwkv, cross and moe mixers (asking for one raises,
-naming ROADMAP Queue 1 item 13), and the JAX mesh knobs (``GQA_REPEAT``,
+flash kernel on CUDA tensors, its plain version on CPU tensors (MLA's
+prefill takes the kernel's (192, 128) instance; its absorbed decode, over a
+576-wide latent cache, stays plain, as the JAX package computes it outside
+any kernel).  MoE, Mamba and RWKV6 are plain PyTorch, as the JAX package
+leaves them to XLA.  Not ported: the JAX mesh knobs (``GQA_REPEAT``,
 ``FLASH_DECODE``, ``maybe_constrain``), which one card does not need.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -23,12 +29,17 @@ from ..configs.base import ArchConfig, LayerSpec
 from ..kernels.ops import attention_op, decode_attention_op
 
 ATTN_MIXERS = ("attn", "attn_local")
+# tensors above this many elements are drawn slice by slice along their
+# leading axes, so the fp32 draw's transient stays ~1 GiB (deepseek-v3's
+# stacked w_gate alone is 3.76 G elements)
+DRAW_WHOLE = 2 ** 28
 
 
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 13): the port's LM "
-        "has the attention (attn, attn_local) and dense-MLP families")
+        f"{what} is not ported yet (ROADMAP Queue 1 item 13: LM training, "
+        "lm/train_lib.py and lm/sharding.py); the port serves every "
+        "registry architecture on one card")
 
 
 def dt(cfg: ArchConfig) -> torch.dtype:
@@ -39,9 +50,21 @@ def normal(generator: torch.Generator, shape, std: float, dtype,
            device) -> torch.Tensor:
     """N(0, std^2) in ``dtype`` on ``device``; drawn in fp32 on the
     generator's device, so one seed gives the same weights wherever they
-    are put."""
-    x = torch.randn(shape, generator=generator, device=generator.device)
-    return (x * std).to(device=device, dtype=dtype)
+    are put.  A tensor of more than ``DRAW_WHOLE`` elements is drawn in
+    slices along its leading axes, each cast into the result as it comes."""
+    shape = tuple(shape)
+    if math.prod(shape) <= DRAW_WHOLE or len(shape) < 3:
+        x = torch.randn(shape, generator=generator, device=generator.device)
+        return (x * std).to(device=device, dtype=dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.view(-1, *shape[-2:])
+    per = max(1, DRAW_WHOLE // (shape[-2] * shape[-1]))
+    for i in range(0, rows.shape[0], per):
+        n = min(per, rows.shape[0] - i)
+        x = torch.randn((n, *shape[-2:]), generator=generator,
+                        device=generator.device)
+        rows[i:i + n] = x.mul_(std)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +198,122 @@ def attention_decode(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos):
 
 
 # ---------------------------------------------------------------------------
+# MLA (deepseek-v3): low-rank q/kv compression; absorbed decode
+# ---------------------------------------------------------------------------
+
+def init_mla(generator, cfg: ArchConfig, dtype, device, lead=()) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    draw = lambda std, *shape: normal(generator, (*lead, *shape), std, dtype,
+                                      device)
+    zeros = lambda n: torch.zeros((*lead, n), dtype=dtype, device=device)
+    std = d ** -0.5
+    return {"w_dq": draw(std, d, qr), "q_norm": zeros(qr),
+            "w_uq": draw(qr ** -0.5, qr, h, dn + dr),
+            "w_dkv": draw(std, d, kvr), "kv_norm": zeros(kvr),
+            "w_kr": draw(std, d, dr),
+            "w_uk": draw(kvr ** -0.5, kvr, h, dn),
+            "w_uv": draw(kvr ** -0.5, kvr, h, dv),
+            "wo": draw((h * dv) ** -0.5, h, dv, d)}
+
+
+def mla_compress(p, x, cfg: ArchConfig, positions):
+    """Shared compression: returns (q_nope, q_rope, ckv, k_rope)."""
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhe->bhse", cq, p["w_uq"])
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
+    ckv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)   # (B,S,kvr)
+    k_rope = rope((x @ p["w_kr"])[:, None], positions,
+                  cfg.rope_theta)                                # (B,1,S,dr)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_attend(p, cfg: ArchConfig, q_nope, q_rope, ckv, k_rope):
+    """Prefill from the compressed tensors: K/V decompressed per layer, the
+    attention with D = qk_nope + qk_rope and DV = v_head_dim (the flash
+    kernel's (192, 128) instance at deepseek-v3's widths)."""
+    k_nope = torch.einsum("bsr,rhe->bhse", ckv, p["w_uk"])
+    v = torch.einsum("bsr,rhe->bhse", ckv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1],
+                                         cfg.qk_rope_dim)], -1)
+    o = chunked_attention(q, k, v, causal=True)
+    return torch.einsum("bhse,hed->bsd", o, p["wo"])
+
+
+def mla_layer(p, x, cfg: ArchConfig, spec: LayerSpec, positions):
+    """Training/prefill: decompress k/v per layer (standard path)."""
+    return mla_attend(p, cfg, *mla_compress(p, x, cfg, positions))
+
+
+def mla_decode(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos):
+    """Absorbed decode over the ``ckv`` (B, S_max, kv_lora_rank) and
+    ``k_rope`` (B, S_max, qk_rope) cache, written in place at ``pos``:
+    score = (q_nope W_uk) ckv^T + q_rope k_rope^T, out = (attn ckv) W_uv,
+    the softmax over the whole cache in fp32 under the mask t <= pos.
+    Plain PyTorch: its head width, kv_lora_rank + qk_rope = 576, has no
+    kernel in the JAX package either."""
+    pos = decode_position(pos, x.device)
+    q_nope, q_rope, ckv_new, kr_new = mla_compress(
+        p, x, cfg, pos.expand(x.shape[0], 1))
+    idx = pos.reshape(1)
+    cache["ckv"].index_copy_(1, idx, ckv_new)
+    cache["k_rope"].index_copy_(1, idx, kr_new[:, 0])
+    ckv = cache["ckv"].to(torch.float32)
+    q_c = torch.einsum("bhse,rhe->bhsr", q_nope, p["w_uk"])      # absorb W_uk
+    s = (torch.einsum("bhsr,btr->bhst", q_c.to(torch.float32), ckv)
+         + torch.einsum("bhse,bte->bhst", q_rope.to(torch.float32),
+                        cache["k_rope"].to(torch.float32)))
+    s = s / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)   # no host copy
+    mask = torch.arange(ckv.shape[1], device=x.device) <= pos
+    s = torch.where(mask, s, torch.full((), -1e30, device=x.device))
+    w = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhst,btr->bhsr", w, ckv)
+    o = torch.einsum("bhsr,rhe->bhse", o_c.to(x.dtype), p["w_uv"])
+    return torch.einsum("bhse,hed->bsd", o, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper decoder, llama-3.2-vision)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(generator, cfg: ArchConfig, dtype, device,
+                         lead=()) -> dict:
+    """wq, wk, wv, wo as in :func:`init_attention` (no bias or qk norm),
+    and the context's norm ``ctx_norm``."""
+    hd = cfg.resolved_head_dim
+    d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    draw = lambda *shape: normal(generator, (*lead, *shape), d ** -0.5, dtype,
+                                 device)
+    return {"wq": draw(d, h, hd), "wk": draw(d, kv, hd), "wv": draw(d, kv, hd),
+            "wo": draw(h, hd, d),
+            "ctx_norm": torch.zeros((*lead, d), dtype=dtype, device=device)}
+
+
+def cross_kv(p, context, cfg: ArchConfig):
+    """The context's k/v (B, Hkv, T, hd) after the layer's ``ctx_norm``."""
+    ctx = rms_norm(context, p["ctx_norm"], cfg.norm_eps)
+    return (torch.einsum("btd,dhe->bhte", ctx, p["wk"]),
+            torch.einsum("btd,dhe->bhte", ctx, p["wv"]))
+
+
+def cross_attend(p, x, k, v):
+    """Non-causal attention of x's queries over the context's k/v."""
+    q = torch.einsum("bsd,dhe->bhse", x, p["wq"])
+    o = chunked_attention(q, k, v, causal=False)
+    return torch.einsum("bhse,hed->bsd", o, p["wo"])
+
+
+def cross_attention_layer(p, x, context, cfg: ArchConfig):
+    """context (B, T, D): image patches / audio frames (modality stub).
+    Keys past T are masked by the kernel (the Pallas kernel attends to its
+    zero padding there; the JAX LM's ``chunked_attention`` masks them)."""
+    return cross_attend(p, x, *cross_kv(p, context, cfg))
+
+
+# ---------------------------------------------------------------------------
 # Dense MLP
 # ---------------------------------------------------------------------------
 
@@ -190,3 +329,386 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype, device,
 def mlp_layer(p, x, act="silu"):
     g = act_fn(act)(x @ p["w_gate"])
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: dropping experts with cumsum positions
+# ---------------------------------------------------------------------------
+
+def init_moe(generator, cfg: ArchConfig, dtype, device, lead=()) -> dict:
+    e = cfg.n_experts
+    dff = cfg.moe_d_ff or cfg.d_ff
+    d = cfg.d_model
+    draw = lambda std, *shape: normal(generator, (*lead, *shape), std, dtype,
+                                      device)
+    p = {"router": normal(generator, (*lead, d, e), d ** -0.5, torch.float32,
+                          device),
+         "w_gate": draw(d ** -0.5, e, d, dff),
+         "w_up": draw(d ** -0.5, e, d, dff),
+         "w_down": draw(dff ** -0.5, e, dff, d)}
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(generator, d, dff * cfg.n_shared_experts,
+                               dtype, device, lead)
+    return p
+
+
+def moe_route(p, xf, cfg: ArchConfig):
+    """Routing of xf (T, D): (topw (T, k) fp32, topi (T, k) int64, pos
+    (T, k) slot within the expert, clamped to C - 1, keep (T, k) bool,
+    capacity C, aux loss).  ``topi`` is the first k of a stable descending
+    sort of the scores, so ties go to the lower expert index, as
+    ``jax.lax.top_k`` breaks them; positions come from k cumsum passes in
+    the reference's order.  No host read: a decode step with MoE can be
+    captured as a CUDA graph."""
+    t = xf.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    logits = xf.to(torch.float32) @ p["router"]
+    if cfg.router_scores == "sigmoid":      # deepseek-v3 aux-free style
+        scores = torch.sigmoid(logits)
+    else:
+        scores = torch.softmax(logits, -1)
+    topw, topi = torch.sort(scores, dim=-1, descending=True, stable=True)
+    topw, topi = topw[:, :k], topi[:, :k]
+    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # load-balance aux loss (Switch-style): f_e * p_e
+    pe = (scores if cfg.router_scores == "softmax"
+          else torch.softmax(logits, -1)).mean(0)
+    experts = torch.arange(e, device=xf.device)
+    fe = (topi.reshape(-1, 1) == experts).sum(0).to(torch.float32) / (t * k)
+    aux = e * (pe * fe).sum()
+
+    # slots per expert, from the call's token count (the reference's: a
+    # prefill and a decode step route under different capacities)
+    capacity = max(int(t * k / e * cfg.capacity_factor), 4)
+    pos_list, keep_list = [], []
+    counts = torch.zeros((e,), dtype=torch.int64, device=xf.device)
+    for j in range(k):
+        onehot = (topi[:, j:j + 1] == experts).to(torch.int64)      # (T, E)
+        before = (onehot.cumsum(0) - onehot).gather(1, topi[:, j:j + 1])
+        pos_j = counts[topi[:, j]] + before[:, 0]
+        counts = counts + onehot.sum(0)
+        keep_list.append(pos_j < capacity)
+        pos_list.append(pos_j.clamp_max(capacity - 1))
+    return (topw, topi, torch.stack(pos_list, 1), torch.stack(keep_list, 1),
+            capacity, aux)
+
+
+def moe_layer(p, x, cfg: ArchConfig, act="silu"):
+    """Dropping MoE (the reference's ``moe_layer``).  Returns (out, aux).
+
+    The dispatch buffer (E * C, D) is a gather, not the reference's
+    scatter-add: the kept (token, slot) pairs have distinct slots (their
+    positions count up per expert), so a slot -> token map written with
+    them (dropped pairs write a spare slot) and a gather from x padded with
+    a zero row give the same buffer, and the same bits on every call (a
+    CUDA ``index_add_`` adds colliding rows in no fixed order)."""
+    b, s, d = x.shape
+    t = b * s
+    e = cfg.n_experts
+    xf = x.reshape(t, d)
+    topw, topi, pos, keep, capacity, aux = moe_route(p, xf, cfg)
+    dest = topi * capacity + pos                                  # (T, k)
+    slot_token = torch.full((e * capacity + 1,), t, dtype=torch.int64,
+                            device=x.device)
+    tokens = torch.arange(t, device=x.device).unsqueeze(1).expand_as(dest)
+    slot_token.scatter_(0, torch.where(keep, dest, e * capacity).reshape(-1),
+                        tokens.reshape(-1))
+    xpad = torch.cat([xf, xf.new_zeros((1, d))])
+    buf = xpad[slot_token[:-1]].view(e, capacity, d)
+
+    g = act_fn(act)(torch.bmm(buf, p["w_gate"]))
+    u = torch.bmm(buf, p["w_up"])
+    h = torch.bmm(g * u, p["w_down"]).view(e * capacity, d)
+
+    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    for j in range(cfg.top_k):
+        w_j = (topw[:, j] * keep[:, j]).to(x.dtype)
+        out = out + h[dest[:, j]] * w_j[:, None]
+    if cfg.n_shared_experts:
+        out = out + mlp_layer(p["shared"], xf, act)
+    return out.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba (jamba): selective SSM with a chunked scan
+# ---------------------------------------------------------------------------
+
+def softplus(x):
+    """log(1 + e^x) as ``jax.nn.softplus`` forms it (logaddexp(x, 0))."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def init_mamba(generator, cfg: ArchConfig, dtype, device, lead=()) -> dict:
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    n = cfg.ssm_d_state
+    dt_rank = max(d // 16, 1)
+    draw = lambda std, *shape: normal(generator, (*lead, *shape), std, dtype,
+                                      device)
+    full = lambda v: v.to(device).expand(*lead, *v.shape).clone()
+    lin = torch.linspace(1e-3, 1e-1, di, dtype=torch.float32)
+    return {
+        "w_in": draw(d ** -0.5, d, 2 * di),
+        "conv_w": draw(0.3, cfg.ssm_conv, di),
+        "conv_b": torch.zeros((*lead, di), dtype=dtype, device=device),
+        "w_bcdt": draw(di ** -0.5, di, 2 * n + dt_rank),
+        "w_dt": draw(dt_rank ** -0.5, dt_rank, di),
+        "dt_bias": full(torch.log(torch.exp(lin) - 1).to(dtype)),
+        "A_log": full(torch.log(torch.arange(1, n + 1, dtype=torch.float32)
+                                .repeat(di, 1))),
+        "D": full(torch.ones((di,), dtype=torch.float32)),
+        "w_out": draw(di ** -0.5, di, d),
+    }
+
+
+def linear_scan(a, b):
+    """Inclusive scan of the maps h -> a_t h + b_t along axis 1: (A_t, B_t)
+    with A_t = a_t ... a_1 and B_t = sum_s (a_t ... a_s+1) b_s, so that
+    h_t = A_t h_0 + B_t.  Log-depth doubling (Hillis-Steele): at offset o,
+    each step composes with the one o earlier as (a1, b1) then (a2, b2) ->
+    (a1 a2, a2 b1 + b2), the reference's ``associative_scan`` combine; the
+    association order differs from XLA's, so the sums agree to rounding."""
+    n = a.shape[1]
+    off = 1
+    while off < n:
+        a_new = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], 1)
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]], 1)
+        a = a_new
+        off *= 2
+    return a, b
+
+
+def _mamba_scan(u, dt_, B_, C_, A, chunk: int, h0=None):
+    """u/dt_ (B,S,Di), B_/C_ (B,S,N), A (Di,N).  Chunked selective scan:
+    within a chunk the log-depth :func:`linear_scan`, across chunks a loop
+    carrying the state.  Returns (y (B,S,Di), h_last (B,Di,N))."""
+    b, s, di = u.shape
+    n = B_.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        z3 = lambda a: F.pad(a, (0, 0, 0, pad))
+        u, dt_, B_, C_ = z3(u), z3(dt_), z3(B_), z3(C_)
+        # padded steps are identity updates (dt = 0: decay 1, input 0), or
+        # the carried final state would be decayed by them
+        valid = (torch.arange(s + pad, device=u.device) < s).to(dt_.dtype)
+        dt_ = dt_ * valid[None, :, None]
+    h = (torch.zeros((b, di, n), dtype=torch.float32, device=u.device)
+         if h0 is None else h0)
+    ys = []
+    for c0 in range(0, s + pad, chunk):
+        uj, dtj = u[:, c0:c0 + chunk], dt_[:, c0:c0 + chunk]
+        Bj, Cj = B_[:, c0:c0 + chunk], C_[:, c0:c0 + chunk]
+        dA = dtj[..., None] * A[None, None]          # (B, L, Di, N) log-decay
+        dBu = (dtj * uj)[..., None] * Bj[:, :, None, :]
+        # a = exp(dA) <= 1: the composition stays bounded, unlike a
+        # cumsum-of-ratios form
+        prod_a, hs_b = linear_scan(torch.exp(dA), dBu)
+        hs = prod_a * h[:, None] + hs_b               # (B, L, Di, N)
+        ys.append(torch.einsum("blin,bln->bli", hs, Cj))
+        h = hs[:, -1]
+    return torch.cat(ys, 1)[:, :s], h
+
+
+def _mamba_inputs(p, xin, cfg: ArchConfig):
+    """B, C (fp32) and dt (fp32, softplus) from the conv output xin."""
+    n = cfg.ssm_d_state
+    bcdt = xin @ p["w_bcdt"]
+    B_ = bcdt[..., :n].to(torch.float32)
+    C_ = bcdt[..., n:2 * n].to(torch.float32)
+    dt_ = softplus(bcdt[..., 2 * n:] @ p["w_dt"] + p["dt_bias"]).to(
+        torch.float32)
+    return B_, C_, dt_
+
+
+def mamba_layer(p, x, cfg: ArchConfig, state=None, chunk: int = 0,
+                return_state: bool = False):
+    """Full-sequence mamba mixer.  ``return_state`` also yields the decode
+    state {"conv" (B,K,Di) raw-input tail, "ssm" (B,Di,N)}."""
+    if not chunk:   # adaptive: longer chunks at long sequence lengths
+        chunk = 128 if x.shape[1] <= 8192 else 512
+    s = x.shape[1]
+    xraw, z = (x @ p["w_in"]).chunk(2, dim=-1)            # (B,S,Di) each
+    k = p["conv_w"].shape[0]
+    xpad = F.pad(xraw, (0, 0, k - 1, 0))                  # causal depthwise
+    conv = sum(xpad[:, i:i + s] * p["conv_w"][i] for i in range(k))
+    xin = F.silu(conv + p["conv_b"])
+    B_, C_, dt_ = _mamba_inputs(p, xin, cfg)
+    A = -torch.exp(p["A_log"])
+    h0 = state["ssm"] if state is not None else None
+    y, h_last = _mamba_scan(xin.to(torch.float32), dt_, B_, C_, A, chunk, h0)
+    y = y + p["D"] * xin.to(torch.float32)
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ p["w_out"]
+    if return_state:
+        return out, {"conv": xpad[:, -k:, :], "ssm": h_last}
+    return out
+
+
+def mamba_decode(p, x, cfg: ArchConfig, state, pos):
+    """One-token decode with the carried (conv window, ssm state), both
+    written in place."""
+    xin, z = (x @ p["w_in"]).chunk(2, dim=-1)             # (B,1,Di)
+    conv_buf = torch.cat([state["conv"][:, 1:], xin], 1)  # (B,K,Di)
+    conv = (conv_buf * p["conv_w"][None]).sum(1, keepdim=True)
+    xin = F.silu(conv + p["conv_b"])
+    B_, C_, dt_ = _mamba_inputs(p, xin, cfg)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt_[..., None] * A)                    # (B,1,Di,N)
+    dBu = (dt_ * xin.to(torch.float32))[..., None] * B_[:, :, None, :]
+    h = dA[:, 0] * state["ssm"] + dBu[:, 0]
+    y = torch.einsum("bin,bn->bi", h, C_[:, 0])[:, None, :]
+    y = y + p["D"] * xin.to(torch.float32)
+    y = y.to(x.dtype) * F.silu(z)
+    state["conv"].copy_(conv_buf)
+    state["ssm"].copy_(h)
+    return y @ p["w_out"], state
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 ("Finch"): data-dependent decay linear attention, chunked
+# ---------------------------------------------------------------------------
+
+def init_rwkv(generator, cfg: ArchConfig, dtype, device, lead=()) -> dict:
+    d = cfg.d_model
+    lora = max(d // 16, 32)
+    std = d ** -0.5
+    draw = lambda std, *shape: normal(generator, (*lead, *shape), std, dtype,
+                                      device)
+    full = lambda v, *shape: torch.full((*lead, *shape), v, dtype=dtype,
+                                        device=device)
+    return {
+        "mu": full(0.5, 5, d),    # token-shift mix for r, k, v, w, g
+        "w_r": draw(std, d, d), "w_k": draw(std, d, d),
+        "w_v": draw(std, d, d), "w_g": draw(std, d, d),
+        "w_o": draw(std, d, d),
+        "w0": full(-6.0, d),      # data-dependent decay exp(-exp(w0 + lora))
+        "w_lora_a": draw(std, d, lora),
+        "w_lora_b": draw(lora ** -0.5, lora, d),
+        "u": draw(0.1, d),        # bonus
+        "ln_g": full(0.0, d),
+    }
+
+
+def _rwkv_chunk(r, k, v, logw, u, h0, chunk: int):
+    """r/k/v/logw (B,S,H,hd) with logw <= 0; u (H,hd); h0 (B,H,hd,hd).
+
+    Chunked evaluation of o_t = r_t . (S_{t-1} + u k_t v_t^T),
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T (decay on the k-dimension): a loop
+    over chunks carrying S, the factored form with the strict tril mask
+    within a chunk.
+    """
+    b, s, h, hd = r.shape
+    pad = (-s) % chunk
+    if pad:
+        z = lambda a: F.pad(a, (0, 0, 0, 0, 0, pad))
+        r, k, v, logw = z(r), z(k), z(v), z(logw)
+    hsplit = lambda a: a.transpose(1, 2)               # (B, H, S, hd)
+    r, k, v, logw = hsplit(r), hsplit(k), hsplit(v), hsplit(logw)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
+                                device=r.device), diagonal=-1)
+    S = (torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+         if h0 is None else h0)
+    os_ = []
+    for c0 in range(0, s + pad, chunk):
+        rj, kj = r[:, :, c0:c0 + chunk], k[:, :, c0:c0 + chunk]
+        vj, wj = v[:, :, c0:c0 + chunk], logw[:, :, c0:c0 + chunk]
+        cl = torch.cumsum(wj, dim=2)                  # cumulative log decay
+        cl_prev = cl - wj                             # up to t - 1
+        rdec = rj * torch.exp(cl_prev)
+        o_inter = torch.einsum("bhld,bhde->bhle", rdec, S)
+        # exp(-cl) stays bounded: the layer clamps the per-step log decay
+        scores = torch.einsum("bhid,bhjd->bhij", rdec, kj * torch.exp(-cl))
+        scores = scores * tri[None, None]
+        diag = torch.einsum("bhid,bhid->bhi", rj * u[None, :, None, :], kj)
+        os_.append(o_inter + torch.einsum("bhij,bhje->bhie", scores, vj)
+                   + diag[..., None] * vj)
+        last = cl[:, :, -1:, :]
+        S = (torch.exp(last).transpose(2, 3) * S
+             + torch.einsum("bhjd,bhje->bhde", kj * torch.exp(last - cl), vj))
+    o = torch.cat(os_, 2).transpose(1, 2)[:, :s]
+    return o, S
+
+
+def _rwkv_mix(p, x, xs):
+    """The token-shift mixes: mix(i) = x + (xs - x) * mu[i]."""
+    return lambda i: x + (xs - x) * p["mu"][i]
+
+
+def _rwkv_decay_logit(p, mix):
+    return (p["w0"] + torch.tanh(mix(3) @ p["w_lora_a"]) @ p["w_lora_b"]).to(
+        torch.float32).clamp(-20.0, 2.0)
+
+
+def rwkv_layer(p, x, cfg: ArchConfig, state=None, chunk: int = 0,
+               return_state: bool = False):
+    b, s, d = x.shape
+    if not chunk:   # adaptive; the decay clamp keeps exp(0.35*chunk) in fp32
+        chunk = 32 if s <= 4096 else 128
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    xs = F.pad(x, (0, 0, 1, 0))[:, :-1]               # token shift
+    mix = _rwkv_mix(p, x, xs)
+    r, k, v = mix(0) @ p["w_r"], mix(1) @ p["w_k"], mix(2) @ p["w_v"]
+    # per-step log decay clamped to >= -0.35, as the reference clamps it
+    # here (and not in rwkv_decode)
+    logw = torch.clamp_min(-torch.exp(_rwkv_decay_logit(p, mix)), -0.35)
+    g = F.silu(mix(4) @ p["w_g"])
+    hsplit = lambda a: a.reshape(b, s, h, hd)
+    h0 = state["S"] if state is not None else None
+    o, S = _rwkv_chunk(hsplit(r).to(torch.float32),
+                       hsplit(k).to(torch.float32),
+                       hsplit(v).to(torch.float32), hsplit(logw),
+                       p["u"].to(torch.float32).reshape(h, hd), h0, chunk)
+    o = o.reshape(b, s, d).to(x.dtype)
+    o = rms_norm(o, p["ln_g"], cfg.norm_eps) * g
+    out = o @ p["w_o"]
+    if return_state:
+        return out, {"S": S, "shift": x[:, -1:, :]}
+    return out
+
+
+def rwkv_decode(p, x, cfg: ArchConfig, state, pos):
+    """state = {"S": (B,H,hd,hd), "shift": (B,1,D)}, written in place.  The
+    log decay is not clamped here (the reference's asymmetry)."""
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    mix = _rwkv_mix(p, x, state["shift"])
+    heads = lambda a: a.reshape(b, h, hd).to(torch.float32)
+    r, k, v = (heads(mix(0) @ p["w_r"]), heads(mix(1) @ p["w_k"]),
+               heads(mix(2) @ p["w_v"]))
+    logw = -torch.exp(_rwkv_decay_logit(p, mix)).reshape(b, h, hd)
+    g = F.silu(mix(4) @ p["w_g"])
+    u = p["u"].to(torch.float32).reshape(h, hd)
+    S = state["S"]
+    o = (torch.einsum("bhd,bhde->bhe", r, S)
+         + (r * u * k).sum(-1, keepdim=True) * v)
+    S_new = torch.exp(logw)[..., None] * S + k[..., None] * v[..., None, :]
+    o = o.reshape(b, 1, d).to(x.dtype)
+    o = rms_norm(o, p["ln_g"], cfg.norm_eps) * g
+    state["S"].copy_(S_new)
+    state["shift"].copy_(x)
+    return o @ p["w_o"], state
+
+
+# ---------------------------------------------------------------------------
+# RWKV channel mix (the "dense" mlp of the ssm family)
+# ---------------------------------------------------------------------------
+
+def init_rwkv_cmix(generator, d: int, d_ff: int, dtype, device,
+                   lead=()) -> dict:
+    draw = lambda std, *shape: normal(generator, (*lead, *shape), std, dtype,
+                                      device)
+    return {"mu": torch.full((*lead, 2, d), 0.5, dtype=dtype, device=device),
+            "w_k": draw(d ** -0.5, d, d_ff),
+            "w_v": draw(d_ff ** -0.5, d_ff, d),
+            "w_r": draw(d ** -0.5, d, d)}
+
+
+def rwkv_cmix(p, x, shift_state=None):
+    xs = F.pad(x, (0, 0, 1, 0))[:, :-1] if shift_state is None else shift_state
+    kx = x + (xs - x) * p["mu"][0]
+    rx = x + (xs - x) * p["mu"][1]
+    k = torch.square(F.relu(kx @ p["w_k"]))
+    return torch.sigmoid(rx @ p["w_r"]) * (k @ p["w_v"])

@@ -4,14 +4,14 @@ The parameter tree keeps the JAX layout: ``embed``, ``final_norm``
 (``lm_head`` when the embeddings are not tied), ``prefix`` as a list of
 per-layer dicts, and ``pattern`` as a list (one entry per position of the
 repeating pattern, ``ArchConfig.scan_pattern``) of dicts of tensors stacked
-along a leading ``(n_steps,)`` axis.  The JAX ``lax.scan`` over pattern
-periods is a Python loop that takes step ``s`` of every stacked tensor as a
-view.
+along a leading ``(n_steps,)`` axis; whisper's ``encoder`` (stacked along
+``(n_enc_layers,)``), ``enc_norm`` and ``frame_proj``, the vision model's
+``img_proj``, and deepseek's ``mtp_layer``, ``mtp_norm`` and ``mtp_proj``.
+The JAX ``lax.scan`` over pattern periods is a Python loop that takes step
+``s`` of every stacked tensor as a view.
 
-Not ported: ``remat``, ``mesh`` and ``context`` (``forward`` raises if asked
-for them), the encoder and modality stubs and ``mtp_logits``; nor the
-mixers and MLPs other than attention and the dense MLP (ROADMAP Queue 1
-item 13).
+Not ported: ``remat`` and ``mesh`` (``forward`` raises if asked for them),
+which belong to LM training (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -21,36 +21,77 @@ from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device
 from . import layers as L
 
+# the whisper encoder's layers and deepseek's MTP layer
+ENC_SPEC = LayerSpec(mixer="attn", mlp="dense", use_rope=False)
+MTP_SPEC = LayerSpec("attn", "dense")
 
-def _check_supported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.mixer not in L.ATTN_MIXERS:
-        raise L.unported(f"the {spec.mixer!r} mixer")
-    if spec.mlp != "dense" or cfg.family == "ssm":
-        raise L.unported(f"the {spec.mlp!r} channel mixer of {cfg.name}")
+
+def _init_mixer(generator, cfg: ArchConfig, spec: LayerSpec, dtype, device,
+                lead):
+    init = {"attn": L.init_attention, "attn_local": L.init_attention,
+            "mla": L.init_mla, "mamba": L.init_mamba, "rwkv": L.init_rwkv,
+            "cross": L.init_cross_attention}.get(spec.mixer)
+    if init is None:
+        raise ValueError(spec.mixer)
+    return init(generator, cfg, dtype, device, lead)
+
+
+def _init_mlp(generator, cfg: ArchConfig, spec: LayerSpec, dtype, device,
+              lead):
+    if spec.mlp == "moe":
+        return L.init_moe(generator, cfg, dtype, device, lead)
+    if cfg.family == "ssm":
+        return L.init_rwkv_cmix(generator, cfg.d_model, cfg.d_ff, dtype,
+                                device, lead)
+    return L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device, lead)
 
 
 def init_layer(generator, cfg: ArchConfig, spec: LayerSpec, dtype, device,
                lead=()) -> dict:
-    _check_supported(cfg, spec)
     zeros = torch.zeros((*lead, cfg.d_model), dtype=dtype, device=device)
-    return {
-        "norm1": zeros,
-        "mixer": L.init_attention(generator, cfg, dtype, device, lead),
-        "norm2": zeros.clone(),
-        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, dtype, device,
-                          lead),
-    }
+    return {"norm1": zeros,
+            "mixer": _init_mixer(generator, cfg, spec, dtype, device, lead),
+            "norm2": zeros.clone(),
+            "mlp": _init_mlp(generator, cfg, spec, dtype, device, lead)}
+
+
+def apply_mixer(p, h, cfg: ArchConfig, spec: LayerSpec, positions,
+                context=None, causal=True):
+    """The sequence mixer of one layer on its normed input ``h``."""
+    if spec.mixer in L.ATTN_MIXERS:
+        return L.attention_layer(p, h, cfg, spec, positions, causal)
+    if spec.mixer == "mla":
+        return L.mla_layer(p, h, cfg, spec, positions)
+    if spec.mixer == "mamba":
+        return L.mamba_layer(p, h, cfg)
+    if spec.mixer == "rwkv":
+        return L.rwkv_layer(p, h, cfg)
+    if spec.mixer == "cross":
+        if context is None:
+            raise ValueError(f"{cfg.name}'s cross-attention layers need a "
+                             "context (frame or patch embeddings)")
+        return L.cross_attention_layer(p, h, context, cfg)
+    raise ValueError(spec.mixer)
+
+
+def apply_mlp(p, h, cfg: ArchConfig, spec: LayerSpec):
+    """The channel mixer of one layer on its normed input: (out, aux)."""
+    if spec.mlp == "moe":
+        return L.moe_layer(p, h, cfg, cfg.act)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "ssm":
+        return L.rwkv_cmix(p, h), aux
+    return L.mlp_layer(p, h, cfg.act), aux
 
 
 def apply_layer(p, x, cfg: ArchConfig, spec: LayerSpec, positions,
-                causal=True):
+                context=None, causal=True):
     """Pre-norm residual block.  Returns (x, aux_loss)."""
-    _check_supported(cfg, spec)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + L.attention_layer(p["mixer"], h, cfg, spec, positions, causal)
+    x = x + apply_mixer(p["mixer"], h, cfg, spec, positions, context, causal)
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + L.mlp_layer(p["mlp"], h, cfg.act), aux
+    o, aux = apply_mlp(p["mlp"], h, cfg, spec)
+    return x + o, aux
 
 
 def step_params(stacked: dict, s: int) -> dict:
@@ -78,35 +119,65 @@ def layers_in_order(params, cfg: ArchConfig):
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """Parameters with the JAX initialiser's structure and scales (normal
-    times std, zeros for norms and biases) in ``cfg.dtype``.  The numbers
+    times std, zeros for norms and biases, the reference's constants for
+    Mamba's and RWKV's) in ``cfg.dtype`` (the router in fp32).  The numbers
     come from ``generator``, drawn on its device; the stacked pattern
-    tensors are drawn whole, one per position."""
+    tensors are drawn whole, one per position, or in slices when large
+    (``layers.normal``)."""
     dev = resolve_device(device)
-    if cfg.enc_dec or cfg.cross_attn_every or cfg.mtp:
-        raise L.unported(f"the encoder/modality/MTP parts of {cfg.name}")
     dtype = L.dt(cfg)
     prefix_n, n_steps, pattern = cfg.scan_pattern()
     specs = cfg.layer_specs()
-    for spec in specs:
-        _check_supported(cfg, spec)
-    params: dict = {
-        "embed": L.normal(generator, (cfg.vocab, cfg.d_model), 0.02, dtype,
-                          dev),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
-    }
+    d = cfg.d_model
+    draw = lambda std, *shape: L.normal(generator, shape, std, dtype, dev)
+    zeros = lambda: torch.zeros((d,), dtype=dtype, device=dev)
+    params: dict = {"embed": draw(0.02, cfg.vocab, d), "final_norm": zeros()}
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.normal(generator, (cfg.d_model, cfg.vocab),
-                                     cfg.d_model ** -0.5, dtype, dev)
+        params["lm_head"] = draw(d ** -0.5, d, cfg.vocab)
     params["prefix"] = [init_layer(generator, cfg, specs[i], dtype, dev)
                         for i in range(prefix_n)]
     params["pattern"] = [init_layer(generator, cfg, spec, dtype, dev,
                                     lead=(n_steps,)) for spec in pattern]
+    if cfg.enc_dec:
+        params["encoder"] = init_layer(generator, cfg, ENC_SPEC, dtype, dev,
+                                       lead=(cfg.n_enc_layers,))
+        params["enc_norm"] = zeros()
+        # conv frontend stub: precomputed frame embeddings; one projection
+        # stands in for the conv stack
+        params["frame_proj"] = draw(d ** -0.5, d, d)
+    if cfg.cross_attn_every:
+        # modality stub: image patch embeddings arrive precomputed
+        params["img_proj"] = draw(d ** -0.5, d, d)
+    if cfg.mtp:
+        params["mtp_layer"] = init_layer(generator, cfg, MTP_SPEC, dtype, dev)
+        params["mtp_norm"] = zeros()
+        params["mtp_proj"] = draw((2 * d) ** -0.5, 2 * d, d)
     return params
 
 
 # ---------------------------------------------------------------------------
-# Forward pass
+# Forward passes
 # ---------------------------------------------------------------------------
+
+def encode_context(params, cfg: ArchConfig, context):
+    """Modality frontend stub: frame embeddings through ``frame_proj`` and
+    the encoder stack (non-causal, rope applied as the reference's
+    ``attention_qkv`` applies it), or patch embeddings through
+    ``img_proj``; None stays None."""
+    if context is None:
+        return None
+    ctx = context.to(L.dt(cfg))
+    if cfg.enc_dec:
+        x = ctx @ params["frame_proj"]
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i in range(cfg.n_enc_layers):
+            x, _ = apply_layer(step_params(params["encoder"], i), x, cfg,
+                               ENC_SPEC, pos, causal=False)
+        return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    if cfg.cross_attn_every:
+        return ctx @ params["img_proj"]
+    return ctx
+
 
 def logits_head(params, cfg: ArchConfig, x):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -124,19 +195,33 @@ def final_softcap(cfg: ArchConfig, logits):
 
 def forward(params, cfg: ArchConfig, tokens, context=None,
             return_hidden: bool = False, remat: str = "none", mesh=None):
-    """tokens (B, S) -> (logits (B, S, V), aux_loss); with
+    """tokens (B, S) -> (logits (B, S, V), aux_loss), the MoE layers' aux
+    losses summed; ``context``: frame or patch embeddings (B, T, D); with
     ``return_hidden`` also the final normed hidden states."""
-    if context is not None or remat != "none" or mesh is not None:
-        raise L.unported("forward with context, remat or mesh")
+    if remat != "none" or mesh is not None:
+        raise L.unported("forward with remat or a mesh")
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     x = params["embed"][tokens]
+    ctx = encode_context(params, cfg, context)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer_p, spec in layers_in_order(params, cfg):
-        x, aux = apply_layer(layer_p, x, cfg, spec, positions)
+        x, aux = apply_layer(layer_p, x, cfg, spec, positions, context=ctx)
         aux_total = aux_total + aux
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = final_softcap(cfg, logits_head(params, cfg, x))
     if return_hidden:
         return logits, x, aux_total
     return logits, aux_total
+
+
+def mtp_logits(params, cfg: ArchConfig, hidden, tokens):
+    """DeepSeek MTP: one extra layer predicting token t+2 from
+    [h_t ; emb(token_{t+1})] (single-depth MTP, as in the paper); the
+    caller shifts ``tokens``."""
+    emb_next = params["embed"][tokens]
+    h = torch.cat([hidden, emb_next], -1) @ params["mtp_proj"]
+    h, _ = apply_layer(params["mtp_layer"], h, cfg, MTP_SPEC,
+                       torch.arange(h.shape[1], device=h.device))
+    h = L.rms_norm(h, params["mtp_norm"], cfg.norm_eps)
+    return logits_head(params, cfg, h)

@@ -70,6 +70,13 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   ``flash_attention`` gives exactly 0 for a row with no visible key;
 * a reduced gemma2 decode step captured as a CUDA graph (``launch/serve.py
   ::DecodeGraph``) gives the eager step's tokens and logits bit for bit;
+  so does every registry architecture at a reduced width in bf16 (rwkv6's
+  and jamba's recurrent state restored after the graph's warm-up step;
+  MLA, MoE, cross-attention and the encoder among them);
+* MLA's (D, DV) = (192, 128) instance of ``flash_attention`` against its
+  plain version in fp32 and bf16 at Sq <= 16 (the prefill kernels, not the
+  decode kernel) and Sq > 16, causal and not, at the gates above, a repeat
+  the same bits; a (D, DV) without an instance raises on CUDA tensors;
 * the attention kernels at embedding widths M = 30 and 62 (padded to a
   multiple of 4 by the wrappers): forward and force-path backward against
   the plain version, atol 1e-4 x max, exact zeros at the masked slots;
@@ -95,6 +102,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS
 from repro_torch.kernels import cell_filter as cf
 from repro_torch.kernels import flash_attn, nbr_attn, ref
 from repro_torch.kernels import force_scatter as fs
@@ -718,6 +726,83 @@ def test_captured_decode_step_equals_eager(card):
     assert graphed["graph_launches"] == {"flash_decode": 4}
     # 8 replays of 4 launches, and the warm-up step's 4
     assert flash_attn.flash_decode.launches == before + 4 * 9
+    assert torch.equal(graphed["tokens"], eager["tokens"])
+    assert all(torch.equal(a, b) for a, b in zip(graphed["logits"],
+                                                 eager["logits"]))
+
+
+MLA_CASES = [  # b, h, sq, sk, causal, q_offset
+    (2, 8, 1, 1, True, 0),        # one token: the prefill kernel, not decode
+    (1, 4, 13, 13, True, 0),      # Sq <= 16 with Hq = Hkv
+    (2, 4, 16, 40, True, 24),     # 16 rows, a cache prefix before them
+    (1, 8, 200, 200, True, 0),    # Sq > 16, off the 64-row tile
+    (2, 2, 100, 1601, False, 0),  # non-causal, Sk off the 64-key block
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,causal,off", MLA_CASES)
+def test_flash_attention_mla_instance(card, dtype, b, h, sq, sk, causal, off):
+    """MLA's (D, DV) = (192, 128) instance (qk_nope 128 + qk_rope 64,
+    v_head_dim 128) against the plain version at Sq <= 16 and Sq > 16: the
+    prefill kernels at every Sq, scale 1/sqrt(192), output (B, H, Sq, 128);
+    the fp32 and bf16 gates; a repeat, the same bits."""
+    gen = torch.Generator(device=card).manual_seed(b * sq + sk)
+    rnd = lambda *s: torch.randn(*s, device=card, generator=gen).to(dtype)
+    q, k, v = rnd(b, h, sq, 192), rnd(b, h, sk, 192), rnd(b, h, sk, 128)
+    before = flash_attn.flash_attention.launches
+    got = flash_attn.flash_attention(q, k, v, causal, 0, 0.0, off)
+    assert flash_attn.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v, causal, 0, 0.0, off)
+    assert got.shape == (b, h, sq, 128) and got.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=tol * float(want.float().abs().max()))
+    assert torch.equal(got, flash_attn.flash_attention(q, k, v, causal, 0,
+                                                       0.0, off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dk,dv", [(16, 8), (192, 64), (128, 192), (160, 128)])
+def test_flash_attention_without_instance_raises_on_card(card, dk, dv):
+    """A (D, DV) the kernel has no instance for raises on CUDA tensors (the
+    reduced tests' MLA widths 16/8 among them); no plain fallback."""
+    q = torch.randn(1, 2, 20, dk, device=card)
+    k = torch.randn(1, 2, 20, dk, device=card)
+    v = torch.randn(1, 2, 20, dv, device=card)
+    with pytest.raises(ValueError, match="instances for"):
+        flash_attn.flash_attention(q, k, v, True, 0, 0.0, 0)
+    with pytest.raises(ValueError, match="instances for"):
+        flash_attn.flash_decode(q[:, :, :1], k, v,
+                                torch.tensor(3, device=card), 0, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_captured_decode_equals_eager_for_every_arch(card, arch):
+    """Every registry architecture at a reduced width in bf16 (head width
+    64; deepseek's MLA at (192, 128); the vision model with 5 layers, so
+    its cross-attention layer is in the stack) serves on the card: the
+    graphed request gives the eager one's tokens and every step's logits
+    bit for bit.  Among them rwkv6 and jamba carry recurrent state
+    (``S``/``shift``/``cmix_shift``, ``conv``/``ssm``) that the graph's
+    warm-up step would advance a second time; ``DecodeGraph`` restores it
+    before the capture."""
+    from repro_torch.launch.serve import context_stub, serve_tokens
+    from repro_torch.lm import model as LM
+    over = dict(n_layers=5 if arch == "llama-3.2-vision-90b" else 4,
+                d_model=256, d_ff=512, vocab=1024, dtype="bfloat16")
+    if ARCHS[arch].mla:
+        over.update(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
+    cfg = ARCHS[arch].reduced(**over)
+    params = LM.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                            device=card)
+    rng = np.random.default_rng(0)
+    tok = torch.tensor(rng.integers(0, cfg.vocab, (2, 40)), device=card)
+    ctx = context_stub(cfg, 2, rng, card)
+    eager = serve_tokens(cfg, params, tok, 9, graph=False, context=ctx)
+    graphed = serve_tokens(cfg, params, tok, 9, context=ctx)
     assert torch.equal(graphed["tokens"], eager["tokens"])
     assert all(torch.equal(a, b) for a, b in zip(graphed["logits"],
                                                  eager["logits"]))

@@ -111,13 +111,34 @@ def test_lm_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_lm_unported_parts_raise():
+    """LM training is the part still unported: ``forward(remat=...)``, a
+    serving mesh and ``launch/train.py``'s counterpart.  The six
+    architectures that needed the rest of the LM (MLA, MoE, Mamba, RWKV6,
+    cross-attention, the encoder and modality stubs, MTP) build and serve on
+    the CPU through the entry point."""
+    import importlib.util
+
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
-    from repro_torch.lm import model
-    for name in ("deepseek-v3-671b", "rwkv6-3b", "jamba-1.5-large-398b"):
-        cfg = get_arch(name).reduced(n_layers=2, d_model=32)
+    from repro_torch.lm import model, serve_lib
+    cfg = get_arch("qwen3-8b").reduced(n_layers=2, d_model=32)
+    params = model.init_params(cfg, torch.Generator(), device="cpu")
+    tok = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        model.forward(params, cfg, tok, remat="full")
+    for make in (serve_lib.make_prefill, serve_lib.make_serve_step):
         with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            model.init_params(cfg, torch.Generator(), device="cpu")
+            make(cfg, mesh=object())
+    for name in ("repro_torch.launch.train", "repro_torch.lm.train_lib",
+                 "repro_torch.lm.sharding"):
+        assert importlib.util.find_spec(name) is None, name
+    for name in ("deepseek-v3-671b", "jamba-1.5-large-398b",
+                 "llama4-scout-17b-a16e", "llama-3.2-vision-90b", "rwkv6-3b",
+                 "whisper-medium"):
+        res = serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                          "--batch", "2", "--prompt-len", "5", "--new", "3"])
+        assert tuple(res["tokens"].shape) == (2, 3), name
+        assert all(bool(torch.isfinite(lg).all()) for lg in res["logits"])
     # DP force serving is ported: the CPU run serves its client's steps
     res = serve.main(["--backend", "force", "--device", "cpu", "--reduced",
                       "--clients", "1", "--steps", "1"])
