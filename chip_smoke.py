@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port's paths once on one card: the DP force path,
-DPA-1 training, gemma2-2b token serving and the other LM architectures
-(MLA, MoE, Mamba, RWKV6, cross-attention, the encoder and MTP).
+DPA-1 training, gemma2-2b token serving, the other LM architectures (MLA,
+MoE, Mamba, RWKV6, cross-attention, the encoder and MTP) and LM training.
 
     python3 chip_smoke.py                   # every phase
     python3 chip_smoke.py --phase lm        # the lm phase alone
     python3 chip_smoke.py --phase lm_archs  # the lm_archs phase alone
+    python3 chip_smoke.py --phase lm_train  # the lm_train phase alone
     python3 chip_smoke.py --phase kernels   # the DP kernels phase alone
     python3 chip_smoke.py --phase md        # the md phase alone
     python3 chip_smoke.py --phase guard     # the guard phase alone
@@ -18,8 +19,9 @@ source, all started together; Triton at first launch), then runs phases
 1-4 on the paper's DPA-1 at full width (``paper_dpa1_config(ntypes=4,
 rcut=0.6, sel=64)``, fp32, random weights from a seed) over uniform random
 atoms at 30 atoms/nm^3, phases 5-6 on the MD engine with the same model,
-phase 7 trains the DPA-1, phase 8 serves gemma2-2b, and phases 9-10 run
-replica ensembles and DP force serving (run after phase 6):
+phase 7 trains the DPA-1, phase 8 serves gemma2-2b, phases 9-10 run
+replica ensembles and DP force serving (run after phase 6), phase 11 the
+other LM architectures and phase 12 LM training:
 
 1. kernels: the env-matrix, attention and force-scatter kernels against
    their plain PyTorch versions on the card, at the shapes and on the data
@@ -151,12 +153,32 @@ replica ensembles and DP force serving (run after phase 6):
    MLA's (192, 128) ``flash_attention`` instance against its plain version
    on the first MLA prefill call's tensors (bf16 and fp32, a repeat bit for
    bit, times, bound and SDPA's time);
-12. a ``kernels`` JSON line (launches per force call, per MD step, per
+12. lm_train: LM training (``lm/train_lib.py`` through
+   ``launch/train.py``; the attention's gradient through
+   ``kernels.ops.FlashAttention``: the prefill kernels with the rows'
+   log-sum-exp forward, a plain chunked backward): (a) at qwen2-1.5b's
+   and gemma2-2b's attention shapes (B 4 x 2,048, causal; gemma2's
+   window and softcap 50), bf16 and fp32, the Function's forward and
+   backward against plain autograd through ``attention_ref``, a repeat bit
+   for bit, the kernel with the LSE giving the serving call's bits, and
+   times (the forward, the plain backward, both routes' forward +
+   backward, and SDPA's forward + backward at softcap 0 as the library
+   time); (b) the main path: qwen2-1.5b at full width (28 layers, bf16,
+   random weights) through ``launch.train.main``, B 4 x 2,048, Adam,
+   ``remat="full"``, 12 steps, each timed (median of steps 2-11), 56
+   ``flash_attention`` launches a step and no other kernel, the peak
+   memory, the last step profiled; (c) ``remat="full"`` == ``"none"`` bit
+   for bit at full width cut to 4 layers; (d) every registry arch at a
+   reduced fp32 width: two steps on the card against the CPU at the CPU
+   tests' gates; (e) the launcher killed at step 6 and resumed on the
+   card, equal to the uninterrupted run bit for bit;
+13. a ``kernels`` JSON line (launches per force call, per MD step, per
    guarded MD run, per training step and ``force_rmse`` call, per
    request, per batched force call, per ensemble step, per served
-   dispatch and per overlap evaluation; ``flash_attention`` and
-   ``flash_decode`` also per prefill and decode step of each lm_archs
-   architecture, and the MLA instance's numbers), then the result line.
+   dispatch, per overlap evaluation and per LM training step;
+   ``flash_attention`` and ``flash_decode`` also per prefill and decode
+   step of each lm_archs architecture, the MLA instance's numbers and
+   the LM training route's times), then the result line.
 
 Any failed check raises, and the script exits non-zero.  It needs one CUDA
 card and the repository's ``src/`` beside it; it imports no JAX.
@@ -4110,6 +4132,401 @@ def phase_lm_archs():
     return lines, mla
 
 
+# ---------------------------------------------------------------------------
+# lm_train: LM training through launch/train.py at full width
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_ARCH = "qwen2-1.5b"
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 2_048, 12
+LM_TRAIN_REMAT_LAYERS = 4          # (c): remat full == none at full width
+LM_TRAIN_ATTN = ("qwen2-1.5b", "gemma2-2b")   # (a): their attention shapes
+# (a)'s gates: fp32 the CPU tests' 1e-4 x max; bf16 1e-2 x max on the
+# output (the kernel rounds P to bf16) and 2e-2 x max on dq/dk/dv (the
+# backward's rowsum(dO o) reads that output)
+LM_TRAIN_TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+LM_TRAIN_SMALL = dict(n_layers=4, d_model=256, d_ff=512, vocab=1024)
+
+
+def attn_train_bound(q, k, dv, causal, window, backward):
+    """Least time of the attention's forward (Q K^T and P V: 2 (D + DV) per
+    visible pair and q head; q, k, v in, o and the fp32 LSE out) or its
+    backward (S again, dV, dP, dQ, dK: 2 (3 D + 2 DV); q, k, v, o, dO and
+    the LSE in, dq, dk, dv out) at the inputs' type's peak, against those
+    bytes at the memory rate: (ms, bound_by), flops."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    pos = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk - 1, pos) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(sq, np.int64)
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum()) * b * hq
+    el = q.element_size()
+    qo = b * hq * sq * (d + dv) * el + b * hq * sq * 4           # q, o, lse
+    kv = b * hkv * sk * (d + dv) * el
+    if backward:
+        flops = 2 * (3 * d + 2 * dv) * pairs
+        nbytes = 2 * (qo + kv) + b * hq * sq * dv * el           # + dO
+    else:
+        flops = 2 * (d + dv) * pairs
+        nbytes = qo + kv
+    peak = BF16_PEAK if q.dtype == torch.bfloat16 else F32_PEAK
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes")), flops
+
+
+def lm_train_attention(arch):
+    """(a) The attention of ``arch``'s training step (its first layer's
+    mixer: gemma2's local layer, window and softcap) at B x S: the autograd
+    Function against plain autograd through ``attention_ref``, a repeat
+    bit for bit, the kernel with the LSE against the serving call bit for
+    bit; times (median of 10, L2 flushed): the forward with the LSE, the
+    plain backward, the Function's forward + backward, plain autograd, and
+    beside them at softcap 0 the Function and SDPA forward + backward."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attn, ops, ref
+    cfg = get_arch(arch)
+    b, s = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    window = cfg.window if cfg.local_global_pattern else 0
+    args = (True, window, cfg.attn_softcap, 0)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    base = [torch.randn(shape, generator=gen, device=DEVICE)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                          (b, hq, s, d))]
+    line = {"phase": "lm_train", "check": "attention forward + backward",
+            "arch": arch, "q": [b, hq, s, d], "k": [b, hkv, s, d],
+            "causal": True, "window": window, "softcap": cfg.attn_softcap}
+    for dtype, (tol_o, tol_g) in LM_TRAIN_TOL.items():
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v = (t.to(dtype).requires_grad_() for t in base[:3])
+        do = base[3].to(dtype)
+
+        def route(fn, a=args):
+            def run():
+                out = fn(q, k, v, *a)
+                grads = torch.autograd.grad(out, (q, k, v), do)
+                return (out.detach(), *grads)
+            return run
+
+        fn_route, plain_route = route(ops.attention_op), route(ref.attention_ref)
+        got, want = fn_route(), plain_route()
+        errs = {}
+        for name, a, w, tol in zip(("out", "dq", "dk", "dv"), got, want,
+                                   (tol_o, tol_g, tol_g, tol_g)):
+            errs[name] = check(f"lm_train {arch} {tag} Function vs plain "
+                               f"autograd, {name}", a.float(), w.float(),
+                               atol=tol * float(w.float().abs().max()))
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, fn_route())):
+            fail(f"lm_train {arch} {tag}: a repeat of the Function differs")
+        del got, want
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        with torch.no_grad():
+            out, lse = flash_attn.flash_attention(qd, kd, vd, *args,
+                                                  return_lse=True)
+            if not torch.equal(out, flash_attn.flash_attention(qd, kd, vd,
+                                                               *args)):
+                fail(f"lm_train {arch} {tag}: the kernel with the LSE gives "
+                     "other output bits than the serving call")
+        (fb_ms, fb_by), fwd_flops = attn_train_bound(qd, kd, d, True, window,
+                                                     False)
+        (bb_ms, bb_by), bwd_flops = attn_train_bound(qd, kd, d, True, window,
+                                                     True)
+        line.update({
+            f"{tag}_max_abs_err": errs,
+            f"{tag}_tol": f"out atol {tol_o}*max|plain|, grads atol "
+                          f"{tol_g}*max|plain|",
+            f"{tag}_lse_call_equals_serving_call_bitwise": True,
+            f"{tag}_forward_ms": time_ms(lambda: flash_attn.flash_attention(
+                qd, kd, vd, *args, return_lse=True)),
+            f"{tag}_plain_backward_ms": time_ms(
+                lambda: ref.attention_bwd_ref(qd, kd, vd, out, lse, do,
+                                              *args)),
+            f"{tag}_function_fwd_bwd_ms": time_ms(fn_route),
+            f"{tag}_plain_autograd_ms": time_ms(plain_route),
+            f"{tag}_forward_bound_ms": fb_ms, f"{tag}_forward_bound_by": fb_by,
+            f"{tag}_backward_bound_ms": bb_ms,
+            f"{tag}_backward_bound_by": bb_by,
+            f"{tag}_forward_flops": fwd_flops,
+            f"{tag}_backward_flops": bwd_flops})
+        if dtype == torch.bfloat16:
+            # SDPA computes the function at softcap 0 only; gemma2's window
+            # (4,096) covers the whole 2,048-token sequence
+            if window and window < s:
+                fail("lm_train: the SDPA yardstick assumes no window inside "
+                     "the sequence")
+            a0 = (True, window, 0.0, 0)
+            sdpa = route(lambda q, k, v, *a: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            g0, w0 = route(ops.attention_op, a0)(), sdpa()
+            errs0 = max(check(f"lm_train {arch} bf16 softcap 0 vs sdpa, {n}",
+                              a.float(), w.float(),
+                              atol=tol_g * float(w.float().abs().max()))
+                        for n, a, w in zip("odqkv", g0, w0))
+            del g0, w0
+            line.update({
+                "bf16_softcap0_function_fwd_bwd_ms":
+                    time_ms(route(ops.attention_op, a0)),
+                "bf16_sdpa_fwd_bwd_ms": time_ms(sdpa),
+                "bf16_softcap0_max_err_vs_sdpa": errs0})
+        del q, k, v, do, out, lse, qd, kd, vd
+        torch.cuda.empty_cache()
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def lm_train_grads(cfg, params, batch, remat):
+    """Loss, metrics and gradient leaves of ``cfg``'s training loss."""
+    from repro_torch.lm import train_lib as TL
+    from repro_torch.optim.adam import tree_leaves, tree_map
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, metrics = TL.make_loss_fn(cfg, TL.TrainHParams(remat=remat))(
+        leaves, batch)
+    flat = tree_leaves(leaves)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def lm_train_run():
+    """(b) qwen2-1.5b at full width through ``launch.train.main`` (B 4 x
+    2,048, Adam, ``remat="full"``, random weights, 12 steps): each step
+    synchronised and timed on the host clock with its launches counted
+    (``train_lib.make_train_step`` wrapped); the last one under
+    ``torch.profiler``, so the median is of steps 2-11."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as TRN
+    from repro_torch.lm import train_lib as TL
+    real, rec = TL.make_train_step, []
+
+    def timed(cfg, hp, mesh=None):
+        step, opt = real(cfg, hp, mesh)
+
+        def run(params, opt_state, batch):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            if len(rec) == LM_TRAIN_STEPS - 1:
+                out = []
+                device_profile(lambda: out.append(step(params, opt_state,
+                                                       batch)),
+                               "lm_train_profile",
+                               f"one {LM_TRAIN_ARCH} train step (B "
+                               f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ})",
+                               host_ops=True)
+                res = out[0]
+            else:
+                res = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            rec.append({"ms": (time.perf_counter() - t0) * 1e3,
+                        "launches": {k: n for k, n in
+                                     kernels.launch_counts().items() if n},
+                        "loss": float(res[2]["loss"]),
+                        "grad_norm": float(res[2]["grad_norm"])})
+            return res
+
+        return run, opt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TL.make_train_step = timed
+    t0 = time.perf_counter()
+    try:
+        last = TRN.main(["--arch", LM_TRAIN_ARCH, "--batch",
+                         str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ),
+                         "--steps", str(LM_TRAIN_STEPS), "--device", DEVICE])
+    finally:
+        TL.make_train_step = real
+    wall = time.perf_counter() - t0
+    n = get_arch(LM_TRAIN_ARCH).n_layers
+    for i, r in enumerate(rec):
+        if r["launches"] != {"flash_attention": 2 * n}:
+            fail(f"lm_train step {i}: launches {r['launches']}, expected "
+                 f"{2 * n} flash_attention (forward and recomputed) and no "
+                 "other kernel")
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            fail(f"lm_train step {i}: non-finite loss or gradient norm")
+    ms = statistics.median(r["ms"] for r in rec[1:LM_TRAIN_STEPS - 1])
+    line = {"phase": "lm_train", "arch": LM_TRAIN_ARCH,
+            "entry": "launch.train.main", "batch": LM_TRAIN_BATCH,
+            "seq": LM_TRAIN_SEQ, "steps": LM_TRAIN_STEPS,
+            "optimizer": "adam", "remat": "full", "dtype": "bfloat16",
+            "ms_per_step_median_steps_2_11": ms,
+            "ms_by_step": [r["ms"] for r in rec],
+            "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / ms * 1e3,
+            "loss_by_step": [r["loss"] for r in rec],
+            "last_metrics": last,
+            "launches_per_step": rec[1]["launches"],
+            "peak_MiB": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "run_s_with_init": wall,
+            "ms_is": "host clock around each synchronised step (the "
+                     "launcher's batch draw and copy outside it)"}
+    print(json.dumps(line), flush=True)
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_train_remat():
+    """(c) ``remat="full"`` == ``"none"`` bit for bit at full width, cut to
+    4 layers: the loss, the metrics and every gradient leaf."""
+    import dataclasses as dc
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import model as LM
+    cfg = dc.replace(get_arch(LM_TRAIN_ARCH), n_layers=LM_TRAIN_REMAT_LAYERS)
+    params = LM.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    batch = make_batch(cfg, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, DEVICE)
+    out = {}
+    for remat in ("none", "full"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[remat] = lm_train_grads(cfg, params, batch, remat)
+        torch.cuda.synchronize()
+        out[remat] += (torch.cuda.max_memory_allocated() / 2 ** 20,)
+    (l0, m0, g0, p0), (l1, m1, g1, p1) = out["none"], out["full"]
+    if not (torch.equal(l0, l1) and all(torch.equal(m0[k], m1[k]) for k in m0)
+            and all(torch.equal(a, b) for a, b in zip(g0, g1))):
+        fail("lm_train: remat full and none give other bits at full width")
+    line = {"phase": "lm_train", "check": "remat full == none",
+            "arch": LM_TRAIN_ARCH, "layers": LM_TRAIN_REMAT_LAYERS,
+            "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+            "loss_and_every_gradient_bitwise": True, "loss": float(l0),
+            "peak_MiB_remat_none": p0, "peak_MiB_remat_full": p1}
+    print(json.dumps(line), flush=True)
+    del params, out
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_train_card_vs_cpu(name):
+    """(d) ``name`` at the reduced width (fp32, B 2 x 64): two train steps
+    on the card against the port on the CPU from the same parameters and
+    batches, at the CPU tests' gates: the metrics within 1e-4 x |cpu|;
+    Adam's first moment after each step leaf by leaf within 1e-4 x max|cpu
+    leaf|; the parameters after step 1 within 1e-4 x max|cpu leaf| plus
+    what that gradient gate allows Adam's first step (-lr g / (|g| +
+    eps)) to make of it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import model as LM
+    from repro_torch.lm import train_lib as TL
+    from repro_torch.optim.adam import tree_leaves
+    over = dict(LM_TRAIN_SMALL)
+    if name == "llama-3.2-vision-90b":
+        over["n_layers"] = 5          # its cross-attention layer (every 5th)
+    if get_arch(name).mla:
+        over.update(LM_ARCH_SMALL_MLA)
+    cfg = get_arch(name).reduced(**over)
+    params = LM.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    hp = TL.TrainHParams()
+    rec = {}
+    for dev in ("cpu", DEVICE):
+        step, opt = TL.make_train_step(cfg, hp)
+        p = _tree(params, lambda t: t.to(dev))
+        st = opt.init(p)
+        rec[dev] = []
+        for i in range(2):
+            p, st, m = step(p, st, make_batch(cfg, i, 2, 64, dev))
+            rec[dev].append(({k: float(v) for k, v in m.items()},
+                             [t.cpu() for t in tree_leaves(st["m"])],
+                             [t.cpu() for t in tree_leaves(p)]))
+    err_m, err_g, err_p, excused = 0.0, 0.0, 0.0, 0
+    for i, (c, g) in enumerate(zip(rec["cpu"], rec[DEVICE])):
+        for key, want in c[0].items():
+            e = abs(g[0][key] - want)
+            if e > 1e-4 * abs(want):
+                fail(f"lm_train {name} card vs cpu step {i}: {key} "
+                     f"{g[0][key]} vs {want}")
+            err_m = max(err_m, e / max(abs(want), 1e-30))
+        for a, b in zip(g[1], c[1]):
+            err_g = max(err_g, check(f"lm_train {name} card vs cpu step {i} "
+                                     "first moment", a, b,
+                                     atol=1e-4 * float(b.abs().max())))
+    for got, want, m1 in zip(rec[DEVICE][0][2], rec["cpu"][0][2],
+                             rec["cpu"][0][1]):
+        gabs = m1.double().abs() / 0.1             # |clipped g|, 1 - b1
+        d = 1e-4 * float(gabs.max())
+        amp = hp.lr * d * 1e-8 / ((gabs - d).clamp_min(0) + 1e-8) ** 2
+        err = (got.double() - want.double()).abs()
+        gate = 1e-4 * float(want.abs().max())
+        if bool((err > gate + amp).any()):
+            fail(f"lm_train {name} card vs cpu: parameters after step 1 "
+                 f"off by {float(err.max()):.3e}")
+        excused += int((err > gate).sum())
+        err_p = max(err_p, float(err.max()))
+    return {"max_rel_err_metrics": err_m, "max_abs_err_first_moment": err_g,
+            "max_abs_err_params_step1": err_p,
+            "param_entries_inside_adam_noise_floor_only": excused}
+
+
+def lm_train_restart():
+    """(e) ``launch.train`` on the card at its reduced config (B 2 x 64,
+    12 steps, a checkpoint every 4): interrupted at step 6 (exit 42) and
+    resumed from step 4, the last metrics and the final checkpoint equal
+    to the uninterrupted run's bit for bit."""
+    import tempfile
+    from repro_torch.ckpt import latest_step_dir, load_pytree
+    from repro_torch.launch import train as TRN
+    args = ["--reduced", "--steps", "12", "--ckpt-every", "4", "--batch",
+            "2", "--seq", "64", "--device", DEVICE]
+    with tempfile.TemporaryDirectory() as tmp:
+        a = TRN.main(args + ["--ckpt-dir", f"{tmp}/a"])
+        try:
+            TRN.main(args + ["--ckpt-dir", f"{tmp}/b", "--simulate-failure",
+                             "6"])
+            fail("lm_train restart: --simulate-failure 6 did not exit")
+        except SystemExit as e:
+            if e.code != 42:
+                fail(f"lm_train restart: exit {e.code}, expected 42")
+        b = TRN.main(args + ["--ckpt-dir", f"{tmp}/b"])
+        pa = load_pytree(latest_step_dir(f"{tmp}/a"))
+        pb = load_pytree(latest_step_dir(f"{tmp}/b"))
+    flat_a, flat_b = [], []
+    _tree(pa, flat_a.append)
+    _tree(pb, flat_b.append)
+    if a != b or len(flat_a) != len(flat_b) or not all(
+            np.array_equal(x, y) for x, y in zip(flat_a, flat_b)):
+        fail("lm_train restart: the resumed run differs from the "
+             "uninterrupted one")
+    line = {"phase": "lm_train", "check": "restart on the card",
+            "config": "qwen2-1.5b --reduced (d_model 256, 4 layers, vocab "
+                      "512), B 2 x 64, 12 steps, checkpoint every 4, "
+                      "killed at 6",
+            "last_metrics_bitwise": True, "final_checkpoint_bitwise": True,
+            "leaves": len(flat_a), "last_loss": a["loss"]}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def phase_lm_train():
+    """LM training on the card: (a) the attention's Function at qwen2's and
+    gemma2's shapes, (b) qwen2-1.5b at full width through
+    ``launch/train.py`` (the main path), (c) remat full == none at full
+    width (4 layers), (d) every registry arch at the reduced width card ==
+    CPU, (e) the launcher's restart bit for bit.  Returns the attention
+    lines and the launches per train step."""
+    from repro_torch.configs import ARCHS
+    t0 = time.perf_counter()
+    attn = {a: lm_train_attention(a) for a in LM_TRAIN_ATTN}
+    run = lm_train_run()
+    lm_train_remat()
+    vs_cpu = {name: lm_train_card_vs_cpu(name) for name in sorted(ARCHS)}
+    print(json.dumps({"phase": "lm_train", "check": "card vs cpu, every "
+                      "registry arch, 2 train steps", "config":
+                      "reduced(n_layers=4 (vision 5), d_model=256, d_ff=512,"
+                      " vocab=1024; MLA 128 + 64, 128), fp32, B 2 x 64",
+                      "tol": "metrics 1e-4*|cpu|; first moments atol "
+                             "1e-4*max|leaf|; params after step 1 atol "
+                             "1e-4*max|leaf| + lr d eps/((|g|-d)+ + eps)^2",
+                      "archs": vs_cpu}), flush=True)
+    lm_train_restart()
+    print(json.dumps({"phase": "lm_train", "s": time.perf_counter() - t0}),
+          flush=True)
+    return attn, run["launches_per_step"]
+
+
 def device_profile(fn, phase, what, host_ops=False):
     """``fn()`` under ``torch.profiler``: device time by kernel and the
     device's idle share of the wall time; with ``host_ops`` also the
@@ -4250,6 +4667,11 @@ def main():
         print("[lm_archs] every check passed (lm_archs phase alone)",
               flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "lm_train"]:
+        phase_lm_train()
+        print("[lm_train] every check passed (lm_train phase alone)",
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "train"]:
         phase_train()
         print("[train] every check passed (train phase alone)", flush=True)
@@ -4312,6 +4734,8 @@ def main():
     lm_rows, lm_launches = phase_lm()
     torch.cuda.empty_cache()
     arch_lines, mla = phase_lm_archs()
+    torch.cuda.empty_cache()
+    lm_train_attn, lm_train_launches = phase_lm_train()
     arch_launches = {
         kind: {name: line[f"launches_per_{kind}"]
                for name, line in arch_lines.items()}
@@ -4323,7 +4747,8 @@ def main():
                 "launches_per_ensemble_step": ens["ensemble_step"][name],
                 "launches_per_served_dispatch": serve_launches[name],
                 "launches_per_overlap_evaluation":
-                    ens["overlap_evaluation"][name]}
+                    ens["overlap_evaluation"][name],
+                "launches_per_lm_train_step": lm_train_launches.get(name, 0)}
 
     rows = []
     for name in DP_KERNELS:
@@ -4410,6 +4835,13 @@ def main():
                 a: n.get(name, 0)
                 for a, n in arch_launches["decode_step"].items()}})
         if name == "flash_attention":
+            rows[-1]["lm_train"] = {
+                "route": "forward: this kernel with the row log-sum-exp "
+                         "(return_lse); backward: plain PyTorch "
+                         "(ref.attention_bwd_ref), no kernel yet",
+                **{arch: {k: v for k, v in line.items()
+                          if k not in ("phase", "check", "arch")}
+                   for arch, line in lm_train_attn.items()}}
             rows[-1]["mla_instance"] = {
                 "shape": "q/k (2, 128, 1024, 192), v (2, 128, 1024, 128), "
                          "bf16, causal (deepseek-v3 prefill, layer 0)",

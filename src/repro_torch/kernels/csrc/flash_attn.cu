@@ -99,7 +99,18 @@
 //
 // Calls with DK != DV go to the prefill kernels at every Sq, also at 16 or
 // fewer rows per KV head (MLA has Hq = Hkv, so a prompt of up to 16 tokens):
-// the decode kernel keeps one width.
+// the decode kernel keeps one width.  So do calls that ask for the row
+// log-sum-exp.
+//
+// The log-sum-exp (training): both prefill kernels write, through an
+// optional pointer, lse = m + log(l) of each query row in natural-log units,
+// fp32 (B, Hq, Sq): the bf16 kernel from its log2-unit (m, l) as
+// m ln 2 + log(l), the fp32 kernel from its own.  A row with no visible key
+// gets -inf (and its output stays 0).  The autograd Function around the
+// kernel (kernels/ops.py::FlashAttention) keeps it for the backward, which
+// recomputes the probabilities as exp(s - lse).  With a null pointer (every
+// serving call) nothing else changes: the same arithmetic and the same
+// output bits, one store fewer.
 //
 // Template instances: flash_fwd_mma_kernel<DK, DV>, flash_fwd_kernel<float,
 // DK, DV, 64> with (DK, DV) = (D, D) and (192, 128),
@@ -173,7 +184,8 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, RowPtr row_ptr) {
 template <typename T, int DK, int DV, int BQ>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int hq, int hkv,
                  int sq, int sk, long long k_bs, long long k_hs,
                  long long v_bs, long long v_hs, int causal, int window,
                  float softcap, int q_offset, float scale) {
@@ -323,6 +335,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long head = (long long)b * hq + kvh * group + r % group;
     const long long row = head * sq + r / group;
     const float l_safe = l[i] > 0.f ? l[i] : 1.f;
+    if (lse != nullptr && tx == 0)
+      lse[row] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     T* dst = o + row * DV;
 #pragma unroll
     for (int jd = 0; jd < DP; ++jd)
@@ -338,6 +352,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int MMA_BQ = 128;      // query rows per CTA (8 warps x 16 rows)
 constexpr int MMA_THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -397,7 +412,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int hq, int hkv, int sq,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int hq, int hkv, int sq,
                      int sk, long long k_bs, long long k_hs, long long v_bs,
                      long long v_hs, int causal, int window, float softcap,
                      int q_offset, float scale) {
@@ -603,6 +619,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const long long head = (long long)b * hq + kvh * group + r % group;
     __nv_bfloat16* dst = o + (head * sq + r / group) * DV + 2 * t;
     const float inv = half ? inv_hi : inv_lo;
+    if (lse != nullptr && t == 0) {
+      // (m, l) in log2 units of the scaled score: lse = (m + log2 l) ln 2
+      const float lh = half ? l_hi : l_lo, mh = half ? m_hi : m_lo;
+      lse[head * sq + r / group] = lh > 0.f ? mh * LN2 + logf(lh) : -INFINITY;
+    }
 #pragma unroll
     for (int j = 0; j < NT; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
@@ -611,10 +632,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int DK, int DV>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
-               int hq, int hkv, int sq, int sk, long long k_bs, long long k_hs,
-               long long v_bs, long long v_hs, int causal, int window,
-               float softcap, int q_offset, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int hq, int hkv, int sq, int sk,
+               long long k_bs, long long k_hs, long long v_bs, long long v_hs,
+               int causal, int window, float softcap, int q_offset,
+               cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<DK, DV>();
   auto kern = flash_fwd_mma_kernel<DK, DV>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -625,8 +647,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
             (unsigned)b);
   kern<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), hq,
-      hkv, sq, sk, k_bs, k_hs, v_bs, v_hs, causal, window, softcap, q_offset,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      hq, hkv, sq, sk, k_bs, k_hs, v_bs, v_hs, causal, window, softcap, q_offset,
       1.0f / sqrtf((float)DK));
   return (int)cudaGetLastError();
 }
@@ -1013,10 +1035,11 @@ int decode_by_dim(int d, const DecodeArgs& a, int b, cudaStream_t st) {
 }
 
 template <int DK, int DV>
-int launch_fp32(const void* q, const void* k, const void* v, void* o, int b,
-                int hq, int hkv, int sq, int sk, long long k_bs, long long k_hs,
-                long long v_bs, long long v_hs, int causal, int window,
-                float softcap, int q_offset, cudaStream_t stream) {
+int launch_fp32(const void* q, const void* k, const void* v, void* o,
+                float* lse, int b, int hq, int hkv, int sq, int sk,
+                long long k_bs, long long k_hs, long long v_bs, long long v_hs,
+                int causal, int window, float softcap, int q_offset,
+                cudaStream_t stream) {
   constexpr int BQ = 64;
   constexpr size_t smem = smem_bytes<float, DK, DV, BQ>();
   auto kern = flash_fwd_kernel<float, DK, DV, BQ>;
@@ -1027,8 +1050,8 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid((unsigned)((rows + BQ - 1) / BQ), (unsigned)hkv, (unsigned)b);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, sk,
-      k_bs, k_hs, v_bs, v_hs, causal, window, softcap, q_offset,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, hq, hkv, sq,
+      sk, k_bs, k_hs, v_bs, v_hs, causal, window, softcap, q_offset,
       1.0f / sqrtf((float)DK));
   return (int)cudaGetLastError();
 }
@@ -1042,7 +1065,8 @@ const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 // Prefill: Hq / Hkv * Sq > 16 rows per KV head, or any Sq when the value
 // width dv differs from the query/key width d (the decode kernel has no such
-// instance).  dtype 0 = float32, 1 = bfloat16.  q is contiguous (B, Hq, Sq,
+// instance) or when `lse` (fp32 (B, Hq, Sq), or null) asks for the rows'
+// log-sum-exp.  dtype 0 = float32, 1 = bfloat16.  q is contiguous (B, Hq, Sq,
 // d), o (B, Hq, Sq, dv); k and v have rows of d and dv contiguous elements
 // and the given batch and head strides (elements), so a cache sliced to its
 // filled length needs no copy.
@@ -1050,20 +1074,22 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                    int dtype, int b, int hq, int hkv, int sq, int sk, int d,
                    int dv, long long k_bs, long long k_hs, long long v_bs,
                    long long v_hs, int causal, int window, float softcap,
-                   int q_offset, void* stream) {
+                   int q_offset, void* lse, void* stream) {
   cudaGetLastError();  // clear an error left by earlier, unrelated work
   cudaStream_t st = (cudaStream_t)stream;
-  if ((d == dv && (long long)(hq / hkv) * sq <= DECODE_ROWS) ||
+  float* lse_f = static_cast<float*>(lse);
+  if ((d == dv && (long long)(hq / hkv) * sq <= DECODE_ROWS &&
+       lse == nullptr) ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
 #define FLASH_CASE(DK, DV)                                                   \
   if (d == DK && dv == DV)                                                   \
     return dtype == 0                                                        \
-               ? launch_fp32<DK, DV>(q, k, v, o, b, hq, hkv, sq, sk, k_bs,   \
-                                     k_hs, v_bs, v_hs, causal, window,       \
+               ? launch_fp32<DK, DV>(q, k, v, o, lse_f, b, hq, hkv, sq, sk,  \
+                                     k_bs, k_hs, v_bs, v_hs, causal, window, \
                                      softcap, q_offset, st)                  \
-               : launch_mma<DK, DV>(q, k, v, o, b, hq, hkv, sq, sk, k_bs,    \
-                                    k_hs, v_bs, v_hs, causal, window,        \
+               : launch_mma<DK, DV>(q, k, v, o, lse_f, b, hq, hkv, sq, sk,   \
+                                    k_bs, k_hs, v_bs, v_hs, causal, window,  \
                                     softcap, q_offset, st);
   FLASH_CASE(32, 32)
   FLASH_CASE(64, 64)

@@ -11,7 +11,9 @@ fp32 prefill on fp32 FMAs, and decode (at most 16 rows per KV head, fp32 or
 bf16) in a kernel bound by bytes that streams K/V through a cp.async ring.
 The plain versions are :func:`~repro_torch.kernels.ref.attention_ref` and
 :func:`~repro_torch.kernels.ref.decode_ref`.  Forward only, as the TPU
-kernel is.
+kernel is; for training the prefill kernels also return the rows'
+log-sum-exp (``return_lse``), which ``ops.FlashAttention`` keeps for its
+plain backward (:func:`~repro_torch.kernels.ref.attention_bwd_ref`).
 
 Two entry points:
 
@@ -46,7 +48,7 @@ import functools
 import torch
 
 from . import build
-from .ref import attention_ref, decode_ref
+from .ref import attention_lse_ref, attention_ref, decode_ref
 
 HEAD_DIMS = (32, 64, 128, 256)   # the kernels' template instances (D = DV)
 # (D, DV) instances of the prefill kernels: equal widths, and MLA's
@@ -62,7 +64,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attn")
     if not getattr(lib, "_bound", False):
         lib.flash_attn_fwd.argtypes = ([_P] * 4 + [_I] * 8 + [_LL] * 4
-                                       + [_I, _I, _F, _I, _P])
+                                       + [_I, _I, _F, _I, _P, _P])
         lib.flash_attn_decode.argtypes = ([_P] * 4 + [_I] * 7 + [_LL] * 4
                                           + [_I, _I, _F, _I, _P, _I, _P, _P])
         for fn in (lib.flash_attn_fwd, lib.flash_attn_decode):
@@ -141,14 +143,25 @@ def _decode_launch(q, k, v, causal, window, softcap, q_offset, pos):
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, q_offset: int = 0):
+                    softcap: float = 0.0, q_offset: int = 0, *,
+                    return_lse: bool = False):
     """q (B, Hq, Sq, D), k (B, Hkv, Sk, D), v (B, Hkv, Sk, DV), Hq % Hkv
     == 0 -> (B, Hq, Sq, DV) in q's dtype (float32 or bfloat16); scores
     scaled by 1/sqrt(D).  ``q_offset`` is the absolute position of query 0
     (decode).  A CUDA kernel for CUDA tensors: the prefill kernels above 16
-    query rows per KV head or when DV != D, the decode kernel otherwise."""
+    query rows per KV head or when DV != D, the decode kernel otherwise.
+
+    ``return_lse`` (training, ``ops.FlashAttention``): also the rows'
+    log-sum-exp of the scaled (soft-capped) scores, fp32 (B, Hq, Sq), -inf
+    where a row sees no key; the prefill kernels write it at every Sq (the
+    decode kernel has none), with the same output bits as a call
+    without it."""
     if not q.is_cuda:
-        return attention_ref(q, k, v, causal, window, softcap, q_offset)
+        out = attention_ref(q, k, v, causal, window, softcap, q_offset)
+        if return_lse:
+            return out, attention_lse_ref(q, k, causal, window, softcap,
+                                          q_offset)
+        return out
     _check_qkv("flash_attention", q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -156,9 +169,12 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     q = q if q.data_ptr() % 16 == 0 else q.clone()
     k, v = (t if _rows_ok(t) else t.clone(memory_format=torch.contiguous_format)
             for t in (k, v))
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if not q.numel():
-        return q.new_empty((b, hq, sq, dv))
-    if dv == d and (hq // hkv) * sq <= DECODE_ROWS:
+        out = q.new_empty((b, hq, sq, dv))
+        return (out, lse) if return_lse else out
+    if dv == d and (hq // hkv) * sq <= DECODE_ROWS and not return_lse:
         out = _decode_launch(q, k, v, causal, window, softcap, q_offset, None)
     else:
         out = q.new_empty((b, hq, sq, dv))
@@ -168,10 +184,11 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
             _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv, k.stride(0),
             k.stride(1), v.stride(0), v.stride(1), int(bool(causal)),
             int(window), float(softcap), int(q_offset),
+            None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
         build.check(err, lib, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_decode(q, k_cache, v_cache, pos, window: int = 0,

@@ -319,6 +319,82 @@ def attention_ref(q, k, v, causal: bool = True, window: int = 0,
     return torch.einsum("bhqk,bhkd->bhqd", w, v.to(F32)).to(q.dtype)
 
 
+def attention_lse_ref(q, k, causal: bool = True, window: int = 0,
+                      softcap: float = 0.0, q_offset: int = 0):
+    """The log-sum-exp of each query row's visible scores in
+    :func:`attention_ref` (scaled by 1/sqrt(D), soft-capped), fp32
+    (B, Hq, Sq); -inf for a row with no visible key."""
+    b, hq, sq, d = q.shape
+    k = k.repeat_interleave(hq // k.shape[1], dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(F32), k.to(F32)) / d ** 0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    mask = attention_visible(sq, k.shape[2], causal, window, q_offset,
+                             q.device)
+    s = torch.where(mask, s, torch.full((), float("-inf"), device=q.device))
+    return torch.logsumexp(s, dim=-1)
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
+                      window: int = 0, softcap: float = 0.0,
+                      q_offset: int = 0, chunk: int = 512):
+    """The attention's backward (dq, dk, dv) from its forward output ``o``
+    and row log-sum-exp ``lse`` (:func:`attention_lse_ref`, or the prefill
+    kernels' ``return_lse``): the flash-attention backward as a plain
+    recompute over KV chunks of ``chunk`` keys, the counterpart of the JAX
+    LM's checkpointed chunk scan (``repro/lm/layers.py::chunked_attention``).
+
+    Per chunk, in fp32, over the query rows that can see one of its keys
+    (causal: from the chunk's first key on; window: up to its last key +
+    window): the scores s from q and k (soft-capped as the forward caps
+    them), P = exp(s - lse) at the visible pairs (0 elsewhere), dV = P^T dO,
+    dP = dO V^T, dS = P (dP - rowsum(dO o)), times 1 - tanh^2 under the
+    softcap, dQ += dS K, dK = dS^T Q, both scaled by 1/sqrt(D).  dK and dV
+    of a KV head sum its GQA group's q heads in one product (a fixed
+    order); dQ sums the chunks in order.  The transient is a few (B, Hq,
+    rows, chunk) fp32 tensors: the (Sq, Sk) matrix is never formed.  A row
+    with no visible key gives zero gradients.  Returns the grads in the
+    inputs' dtypes."""
+    b, hq, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    g = hq // hkv
+    scale = 1.0 / d ** 0.5
+    qf = q.to(F32).reshape(b, hkv, g, sq, d)
+    kf, vf = k.to(F32), v.to(F32)
+    dof = do.to(F32).reshape(b, hkv, g, sq, dv)
+    delta = (dof * o.to(F32).reshape(b, hkv, g, sq, dv)).sum(-1, keepdim=True)
+    lse = lse.to(F32).reshape(b, hkv, g, sq, 1)
+    lse = torch.where(torch.isfinite(lse), lse, 0.0)  # rows with no key
+    vis = attention_visible(sq, sk, causal, window, q_offset, q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dvv = torch.zeros_like(vf)
+    for c0 in range(0, sk, chunk):
+        c1 = min(sk, c0 + chunk)
+        r0 = max(0, c0 - q_offset) if causal else 0
+        r1 = sq if window <= 0 else max(0, min(sq, c1 - 1 + window - q_offset))
+        if r1 <= r0:
+            continue
+        qc, kc, vc = qf[:, :, :, r0:r1], kf[:, :, c0:c1], vf[:, :, c0:c1]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
+        if softcap > 0:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        p = torch.where(vis[r0:r1, c0:c1], torch.exp(s - lse[..., r0:r1, :]),
+                        0.0)
+        doc = dof[..., r0:r1, :]
+        dvv[:, :, c0:c1] = torch.einsum("bhgqk,bhgqd->bhkd", p, doc)
+        ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", doc, vc)
+                  - delta[..., r0:r1, :])
+        if softcap > 0:
+            ds = ds * (1.0 - t * t)
+        ds = ds * scale
+        dq[..., r0:r1, :] += torch.einsum("bhgqk,bhkd->bhgqd", ds, kc)
+        dk[:, :, c0:c1] = torch.einsum("bhgqk,bhgqd->bhkd", ds, qc)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dvv.to(v.dtype))
+
+
 def decode_ref(q, k_cache, v_cache, pos, window: int = 0,
                softcap: float = 0.0):
     """``flash_decode``'s plain version: q (B, Hq, Sq, D) at positions

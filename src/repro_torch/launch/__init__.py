@@ -1,1 +1,3 @@
-"""Entry points of the port (``repro/launch``): ``serve`` (LM token serving)."""
+"""Entry points of the port (``repro/launch``): ``serve`` (LM token and DP
+force serving), ``train`` (LM training) and its supervisor ``elastic``,
+``train_dpa1``, ``protein_md`` and ``remd``."""

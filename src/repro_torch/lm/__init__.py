@@ -1,3 +1,3 @@
-"""LM substrate of the port: the attention and dense-MLP families of
-``repro/lm`` (layers, model assembly, prefill and decode)."""
-from . import layers, model, serve_lib  # noqa: F401
+"""LM substrate of the port (``repro/lm``): layers, model assembly, prefill
+and decode, and the training step."""
+from . import layers, model, serve_lib, train_lib  # noqa: F401

@@ -37,9 +37,9 @@ DRAW_WHOLE = 2 ** 28
 
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 13: LM training, "
-        "lm/train_lib.py and lm/sharding.py); the port serves every "
-        "registry architecture on one card")
+        f"{what} is not ported yet (ROADMAP Queue 1 item 13: multi-card "
+        "work, launch/mesh.py and lm/sharding.py); the port serves and "
+        "trains every registry architecture on one card")
 
 
 def dt(cfg: ArchConfig) -> torch.dtype:
@@ -53,6 +53,8 @@ def normal(generator: torch.Generator, shape, std: float, dtype,
     are put.  A tensor of more than ``DRAW_WHOLE`` elements is drawn in
     slices along its leading axes, each cast into the result as it comes."""
     shape = tuple(shape)
+    if torch.device(device).type == "meta":   # shapes only: nothing drawn
+        return torch.empty(shape, dtype=dtype, device=device)
     if math.prod(shape) <= DRAW_WHOLE or len(shape) < 3:
         x = torch.randn(shape, generator=generator, device=generator.device)
         return (x * std).to(device=device, dtype=dtype)
@@ -415,7 +417,9 @@ def moe_layer(p, x, cfg: ArchConfig, act="silu"):
     slot_token.scatter_(0, torch.where(keep, dest, e * capacity).reshape(-1),
                         tokens.reshape(-1))
     xpad = torch.cat([xf, xf.new_zeros((1, d))])
-    buf = xpad[slot_token[:-1]].view(e, capacity, d)
+    # gathers as F.embedding: under autograd its backward sums a token's
+    # slots in a fixed order on the card too (indexing's may not)
+    buf = F.embedding(slot_token[:-1], xpad).view(e, capacity, d)
 
     g = act_fn(act)(torch.bmm(buf, p["w_gate"]))
     u = torch.bmm(buf, p["w_up"])
@@ -424,7 +428,7 @@ def moe_layer(p, x, cfg: ArchConfig, act="silu"):
     out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for j in range(cfg.top_k):
         w_j = (topw[:, j] * keep[:, j]).to(x.dtype)
-        out = out + h[dest[:, j]] * w_j[:, None]
+        out = out + F.embedding(dest[:, j], h) * w_j[:, None]
     if cfg.n_shared_experts:
         out = out + mlp_layer(p["shared"], xf, act)
     return out.reshape(b, s, d), aux

@@ -8,14 +8,19 @@ along a leading ``(n_steps,)`` axis; whisper's ``encoder`` (stacked along
 ``(n_enc_layers,)``), ``enc_norm`` and ``frame_proj``, the vision model's
 ``img_proj``, and deepseek's ``mtp_layer``, ``mtp_norm`` and ``mtp_proj``.
 The JAX ``lax.scan`` over pattern periods is a Python loop that takes step
-``s`` of every stacked tensor as a view.
+``s`` of every stacked tensor as a view (``forward`` unbinds each stacked
+tensor once, so that its gradient is one stack of the steps' gradients).
 
-Not ported: ``remat`` and ``mesh`` (``forward`` raises if asked for them),
-which belong to LM training (ROADMAP Queue 1 item 13).
+``forward(remat="full")`` recomputes each prefix layer and each pattern
+period in the backward (``torch.utils.checkpoint``, non-reentrant), as the
+reference checkpoints them.  Not ported: ``mesh`` (``forward`` raises),
+which belongs to multi-card work (``launch/mesh.py``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device
@@ -100,6 +105,22 @@ def step_params(stacked: dict, s: int) -> dict:
             for k, v in stacked.items()}
 
 
+def unstack(stacked: dict, n: int) -> list[dict]:
+    """Every step of a tree of tensors stacked along ``(n,)``, as views
+    from one ``unbind`` per tensor: under autograd the steps' gradients
+    come back as one stack, not as n full-size scatters."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+
+    def pick(tree, s):
+        return {k: pick(v, s) if isinstance(v, dict) else v[s]
+                for k, v in tree.items()}
+
+    parts = split(stacked)
+    return [pick(parts, s) for s in range(n)]
+
+
 def layers_in_order(params, cfg: ArchConfig):
     """(layer params, spec) in execution order: the prefix layers, then the
     pattern's positions step by step."""
@@ -170,9 +191,8 @@ def encode_context(params, cfg: ArchConfig, context):
     if cfg.enc_dec:
         x = ctx @ params["frame_proj"]
         pos = torch.arange(x.shape[1], device=x.device)
-        for i in range(cfg.n_enc_layers):
-            x, _ = apply_layer(step_params(params["encoder"], i), x, cfg,
-                               ENC_SPEC, pos, causal=False)
+        for layer_p in unstack(params["encoder"], cfg.n_enc_layers):
+            x, _ = apply_layer(layer_p, x, cfg, ENC_SPEC, pos, causal=False)
         return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
     if cfg.cross_attn_every:
         return ctx @ params["img_proj"]
@@ -186,28 +206,64 @@ def logits_head(params, cfg: ArchConfig, x):
 
 def final_softcap(cfg: ArchConfig, logits):
     """cap * tanh(logits / cap): tanh in fp32, the product in logits' dtype
-    (the reference's order)."""
+    (the reference's order).  In place on fresh copies (serving's logits
+    are large); the product on a copy of the tanh, which autograd keeps."""
     if cfg.final_softcap <= 0:
         return logits
     t = logits.to(torch.float32, copy=True).div_(cfg.final_softcap).tanh_()
-    return t.to(logits.dtype).mul_(cfg.final_softcap)
+    return t.to(logits.dtype, copy=True).mul_(cfg.final_softcap)
+
+
+def embed(params, tokens):
+    """The token embeddings: a gather whose backward (training) sums the
+    rows of repeated tokens in a fixed order on the card as well."""
+    return F.embedding(tokens, params["embed"])
 
 
 def forward(params, cfg: ArchConfig, tokens, context=None,
             return_hidden: bool = False, remat: str = "none", mesh=None):
     """tokens (B, S) -> (logits (B, S, V), aux_loss), the MoE layers' aux
     losses summed; ``context``: frame or patch embeddings (B, T, D); with
-    ``return_hidden`` also the final normed hidden states."""
-    if remat != "none" or mesh is not None:
-        raise L.unported("forward with remat or a mesh")
+    ``return_hidden`` also the final normed hidden states.
+
+    ``remat="full"`` recomputes each prefix layer and each pattern period
+    (one step of the stacked layers) in the backward instead of keeping
+    its activations (``torch.utils.checkpoint``, non-reentrant): only the
+    residual stream between them is saved, the reference's policy.  The
+    recomputation repeats the forward's operations, so loss and gradients
+    are the same bits as with ``remat="none"``."""
+    if mesh is not None:
+        raise L.unported("forward with a mesh")
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat is 'none' or 'full', not {remat!r}")
+    prefix_n, n_steps, pattern = cfg.scan_pattern()
+    specs = cfg.layer_specs()
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
-    x = params["embed"][tokens]
+    x = embed(params, tokens)
     ctx = encode_context(params, cfg, context)
+
+    def run_layers(layer_ps, layer_specs, h, aux_acc):
+        for layer_p, spec in zip(layer_ps, layer_specs):
+            h, aux = apply_layer(layer_p, h, cfg, spec, positions,
+                                 context=ctx)
+            aux_acc = aux_acc + aux
+        return h, aux_acc
+
+    def run(layer_ps, layer_specs, h, aux_acc):
+        if remat == "full":
+            # the forward draws nothing at random: no RNG state to keep
+            return checkpoint(run_layers, layer_ps, layer_specs, h, aux_acc,
+                              use_reentrant=False, preserve_rng_state=False)
+        return run_layers(layer_ps, layer_specs, h, aux_acc)
+
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer_p, spec in layers_in_order(params, cfg):
-        x, aux = apply_layer(layer_p, x, cfg, spec, positions, context=ctx)
-        aux_total = aux_total + aux
+    for i in range(prefix_n):
+        x, aux_total = run([params["prefix"][i]], [specs[i]], x, aux_total)
+    steps = [unstack(p, n_steps) for p in params["pattern"]]
+    for st in range(n_steps):
+        x, aux_total = run([steps[j][st] for j in range(len(pattern))],
+                           pattern, x, aux_total)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = final_softcap(cfg, logits_head(params, cfg, x))
     if return_hidden:
@@ -219,7 +275,7 @@ def mtp_logits(params, cfg: ArchConfig, hidden, tokens):
     """DeepSeek MTP: one extra layer predicting token t+2 from
     [h_t ; emb(token_{t+1})] (single-depth MTP, as in the paper); the
     caller shifts ``tokens``."""
-    emb_next = params["embed"][tokens]
+    emb_next = embed(params, tokens)
     h = torch.cat([hidden, emb_next], -1) @ params["mtp_proj"]
     h, _ = apply_layer(params["mtp_layer"], h, cfg, MTP_SPEC,
                        torch.arange(h.shape[1], device=h.device))

@@ -96,7 +96,17 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   max|leaf|), a step launching the force scatter once and no model
   kernel, ``force_rmse`` launching each single-domain kernel once per 16
   frames; ``train`` restored from a mid-run checkpoint ending with the
-  uninterrupted run's parameters bit for bit.
+  uninterrupted run's parameters bit for bit;
+* LM training: the attention's autograd Function (the prefill kernels
+  with the row log-sum-exp, the plain chunked backward) against autograd
+  through ``attention_ref`` in fp32 and bf16 (GQA, window, softcap,
+  offset, MLA's (192, 128), 6 rows per KV head, rows with no visible key),
+  a repeat the same bits; the kernels with the LSE give the serving
+  call's output bits, the LSE against ``attention_lse_ref``; two train
+  steps of a reduced qwen2 on the card against the CPU; every registry
+  arch's train step (reduced, bf16) under
+  ``torch.use_deterministic_algorithms(True, warn_only=True)`` warning of
+  no nondeterministic op and repeating bit for bit.
 """
 import numpy as np
 import pytest
@@ -1268,4 +1278,184 @@ def test_training_restart_on_card_bitwise(card, tmp_path):
         **cfg, checkpoint_dir=str(tmp_path / "b")))
     assert hist_b[-1] == dict(hist[-1], wall_s=hist_b[-1]["wall_s"])
     for a, b in zip(tree_leaves(resumed), tree_leaves(full)):
+        assert torch.equal(a, b)
+
+
+# -- LM training: the attention's autograd Function and the train step --
+
+# (hq, hkv, sq, sk, d, dv, causal, window, softcap, q_offset)
+LM_TRAIN_CASES = [
+    (8, 2, 200, 200, 64, 64, True, 0, 0.0, 0),       # GQA, Sq off the tiles
+    (4, 4, 96, 160, 128, 128, True, 48, 50.0, 64),   # window, softcap, offset
+    (4, 2, 64, 64, 32, 32, False, 0, 0.0, 0),        # not causal
+    (2, 2, 12, 12, 192, 128, True, 0, 0.0, 0),       # MLA's (192, 128)
+    (4, 2, 3, 40, 64, 64, True, 0, 0.0, 37),         # 6 rows per KV head
+    (4, 2, 16, 20, 256, 256, True, 4, 0.0, 10),      # rows with no key
+]
+
+
+def _lm_train_inputs(card, dtype, case, seed=0):
+    hq, hkv, sq, sk, d, dv = case[:6]
+    g = torch.Generator(device=card).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device=card).to(dtype)
+    return (mk(2, hq, sq, d).requires_grad_(), mk(2, hkv, sk, d).requires_grad_(),
+            mk(2, hkv, sk, dv).requires_grad_(), mk(2, hq, sq, dv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LM_TRAIN_CASES)
+def test_flash_attention_function_on_card_equals_autograd(card, dtype, case):
+    """``ops.FlashAttention`` (the kernel's forward with its LSE, the plain
+    chunked backward) against autograd through ``attention_ref``: output
+    atol 1e-4 x max (fp32) / 1e-2 x max (bf16: the kernel rounds P to
+    bf16), dq/dk/dv atol 1e-4 x max (fp32) / 2e-2 x max (bf16: the
+    backward's delta = rowsum(dO o) reads that output); one launch a
+    forward; a repeat the same bits."""
+    from repro_torch.kernels import ops
+    q, k, v, do = _lm_train_inputs(card, dtype, case)
+    args = case[6:]
+    before = flash_attn.flash_attention.launches
+    out = ops.attention_op(q, k, v, *args)
+    assert flash_attn.flash_attention.launches == before + 1
+    got = (out.detach(), *torch.autograd.grad(out, (q, k, v), do))
+    again = ops.attention_op(q, k, v, *args)
+    again = (again.detach(), *torch.autograd.grad(again, (q, k, v), do))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref.attention_ref(q, k, v, *args)
+    want = (want.detach(), *torch.autograd.grad(want, (q, k, v), do))
+    tols = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 2e-2)
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = tols[min(i, 1)]
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=tol * float(b.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LM_TRAIN_CASES)
+def test_flash_attention_lse_keeps_serving_bits(card, dtype, case):
+    """The prefill kernels with the LSE give the output bits of the serving
+    call wherever that call takes them too (the 6-row case goes to the
+    decode kernel when no LSE is asked: there both are held to the plain
+    version); the LSE against ``attention_lse_ref`` (atol 1e-4 x
+    max(|lse|, 1)), -inf exactly at the rows with no visible key."""
+    hq, hkv, sq, sk, d, dv = case[:6]
+    args = case[6:]
+    q, k, v, _ = (t.detach() for t in _lm_train_inputs(card, dtype, case))
+    out, lse = flash_attn.flash_attention(q, k, v, *args, return_lse=True)
+    serve = flash_attn.flash_attention(q, k, v, *args)
+    if d != dv or (hq // hkv) * sq > flash_attn.DECODE_ROWS:
+        assert torch.equal(out, serve)
+    plain = ref.attention_ref(q, k, v, *args).float()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for o in (out, serve):
+        torch.testing.assert_close(o.float(), plain, rtol=0,
+                                   atol=tol * float(plain.abs().max()))
+    want = ref.attention_lse_ref(q, k, *args)
+    fin = torch.isfinite(want)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert bool((lse[~fin] == float("-inf")).all())
+    if fin.any():
+        torch.testing.assert_close(
+            lse[fin], want[fin], rtol=0,
+            atol=1e-4 * max(1.0, float(want[fin].abs().max())))
+
+
+def _reduced_lm(name, dtype="float32", n_layers=4):
+    """A registry arch at a width the kernel has heads for (d_model 256: 4
+    heads of 64; MLA 128 + 64 and 128)."""
+    over = dict(n_layers=n_layers, d_model=256, d_ff=512, vocab=512,
+                dtype=dtype)
+    if ARCHS[name].mla:
+        over.update(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128)
+    return ARCHS[name].reduced(**over)
+
+
+@pytest.mark.cuda
+def test_lm_train_step_on_card_equals_cpu(card):
+    """qwen2 at the reduced width (2 layers, fp32, B 2 x 32): two steps on
+    the card against the CPU from the same parameters and batches: the
+    metrics within 1e-4 x |cpu|; Adam's first moment after each step leaf
+    by leaf within 1e-4 x max|cpu leaf|; the parameters after step 1
+    within 1e-4 x max|cpu leaf| plus what that gradient gate allows Adam's
+    first step (-lr g / (|g| + eps)) to make of it; 2 flash_attention
+    launches a step forward, 2 more recomputing (remat)."""
+    from repro_torch import kernels
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import model as LM
+    from repro_torch.lm import train_lib as TL
+    from repro_torch.optim.adam import tree_leaves, tree_map
+    cfg = _reduced_lm("qwen2-1.5b", n_layers=2)
+    params = LM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    hp = TL.TrainHParams()
+    rec = {}
+    for dev in ("cpu", "cuda"):
+        step, opt = TL.make_train_step(cfg, hp)
+        p = tree_map(lambda t: t.to(dev), params)
+        st = opt.init(p)
+        rec[dev] = []
+        for i in range(2):
+            kernels.reset_launch_counts()
+            p, st, m = step(p, st, make_batch(cfg, i, 2, 32, dev))
+            rec[dev].append(({k: float(v) for k, v in m.items()},
+                             [t.cpu() for t in tree_leaves(st["m"])],
+                             [t.cpu() for t in tree_leaves(p)],
+                             kernels.launch_counts()))
+    for i, (c, g) in enumerate(zip(rec["cpu"], rec["cuda"])):
+        for key, want in c[0].items():
+            assert abs(g[0][key] - want) <= 1e-4 * abs(want), (i, key)
+        for a, b in zip(g[1], c[1]):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+        assert g[3]["flash_attention"] == 4
+        assert sum(g[3].values()) == 4
+    for got, want, m1 in zip(rec["cuda"][0][2], rec["cpu"][0][2],
+                             rec["cpu"][0][1]):
+        gabs = m1.double().abs() / 0.1                     # |clipped g|
+        d = 1e-4 * float(gabs.max())
+        amp = hp.lr * d * 1e-8 / ((gabs - d).clamp_min(0) + 1e-8) ** 2
+        err = (got.double() - want.double()).abs()
+        assert bool((err <= 1e-4 * float(want.abs().max()) + amp).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_lm_train_step_repeats_bitwise_on_card(card, name):
+    """Every registry arch at the reduced width in bf16 (B 2 x 32), under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: no op of
+    a step warns that it has no deterministic implementation (cuBLAS's
+    workspace notice aside: it concerns several streams, a step runs on
+    one), and the step run twice from one state gives the same bits
+    (the restart gate of ``launch.train`` rests on it)."""
+    import warnings
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import model as LM
+    from repro_torch.lm import train_lib as TL
+    from repro_torch.optim.adam import tree_leaves
+    n_layers = 5 if name == "llama-3.2-vision-90b" else 4
+    cfg = _reduced_lm(name, "bfloat16", n_layers)
+    params = LM.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                            card)
+    step, opt = TL.make_train_step(cfg, TL.TrainHParams())
+    st = opt.init(params)
+    batch = make_batch(cfg, 0, 2, 32, card)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runs = [step(params, st, batch) for _ in range(2)]
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bad = [str(w.message) for w in caught
+           if "deterministic" in str(w.message)
+           and "CUBLAS_WORKSPACE_CONFIG" not in str(w.message)]
+    assert not bad, bad
+    (p0, s0, m0), (p1, s1, m1) = runs
+    assert all(torch.isfinite(v) for v in m0.values())
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    for a, b in zip(tree_leaves((p0, s0)), tree_leaves((p1, s1))):
         assert torch.equal(a, b)
