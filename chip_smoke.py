@@ -13,6 +13,7 @@ MoE, Mamba, RWKV6, cross-attention, the encoder and MTP) and LM training.
     python3 chip_smoke.py --phase train     # the train phase alone
     python3 chip_smoke.py --phase ensemble  # the ensemble phase alone
     python3 chip_smoke.py --phase serve     # the serve phase alone
+    python3 chip_smoke.py --phase roofline  # the roofline phase alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
 source, all started together; Triton at first launch), then runs phases
@@ -21,7 +22,8 @@ rcut=0.6, sel=64)``, fp32, random weights from a seed) over uniform random
 atoms at 30 atoms/nm^3, phases 5-6 on the MD engine with the same model,
 phase 7 trains the DPA-1, phase 8 serves gemma2-2b, phases 9-10 run
 replica ensembles and DP force serving (run after phase 6), phase 11 the
-other LM architectures and phase 12 LM training:
+other LM architectures, phase 12 LM training and phase 13 the step
+accounting against the card:
 
 1. kernels: the env-matrix, attention and force-scatter kernels against
    their plain PyTorch versions on the card, at the shapes and on the data
@@ -172,7 +174,18 @@ other LM architectures and phase 12 LM training:
    reduced fp32 width: two steps on the card against the CPU at the CPU
    tests' gates; (e) the launcher killed at step 6 and resumed on the
    card, equal to the uninterrupted run bit for bit;
-13. a ``kernels`` JSON line (launches per force call, per MD step, per
+13. roofline: the step accounting (``launch/roofline.py::count_step``)
+   held against the card: qwen2-1.5b's training step (12's config),
+   gemma2-2b's prefill and one eager decode step (8's config, the last
+   decode position) counted on ``meta`` and on the card, the counts equal
+   (FLOPs and bytes by op, the live-bytes peak, the flash kernels'
+   formulas); one JSON line per cell with the card's name and power limit:
+   mfu (model FLOPs: 6 N D, 2 N D; the prefill's less the LM head at the
+   positions it does not project), hfu (counted FLOPs) over the bf16
+   peak and the bytes
+   share of 3.35 TB/s at the times phases 12 and 8 measured, the
+   live-bytes peak beside ``torch.cuda.max_memory_allocated``;
+14. a ``kernels`` JSON line (launches per force call, per MD step, per
    guarded MD run, per training step and ``force_rmse`` call, per
    request, per batched force call, per ensemble step, per served
    dispatch, per overlap evaluation and per LM training step;
@@ -3328,23 +3341,19 @@ LM_BF16_TOL = 6e-2
 
 
 def flash_bound(q, k, causal, window, q_offset, dv=None):
-    """Least time of one flash_attention call: the visible pairs' FLOPs
-    (2 (D + DV) per pair and q head: Q K^T and P V) at the card's peak for
-    the inputs' type (bf16 tensor cores 989, fp32 67 TFLOP/s), against q
-    and o once and the K/V rows some query can see once, at the memory
-    rate.  ``dv``: the value width (default D)."""
+    """Least time of one flash_attention call: its work by the kernel's own
+    formula, the one the step accounting counts
+    (``flash_attn.attention_flops_bytes``: 2 (D + DV) FLOPs per visible
+    pair and q head, Q K^T and P V; q and o once and the K/V rows some
+    query can see once), at the card's peak for the inputs' type (bf16
+    tensor cores 989, fp32 67 TFLOP/s) and at the memory rate.  ``dv``: the
+    value width (default D)."""
+    from repro_torch.kernels import flash_attn
     b, hq, sq, d = q.shape
-    dv = d if dv is None else dv
-    hkv, sk = k.shape[1], k.shape[2]
-    pos = q_offset + np.arange(sq, dtype=np.int64)   # first/last visible key
-    hi = np.minimum(sk - 1, pos) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(sq, np.int64)
-    pairs = int(np.clip(hi - lo + 1, 0, None).sum()) * b * hq
-    keys = max(0, int(hi.max()) - int(lo.min()) + 1) if sq else 0
-    el = q.element_size()
-    nbytes = el * (b * hq * sq * (d + dv) + b * hkv * keys * (d + dv))
+    flops, nbytes = flash_attn.attention_flops_bytes(
+        b, hq, k.shape[1], sq, k.shape[2], d, d if dv is None else dv,
+        q.element_size(), causal, window, q_offset)
     peak = BF16_PEAK if q.dtype == torch.bfloat16 else F32_PEAK
-    flops = 2 * (d + dv) * pairs
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
     bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     return bound, flops
@@ -3544,6 +3553,24 @@ def sdpa_yardstick(name, args):
             "sdpa_ms": time_ms(lib),
             "bound_ms": flash_bound(q, bound_k, True, window, q_offset)[0][0]}
     line["kernel_over_sdpa"] = line["kernel_ms"] / line["sdpa_ms"]
+    if len(args) == 6:
+        # decode: SDPA in fp32 too, on fp32 copies, checked against the
+        # kernel once; the fp32 kernel's time and bound are check_decode's
+        # (the kernels line's fp32_ms_by_call, fp32_bound_ms_by_call)
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        lk32, lv32 = k32[:, :, lo:q_offset + 1], v32[:, :, lo:q_offset + 1]
+
+        def lib32():
+            return F.scaled_dot_product_attention(q32, lk32, lv32,
+                                                  enable_gqa=True)
+
+        want = lib32()
+        line["fp32_max_err_vs_sdpa"] = check(
+            f"{name} vs sdpa (softcap 0, fp32)",
+            flash_attn.flash_decode(q32, k32, v32, pos, window, 0.0), want,
+            atol=1e-4 * float(want.abs().max()))
+        line["fp32_sdpa_ms"] = time_ms(lib32)
+        del q32, k32, v32, lk32, lv32, want
     print(json.dumps(line), flush=True)
     torch.cuda.empty_cache()
     return line
@@ -3743,11 +3770,12 @@ def phase_lm():
     profile_lm(cfg, params, tokens)
     del params
     torch.cuda.empty_cache()
-    return rows, {"flash_attention": {"launches": counts["flash_attention"],
-                                      "launches_per_prefill": prefill_calls},
-                  "flash_decode": {"launches": counts["flash_decode"],
-                                   "launches_per_decode_step": per_step,
-                                   "launches_eager_request": decode_calls}}
+    launches = {"flash_attention": {"launches": counts["flash_attention"],
+                                    "launches_per_prefill": prefill_calls},
+                "flash_decode": {"launches": counts["flash_decode"],
+                                 "launches_per_decode_step": per_step,
+                                 "launches_eager_request": decode_calls}}
+    return summary, rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -4506,7 +4534,7 @@ def phase_lm_train():
     ``launch/train.py`` (the main path), (c) remat full == none at full
     width (4 layers), (d) every registry arch at the reduced width card ==
     CPU, (e) the launcher's restart bit for bit.  Returns the attention
-    lines and the launches per train step."""
+    lines, the launches per train step and (b)'s line."""
     from repro_torch.configs import ARCHS
     t0 = time.perf_counter()
     attn = {a: lm_train_attention(a) for a in LM_TRAIN_ATTN}
@@ -4524,7 +4552,168 @@ def phase_lm_train():
     lm_train_restart()
     print(json.dumps({"phase": "lm_train", "s": time.perf_counter() - t0}),
           flush=True)
-    return attn, run["launches_per_step"]
+    return attn, run["launches_per_step"], run
+
+
+# ---------------------------------------------------------------------------
+# roofline: the step accounting held against the card
+# ---------------------------------------------------------------------------
+
+def meta_like(tree):
+    """Empty tensors on the ``meta`` device shaped like ``tree``'s."""
+    return _tree(tree, lambda t: torch.empty_like(t, device="meta"))
+
+
+def count_on_both(what, fn, args, meta_args, positions=None):
+    """``roofline.count_step`` of one call on ``meta`` and on the card:
+    the two counts must be equal, FLOPs by op, bytes, the live-bytes peak
+    and each kernel's formula.  Returns the card's count and outputs, the
+    meta outputs and the card's peak memory above what was allocated before
+    the step (``torch.cuda.max_memory_allocated``)."""
+    from repro_torch.launch.roofline import count_step
+    t0 = time.perf_counter()
+    meta, meta_out = count_step(fn, *meta_args, positions=positions)
+    meta_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    card, out = count_step(fn, *args, positions=positions)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    a, b = meta.to_dict(), card.to_dict()
+    if a != b:
+        diff = {k: (a[k], b[k]) for k in a if a[k] != b[k]}
+        fail(f"roofline {what}: the meta and card counts differ: {diff}")
+    return card, out, meta_out, {"count_s_meta": meta_s,
+                                 "count_s_card": card_s,
+                                 "peak_above_inputs_bytes": peak - base,
+                                 "max_memory_allocated_bytes": peak}
+
+
+def roofline_line(what, count, ms, model_flops, mem, smi, **extra):
+    """One cell's shares of the card (datasheet rates) at its measured
+    ``ms``: model FLOPs (``mfu``) and counted FLOPs (``hfu``) over the bf16
+    peak, counted bytes over 3.35 TB/s, and the lower bound's share."""
+    from repro_torch.launch.roofline import roofline_terms
+    sec = ms / 1e3
+    terms = roofline_terms(count.flops, count.bytes, 0.0)
+    line = {"phase": "roofline", "cell": what, "device": smi,
+            "ms": ms, "model_flops": model_flops,
+            "counted_flops": count.flops,
+            "aten_flops_by_op": count.flops_by_op,
+            "kernels": count.kernels, "counted_bytes": count.bytes,
+            "bytes_by_op": count.bytes_by_op,
+            "mfu": model_flops / sec / BF16_PEAK,
+            "hfu": count.flops / sec / BF16_PEAK,
+            "bytes_share": count.bytes / sec / HBM_RATE,
+            "lower_bound_ms": terms["step_lower_bound_s"] * 1e3,
+            "bound_by": terms["dominant"],
+            "lower_bound_share": terms["step_lower_bound_s"] / sec,
+            "live_peak_bytes": count.live_peak_bytes,
+            **mem, "meta_equals_card": True,
+            "rates": "H100 SXM5 datasheet: bf16 989 TFLOP/s, 3.35 TB/s",
+            **extra}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def lm_serving_times(cfg, params, tokens):
+    """Prefill and graphed decode ms (medians of LM_ROUNDS graphed requests
+    after one warm-up request), for the phase run alone."""
+    from repro_torch.launch.serve import serve_tokens
+    serve_tokens(cfg, params, tokens, LM_NEW)
+    rounds = [serve_tokens(cfg, params, tokens, LM_NEW)
+              for _ in range(LM_ROUNDS)]
+    return {"prefill_ms_median": statistics.median(
+                r["prefill_s"] * 1e3 for r in rounds),
+            "decode_ms_per_step_median": statistics.median(
+                r["decode_s"] / (LM_NEW - 1) * 1e3 for r in rounds)}
+
+
+def phase_roofline(smi, train_line=None, lm_summary=None):
+    """The step accounting (``launch/roofline.py::count_step``) against the
+    card: (a) one qwen2-1.5b training step (the ``lm_train`` phase's
+    config: B 4 x 2,048, Adam, ``remat="full"``) and (b) one gemma2-2b
+    prefill (the ``lm`` phase's: B 4 x 6,144 into a 6,176-token cache) and
+    one eager decode step at the last decode position of the ``lm``
+    phase's request, each counted on ``meta`` and on the card, the counts
+    equal; then the shares of the card at the times the ``lm_train`` and
+    ``lm`` phases measured (run alone: measured here, 12 training steps
+    and LM_ROUNDS graphed requests)."""
+    from repro_torch.configs import get_arch, param_count
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import model as LM
+    from repro_torch.lm import train_lib as TL
+    from repro_torch.lm.serve_lib import make_prefill, make_serve_step
+    t_phase = time.perf_counter()
+    if train_line is None:
+        train_line = lm_train_run()
+    cfg = get_arch(LM_TRAIN_ARCH)
+    n_active = param_count(cfg)[1]
+    hp = TL.TrainHParams(optimizer="adam")
+    step, opt = TL.make_train_step(cfg, hp)
+    params = LM.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    state = opt.init(params)
+    batch = make_batch(cfg, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, DEVICE)
+    m_params = meta_like(params)
+    count, _, _, mem = count_on_both(
+        "train", step, (params, state, batch),
+        (m_params, opt.init(m_params), meta_like(batch)))
+    lines = {"train": roofline_line(
+        f"{LM_TRAIN_ARCH} train step, B {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, "
+        "adam, remat full", count,
+        train_line["ms_per_step_median_steps_2_11"],
+        6.0 * n_active * LM_TRAIN_BATCH * LM_TRAIN_SEQ, mem, smi,
+        ms_is="lm_train's ms_per_step_median_steps_2_11",
+        lm_train_peak_MiB=train_line["peak_MiB"])}
+    del params, state, batch, count
+    torch.cuda.empty_cache()
+
+    cfg = get_arch(LM_ARCH)
+    n_active = param_count(cfg)[1]
+    params = LM.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    tokens = torch.tensor(np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)), device=DEVICE)
+    if lm_summary is None:
+        lm_summary = lm_serving_times(cfg, params, tokens)
+    m_params = meta_like(params)
+    prefill = make_prefill(cfg, max_len=LM_PROMPT + LM_NEW)
+    count, (logits, cache), (_, m_cache), mem = count_on_both(
+        "prefill", prefill, (params, tokens), (m_params, meta_like(tokens)))
+    # the prefill projects only the last position onto the vocabulary:
+    # 2 N D less the LM head's 2 V d at the other S - 1 positions per row
+    unprojected = 2.0 * cfg.vocab * cfg.d_model * LM_BATCH * (LM_PROMPT - 1)
+    lines["prefill"] = roofline_line(
+        f"{LM_ARCH} prefill, B {LM_BATCH} x {LM_PROMPT}", count,
+        lm_summary["prefill_ms_median"],
+        2.0 * n_active * LM_BATCH * LM_PROMPT - unprojected, mem, smi,
+        ms_is="lm's prefill_ms_median (graphed requests)",
+        model_flops_is="2 N D less the LM head at the B (S - 1) positions "
+                       "the prefill does not project",
+        model_flops_2nd=2.0 * n_active * LM_BATCH * LM_PROMPT)
+    pos = LM_PROMPT + LM_NEW - 2            # the last decode step's
+    tok = logits[:, -1:].argmax(-1)
+    serve = make_serve_step(cfg)
+    count, _, _, mem = count_on_both(
+        "decode", serve,
+        (params, cache, tok, torch.tensor(pos, device=DEVICE)),
+        (m_params, m_cache, meta_like(tok),
+         torch.empty((), dtype=torch.int64, device="meta")), positions=pos)
+    lines["decode"] = roofline_line(
+        f"{LM_ARCH} decode step, B {LM_BATCH}, position {pos}", count,
+        lm_summary["decode_ms_per_step_median"],
+        2.0 * n_active * LM_BATCH, mem, smi,
+        ms_is="lm's decode_ms_per_step_median (graphed steps; counted "
+              "eagerly: the graph launches what the eager step launches)")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "roofline",
+                      "s": time.perf_counter() - t_phase}), flush=True)
+    return lines
 
 
 def device_profile(fn, phase, what, host_ops=False):
@@ -4672,6 +4861,11 @@ def main():
         print("[lm_train] every check passed (lm_train phase alone)",
               flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "roofline"]:
+        phase_roofline(smi)
+        print("[roofline] every check passed (roofline phase alone)",
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "train"]:
         phase_train()
         print("[train] every check passed (train phase alone)", flush=True)
@@ -4731,11 +4925,13 @@ def main():
     torch.cuda.empty_cache()
     train_launches = phase_train()
     torch.cuda.empty_cache()
-    lm_rows, lm_launches = phase_lm()
+    lm_summary, lm_rows, lm_launches = phase_lm()
     torch.cuda.empty_cache()
     arch_lines, mla = phase_lm_archs()
     torch.cuda.empty_cache()
-    lm_train_attn, lm_train_launches = phase_lm_train()
+    lm_train_attn, lm_train_launches, lm_train_line = phase_lm_train()
+    torch.cuda.empty_cache()
+    phase_roofline(smi, lm_train_line, lm_summary)
     arch_launches = {
         kind: {name: line[f"launches_per_{kind}"]
                for name, line in arch_lines.items()}
@@ -4822,6 +5018,11 @@ def main():
             "softcap0_kernel_ms_by_call": {c: sdpa[c]["kernel_ms"]
                                            for c in calls},
             "library_ms_by_call": {c: sdpa[c]["sdpa_ms"] for c in calls},
+            "fp32_library_ms_by_call": {c: sdpa[c]["fp32_sdpa_ms"]
+                                        for c in calls
+                                        if "fp32_sdpa_ms" in sdpa[c]},
+            "fp32_bound_ms_by_call": {c: lm_rows[c]["fp32_bound_ms"]
+                                      for c in calls},
             "ms_by_call": {c: lm_rows[c]["bf16_kernel_ms"] for c in calls},
             "fp32_ms_by_call": {c: lm_rows[c]["fp32_kernel_ms"]
                                 for c in calls},

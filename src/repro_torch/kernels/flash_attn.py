@@ -39,15 +39,23 @@ its filled length.  At decode the visible KV blocks are split over several
 CTAs (:func:`decode_splits`) and their partials merged in split order by
 a second kernel.  Each wrapper counts its launches in
 ``<wrapper>.launches``, one per call.
+
+:func:`attention_flops_bytes` is the work of one call, the kernel's
+operations and the bytes it must move; a step counter
+(``launch/roofline.py::count_step``) takes it in place of the wrapper's
+insides (:mod:`~repro_torch.kernels.accounting`), and ``chip_smoke.py``
+bounds the kernel's time by it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from . import build
+from .accounting import accounted
 from .ref import attention_lse_ref, attention_ref, decode_ref
 
 HEAD_DIMS = (32, 64, 128, 256)   # the kernels' template instances (D = DV)
@@ -142,6 +150,63 @@ def _decode_launch(q, k, v, causal, window, softcap, q_offset, pos):
     return out
 
 
+def attention_flops_bytes(b: int, hq: int, hkv: int, sq: int, sk: int,
+                          d: int, dv: int, element_size: int, causal: bool,
+                          window: int, q_offset: int,
+                          lse: bool = False) -> tuple[int, int]:
+    """(flops, bytes) of one attention call over the (query, key) pairs it
+    sees: 2 (D + DV) FLOPs per visible pair and q head (Q K^T and P V; the
+    softmax's exponentials not counted), against q and o once, the K/V rows
+    some query can see once, and with ``lse`` the rows' fp32 log-sum-exp."""
+    pos = q_offset + np.arange(sq, dtype=np.int64)   # first/last visible key
+    hi = np.minimum(sk - 1, pos) if causal else np.full(sq, sk - 1)
+    lo = (np.maximum(0, pos - window + 1) if window > 0
+          else np.zeros(sq, np.int64))
+    pairs = int(np.clip(hi - lo + 1, 0, None).sum()) * b * hq
+    keys = max(0, int(hi.max()) - int(lo.min()) + 1) if sq else 0
+    nbytes = element_size * (b * hq * sq * (d + dv) + b * hkv * keys * (d + dv))
+    if lse:
+        nbytes += 4 * b * hq * sq
+    return 2 * (d + dv) * pairs, nbytes
+
+
+def attention_work(q, k, v, causal: bool = True, window: int = 0,
+                   softcap: float = 0.0, q_offset: int = 0, *,
+                   return_lse: bool = False, positions=None):
+    """:func:`flash_attention`'s (flops, bytes) for these arguments."""
+    b, hq, sq, d = q.shape
+    return attention_flops_bytes(b, hq, k.shape[1], sq, k.shape[2], d,
+                                 v.shape[3], q.element_size(), causal, window,
+                                 q_offset, return_lse)
+
+
+def decode_work(q, k_cache, v_cache, pos, window: int = 0,
+                softcap: float = 0.0, *, positions=None):
+    """:func:`flash_decode`'s (flops, bytes): the keys < positions + Sq of
+    the cache, ``positions`` the caller's host-side int (``pos`` is a
+    device tensor, whose value the host does not read)."""
+    if positions is None:
+        raise ValueError("flash_decode's work depends on its position: "
+                         "give the counter the host-side positions")
+    b, hq, sq, d = q.shape
+    n = min(k_cache.shape[2], int(positions) + sq)
+    return attention_flops_bytes(b, hq, k_cache.shape[1], sq, n, d,
+                                 v_cache.shape[3], q.element_size(), True,
+                                 window, int(positions))
+
+
+def _attention_out_like(q, k, v, *args, return_lse: bool = False, **kwargs):
+    out = q.new_empty((*q.shape[:3], v.shape[3]))
+    if return_lse:
+        return out, q.new_empty(q.shape[:3], dtype=torch.float32)
+    return out
+
+
+def _decode_out_like(q, *args, **kwargs):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@accounted(attention_work, _attention_out_like)
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0, *,
                     return_lse: bool = False):
@@ -191,6 +256,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     return (out, lse) if return_lse else out
 
 
+@accounted(decode_work, _decode_out_like)
 def flash_decode(q, k_cache, v_cache, pos, window: int = 0,
                  softcap: float = 0.0):
     """Decode attention over a whole cache: q (B, Hq, Sq, D) at absolute

@@ -37,9 +37,12 @@ DRAW_WHOLE = 2 ** 28
 
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 13: multi-card "
-        "work, launch/mesh.py and lm/sharding.py); the port serves and "
-        "trains every registry architecture on one card")
+        f"{what} is not ported yet: what remains of the JAX package is "
+        "multi-card execution (ROADMAP Queue 1 item 14: a device mesh of "
+        "more than one card, the specs of lm/sharding.py applied, NCCL "
+        "collectives); the port serves and trains every registry "
+        "architecture on one card and accounts for a multi-card layout "
+        "(launch/dryrun.py)")
 
 
 def dt(cfg: ArchConfig) -> torch.dtype:

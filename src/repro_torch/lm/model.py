@@ -13,8 +13,9 @@ tensor once, so that its gradient is one stack of the steps' gradients).
 
 ``forward(remat="full")`` recomputes each prefix layer and each pattern
 period in the backward (``torch.utils.checkpoint``, non-reentrant), as the
-reference checkpoints them.  Not ported: ``mesh`` (``forward`` raises),
-which belongs to multi-card work (``launch/mesh.py``).
+reference checkpoints them.  ``mesh``: None or a layout of one device
+(``launch/mesh.py``), run as no mesh; a larger layout raises (multi-card
+execution is not ported).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device
 from . import layers as L
+from . import sharding as S
 
 # the whisper encoder's layers and deepseek's MTP layer
 ENC_SPEC = LayerSpec(mixer="attn", mlp="dense", use_rope=False)
@@ -232,8 +234,7 @@ def forward(params, cfg: ArchConfig, tokens, context=None,
     residual stream between them is saved, the reference's policy.  The
     recomputation repeats the forward's operations, so loss and gradients
     are the same bits as with ``remat="none"``."""
-    if mesh is not None:
-        raise L.unported("forward with a mesh")
+    S.require_one_card(mesh, "forward")
     if remat not in ("none", "full"):
         raise ValueError(f"remat is 'none' or 'full', not {remat!r}")
     prefix_n, n_steps, pattern = cfg.scan_pattern()

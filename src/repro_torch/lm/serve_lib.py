@@ -29,6 +29,7 @@ import torch
 from ..configs.base import ArchConfig, LayerSpec
 from . import layers as L
 from . import model as M
+from . import sharding as S
 
 # how a decode step writes each cache leaf: at its position (a replayed
 # step writes the same entry again), never (filled by the prefill), or by
@@ -82,6 +83,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device,
                                      lead=(n_steps,)) for spec in pattern]}
 
 
+def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """The cache tree on the ``meta`` device: shapes and dtypes, no
+    storage (the dry run's input, as the reference's ShapeDtypeStructs)."""
+    return init_cache(cfg, batch, max_len, "meta")
+
+
 def layer_caches(cache, cfg: ArchConfig):
     """Each layer's cache, as views, in execution order."""
     prefix_n, n_steps, pattern = cfg.scan_pattern()
@@ -127,9 +134,9 @@ def make_serve_step(cfg: ArchConfig, mesh=None):
     cache); the cache is written in place.  ``pos`` is an int or a 0-d
     integer tensor, as the reference's ``pos ()``: the step reads it on the
     device only, so on the card it can be captured as a CUDA graph whose
-    ``pos`` and ``tokens`` are static tensors (``launch/serve.py``)."""
-    if mesh is not None:
-        raise L.unported("a serving mesh")
+    ``pos`` and ``tokens`` are static tensors (``launch/serve.py``).
+    ``mesh``: None or a layout of one device, run as no mesh."""
+    S.require_one_card(mesh, "serving")
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
@@ -199,10 +206,9 @@ def make_prefill(cfg: ArchConfig, max_len: Optional[int] = None, mesh=None):
     ``context``: frame or patch embeddings (B, T, D), through the model's
     context stub.  As in the reference, the last logits are not soft-capped
     (``final_softcap``), unlike ``serve_step``'s and ``forward``'s; the
-    greedy token is the same, tanh being monotone.  ``mesh`` and ``remat``
-    are not ported (no gradients are kept here)."""
-    if mesh is not None:
-        raise L.unported("a serving mesh")
+    greedy token is the same, tanh being monotone.  ``mesh``: None or a
+    layout of one device, run as no mesh."""
+    S.require_one_card(mesh, "serving")
 
     @torch.no_grad()
     def prefill(params, tokens, context=None):

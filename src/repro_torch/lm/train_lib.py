@@ -10,11 +10,12 @@ port's ``optim``: ``clip_by_global_norm``, the optimizer's update and
 log-sum-exp on the card, a plain chunked backward).  Nothing in a step
 reads a value back to the host.
 
-One card: no mesh.  The reference's sharding helpers
-(``abstract_train_state``, ``opt_state_shardings``, ``batch_specs``,
-``context_spec``) decide nothing a single-card step reads and wait for the
-multi-card work (ROADMAP Queue 1 item 13, ``lm/sharding.py``);
-``abstract_params`` is kept (the parameter tree on the ``meta`` device).
+The step runs on one card: ``mesh`` is None or a layout of one device
+(``launch/mesh.py``).  The reference's sharding helpers
+(``abstract_params``, ``abstract_train_state``, ``opt_state_shardings``,
+``batch_specs``, ``context_spec``) give the training state and batch on the
+``meta`` device with their spec trees (``lm/sharding.py``) for any layout:
+the dry run's accounting (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from ..optim import adam, adam8bit, adamw, apply_updates, clip_by_global_norm
 from ..optim.adam import tree_leaves, tree_map
 from . import layers as L
 from . import model as M
+from . import sharding as S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,9 +98,9 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams, mesh=None):
     """Returns (train_step, opt): train_step(params, opt_state, batch) ->
     (params, opt_state, metrics), metrics holding ``ce`` (and ``aux``,
     ``mtp`` where the architecture has them), ``loss`` and ``grad_norm``
-    (before clipping), all 0-d tensors on the parameters' device."""
-    if mesh is not None:
-        raise L.unported("a training mesh")
+    (before clipping), all 0-d tensors on the parameters' device.
+    ``mesh``: None or a layout of one device, run as no mesh."""
+    S.require_one_card(mesh, "training")
     opt = make_optimizer(hp)
     loss_fn = make_loss_fn(cfg, hp)
 
@@ -127,3 +129,73 @@ def abstract_params(cfg: ArchConfig) -> dict:
     """The full parameter tree on the ``meta`` device: shapes and dtypes,
     no storage (the reference's ``jax.eval_shape`` of ``init_params``)."""
     return M.init_params(cfg, torch.Generator(), device="meta")
+
+
+def abstract_train_state(cfg: ArchConfig, hp: TrainHParams, mesh):
+    """((params, opt_state), (param_specs, opt_specs)): the training state
+    on the ``meta`` device and its spec trees over ``mesh``."""
+    params = abstract_params(cfg)
+    opt_state = make_optimizer(hp).init(params)
+    p_specs = S.params_shardings(params, mesh)
+    return (params, opt_state), (p_specs,
+                                 opt_state_shardings(opt_state, p_specs, mesh))
+
+
+def opt_state_shardings(opt_state, param_specs, mesh):
+    """The optimizer state's spec tree: a slot whose path ends in a
+    parameter's path takes that parameter's spec (Adam's m and v, and
+    adam8bit's bf16 ``v16``); adam8bit's int8 blocks ``q`` and their scales
+    ``s`` put their leading (block) dim over the fsdp axis where it
+    divides; everything else (``count``, small fp32 slots) is
+    replicated."""
+    p_by_path = {tuple(path.split("/")): spec
+                 for path, spec in S.leaves_with_paths(param_specs)}
+
+    def assign(path, leaf):
+        key = tuple(path.split("/"))
+        for start in range(len(key)):
+            if key[start:] in p_by_path:
+                return p_by_path[key[start:]]
+        if key[-1] == "v16":
+            for start in range(len(key)):
+                if key[start:-1] in p_by_path:
+                    return p_by_path[key[start:-1]]
+        if key[-1] in ("q", "s"):
+            for start in range(len(key)):
+                if key[start:-1] in p_by_path:
+                    n = mesh.shape.get(S.FSDP, 0)
+                    ax = S.FSDP if (n and leaf.shape[0] >= n
+                                    and leaf.shape[0] % n == 0) else None
+                    return S.P(ax, *([None] * (leaf.dim() - 1)))
+        return S.P()
+
+    return S.map_with_paths(assign, opt_state)
+
+
+def batch_specs(cfg: ArchConfig, seq: int, global_batch: int, mesh,
+                with_context: bool = True):
+    """(batch, specs): a training batch on the ``meta`` device (int32
+    ``tokens`` and ``labels`` (B, S), as ``launch/train.py`` makes them, and
+    the context stub's input where the architecture has one) and its specs
+    (the batch dim over the data-parallel axes)."""
+    dp = S.batch_spec(mesh)
+    tok = torch.empty((global_batch, seq), dtype=torch.int32, device="meta")
+    batch = {"tokens": tok, "labels": tok}
+    specs = {"tokens": dp, "labels": dp}
+    ctx = context_spec(cfg, global_batch, mesh)
+    if ctx is not None and with_context:
+        batch["context"], specs["context"] = ctx
+    return batch, specs
+
+
+def context_spec(cfg: ArchConfig, global_batch: int, mesh):
+    """The modality stub's input, precomputed frame or patch embeddings
+    (B, T, D) in ``cfg.dtype`` on the ``meta`` device, with its spec; None
+    for an architecture without one."""
+    if not (cfg.enc_dec or cfg.cross_attn_every):
+        return None
+    dp = S.batch_spec(mesh)
+    t = cfg.n_audio_frames if cfg.enc_dec else cfg.n_image_tokens
+    ctx = torch.empty((global_batch, t, cfg.d_model), dtype=L.dt(cfg),
+                      device="meta")
+    return ctx, S.P(dp[0] if dp else None, None, None)

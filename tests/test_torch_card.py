@@ -106,7 +106,11 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   steps of a reduced qwen2 on the card against the CPU; every registry
   arch's train step (reduced, bf16) under
   ``torch.use_deterministic_algorithms(True, warn_only=True)`` warning of
-  no nondeterministic op and repeating bit for bit.
+  no nondeterministic op and repeating bit for bit;
+* the step accounting: every registry arch's train step, prefill and
+  decode step (reduced, bf16) counted on the card equal to the count on
+  ``meta``, the live-bytes peak within 1% of ``max_memory_allocated``
+  above the inputs.
 """
 import numpy as np
 import pytest
@@ -1459,3 +1463,55 @@ def test_lm_train_step_repeats_bitwise_on_card(card, name):
     assert all(torch.equal(m0[k], m1[k]) for k in m0)
     for a, b in zip(tree_leaves((p0, s0)), tree_leaves((p1, s1))):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_step_count_on_card_equals_meta(card, name):
+    """``launch/roofline.py::count_step`` of every registry arch's train
+    step, prefill and decode step (reduced, bf16, B 2 x 32, decode at
+    position 33 of a 40-token cache) on the card equals its count on
+    ``meta`` exactly: FLOPs by op, bytes, the live-bytes peak and the flash
+    kernels' formulas, though the card runs the kernels and ``meta`` runs
+    no wrapper at all; the live-bytes peak also equals the card's
+    ``max_memory_allocated`` above the inputs within 1%."""
+    from repro_torch.launch.roofline import count_step
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import model as LM
+    from repro_torch.lm import serve_lib as SL
+    from repro_torch.lm import train_lib as TL
+    from repro_torch.optim.adam import tree_map
+    n_layers = 5 if name == "llama-3.2-vision-90b" else 4
+    cfg = _reduced_lm(name, "bfloat16", n_layers)
+    params = LM.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                            card)
+    meta = lambda tree: tree_map(lambda t: torch.empty_like(t, device="meta"),
+                                 tree)
+    batch = make_batch(cfg, 0, 2, 32, card)
+    step, opt = TL.make_train_step(cfg, TL.TrainHParams())
+    ctx = batch.get("context")
+    prefill, serve = SL.make_prefill(cfg, max_len=40), SL.make_serve_step(cfg)
+    calls = {"train": (step, (params, opt.init(params), batch),
+                       (meta(params), opt.init(meta(params)), meta(batch))),
+             "prefill": (prefill, (params, batch["tokens"], ctx),
+                         (meta(params), meta(batch["tokens"]),
+                          None if ctx is None else meta(ctx)))}
+    outs = {}
+    for what, (fn, args, meta_args) in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got, outs[what] = count_step(fn, *args)
+        torch.cuda.synchronize()
+        above = torch.cuda.max_memory_allocated() - base
+        want, outs["meta_" + what] = count_step(fn, *meta_args)
+        assert got.to_dict() == want.to_dict(), what
+        assert abs(above - got.live_peak_bytes) <= 0.01 * above, what
+    logits, cache = outs["prefill"]
+    tok = logits[:, -1:].argmax(-1)
+    got = count_step(serve, params, cache, tok,
+                     torch.tensor(33, device=card), positions=33)[0]
+    want = count_step(serve, meta(params), outs["meta_prefill"][1],
+                      meta(tok), torch.empty((), dtype=torch.int64,
+                                             device="meta"), positions=33)[0]
+    assert got.to_dict() == want.to_dict()

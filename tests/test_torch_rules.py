@@ -111,32 +111,53 @@ def test_lm_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_lm_unported_parts_raise():
-    """LM training is ported: ``forward(remat="full")`` runs on the CPU and
-    ``launch/train.py``'s and ``lm/train_lib.py``'s counterparts import; a
-    serving mesh still raises (multi-card work, ``launch/mesh.py``) and
-    ``lm/sharding.py`` is still absent.  The six architectures that needed
-    the rest of the LM (MLA, MoE, Mamba, RWKV6, cross-attention, the
-    encoder and modality stubs, MTP) build and serve on the CPU through the
-    entry point."""
+    """LM training and the accounting are ported: ``forward(remat="full")``
+    runs on the CPU, ``launch/train.py``'s and ``lm/train_lib.py``'s
+    counterparts import, and so do ``lm/sharding.py``, ``launch/mesh.py``,
+    ``launch/roofline.py`` and ``launch/dryrun.py``.  A layout of one device
+    runs ``make_prefill``, ``make_serve_step`` and ``make_train_step`` as no
+    mesh; a layout of more than one device raises, naming the multi-card
+    item (ROADMAP Queue 1 item 14).  The six architectures that needed the
+    rest of the LM (MLA, MoE, Mamba, RWKV6, cross-attention, the encoder and
+    modality stubs, MTP) build and serve on the CPU through the entry
+    point."""
     import importlib
-    import importlib.util
 
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
-    from repro_torch.lm import model, serve_lib
+    from repro_torch.launch.mesh import MeshLayout, make_card_mesh
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import model, serve_lib, train_lib
     cfg = get_arch("qwen3-8b").reduced(n_layers=2, d_model=32)
     params = model.init_params(cfg, torch.Generator(), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.int64)
     logits, _ = model.forward(params, cfg, tok, remat="full")
     assert logits.shape == (1, 4, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
-    for make in (serve_lib.make_prefill, serve_lib.make_serve_step):
-        with pytest.raises(NotImplementedError, match="launch/mesh.py"):
-            make(cfg, mesh=object())
     for name in ("repro_torch.launch.train", "repro_torch.lm.train_lib",
-                 "repro_torch.launch.elastic"):
+                 "repro_torch.launch.elastic", "repro_torch.lm.sharding",
+                 "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+                 "repro_torch.launch.dryrun"):
         importlib.import_module(name)
-    assert importlib.util.find_spec("repro_torch.lm.sharding") is None
+    card = make_card_mesh()
+    last, cache = serve_lib.make_prefill(cfg, max_len=6, mesh=card)(
+        params, tok)
+    step_logits, _ = serve_lib.make_serve_step(cfg, mesh=card)(
+        params, cache, last.argmax(-1), 4)
+    assert step_logits.shape == (1, 1, cfg.vocab)
+    step, opt = train_lib.make_train_step(cfg, train_lib.TrainHParams(),
+                                          mesh=card)
+    _, _, metrics = step(params, opt.init(params),
+                         make_batch(cfg, 0, 1, 4, "cpu"))
+    assert bool(torch.isfinite(metrics["loss"]))
+    two = MeshLayout((2, 1), ("data", "model"))
+    for make in (lambda: serve_lib.make_prefill(cfg, mesh=two),
+                 lambda: serve_lib.make_serve_step(cfg, mesh=two),
+                 lambda: train_lib.make_train_step(
+                     cfg, train_lib.TrainHParams(), mesh=two)):
+        with pytest.raises(NotImplementedError,
+                           match="multi-card execution.*item 14"):
+            make()
     for name in ("deepseek-v3-671b", "jamba-1.5-large-398b",
                  "llama4-scout-17b-a16e", "llama-3.2-vision-90b", "rwkv6-3b",
                  "whisper-medium"):
