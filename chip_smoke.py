@@ -14,6 +14,7 @@ MoE, Mamba, RWKV6, cross-attention, the encoder and MTP) and LM training.
     python3 chip_smoke.py --phase ensemble  # the ensemble phase alone
     python3 chip_smoke.py --phase serve     # the serve phase alone
     python3 chip_smoke.py --phase roofline  # the roofline phase alone
+    python3 chip_smoke.py --phase dd_procs  # the dd_procs phase alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
 source, all started together; Triton at first launch), then runs phases
@@ -57,7 +58,22 @@ accounting against the card:
    (``ForcePipeline.build_phase_probes`` + ``obs.timed_prefix_phases``:
    gather, assembly, inference, force_reduce; median of 3), then requests
    through ``DeepmdForceProvider(dd_config=...)`` and one assembly
-   profiled;
+   profiled; then dd_procs, the same path over ``torch.distributed``
+   processes (``launch.mesh.make_dd_mesh``, ``ForcePipeline(mesh=...)``),
+   held against the virtual path in all four configurations (both force
+   modes x both reduce modes; the fused call, the assembly, an evaluate,
+   the rebuild check): (i) one process through an NCCL group, every
+   output bit for bit, overlap == sequential bit for bit; (ii) two child
+   processes sharing this card over gloo (CUDA tensors through host
+   copies), 4 ranks each: E and F within the DP gate, every integer output
+   exactly (each process's state the virtual state's rows of its ranks),
+   both processes' outputs the same bits, the model kernels against their
+   plain versions on each process's evaluate, 10 MD steps of the stand-in
+   below with the same positions on both after every step; (iii) with 2,
+   4 or 8 cards the same over NCCL, one card a process, else a line saying
+   why not; for each case ms per force call and per MD step and the
+   paper's Fig.-12 split per process (inference, collective 1, collective
+   2; CUDA events around the collectives);
 5. md: the port's MD engine (``repro_torch.md.MDEngine``) on the solvated
    1HCI stand-in (``build_solvated_protein(3917)``: 62,210 atoms, the
    15,668 protein atoms the DP group; ``examples/protein_md.py``'s engine
@@ -165,7 +181,8 @@ accounting against the card:
    for bit, the kernel with the LSE giving the serving call's bits, and
    times (the forward, the plain backward, both routes' forward +
    backward, and SDPA's forward + backward at softcap 0 as the library
-   time); (b) the main path: qwen2-1.5b at full width (28 layers, bf16,
+   time, and the forwards alone at softcap 0: the kernel's and SDPA's);
+   (b) the main path: qwen2-1.5b at full width (28 layers, bf16,
    random weights) through ``launch.train.main``, B 4 x 2,048, Adam,
    ``remat="full"``, 12 steps, each timed (median of steps 2-11), 56
    ``flash_attention`` launches a step and no other kernel, the peak
@@ -197,6 +214,7 @@ Any failed check raises, and the script exits non-zero.  It needs one CUDA
 card and the repository's ``src/`` beside it; it imports no JAX.
 """
 import dataclasses
+import datetime
 import json
 import statistics
 import subprocess
@@ -1376,6 +1394,437 @@ def phase_dd(model, params):
         "launches": counts, "launches_per_evaluate_call": per_call}),
         flush=True)
     return rows["refilter"], counts, per_call, dd_scatter
+
+
+# ---------------------------------------------------------------------------
+# dd_procs: the DD force path over processes (torch.distributed)
+# ---------------------------------------------------------------------------
+
+PROCS_GROUP_S = 60        # seconds a rendezvous or collective may wait
+PROCS_CHILD_S = 300       # seconds a group of child processes may take
+PROCS_REPS = 5            # timed evaluate calls per case
+PROCS_MD_STEPS = 10
+PROCS_DIR = Path(__file__).resolve().parent / "build" / "dd_procs"
+PROCS_INT_DIAG = ("local_count", "ghost_count", "cost_max", "rank_cost",
+                  "rank_nonfinite", "overflow")
+PROCS_LEAVES = ("l_idx", "l_mask", "g_idx", "g_shift", "g_mask",
+                "buf_types", "buf_mask", "nbr_idx", "nbr_mask")
+
+
+def same_bits(a, b) -> bool:
+    """Bit for bit, through tuples, lists, dicts and dataclasses."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(u, v) for u, v in zip(a, b))
+    if dataclasses.is_dataclass(a):
+        return all(same_bits(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return a == b
+
+
+def procs_inputs(model):
+    """The dd phase's system (15,668 atoms) and its four configurations
+    (both force modes x both reduce modes), the evaluated positions (a
+    drift inside skin/4) and a rebuild-triggering one."""
+    from repro_torch.core import suggest_config
+    coords, types, box = system(N_PATH, SEED)
+    rcut, sel = model.cfg.descriptor.rcut, model.cfg.descriptor.sel
+    cfgs = {}
+    for fm in ("owner_full", "ghost_reduce"):
+        cfg = suggest_config(N_PATH, box, N_RANKS, rcut, nbr_capacity=sel,
+                             skin=SKIN, force_mode=fm, coords=coords)
+        for rm in ("all_reduce", "reduce_scatter"):
+            cfgs[f"{fm}-{rm}"] = dataclasses.replace(cfg, reduce_mode=rm)
+    moved, far = drifts(coords, 1, SEED + 3)
+    return coords, types, box, cfgs, moved, far
+
+
+def procs_force_path(model, params, mesh, inputs):
+    """Every entry function of the pipeline in each configuration, on
+    ``mesh`` (None: the virtual ranks): the fused call, the assembly, an
+    evaluate reusing it, the rebuild check inside and beyond the skin; on
+    CPU copies."""
+    from repro_torch.core import ForcePipeline
+    coords, types, box, cfgs, moved, far = inputs
+    x, t = (torch.tensor(a, device=DEVICE) for a in (coords, types))
+    xm, xf = (torch.tensor(a, device=DEVICE) for a in (moved, far))
+    out = {}
+    for mode, cfg in cfgs.items():
+        pipe = ForcePipeline(model, cfg, box, N_PATH, mesh=mesh)
+        st = pipe.build_assembly_fn()(x, t)
+        check_fn = pipe.build_check_fn()
+        out[mode] = to_cpu({
+            "fused": pipe.build_force_fn()(params, x, t), "state": st,
+            "eval": pipe.build_evaluation_fn()(params, xm, st),
+            "check": (check_fn(xm, st), check_fn(xf, st))})
+        del pipe, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def procs_timed(mesh, fn, reps):
+    """``reps`` calls of ``fn`` (each after a barrier, so the processes
+    start together), CUDA events around each, the mesh's collectives
+    recorded by tag: ms per call and the paper's Fig.-12 split per call
+    (inference: the call less its collectives; collective 1: the
+    coordinates' all-gather; collective 2: the forces' reduction; the
+    per-rank scalars' gather apart)."""
+    import torch.distributed as dist
+    fn()                                               # warm
+    calls = []
+    if mesh is not None:
+        mesh.record = []
+    for _ in range(reps):
+        if mesh is not None:
+            dist.barrier()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        calls.append((start, end))
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in calls]
+    line = {"ms_per_call_median": statistics.median(ms), "ms_per_call": ms}
+    if mesh is None:
+        return line
+    coll = {k: v / reps for k, v in mesh.collective_ms().items()}
+    mesh.record = None
+    per_call = sum(ms) / reps
+    c1, c2 = coll.pop("gather", 0.0), coll.pop("force_reduce", 0.0)
+    other = sum(coll.values())
+    infer = per_call - c1 - c2 - other
+    line["fig12_ms"] = {"inference": infer, "collective_1": c1,
+                        "collective_2": c2, "other_collectives": coll}
+    line["fig12_shares"] = {"inference": infer / per_call,
+                            "collective_1": c1 / per_call,
+                            "collective_2": c2 / per_call,
+                            "other_collectives": other / per_call}
+    return line
+
+
+def procs_md(model, params, mesh):
+    """``PROCS_MD_STEPS`` MD steps of ``DeepmdForceProvider`` + ``MDEngine``
+    over ``mesh`` on the md phase's 62,210-atom stand-in (8 ranks, skin
+    0.05), a window a step: the positions after every step (CPU), ms per
+    step, the engine's rebuild counts and the kernels' launches in the
+    run."""
+    from repro_torch import kernels
+    from repro_torch.core import DeepmdForceProvider, suggest_config
+    from repro_torch.md import (EngineConfig, MDEngine,
+                                build_solvated_protein, mark_nn_group)
+    system_, pos, nn = build_solvated_protein(MD_RESIDUES, device=DEVICE)
+    system_ = mark_nn_group(system_, nn)
+    box = system_.box.cpu().numpy()
+    coords_nn = pos[torch.as_tensor(nn, device=DEVICE)].cpu().numpy()
+    dd = suggest_config(len(nn), box, N_RANKS, model.cfg.descriptor.rcut,
+                        nbr_capacity=model.cfg.descriptor.sel, skin=SKIN,
+                        coords=coords_nn)
+    prov = DeepmdForceProvider(model, params, nn, system_.types, box,
+                               system_.n_atoms, dd_config=dd, mesh=mesh,
+                               device=mesh.device)
+    eng = MDEngine(system_, EngineConfig(**MD_CFG), special_force=prov)
+    start = eng.init_state(pos, 200.0)
+    stamps, traj, marks = [], [], []
+
+    def observe(s, o):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        traj.append(s.positions.cpu())
+        marks.append(rebuild_marks(eng))
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = eng.run(start, PROCS_MD_STEPS, observe=observe, observe_every=1)
+    counts = kernels.launch_counts()
+    check_finite_state(f"dd_procs md (process {mesh.index})", st)
+    steps = [((stamps[i] - stamps[i - 1]) * 1e3, marks[i] != marks[i - 1])
+             for i in range(1, len(stamps))]
+    return {"positions": traj, "wall_ms": (stamps[-1] - t0) * 1e3,
+            **step_split(steps), "grid": dd.grid_dims,
+            "diagnostics": {k: eng.diagnostics[k] for k in (
+                "displacement_rebuilds", "special_rebuilds",
+                "cadence_rebuilds", "capacity_growths", "special_growths")},
+            "launches": counts}
+
+
+def procs_run(model, params, mesh, inputs, check_kernels):
+    """What each process of a group runs: the force path in every
+    configuration, the overlap evaluate against the sequential one bit for
+    bit, the model kernels against their plain versions on this process's
+    evaluate (``check_kernels``), the timed calls and the MD run."""
+    from repro_torch.core import ForcePipeline
+    coords, types, box, cfgs, moved, _ = inputs
+    out = {"process": mesh.index, "device": str(mesh.device),
+           "force_path": procs_force_path(model, params, mesh, inputs)}
+    x, t = (torch.tensor(a, device=DEVICE) for a in (coords, types))
+    xm = torch.tensor(moved, device=DEVICE)
+    cfg = cfgs["owner_full-all_reduce"]
+    pipe = ForcePipeline(model, cfg, box, N_PATH, mesh=mesh)
+    st = pipe.build_assembly_fn()(x, t)
+    ev = pipe.build_evaluation_fn()
+    over = ForcePipeline(model, dataclasses.replace(cfg, overlap=True), box,
+                         N_PATH, mesh=mesh).build_evaluation_fn()
+    (e_o, f_o, d_o), (e, f, d) = over(params, xm, st), ev(params, xm, st)
+    if not same_bits((e_o, f_o, {k: d_o[k] for k in d}), (e, f, d)):
+        fail(f"dd_procs process {mesh.index}: overlap != sequential")
+    out["interior_frac"] = float(d_o["interior_frac"])
+    out["overlap_equal_sequential_bitwise"] = True
+    if check_kernels:
+        _, seen = record_model_kernels(lambda: ev(params, xm, st))
+        out["kernel_checks"] = check_dd_model_kernels(
+            seen, phase=f"dd_procs process {mesh.index}")
+        del seen
+    fused = pipe.build_force_fn()
+    out["evaluate"] = procs_timed(mesh, lambda: ev(params, xm, st),
+                                  PROCS_REPS)
+    out["fused"] = procs_timed(mesh, lambda: fused(params, x, t), 2)
+    del pipe, st, ev, over, fused
+    torch.cuda.empty_cache()
+    out["md"] = procs_md(model, params, mesh)
+    return out
+
+
+def dd_procs_child(task_path, rank):
+    """One process of a ``dd_procs`` group (``chip_smoke.py --dd-procs-child
+    TASK RANK``): joins the group through ``file://`` rendezvous, runs
+    :func:`procs_run` on its card and saves the result beside ``TASK``."""
+    import torch.distributed as dist
+    from repro_torch.dp import DPModel, paper_dpa1_config
+    from repro_torch.launch.mesh import make_dd_mesh
+    task = torch.load(task_path, weights_only=False)
+    dev = torch.device("cuda", task["devices"][rank])
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        task["backend"], init_method=f"file://{task['rendezvous']}",
+        rank=rank, world_size=task["world"],
+        timeout=datetime.timedelta(seconds=PROCS_GROUP_S))
+    try:
+        mesh = make_dd_mesh(N_RANKS, device=dev, backend=task["backend"])
+        model = DPModel(paper_dpa1_config(ntypes=4, rcut=0.6, sel=64),
+                        device=mesh.device)
+        params = model.init_params(torch.Generator().manual_seed(SEED))
+        out = procs_run(model, params, mesh, procs_inputs(model),
+                        check_kernels=True)
+        torch.save(out, f"{task_path}.out{rank}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def procs_spawn(case, world, backend, devices):
+    """Start ``world`` child processes of this script on ``devices`` and
+    wait for all; any child's failure, or a group still running after
+    ``PROCS_CHILD_S`` seconds, kills every child and fails the phase."""
+    task = PROCS_DIR / f"{case}.pt"
+    torch.save({"world": world, "backend": backend, "devices": devices,
+                "rendezvous": str(PROCS_DIR / f"{case}.rendezvous")}, task)
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--dd-procs-child", str(task), str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline = time.perf_counter() + PROCS_CHILD_S
+    logs = {}
+    try:
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1.0))[0]
+    except subprocess.TimeoutExpired:
+        fail(f"dd_procs {case}: the {world} processes did not finish in "
+             f"{PROCS_CHILD_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        for line in logs[r].splitlines():
+            if line.startswith("{"):
+                print(line, flush=True)          # the children's kernel lines
+        if p.returncode != 0:
+            fail(f"dd_procs {case}: process {r} exited {p.returncode}:\n"
+                 f"{logs[r][-6000:]}")
+    return [torch.load(f"{task}.out{r}", weights_only=False)
+            for r in range(world)]
+
+
+def procs_gates(case, outs, virtual, bitwise):
+    """Each process against the virtual path (``bitwise``: every output
+    bit for bit; else E and F within the DP gate and every integer output
+    exactly, each process's state leaves the virtual state's rows of its
+    ranks), and the processes against each other: the same E, F and
+    diagnostics, and the same MD positions after every step."""
+    world = len(outs)
+    errs = {}
+    for p, out in enumerate(outs):
+        for mode, v in virtual.items():
+            got = out["force_path"][mode]
+            if bitwise:
+                if not same_bits(got, v):
+                    fail(f"dd_procs {case} {mode}: not the virtual path's "
+                         "bits")
+                continue
+            st, vst = got["state"], v["state"]
+            for name in PROCS_LEAVES:
+                leaf = getattr(vst, name)
+                rows = leaf.shape[0] // world
+                if not torch.equal(getattr(st, name),
+                                   leaf[p * rows:(p + 1) * rows]):
+                    fail(f"dd_procs {case} {mode}: process {p}'s {name} is "
+                         "not the virtual state's rows of its ranks")
+            for name in ("l_slot", "local_count", "ghost_count", "cost_max",
+                         "overflow", "ref"):
+                if not torch.equal(getattr(st, name), getattr(vst, name)):
+                    fail(f"dd_procs {case} {mode}: state {name} differs")
+            if [bool(c) for c in got["check"]] != [False, True]:
+                fail(f"dd_procs {case} {mode}: rebuild checks "
+                     f"{got['check']}")
+            for call in ("fused", "eval"):
+                (e, f, d), (e0, f0, d0) = got[call], v[call]
+                for key in PROCS_INT_DIAG:
+                    if not torch.equal(d[key], d0[key]):
+                        fail(f"dd_procs {case} {mode} {call}: {key} "
+                             f"{d[key]} != {d0[key]}")
+                if abs(float(e) - float(e0)) > 1e-5 * abs(float(e0)):
+                    fail(f"dd_procs {case} {mode} {call}: E {float(e)} vs "
+                         f"{float(e0)}")
+                err = check(f"dd_procs {case} {mode} {call} F", f, f0,
+                            atol=1e-4 * float(f0.abs().max()))
+                errs[f"{mode} {call}"] = max(errs.get(f"{mode} {call}", 0.0),
+                                             err)
+    for out in outs[1:]:
+        for mode in virtual:
+            if not same_bits(out["force_path"][mode]["fused"],
+                             outs[0]["force_path"][mode]["fused"]) or \
+                    not same_bits(out["force_path"][mode]["eval"],
+                                  outs[0]["force_path"][mode]["eval"]):
+                fail(f"dd_procs {case} {mode}: the processes' E, F or "
+                     "diagnostics differ")
+        md, md0 = out["md"], outs[0]["md"]
+        if len(md["positions"]) != PROCS_MD_STEPS or not all(
+                torch.equal(a, b) for a, b in zip(md["positions"],
+                                                  md0["positions"])):
+            fail(f"dd_procs {case}: the processes' MD positions differ")
+        if md["diagnostics"] != md0["diagnostics"]:
+            fail(f"dd_procs {case}: rebuild counts differ: "
+                 f"{md['diagnostics']} vs {md0['diagnostics']}")
+    for out in outs:
+        missing = [k for k in DP_KERNELS if out["md"]["launches"][k] == 0]
+        if missing:
+            fail(f"dd_procs {case}: process {out['process']}'s MD run "
+                 f"launched no {missing}")
+    return errs
+
+
+def procs_report(case, outs, smi, errs=None, **extra):
+    """One line per process (ms per force call and per MD step, the Fig.-12
+    split, launches) and the case's line."""
+    for out in outs:
+        md = out["md"]
+        print(json.dumps({
+            "phase": "dd_procs", "case": case, "process": out["process"],
+            "device": out["device"], "card": smi,
+            "evaluate": out["evaluate"], "fused_call": out["fused"],
+            "md": {k: v for k, v in md.items() if k != "positions"},
+            "launches_md_run": md["launches"]}), flush=True)
+    split = [o["evaluate"]["fig12_ms"] for o in outs]
+    print(json.dumps({"phase": "dd_procs", "case": case,
+                      "processes": len(outs), "card": smi,
+                      "evaluate_ms_median_by_process": [
+                          o["evaluate"]["ms_per_call_median"] for o in outs],
+                      "md_step_ms_median_by_process": [
+                          o["md"]["step_ms_median"] for o in outs],
+                      # the last process to reach a collective waits least:
+                      # its time is closest to the transfer alone
+                      "evaluate_collective_ms_min_over_processes": {
+                          k: min(f[k] for f in split)
+                          for k in ("collective_1", "collective_2")},
+                      "evaluate_inference_share_by_process": [
+                          o["evaluate"]["fig12_shares"]["inference"]
+                          for o in outs],
+                      "F_max_abs_err_vs_virtual": errs,
+                      "paper": "> 90% of the time in inference, < 10% in "
+                               "the collectives (Fig. 12)",
+                      **extra}), flush=True)
+
+
+def phase_dd_procs(model, params, smi):
+    """The DD force path over ``torch.distributed`` processes on the dd
+    phase's system and model, 8 ranks: (i) one process through an NCCL
+    group, bit for bit the virtual path; (ii) two processes sharing this
+    card over gloo (CUDA tensors through host copies), 4 ranks each,
+    within the DP gate of the virtual path, the same bits on both, 10 MD
+    steps the same on both; (iii) more than one card over NCCL, or a line
+    saying why not.  Returns the launches of each case's MD run."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_dd_mesh
+    t_phase = time.perf_counter()
+    shutil.rmtree(PROCS_DIR, ignore_errors=True)
+    PROCS_DIR.mkdir(parents=True)
+    inputs = procs_inputs(model)
+    virtual = procs_force_path(model, params, None, inputs)
+    launches = {}
+
+    # (i) one process through the process-group path
+    dist.init_process_group(
+        "nccl", init_method=f"file://{PROCS_DIR / 'one.rendezvous'}",
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=PROCS_GROUP_S))
+    try:
+        mesh = make_dd_mesh(N_RANKS, device=torch.device(
+            "cuda", torch.cuda.current_device()))
+        one = procs_run(model, params, mesh, inputs, check_kernels=False)
+    finally:
+        dist.destroy_process_group()
+    procs_gates("nccl_1_process", [one], virtual, bitwise=True)
+    procs_report("nccl_1_process", [one], smi,
+                 bitwise_equal_virtual=True,
+                 overlap_equal_sequential_bitwise=True)
+    launches["nccl_1_process"] = [one["md"]["launches"]]
+    del one
+    torch.cuda.empty_cache()
+
+    # (ii) two processes sharing this card: gloo on CUDA tensors
+    card = torch.cuda.current_device()
+    outs = procs_spawn("gloo_2_processes", 2, "gloo", [card, card])
+    errs = procs_gates("gloo_2_processes", outs, virtual, bitwise=False)
+    procs_report("gloo_2_processes", outs, smi, errs,
+                 processes_bit_identical=True,
+                 md_positions_bit_identical_every_step=True,
+                 E_tol="rtol 1e-5", F_tol="atol 1e-4*max|F|")
+    launches["gloo_2_processes"] = [o["md"]["launches"] for o in outs]
+    del outs
+
+    # (iii) more than one card: NCCL, one card a process
+    n_cards = torch.cuda.device_count()
+    world = max((w for w in (2, 4, 8) if w <= n_cards), default=0)
+    if world:
+        case = f"nccl_{world}_cards"
+        outs = procs_spawn(case, world, "nccl", list(range(world)))
+        errs = procs_gates(case, outs, virtual, bitwise=False)
+        procs_report(case, outs, smi, errs, processes_bit_identical=True,
+                     md_positions_bit_identical_every_step=True)
+        launches[case] = [o["md"]["launches"] for o in outs]
+        del outs
+    else:
+        print(json.dumps({
+            "phase": "dd_procs", "case": "nccl_multi_card", "ran": False,
+            "why": f"{n_cards} CUDA device(s) here: NCCL takes one card a "
+                   "process and refuses two ranks on one device, so the "
+                   "multi-card case needs at least 2 cards"}), flush=True)
+    shutil.rmtree(PROCS_DIR, ignore_errors=True)
+    print(json.dumps({"phase": "dd_procs",
+                      "s": time.perf_counter() - t_phase}), flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4209,7 +4658,8 @@ def lm_train_attention(arch):
     bit for bit, the kernel with the LSE against the serving call bit for
     bit; times (median of 10, L2 flushed): the forward with the LSE, the
     plain backward, the Function's forward + backward, plain autograd, and
-    beside them at softcap 0 the Function and SDPA forward + backward."""
+    beside them at softcap 0 the Function and SDPA forward + backward, and
+    the kernel's and SDPA's forwards alone."""
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attn, ops, ref
@@ -4296,7 +4746,15 @@ def lm_train_attention(arch):
                 "bf16_softcap0_function_fwd_bwd_ms":
                     time_ms(route(ops.attention_op, a0)),
                 "bf16_sdpa_fwd_bwd_ms": time_ms(sdpa),
-                "bf16_softcap0_max_err_vs_sdpa": errs0})
+                "bf16_softcap0_max_err_vs_sdpa": errs0,
+                # the forwards alone: the kernel with the LSE at softcap 0
+                # beside SDPA's forward (the library call for the forward)
+                "bf16_softcap0_forward_ms": time_ms(
+                    lambda: flash_attn.flash_attention(
+                        qd, kd, vd, *a0, return_lse=True)),
+                "bf16_sdpa_forward_ms": time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qd, kd, vd, is_causal=True, enable_gqa=True))})
         del q, k, v, do, out, lse, qd, kd, vd
         torch.cuda.empty_cache()
     print(json.dumps(line), flush=True)
@@ -4826,6 +5284,8 @@ def main():
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--dd-procs-child"]:
+        return dd_procs_child(sys.argv[2], int(sys.argv[3]))
     from repro_torch.dp import DPModel, paper_dpa1_config
     from repro_torch.kernels import build
 
@@ -4898,6 +5358,11 @@ def main():
         phase_serve(model, params)
         print("[serve] every check passed (serve phase alone)", flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "dd_procs"]:
+        phase_dd_procs(model, params, smi)
+        print("[dd_procs] every check passed (dd_procs phase alone)",
+              flush=True)
+        return 0
     phase_kernels(model, params, 0.0)            # single_domain_forces, K = 64
     kres = phase_kernels(model, params, SKIN, main=True)  # the provider's K
     # K = 128: the MD cutoff (r_c = 0.8, ~64 neighbours) with sel 128, where
@@ -4916,6 +5381,7 @@ def main():
     counts_sd = phase_requests(model, params)
     cf_row, counts, per_call, dd_scatter = phase_dd(model, params)
     kres["cell_filter"] = cf_row
+    procs_launches = phase_dd_procs(model, params, smi)
     md_sd, md_dd, md_pairs = phase_md(model, params)
     guard_sd, guard_dd = phase_guard(model, params)
     ens = phase_ensemble(model, params)
@@ -4964,6 +5430,9 @@ def main():
                          train_launches["force_rmse"][name],
                      "launches_train_run": train_launches["train_run"][name],
                      **new_launches(name),
+                     "launches_md_run_dd_procs": {
+                         case: [c[name] for c in per_proc]
+                         for case, per_proc in procs_launches.items()},
                      "K": r.get("K"), "max_abs_err": r["max_err"],
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

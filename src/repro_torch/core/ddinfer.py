@@ -1,13 +1,13 @@
-"""Distributed Deep-Potential inference on virtual ranks, and the
-single-domain reference path.
+"""Distributed Deep-Potential inference over the decomposition's ranks,
+and the single-domain reference path.
 
-Port of ``repro/core/ddinfer.py``.  The virtual domain decomposition
+Port of ``repro/core/ddinfer.py``.  The domain decomposition
 (:class:`DDConfig`, :func:`suggest_config`, the per-rank assembly
-:func:`_assemble_rank`) runs its G ranks on one device: per-rank index sets
-and lists are stacked along a leading rank axis, and
-:mod:`repro_torch.core.pipeline` evaluates all ranks' buffers in one model
-call.  Selection, shifts, counts and overflow flags equal the JAX
-package's per rank exactly.
+:func:`_assemble_rank`) stacks the per-rank index sets and lists of the
+ranks one device holds (all G of them, or a process mesh's share) along a
+leading rank axis, and :mod:`repro_torch.core.pipeline` evaluates those
+ranks' buffers in one model call.  Selection, shifts, counts and overflow
+flags equal the JAX package's per rank exactly.
 
 The single-domain path: one domain, PBC minimum image, the brute-force full
 neighbour list, forces by autograd.  With a skin the work splits into an
@@ -154,7 +154,9 @@ class DDConfig:
 class DDState:
     """Persistent assembly state, reused across evaluation steps.  Per-rank
     leaves are stacked along the rank axis (leading ``n_ranks * capacity``),
-    as the JAX state is; the scalars and ``ref`` (the padded reference
+    as the JAX state is; over a process mesh each process holds its own
+    ranks' rows (a shard of the JAX state's sharded leaves).  ``l_slot``
+    (every rank's local ids), the scalars and ``ref`` (the padded reference
     positions the state was built at) are whole-mesh values."""
 
     l_idx: torch.Tensor       # (P*Cl,) int32 local atom indices (0-padded)
@@ -638,8 +640,9 @@ def single_domain_forces_nlist(model: DPModel, params, coords, types, box,
 # ---------------------------------------------------------------------------
 # Replica-batched functions: warn-once shims over the pipeline's replica
 # transform (``ForcePipeline(..., n_replicas=R)``), as in the reference.
-# ``mesh`` stays in the signatures and must be None: replicas and ranks are
-# virtual axes of one device.
+# ``mesh`` is passed through: None (replicas and ranks are virtual axes of
+# one device) or a ``launch.mesh.DDMesh``, which takes ``n_replicas=0``
+# only (replicas on devices are ROADMAP item 14(b)).
 # ---------------------------------------------------------------------------
 
 _DEPRECATION_WARNED: set = set()

@@ -3,9 +3,11 @@
 Port of ``repro/core/nnpot.py``.  ``DeepmdForceProvider`` owns the model
 handle, extracts the NN atoms from the full position array, converts units,
 runs inference and scatters forces back into engine layout: on one domain
-(``dd_config=None``), or distributed over the virtual ranks of a
+(``dd_config=None``), or distributed over the ranks of a
 :class:`~repro_torch.core.ddinfer.DDConfig` through one
-:class:`~repro_torch.core.pipeline.ForcePipeline` on the device.  With a
+:class:`~repro_torch.core.pipeline.ForcePipeline`: virtual ranks of the
+device, or (``mesh``) the processes of a
+:class:`~repro_torch.launch.mesh.DDMesh`.  With a
 positive skin (``skin``, or ``dd_config.skin``) it exposes the amortized
 two-phase API (``assemble`` / ``evaluate`` / ``needs_rebuild`` / ``grow``)
 the GROMACS ``nstlist`` analogue drives, and :meth:`compute` reuses its
@@ -23,6 +25,7 @@ from ..backend import ForceRequest, ForceResult
 from ..device import resolve_device
 from ..dp.model import DPModel
 from ..kernels.nbr_attn import MAX_K, k_limit_message
+from ..launch.mesh import DDMesh
 from ..md.integrators import wrap
 from ..md.neighbors import needs_rebuild as _nlist_needs_rebuild
 from .ddinfer import (DDConfig, single_domain_forces,
@@ -70,10 +73,13 @@ class DeepmdForceProvider:
       ``evaluate`` reuses it until ``needs_rebuild`` reports an atom moved
       more than skin/2, and ``grow`` doubles the list capacity after an
       overflow (past K = 128 it raises: the port's attention limit).
-    * ``dd_config`` (e.g. ``suggest_config(..., skin=...)``): the virtual
-      domain decomposition, ``prod(dd_config.grid_dims)`` ranks on this one
-      device (``mesh`` must stay None: the ranks are virtual).  The state is
-      a :class:`~repro_torch.core.ddinfer.DDState`; ``grow`` doubles every
+    * ``dd_config`` (e.g. ``suggest_config(..., skin=...)``): the domain
+      decomposition, ``prod(dd_config.grid_dims)`` ranks: virtual ranks of
+      this one device (``mesh=None``), or ``mesh.ranks_per_process`` of
+      them on each process of a ``launch.mesh.make_dd_mesh`` mesh, on
+      ``mesh.device`` (every process passes the same positions and gets
+      the same energy, forces and flags).  The state is a
+      :class:`~repro_torch.core.ddinfer.DDState`; ``grow`` doubles every
       capacity and saturates the model-facing ``k_eval`` at 128.  Without a
       skin every call runs the fused per-step pipeline.
 
@@ -94,15 +100,24 @@ class DeepmdForceProvider:
                  units: UnitConversion = UnitConversion(),
                  nbr_capacity: int = 64, skin: float = 0.0, device="cuda",
                  fault_hook=None):
-        if mesh is not None:
-            raise ValueError(
-                "the port's decomposition ranks are virtual: they run as a "
-                "leading rank axis on one device, so mesh must be None "
-                "(dd_config.grid_dims sets the rank count)")
         if dd_config is not None and not isinstance(dd_config, DDConfig):
             raise TypeError(f"dd_config must be a repro_torch DDConfig, got "
                             f"{type(dd_config).__name__}")
         self.device = resolve_device(device)
+        if mesh is not None:
+            if not isinstance(mesh, DDMesh):
+                raise ValueError(
+                    "mesh must be a repro_torch DDMesh (launch.mesh."
+                    "make_dd_mesh) or None (the ranks as virtual axes of one "
+                    f"device), got {type(mesh).__name__}")
+            if dd_config is None:
+                raise ValueError("a mesh runs the domain decomposition: "
+                                 "pass dd_config too")
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh runs on {mesh.device}, the "
+                                 f"provider was asked for {self.device}")
+            self.device = mesh.device
+        self.mesh = mesh
         self.model = model
         self.params = params
         self.nn_indices = torch.as_tensor(np.asarray(nn_indices, np.int64),
@@ -141,7 +156,8 @@ class DeepmdForceProvider:
             return
         self.pipeline = ForcePipeline(self.model, self.dd_config,
                                       self.box_model, self.n_nn,
-                                      fault_hook=self.fault_hook)
+                                      fault_hook=self.fault_hook,
+                                      mesh=self.mesh)
         self._dist_fn = self.pipeline.build_force_fn()
         self._asm_fn = self.pipeline.build_assembly_fn()
         self._eval_fn = self.pipeline.build_evaluation_fn()

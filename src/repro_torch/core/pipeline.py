@@ -13,10 +13,25 @@ Port of ``repro/core/pipeline.py``.  The stages are
 * **reduce** — collective 2: energy sum + force all-reduce/reduce-scatter,
   plus the diagnostics dictionary.
 
-The G = ``prod(cfg.grid_dims)`` ranks are virtual: they live on one device
-as a leading rank axis, and :class:`_AxisOps` implements the collectives as
-tensor ops over it (all-gather is the replicated buffer, psum a sum over
-ranks, pmax a max, psum_scatter a sum followed by a slice).
+The G = ``prod(cfg.grid_dims)`` ranks run in one of two layouts, behind
+one set of collectives (all_gather, gather_ranks, psum, pmax,
+psum_scatter):
+
+* virtual (``mesh=None``): every rank on one device as a leading rank axis,
+  and :class:`_AxisOps` implements the collectives as tensor ops over it
+  (all-gather is the replicated buffer, psum a sum over ranks, pmax a max,
+  psum_scatter a sum followed by a slice);
+* over processes (``mesh`` a :class:`~repro_torch.launch.mesh.DDMesh`):
+  each of W processes evaluates G / W ranks, and :class:`_GroupAxisOps`
+  runs the collectives over its ``torch.distributed`` group (NCCL on
+  cards, gloo on the CPU), the reference's ``shard_map`` over the ``"dd"``
+  axis.  A step runs the paper's two collectives (the coordinates'
+  all-gather, the forces' all-reduce or reduce-scatter + all-gather) and
+  one gather of the per-rank scalars (energies, counts, flags), whose sums
+  over ranks are taken locally, so every process branches on the same
+  values.  With one process the results equal the virtual path's bit for
+  bit; with more, the forces' all-reduce adds the processes' partial sums
+  in the collective's own order (the DP gate, not the bits).
 
 Replica batching (``n_replicas=R``) is a transform of the same bodies, not
 a second copy of them: the stage bodies always see R replicas (R = 1
@@ -27,9 +42,9 @@ replica.  Positions arrive as (R, N, 3); energies return as (R,), forces as
 the other per-rank vectors as (R, G)).  All R*G buffers go through the
 model as one flattened (R*G*C)-row batch (atom ids offset by the replica's
 and the rank's position), so each model kernel and each force-scatter site
-launches once per force call whatever R.  The port has no device mesh:
-both replicas and ranks are virtual axes of one device, every replica is
-resident (the reference's ``_replica_layout`` reduces to R % 1 == 0).
+launches once per force call whatever R.  Replicas are virtual axes of one
+device: a process mesh takes none (the reference's 2-D ``_replica_layout``
+is ROADMAP item 14(b)).
 
 Comms/compute overlap (``DDConfig.overlap``) splits the amortized
 evaluation at the assemble/evaluate seam into an interior pass (pass A:
@@ -37,12 +52,14 @@ the local rows only, fed by the partition collective, no dependence on the
 all-gather) and a boundary pass (pass B, after the gather), merged per row
 by ``where`` (:func:`_evaluate_rank_overlap`).  Row classes come from the
 assembled state alone (:func:`_overlap_masks`).  On one device the
-all-gather is a reshape, so pass A hides nothing and is extra work; the
-semantics are the reference's, bit for bit at the default full-size pass B
-(``overlap_capacity = 0``), whose operands are the sequential evaluate's,
-and within ulps under a trimmed ``overlap_capacity`` (overflow flagged in
-``diag["overflow"]``).  Pass A keeps the sequential (C, K) shapes, ghost
-rows parked and ghost-pointing slots masked, so every GEMM sees the same M.
+all-gather is a reshape, so pass A hides nothing and is extra work; over
+processes the all-gather is issued asynchronously before pass A and waited
+on after it.  The semantics are the reference's, bit for bit at the
+default full-size pass B (``overlap_capacity = 0``), whose operands are
+the sequential evaluate's, and within ulps under a trimmed
+``overlap_capacity`` (overflow flagged in ``diag["overflow"]``).  Pass A
+keeps the sequential (C, K) shapes, ghost rows parked and ghost-pointing
+slots masked, so every GEMM sees the same M.
 
 Also here: the health layer's ``fault_hook`` seam on the pre-reduce
 per-rank forces (:meth:`ForcePipeline._post_eval`), the per-rank
@@ -56,10 +73,12 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..dp.model import DPModel
 from ..kernels.cell_filter import cell_filter
 from ..kernels import force_scatter as fs
+from ..launch.mesh import DDMesh
 from ..md.neighbors import _topk_list, max_displacement2
 from .ddinfer import (DDConfig, DDState, _make_grid, _pad_atoms,
                       _pad_types, _park, _rank_lists, _select_ranks)
@@ -67,34 +86,212 @@ from .ddinfer import (DDConfig, DDState, _make_grid, _pad_atoms,
 F32 = torch.float32
 
 
+class _Ready:
+    """A finished collective: ``wait()`` returns its result."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def wait(self):
+        return self.value
+
+
 @dataclasses.dataclass(frozen=True)
 class _AxisOps:
     """Collectives over the virtual (replica, rank) axes of one device.
     Per-rank values are stacked replica-major along one leading axis of
     ``n_rep * n_ranks`` rows; each collective reduces the ranks of each
-    replica and returns a leading replica axis."""
+    replica and returns a leading replica axis.  ``tag`` names the
+    collective for a process mesh's timing record (unused here)."""
 
     n_ranks: int
     n_rep: int = 1
 
-    def all_gather(self, x):
+    @property
+    def local_ranks(self) -> int:
+        """Ranks held here: all of them."""
+        return self.n_ranks
+
+    @property
+    def first_rank(self) -> int:
+        return 0
+
+    def local_view(self, x):
+        """This process's per-rank rows (R*G, ...) -> (R, G, ...)."""
+        return x.reshape(self.n_rep, self.n_ranks, *x.shape[1:])
+
+    def all_gather(self, x, tag="gather"):
         """(R, G, chunk, ...) shards -> the replicated (R, G*chunk, ...)."""
         return x.reshape(self.n_rep, -1, *x.shape[3:])
 
-    def gather_ranks(self, x):
+    def all_gather_start(self, x, tag="gather"):
+        """:meth:`all_gather`, issued; ``.wait()`` returns its result."""
+        return _Ready(self.all_gather(x, tag))
+
+    def gather_ranks(self, x, tag="diag"):
         """Per-rank values (R*G, ...) -> (R, G, ...)."""
         return x.reshape(self.n_rep, self.n_ranks, *x.shape[1:])
 
-    def psum(self, x):
+    def psum(self, x, tag="diag"):
         return self.gather_ranks(x).sum(1)
 
-    def pmax(self, x):
+    def pmax(self, x, tag="diag"):
         return self.gather_ranks(x).amax(1)
 
-    def psum_scatter(self, x):
+    def psum_scatter(self, x, tag="force_reduce"):
         """(R*G, n_pad, ...) -> each rank's summed shard (R, G, chunk, ...)."""
         s = self.psum(x)
         return s.reshape(self.n_rep, self.n_ranks, -1, *s.shape[2:])
+
+
+def _dist_op(new: str, old: str):
+    """A ``torch.distributed`` collective under its newer name where this
+    PyTorch has it (``all_gather_single``, ``reduce_scatter_single``)."""
+    return getattr(dist, new, None) or getattr(dist, old)
+
+
+class _Pending:
+    """A collective in flight on a process group: ``wait()`` waits for it,
+    copies a host-side result back, closes its timing mark and returns the
+    result."""
+
+    def __init__(self, work, finish, mesh: DDMesh, tag: str, t0):
+        self._work, self._finish = work, finish
+        self._mesh, self._tag, self._t0 = mesh, tag, t0
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+        out = self._finish()
+        if self._mesh.record is not None:
+            self._mesh.record.append((self._tag, self._t0, self._mesh.mark()))
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class _GroupAxisOps:
+    """The same five collectives over the processes of a :class:`DDMesh`
+    (``torch.distributed``: NCCL on cards, gloo on the CPU).  Process ``p``
+    of ``W`` holds ranks ``p * Gl .. (p + 1) * Gl - 1`` (``Gl = G / W``),
+    stacked replica-major as ``n_rep * Gl`` rows; every collective returns
+    what :class:`_AxisOps` returns for all G ranks (a gathered or reduced
+    value is the same on every process).  The process-major layout of a
+    gathered tensor, (W, R, Gl, ...), is reordered to the replica-major
+    (R, G, ...) every caller expects.  Under ``mesh.host_copy`` (gloo on
+    CUDA tensors) each collective runs on host copies."""
+
+    n_ranks: int
+    mesh: DDMesh
+    n_rep: int = 1
+
+    @property
+    def local_ranks(self) -> int:
+        return self.n_ranks // self.mesh.world
+
+    @property
+    def first_rank(self) -> int:
+        return self.mesh.index * self.local_ranks
+
+    def local_view(self, x):
+        return x.reshape(self.n_rep, self.local_ranks, *x.shape[1:])
+
+    def _launch(self, tag, fn, out, inp, finish, async_op=False, **kw):
+        """``fn(out, inp)`` (``inp`` None: in place on ``out``) over the
+        group, through host copies under ``host_copy``; returns a
+        :class:`_Pending` whose ``wait()`` gives ``finish(out)``."""
+        mesh = self.mesh
+        t0 = mesh.mark() if mesh.record is not None else None
+        o, i = out, inp
+        if mesh.host_copy:
+            o = out.cpu()
+            i = None if inp is None else inp.cpu()
+        args = (o,) if i is None else (o, i)
+        work = fn(*args, group=mesh.group, async_op=async_op, **kw)
+
+        def done():
+            if o is not out:
+                out.copy_(o)
+            return finish(out)
+
+        return _Pending(work if async_op else None, done, mesh, tag, t0)
+
+    def _gather(self, x, tag, finish, async_op=False):
+        """Every process's ``x`` -> ``finish((W, *x.shape))``, pending."""
+        x = x.contiguous()
+        out = torch.empty((self.mesh.world,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        fn = _dist_op("all_gather_single", "all_gather_into_tensor")
+        return self._launch(tag, lambda o, i, **kw: fn(o.view(-1),
+                                                       i.view(-1), **kw),
+                            out, x, finish, async_op=async_op)
+
+    def all_gather(self, x, tag="gather"):
+        """(R, Gl, chunk, ...) own shards -> the replicated
+        (R, G*chunk, ...)."""
+        return self.all_gather_start(x, tag).wait()
+
+    def all_gather_start(self, x, tag="gather"):
+        """:meth:`all_gather` issued asynchronously (``async_op=True``);
+        ``.wait()`` returns its result."""
+        return self._gather(x, tag, lambda g: g.transpose(0, 1).reshape(
+            self.n_rep, -1, *x.shape[3:]), async_op=True)
+
+    def gather_ranks(self, x, tag="diag"):
+        """Own per-rank values (R*Gl, ...) -> every rank's (R, G, ...)."""
+        return self._gather(self.local_view(x), tag, lambda g: g.transpose(
+            0, 1).reshape(self.n_rep, self.n_ranks, *x.shape[1:])).wait()
+
+    def _reduce(self, local, op, tag):
+        local = local.contiguous()
+        return self._launch(tag, dist.all_reduce, local, None, lambda o: o,
+                            op=op).wait()
+
+    def psum(self, x, tag="diag"):
+        """A sum over own ranks, then ``all_reduce(SUM)``: (R,...)."""
+        return self._reduce(self.local_view(x).sum(1), dist.ReduceOp.SUM, tag)
+
+    def pmax(self, x, tag="diag"):
+        return self._reduce(self.local_view(x).amax(1), dist.ReduceOp.MAX,
+                            tag)
+
+    def psum_scatter(self, x, tag="force_reduce"):
+        """(R*Gl, n_pad, ...) -> each own rank's summed shard
+        (R, Gl, chunk, ...): a sum over own ranks, then
+        ``reduce_scatter`` of the process-major (W, R, Gl, chunk, ...)."""
+        w, gl = self.mesh.world, self.local_ranks
+        s = self.local_view(x).sum(1)                       # (R, n_pad, ...)
+        s = s.reshape(self.n_rep, w, gl, -1, *s.shape[2:]).transpose(0, 1)
+        s = s.contiguous()
+        out = torch.empty(s.shape[1:], dtype=s.dtype, device=s.device)
+        fn = _dist_op("reduce_scatter_single", "reduce_scatter_tensor")
+        return self._launch(
+            tag, lambda o, i, **kw: fn(o, i.view(-1, *o.shape[1:]), **kw),
+            out, s, lambda o: o).wait()
+
+
+def _axis_ops(cfg: DDConfig, n_replicas: int, mesh):
+    """The collectives for a pipeline: virtual ranks of one device
+    (``mesh=None``) or the processes of a :class:`DDMesh`."""
+    if n_replicas < 0:
+        raise ValueError(f"n_replicas must be >= 0, got {n_replicas}")
+    if mesh is None:
+        return _AxisOps(cfg.n_ranks, max(n_replicas, 1))
+    if not isinstance(mesh, DDMesh):
+        raise ValueError(
+            "mesh must be a repro_torch DDMesh (launch.mesh.make_dd_mesh) "
+            "or None (the ranks as virtual axes of one device), got "
+            f"{type(mesh).__name__}")
+    if mesh.n_ranks != cfg.n_ranks:
+        raise ValueError(f"mesh dd size {mesh.n_ranks} != grid "
+                         f"{cfg.n_ranks} ranks")
+    if n_replicas > 0:
+        raise ValueError(
+            f"mesh axes {tuple(mesh.shape)} must include 'replica' and "
+            f"{cfg.axis!r}: replicas on devices are not ported yet (ROADMAP "
+            "Queue 1 item 14(b)); a 1-D dd mesh runs one trajectory, and "
+            "mesh=None keeps every replica and rank as virtual axes of one "
+            "device")
+    return _GroupAxisOps(cfg.n_ranks, mesh)
 
 
 _STATE_LEAVES = ("l_idx", "l_mask", "g_idx", "g_shift", "g_mask",
@@ -104,7 +301,7 @@ _STATE_LEAVES = ("l_idx", "l_mask", "g_idx", "g_shift", "g_mask",
 def _st_dict(st: DDState, ax: _AxisOps) -> dict:
     """Per-rank view of a state: every stacked leaf ((G*cap, ...), or
     (R, G*cap, ...) batched) reshaped to (R*G, cap, ...)."""
-    rg = ax.n_rep * ax.n_ranks
+    rg = ax.n_rep * ax.local_ranks
     out = {}
     for name in _STATE_LEAVES:
         v = getattr(st, name)
@@ -114,25 +311,11 @@ def _st_dict(st: DDState, ax: _AxisOps) -> dict:
     return out
 
 
-def _replica_layout(n_replicas: int, mesh=None) -> int:
-    """The layout check of the reference's ``_replica_layout`` on one
-    device: no mesh (ranks and replicas are virtual axes), every replica
-    resident.  Returns the replicas per device group (all of them)."""
-    if mesh is not None:
-        raise ValueError(
-            "the port's ranks and replicas are virtual axes of one "
-            "device: mesh must be None (dd_config.grid_dims sets the "
-            "ranks, n_replicas the replicas)")
-    if n_replicas < 0:
-        raise ValueError(f"n_replicas must be >= 0, got {n_replicas}")
-    return max(n_replicas, 1)
-
-
 def _flat_rows(idx, ax: _AxisOps, n: int):
     """Per-replica atom ids (R*G, cap) -> ids into the (R*n)-row flattened
     coordinate buffer (offset by the replica's position)."""
     rep = torch.arange(ax.n_rep, device=idx.device).repeat_interleave(
-        ax.n_ranks)
+        ax.local_ranks)
     return idx.long() + (rep * n)[:, None]
 
 
@@ -319,15 +502,16 @@ def _overlap_masks(cfg: DDConfig, st: dict):
     return gfree, interior, deep, deep2
 
 
-def _route_contrib(coords_shard, l_slot, chunk: int):
-    """Partition-stage send buffers of every source rank: rank s's shard
-    coordinates (``coords_shard`` (R, G, chunk, 3)) placed at every routing
-    slot it owns (``l_slot`` (R, G*Cl), every rank's local atom ids), zeros
-    elsewhere: (R, G, G*Cl, 3).  Summed over the sources and scattered, they
-    hand each rank exactly ``coords_all[l_idx]`` (one writer per slot)
-    without the all-gather."""
+def _route_contrib(coords_shard, l_slot, chunk: int, first: int = 0):
+    """Partition-stage send buffers of the source ranks held here: rank s's
+    shard coordinates (``coords_shard`` (R, Gs, chunk, 3), ranks ``first``
+    .. ``first + Gs - 1``) placed at every routing slot it owns (``l_slot``
+    (R, G*Cl), every rank's local atom ids), zeros elsewhere:
+    (R, Gs, G*Cl, 3).  Summed over all sources and scattered, they hand
+    each rank exactly ``coords_all[l_idx]`` (one writer per slot) without
+    the all-gather."""
     r, g = coords_shard.shape[:2]
-    src = torch.arange(g, device=l_slot.device)[None, :, None]
+    src = torch.arange(first, first + g, device=l_slot.device)[None, :, None]
     slot = l_slot.long()[:, None, :]
     mine = torch.div(slot, chunk, rounding_mode="floor") == src
     off = torch.clamp(slot - src * chunk, 0, chunk - 1)
@@ -337,13 +521,14 @@ def _route_contrib(coords_shard, l_slot, chunk: int):
 
 
 def _partition(coords_shard, l_slot, ax: _AxisOps, chunk: int):
-    """The overlap collective: the shards (R, G, chunk, 3) and the
-    replicated routing table (R, G*Cl) -> every rank's exact local
-    coordinates (R*G, Cl, 3), as the reference's tiled ``psum_scatter`` of
+    """The overlap collective: the shards held here (R, Gl, chunk, 3) and
+    the replicated routing table (R, G*Cl) -> each own rank's exact local
+    coordinates (R*Gl, Cl, 3), as the reference's tiled ``psum_scatter`` of
     the send buffers delivers them."""
-    rg = ax.n_rep * ax.n_ranks
-    contrib = _route_contrib(coords_shard, l_slot, chunk)
-    return ax.psum_scatter(contrib.reshape(rg, -1, 3)).reshape(rg, -1, 3)
+    rg = ax.n_rep * ax.local_ranks
+    contrib = _route_contrib(coords_shard, l_slot, chunk, ax.first_rank)
+    return ax.psum_scatter(contrib.reshape(rg, -1, 3),
+                           tag="partition").reshape(rg, -1, 3)
 
 
 def _evaluate_interior(model: DPModel, params, cur_l, ref_all, st: dict,
@@ -470,6 +655,35 @@ def _evaluate_rank_overlap(model: DPModel, params, coords_all, ref_all,
             _stats(nbr_mask, st, cfg), n_int)
 
 
+def _rank_table(ax, cols: dict, tag: str = "diag") -> dict:
+    """Per-rank scalars of the ranks held here, {name: (R*Gl,)} -> every
+    rank's {name: (R, G)} in its own dtype, through ONE gather over the
+    ranks (float64 carries the fp32 values and the integer counts
+    exactly), so a sum over the rank axis of the result is the virtual
+    path's ``psum`` bit for bit on every process."""
+    names = list(cols)
+    packed = torch.stack([cols[k].reshape(-1).to(torch.float64)
+                          for k in names], 1)
+    table = ax.gather_ranks(packed, tag=tag)
+    return {k: table[..., i].to(cols[k].dtype) for i, k in enumerate(names)}
+
+
+def _nonfinite(f_global):
+    """Per-rank count of non-finite entries in the pre-reduce force
+    scatter (R*Gl,) int32: the per-rank attribution signal for blown
+    evaluations (``diag["rank_nonfinite"]`` once gathered)."""
+    return (~torch.isfinite(f_global)).sum((-2, -1)).to(torch.int32)
+
+
+def _occupancy(t: dict) -> dict:
+    """Occupancy of the model-facing lists from the gathered per-rank
+    ``nbr_fill`` / ``nbr_slots``: mesh-wide and per rank."""
+    fill, slots = t["nbr_fill"], t["nbr_slots"]
+    return {"nbr_occupancy": (fill.sum(1)
+                              / torch.clamp_min(slots.sum(1), 1.0)),
+            "rank_occupancy": fill / torch.clamp_min(slots, 1.0)}
+
+
 @dataclasses.dataclass(frozen=True)
 class Stage:
     """One pipeline stage: a body over a context dict, with its in/out keys
@@ -486,17 +700,27 @@ class Stage:
 
 class ForcePipeline:
     """The distributed force pipeline for one (model, DDConfig, box,
-    n_atoms) tuple, on ``prod(cfg.grid_dims)`` virtual ranks of one device,
-    optionally replica-batched (``n_replicas`` > 0: every input and output
-    gains a leading replica axis, every DDState leaf too).
+    n_atoms) tuple over ``prod(cfg.grid_dims)`` ranks, optionally
+    replica-batched (``n_replicas`` > 0: every input and output gains a
+    leading replica axis, every DDState leaf too).
+
+    ``mesh=None``: every rank is a virtual rank of one device.  ``mesh`` a
+    :class:`~repro_torch.launch.mesh.DDMesh`: this process evaluates its
+    ``mesh.ranks_per_process`` ranks, and the collectives run over the
+    mesh's process group.  Every process passes the same positions (the MD
+    state is replicated, as the reference's engine holds it outside the
+    ``shard_map``) and gets the same energy, forces and diagnostics; a
+    :class:`DDState` then holds this process's ranks' leaves (leading
+    ``Gl * capacity``), every rank's ``l_slot``, and the whole-mesh scalars
+    and ``ref``.  A mesh takes no replicas (ROADMAP item 14(b)).
 
     The ``build_*`` methods return functions with the JAX signatures:
     ``build_force_fn`` (fused per-step), ``build_assembly_fn`` +
     ``build_evaluation_fn`` + ``build_check_fn`` (amortized split),
     ``build_phase_probes``.  ``model=None`` builds a check-only pipeline.
     ``fault_hook`` (``health.FaultPlan.pipeline_hook``) sees the per-rank
-    results before the force reduction; without it nothing changes.  There
-    is no device mesh: ``mesh`` must be None.
+    results of the ranks held here before the force reduction; without it
+    nothing changes.
     """
 
     def __init__(self, model: Optional[DPModel], cfg: DDConfig, box,
@@ -506,7 +730,8 @@ class ForcePipeline:
         cfg.validate(box.cpu().numpy())
         self.batched = n_replicas > 0
         self.n_replicas = int(n_replicas)
-        self.ax = _AxisOps(cfg.n_ranks, _replica_layout(self.n_replicas, mesh))
+        self.ax = _axis_ops(cfg, self.n_replicas, mesh)
+        self.mesh = mesh
         self.model = model
         self.cfg = cfg
         self.box = box
@@ -524,6 +749,12 @@ class ForcePipeline:
 
     def _box(self, like: torch.Tensor) -> torch.Tensor:
         return self.box.to(like.device)
+
+    @property
+    def own_ranks(self) -> range:
+        """The global ids of the ranks this process evaluates."""
+        first = self.ax.first_rank
+        return range(first, first + self.ax.local_ranks)
 
     # -- layout at the entry points ------------------------------------------
 
@@ -546,12 +777,15 @@ class ForcePipeline:
         return x[0]
 
     def _shard(self, coords, types=None):
-        """(R, N, 3) -> padded rank shards (R, G, chunk, 3) (and the padded
-        shared types)."""
+        """(R, N, 3) -> the padded shards of the ranks held here
+        (R, Gl, chunk, 3) (and the padded shared types)."""
         box = self._box(coords)
         g = self.cfg.n_ranks
         padded = torch.stack([_pad_atoms(c, self.n_pad, box) for c in coords])
         shards = padded.reshape(coords.shape[0], g, self.chunk, 3)
+        if self.mesh is not None:
+            own = self.own_ranks
+            shards = shards[:, own.start:own.stop]
         if types is None:
             return shards
         return shards, _pad_types(types, self.n_pad)
@@ -568,15 +802,16 @@ class ForcePipeline:
     # -- stage bodies (ctx maps names -> tensors) ----------------------------
 
     def _assemble(self, coords_all, types_all):
-        """Assembly of every replica's ranks: selection per replica (its
-        own planes), then the lists of all R*G buffers in one call."""
+        """Assembly of the ranks held here, for every replica: selection per
+        replica (its own planes, from the replicated coordinates), then the
+        lists of all R*Gl buffers in one call."""
         cfg = self.cfg
         box = self._box(coords_all)
         parts = []
         for c in coords_all:
             grid = _make_grid(c, box, cfg, self.n_atoms)
             parts.append(_select_ranks(c, types_all, box, grid, cfg,
-                                       range(cfg.n_ranks), self.n_atoms))
+                                       self.own_ranks, self.n_atoms))
         st = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
         st = _rank_lists(st, cfg, self.rcut)
         st.pop("buf_coords")
@@ -603,18 +838,23 @@ class ForcePipeline:
 
         def reduce(ctx):
             st = ctx["st"]
-            ovf = st["overflow"] | ctx["trim_ovf"]
-            ctx["energy"], ctx["forces"] = self._reduce_forces(
-                ctx["e_local"], ctx["f_global"])
-            l_count, g_count = st["local_count"], st["ghost_count"]
-            cost_max = ax.pmax(l_count + g_count)
-            diag = {"local_count": ax.psum(l_count),
-                    "ghost_count": ax.psum(g_count),
+            ctx["forces"] = self._reduce_forces(ctx["f_global"])
+            t = _rank_table(ax, {
+                "e_local": ctx["e_local"], "local": st["local_count"],
+                "ghost": st["ghost_count"],
+                "overflow": (st["overflow"] | ctx["trim_ovf"]).to(
+                    torch.int32),
+                "nonfinite": _nonfinite(ctx["f_global"]), **ctx["stats"]})
+            ctx["energy"] = t["e_local"].sum(1)
+            cost = t["local"] + t["ghost"]
+            cost_max = cost.amax(1)
+            diag = {"local_count": t["local"].sum(1),
+                    "ghost_count": t["ghost"].sum(1),
                     "cost_max": cost_max,
-                    "rank_cost": ax.gather_ranks(l_count + g_count),
-                    "rank_nonfinite": self._rank_nonfinite(ctx["f_global"]),
-                    **self._occupancy_diag(ctx["stats"]),
-                    "overflow": ax.psum(ovf.to(torch.int32))}
+                    "rank_cost": cost,
+                    "rank_nonfinite": t["nonfinite"],
+                    **_occupancy(t),
+                    "overflow": t["overflow"].sum(1)}
             diag["cost_ratio"] = (
                 cost_max * cfg.n_ranks
                 / torch.clamp_min(diag["local_count"] + diag["ghost_count"],
@@ -622,12 +862,12 @@ class ForcePipeline:
             ctx["diag"] = diag
 
         def per_rank(x):
-            return x.reshape(ax.n_rep * ax.n_ranks, -1).sum(1)
+            return x.reshape(ax.n_rep * ax.local_ranks, -1).sum(1)
 
         return (
             Stage("gather", ("coords_shard",), ("coords_all",), gather,
                   probe=lambda ctx: ctx["coords_all"].sum(
-                      (1, 2)).repeat_interleave(ax.n_ranks)),
+                      (1, 2)).repeat_interleave(ax.local_ranks)),
             Stage("assembly", ("coords_all", "types_all"), ("st",), assemble,
                   probe=lambda ctx: (
                       per_rank(ctx["st"]["nbr_idx"]).to(F32)
@@ -648,46 +888,34 @@ class ForcePipeline:
         The hook (``health.FaultPlan.pipeline_hook``) poisons a target
         rank's slice of ``f_global`` before the force reduction, so the
         failure propagates the way a real blown rank's would.  It is called
-        as ``hook(rank, rep0, e_local, f_global)`` with the per-rank layout
-        (G,) / (G, n, 3) unbatched and (R, G) / (R, G, n, 3) batched, and
-        ``rep0`` the first resident replica (0: every replica lives on this
-        device).  It reads its armed/unfired specs at each call: with
-        nothing armed it returns its inputs."""
+        as ``hook(rank, rep0, e_local, f_global)`` with the layout of the
+        ranks held here, (Gl,) / (Gl, n, 3) unbatched and (R, Gl) /
+        (R, Gl, n, 3) batched (Gl = G without a mesh), ``rank`` their
+        global ids, and ``rep0`` the first resident replica (0: every
+        replica lives on this device).  It reads its armed/unfired specs at
+        each call: with nothing armed it returns its inputs."""
         if self.fault_hook is None:
             return e_local, f_global
         ax = self.ax
-        rank = torch.arange(ax.n_ranks, device=f_global.device)
-        e, f = ax.gather_ranks(e_local), ax.gather_ranks(f_global)
+        own = self.own_ranks
+        rank = torch.arange(own.start, own.stop, device=f_global.device)
+        e, f = ax.local_view(e_local), ax.local_view(f_global)
         if self.batched:
-            rank = rank.expand(ax.n_rep, ax.n_ranks)
+            rank = rank.expand(ax.n_rep, ax.local_ranks)
             e, f = self.fault_hook(rank, 0, e, f)
         else:
             e, f = self.fault_hook(rank, 0, e[0], f[0])
         return e.reshape(e_local.shape), f.reshape(f_global.shape)
 
-    def _rank_nonfinite(self, f_global):
-        """Per-rank count of non-finite entries in the pre-reduce force
-        scatter (R, G) int32: the per-rank attribution signal for blown
-        evaluations."""
-        bad = (~torch.isfinite(f_global)).sum((-2, -1)).to(torch.int32)
-        return self.ax.gather_ranks(bad)
-
-    def _reduce_forces(self, e_local, f_global):
-        ax, cfg = self.ax, self.cfg
-        energy = ax.psum(e_local)
-        if cfg.reduce_mode == "reduce_scatter":
-            forces = ax.all_gather(ax.psum_scatter(f_global))  # collective 2'
-        else:
-            forces = ax.psum(f_global)                        # collective 2
-        return energy, forces
-
-    def _occupancy_diag(self, stats) -> dict:
+    def _reduce_forces(self, f_global):
+        """Collective 2: the per-rank force arrays summed onto every
+        process, by ``all_reduce`` or by ``reduce_scatter`` then
+        ``all_gather``."""
         ax = self.ax
-        fill, slots = stats["nbr_fill"], stats["nbr_slots"]
-        return {"nbr_occupancy": (ax.psum(fill)
-                                  / torch.clamp_min(ax.psum(slots), 1.0)),
-                "rank_occupancy": ax.gather_ranks(
-                    fill / torch.clamp_min(slots, 1.0))}
+        if self.cfg.reduce_mode == "reduce_scatter":
+            return ax.all_gather(ax.psum_scatter(f_global),  # collective 2'
+                                 tag="force_reduce")
+        return ax.psum(f_global, tag="force_reduce")        # collective 2
 
     # -- entry functions: thin compositions over the stage bodies ------------
 
@@ -723,16 +951,22 @@ class ForcePipeline:
         def assemble(coords, types):
             ctx = self._run((gather_s, assemble_s), None, coords, types)
             st = ctx["st"]
+            t = _rank_table(ax, {"local": st["local_count"],
+                                 "ghost": st["ghost_count"],
+                                 "overflow": st["overflow"].to(torch.int32)},
+                            tag="assembly")
             whole = ("local_count", "ghost_count", "overflow")
             flat = {k: v.reshape(r, -1, *v.shape[2:]) for k, v in st.items()
                     if k not in whole}
+            # every rank's local ids: the overlap's routing table
+            l_slot = ax.all_gather(st["l_idx"].reshape(r, ax.local_ranks, -1),
+                                   tag="assembly")
             return DDState(
-                l_slot=self._out(flat["l_idx"]),
-                cost_max=self._out(ax.pmax(st["local_count"]
-                                           + st["ghost_count"])),
-                local_count=self._out(ax.psum(st["local_count"])),
-                ghost_count=self._out(ax.psum(st["ghost_count"])),
-                overflow=self._out(ax.psum(st["overflow"].to(torch.int32))),
+                l_slot=self._out(l_slot),
+                cost_max=self._out((t["local"] + t["ghost"]).amax(1)),
+                local_count=self._out(t["local"].sum(1)),
+                ghost_count=self._out(t["ghost"].sum(1)),
+                overflow=self._out(t["overflow"].sum(1)),
                 ref=self._out(ctx["coords_all"]),
                 **{k: self._out(v) for k, v in flat.items()})
 
@@ -742,7 +976,8 @@ class ForcePipeline:
         """Evaluation function: f(params, coords, state) ->
         (energy, forces, diag), reusing the assembled state.  With
         ``cfg.overlap`` the partition collective and the interior pass run
-        before the gather, the boundary pass and the merge after it."""
+        before the gather completes, the boundary pass and the merge after
+        it."""
         self._require_model("build_evaluation_fn")
         if self.cfg.overlap:
             return self._build_evaluation_overlap()
@@ -757,10 +992,10 @@ class ForcePipeline:
                 model, params, coords_all, ref, st_d, self._box(coords), cfg,
                 rcut, ax)
             e_local, f_global = self._post_eval(e_local, f_global)
-            energy, forces = self._reduce_forces(e_local, f_global)
-            disp2 = self._disp2(coords_all, ref)
-            diag = self._eval_diag(whole, st_d, trim_ovf, stats, disp2,
-                                   f_global)
+            forces = self._reduce_forces(f_global)
+            energy, diag = self._eval_diag(whole, st_d, trim_ovf, stats,
+                                           self._disp2(coords_all, ref),
+                                           e_local, f_global)
             return (self._out(energy), self._out(forces[:, :n_atoms]),
                     self._out(diag))
 
@@ -778,22 +1013,21 @@ class ForcePipeline:
             masks = _overlap_masks(cfg, st_d)
             l_slot = st.l_slot.reshape(ax.n_rep, -1)
             cur_l = _partition(shards, l_slot, ax, chunk)  # overlap collective
+            gathering = ax.all_gather_start(shards)         # collective 1
             # pass A: nothing below depends on the all-gather
             e_a, f_a = _evaluate_interior(model, params, cur_l, ref, st_d,
                                           box, cfg, rcut, masks[0], ax)
-            coords_all = ax.all_gather(shards)               # collective 1
+            coords_all = gathering.wait()
             e_local, f_global, trim_ovf, stats, n_int = _evaluate_rank_overlap(
                 model, params, coords_all, ref, st_d, box, cfg, rcut, e_a,
                 f_a, masks, ax)
             e_local, f_global = self._post_eval(e_local, f_global)
-            energy, forces = self._reduce_forces(e_local, f_global)
-            disp2 = self._disp2(coords_all, ref)
-            diag = self._eval_diag(whole, st_d, trim_ovf, stats, disp2,
-                                   f_global)
-            n_loc = st_d["l_mask"].sum(-1).to(torch.int32)
-            diag["interior_frac"] = (
-                ax.psum(n_int.to(torch.int32)).to(F32)
-                / torch.clamp_min(ax.psum(n_loc), 1).to(F32))
+            forces = self._reduce_forces(f_global)
+            energy, diag = self._eval_diag(
+                whole, st_d, trim_ovf, stats, self._disp2(coords_all, ref),
+                e_local, f_global,
+                {"n_int": n_int.to(torch.int32),
+                 "n_loc": st_d["l_mask"].sum(-1).to(torch.int32)})
             return (self._out(energy), self._out(forces[:, :n_atoms]),
                     self._out(diag))
 
@@ -810,24 +1044,34 @@ class ForcePipeline:
                             device=disp2.device)
         return (disp2 > half) | (overflow > 0)
 
-    def _eval_diag(self, whole: dict, st_d: dict, trim_ovf, stats,
-                   disp2, f_global) -> dict:
-        ax, cfg = self.ax, self.cfg
-        overflow = whole["overflow"] + ax.psum(trim_ovf.to(torch.int32))
+    def _eval_diag(self, whole: dict, st_d: dict, trim_ovf, stats, disp2,
+                   e_local, f_global, extra=None):
+        """The evaluation's energy and diagnostics from one gather of the
+        per-rank scalars (``extra``: the overlap's interior counts)."""
+        cfg = self.cfg
+        t = _rank_table(self.ax, {
+            "e_local": e_local, "trim": trim_ovf.to(torch.int32),
+            "cost": (st_d["l_mask"].sum(-1).to(torch.int32)
+                     + st_d["g_mask"].sum(-1).to(torch.int32)),
+            "nonfinite": _nonfinite(f_global), **stats, **(extra or {})})
         total = whole["local_count"] + whole["ghost_count"]
-        rank_cost = ax.gather_ranks(st_d["l_mask"].sum(-1).to(torch.int32)
-                                    + st_d["g_mask"].sum(-1).to(torch.int32))
-        return {"local_count": whole["local_count"],
+        diag = {"local_count": whole["local_count"],
                 "ghost_count": whole["ghost_count"],
-                "overflow": overflow, "max_disp2": disp2,
-                "cost_max": whole["cost_max"], "rank_cost": rank_cost,
-                "rank_nonfinite": self._rank_nonfinite(f_global),
-                **self._occupancy_diag(stats),
+                "overflow": whole["overflow"] + t["trim"].sum(1),
+                "max_disp2": disp2,
+                "cost_max": whole["cost_max"], "rank_cost": t["cost"],
+                "rank_nonfinite": t["nonfinite"],
+                **_occupancy(t),
                 # max/mean per-rank Eq.-8 cost: the load-imbalance figure
                 "cost_ratio": whole["cost_max"] * cfg.n_ranks
                               / torch.clamp_min(total, 1).to(F32),
                 "needs_rebuild": self._needs_rebuild(disp2,
                                                      whole["overflow"])}
+        if extra:
+            diag["interior_frac"] = (
+                t["n_int"].sum(1).to(F32)
+                / torch.clamp_min(t["n_loc"].sum(1), 1).to(F32))
+        return t["e_local"].sum(1), diag
 
     def build_check_fn(self):
         """Standalone rebuild check: f(coords, state) -> bool (per replica,

@@ -34,8 +34,9 @@ from ..dp.model import DPModel
 
 
 class BatchedDeepmdProvider(DeepmdForceProvider):
-    """Plugs into ``EnsembleEngine(special_force=...)``; ``mesh`` must stay
-    None (replicas and ranks are virtual axes of ``device``)."""
+    """Plugs into ``EnsembleEngine(special_force=...)``; replicas and ranks
+    are virtual axes of ``device`` (a process mesh raises in its pipeline:
+    replicas on devices are ROADMAP item 14(b))."""
 
     batched = True  # ForceBackend capability flag: leading replica axis
 
@@ -62,7 +63,8 @@ class BatchedDeepmdProvider(DeepmdForceProvider):
         self.pipeline = ForcePipeline(self.model, self.dd_config,
                                       self.box_model, self.n_nn,
                                       fault_hook=self.fault_hook,
-                                      n_replicas=self.n_replicas)
+                                      n_replicas=self.n_replicas,
+                                      mesh=self.mesh)
         self._dist_fn = self.pipeline.build_force_fn()
         self._asm_fn = self.pipeline.build_assembly_fn()
         self._eval_fn = self.pipeline.build_evaluation_fn()

@@ -1,34 +1,47 @@
 """End-to-end run (the paper's production scenario): DP-aided MD of a
-solvated protein, the DP group evaluated through the virtual domain
-decomposition on one device.
+solvated protein, the DP group evaluated through the domain decomposition.
 
 Port of ``examples/protein_md.py``: every MD step performs one distributed
-DP evaluation over ``--ranks`` virtual ranks.
+DP evaluation over ``--ranks`` ranks, virtual ranks of one device, or,
+under ``torchrun`` (or with ``--backend``), shared out over the processes
+of a ``torch.distributed`` group (``launch.mesh.make_dd_mesh``: NCCL and
+one card a process by default, gloo with ``--backend gloo``), as the
+reference runs them on ``make_dd_mesh(ranks)``.
 
     python -m repro_torch.launch.protein_md --ranks 8 --steps 30
     python -m repro_torch.launch.protein_md --device cpu --residues 5
+    torchrun --nproc-per-node 4 -m repro_torch.launch.protein_md --ranks 8
+    torchrun --nproc-per-node 4 -m repro_torch.launch.protein_md \
+        --device cpu --backend gloo --residues 5
 (run with ``src`` on ``PYTHONPATH``)
 
 Prints E_dp, the temperature and the gyration radii of the DP group at
-every fifth step, with the decomposition's ghost count and overflow flag.
+every fifth step, with the decomposition's ghost count and overflow flag
+(process 0 prints; every process holds the same trajectory).
 Weights are random, from a seeded ``torch.Generator``.  ``--ckpt-dir DIR``
 checkpoints the state to DIR every 10 steps (``checkpoint_path``, as the
-reference's example); when DIR already holds a checkpoint the run resumes
+reference's example; over W > 1 processes each writes its own
+``DIR/process<p>``); when DIR already holds a checkpoint the run resumes
 from it and runs ``--steps`` more steps.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
 import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import DeepmdForceProvider, suggest_config
 from ..device import resolve_device
 from ..dp import DPModel, paper_dpa1_config
 from ..md import EngineConfig, MDEngine, build_solvated_protein, mark_nn_group
 from ..md.observables import gyration_radii_axes
+from .mesh import make_dd_mesh
+
+GROUP_TIMEOUT_S = 60      # a rendezvous or collective waits no longer
 
 
 def parse_args(argv=None):
@@ -44,20 +57,54 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="run the ranks over a process group (default "
+                         "under torchrun: nccl on cuda, gloo on cpu; gloo "
+                         "on cuda lets processes share a card)")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
+
+
+def _dd_mesh(args):
+    """The process mesh when the run is distributed (``--backend`` given or
+    under ``torchrun``), else None; starts the default group from the
+    environment unless the caller started one.  Returns (mesh, whether
+    this call started the group)."""
+    if args.backend is None and "WORLD_SIZE" not in os.environ:
+        return None, False
+    backend = args.backend or ("nccl" if torch.device(args.device).type
+                               == "cuda" else "gloo")
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group(
+            backend, init_method="env://",
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    return make_dd_mesh(args.ranks, device=args.device,
+                        backend=backend), started
 
 
 def main(argv=None, quiet: bool = False):
     """Run the MD entry point; returns (final MDState, engine)."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
-    say = (lambda *a: None) if quiet else print
+    mesh, started = _dd_mesh(args)
+    try:
+        return _run(args, mesh, quiet)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, mesh, quiet: bool):
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    say = (lambda *a: None) if quiet or (mesh and mesh.index) else print
     system, positions, nn_idx = build_solvated_protein(args.residues,
                                                        device=dev)
     system = mark_nn_group(system, nn_idx)
+    where = (f"virtual ranks on {dev}" if mesh is None else
+             f"ranks over {mesh.world} {mesh.backend} processes "
+             f"({mesh.ranks_per_process} each, on {dev})")
     say(f"{system.n_atoms} atoms, DP group {len(nn_idx)}, {args.ranks} "
-        f"virtual ranks on {dev}, force_mode={args.force_mode}")
+        f"{where}, force_mode={args.force_mode}")
 
     model = DPModel(paper_dpa1_config(ntypes=4, rcut=0.6, sel=32), device=dev)
     params = model.init_params(torch.Generator().manual_seed(args.seed))
@@ -67,22 +114,25 @@ def main(argv=None, quiet: bool = False):
                         force_mode=args.force_mode,
                         nbr_method=args.nbr_method,
                         coords=positions.cpu().numpy()[nn_idx])
-    say(f"virtual DD grid {dd.grid_dims}, halo {dd.halo:.2f} nm, "
+    say(f"DD grid {dd.grid_dims}, halo {dd.halo:.2f} nm, "
         f"capacities local={dd.local_capacity} ghost={dd.ghost_capacity}, "
         f"assembly={dd.nbr_method}")
 
     provider = DeepmdForceProvider(model, params, nn_idx, system.types, box,
-                                   system.n_atoms, dd_config=dd, device=dev)
+                                   system.n_atoms, dd_config=dd, mesh=mesh,
+                                   device=dev)
+    ckpt = args.ckpt_dir
+    if ckpt and mesh is not None and mesh.world > 1:
+        ckpt = os.path.join(ckpt, f"process{mesh.index}")
     eng = MDEngine(system,
                    EngineConfig(cutoff=0.9, neighbor_capacity=96, dt=0.0005,
                                 thermostat_t=200.0,
-                                checkpoint_every=10 if args.ckpt_dir else 0,
-                                checkpoint_path=args.ckpt_dir),
+                                checkpoint_every=10 if ckpt else 0,
+                                checkpoint_path=ckpt),
                    special_force=provider)
     state = eng.init_state(positions, 200.0)
-    if args.ckpt_dir and os.path.exists(os.path.join(args.ckpt_dir,
-                                                     "manifest.json")):
-        state = MDEngine.restore(args.ckpt_dir, device=dev)
+    if ckpt and os.path.exists(os.path.join(ckpt, "manifest.json")):
+        state = MDEngine.restore(ckpt, device=dev)
         say(f"[restore] resumed from step {int(state.step)}")
     sel = system.nn_mask
 

@@ -41,6 +41,15 @@ emergency checkpoint and a diagnostics bundle before raising.
 ``obs`` (an ``ObsConfig`` or ``Tracer``) records spans, per-step counters
 and, in scan mode, calibrated per-stage timings.
 
+Over a process mesh (a ``DeepmdForceProvider`` built with a
+``launch.mesh.DDMesh``) every process runs this loop on the same
+replicated state, as the reference's engine runs outside its
+``shard_map``: every value a host branch reads (the rebuild and overflow
+flags, the special energy, the guard's inputs) comes out of the pipeline
+already reduced over the processes, so all of them take the same branch
+and meet at the same collectives.  Each process needs a checkpoint path of
+its own.
+
 No graph outlives a step: the run is under ``torch.no_grad`` and the force
 calls differentiate inside their own ``enable_grad``.  The window machinery
 is shared with the replica-batched engine

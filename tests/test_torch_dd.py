@@ -314,9 +314,11 @@ def test_single_domain_grow_raises_past_128(ref):
     assert prov.nbr_capacity == 82 and prov.growths == 0
 
 
-def test_provider_rejects_a_mesh(ref):
+def test_provider_rejects_a_mesh_that_is_not_a_ddmesh(ref):
+    """A process mesh comes from ``launch.mesh.make_dd_mesh``
+    (``tests/test_torch_dd_procs.py``); any other object is refused."""
     model, params = _port(ref)
-    with pytest.raises(ValueError, match="virtual"):
+    with pytest.raises(ValueError, match="must be a repro_torch DDMesh"):
         DeepmdForceProvider(model, params, np.arange(N), TYPES, BOX, N,
                             dd_config=_config(), mesh=object(), device="cpu")
 

@@ -17,7 +17,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 DD_MODULES = ("core/domain.py", "core/pipeline.py", "core/ddinfer.py",
-              "md/cells.py", "kernels/cell_filter.py")
+              "md/cells.py", "kernels/cell_filter.py", "launch/mesh.py",
+              "launch/protein_md.py")
 
 
 def test_rule_covers_the_decomposition_modules():
@@ -203,3 +204,45 @@ def test_md_entry_points_raise_without_cuda(monkeypatch):
     eng = MDEngine(system, EngineConfig(cutoff=0.3, neighbor_capacity=16))
     assert eng.device.type == "cpu"
     assert eng.init_state(pos, 100.0).positions.device.type == "cpu"
+
+
+def test_make_dd_mesh_raises_without_a_process_group():
+    """The process mesh starts no group of its own."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_dd_mesh
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="init_process_group first"):
+        make_dd_mesh(8, device="cpu")
+
+
+def test_process_mesh_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """Inside a process group, the mesh, the distributed provider and the
+    MD launcher still default to the card and raise without one."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import DeepmdForceProvider, suggest_config
+    from repro_torch.dp import DPConfig, DPModel
+    from repro_torch.launch import protein_md
+    from repro_torch.launch.mesh import make_dd_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_dd_mesh(8, backend="gloo")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            protein_md.main(["--backend", "gloo", "--residues", "2",
+                             "--steps", "1"])
+        mesh = make_dd_mesh(8, device="cpu")
+        box = np.full(3, 4.0)
+        cfg = suggest_config(64, box, 8, 0.6, nbr_capacity=32, skin=0.05)
+        model = DPModel(DPConfig(), device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DeepmdForceProvider(model, {}, np.arange(64), np.zeros(64, int),
+                                box, 64, dd_config=cfg, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
