@@ -15,6 +15,7 @@ MoE, Mamba, RWKV6, cross-attention, the encoder and MTP) and LM training.
     python3 chip_smoke.py --phase serve     # the serve phase alone
     python3 chip_smoke.py --phase roofline  # the roofline phase alone
     python3 chip_smoke.py --phase dd_procs  # the dd_procs phase alone
+    python3 chip_smoke.py --phase ensemble_procs  # ensemble_procs alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
 source, all started together; Triton at first launch), then runs phases
@@ -144,7 +145,22 @@ accounting against the card:
    recovered with only replica 1 tripped; then the overlap evaluation on
    the dd phase's 8 ranks: == sequential bit for bit (build and drifted
    positions), ``interior_frac``, a trimmed and a tiny
-   ``overlap_capacity``, both timed, each pass's kernels held;
+   ``overlap_capacity``, both timed, each pass's kernels held; then
+   ensemble_procs, replicas on devices: R = 4 replicas of the stand-in x 8
+   DD ranks (skin 0.05) over the 2-D ``(replica x dd)`` process layout of
+   ``ensemble.make_ensemble_mesh``, held against the virtual R x 8
+   pipeline (the fused call, the assembly, an evaluate, the rebuild
+   checks): (i) one process through an NCCL group as ``(1, 1)``, bit for
+   bit; (ii) two child processes sharing this card over gloo as ``(2,
+   1)``, 2 replicas each: E and F within the DP gate, every integer output
+   exactly, both processes' outputs the same bits; (iii) with 4 cards
+   ``(2, 2)`` over NCCL, else a line saying why not; in each case each
+   process's kernels held against their plain versions on its own
+   evaluate, 10 REMD steps (``EnsembleEngine`` + ``BatchedDeepmdProvider``
+   over the mesh, geometric 300-420 K, exchange every 5) with the same
+   positions, ladders and rebuild counts on every process after every
+   step; ms per ensemble step and per force call, the collectives by tag,
+   the inference share and peak memory per process;
 10. serve: a ``ForceServer`` (full-width model, atom bucket 4,096, batch
    buckets 1, 2, 4) for 4 MD client threads through
    ``RemoteForceProvider`` on a solvated protein with a 4,096-atom DP
@@ -1592,38 +1608,48 @@ def procs_run(model, params, mesh, inputs, check_kernels):
 
 
 def dd_procs_child(task_path, rank):
-    """One process of a ``dd_procs`` group (``chip_smoke.py --dd-procs-child
-    TASK RANK``): joins the group through ``file://`` rendezvous, runs
-    :func:`procs_run` on its card and saves the result beside ``TASK``."""
+    """One process of a ``dd_procs`` or ``ensemble_procs`` group
+    (``chip_smoke.py --dd-procs-child TASK RANK``): joins the group through
+    ``file://`` rendezvous, runs :func:`procs_run` (or, with ``shards`` in
+    the task, :func:`ens_procs_run` on the 2-D mesh) on its card and saves
+    the result beside ``TASK``."""
     import torch.distributed as dist
     from repro_torch.dp import DPModel, paper_dpa1_config
-    from repro_torch.launch.mesh import make_dd_mesh
+    from repro_torch.launch.mesh import make_dd_mesh, make_ensemble_mesh
     task = torch.load(task_path, weights_only=False)
     dev = torch.device("cuda", task["devices"][rank])
     torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=PROCS_GROUP_S)
     dist.init_process_group(
         task["backend"], init_method=f"file://{task['rendezvous']}",
-        rank=rank, world_size=task["world"],
-        timeout=datetime.timedelta(seconds=PROCS_GROUP_S))
+        rank=rank, world_size=task["world"], timeout=timeout)
     try:
-        mesh = make_dd_mesh(N_RANKS, device=dev, backend=task["backend"])
         model = DPModel(paper_dpa1_config(ntypes=4, rcut=0.6, sel=64),
-                        device=mesh.device)
+                        device=dev)
         params = model.init_params(torch.Generator().manual_seed(SEED))
-        out = procs_run(model, params, mesh, procs_inputs(model),
-                        check_kernels=True)
+        if task.get("shards"):
+            mesh = make_ensemble_mesh(task["shards"], N_RANKS, device=dev,
+                                      backend=task["backend"],
+                                      timeout=timeout)
+            out = ens_procs_run(model, params, mesh, task["case"])
+        else:
+            mesh = make_dd_mesh(N_RANKS, device=dev, backend=task["backend"])
+            out = procs_run(model, params, mesh, procs_inputs(model),
+                            check_kernels=True)
         torch.save(out, f"{task_path}.out{rank}")
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def procs_spawn(case, world, backend, devices):
-    """Start ``world`` child processes of this script on ``devices`` and
+def procs_spawn(case, world, backend, devices, shards=0):
+    """Start ``world`` child processes of this script on ``devices`` (a
+    ``dd_procs`` group, or with ``shards`` an ``ensemble_procs`` one) and
     wait for all; any child's failure, or a group still running after
     ``PROCS_CHILD_S`` seconds, kills every child and fails the phase."""
     task = PROCS_DIR / f"{case}.pt"
     torch.save({"world": world, "backend": backend, "devices": devices,
+                "shards": shards, "case": case,
                 "rendezvous": str(PROCS_DIR / f"{case}.rendezvous")}, task)
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
                                "--dd-procs-child", str(task), str(r)],
@@ -1637,7 +1663,7 @@ def procs_spawn(case, world, backend, devices):
             logs[r] = p.communicate(
                 timeout=max(deadline - time.perf_counter(), 1.0))[0]
     except subprocess.TimeoutExpired:
-        fail(f"dd_procs {case}: the {world} processes did not finish in "
+        fail(f"procs {case}: the {world} processes did not finish in "
              f"{PROCS_CHILD_S} s")
     finally:
         for p in procs:
@@ -1649,7 +1675,7 @@ def procs_spawn(case, world, backend, devices):
             if line.startswith("{"):
                 print(line, flush=True)          # the children's kernel lines
         if p.returncode != 0:
-            fail(f"dd_procs {case}: process {r} exited {p.returncode}:\n"
+            fail(f"procs {case}: process {r} exited {p.returncode}:\n"
                  f"{logs[r][-6000:]}")
     return [torch.load(f"{task}.out{r}", weights_only=False)
             for r in range(world)]
@@ -1823,6 +1849,347 @@ def phase_dd_procs(model, params, smi):
                    "multi-card case needs at least 2 cards"}), flush=True)
     shutil.rmtree(PROCS_DIR, ignore_errors=True)
     print(json.dumps({"phase": "dd_procs",
+                      "s": time.perf_counter() - t_phase}), flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# ensemble_procs: replicas on devices, the 2-D (replica x dd) process layout
+# ---------------------------------------------------------------------------
+
+ENS_PROCS_STEPS = 10      # REMD steps per case
+
+
+def ens_procs_setup(model):
+    """The md phase's stand-in (62,210 atoms, 15,668 DP atoms), its
+    ``ENS_R`` replicas (the ensemble phase's), the 8-rank DD configuration
+    (skin 0.05) and the geometric ladder; the DP group's inputs in model
+    units at the replicas' positions, drifted inside skin/4, and with one
+    atom of replica 1 moved by the skin."""
+    from repro_torch.core import suggest_config
+    from repro_torch.ensemble import geometric_ladder
+    from repro_torch.md import build_solvated_protein, mark_nn_group
+    from repro_torch.md.integrators import wrap
+    msys, pos, nn = build_solvated_protein(MD_RESIDUES, device=DEVICE)
+    msys = mark_nn_group(msys, nn)
+    box = msys.box.cpu().numpy()
+    nn_t = torch.as_tensor(nn, device=DEVICE)
+    dd = suggest_config(len(nn), box, N_RANKS, model.cfg.descriptor.rcut,
+                        nbr_capacity=model.cfg.descriptor.sel, skin=SKIN,
+                        coords=pos[nn_t].cpu().numpy())
+    xs = replica_positions(pos, msys.box, ENS_R)
+    x = wrap(xs[:, nn_t], msys.box)          # the provider's model input
+    step = np.random.default_rng(SEED + 8).uniform(-1, 1, tuple(x.shape))
+    moved = wrap(x + torch.tensor((step * 0.2 * SKIN / np.sqrt(3)).astype(
+        np.float32), device=DEVICE), msys.box)
+    far = moved.clone()
+    far[1, 0, 0] += SKIN
+    return {"msys": msys, "pos": pos, "nn": nn, "box": box, "dd": dd,
+            "x": x, "t": msys.types[nn_t], "moved": moved,
+            "far": wrap(far, msys.box),
+            "temps": geometric_ladder(*ENS_LADDER, ENS_R)}
+
+
+def ens_procs_force_path(model, params, mesh, s):
+    """The replica-batched pipeline's entry functions on all ``ENS_R``
+    replicas over ``mesh`` (None: the virtual replicas and ranks): the
+    fused call, the assembly, an evaluate reusing it at the drifted
+    positions, the rebuild check there and beyond the skin; on CPU
+    copies."""
+    from repro_torch.core import ForcePipeline
+    pipe = ForcePipeline(model, s["dd"], s["box"], len(s["nn"]),
+                         n_replicas=ENS_R, mesh=mesh)
+    st = pipe.build_assembly_fn()(s["x"], s["t"])
+    check_fn = pipe.build_check_fn()
+    out = to_cpu({"fused": pipe.build_force_fn()(params, s["x"], s["t"]),
+                  "state": st,
+                  "eval": pipe.build_evaluation_fn()(params, s["moved"], st),
+                  "check": (check_fn(s["moved"], st), check_fn(s["far"], st))})
+    del pipe, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def ens_procs_remd(model, params, mesh, s):
+    """``ENS_PROCS_STEPS`` REMD steps (``EnsembleEngine`` +
+    ``BatchedDeepmdProvider`` over ``mesh``, the geometric ladder,
+    exchange every ``ENS_EXCHANGE`` steps, a window a step): positions and
+    ladder after every step (CPU), ms per step, the collectives' ms by tag
+    per step, the engine's rebuild and exchange counts, the kernels'
+    launches and the peak memory of the run."""
+    from repro_torch import kernels
+    from repro_torch.ensemble import (BatchedDeepmdProvider, EnsembleConfig,
+                                      EnsembleEngine)
+    from repro_torch.md import EngineConfig
+    msys, temps = s["msys"], s["temps"]
+    prov = BatchedDeepmdProvider(model, params, s["nn"], msys.types, s["box"],
+                                 msys.n_atoms, n_replicas=ENS_R,
+                                 dd_config=s["dd"], mesh=mesh,
+                                 device=mesh.device)
+    eng = EnsembleEngine(msys, EngineConfig(**{**MD_CFG,
+                                               "thermostat_t": temps[0]}),
+                         EnsembleConfig(n_replicas=ENS_R, temps=temps,
+                                        exchange_interval=ENS_EXCHANGE),
+                         special_force=prov)
+    start = eng.init_state(s["pos"])
+    stamps, traj, ladders, marks = [], [], [], []
+
+    def observe(st, o):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        traj.append(st.positions.cpu())
+        ladders.append(st.ladder.cpu())
+        marks.append(rebuild_marks(eng))
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.record = []
+    t0 = time.perf_counter()
+    st = eng.run(start, ENS_PROCS_STEPS, observe=observe, observe_every=1)
+    counts = kernels.launch_counts()
+    coll = mesh.collective_ms()
+    mesh.record = None
+    peak = torch.cuda.max_memory_allocated()
+    check_finite_state(f"ensemble_procs remd (process {mesh.index})", st)
+    steps = [((stamps[i] - stamps[i - 1]) * 1e3, marks[i] != marks[i - 1])
+             for i in range(1, len(stamps))]
+    d = eng.diagnostics
+    return {"positions": traj, "ladders": ladders,
+            "wall_ms": (stamps[-1] - t0) * 1e3, **step_split(steps),
+            "collective_ms_per_step": {k: v / ENS_PROCS_STEPS
+                                       for k, v in coll.items()},
+            "diagnostics": {k: d[k] for k in (
+                "displacement_rebuilds", "special_rebuilds",
+                "cadence_rebuilds", "capacity_growths", "special_growths")},
+            "exchange": {"attempts": d["exchange_attempts"],
+                         "accepts": d["exchange_accepts"],
+                         "pair_attempts": d["pair_attempts"].tolist(),
+                         "pair_accepts": d["pair_accepts"].tolist(),
+                         "final_ladder": st.ladder.tolist()},
+            "peak_MiB": peak / 2 ** 20, "launches": counts}
+
+
+def ens_procs_run(model, params, mesh, case, s=None):
+    """What each process of an ``ensemble_procs`` group runs: the force
+    path, its kernels against their plain versions on its own assembly
+    and evaluate (its resident replicas and ranks), the timed evaluate and
+    the REMD run."""
+    from repro_torch.core import ForcePipeline
+    s = s or ens_procs_setup(model)
+    out = {"process": mesh.index, "cell": [mesh.replica_index,
+                                           mesh.dd.index],
+           "device": str(mesh.device),
+           "force_path": ens_procs_force_path(model, params, mesh, s)}
+    pipe = ForcePipeline(model, s["dd"], s["box"], len(s["nn"]),
+                         n_replicas=ENS_R, mesh=mesh)
+    asm, ev = pipe.build_assembly_fn(), pipe.build_evaluation_fn()
+    (_, seen), cf_calls = record_cell_filter(
+        lambda: record_model_kernels(
+            lambda: ev(params, s["moved"], asm(s["x"], s["t"]))))
+    phase = f"ensemble_procs {case} process {mesh.index}"
+    out["kernel_checks"] = {
+        "force_scatter": check_dd_model_kernels(seen, phase),
+        "cell_filter": check_cell_filter_calls(cf_calls, phase)}
+    del seen, cf_calls
+    torch.cuda.empty_cache()
+    st = asm(s["x"], s["t"])
+    out["evaluate"] = procs_timed(mesh, lambda: ev(params, s["moved"], st),
+                                  PROCS_REPS)
+    del pipe, asm, ev, st
+    torch.cuda.empty_cache()
+    out["remd"] = ens_procs_remd(model, params, mesh, s)
+    return out
+
+
+def ens_procs_gates(case, outs, virtual, bitwise):
+    """Each process against the virtual R x 8 pipeline (``bitwise``: every
+    output bit for bit; else E and F within the DP gate and every integer
+    output exactly, each process's state leaves the virtual state's rows
+    of its resident replicas and ranks), only replica 1 flagged beyond the
+    skin, and the processes against each other: the same E, F, diagnostics
+    and flags, and the same REMD positions, ladders and counts after every
+    step.  Returns the largest F error against virtual."""
+    shards = 1 + max(o["cell"][0] for o in outs)
+    wd, rl = len(outs) // shards, ENS_R // shards
+    err = 0.0
+    for out in outs:
+        got = out["force_path"]
+        rs, col = out["cell"]
+        reps = slice(rs * rl, (rs + 1) * rl)
+        if [c.tolist() for c in got["check"]] != [
+                [False] * ENS_R, [r == 1 for r in range(ENS_R)]]:
+            fail(f"ensemble_procs {case}: rebuild flags {got['check']}")
+        if bitwise:
+            if not same_bits(got, virtual):
+                fail(f"ensemble_procs {case}: not the virtual pipeline's "
+                     "bits")
+            continue
+        st, vst = got["state"], virtual["state"]
+        for name in PROCS_LEAVES:
+            leaf = getattr(vst, name)[reps]
+            rows = leaf.shape[1] // wd
+            if not torch.equal(getattr(st, name),
+                               leaf[:, col * rows:(col + 1) * rows]):
+                fail(f"ensemble_procs {case}: process {out['process']}'s "
+                     f"{name} is not the virtual state's rows of its "
+                     "replicas and ranks")
+        for name in ("l_slot", "ref"):
+            if not torch.equal(getattr(st, name), getattr(vst, name)[reps]):
+                fail(f"ensemble_procs {case}: state {name} differs")
+        for name in ("local_count", "ghost_count", "cost_max", "overflow"):
+            if not torch.equal(getattr(st, name), getattr(vst, name)):
+                fail(f"ensemble_procs {case}: state {name} differs")
+        for call in ("fused", "eval"):
+            (e, f, d), (e0, f0, d0) = got[call], virtual[call]
+            for key in PROCS_INT_DIAG:
+                if not torch.equal(d[key], d0[key]):
+                    fail(f"ensemble_procs {case} {call}: {key} {d[key]} != "
+                         f"{d0[key]}")
+            if bool(((e - e0).abs() > 1e-5 * e0.abs()).any()):
+                fail(f"ensemble_procs {case} {call}: E {e.tolist()} vs "
+                     f"{e0.tolist()}")
+            err = max(err, check(f"ensemble_procs {case} {call} F", f, f0,
+                                 atol=1e-4 * float(f0.abs().max())))
+    first = outs[0]
+    for out in outs[1:]:
+        for call in ("fused", "eval", "check"):
+            if not same_bits(out["force_path"][call],
+                             first["force_path"][call]):
+                fail(f"ensemble_procs {case}: the processes' {call} "
+                     "results differ")
+        md, md0 = out["remd"], first["remd"]
+        for key in ("positions", "ladders"):
+            if not all(torch.equal(a, b) for a, b in zip(md[key], md0[key])):
+                fail(f"ensemble_procs {case}: the processes' REMD {key} "
+                     "differ")
+        for key in ("diagnostics", "exchange"):
+            if md[key] != md0[key]:
+                fail(f"ensemble_procs {case}: REMD {key} differ: {md[key]} "
+                     f"vs {md0[key]}")
+    for out in outs:
+        md = out["remd"]
+        if len(md["positions"]) != ENS_PROCS_STEPS or \
+                sorted(md["exchange"]["final_ladder"]) != list(range(ENS_R)):
+            fail(f"ensemble_procs {case}: {len(md['positions'])} steps, "
+                 f"ladder {md['exchange']['final_ladder']}")
+        missing = [k for k in DP_KERNELS if md["launches"][k] == 0]
+        if missing:
+            fail(f"ensemble_procs {case}: process {out['process']}'s REMD "
+                 f"run launched no {missing}")
+    return err
+
+
+def ens_procs_report(case, outs, smi, err=None, **extra):
+    """One line per process (ms per force call and per ensemble step, the
+    collectives by tag, the inference share, peak memory, launches) and
+    the case's line."""
+    for out in outs:
+        md = out["remd"]
+        print(json.dumps({
+            "phase": "ensemble_procs", "case": case,
+            "process": out["process"], "cell": out["cell"],
+            "device": out["device"], "card": smi,
+            "evaluate": out["evaluate"],
+            "remd": {k: v for k, v in md.items()
+                     if k not in ("positions", "ladders")}}), flush=True)
+    ev = [o["evaluate"] for o in outs]
+    print(json.dumps({
+        "phase": "ensemble_procs", "case": case, "processes": len(outs),
+        "layout": {"replica": 1 + max(o["cell"][0] for o in outs),
+                   "dd": N_RANKS, "replicas": ENS_R,
+                   "processes_on_dd_axis": 1 + max(o["cell"][1]
+                                                   for o in outs)},
+        "card": smi,
+        "ensemble_step_ms_median_by_process": [
+            o["remd"]["step_ms_median"] for o in outs],
+        "force_call_ms_median_by_process": [
+            e["ms_per_call_median"] for e in ev],
+        "force_call_collective_ms_by_tag_by_process": [
+            {"gather": e["fig12_ms"]["collective_1"],
+             "force_reduce": e["fig12_ms"]["collective_2"],
+             **e["fig12_ms"]["other_collectives"]} for e in ev],
+        "ensemble_step_collective_ms_by_tag_by_process": [
+            o["remd"]["collective_ms_per_step"] for o in outs],
+        "force_call_inference_share_by_process": [
+            e["fig12_shares"]["inference"] for e in ev],
+        "remd_peak_MiB_by_process": [o["remd"]["peak_MiB"] for o in outs],
+        "exchange": outs[0]["remd"]["exchange"],
+        "F_max_abs_err_vs_virtual": err,
+        "classical_work": "every process integrates all replicas: the "
+                          "classical forces, lists and integration of R = "
+                          f"{ENS_R} replicas",
+        **extra}), flush=True)
+
+
+def phase_ensemble_procs(model, params, smi):
+    """Replicas on devices: ``ENS_R`` replicas of the stand-in x 8 DD ranks
+    over the 2-D ``(replica x dd)`` process layout of
+    ``ensemble.make_ensemble_mesh``: (i) one process through an NCCL group
+    as (1, 1), bit for bit the virtual pipeline; (ii) two processes sharing
+    this card over gloo as (2, 1), 2 replicas each; (iii) with 4 cards (2,
+    2) over NCCL, else a line saying why not.  Returns the launches of
+    each case's REMD run, per process."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch.ensemble import make_ensemble_mesh
+    t_phase = time.perf_counter()
+    shutil.rmtree(PROCS_DIR, ignore_errors=True)
+    PROCS_DIR.mkdir(parents=True)
+    s = ens_procs_setup(model)
+    virtual = ens_procs_force_path(model, params, None, s)
+    launches = {}
+
+    # (i) one process, (1, 1)
+    timeout = datetime.timedelta(seconds=PROCS_GROUP_S)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{PROCS_DIR / 'ens_one.rendezvous'}",
+        rank=0, world_size=1, timeout=timeout)
+    try:
+        mesh = make_ensemble_mesh(1, N_RANKS, device=torch.device(
+            "cuda", torch.cuda.current_device()), timeout=timeout)
+        one = ens_procs_run(model, params, mesh, "nccl_1_process", s)
+    finally:
+        dist.destroy_process_group()
+    del s
+    torch.cuda.empty_cache()
+    ens_procs_gates("nccl_1_process", [one], virtual, bitwise=True)
+    ens_procs_report("nccl_1_process", [one], smi,
+                     bitwise_equal_virtual=True)
+    launches["nccl_1_process"] = [one["remd"]["launches"]]
+    del one
+
+    # (ii) two processes sharing this card: gloo on CUDA tensors, (2, 1)
+    card = torch.cuda.current_device()
+    outs = procs_spawn("ens_gloo_2_processes", 2, "gloo", [card, card],
+                       shards=2)
+    err = ens_procs_gates("gloo_2_processes", outs, virtual, bitwise=False)
+    ens_procs_report("gloo_2_processes", outs, smi, err,
+                     processes_bit_identical=True,
+                     remd_bit_identical_every_step=True,
+                     E_tol="rtol 1e-5", F_tol="atol 1e-4*max|F|")
+    launches["gloo_2_processes"] = [o["remd"]["launches"] for o in outs]
+    del outs
+
+    # (iii) four cards: NCCL, one card a process, (2, 2)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 4:
+        outs = procs_spawn("ens_nccl_4_cards", 4, "nccl", [0, 1, 2, 3],
+                           shards=2)
+        err = ens_procs_gates("nccl_4_cards", outs, virtual, bitwise=False)
+        ens_procs_report("nccl_4_cards", outs, smi, err,
+                         processes_bit_identical=True,
+                         remd_bit_identical_every_step=True)
+        launches["nccl_4_cards"] = [o["remd"]["launches"] for o in outs]
+        del outs
+    else:
+        print(json.dumps({
+            "phase": "ensemble_procs", "case": "nccl_4_cards", "ran": False,
+            "why": f"{n_cards} CUDA device(s) here: the (2, 2) layout takes "
+                   "4 processes and NCCL one card a process"}), flush=True)
+    shutil.rmtree(PROCS_DIR, ignore_errors=True)
+    print(json.dumps({"phase": "ensemble_procs",
                       "s": time.perf_counter() - t_phase}), flush=True)
     return launches
 
@@ -5363,6 +5730,11 @@ def main():
         print("[dd_procs] every check passed (dd_procs phase alone)",
               flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "ensemble_procs"]:
+        phase_ensemble_procs(model, params, smi)
+        print("[ensemble_procs] every check passed (ensemble_procs phase "
+              "alone)", flush=True)
+        return 0
     phase_kernels(model, params, 0.0)            # single_domain_forces, K = 64
     kres = phase_kernels(model, params, SKIN, main=True)  # the provider's K
     # K = 128: the MD cutoff (r_c = 0.8, ~64 neighbours) with sel 128, where
@@ -5385,6 +5757,8 @@ def main():
     md_sd, md_dd, md_pairs = phase_md(model, params)
     guard_sd, guard_dd = phase_guard(model, params)
     ens = phase_ensemble(model, params)
+    torch.cuda.empty_cache()
+    ens_procs_launches = phase_ensemble_procs(model, params, smi)
     torch.cuda.empty_cache()
     serve_launches = phase_serve(model, params)
     del model, params
@@ -5433,6 +5807,9 @@ def main():
                      "launches_md_run_dd_procs": {
                          case: [c[name] for c in per_proc]
                          for case, per_proc in procs_launches.items()},
+                     "launches_remd_run_ensemble_procs": {
+                         case: [c[name] for c in per_proc]
+                         for case, per_proc in ens_procs_launches.items()},
                      "K": r.get("K"), "max_abs_err": r["max_err"],
                      "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -157,7 +157,11 @@ class DDState:
     as the JAX state is; over a process mesh each process holds its own
     ranks' rows (a shard of the JAX state's sharded leaves).  ``l_slot``
     (every rank's local ids), the scalars and ``ref`` (the padded reference
-    positions the state was built at) are whole-mesh values."""
+    positions the state was built at) are whole-mesh values.  Replica-
+    batched, every leaf gains a leading replica axis; over a 2-D
+    ``(replica x dd)`` mesh the per-rank leaves, ``l_slot`` and ``ref``
+    hold the resident replicas' rows only, and the scalars every replica's
+    (R,)."""
 
     l_idx: torch.Tensor       # (P*Cl,) int32 local atom indices (0-padded)
     l_mask: torch.Tensor      # (P*Cl,) bool
@@ -641,8 +645,10 @@ def single_domain_forces_nlist(model: DPModel, params, coords, types, box,
 # Replica-batched functions: warn-once shims over the pipeline's replica
 # transform (``ForcePipeline(..., n_replicas=R)``), as in the reference.
 # ``mesh`` is passed through: None (replicas and ranks are virtual axes of
-# one device) or a ``launch.mesh.DDMesh``, which takes ``n_replicas=0``
-# only (replicas on devices are ROADMAP item 14(b)).
+# one device), or the 2-D ``launch.mesh.EnsembleMesh`` of
+# ``ensemble.make_ensemble_mesh`` (replicas sharded over its leading axis,
+# ranks over its trailing one); a 1-D ``launch.mesh.DDMesh`` runs one
+# trajectory and refuses replicas.
 # ---------------------------------------------------------------------------
 
 _DEPRECATION_WARNED: set = set()

@@ -7,7 +7,8 @@ runs inference and scatters forces back into engine layout: on one domain
 :class:`~repro_torch.core.ddinfer.DDConfig` through one
 :class:`~repro_torch.core.pipeline.ForcePipeline`: virtual ranks of the
 device, or (``mesh``) the processes of a
-:class:`~repro_torch.launch.mesh.DDMesh`.  With a
+:class:`~repro_torch.launch.mesh.DDMesh` (a replica-batched subclass also
+takes the 2-D :class:`~repro_torch.launch.mesh.EnsembleMesh`).  With a
 positive skin (``skin``, or ``dd_config.skin``) it exposes the amortized
 two-phase API (``assemble`` / ``evaluate`` / ``needs_rebuild`` / ``grow``)
 the GROMACS ``nstlist`` analogue drives, and :meth:`compute` reuses its
@@ -25,7 +26,7 @@ from ..backend import ForceRequest, ForceResult
 from ..device import resolve_device
 from ..dp.model import DPModel
 from ..kernels.nbr_attn import MAX_K, k_limit_message
-from ..launch.mesh import DDMesh
+from ..launch.mesh import DDMesh, EnsembleMesh
 from ..md.integrators import wrap
 from ..md.neighbors import needs_rebuild as _nlist_needs_rebuild
 from .ddinfer import (DDConfig, single_domain_forces,
@@ -78,7 +79,9 @@ class DeepmdForceProvider:
       this one device (``mesh=None``), or ``mesh.ranks_per_process`` of
       them on each process of a ``launch.mesh.make_dd_mesh`` mesh, on
       ``mesh.device`` (every process passes the same positions and gets
-      the same energy, forces and flags).  The state is a
+      the same energy, forces and flags), or, replica-batched
+      (:class:`repro_torch.ensemble.BatchedDeepmdProvider`), over the 2-D
+      mesh of ``ensemble.make_ensemble_mesh``.  The state is a
       :class:`~repro_torch.core.ddinfer.DDState`; ``grow`` doubles every
       capacity and saturates the model-facing ``k_eval`` at 128.  Without a
       skin every call runs the fused per-step pipeline.
@@ -105,11 +108,19 @@ class DeepmdForceProvider:
                             f"{type(dd_config).__name__}")
         self.device = resolve_device(device)
         if mesh is not None:
-            if not isinstance(mesh, DDMesh):
+            if not isinstance(mesh, (DDMesh, EnsembleMesh)):
                 raise ValueError(
                     "mesh must be a repro_torch DDMesh (launch.mesh."
-                    "make_dd_mesh) or None (the ranks as virtual axes of one "
-                    f"device), got {type(mesh).__name__}")
+                    "make_dd_mesh), an EnsembleMesh (ensemble."
+                    "make_ensemble_mesh, replica-batched providers) or None "
+                    "(the ranks as virtual axes of one device), got "
+                    f"{type(mesh).__name__}")
+            if isinstance(mesh, EnsembleMesh) and not self.batched:
+                raise ValueError(
+                    f"mesh axes {tuple(mesh.shape)} shard replicas: a 2-D "
+                    "(replica x dd) mesh needs a replica-batched provider "
+                    "(ensemble.BatchedDeepmdProvider); one trajectory runs "
+                    "on launch.mesh.make_dd_mesh")
             if dd_config is None:
                 raise ValueError("a mesh runs the domain decomposition: "
                                  "pass dd_config too")

@@ -42,9 +42,17 @@ replica.  Positions arrive as (R, N, 3); energies return as (R,), forces as
 the other per-rank vectors as (R, G)).  All R*G buffers go through the
 model as one flattened (R*G*C)-row batch (atom ids offset by the replica's
 and the rank's position), so each model kernel and each force-scatter site
-launches once per force call whatever R.  Replicas are virtual axes of one
-device: a process mesh takes none (the reference's 2-D ``_replica_layout``
-is ROADMAP item 14(b)).
+launches once per force call whatever R.  The replicas are virtual axes of
+one device, or (``mesh`` an :class:`~repro_torch.launch.mesh.EnsembleMesh`,
+the reference's 2-D ``(replica x dd)`` mesh) shard over its leading axis:
+every process passes all R replicas and evaluates only its cell of the
+work, its ``Rl = R / Rs`` resident replicas (shard ``rs`` holds replicas
+``rs*Rl .. (rs+1)*Rl - 1``) and ``G / Wd`` ranks of each, with the dd
+collectives over its shard's :class:`DDMesh`; the per-replica results are
+then gathered over its replica group (:func:`_gather_replicas`, tagged
+``"replica_gather"``), so every process gets every replica's energies,
+forces, flags and per-rank vectors and the engine's host branches stay the
+same everywhere.
 
 Comms/compute overlap (``DDConfig.overlap``) splits the amortized
 evaluation at the assemble/evaluate seam into an interior pass (pass A:
@@ -78,7 +86,7 @@ import torch.distributed as dist
 from ..dp.model import DPModel
 from ..kernels.cell_filter import cell_filter
 from ..kernels import force_scatter as fs
-from ..launch.mesh import DDMesh
+from ..launch.mesh import DDMesh, EnsembleMesh
 from ..md.neighbors import _topk_list, max_displacement2
 from .ddinfer import (DDConfig, DDState, _make_grid, _pad_atoms,
                       _pad_types, _park, _rank_lists, _select_ranks)
@@ -150,6 +158,35 @@ def _dist_op(new: str, old: str):
     return getattr(dist, new, None) or getattr(dist, old)
 
 
+def _launch_on(mesh: DDMesh, group, tag, fn, out, inp, finish,
+               async_op=False, **kw):
+    """``fn(out, inp)`` (``inp`` None: in place on ``out``) over ``group``,
+    through host copies under ``mesh.host_copy``, its time marks in
+    ``mesh.record``; returns a :class:`_Pending` whose ``wait()`` gives
+    ``finish(out)``."""
+    t0 = mesh.mark() if mesh.record is not None else None
+    o, i = out, inp
+    if mesh.host_copy:
+        o = out.cpu()
+        i = None if inp is None else inp.cpu()
+    args = (o,) if i is None else (o, i)
+    work = fn(*args, group=group, async_op=async_op, **kw)
+
+    def done():
+        if o is not out:
+            out.copy_(o)
+        return finish(out)
+
+    return _Pending(work if async_op else None, done, mesh, tag, t0)
+
+
+def _all_gather_flat(o, i, **kw):
+    """``torch.distributed``'s all-gather into one tensor, over flat views:
+    every process's ``i`` laid out process-major in ``o``."""
+    fn = _dist_op("all_gather_single", "all_gather_into_tensor")
+    return fn(o.view(-1), i.view(-1), **kw)
+
+
 class _Pending:
     """A collective in flight on a process group: ``wait()`` waits for it,
     copies a host-side result back, closes its timing mark and returns the
@@ -196,34 +233,17 @@ class _GroupAxisOps:
         return x.reshape(self.n_rep, self.local_ranks, *x.shape[1:])
 
     def _launch(self, tag, fn, out, inp, finish, async_op=False, **kw):
-        """``fn(out, inp)`` (``inp`` None: in place on ``out``) over the
-        group, through host copies under ``host_copy``; returns a
-        :class:`_Pending` whose ``wait()`` gives ``finish(out)``."""
-        mesh = self.mesh
-        t0 = mesh.mark() if mesh.record is not None else None
-        o, i = out, inp
-        if mesh.host_copy:
-            o = out.cpu()
-            i = None if inp is None else inp.cpu()
-        args = (o,) if i is None else (o, i)
-        work = fn(*args, group=mesh.group, async_op=async_op, **kw)
-
-        def done():
-            if o is not out:
-                out.copy_(o)
-            return finish(out)
-
-        return _Pending(work if async_op else None, done, mesh, tag, t0)
+        """``fn(out, inp)`` over the dd group (:func:`_launch_on`)."""
+        return _launch_on(self.mesh, self.mesh.group, tag, fn, out, inp,
+                          finish, async_op=async_op, **kw)
 
     def _gather(self, x, tag, finish, async_op=False):
         """Every process's ``x`` -> ``finish((W, *x.shape))``, pending."""
         x = x.contiguous()
         out = torch.empty((self.mesh.world,) + tuple(x.shape), dtype=x.dtype,
                           device=x.device)
-        fn = _dist_op("all_gather_single", "all_gather_into_tensor")
-        return self._launch(tag, lambda o, i, **kw: fn(o.view(-1),
-                                                       i.view(-1), **kw),
-                            out, x, finish, async_op=async_op)
+        return self._launch(tag, _all_gather_flat, out, x, finish,
+                            async_op=async_op)
 
     def all_gather(self, x, tag="gather"):
         """(R, Gl, chunk, ...) own shards -> the replicated
@@ -269,17 +289,43 @@ class _GroupAxisOps:
             out, s, lambda o: o).wait()
 
 
+def _replica_layout(mesh: EnsembleMesh, cfg: DDConfig,
+                    n_replicas: int) -> int:
+    """Validate the 2-D mesh for ``n_replicas`` replicas and return the
+    replicas each replica shard holds (the reference's
+    ``_replica_layout``)."""
+    if n_replicas < 1:
+        raise ValueError(
+            f"mesh axes {tuple(mesh.shape)} shard replicas: a 2-D "
+            "(replica x dd) mesh runs a replica-batched pipeline "
+            "(n_replicas >= 1); one trajectory takes make_dd_mesh")
+    if mesh.dd.n_ranks != cfg.n_ranks:
+        raise ValueError(f"mesh {cfg.axis} size {mesh.dd.n_ranks} != grid "
+                         f"{cfg.n_ranks} ranks")
+    rs = mesh.n_replica_shards
+    if n_replicas % rs:
+        raise ValueError(f"n_replicas {n_replicas} not divisible by the "
+                         f"{mesh.replica_axis!r} mesh axis ({rs})")
+    return n_replicas // rs
+
+
 def _axis_ops(cfg: DDConfig, n_replicas: int, mesh):
     """The collectives for a pipeline: virtual ranks of one device
-    (``mesh=None``) or the processes of a :class:`DDMesh`."""
+    (``mesh=None``), the processes of a :class:`DDMesh`, or the dd
+    processes of an :class:`EnsembleMesh`'s replica shard, holding its
+    ``n_replicas / n_replica_shards`` replicas."""
     if n_replicas < 0:
         raise ValueError(f"n_replicas must be >= 0, got {n_replicas}")
     if mesh is None:
         return _AxisOps(cfg.n_ranks, max(n_replicas, 1))
+    if isinstance(mesh, EnsembleMesh):
+        return _GroupAxisOps(cfg.n_ranks, mesh.dd,
+                             n_rep=_replica_layout(mesh, cfg, n_replicas))
     if not isinstance(mesh, DDMesh):
         raise ValueError(
-            "mesh must be a repro_torch DDMesh (launch.mesh.make_dd_mesh) "
-            "or None (the ranks as virtual axes of one device), got "
+            "mesh must be a repro_torch DDMesh (launch.mesh.make_dd_mesh), "
+            "an EnsembleMesh (ensemble.make_ensemble_mesh) or None (the "
+            "ranks as virtual axes of one device), got "
             f"{type(mesh).__name__}")
     if mesh.n_ranks != cfg.n_ranks:
         raise ValueError(f"mesh dd size {mesh.n_ranks} != grid "
@@ -287,11 +333,53 @@ def _axis_ops(cfg: DDConfig, n_replicas: int, mesh):
     if n_replicas > 0:
         raise ValueError(
             f"mesh axes {tuple(mesh.shape)} must include 'replica' and "
-            f"{cfg.axis!r}: replicas on devices are not ported yet (ROADMAP "
-            "Queue 1 item 14(b)); a 1-D dd mesh runs one trajectory, and "
-            "mesh=None keeps every replica and rank as virtual axes of one "
-            "device")
+            f"{cfg.axis!r}: a 1-D dd mesh runs one trajectory; replicas on "
+            "devices take the 2-D mesh of ensemble.make_ensemble_mesh "
+            "(ROADMAP Queue 1 item 14(b)), and mesh=None keeps every "
+            "replica and rank as virtual axes of one device")
     return _GroupAxisOps(cfg.n_ranks, mesh)
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tuple/list/dict tree, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [v for t in tree.values() for v in _leaves(t)]
+    return [v for t in tree for v in _leaves(t)]
+
+
+def _rebuilt(tree, leaves):
+    """``tree`` with its tensors replaced, in order, from the iterator
+    ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if isinstance(tree, dict):
+        return {k: _rebuilt(v, leaves) for k, v in tree.items()}
+    return type(tree)(_rebuilt(t, leaves) for t in tree)
+
+
+def _gather_replicas(mesh: EnsembleMesh, tree, tag="replica_gather"):
+    """The resident replicas' results (every leaf (Rl, ...)) -> every
+    replica's (R, ...), the same on every process: ONE all-gather over the
+    mesh's replica group.  The leaves travel packed as float64 (which
+    carries fp32, the integer counts and the flags exactly), so the
+    gather is a concatenation that changes no bit; the process-major
+    (Rs, Rl, ...) result is replica order, as the shards are contiguous."""
+    leaves = _leaves(tree)
+    rl = leaves[0].shape[0]
+    packed = torch.cat([v.reshape(rl, -1).to(torch.float64)
+                        for v in leaves], 1)
+    out = torch.empty((mesh.n_replica_shards,) + tuple(packed.shape),
+                      dtype=packed.dtype, device=packed.device)
+    whole = _launch_on(mesh.dd, mesh.replica_group, tag, _all_gather_flat,
+                       out, packed, lambda o: o).wait()
+    whole = whole.reshape(mesh.n_replica_shards * rl, -1)
+    sizes = [v[0].numel() for v in leaves]
+    parts = whole.split(sizes, 1)
+    return _rebuilt(tree, iter(
+        p.to(v.dtype).reshape(-1, *v.shape[1:])
+        for p, v in zip(parts, leaves)))
 
 
 _STATE_LEAVES = ("l_idx", "l_mask", "g_idx", "g_shift", "g_mask",
@@ -712,7 +800,16 @@ class ForcePipeline:
     ``shard_map``) and gets the same energy, forces and diagnostics; a
     :class:`DDState` then holds this process's ranks' leaves (leading
     ``Gl * capacity``), every rank's ``l_slot``, and the whole-mesh scalars
-    and ``ref``.  A mesh takes no replicas (ROADMAP item 14(b)).
+    and ``ref``.  A :class:`DDMesh` takes no replicas; ``mesh`` an
+    :class:`~repro_torch.launch.mesh.EnsembleMesh` (``n_replicas`` a
+    multiple of its replica shards) runs the replica-batched pipeline over
+    both axes: positions arrive as all (R, N, 3), this process evaluates
+    its ``Rl`` resident replicas (from ``rep0``) and ``Gl`` ranks, and
+    every result returns for all R replicas, the same on every process.
+    Its :class:`DDState` holds the resident replicas' rows of its own
+    ranks (and their ``l_slot`` and ``ref``); the leaves the provider and
+    the engine read on the host (``local_count``, ``ghost_count``,
+    ``cost_max``, ``overflow``) are whole (R,).
 
     The ``build_*`` methods return functions with the JAX signatures:
     ``build_force_fn`` (fused per-step), ``build_assembly_fn`` +
@@ -732,6 +829,11 @@ class ForcePipeline:
         self.n_replicas = int(n_replicas)
         self.ax = _axis_ops(cfg, self.n_replicas, mesh)
         self.mesh = mesh
+        # a 2-D mesh: this process's replica shard holds replicas
+        # rep0 .. rep0 + Rl - 1 (Rl = self.ax.n_rep)
+        self.replica_mesh = mesh if isinstance(mesh, EnsembleMesh) else None
+        self.rep0 = (mesh.replica_index * self.ax.n_rep
+                     if self.replica_mesh is not None else 0)
         self.model = model
         self.cfg = cfg
         self.box = box
@@ -759,21 +861,39 @@ class ForcePipeline:
     # -- layout at the entry points ------------------------------------------
 
     def _in(self, coords):
-        """Caller positions -> (R, N, 3)."""
+        """Caller positions -> the resident replicas' (Rl, N, 3) (all R of
+        them without a replica axis on the mesh)."""
         want = 3 if self.batched else 2
         if coords.dim() != want or (self.batched and coords.shape[0]
                                     != self.n_replicas):
             lead = f"({self.n_replicas}, N, 3)" if self.batched else "(N, 3)"
             raise ValueError(f"positions of shape {tuple(coords.shape)}; "
                              f"this pipeline takes {lead}")
-        return coords if self.batched else coords[None]
+        return self._resident(coords) if self.batched else coords[None]
+
+    def _resident(self, x):
+        """A whole-ensemble leaf (R, ...) -> the resident replicas' rows."""
+        if self.replica_mesh is None:
+            return x
+        return x[self.rep0:self.rep0 + self.ax.n_rep]
+
+    def _whole(self, tree):
+        """The resident replicas' results -> every replica's, the same on
+        every process (:func:`_gather_replicas`); the identity without a
+        replica axis on the mesh."""
+        if self.replica_mesh is None:
+            return tree
+        return _gather_replicas(self.replica_mesh, tree)
 
     def _out(self, x):
-        """A per-replica result (R, ...) -> the caller's layout."""
+        """Per-replica results (R, ...), through tuples and dicts -> the
+        caller's layout."""
         if self.batched:
             return x
         if isinstance(x, dict):
             return {k: self._out(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(self._out(v) for v in x)
         return x[0]
 
     def _shard(self, coords, types=None):
@@ -792,9 +912,10 @@ class ForcePipeline:
 
     def _state_in(self, st: DDState):
         """A DDState in the caller's layout -> (per-rank dict, ref
-        (R, n_pad, 3), and its whole-replica leaves shaped (R,))."""
+        (Rl, n_pad, 3), and the resident replicas' rows of its
+        whole-ensemble leaves, shaped (Rl,))."""
         r = self.ax.n_rep
-        whole = {k: getattr(st, k).reshape(r)
+        whole = {k: self._resident(getattr(st, k)).reshape(r)
                  for k in ("local_count", "ghost_count", "cost_max",
                            "overflow")}
         return _st_dict(st, self.ax), st.ref.reshape(r, self.n_pad, 3), whole
@@ -890,10 +1011,12 @@ class ForcePipeline:
         failure propagates the way a real blown rank's would.  It is called
         as ``hook(rank, rep0, e_local, f_global)`` with the layout of the
         ranks held here, (Gl,) / (Gl, n, 3) unbatched and (R, Gl) /
-        (R, Gl, n, 3) batched (Gl = G without a mesh), ``rank`` their
-        global ids, and ``rep0`` the first resident replica (0: every
-        replica lives on this device).  It reads its armed/unfired specs at
-        each call: with nothing armed it returns its inputs."""
+        (R, Gl, n, 3) batched (R the resident replicas, Gl = G without a
+        mesh), ``rank`` their global ids, and ``rep0`` the first resident
+        replica's global index (0 unless a 2-D mesh shards the replicas:
+        the reference's ``axis_index(replica) * r_local``).  It reads its
+        armed/unfired specs at each call: with nothing armed it returns its
+        inputs."""
         if self.fault_hook is None:
             return e_local, f_global
         ax = self.ax
@@ -902,7 +1025,7 @@ class ForcePipeline:
         e, f = ax.local_view(e_local), ax.local_view(f_global)
         if self.batched:
             rank = rank.expand(ax.n_rep, ax.local_ranks)
-            e, f = self.fault_hook(rank, 0, e, f)
+            e, f = self.fault_hook(rank, self.rep0, e, f)
         else:
             e, f = self.fault_hook(rank, 0, e[0], f[0])
         return e.reshape(e_local.shape), f.reshape(f_global.shape)
@@ -934,9 +1057,9 @@ class ForcePipeline:
 
         def fn(params, coords, types):
             ctx = self._run(stages, params, coords, types)
-            return (self._out(ctx["energy"]),
-                    self._out(ctx["forces"][:, :n_atoms]),
-                    self._out(ctx["diag"]))
+            return self._out(self._whole((ctx["energy"],
+                                          ctx["forces"][:, :n_atoms],
+                                          ctx["diag"])))
 
         return fn
 
@@ -961,14 +1084,14 @@ class ForcePipeline:
             # every rank's local ids: the overlap's routing table
             l_slot = ax.all_gather(st["l_idx"].reshape(r, ax.local_ranks, -1),
                                    tag="assembly")
-            return DDState(
-                l_slot=self._out(l_slot),
-                cost_max=self._out((t["local"] + t["ghost"]).amax(1)),
-                local_count=self._out(t["local"].sum(1)),
-                ghost_count=self._out(t["ghost"].sum(1)),
-                overflow=self._out(t["overflow"].sum(1)),
-                ref=self._out(ctx["coords_all"]),
-                **{k: self._out(v) for k, v in flat.items()})
+            scalars = self._whole({
+                "cost_max": (t["local"] + t["ghost"]).amax(1),
+                "local_count": t["local"].sum(1),
+                "ghost_count": t["ghost"].sum(1),
+                "overflow": t["overflow"].sum(1)})
+            return DDState(l_slot=self._out(l_slot),
+                           ref=self._out(ctx["coords_all"]),
+                           **self._out({**scalars, **flat}))
 
         return assemble
 
@@ -996,8 +1119,8 @@ class ForcePipeline:
             energy, diag = self._eval_diag(whole, st_d, trim_ovf, stats,
                                            self._disp2(coords_all, ref),
                                            e_local, f_global)
-            return (self._out(energy), self._out(forces[:, :n_atoms]),
-                    self._out(diag))
+            return self._out(self._whole((energy, forces[:, :n_atoms],
+                                          diag)))
 
         return evaluate
 
@@ -1028,8 +1151,8 @@ class ForcePipeline:
                 e_local, f_global,
                 {"n_int": n_int.to(torch.int32),
                  "n_loc": st_d["l_mask"].sum(-1).to(torch.int32)})
-            return (self._out(energy), self._out(forces[:, :n_atoms]),
-                    self._out(diag))
+            return self._out(self._whole((energy, forces[:, :n_atoms],
+                                          diag)))
 
         return evaluate
 
@@ -1082,8 +1205,9 @@ class ForcePipeline:
             coords_all = self.ax.all_gather(self._shard(self._in(coords)))
             r = self.ax.n_rep
             ref = st.ref.reshape(r, self.n_pad, 3)
-            return self._out(self._needs_rebuild(
-                self._disp2(coords_all, ref), st.overflow.reshape(r)))
+            return self._out(self._whole(self._needs_rebuild(
+                self._disp2(coords_all, ref),
+                self._resident(st.overflow).reshape(r))))
 
         return check
 
@@ -1103,7 +1227,8 @@ class ForcePipeline:
 
             def fn(params, coords, types, _prefix=prefix, _stage=stage):
                 ctx = self._run(_prefix, params, coords, types)
-                return self._out(self.ax.gather_ranks(_stage.probe(ctx)))
+                return self._out(self._whole(
+                    self.ax.gather_ranks(_stage.probe(ctx))))
 
             probes[stage.name] = fn
         probes[self.stages[-1].name] = self.build_force_fn()

@@ -35,6 +35,19 @@ Replica exchange happens at window boundaries (``exchange_interval`` is an
 extra host-boundary cadence): the Metropolis criterion uses the potential
 energies from the window's final force evaluation, i.e. the energies at
 the positions *entering* the last step.
+
+Over a 2-D ``(replica x dd)`` process layout (a provider built with
+``mesh=ensemble.make_ensemble_mesh(...)``) every process runs this engine
+on the whole, replicated :class:`ReplicaState`: all R replicas' positions,
+classical forces, lists and integration.  The provider evaluates only the
+process's own replicas and ranks and returns every replica's energies,
+forces and flags, the same bits on every process, so the rebuild, growth,
+guard and exchange branches (whose uniforms come from the replicated
+``ReplicaState.rng``) are the same everywhere.  Each process pays the
+classical work of all R replicas.  Each process needs a checkpoint path of
+its own.  After a masked guard recovery over such a layout, the provider
+state's resident-replica leaves (their leading axis is R / Rs, not R) are
+the replay's, consistent among themselves.
 """
 from __future__ import annotations
 

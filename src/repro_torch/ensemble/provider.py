@@ -10,7 +10,10 @@ only ``backend_build_fns``:
 * distributed (``dd_config`` given): one replica-batched
   :class:`~repro_torch.core.pipeline.ForcePipeline` (``n_replicas=R``) on
   the virtual (replica x rank) layout of this device, so every model kernel
-  and force-scatter site launches once per call for all replicas;
+  and force-scatter site launches once per call for all replicas; or, with
+  ``mesh=make_ensemble_mesh(Rs, G, ...)``, over a 2-D process layout: each
+  process evaluates its R / Rs resident replicas' share of the ranks (one
+  model call for them) and every process gets all R replicas' results;
 * single domain: the inherited hooks, whose single-domain helpers
   (:mod:`repro_torch.core.ddinfer`) take a leading replica axis: one
   ``DPModel.energy_and_forces_batched`` call over the R replicas (their
@@ -35,8 +38,10 @@ from ..dp.model import DPModel
 
 class BatchedDeepmdProvider(DeepmdForceProvider):
     """Plugs into ``EnsembleEngine(special_force=...)``; replicas and ranks
-    are virtual axes of ``device`` (a process mesh raises in its pipeline:
-    replicas on devices are ROADMAP item 14(b))."""
+    are virtual axes of ``device`` (``mesh=None``), or run over the
+    processes of ``mesh``, an ``ensemble.make_ensemble_mesh`` layout whose
+    device the provider takes (a 1-D ``make_dd_mesh`` mesh raises in the
+    pipeline: it runs one trajectory)."""
 
     batched = True  # ForceBackend capability flag: leading replica axis
 

@@ -192,13 +192,15 @@ class FaultPlan:
         Called once per evaluation, before the force reduction, as
         ``hook(rank, rep0, e_local, f_global)``: ``rank`` is the virtual
         rank of each row of the per-rank axis ((G,), or (R, G) from a
-        replica-batched pipeline), ``rep0`` the index of the first resident
-        replica (0: the port keeps every replica on its one device), and
-        ``f_global`` the per-rank pre-reduce forces ((G, n, 3), or
-        (R, G, n, 3) batched).  Armed specs poison rank ``r``'s slice, and
-        with ``replica`` set (batched) only that replica's: the other
-        replicas compute what an unfaulted call computes.  The
-        armed/unfired set is read at each call, so once the engine fires a
+        replica-batched pipeline), ``rep0`` the global index of the first
+        resident replica (0 unless a 2-D ``make_ensemble_mesh`` layout
+        shards the replicas: shard ``rs`` holds them from ``rs * Rl``),
+        and ``f_global`` the per-rank pre-reduce forces ((G, n, 3), or
+        (R, G, n, 3) batched, over the resident replicas and the ranks
+        held here).  Armed specs poison rank ``r``'s slice, and with
+        ``replica`` set (batched) only that replica's: the other replicas
+        compute what an unfaulted call computes.  The armed/unfired set
+        is read at each call, so once the engine fires a
         spec the hook returns its inputs.
         """
         plan = self

@@ -12,13 +12,17 @@ mesh: a :class:`DDMesh` over an initialised ``torch.distributed`` process
 group, one process per device (NCCL on cards, gloo on the CPU), each
 process holding ``n_ranks / world`` of the decomposition's ranks.
 :class:`~repro_torch.core.pipeline.ForcePipeline` runs its collectives
-over it.  The caller starts the group (``env://`` under ``torchrun``,
-``file://`` or ``tcp://localhost:<port>`` otherwise); nothing here starts
-one.
+over it.  :func:`make_ensemble_mesh` is the counterpart of the
+reference's 2-D ``(replica x dd)`` mesh: an :class:`EnsembleMesh` whose
+rows are replica shards and whose columns are dd positions, one
+:class:`DDMesh` subgroup a row and one replica subgroup a column.  The
+caller starts the group (``env://`` under ``torchrun``, ``file://`` or
+``tcp://localhost:<port>`` otherwise); nothing here starts one.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
 import os
 import time
@@ -134,33 +138,25 @@ class DDMesh:
         return out
 
 
-def make_dd_mesh(n_ranks: int, device="cuda",
-                 backend: Optional[str] = None) -> DDMesh:
-    """The ``"dd"`` mesh of ``n_ranks`` decomposition ranks over the
-    initialised default process group, ``n_ranks / world`` of them on this
-    process.
-
-    ``backend`` defaults to the device's (``"nccl"`` for CUDA, ``"gloo"``
-    for the CPU) and must be the group's; ``"gloo"`` on CUDA is taken only
-    when named.  A ``"cuda"`` device without an index is
-    ``cuda:$LOCAL_RANK`` under NCCL (``torchrun``'s one card a process)
-    and the current device under gloo; it becomes this process's current
-    device.  Raises without an initialised group, when ``n_ranks`` is not a
-    multiple of the world size, when NCCL is asked for more processes than
-    there are cards, and (``repro_torch.device``'s rule) for CUDA without a
-    card."""
+def _default_group(what: str):
+    """The initialised default group, its world size and this process's
+    index; raises without one."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
-            "make_dd_mesh needs an initialised torch.distributed process "
+            f"{what} needs an initialised torch.distributed process "
             "group: call torch.distributed.init_process_group first "
             "(env:// under torchrun, file:// or tcp://localhost:<port> "
             "otherwise)")
     group = dist.group.WORLD
-    world, index = dist.get_world_size(group), dist.get_rank(group)
-    if n_ranks < 1 or n_ranks % world:
-        raise ValueError(f"n_ranks {n_ranks} is not a positive multiple of "
-                         f"the world size {world}: every process holds "
-                         "the same number of ranks")
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def _mesh_device(device, backend: Optional[str], world: int, index: int):
+    """(device, backend) of a mesh over the default group: the backend
+    follows the device unless named, NCCL takes one card a process, a
+    ``"cuda"`` device without an index is ``cuda:$LOCAL_RANK`` under NCCL
+    and the current device under gloo (it becomes the current device), and
+    the group's backend must be the one named."""
     dev = torch.device(device)
     want = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if want not in ("nccl", "gloo"):
@@ -182,9 +178,135 @@ def make_dd_mesh(n_ranks: int, device="cuda",
                 "cuda", int(os.environ.get("LOCAL_RANK", index))
                 if want == "nccl" else torch.cuda.current_device())
         torch.cuda.set_device(dev)
-    have = str(dist.get_backend(group))
+    have = str(dist.get_backend(dist.group.WORLD))
     if want not in have:
         raise ValueError(f"the process group's backend is {have!r}, not "
                          f"{want!r}: initialise the group with the "
                          "backend the mesh names")
+    return dev, want
+
+
+def make_dd_mesh(n_ranks: int, device="cuda",
+                 backend: Optional[str] = None) -> DDMesh:
+    """The ``"dd"`` mesh of ``n_ranks`` decomposition ranks over the
+    initialised default process group, ``n_ranks / world`` of them on this
+    process.
+
+    ``backend`` defaults to the device's (``"nccl"`` for CUDA, ``"gloo"``
+    for the CPU) and must be the group's; ``"gloo"`` on CUDA is taken only
+    when named.  A ``"cuda"`` device without an index is
+    ``cuda:$LOCAL_RANK`` under NCCL (``torchrun``'s one card a process)
+    and the current device under gloo; it becomes this process's current
+    device.  Raises without an initialised group, when ``n_ranks`` is not a
+    multiple of the world size, when NCCL is asked for more processes than
+    there are cards, and (``repro_torch.device``'s rule) for CUDA without a
+    card."""
+    group, world, index = _default_group("make_dd_mesh")
+    if n_ranks < 1 or n_ranks % world:
+        raise ValueError(f"n_ranks {n_ranks} is not a positive multiple of "
+                         f"the world size {world}: every process holds "
+                         "the same number of ranks")
+    dev, want = _mesh_device(device, backend, world, index)
     return DDMesh(group, world, index, dev, n_ranks, want)
+
+
+class EnsembleMesh:
+    """The 2-D ``(replica x dd)`` mesh over a process group: the
+    counterpart of the reference's ``make_ensemble_mesh`` JAX mesh.
+
+    ``world = n_replica_shards * Wd`` processes in a row-major layout (the
+    last axis fastest, as ``jax.make_mesh`` orders devices): process ``p``
+    sits at ``(replica_index, dd.index) = (p // Wd, p % Wd)``.  The R
+    replicas shard over the leading axis, ``R / n_replica_shards``
+    consecutive replicas a shard; the ``n_dd`` decomposition ranks of each
+    replica run over the trailing axis, ``n_dd / Wd`` a process.
+
+    ``dd`` is the :class:`DDMesh` of this process's replica shard (its
+    ``Wd`` processes), over which the pipeline runs the decomposition's
+    collectives; ``replica_group`` holds the ``n_replica_shards`` processes
+    at this process's dd position, over which the per-replica results are
+    gathered.  The device, the backend and the timing record are the
+    ``dd`` mesh's: every collective of either axis appends its marks to
+    ``dd.record``."""
+
+    def __init__(self, dd: DDMesh, replica_group, n_replica_shards: int,
+                 replica_index: int, index: int,
+                 replica_axis: str = "replica"):
+        self.dd = dd
+        self.replica_group = replica_group
+        self.n_replica_shards = n_replica_shards
+        self.replica_index = replica_index
+        self.index = index
+        self.replica_axis = replica_axis
+
+    @property
+    def world(self) -> int:
+        return self.n_replica_shards * self.dd.world
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {self.replica_axis: self.n_replica_shards,
+                DDMesh.axis: self.dd.n_ranks}
+
+    @property
+    def device(self) -> torch.device:
+        return self.dd.device
+
+    @property
+    def backend(self) -> str:
+        return self.dd.backend
+
+    @property
+    def record(self) -> Optional[list]:
+        return self.dd.record
+
+    @record.setter
+    def record(self, value: Optional[list]) -> None:
+        self.dd.record = value
+
+    def collective_ms(self) -> dict[str, float]:
+        """Both axes' recorded collectives, ms summed by tag."""
+        return self.dd.collective_ms()
+
+
+def make_ensemble_mesh(n_replica_shards: int, n_dd: int, device="cuda",
+                       backend: Optional[str] = None,
+                       replica_axis: str = "replica",
+                       timeout: Optional[datetime.timedelta] = None
+                       ) -> EnsembleMesh:
+    """The 2-D ``(replica x dd)`` mesh of the initialised default group:
+    ``n_replica_shards`` rows of ``Wd = world / n_replica_shards``
+    processes, each row running the ``n_dd``-rank decomposition of its
+    replicas (``n_dd / Wd`` ranks a process).  ``(1, n_dd)`` keeps every
+    replica on every row; ``(world, n_dd)`` gives each process whole
+    replicas.
+
+    Every process creates every subgroup, in the same order (one dd group
+    per replica shard, then one replica group per dd position), as
+    ``torch.distributed.new_group`` requires; ``timeout`` is theirs.  The
+    device and backend follow :func:`make_dd_mesh`'s rules.  Raises
+    without an initialised group, when the world size is not a multiple of
+    ``n_replica_shards``, when ``n_dd`` is not a multiple of ``Wd``, when
+    NCCL is asked for more processes than there are cards, and for CUDA
+    without a card."""
+    group, world, index = _default_group("make_ensemble_mesh")
+    rs = n_replica_shards
+    if rs < 1 or world % rs:
+        raise ValueError(f"the world size {world} is not a multiple of "
+                         f"n_replica_shards {rs}: every replica shard "
+                         "holds the same number of processes")
+    wd = world // rs
+    if n_dd < 1 or n_dd % wd:
+        raise ValueError(f"n_dd {n_dd} is not a positive multiple of the "
+                         f"{wd} processes on the dd axis (world {world} / "
+                         f"{rs} replica shards): every process holds the "
+                         "same number of ranks")
+    dev, want = _mesh_device(device, backend, world, index)
+    kw = {} if timeout is None else {"timeout": timeout}
+    dd_groups = [dist.new_group([s * wd + j for j in range(wd)], **kw)
+                 for s in range(rs)]
+    rep_groups = [dist.new_group([s * wd + j for s in range(rs)], **kw)
+                  for j in range(wd)]
+    row, col = divmod(index, wd)
+    dd = DDMesh(dd_groups[row], wd, col, dev, n_dd, want)
+    return EnsembleMesh(dd, rep_groups[col], rs, row, index, replica_axis)

@@ -65,13 +65,13 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _dd_mesh(args):
-    """The process mesh when the run is distributed (``--backend`` given or
-    under ``torchrun``), else None; starts the default group from the
-    environment unless the caller started one.  Returns (mesh, whether
-    this call started the group)."""
+def start_group(args):
+    """When the run is distributed (``args.backend`` given or under
+    ``torchrun``): the backend (``args.backend``, else the device's), and
+    whether this call started the default group (from the environment,
+    unless the caller started one); else None."""
     if args.backend is None and "WORLD_SIZE" not in os.environ:
-        return None, False
+        return None
     backend = args.backend or ("nccl" if torch.device(args.device).type
                                == "cuda" else "gloo")
     started = not dist.is_initialized()
@@ -79,6 +79,16 @@ def _dd_mesh(args):
         dist.init_process_group(
             backend, init_method="env://",
             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    return backend, started
+
+
+def _dd_mesh(args):
+    """The process mesh when the run is distributed, else None; returns
+    (mesh, whether this call started the group)."""
+    group = start_group(args)
+    if group is None:
+        return None, False
+    backend, started = group
     return make_dd_mesh(args.ranks, device=args.device,
                         backend=backend), started
 

@@ -5,30 +5,45 @@ batched program on one device — classical forces, DP inference and the
 integrator all carry a leading replica axis — with a temperature-ladder
 Metropolis exchange at window boundaries.  With ``--ranks`` > 1 the DP
 force path also runs the virtual domain decomposition, R x ranks virtual
-(replica, rank) buffers in one model call (no device mesh).
+(replica, rank) buffers in one model call.  Under ``torchrun`` (or with
+``--backend``) the replicas and ranks run over the processes of a
+``torch.distributed`` group instead, on the 2-D layout of
+``ensemble.make_ensemble_mesh(--replica-shards, --ranks)``: NCCL and one
+card a process by default, gloo with ``--backend gloo``.
 
     python -m repro_torch.launch.remd --replicas 4 --steps 40 --exchange-interval 5
     python -m repro_torch.launch.remd --replicas 2 --ranks 4 --temp-ladder 280,340
     python -m repro_torch.launch.remd --device cpu --residues 4 --steps 10
+    torchrun --nproc-per-node 4 -m repro_torch.launch.remd --replica-shards 2 --ranks 4
+    torchrun --nproc-per-node 4 -m repro_torch.launch.remd --device cpu \
+        --backend gloo --replica-shards 2 --ranks 4
 (run with ``src`` on ``PYTHONPATH``)
 
 Prints the ladder, the per-replica temperatures and DP energies at every
-exchange window, and the acceptance statistics.  Weights are random, from
-a seeded ``torch.Generator``.
+exchange window, and the acceptance statistics (process 0 prints; every
+process holds the same ensemble).  Weights are random, from a seeded
+``torch.Generator``.  ``--ckpt-dir DIR`` checkpoints the ensemble to DIR
+every 10 steps (over W > 1 processes each writes its own
+``DIR/process<p>``); when DIR already holds a checkpoint the run resumes
+from it and runs ``--steps`` more steps.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import suggest_config
 from ..device import resolve_device
 from ..dp import DPModel, paper_dpa1_config
 from ..md import EngineConfig, build_solvated_protein, mark_nn_group
 from ..ensemble import (BatchedDeepmdProvider, EnsembleConfig,
-                        EnsembleEngine, geometric_ladder)
+                        EnsembleEngine, geometric_ladder, make_ensemble_mesh)
+from .protein_md import GROUP_TIMEOUT_S, start_group
 
 
 def parse_args(argv=None):
@@ -44,7 +59,18 @@ def parse_args(argv=None):
     ap.add_argument("--tmin", type=float, default=300.0)
     ap.add_argument("--tmax", type=float, default=420.0)
     ap.add_argument("--ranks", type=int, default=1,
-                    help="virtual dd ranks per replica (1 = one domain)")
+                    help="dd ranks per replica (1 = one domain on one "
+                         "device; over processes, a multiple of the "
+                         "processes on the dd axis)")
+    ap.add_argument("--replica-shards", type=int, default=1,
+                    help="over processes: the replica axis of the 2-D "
+                         "(replica x dd) layout (the world size must be a "
+                         "multiple of it; --replicas too)")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="run over a process group (default under "
+                         "torchrun: nccl on cuda, gloo on cpu; gloo on "
+                         "cuda lets processes share a card)")
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--residues", type=int, default=12)
     ap.add_argument("--device", default="cuda",
@@ -53,11 +79,33 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def _ensemble_mesh(args):
+    """The 2-D process mesh when the run is distributed (``--backend``
+    given or under ``torchrun``), else None; returns (mesh, whether this
+    call started the group)."""
+    group = start_group(args)
+    if group is None:
+        return None, False
+    backend, started = group
+    return make_ensemble_mesh(
+        args.replica_shards, args.ranks, device=args.device, backend=backend,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S)), started
+
+
 def main(argv=None, quiet: bool = False):
     """Run the REMD entry point; returns (final ReplicaState, engine)."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
-    say = (lambda *a: None) if quiet else print
+    mesh, started = _ensemble_mesh(args)
+    try:
+        return _run(args, mesh, quiet)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, mesh, quiet: bool):
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    say = (lambda *a: None) if quiet or (mesh and mesh.index) else print
     r = args.replicas
     temps = (tuple(float(t) for t in args.temp_ladder.split(","))
              if args.temp_ladder else geometric_ladder(args.tmin, args.tmax, r))
@@ -75,31 +123,43 @@ def main(argv=None, quiet: bool = False):
     params = model.init_params(torch.Generator().manual_seed(args.seed))
     box = system.box.cpu().numpy()
     dd = None
-    if args.ranks > 1:
+    if args.ranks > 1 or mesh is not None:
         dd = suggest_config(len(nn_idx), box, args.ranks, 0.6,
                             nbr_capacity=48, slack=2.5,
                             force_mode="ghost_reduce",
                             coords=positions.cpu().numpy()[nn_idx])
-        say(f"virtual (replica={r} x dd={args.ranks}) layout, grid "
+        where = ("virtually" if mesh is None else
+                 f"over {mesh.world} {mesh.backend} processes as "
+                 f"{mesh.shape}")
+        say(f"(replica={r} x dd={args.ranks}) {where}, grid "
             f"{dd.grid_dims}")
     provider = BatchedDeepmdProvider(model, params, nn_idx, system.types,
                                      box, system.n_atoms, n_replicas=r,
-                                     dd_config=dd, nbr_capacity=48,
+                                     dd_config=dd, mesh=mesh, nbr_capacity=48,
                                      skin=0.0 if dd is not None else 0.08,
                                      device=dev)
+    ckpt = args.ckpt_dir
+    if ckpt and mesh is not None and mesh.world > 1:
+        ckpt = os.path.join(ckpt, f"process{mesh.index}")
     ens = EnsembleConfig(n_replicas=r, temps=temps,
                          exchange_interval=args.exchange_interval)
     eng = EnsembleEngine(system,
                          EngineConfig(cutoff=0.9, neighbor_capacity=96,
-                                      dt=0.0005, thermostat_t=temps[0]),
+                                      dt=0.0005, thermostat_t=temps[0],
+                                      checkpoint_every=10 if ckpt else 0,
+                                      checkpoint_path=ckpt),
                          ens, special_force=provider)
+    state = eng.init_state(positions)
+    if ckpt and os.path.exists(os.path.join(ckpt, "manifest.json")):
+        state = EnsembleEngine.restore(ckpt, device=dev)
+        say(f"[restore] resumed from step {int(state.step[0])}")
 
     def observe(s, obs):
         t = ", ".join(f"{x:5.1f}" for x in obs["temperature"])
         say(f"  step {obs['step']:4d} ladder {obs['ladder'].tolist()} "
             f"T [{t}] K  E_dp {np.round(obs['e_special'], 2).tolist()}")
 
-    state = eng.run(eng.init_state(positions), args.steps, observe=observe,
+    state = eng.run(state, args.steps, observe=observe,
                     observe_every=args.exchange_interval or 10)
     d = eng.diagnostics
     if args.exchange_interval:

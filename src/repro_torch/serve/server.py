@@ -119,14 +119,17 @@ def pipeline_executor_factory(model: DPModel, box, types, cfg_for,
     launch once.  All tenants must share this ``box``/``types`` and hold
     ``n_bucket`` atoms (the ensemble-farm scenario); the per-request boxes
     and masks are ignored, and padding rows repeat the first request.
-    ``cfg_for(n_bucket, dd_ranks)`` supplies the :class:`DDConfig`.  There
-    is no device mesh: ``mesh_for`` must stay None.
+    ``cfg_for(n_bucket, dd_ranks)`` supplies the :class:`DDConfig`.  The
+    batch and dd axes are virtual axes of the server's device: ``mesh_for``
+    must stay None (serving over a process mesh needs every process to
+    join each dispatch of the worker thread, ROADMAP item 14(b')).
     """
     from ..core.pipeline import ForcePipeline
     if mesh_for is not None:
-        raise ValueError("the port has no device mesh: its batch and dd "
-                         "axes are virtual axes of one device (mesh_for "
-                         "must be None)")
+        raise ValueError("the served pipeline takes no mesh: its batch and "
+                         "dd axes are virtual axes of one device (mesh_for "
+                         "must be None; serving over processes is ROADMAP "
+                         "item 14(b'))")
     if ranks_for is None:
         def ranks_for(b):
             return max(8 // b, 1)
