@@ -16,6 +16,7 @@ MoE, Mamba, RWKV6, cross-attention, the encoder and MTP) and LM training.
     python3 chip_smoke.py --phase roofline  # the roofline phase alone
     python3 chip_smoke.py --phase dd_procs  # the dd_procs phase alone
     python3 chip_smoke.py --phase ensemble_procs  # ensemble_procs alone
+    python3 chip_smoke.py --phase lm_mesh   # the lm_mesh phase alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
 source, all started together; Triton at first launch), then runs phases
@@ -24,8 +25,8 @@ rcut=0.6, sel=64)``, fp32, random weights from a seed) over uniform random
 atoms at 30 atoms/nm^3, phases 5-6 on the MD engine with the same model,
 phase 7 trains the DPA-1, phase 8 serves gemma2-2b, phases 9-10 run
 replica ensembles and DP force serving (run after phase 6), phase 11 the
-other LM architectures, phase 12 LM training and phase 13 the step
-accounting against the card:
+other LM architectures, phase 12 LM training, phase 13 the LM over a
+device mesh and phase 14 the step accounting against the card:
 
 1. kernels: the env-matrix, attention and force-scatter kernels against
    their plain PyTorch versions on the card, at the shapes and on the data
@@ -207,7 +208,32 @@ accounting against the card:
    reduced fp32 width: two steps on the card against the CPU at the CPU
    tests' gates; (e) the launcher killed at step 6 and resumed on the
    card, equal to the uninterrupted run bit for bit;
-13. roofline: the step accounting (``launch/roofline.py::count_step``)
+13. lm_mesh: the LM over a ``("data", "model")`` process mesh
+   (``lm.make_lm_mesh``; parameters, optimizer state, batch and caches
+   DTensors laid out by ``lm/sharding.py``'s specs): (a) the decode
+   kernel's slice instance (``kv_base``, the rows' LSE: a cache sharded by
+   its sequence) against its plain version over 4 slices at gemma2-2b's
+   and qwen2-1.5b's head widths, bf16 and fp32, a slice with no visible
+   key giving O = 0 and LSE = -inf, the slices merged by their LSE equal
+   to the whole cache, timed beside its bound and SDPA; (b) the main path:
+   a ``(1, 1)`` mesh through one NCCL process, bit for bit against no
+   mesh, eager on both sides: qwen2-1.5b's training step (12's
+   configuration, 2 steps: loss, grad_norm, every parameter) and gemma2-2b's
+   prefill and 31 greedy decode steps (8's configuration: the prefill
+   logits, the 32 tokens, every step's logits); (c) two gloo processes
+   sharing this card as ``(1, 2)`` (every collective DTensor issues on CUDA
+   tensors through gloo, probed first: a collective gloo refuses is
+   printed and the case left out), 4 layers of each at full width,
+   against no mesh at the same depth at the bf16 gates, decode fed the
+   no-mesh greedy tokens; (d) with 4 cards, NCCL one card a process:
+   ``(2, 2)`` training and serving at full depth, ``(1, 4)`` qwen2-1.5b's
+   decode (B 4 x 2,048; Hkv 2 < 4, so the cache lies sharded by its
+   sequence) with ``FLASH_DECODE`` off and on and ``GQA_REPEAT`` on, else
+   a line saying why not.  Each case prints ms a training step and
+   tokens/s, ms a prefill and a decode step, peak MiB per process and the
+   collectives of one step by kind (``CommDebugMode``) with their ms
+   (``torch.profiler``: NCCL kernels' device time, gloo's host time);
+14. roofline: the step accounting (``launch/roofline.py::count_step``)
    held against the card: qwen2-1.5b's training step (12's config),
    gemma2-2b's prefill and one eager decode step (8's config, the last
    decode position) counted on ``meta`` and on the card, the counts equal
@@ -218,13 +244,14 @@ accounting against the card:
    peak and the bytes
    share of 3.35 TB/s at the times phases 12 and 8 measured, the
    live-bytes peak beside ``torch.cuda.max_memory_allocated``;
-14. a ``kernels`` JSON line (launches per force call, per MD step, per
+15. a ``kernels`` JSON line (launches per force call, per MD step, per
    guarded MD run, per training step and ``force_rmse`` call, per
    request, per batched force call, per ensemble step, per served
    dispatch, per overlap evaluation and per LM training step;
    ``flash_attention`` and ``flash_decode`` also per prefill and decode
-   step of each lm_archs architecture, the MLA instance's numbers and
-   the LM training route's times), then the result line.
+   step of each lm_archs architecture, the MLA instance's numbers, the
+   LM training route's times, the lm_mesh main path's launches and the
+   decode kernel's slice instance), then the result line.
 
 Any failed check raises, and the script exits non-zero.  It needs one CUDA
 card and the repository's ``src/`` beside it; it imports no JAX.
@@ -5541,6 +5568,709 @@ def phase_roofline(smi, train_line=None, lm_summary=None):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# lm_mesh: the LM over a ("data", "model") process mesh
+# ---------------------------------------------------------------------------
+
+LM_MESH_DIR = Path(__file__).resolve().parent / "build" / "lm_mesh"
+LM_MESH_GROUP_S = 120     # seconds a rendezvous or collective may wait
+LM_MESH_CHILD_S = 600     # seconds a group of child processes may take
+LM_MESH_STEPS = 2         # training steps compared per case
+LM_MESH_GLOO_LAYERS = 4   # the two gloo processes sharing the card: layers
+LM_MESH_QWEN_PROMPT = 2_048   # qwen2-1.5b's decode cases on four cards
+# the extended decode kernel's cases: (name, Hq, Hkv, D, S_max, pos, window,
+# softcap), the cache cut into 4 slices of S_max / 4 rows (kv_base = j x
+# S_max / 4): at gemma2-2b's (global, and a window ending inside a slice)
+# and qwen2-1.5b's head widths; the last slice lies wholly past pos
+LM_MESH_SLICES = (("gemma2-2b", 8, 4, 256, 6_176, 4_000, 0, 50.0),
+                  ("gemma2-2b window 2000", 8, 4, 256, 6_176, 4_000, 2_000,
+                   50.0),
+                  ("qwen2-1.5b", 12, 2, 128, 2_080, 1_500, 0, 0.0))
+
+
+def lm_mesh_comm(fn):
+    """``fn()`` once under ``CommDebugMode`` and ``torch.profiler``: its
+    result, the collectives by kind (counts) and their ms by kind (NCCL
+    kernels' device time; gloo's host time of the ``c10d``/``gloo`` ops,
+    which on CUDA tensors includes the host copies)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.profiler import ProfilerActivity, profile
+    kinds = ("allreduce", "allgather", "reducescatter", "broadcast",
+             "alltoall")
+    mode = CommDebugMode()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with mode:
+            out = fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for op, n in mode.get_comm_counts().items():
+        name = str(op).split(".")[-1].replace("_", "")
+        kind = next((k for k in kinds if k in name), name)
+        counts[kind] = counts.get(kind, 0) + n
+    ms = {}
+    for ev in prof.events():
+        name = ev.name.lower().replace("_", "")
+        kind = next((k for k in kinds if k in name), None)
+        if kind is None:
+            continue
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            if "nccl" in name:
+                ms[kind] = ms.get(kind, 0.0) + ev.time_range.elapsed_us() / 1e3
+        elif name.startswith(("c10d::", "gloo:")):
+            ms[kind] = ms.get(kind, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return out, counts, ms
+
+
+def lm_mesh_cfg(arch, layers=None):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+@torch.no_grad()
+def check_decode_slices(smi):
+    """The decode kernel's slice instance (``flash_decode(...,
+    kv_base=j * S / 4, return_lse=True)``) against its plain version
+    (``ref.decode_ref``) on the card, bf16 and fp32, at each of
+    ``LM_MESH_SLICES``: each slice's O at the flash gates (atol 1e-2 /
+    1e-4 x max|plain|), its LSE within 1e-3 where finite and -inf exactly
+    where the plain version's is (a slice with no visible key: O = 0, no
+    NaN), a repeat bit for bit, and the 4 slices merged by their LSE
+    against the kernel over the whole cache.  The slice with the most
+    visible keys timed beside its plain version, its bound (the slice's
+    bytes, ``decode_work``) and, at softcap 0, SDPA on the same keys."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn, ref
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    rows = []
+    for name, hq, hkv, d, s, pos, window, cap in LM_MESH_SLICES:
+        base32 = [torch.randn(shape, generator=g, device=DEVICE)
+                  for shape in ((4, hq, 1, d), (4, hkv, s, d), (4, hkv, s, d))]
+        sl, p = s // 4, torch.tensor(pos, device=DEVICE)
+        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+            q, k, v = (t.to(dtype) for t in base32)
+            tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+            outs, lses, errs, empty, vis = [], [], [], [], []
+            for j in range(4):
+                kj, vj = k[:, :, j * sl:(j + 1) * sl], v[:, :, j * sl:(j + 1) * sl]
+                o, lse = flash_attn.flash_decode(q, kj, vj, p, window, cap,
+                                                 kv_base=j * sl,
+                                                 return_lse=True)
+                po, plse = ref.decode_ref(q, kj, vj, pos, window, cap,
+                                          j * sl, True)
+                what = f"decode slice {name} {tag} {j}"
+                errs.append(check(what, o.float(), po.float(),
+                                  atol=tol * float(po.float().abs().max())))
+                inf = torch.isneginf(plse)
+                if not torch.equal(torch.isneginf(lse), inf):
+                    fail(f"{what}: -inf log-sum-exps differ from the plain "
+                         "version's")
+                if bool((~inf).any()):
+                    check(f"{what} lse", lse[~inf], plse[~inf], atol=1e-3)
+                again = flash_attn.flash_decode(q, kj, vj, p, window, cap,
+                                                kv_base=j * sl,
+                                                return_lse=True)
+                if not (torch.equal(again[0], o) and torch.equal(again[1],
+                                                                 lse)):
+                    fail(f"{what}: a repeat differs")
+                if bool(inf.all()):
+                    empty.append(j)
+                lo = max(j * sl, pos - window + 1 if window else 0)
+                vis.append(max(0, min((j + 1) * sl, pos + 1) - lo))
+                outs.append(o.float())
+                lses.append(lse)
+            if 3 not in empty:
+                fail(f"decode slices {name}: the slice past pos saw a key")
+            lse = torch.stack(lses)
+            w = torch.exp(lse - lse.amax(0))[..., None]
+            merged = (w * torch.stack(outs)).sum(0) / w.sum(0)
+            whole = flash_attn.flash_decode(q, k, v, p, window, cap).float()
+            merge_err = check(f"decode slices {name} {tag} merged", merged,
+                              whole, atol=tol * float(whole.abs().max()))
+            j = int(np.argmax(vis))
+            kj, vj = k[:, :, j * sl:(j + 1) * sl], v[:, :, j * sl:(j + 1) * sl]
+            flops, nbytes = flash_attn.decode_work(
+                q, kj, vj, p, window, cap, kv_base=j * sl, return_lse=True,
+                positions=pos)
+            peak = BF16_PEAK if dtype == torch.bfloat16 else F32_PEAK
+            t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
+            line = {"phase": "lm_mesh", "name": "flash_decode",
+                    "instance": "slice: kv_base, return_lse", "case": name,
+                    "dtype": tag, "device": smi, "q": list(q.shape),
+                    "k_slice": list(kj.shape), "pos": pos, "window": window,
+                    "softcap": cap, "empty_slices": empty,
+                    "visible_keys_by_slice": vis, "timed_slice": j,
+                    "max_abs_err": max(errs), "merged_max_abs_err": merge_err,
+                    "tol": f"atol {tol}*max|plain|; lse atol 1e-3",
+                    "ms": time_ms(lambda: flash_attn.flash_decode(
+                        q, kj, vj, p, window, cap, kv_base=j * sl,
+                        return_lse=True)),
+                    "plain_ms": time_ms(lambda: ref.decode_ref(
+                        q, kj, vj, pos, window, cap, j * sl, True)),
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "library_ms": None}
+            if cap == 0.0:
+                lo = max(j * sl, pos - window + 1 if window else 0) - j * sl
+                hi = min(sl, pos + 1 - j * sl)
+                lk, lv = kj[:, :, lo:hi], vj[:, :, lo:hi]
+                lib = lambda: F.scaled_dot_product_attention(
+                    q, lk, lv, enable_gqa=True)
+                check(f"decode slice {name} {tag} vs sdpa",
+                      flash_attn.flash_decode(q, kj, vj, p, window, cap,
+                                              kv_base=j * sl).float(),
+                      lib().float(), atol=tol * float(
+                          lib().float().abs().max()))
+                line["library_ms"] = time_ms(lib)
+                line["library_is"] = ("scaled_dot_product_attention on the "
+                                      "slice's visible keys (O only, no LSE)")
+            print(json.dumps(line), flush=True)
+            rows.append(line)
+        del base32, q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lm_mesh_train(cfg, params, batch, mesh, steps):
+    """``steps`` training steps (Adam, ``remat="full"``) over ``mesh`` (None:
+    no mesh), each synchronised and timed: per step the loss and grad_norm
+    (whole tensors), the ms; the final parameters and state, the step,
+    the batch as the step takes it, the kernels' launches and the peak
+    memory."""
+    from repro_torch import kernels
+    from repro_torch.lm import sharding as S
+    from repro_torch.lm import train_lib as TL
+    step, opt = TL.make_train_step(cfg, TL.TrainHParams(), mesh=mesh)
+    state, b = opt.init(params), batch
+    if mesh is not None:
+        state = S.distribute_opt_state(state, S.params_shardings(params,
+                                                                 mesh), mesh)
+        params = S.distribute_params(params, mesh)
+        b = S.distribute_batch(batch, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rec = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        rec.append({"ms": (time.perf_counter() - t0) * 1e3,
+                    "loss": S.gather(m["loss"]),
+                    "grad_norm": S.gather(m["grad_norm"])})
+    return {"rec": rec, "params": params, "state": state, "step": step,
+            "batch": b,
+            "launches": {k: n for k, n in kernels.launch_counts().items()
+                         if n},
+            "peak_MiB": torch.cuda.max_memory_allocated() / 2 ** 20}
+
+
+@torch.no_grad()
+def lm_mesh_serve(cfg, params, tokens, new, mesh, forced=None):
+    """A prefill of ``tokens`` and ``new - 1`` decode steps over ``mesh``
+    (None: no mesh), eager, greedy (or fed ``forced``'s tokens), each
+    synchronised and timed: the logits (whole), the tokens, the prefill's
+    and the decode steps' ms, the launches, the cache and the serve step
+    (a capacity of one more step, for a counted step after)."""
+    from repro_torch import kernels
+    from repro_torch.lm import serve_lib as SL
+    from repro_torch.lm import sharding as S
+    s = tokens.shape[1]
+    pre = SL.make_prefill(cfg, max_len=s + new, mesh=mesh)
+    dec = SL.make_serve_step(cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    last, cache = pre(params, tokens)
+    logits = [S.gather(last)]
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks = [logits[-1].argmax(-1)]
+    ms = []
+    for i in range(new - 1):
+        nxt = toks[-1] if forced is None else forced[:, i:i + 1]
+        t0 = time.perf_counter()
+        lg, cache = dec(params, cache, nxt, s + i)
+        logits.append(S.gather(lg))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(logits[-1].argmax(-1))
+    return {"logits": logits, "tokens": torch.cat(toks, 1),
+            "prefill_ms": prefill_ms, "decode_ms": ms, "cache": cache,
+            "step": dec,
+            "launches": {k: n for k, n in kernels.launch_counts().items()
+                         if n},
+            "peak_MiB": torch.cuda.max_memory_allocated() / 2 ** 20}
+
+
+def same_tree_bits(a, b) -> bool:
+    from repro_torch.lm import sharding as S
+    la, lb = S.leaves_with_paths(a), S.leaves_with_paths(b)
+    return all(pa == pb and torch.equal(x, y)
+               for (pa, x), (pb, y) in zip(la, lb))
+
+
+def lm_mesh_one_card(smi):
+    """(1, 1): one process through an NCCL group, the DTensor route against
+    no mesh, bit for bit: qwen2-1.5b's training step at full width (B 4 x
+    2,048, ``remat="full"``, Adam; loss, grad_norm and every parameter
+    after 2 steps) and gemma2-2b's prefill (B 4 x 6,144) and 31 greedy
+    decode steps (the prefill logits, the 32 tokens, every step's logits),
+    both eager.  The mesh runs are the phase's main path: every count is
+    reset before them and read after."""
+    import torch.distributed as dist
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import make_lm_mesh
+    from repro_torch.lm import model as LM
+    from repro_torch.lm import sharding as S
+    out = {"launches": {}}
+    dist.init_process_group(
+        "nccl", init_method=f"file://{LM_MESH_DIR / 'one.rendezvous'}",
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=LM_MESH_GROUP_S))
+    try:
+        mesh = make_lm_mesh(1, 1, device=DEVICE)
+        # -- training
+        cfg = lm_mesh_cfg(LM_TRAIN_ARCH)
+        params = LM.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(SEED), device=DEVICE)
+        batch = make_batch(cfg, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, DEVICE)
+        ref = lm_mesh_train(cfg, params, batch, None, LM_MESH_STEPS)
+        ref.pop("state")
+        got = lm_mesh_train(cfg, params, batch, mesh, LM_MESH_STEPS)
+        del params
+        out["launches"]["train"] = got["launches"]
+        same = (all(torch.equal(a[k], b[k]) for a, b in zip(got["rec"],
+                                                            ref["rec"])
+                    for k in ("loss", "grad_norm"))
+                and same_tree_bits(S.gather(got["params"]), ref["params"]))
+        if not same:
+            fail("lm_mesh (1, 1) training: the DTensor route differs from "
+                 "no mesh")
+        _, counts, comm_ms = lm_mesh_comm(lambda: got["step"](
+            got["params"], got["state"], got["batch"]))
+        line = {"phase": "lm_mesh", "case": "nccl_1x1", "what": "train",
+                "arch": cfg.name, "layers": cfg.n_layers, "device": smi,
+                "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+                "bitwise_equal_no_mesh": True,
+                "loss_by_step": [float(r["loss"]) for r in got["rec"]],
+                "ms_by_step": [r["ms"] for r in got["rec"]],
+                "no_mesh_ms_by_step": [r["ms"] for r in ref["rec"]],
+                "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ
+                / got["rec"][-1]["ms"] * 1e3,
+                "launches_per_step": {k: n // LM_MESH_STEPS for k, n in
+                                      got["launches"].items()},
+                "collectives_per_step": counts, "collective_ms": comm_ms,
+                "peak_MiB": got["peak_MiB"],
+                "no_mesh_peak_MiB": ref["peak_MiB"],
+                "ms_is": "host clock around each synchronised step; the "
+                         "first step includes its warm-up"}
+        print(json.dumps(line), flush=True)
+        out["train"] = line
+        del got, ref
+        torch.cuda.empty_cache()
+        # -- serving
+        cfg = lm_mesh_cfg(LM_ARCH)
+        params = LM.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(SEED), device=DEVICE)
+        rng = np.random.default_rng(SEED + 7)
+        tokens = torch.tensor(rng.integers(0, cfg.vocab,
+                                           (LM_BATCH, LM_PROMPT)),
+                              device=DEVICE)
+        ref = lm_mesh_serve(cfg, params, tokens, LM_NEW, None)
+        ref.pop("cache")
+        dparams = S.distribute_params(params, mesh)
+        del params
+        got = lm_mesh_serve(cfg, dparams, tokens, LM_NEW, mesh)
+        out["launches"]["serve"] = got["launches"]
+        if not (torch.equal(got["tokens"], ref["tokens"]) and all(
+                torch.equal(a, b) for a, b in zip(got["logits"],
+                                                  ref["logits"]))):
+            fail("lm_mesh (1, 1) serving: the DTensor route differs from "
+                 "no mesh")
+        nxt = got["tokens"][:, -1:]
+        _, counts, comm_ms = lm_mesh_comm(lambda: got["step"](
+            dparams, got["cache"], nxt, LM_PROMPT + LM_NEW - 1))
+        line = {"phase": "lm_mesh", "case": "nccl_1x1", "what": "serve",
+                "arch": cfg.name, "layers": cfg.n_layers, "device": smi,
+                "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+                "bitwise_equal_no_mesh": True,
+                "prefill_ms": got["prefill_ms"],
+                "no_mesh_prefill_ms": ref["prefill_ms"],
+                "decode_ms_per_step_median": statistics.median(
+                    got["decode_ms"]),
+                "no_mesh_decode_ms_per_step_median": statistics.median(
+                    ref["decode_ms"]),
+                "decode_tokens_per_s": LM_BATCH / statistics.median(
+                    got["decode_ms"]) * 1e3,
+                "launches": got["launches"],
+                "collectives_per_decode_step": counts,
+                "collective_ms": comm_ms, "peak_MiB": got["peak_MiB"],
+                "no_mesh_peak_MiB": ref["peak_MiB"],
+                "ms_is": "host clock around the synchronised prefill and "
+                         "each eager decode step"}
+        print(json.dumps(line), flush=True)
+        out["serve"] = line
+        del got, ref, dparams
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def lm_mesh_probe(mesh, say):
+    """The collectives DTensor issues here, once each on a small tensor on
+    the mesh's device over its "model" axis, each named (``say``) before
+    it runs: a child that dies in one names it last."""
+    from repro_torch.lm import sharding as S
+    dt = S.dt_api()
+    x = torch.ones((4, 4), device=mesh.device)
+    cases = (("all_reduce (sum)", (dt.Partial(),), (dt.Replicate(),)),
+             ("all_reduce (max)", (dt.Partial("max"),), (dt.Replicate(),)),
+             ("all_gather_into_tensor", (dt.Shard(0),), (dt.Replicate(),)),
+             ("reduce_scatter_tensor", (dt.Partial(),), (dt.Shard(0),)))
+    for name, src, dst in cases:
+        say(name)
+        S.from_local(x, mesh, (dt.Replicate(),) + src).redistribute(
+            mesh.device_mesh, (dt.Replicate(),) + dst).to_local()
+        torch.cuda.synchronize()
+
+
+def lm_mesh_child(task_path, rank):
+    """One process of an ``lm_mesh`` group (``chip_smoke.py
+    --lm-mesh-child TASK RANK``): joins the group through ``file://``
+    rendezvous, builds the task's ``LMMesh`` on its card and runs the
+    task's jobs; saves each job's results beside ``TASK``."""
+    import torch.distributed as dist
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import layers as LL
+    from repro_torch.lm import make_lm_mesh
+    from repro_torch.lm import model as LM
+    from repro_torch.lm import sharding as S
+    task = torch.load(task_path, weights_only=False)
+    dev = torch.device(DEVICE, task["devices"][rank]) if DEVICE == "cuda" \
+        else torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+
+    def say(what):
+        print(f"[probe] {what}", flush=True)
+
+    say("init_process_group")
+    dist.init_process_group(
+        task["backend"], init_method=f"file://{task['rendezvous']}",
+        rank=rank, world_size=task["world"],
+        timeout=datetime.timedelta(seconds=LM_MESH_GROUP_S))
+    try:
+        out = {}
+        for job in task["jobs"]:
+            say("make_lm_mesh")
+            mesh = make_lm_mesh(*job["layout"], device=dev,
+                                backend=task["backend"])
+            res = {"coords": mesh.coords, "layout": job["layout"]}
+            if task.get("probe"):
+                lm_mesh_probe(mesh, say)
+                out[job["name"]] = res
+                continue
+            cfg = lm_mesh_cfg(job["arch"], job.get("layers"))
+            params = LM.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(SEED), device=dev)
+            if job["kind"] == "train":
+                batch = make_batch(cfg, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
+                got = lm_mesh_train(cfg, params, batch, mesh, LM_MESH_STEPS)
+                _, counts, ms = lm_mesh_comm(lambda: got["step"](
+                    got["params"], got["state"], got["batch"]))
+                res.update(loss=[float(r["loss"]) for r in got["rec"]],
+                           grad_norm=[float(r["grad_norm"])
+                                      for r in got["rec"]],
+                           ms=[r["ms"] for r in got["rec"]],
+                           launches=got["launches"], peak_MiB=got["peak_MiB"],
+                           collectives_per_step=counts, collective_ms=ms)
+            else:
+                ref = torch.load(job["ref"], weights_only=False)
+                tokens = ref["prompt"].to(dev)
+                dparams = S.distribute_params(params, mesh)
+                del params
+                LL.set_flash_decode(job.get("flash", False))
+                LL.set_gqa_repeat(job.get("repeat", False))
+                try:
+                    got = lm_mesh_serve(cfg, dparams, tokens, LM_NEW, mesh,
+                                        forced=ref["tokens"][:, :-1].to(dev))
+                    nxt = ref["tokens"][:, -1:].to(dev)
+                    _, counts, ms = lm_mesh_comm(lambda: got["step"](
+                        dparams, got["cache"], nxt,
+                        tokens.shape[1] + LM_NEW - 1))
+                finally:
+                    LL.set_flash_decode(False)
+                    LL.set_gqa_repeat(False)
+                errs = []
+                for i, (a, b) in enumerate(zip(got["logits"],
+                                               ref["logits"])):
+                    b = b.to(dev)
+                    errs.append(check(f"lm_mesh {job['name']} logits {i}",
+                                      a.float(), b.float(),
+                                      atol=LM_BF16_TOL * float(
+                                          b.float().abs().max())))
+                res.update(max_abs_err_by_step=errs,
+                           greedy_agree=float((got["tokens"].cpu()
+                                               == ref["tokens"]).float()
+                                              .mean()),
+                           prefill_ms=got["prefill_ms"],
+                           decode_ms=got["decode_ms"],
+                           launches=got["launches"], peak_MiB=got["peak_MiB"],
+                           collectives_per_decode_step=counts,
+                           collective_ms=ms)
+                del got, dparams
+            out[job["name"]] = res
+            torch.cuda.empty_cache()
+        torch.save(out, f"{task_path}.out{rank}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def lm_mesh_spawn(case, world, backend, devices, jobs, probe=False):
+    """Start ``world`` child processes of this script on ``devices`` and
+    wait for all; any child's failure, or a group still running after
+    ``LM_MESH_CHILD_S`` seconds, kills every child and fails the phase.
+    With ``probe`` the children only build each job's mesh and run each
+    collective once (:func:`lm_mesh_probe`); a child that fails or dies
+    there does not fail the phase: the step it named last (and how it
+    ended) is returned, or None when all passed."""
+    task = LM_MESH_DIR / f"{case}{'_probe' if probe else ''}.pt"
+    torch.save({"world": world, "backend": backend, "devices": devices,
+                "jobs": jobs, "probe": probe,
+                "rendezvous": str(LM_MESH_DIR / f"{task.stem}.rendezvous")},
+               task)
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--lm-mesh-child", str(task), str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline = time.perf_counter() + LM_MESH_CHILD_S
+    logs = {}
+    try:
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1.0))[0]
+    except subprocess.TimeoutExpired:
+        fail(f"lm_mesh {case}: the {world} processes did not finish in "
+             f"{LM_MESH_CHILD_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            if probe:
+                steps = [ln[8:] for ln in logs[r].splitlines()
+                         if ln.startswith("[probe] ")]
+                last = steps[-1] if steps else "before the first step"
+                err = [ln for ln in logs[r].splitlines()
+                       if "Error" in ln or "error" in ln][-1:]
+                return (f"process {r} exited {p.returncode} in {last}"
+                        + (f" ({err[0].strip()[:200]})" if err else ""))
+            fail(f"lm_mesh {case}: process {r} exited {p.returncode}:\n"
+                 f"{logs[r][-6000:]}")
+    if probe:
+        return None
+    return [torch.load(f"{task}.out{r}", weights_only=False)
+            for r in range(world)]
+
+
+def lm_mesh_refs(jobs):
+    """The no-mesh references of the children's jobs on this card, at the
+    jobs' depths: a training job's loss and grad_norm by step, a serving
+    job's prompt, greedy tokens and logits (saved for the children)."""
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import model as LM
+    refs = {}
+    for job in jobs:
+        key = (job["kind"], job["arch"], job.get("layers"))
+        if key in refs:
+            job["ref"] = refs[key].get("path")
+            continue
+        cfg = lm_mesh_cfg(job["arch"], job.get("layers"))
+        params = LM.init_params(cfg, torch.Generator(
+            device=DEVICE).manual_seed(SEED), device=DEVICE)
+        if job["kind"] == "train":
+            batch = make_batch(cfg, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, DEVICE)
+            got = lm_mesh_train(cfg, params, batch, None, LM_MESH_STEPS)
+            refs[key] = {"loss": [float(r["loss"]) for r in got["rec"]],
+                         "grad_norm": [float(r["grad_norm"])
+                                       for r in got["rec"]]}
+        else:
+            b, s = job["batch"], job["prompt"]
+            rng = np.random.default_rng(SEED + 7)
+            tokens = torch.tensor(rng.integers(0, cfg.vocab, (b, s)),
+                                  device=DEVICE)
+            got = lm_mesh_serve(cfg, params, tokens, LM_NEW, None)
+            path = LM_MESH_DIR / f"ref_{job['arch']}_{job.get('layers')}.pt"
+            torch.save({"prompt": tokens.cpu(),
+                        "tokens": got["tokens"].cpu(),
+                        "logits": [lg.cpu() for lg in got["logits"]]}, path)
+            refs[key] = {"path": str(path)}
+            job["ref"] = str(path)
+        del got, params
+        torch.cuda.empty_cache()
+    return refs
+
+
+def lm_mesh_report(case, jobs, outs, refs, smi, backend):
+    """One line per job: every process's numbers, the processes' agreement
+    and the gates against no mesh (training: loss and grad_norm at the
+    bf16 gate of ``lm_train``; serving: each step's logits at the bf16
+    gate, fed the reference's greedy tokens)."""
+    for job in jobs:
+        res = [o[job["name"]] for o in outs]
+        line = {"phase": "lm_mesh", "case": case, "job": job["name"],
+                "backend": backend, "layout": job["layout"],
+                "arch": job["arch"], "layers": job.get("layers") or "all",
+                "device": smi}
+        if job["kind"] == "train":
+            ref = refs[(job["kind"], job["arch"], job.get("layers"))]
+            rtol = LM_TRAIN_TOL[torch.bfloat16][1]
+            for r in res:
+                if r["loss"] != res[0]["loss"] or \
+                        r["grad_norm"] != res[0]["grad_norm"]:
+                    fail(f"lm_mesh {case} {job['name']}: the processes' "
+                         "metrics differ")
+                for k in ("loss", "grad_norm"):
+                    for a, b in zip(r[k], ref[k]):
+                        if not abs(a - b) <= rtol * abs(b):
+                            fail(f"lm_mesh {case} {job['name']}: {k} {a} "
+                                 f"vs no mesh {b} (rtol {rtol})")
+            line.update(loss=res[0]["loss"], no_mesh_loss=ref["loss"],
+                        grad_norm=res[0]["grad_norm"],
+                        no_mesh_grad_norm=ref["grad_norm"],
+                        ms_by_step_by_process=[r["ms"] for r in res],
+                        tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / max(
+                            r["ms"][-1] for r in res) * 1e3,
+                        peak_MiB_by_process=[r["peak_MiB"] for r in res],
+                        collectives_per_step=res[0]["collectives_per_step"],
+                        collective_ms_by_process=[r["collective_ms"]
+                                                  for r in res],
+                        launches_by_process=[r["launches"] for r in res],
+                        gate=f"rtol {rtol} (bf16)")
+        else:
+            line.update(
+                knobs={"FLASH_DECODE": job.get("flash", False),
+                       "GQA_REPEAT": job.get("repeat", False)},
+                batch=job["batch"], prompt=job["prompt"], new=LM_NEW,
+                max_abs_err=max(max(r["max_abs_err_by_step"]) for r in res),
+                gate=f"atol {LM_BF16_TOL}*max|no-mesh logits| per step, "
+                     "fed the no-mesh greedy tokens",
+                greedy_agree_by_process=[r["greedy_agree"] for r in res],
+                prefill_ms_by_process=[r["prefill_ms"] for r in res],
+                decode_ms_per_step_median_by_process=[
+                    statistics.median(r["decode_ms"]) for r in res],
+                decode_tokens_per_s=job["batch"] / max(
+                    statistics.median(r["decode_ms"]) for r in res) * 1e3,
+                peak_MiB_by_process=[r["peak_MiB"] for r in res],
+                collectives_per_decode_step=res[0][
+                    "collectives_per_decode_step"],
+                collective_ms_by_process=[r["collective_ms"] for r in res],
+                launches_by_process=[r["launches"] for r in res])
+        print(json.dumps(line), flush=True)
+
+
+def lm_mesh_rows(res):
+    """The kernels line's ``lm_mesh`` keys by wrapper: the main path's
+    launches (the (1, 1) mesh's training steps and request) and, for
+    ``flash_decode``, its slice instance's numbers (bf16 at qwen2-1.5b's
+    widths, softcap 0, where SDPA computes the function; every case
+    beside)."""
+    rows = {name: {"launches_lm_mesh": {
+        what: counts.get(name, 0) for what, counts in res["launches"].items()}}
+        for name in ("flash_attention", "flash_decode")}
+    main = next(r for r in res["slices"] if r["dtype"] == "bf16"
+                and r["softcap"] == 0.0)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rows["flash_decode"]["lm_mesh_slice_instance"] = {
+        "shape": f"{main['case']}: q {main['q']}, k/v slice "
+                 f"{main['k_slice']} (1 of 4), pos {main['pos']}, bf16",
+        **{k: main[k] for k in keys},
+        "by_case": [{k: r[k] for k in ("case", "dtype", "empty_slices")
+                     + keys} for r in res["slices"]]}
+    return rows
+
+
+def phase_lm_mesh(smi):
+    """The LM over a ``("data", "model")`` process mesh (``lm.make_lm_mesh``,
+    DTensor placements from ``lm/sharding.py``): (a) the decode kernel's
+    slice instance (``kv_base``, LSE) against its plain version; (b) a
+    ``(1, 1)`` NCCL mesh, bit for bit against no mesh, the phase's main
+    path (qwen2-1.5b training, gemma2-2b serving, published widths); (c)
+    two gloo processes sharing this card as ``(1, 2)`` (every collective
+    DTensor issues through gloo on CUDA tensors), 4 layers of each at full
+    width, against no mesh at the same depth; (d) with 4 cards, NCCL one
+    card a process: ``(2, 2)`` training and serving at full depth, and
+    ``(1, 4)`` qwen2-1.5b decode (Hkv 2 < 4: the cache sharded by its
+    sequence) with FLASH_DECODE off and on and with GQA_REPEAT, else a
+    line saying why not.  Returns the main path's launches and the slice
+    rows."""
+    import shutil
+    t_phase = time.perf_counter()
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    LM_MESH_DIR.mkdir(parents=True)
+    slices = check_decode_slices(smi)
+    one = lm_mesh_one_card(smi)
+    launches = {}
+    for part in one["launches"].values():
+        for k, n in part.items():
+            launches[k] = launches.get(k, 0) + n
+    for name in ("flash_attention", "flash_decode"):
+        if not launches.get(name):
+            fail(f"lm_mesh: the main path launched no {name}")
+    card = torch.cuda.current_device()
+    gl = LM_MESH_GLOO_LAYERS
+    jobs = [{"name": "train", "kind": "train", "arch": LM_TRAIN_ARCH,
+             "layers": gl, "layout": (1, 2)},
+            {"name": "serve", "kind": "serve", "arch": LM_ARCH, "layers": gl,
+             "layout": (1, 2), "batch": LM_BATCH, "prompt": LM_PROMPT}]
+    refused = lm_mesh_spawn("gloo_1x2", 2, "gloo", [card, card], jobs[:1],
+                            probe=True)
+    if refused:
+        print(json.dumps({
+            "phase": "lm_mesh", "case": "gloo_1x2", "ran": False,
+            "device": smi,
+            "why": "gloo does not carry a collective DTensor issues on CUDA "
+                   f"tensors: {refused}"}), flush=True)
+    else:
+        refs = lm_mesh_refs(jobs)
+        outs = lm_mesh_spawn("gloo_1x2", 2, "gloo", [card, card], jobs)
+        lm_mesh_report("gloo_1x2", jobs, outs, refs, smi, "gloo")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 4:
+        q = {"kind": "serve", "arch": LM_TRAIN_ARCH, "layout": (1, 4),
+             "batch": LM_BATCH, "prompt": LM_MESH_QWEN_PROMPT}
+        jobs = [{"name": "train", "kind": "train", "arch": LM_TRAIN_ARCH,
+                 "layout": (2, 2)},
+                {"name": "serve", "kind": "serve", "arch": LM_ARCH,
+                 "layout": (2, 2), "batch": LM_BATCH, "prompt": LM_PROMPT},
+                dict(q, name="decode_1x4"),
+                dict(q, name="decode_1x4_flash", flash=True),
+                dict(q, name="decode_1x4_repeat", repeat=True)]
+        refs = lm_mesh_refs(jobs)
+        torch.cuda.empty_cache()
+        outs = lm_mesh_spawn("nccl_4_cards", 4, "nccl", [0, 1, 2, 3], jobs)
+        lm_mesh_report("nccl_4_cards", jobs, outs, refs, smi, "nccl")
+    else:
+        print(json.dumps({
+            "phase": "lm_mesh", "case": "nccl_4_cards", "ran": False,
+            "why": f"{n_cards} CUDA device(s) here: the (2, 2) and (1, 4) "
+                   "layouts over NCCL take one card a process"}), flush=True)
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    print(json.dumps({"phase": "lm_mesh", "device": smi,
+                      "s": time.perf_counter() - t_phase}), flush=True)
+    return {"launches": one["launches"], "slices": slices}
+
+
 def device_profile(fn, phase, what, host_ops=False):
     """``fn()`` under ``torch.profiler``: device time by kernel and the
     device's idle share of the wall time; with ``host_ops`` also the
@@ -5653,6 +6383,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--dd-procs-child"]:
         return dd_procs_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--lm-mesh-child"]:
+        return lm_mesh_child(sys.argv[2], int(sys.argv[3]))
     from repro_torch.dp import DPModel, paper_dpa1_config
     from repro_torch.kernels import build
 
@@ -5686,6 +6418,12 @@ def main():
     if sys.argv[1:] == ["--phase", "lm_train"]:
         phase_lm_train()
         print("[lm_train] every check passed (lm_train phase alone)",
+              flush=True)
+        return 0
+    if sys.argv[1:] == ["--phase", "lm_mesh"]:
+        res = phase_lm_mesh(smi)
+        print(json.dumps({"lm_mesh_kernels": lm_mesh_rows(res)}), flush=True)
+        print("[lm_mesh] every check passed (lm_mesh phase alone)",
               flush=True)
         return 0
     if sys.argv[1:] == ["--phase", "roofline"]:
@@ -5770,6 +6508,8 @@ def main():
     arch_lines, mla = phase_lm_archs()
     torch.cuda.empty_cache()
     lm_train_attn, lm_train_launches, lm_train_line = phase_lm_train()
+    torch.cuda.empty_cache()
+    mesh_rows = lm_mesh_rows(phase_lm_mesh(smi))
     torch.cuda.empty_cache()
     phase_roofline(smi, lm_train_line, lm_summary)
     arch_launches = {
@@ -5881,6 +6621,7 @@ def main():
             "launches_per_decode_step_lm_archs": {
                 a: n.get(name, 0)
                 for a, n in arch_launches["decode_step"].items()}})
+        rows[-1].update(mesh_rows[name])
         if name == "flash_attention":
             rows[-1]["lm_train"] = {
                 "route": "forward: this kernel with the row log-sum-exp "

@@ -89,6 +89,15 @@
 //   - Shared memory: the 64 KB ring (reused for the warps' partials); two
 //     CTAs per SM (__launch_bounds__(256, 2): at most 128 registers a
 //     thread; -Xptxas -v, printed by chip_smoke.py, gives counts and spills).
+//   - A cache sharded by its sequence (the LM's flash-decoding layout over
+//     a device mesh, lm/layers.py): the host int kv_base is the global
+//     index of the slice's row 0, the masks compare global positions, the
+//     rows at or past pos + Sq - kv_base are never read, and the rows'
+//     log-sum-exp (lse = m ln 2 + log l, fp32 (B, Hq, Sq)) comes out through
+//     an optional pointer, so the caller merges the slices by it.  A slice
+//     no query can see writes O = 0 and lse = -inf (every split empty: m =
+//     NEG, l = 0, no division by 0).  kv_base is a launch argument, so a
+//     step stays capturable.
 //
 // Kept in every kernel: the GQA group's q heads are the interleaved rows of
 // one CTA (row r = i * group + g), so one K/V tile serves every q head of
@@ -737,10 +746,12 @@ struct DecodeArgs {
   const void* v;
   void* o;
   float* ws;               // splits x (B Hq Sq) x (D + 2) partials
+  float* lse;              // (B, Hq, Sq) row log-sum-exp, or null
   const long long* pos;    // device position (flash_decode) or null
   int hq, hkv, sq, sk;
   long long k_bs, k_hs, v_bs, v_hs;
   int causal, window, q_offset, splits;
+  int kv_base;             // global index of key row 0 (a cache slice)
   float scale, softcap;
 };
 
@@ -770,14 +781,16 @@ flash_decode_kernel(const DecodeArgs a) {
   const int c0 = (lane % LPK) * EPL;          // this lane's first column
   const int group = a.hq / a.hkv, rows = group * a.sq;
 
+  // key row j is key kv_base + j of the sequence; positions are global
   int q_offset = a.q_offset, kv_len = a.sk;
   if (a.pos != nullptr) {
     q_offset = (int)*a.pos;
-    kv_len = min(a.sk, q_offset + a.sq);
+    kv_len = max(0, min(a.sk, q_offset + a.sq - a.kv_base));
   }
-  // keys some row can see, and this split's share of them
-  const int lo = a.window > 0 ? max(0, q_offset - a.window + 1) : 0;
-  const int hi = a.causal ? min(kv_len, q_offset + a.sq) : kv_len;
+  // rows some query can see, and this split's share of them: rows past
+  // pos + Sq - kv_base are never read
+  const int lo = a.window > 0 ? max(0, q_offset - a.window + 1 - a.kv_base) : 0;
+  const int hi = a.causal ? min(kv_len, q_offset + a.sq - a.kv_base) : kv_len;
   int k0, k1;
   split_range(lo, hi, split, a.splits, k0, k1);
   const int n_st = k1 > k0 ? (k1 - k0 + KS - 1) / KS : 0;
@@ -849,7 +862,7 @@ flash_decode_kernel(const DecodeArgs a) {
 #pragma unroll
     for (int it = 0; it < NIT; ++it) {
       const int j = first + it * KPW;
-      const int key = k0 + st * KS + j;
+      const int key = k0 + st * KS + j;   // row; kv_base + key globally
       float kf[EPL];
       load_f<T, EPL>(kt + j * D + c0, kf);
 #pragma unroll
@@ -862,8 +875,9 @@ flash_decode_kernel(const DecodeArgs a) {
         for (int off = LPK / 2; off > 0; off >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, off);
         const float xv = a.softcap > 0.f ? cap_out * tanh_exp(d * cap_in) : d * sl2;
-        const bool vis = real[i] && key < k1 && (!a.causal || qpos[i] >= key) &&
-                         (a.window <= 0 || qpos[i] - key < a.window);
+        const int gk = a.kv_base + key;
+        const bool vis = real[i] && key < k1 && (!a.causal || qpos[i] >= gk) &&
+                         (a.window <= 0 || qpos[i] - gk < a.window);
         x[it][i] = vis ? xv : NEG;
         mx[i] = fmaxf(mx[i], x[it][i]);
       }
@@ -945,6 +959,8 @@ flash_decode_kernel(const DecodeArgs a) {
     const long long row = head * a.sq + r / group;
     if (a.splits == 1) {
       static_cast<T*>(a.o)[row * D + d] = Vec16<T>::store(ll > 0.f ? aa / ll : 0.f);
+      if (a.lse != nullptr && d == 0)
+        a.lse[row] = ll > 0.f ? mm * LN2 + logf(ll) : -INFINITY;
     } else {
       // this split's unnormalised partial, merged in split order by
       // flash_decode_combine_kernel
@@ -962,11 +978,14 @@ flash_decode_kernel(const DecodeArgs a) {
 // log2 units) merged in split order: m = max m_s, l = sum l_s 2^(m_s - m),
 // the same for acc.  Every split's (m, l) is loaded at once and the column
 // loads are unrolled, so the merge costs a few round trips to L2, not one
-// per split.  A row no split saw (l = 0) gives exactly 0.
+// per split.  A row no split saw (l = 0) gives exactly 0 and, where `lse`
+// is given, a log-sum-exp of -inf (every split then holds m = NEG, so the
+// weights are finite: 2^(NEG - NEG) = 1 times l = 0).
 template <typename T, int D>
 __global__ void __launch_bounds__(D)
 flash_decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
-                            long long n_rows, int splits) {
+                            float* __restrict__ lse, long long n_rows,
+                            int splits) {
   extern __shared__ float wl[];                  // [splits] weights, [splits] l
   __shared__ float lsum;
   const long long row = blockIdx.x, stride = n_rows * (D + 2);
@@ -987,6 +1006,7 @@ flash_decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
       l = fmaf(wl[splits + s], f, l);
     }
     lsum = l;
+    if (lse != nullptr) lse[row] = l > 0.f ? m * LN2 + logf(l) : -INFINITY;
   }
   __syncthreads();
   float acc = 0.f;
@@ -1010,7 +1030,7 @@ int launch_decode(const DecodeArgs& a, int b, cudaStream_t stream) {
   const long long n_rows = (long long)b * a.hq * a.sq;
   flash_decode_combine_kernel<T, D>
       <<<(unsigned)n_rows, D, 2 * a.splits * sizeof(float), stream>>>(
-          a.ws, static_cast<T*>(a.o), n_rows, a.splits);
+          a.ws, static_cast<T*>(a.o), a.lse, n_rows, a.splits);
   return (int)cudaGetLastError();
 }
 
@@ -1103,15 +1123,20 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
 // Decode: Hq / Hkv * Sq <= 16 rows per KV head, fp32 or bf16, layouts as in
 // flash_attn_fwd.  With `pos` (a device int64) the queries sit at *pos ..
 // *pos + Sq - 1 and see keys < min(Sk, *pos + Sq), causally (q_offset and
-// causal are then ignored); without it, at q_offset and keys < Sk.  The
-// grid is `splits` CTAs per (b, kv head); with splits > 1 `ws` holds
-// splits * B * Hq * Sq * (D + 2) floats of partials.
+// causal are then ignored); without it, at q_offset and keys < Sk.  Key row
+// j is key kv_base + j of the sequence (a slice of a cache sharded by its
+// sequence; 0 for a whole cache): the causal and window masks compare
+// global positions, and rows at or past *pos + Sq - kv_base are not read.
+// `lse`, if not null, receives fp32 (B, Hq, Sq) row log-sum-exps of the
+// scaled (soft-capped) scores, -inf where a row sees no key (its output is
+// then 0).  The grid is `splits` CTAs per (b, kv head); with splits > 1
+// `ws` holds splits * B * Hq * Sq * (D + 2) floats of partials.
 int flash_attn_decode(const void* q, const void* k, const void* v, void* o,
                       int dtype, int b, int hq, int hkv, int sq, int sk, int d,
                       long long k_bs, long long k_hs, long long v_bs,
                       long long v_hs, int causal, int window, float softcap,
                       int q_offset, const void* pos, int splits, void* ws,
-                      void* stream) {
+                      int kv_base, void* lse, void* stream) {
   cudaGetLastError();  // clear an error left by earlier, unrelated work
   cudaStream_t st = (cudaStream_t)stream;
   if ((long long)(hq / hkv) * sq > DECODE_ROWS || splits < 1 ||
@@ -1120,6 +1145,8 @@ int flash_attn_decode(const void* q, const void* k, const void* v, void* o,
   DecodeArgs a{};
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.ws = static_cast<float*>(ws);
+  a.lse = static_cast<float*>(lse);
+  a.kv_base = kv_base;
   a.pos = static_cast<const long long*>(pos);
   a.hq = hq; a.hkv = hkv; a.sq = sq; a.sk = sk;
   a.k_bs = k_bs; a.k_hs = k_hs; a.v_bs = v_bs; a.v_hs = v_hs;

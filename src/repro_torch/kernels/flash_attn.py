@@ -74,7 +74,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attn_fwd.argtypes = ([_P] * 4 + [_I] * 8 + [_LL] * 4
                                        + [_I, _I, _F, _I, _P, _P])
         lib.flash_attn_decode.argtypes = ([_P] * 4 + [_I] * 7 + [_LL] * 4
-                                          + [_I, _I, _F, _I, _P, _I, _P, _P])
+                                          + [_I, _I, _F, _I, _P, _I, _P, _I,
+                                             _P, _P])
         for fn in (lib.flash_attn_fwd, lib.flash_attn_decode):
             fn.restype = _I
         lib._bound = True
@@ -130,9 +131,12 @@ def _rows_ok(t: torch.Tensor) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
-def _decode_launch(q, k, v, causal, window, softcap, q_offset, pos):
+def _decode_launch(q, k, v, causal, window, softcap, q_offset, pos,
+                   kv_base=0, lse=None):
     """The decode kernel (Hq / Hkv * Sq <= 16); ``pos`` a device int64 or
-    None (then ``q_offset`` and ``causal`` hold)."""
+    None (then ``q_offset`` and ``causal`` hold); ``kv_base`` the global
+    index of key row 0; ``lse`` an fp32 (B, Hq, Sq) tensor for the rows'
+    log-sum-exp, or None."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -144,7 +148,8 @@ def _decode_launch(q, k, v, causal, window, softcap, q_offset, pos):
         _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), int(bool(causal)), int(window),
         float(softcap), int(q_offset), None if pos is None else pos.data_ptr(),
-        splits, None if ws is None else ws.data_ptr(),
+        splits, None if ws is None else ws.data_ptr(), int(kv_base),
+        None if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, lib, "flash_attention decode")
     return out
@@ -181,18 +186,24 @@ def attention_work(q, k, v, causal: bool = True, window: int = 0,
 
 
 def decode_work(q, k_cache, v_cache, pos, window: int = 0,
-                softcap: float = 0.0, *, positions=None):
-    """:func:`flash_decode`'s (flops, bytes): the keys < positions + Sq of
-    the cache, ``positions`` the caller's host-side int (``pos`` is a
-    device tensor, whose value the host does not read)."""
+                softcap: float = 0.0, *, kv_base: int = 0,
+                return_lse: bool = False, positions=None):
+    """:func:`flash_decode`'s (flops, bytes): the cache rows holding keys
+    < positions + Sq, ``positions`` the caller's host-side int (``pos`` is
+    a device tensor, whose value the host does not read); a slice at
+    ``kv_base`` is counted as the keys of the whole sequence it holds."""
     if positions is None:
         raise ValueError("flash_decode's work depends on its position: "
                          "give the counter the host-side positions")
     b, hq, sq, d = q.shape
-    n = min(k_cache.shape[2], int(positions) + sq)
+    p = int(positions) - int(kv_base)          # the position within the slice
+    n = max(0, min(k_cache.shape[2], p + sq))
+    if p + sq <= 0:                            # the slice lies wholly past
+        return 0, q.element_size() * b * hq * sq * (d + v_cache.shape[3]) \
+            + (4 * b * hq * sq if return_lse else 0)
     return attention_flops_bytes(b, hq, k_cache.shape[1], sq, n, d,
                                  v_cache.shape[3], q.element_size(), True,
-                                 window, int(positions))
+                                 window, p, lse=return_lse)
 
 
 def _attention_out_like(q, k, v, *args, return_lse: bool = False, **kwargs):
@@ -202,8 +213,11 @@ def _attention_out_like(q, k, v, *args, return_lse: bool = False, **kwargs):
     return out
 
 
-def _decode_out_like(q, *args, **kwargs):
-    return torch.empty_like(q, memory_format=torch.contiguous_format)
+def _decode_out_like(q, *args, return_lse: bool = False, **kwargs):
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if return_lse:
+        return out, q.new_empty(q.shape[:3], dtype=torch.float32)
+    return out
 
 
 @accounted(attention_work, _attention_out_like)
@@ -258,16 +272,25 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
 
 @accounted(decode_work, _decode_out_like)
 def flash_decode(q, k_cache, v_cache, pos, window: int = 0,
-                 softcap: float = 0.0):
+                 softcap: float = 0.0, *, kv_base: int = 0,
+                 return_lse: bool = False):
     """Decode attention over a whole cache: q (B, Hq, Sq, D) at absolute
     positions pos .. pos + Sq - 1 against k_cache/v_cache (B, Hkv, S_max,
     D), keys ``< pos + Sq`` (rows past them are never read), causal, with
     the optional window and softcap.  ``pos`` is a 0-d int64 tensor (the
     reference's traced ``pos``).  The decode kernel for CUDA tensors (Hq /
     Hkv * Sq <= 16; the cache's rows contiguous and 16-byte aligned, as
-    ``serve_lib.init_cache`` makes them), the plain version for CPU ones."""
+    ``serve_lib.init_cache`` makes them), the plain version for CPU ones.
+
+    ``kv_base`` (a host int): the caches are the slice of a longer cache
+    whose row 0 is key ``kv_base`` (a cache sharded by its sequence over a
+    device mesh); the masks compare global positions.  ``return_lse``:
+    also the rows' log-sum-exp of the scaled (soft-capped) scores, fp32
+    (B, Hq, Sq), -inf for a row that sees no key of the slice (its output
+    is 0), so slices merge as exp(lse - max lse)-weighted sums."""
     if not q.is_cuda:
-        return decode_ref(q, k_cache, v_cache, pos, window, softcap)
+        return decode_ref(q, k_cache, v_cache, pos, window, softcap,
+                          kv_base, return_lse)
     _check_qkv("flash_decode", q, k_cache, v_cache,
                tuple((d, d) for d in HEAD_DIMS))
     b, hq, sq, d = q.shape
@@ -285,11 +308,15 @@ def flash_decode(q, k_cache, v_cache, pos, window: int = 0,
     q = q.contiguous()
     if q.data_ptr() % 16:
         raise ValueError("flash_decode reads q from a 16-byte aligned address")
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if not q.numel():
-        return torch.empty_like(q)
-    out = _decode_launch(q, k_cache, v_cache, True, window, softcap, 0, pos)
+        out = torch.empty_like(q)
+        return (out, lse) if return_lse else out
+    out = _decode_launch(q, k_cache, v_cache, True, window, softcap, 0, pos,
+                         kv_base, lse)
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

@@ -396,14 +396,21 @@ def attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
 
 
 def decode_ref(q, k_cache, v_cache, pos, window: int = 0,
-               softcap: float = 0.0):
+               softcap: float = 0.0, kv_base: int = 0,
+               return_lse: bool = False):
     """``flash_decode``'s plain version: q (B, Hq, Sq, D) at positions
     pos .. pos + Sq - 1 against the cache's keys < pos + Sq, causal; ``pos``
-    a 0-d integer tensor (read on the host) or an int."""
-    p = int(pos)
-    n = min(k_cache.shape[2], p + q.shape[2])
-    return attention_ref(q, k_cache[:, :, :n], v_cache[:, :, :n], True,
-                         window, softcap, p)
+    a 0-d integer tensor (read on the host) or an int.  Cache row j is key
+    ``kv_base + j``; with ``return_lse`` also the rows' fp32 log-sum-exp
+    (:func:`attention_lse_ref`), -inf where a row sees no key of the
+    slice (its output 0)."""
+    p = int(pos) - int(kv_base)                 # the position in the slice
+    n = max(0, min(k_cache.shape[2], p + q.shape[2]))
+    k, v = k_cache[:, :, :n], v_cache[:, :, :n]
+    out = attention_ref(q, k, v, True, window, softcap, p)
+    if not return_lse:
+        return out
+    return out, attention_lse_ref(q, k, True, window, softcap, p)
 
 
 def decode_split_ranges(sq: int, kv_len: int, q_offset: int, causal: bool,

@@ -27,6 +27,16 @@ fits FLOPs and bytes over two reduced depths because XLA's cost analysis
 counts a ``scan`` body once; the port's Python loops run, and so count,
 every layer, so there is no depth fit (no ``_depth_fit``, no ``refit``).
 
+A decode cell's attention is counted per device instead
+(:func:`device_decode_attention`): each device's kernel calls on its own
+shapes on ``meta``, under the reference's knobs ``--flash-decode`` (the
+device attends its S / model slice of the cache, JAX's
+``_flash_decode_sharded``) and ``--gqa-repeat`` (K/V repeated to the
+device's query heads where "model" does not divide the KV heads; else,
+without either knob, a cache the KV heads cannot shard is gathered and
+attended whole).  The flash-decoding merge's collectives (three
+all-reduces of (B, Hq, 1[, hd]) per layer over "model") are not counted.
+
 Mesh kinds: ``card`` (1 x 1: the program that runs on one H100 today),
 and the reference's ``single`` (16 x 16) and ``multi`` (2 x 16 x 16).
 
@@ -96,11 +106,7 @@ def build_cell(arch: ArchConfig, shape: ShapeConfig,
 
 def _token_spec(mesh, b: int) -> tuple:
     """The batch dim over the data-parallel axes where they divide it."""
-    dp = S.batch_spec(mesh)
-    axes = dp[0] if len(dp) else None
-    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
-    n = math.prod(mesh.shape[a] for a in axes)
-    return S.P(axes if axes and b >= n and b % n == 0 else None)
+    return S.P(S.dp_fit(b, mesh))
 
 
 def arg_specs(cell: Cell, mesh, infer_fsdp: bool = True) -> tuple:
@@ -158,6 +164,57 @@ def storage_shares(out, out_specs, mesh, dp_n: int):
     return lambda st: out_share.get(st.out, rest)
 
 
+def device_decode_attention(arch: ArchConfig, shape: ShapeConfig,
+                            mesh) -> dict:
+    """One device's decode attention over ``mesh`` at the cell's last
+    position (``S - 1``): the decode kernel's formula
+    (``flash_attn.decode_work``) on the device's own q and K/V shapes, on
+    ``meta``, summed over the ``attn``/``attn_local`` layers, the slowest
+    device's where devices differ.  ``layers.FLASH_DECODE`` where "model"
+    divides S: q with every head against the device's S / model keys, at
+    each slice's base; else the KV heads over "model" where it divides
+    them, K/V repeated to the device's query heads with
+    ``layers.GQA_REPEAT``, or every head against the whole cache."""
+    from ..kernels import flash_attn
+    b, s = shape.global_batch, shape.seq_len
+    m = mesh.shape.get(S.TP, 1)
+    dp = _token_spec(mesh, b)[0]
+    bl = b // math.prod(mesh.shape[a] for a in
+                        ((dp,) if isinstance(dp, str) else (dp or ())))
+    hq, hkv, hd = arch.n_heads, arch.n_kv_heads, arch.resolved_head_dim
+    dt = L.dt(arch)
+    meta = lambda *sh: torch.empty(sh, dtype=dt, device="meta")
+    pos = torch.empty((), dtype=torch.int64, device="meta")
+    fits = lambda n: n >= m and n % m == 0
+    flops = nbytes = 0
+    for spec in arch.layer_specs():
+        if spec.mixer not in L.ATTN_MIXERS:
+            continue
+        window = L.layer_window(arch, spec)
+        if L.FLASH_DECODE and s % m == 0:
+            kv = meta(bl, hkv, s // m, hd)
+            work = max((flash_attn.decode_work(
+                meta(bl, hq, 1, hd), kv, kv, pos, window,
+                kv_base=j * (s // m), return_lse=True, positions=s - 1)
+                for j in range(m)), key=lambda w: w[1])
+        else:
+            if fits(hkv):
+                hql, hkl = hq // m, hkv // m
+            elif L.GQA_REPEAT and fits(hq):
+                hql = hkl = hq // m
+            else:
+                hql, hkl = hq, hkv
+            kv = meta(bl, hkl, s, hd)
+            work = flash_attn.decode_work(meta(bl, hql, 1, hd), kv, kv, pos,
+                                          window, positions=s - 1)
+        flops += work[0]
+        nbytes += work[1]
+    return {"flops_per_chip": flops, "bytes_per_chip": nbytes,
+            "flash_decode": L.FLASH_DECODE, "gqa_repeat": L.GQA_REPEAT,
+            "not_counted": "the flash-decoding merge's all-reduces over "
+                           "'model' (three per layer)"}
+
+
 def cell_result(cell: Cell, count: R.StepCount, out, mesh,
                 infer_fsdp: bool = True) -> dict:
     """The reference's per-cell keys for ``count`` over ``mesh``."""
@@ -192,6 +249,14 @@ def cell_result(cell: Cell, count: R.StepCount, out, mesh,
         "the residual stream's tensor-parallel collectives over 'model' "
         "(multi-card execution is not ported)"))
     flops, nbytes = count.flops / chips, count.bytes / chips
+    extra = {}
+    if kind == "decode" and "flash_decode" in count.kernels:
+        # the attention per device, in place of its share of the count
+        att = device_decode_attention(cell.arch, cell.shape, mesh)
+        k = count.kernels["flash_decode"]
+        flops += att["flops_per_chip"] - k["flops"] / chips
+        nbytes += att["bytes_per_chip"] - k["bytes"] / chips
+        extra["decode_attention"] = att
     total, active = param_count(cell.arch)
     mf = R.model_flops_per_step(cell.arch, cell.shape, chips, total, active)
     return {
@@ -206,7 +271,8 @@ def cell_result(cell: Cell, count: R.StepCount, out, mesh,
         },
         "flops_per_chip": flops,
         "bytes_per_chip": nbytes,
-        "per_chip_is": "the one-card step's count divided by the devices",
+        "per_chip_is": "the one-card step's count divided by the "
+                       "devices; a decode step's attention the device's own",
         "counted": count.to_dict(),
         "collectives": colls,
         "roofline": R.roofline_terms(flops, nbytes,
@@ -216,6 +282,7 @@ def cell_result(cell: Cell, count: R.StepCount, out, mesh,
         "useful_flops_ratio": (mf / flops) if flops else None,
         "params_total": total, "params_active": active,
         "constants": "H100 SXM5 datasheet (roofline.HW), not measured",
+        **extra,
     }
 
 
@@ -280,14 +347,14 @@ def main(argv=None):
     ap.add_argument("--remat", default="full")
     ap.add_argument("--no-infer-fsdp", action="store_true")
     ap.add_argument("--expert-2d", action="store_true")
-    # the reference's JAX layer knobs, which the port's layers do not have
+    # the reference's layer knobs (lm/layers.py), as the reference sets them
     ap.add_argument("--gqa-repeat", action="store_true")
     ap.add_argument("--flash-decode", action="store_true")
     args = ap.parse_args(argv)
     if args.gqa_repeat:
-        raise L.unported("--gqa-repeat (the JAX layers' GQA_REPEAT)")
+        L.set_gqa_repeat(True)
     if args.flash_decode:
-        raise L.unported("--flash-decode (the JAX layers' FLASH_DECODE)")
+        L.set_flash_decode(True)
     if args.expert_2d:
         S.set_expert_2d(True)
 

@@ -4,8 +4,15 @@ sharding rules read, and the process mesh the DD force path runs on.
 The reference builds a JAX ``Mesh`` over real (or forced host) devices.
 The port's sharding rules (``lm/sharding.py``) and the dry run
 (``launch/dryrun.py``) read only a mesh's axis names and sizes, so a
-``MeshLayout`` is exactly that: no devices behind it, and a layout of more
-than one device is accounting only for the LM.
+``MeshLayout`` is exactly that: no devices behind it.
+
+:func:`make_lm_mesh` is the counterpart of the LM's ``("data", "model")``
+JAX mesh: an :class:`LMMesh` over an initialised process group, one
+process per device, built with ``torch.distributed.device_mesh``; the LM's
+entry points (``lm/model.py``, ``lm/train_lib.py``, ``lm/serve_lib.py``)
+run over it with the sharding rules' specs as DTensor placements.  A
+``MeshLayout`` stays the accounting's: passed to an entry point, one
+device runs as no mesh and more raise.
 
 :func:`make_dd_mesh` is the counterpart of the reference's 1-D ``"dd"``
 mesh: a :class:`DDMesh` over an initialised ``torch.distributed`` process
@@ -310,3 +317,75 @@ def make_ensemble_mesh(n_replica_shards: int, n_dd: int, device="cuda",
     row, col = divmod(index, wd)
     dd = DDMesh(dd_groups[row], wd, col, dev, n_dd, want)
     return EnsembleMesh(dd, rep_groups[col], rs, row, index, replica_axis)
+
+
+class LMMesh:
+    """The LM's ``("data", "model")`` mesh over a process group: the
+    counterpart of the reference's ``jax.make_mesh((data, model), ("data",
+    "model"))``.
+
+    ``world = data * model`` processes laid out row-major (the last axis
+    fastest, as ``jax.make_mesh`` orders devices): process ``p`` sits at
+    ``coords = (p // model, p % model)``.  ``device_mesh`` is the
+    ``torch.distributed`` ``DeviceMesh`` (``mesh_dim_names == ("data",
+    "model")``) the DTensors live on; ``axis_names``, ``shape`` and
+    ``size`` are what ``lm/sharding.py``'s rules read, as from a
+    ``MeshLayout``.  ``backend`` is the group's (NCCL one card a process,
+    gloo on the CPU, gloo on CUDA tensors only when named)."""
+
+    def __init__(self, device_mesh, device: torch.device, backend: str):
+        self.device_mesh = device_mesh
+        self.device = device
+        self.backend = backend
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.axis_sizes = tuple(int(n) for n in device_mesh.mesh.shape)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    @property
+    def coords(self) -> tuple[int, ...]:
+        """This process's coordinate along each axis."""
+        return tuple(self.index(a) for a in self.axis_names)
+
+    def index(self, axis: str) -> int:
+        """This process's coordinate along ``axis``."""
+        return self.device_mesh.get_local_rank(axis)
+
+
+def make_lm_mesh(data: int, model: int, device="cuda",
+                 backend: Optional[str] = None,
+                 timeout_s: Optional[float] = None) -> LMMesh:
+    """The ``(data, model)`` LM mesh over the initialised default group,
+    whose world size must be ``data * model`` (``init_device_mesh``: one
+    subgroup per row and per column, ``timeout_s`` their timeout in
+    seconds; ``torch.distributed``'s default otherwise).  The device and backend follow
+    :func:`make_dd_mesh`'s rules: the backend follows the device unless
+    named (``"gloo"`` on CUDA is taken only when named), NCCL takes one
+    card a process, and CUDA without a card raises unless ``device="cpu"``.
+    A ``(1, 1)`` mesh is a mesh too: its tensors are DTensors over one
+    process.  Raises without an initialised group and when the world size
+    is not ``data * model``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    group, world, index = _default_group("make_lm_mesh")
+    resolve_device(device)      # CUDA without a card raises here
+    if data < 1 or model < 1 or data * model != world:
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} "
+                         f"processes; the group has {world}")
+    dev, want = _mesh_device(device, backend, world, index)
+    kw = {}
+    if timeout_s is not None:
+        opts = (dist.ProcessGroupNCCL.Options() if want == "nccl"
+                else dist.ProcessGroupGloo._Options())
+        opts._timeout = datetime.timedelta(seconds=timeout_s)
+        kw["backend_override"] = {"data": (want, opts),
+                                  "model": (want, opts)}
+    mesh = init_device_mesh(dev.type, (data, model),
+                            mesh_dim_names=("data", "model"), **kw)
+    return LMMesh(mesh, dev, want)

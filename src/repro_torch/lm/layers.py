@@ -15,8 +15,19 @@ flash kernel on CUDA tensors, its plain version on CPU tensors (MLA's
 prefill takes the kernel's (192, 128) instance; its absorbed decode, over a
 576-wide latent cache, stays plain, as the JAX package computes it outside
 any kernel).  MoE, Mamba and RWKV6 are plain PyTorch, as the JAX package
-leaves them to XLA.  Not ported: the JAX mesh knobs (``GQA_REPEAT``,
-``FLASH_DECODE``, ``maybe_constrain``), which one card does not need.
+leaves them to XLA.
+
+Over a ``("data", "model")`` process mesh (``launch/mesh.py::LMMesh``)
+the dense-attention slice runs on local shards (``lm/sharding.py::
+MeshRun``): :func:`attention_mesh`, :func:`mlp_mesh` and
+:func:`attention_decode_mesh` take the residual stream as a DTensor and
+call the kernels on this process's heads, batch rows or cache slice, with
+the reference's two mesh knobs, :data:`GQA_REPEAT` and
+:data:`FLASH_DECODE` (off by default, as there).  The reference's
+``maybe_constrain`` has no counterpart: the blocks put their outputs in
+the residual stream's placements.  What stays unported over a mesh is
+ROADMAP item 14(c') (the other mixers, graphed mesh decode, adam8bit
+across shards) and 14(b') (serving over processes).
 """
 from __future__ import annotations
 
@@ -26,9 +37,32 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig, LayerSpec
+from ..kernels import flash_attn
 from ..kernels.ops import attention_op, decode_attention_op
 
 ATTN_MIXERS = ("attn", "attn_local")
+
+# The reference's mesh knobs (repro/lm/layers.py), off by default.
+# GQA_REPEAT: where the "model" axis does not divide the KV heads, repeat
+# K/V to the query heads and shard those (off: that attention runs
+# replicated over "model", as XLA runs the reference's).  FLASH_DECODE:
+# decode over a cache sharded by its sequence over "model" attends each
+# slice locally and merges the slices by their log-sum-exp (off: the cache
+# is gathered first).
+GQA_REPEAT = False
+FLASH_DECODE = False
+
+
+def set_gqa_repeat(v: bool) -> None:
+    global GQA_REPEAT
+    GQA_REPEAT = v
+
+
+def set_flash_decode(v: bool) -> None:
+    global FLASH_DECODE
+    FLASH_DECODE = v
+
+
 # tensors above this many elements are drawn slice by slice along their
 # leading axes, so the fp32 draw's transient stays ~1 GiB (deepseek-v3's
 # stacked w_gate alone is 3.76 G elements)
@@ -38,11 +72,14 @@ DRAW_WHOLE = 2 ** 28
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: what remains of the JAX package is "
-        "multi-card execution (ROADMAP Queue 1 item 14: a device mesh of "
-        "more than one card, the specs of lm/sharding.py applied, NCCL "
-        "collectives); the port serves and trains every registry "
-        "architecture on one card and accounts for a multi-card layout "
-        "(launch/dryrun.py)")
+        "multi-card execution of the rest of the LM (ROADMAP Queue 1 item "
+        "14(c'): the MoE, MLA, Mamba, RWKV6 and cross-attention mixers, the "
+        "encoder and MTP over a device mesh, graphed decode over more than "
+        "one device, adam8bit across shards) and serving over processes "
+        "(item 14(b')); the port trains, prefills and decodes the "
+        "dense-attention architectures over an LMMesh "
+        "(launch/mesh.py::make_lm_mesh) and every registry architecture on "
+        "one card")
 
 
 def dt(cfg: ArchConfig) -> torch.dtype:
@@ -144,16 +181,20 @@ def init_attention(generator, cfg: ArchConfig, dtype, device,
     return p
 
 
-def attention_qkv(p, x, cfg: ArchConfig, positions):
-    """Returns q (B,H,S,hd), k/v (B,Hkv,S,hd) with rope/norm/bias applied."""
+def attention_qkv(p, x, cfg: ArchConfig, positions, heads=slice(None),
+                  kv_heads=slice(None)):
+    """Returns q (B,H,S,hd), k/v (B,Hkv,S,hd) with rope/norm/bias applied.
+    Over a mesh ``wq`` holds the query heads ``heads`` and ``wk``/``wv``
+    the KV heads ``kv_heads`` of the whole biases (whose layout mixes the
+    heads: the reference reshapes bq's transpose)."""
     q = torch.einsum("bsd,dhe->bhse", x, p["wq"])
     k = torch.einsum("bsd,dhe->bhse", x, p["wk"])
     v = torch.einsum("bsd,dhe->bhse", x, p["wv"])
     if cfg.qkv_bias:
         # the reference reshapes bq's transpose (as written in JAX)
-        q = q + p["bq"].T.reshape(1, cfg.n_heads, 1, -1)
-        k = k + p["bk"].reshape(1, cfg.n_kv_heads, 1, -1)
-        v = v + p["bv"].reshape(1, cfg.n_kv_heads, 1, -1)
+        q = q + p["bq"].T.reshape(1, cfg.n_heads, 1, -1)[:, heads]
+        k = k + p["bk"].reshape(1, cfg.n_kv_heads, 1, -1)[:, kv_heads]
+        v = v + p["bv"].reshape(1, cfg.n_kv_heads, 1, -1)[:, kv_heads]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -200,6 +241,216 @@ def attention_decode(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos):
                             window=layer_window(cfg, spec),
                             softcap=cfg.attn_softcap)
     return torch.einsum("bhse,hed->bsd", o, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# The dense-attention slice over a process mesh (lm/sharding.py::MeshRun)
+# ---------------------------------------------------------------------------
+
+def attn_mode(cfg: ArchConfig, mp: int) -> str:
+    """How the attention shards over a "model" axis of ``mp``: ``"heads"``
+    (q and K/V heads over "model"), ``"repeat"`` (GQA_REPEAT: K/V repeated
+    to the query heads, which shard) or ``"replicated"``."""
+    if cfg.n_kv_heads >= mp and cfg.n_kv_heads % mp == 0:
+        return "heads"
+    if GQA_REPEAT and cfg.n_heads >= mp and cfg.n_heads % mp == 0:
+        return "repeat"
+    return "replicated"
+
+
+def _qkv_mesh(p, hl, cfg: ArchConfig, positions, run, mode: str,
+              q_tp=None):
+    """q, k, v on local tensors: q's heads this process's (all where
+    ``mode`` is "replicated", or as ``q_tp`` says), K/V's this process's
+    in the "heads" mode and all of them otherwise."""
+    tp = mode != "replicated"
+    q_tp = tp if q_tp is None else q_tp
+    lp = {"wq": run.weight(p["wq"], q_tp, tp)}
+    lp.update({k: run.weight(p[k], tp, tp) for k in ("wk", "wv")})
+    for k in ("bq", "bk", "bv", "q_norm", "k_norm"):
+        if k in p:
+            lp[k] = run.weight(p[k], False, tp)
+    return attention_qkv(lp, hl, cfg, positions,
+                         run.heads(cfg.n_heads, q_tp),
+                         run.heads(cfg.n_kv_heads, mode == "heads"))
+
+
+def _repeat_kv(k, v, cfg: ArchConfig, run):
+    """GQA_REPEAT: K/V (all KV heads) repeated to the query heads, this
+    process's block of them (``jnp.repeat`` along the heads)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    heads = run.heads(cfg.n_heads, True)
+    return (k.repeat_interleave(g, dim=1)[:, heads].contiguous(),
+            v.repeat_interleave(g, dim=1)[:, heads].contiguous())
+
+
+def _out_proj(p, o, run, tp: bool):
+    """o (B, H, S, hd) of this process's heads (all without ``tp``) times
+    its block of ``wo``: a partial sum over "model" where ``tp``."""
+    return torch.einsum("bhse,hed->bsd", o, run.weight(p["wo"], tp, tp))
+
+
+def attention_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, positions, run,
+                   causal=True):
+    """:func:`attention_layer` over a mesh: ``h`` the normed stream (a
+    DTensor), gathered along the sequence; the attention kernel on this
+    process's batch rows and heads (:func:`attn_mode`); the output
+    projection's partial sums reduce-scattered back to ``h``'s placements.
+    Returns (out, k, v): k/v (B_local, Hkv_local or Hkv, S, hd) before any
+    repeat, what a cache keeps."""
+    mode = attn_mode(cfg, run.mp)
+    tp = mode != "replicated"
+    hl = run.act(h, tp)
+    q, k, v = _qkv_mesh(p, hl, cfg, positions, run, mode)
+    kk, vv = _repeat_kv(k, v, cfg, run) if mode == "repeat" else (k, v)
+    o = chunked_attention(q, kk, vv, causal=causal,
+                          window=layer_window(cfg, spec),
+                          softcap=cfg.attn_softcap)
+    return run.out(_out_proj(p, o, run, tp), tp, h.placements), k, v
+
+
+def mlp_mesh(p, h, cfg: ArchConfig, run):
+    """:func:`mlp_layer` over a mesh: the hidden width over "model" where
+    it divides (column- then row-parallel), else replicated."""
+    tp = cfg.d_ff >= run.mp and cfg.d_ff % run.mp == 0
+    hl = run.act(h, tp)
+    lp = {k: run.weight(p[k], tp, tp) for k in ("w_gate", "w_up", "w_down")}
+    return run.out(mlp_layer(lp, hl, cfg.act), tp, h.placements)
+
+
+class CacheLayout:
+    """How a layer's K/V cache (B, Hkv, S_max, hd) lies over the mesh
+    (``sharding.cache_spec``): ``"heads"`` (the KV heads over "model"),
+    ``"seq"`` (the flash-decoding layout: the sequence over "model", this
+    process's slice starting at key ``base``) or ``"replicated"``."""
+
+    def __init__(self, cfg: ArchConfig, s_max: int, run):
+        mp = run.mp
+        if cfg.n_kv_heads >= mp and cfg.n_kv_heads % mp == 0:
+            self.mode = "heads"
+        elif s_max % mp == 0:
+            self.mode = "seq"
+        else:
+            self.mode = "replicated"
+        self.s_loc = s_max // mp if self.mode == "seq" else s_max
+        self.base = run.mi * self.s_loc if self.mode == "seq" else 0
+
+    def write_prefill(self, cache, k, v):
+        """Keys and values of positions [0, S) into this process's rows."""
+        s = k.shape[2]
+        lo, hi = self.base, min(self.base + self.s_loc, s)
+        if hi > lo:
+            cache["k"][:, :, :hi - lo] = k[:, :, lo:hi]
+            cache["v"][:, :, :hi - lo] = v[:, :, lo:hi]
+
+    def write_decode(self, cache, k_new, v_new, pos):
+        """Position ``pos`` (a device tensor) into the slice that owns it,
+        with no host read: elsewhere the row at the clamped index is
+        written back unchanged."""
+        if self.mode != "seq":
+            cache["k"].index_copy_(2, pos.reshape(1), k_new)
+            cache["v"].index_copy_(2, pos.reshape(1), v_new)
+            return
+        r = (pos - self.base).clamp(0, self.s_loc - 1).reshape(1)
+        own = (pos >= self.base) & (pos < self.base + self.s_loc)
+        for name, new in (("k", k_new), ("v", v_new)):
+            c = cache[name]
+            c.index_copy_(2, r, torch.where(own, new, c.index_select(2, r)))
+
+
+def _gather_heads(q, run):
+    """q (B_local, Hq / mp, 1, hd) of this process's heads -> all heads."""
+    from . import sharding as S
+    dt = S.dt_api()
+    return S.from_local(q, run.mesh, (run.bp, dt.Shard(1))).redistribute(
+        run.dm, (run.bp, dt.Replicate())).to_local()
+
+
+def flash_decode_sharded(q, k_slice, v_slice, pos, window: int,
+                         softcap: float, run, base: int):
+    """Distributed flash decoding (the reference's
+    ``_flash_decode_sharded``): q (B, Hq, 1, hd) with every head on every
+    process of "model", K/V this process's sequence slice of the cache,
+    whose row 0 is key ``base``.  The decode kernel attends the slice
+    (keys < pos + 1 by their global index, ``kv_base``) and returns its
+    rows' log-sum-exp; the slices merge over "model" as
+    m = max lse, w = exp(lse - m), O = sum(w O) / sum(w), in fp32: three
+    all-reduces of (B, Hq, 1[, hd]) values and no gather of the cache.  A
+    slice that sees no key has lse = -inf and weight 0."""
+    from . import sharding as S
+    dt = S.dt_api()
+    o, lse = flash_attn.flash_decode(q, k_slice, v_slice, pos, window,
+                                     softcap, kv_base=base, return_lse=True)
+
+    def reduce(t, op):
+        return S.from_local(t, run.mesh, (run.bp, dt.Partial(op))
+                            ).redistribute(run.dm, (run.bp, dt.Replicate())
+                                           ).to_local()
+
+    m = reduce(lse, "max")
+    w = torch.exp(lse - m)[..., None]
+    num = reduce(w * o.to(torch.float32), "sum")
+    den = reduce(w, "sum")
+    return (num / den).to(q.dtype)
+
+
+def attention_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache,
+                          pos, run, layout: CacheLayout):
+    """:func:`attention_decode` over a mesh, eager: ``h`` (B, 1, D) a
+    DTensor replicated over "model", ``cache`` this process's block of the
+    layer's K/V (``layout``), written in place at ``pos`` (a 0-d device
+    tensor) by the process that owns it.
+
+    * "heads" cache: q and K/V heads over "model", the decode kernel on
+      this process's heads, the output projection's partial sums reduced.
+    * "seq" cache (too few KV heads for "model"): with FLASH_DECODE,
+      :func:`flash_decode_sharded` on this process's slice (q gathered to
+      every head), no gather of the cache; without it the cache is
+      all-gathered (as GSPMD gathers it for the reference) and attended
+      whole, by heads with GQA_REPEAT (K/V repeated), else replicated.
+      The reference's knob runs the sharded decode wherever S_max divides,
+      resharding a cache laid out by heads; here a cache laid out by heads
+      decodes its heads locally, which needs no merge; the two agree
+      within fp32 rounding.
+    * "replicated" cache: attended whole, as the seq cache after its
+      gather."""
+    pos = decode_position(pos, h.device)
+    mode = attn_mode(cfg, run.mp)
+    tp = mode != "replicated"
+    flash = layout.mode == "seq" and FLASH_DECODE
+    # the flash-decoding path projects q by heads and gathers q (B, Hq, 1,
+    # hd), not the weight
+    q_tp = (cfg.n_heads >= run.mp and cfg.n_heads % run.mp == 0) \
+        if flash else tp
+    hl = run.act(h, tp)
+    q, k_new, v_new = _qkv_mesh(p, hl, cfg, pos.expand(hl.shape[0], 1),
+                                run, mode, q_tp)
+    layout.write_decode(cache, k_new, v_new, pos)
+    window, cap = layer_window(cfg, spec), cfg.attn_softcap
+    if layout.mode == "heads":
+        o = decode_attention_op(q, cache["k"], cache["v"], pos, window, cap)
+        out_tp = True
+    elif flash:
+        qa = _gather_heads(q, run) if q_tp else q
+        o = flash_decode_sharded(qa, cache["k"], cache["v"], pos, window,
+                                 cap, run, layout.base)
+        out_tp = q_tp
+        if out_tp:
+            o = o[:, run.heads(cfg.n_heads, True)]
+    else:
+        k, v = cache["k"], cache["v"]
+        if layout.mode == "seq":
+            from . import sharding as S
+            dt = S.dt_api()
+            k, v = (S.from_local(c, run.mesh, (run.bp, dt.Shard(2))
+                                 ).redistribute(run.dm, (run.bp,
+                                                         dt.Replicate())
+                                                ).to_local() for c in (k, v))
+        if mode == "repeat":
+            k, v = _repeat_kv(k, v, cfg, run)
+        o = decode_attention_op(q, k, v, pos, window, cap)
+        out_tp = tp
+    return run.out(_out_proj(p, o, run, out_tp), out_tp, h.placements)
 
 
 # ---------------------------------------------------------------------------

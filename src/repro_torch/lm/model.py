@@ -13,9 +13,15 @@ tensor once, so that its gradient is one stack of the steps' gradients).
 
 ``forward(remat="full")`` recomputes each prefix layer and each pattern
 period in the backward (``torch.utils.checkpoint``, non-reentrant), as the
-reference checkpoints them.  ``mesh``: None or a layout of one device
-(``launch/mesh.py``), run as no mesh; a larger layout raises (multi-card
-execution is not ported).
+reference checkpoints them.
+
+``mesh``: None, a ``MeshLayout`` of one device (run as no mesh), or a
+``("data", "model")`` process mesh (``launch/mesh.py::LMMesh``) for the
+dense-attention architectures, whose parameters are then DTensors laid
+out by ``lm/sharding.py``'s specs (``distribute_params``): the embedding
+and the LM head vocabulary-parallel, the residual stream under the
+reference's ``activation_constraint`` between layers, each block on local
+shards (``sharding.MeshRun``), the logits under ``logits_constraint``.
 """
 from __future__ import annotations
 
@@ -110,9 +116,10 @@ def step_params(stacked: dict, s: int) -> dict:
 def unstack(stacked: dict, n: int) -> list[dict]:
     """Every step of a tree of tensors stacked along ``(n,)``, as views
     from one ``unbind`` per tensor: under autograd the steps' gradients
-    come back as one stack, not as n full-size scatters."""
+    come back as one stack, not as n full-size scatters (DTensors are
+    unbound on their blocks, ``sharding.unbind0``)."""
     def split(tree):
-        return {k: split(v) if isinstance(v, dict) else v.unbind(0)
+        return {k: split(v) if isinstance(v, dict) else S.unbind0(v)
                 for k, v in tree.items()}
 
     def pick(tree, s):
@@ -222,8 +229,92 @@ def embed(params, tokens):
     return F.embedding(tokens, params["embed"])
 
 
+# ---------------------------------------------------------------------------
+# Over a process mesh: the dense-attention slice (sharding.MeshRun)
+# ---------------------------------------------------------------------------
+
+def _vocab_tp(cfg: ArchConfig, run) -> bool:
+    return cfg.vocab >= run.mp and cfg.vocab % run.mp == 0
+
+
+def embed_mesh(params, cfg: ArchConfig, tokens, run, like):
+    """The embedding over a mesh, vocabulary-parallel where "model"
+    divides the vocabulary: each process looks up the tokens of its rows
+    of the table (zeros for the others), and the partial sums are
+    reduce-scattered to the placements ``like``.  ``tokens`` a DTensor."""
+    tp = _vocab_tp(cfg, run)
+    w = run.weight(params["embed"], tp, tp)
+    tok = tokens.to_local()
+    if not tp:
+        return run.out(F.embedding(tok, w), False, like)
+    idx = tok - run.mi * w.shape[0]
+    ok = (idx >= 0) & (idx < w.shape[0])
+    e = F.embedding(idx.clamp(0, w.shape[0] - 1), w)
+    return run.out(torch.where(ok[..., None], e, e.new_zeros(())), True,
+                   like)
+
+
+def head_mesh(params, cfg: ArchConfig, x, run, softcap: bool = True):
+    """The LM head over a mesh: the normed stream ``x`` (a DTensor)
+    gathered, times this process's vocabulary columns; the logits (soft
+    capped with ``softcap``) as a DTensor under the reference's
+    ``logits_constraint`` (batch over "data", vocabulary over "model")."""
+    dt = S.dt_api()
+    tp = _vocab_tp(cfg, run)
+    xl = run.act(x, tp)
+    w = run.weight(params["embed"] if cfg.tie_embeddings
+                   else params["lm_head"], tp, tp)
+    logits = xl @ (w.T if cfg.tie_embeddings else w)
+    if softcap:
+        logits = final_softcap(cfg, logits)
+    return S.from_local(logits, run.mesh,
+                        (run.bp, dt.Shard(2) if tp else dt.Replicate()))
+
+
+def apply_layer_mesh(p, x, cfg: ArchConfig, spec: LayerSpec, positions,
+                     run):
+    """:func:`apply_layer` over a mesh, ``x`` the residual stream (a
+    DTensor; the norms run on its blocks, row by row)."""
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + L.attention_mesh(p["mixer"], h, cfg, spec, positions, run)[0]
+    h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + L.mlp_mesh(p["mlp"], h, cfg, run)
+
+
+def _forward_mesh(params, cfg: ArchConfig, tokens, remat: str, mesh,
+                  seq_shard: bool):
+    prefix_n, n_steps, pattern = cfg.scan_pattern()
+    specs = cfg.layer_specs()
+    run = S.MeshRun(mesh, tokens.shape[0])
+    tokens = run.batch(tokens)
+    positions = torch.arange(tokens.shape[1], device=mesh.device)
+    dt = S.dt_api()
+    x = embed_mesh(params, cfg, tokens, run, (run.bp, dt.Replicate()))
+    x = S.activation_constraint(x, mesh, seq_shard)
+
+    def run_layers(layer_ps, layer_specs, h):
+        for layer_p, spec in zip(layer_ps, layer_specs):
+            h = apply_layer_mesh(layer_p, h, cfg, spec, positions, run)
+        return h
+
+    def block(layer_ps, layer_specs, h):
+        if remat == "full":
+            return checkpoint(run_layers, layer_ps, layer_specs, h,
+                              use_reentrant=False, preserve_rng_state=False)
+        return run_layers(layer_ps, layer_specs, h)
+
+    for i in range(prefix_n):
+        x = block([params["prefix"][i]], [specs[i]], x)
+    steps = [unstack(p, n_steps) for p in params["pattern"]]
+    for st in range(n_steps):
+        x = block([steps[j][st] for j in range(len(pattern))], pattern, x)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return head_mesh(params, cfg, x, run)
+
+
 def forward(params, cfg: ArchConfig, tokens, context=None,
-            return_hidden: bool = False, remat: str = "none", mesh=None):
+            return_hidden: bool = False, remat: str = "none", mesh=None,
+            seq_shard: bool = True):
     """tokens (B, S) -> (logits (B, S, V), aux_loss), the MoE layers' aux
     losses summed; ``context``: frame or patch embeddings (B, T, D); with
     ``return_hidden`` also the final normed hidden states.
@@ -233,10 +324,20 @@ def forward(params, cfg: ArchConfig, tokens, context=None,
     its activations (``torch.utils.checkpoint``, non-reentrant): only the
     residual stream between them is saved, the reference's policy.  The
     recomputation repeats the forward's operations, so loss and gradients
-    are the same bits as with ``remat="none"``."""
-    S.require_one_card(mesh, "forward")
+    are the same bits as with ``remat="none"``.
+
+    Over an ``LMMesh`` (the dense-attention architectures): ``params``
+    DTensors, ``tokens`` a DTensor or the whole batch on every process;
+    the logits a DTensor (batch over "data", vocabulary over "model"),
+    aux 0; ``seq_shard`` (``TrainHParams.seq_shard_activations``) shards
+    the residual stream's sequence over "model" between layers."""
+    mesh = S.executing_mesh(mesh, cfg, "forward")
     if remat not in ("none", "full"):
         raise ValueError(f"remat is 'none' or 'full', not {remat!r}")
+    if mesh is not None:
+        logits = _forward_mesh(params, cfg, tokens, remat, mesh, seq_shard)
+        aux = torch.zeros((), dtype=torch.float32, device=mesh.device)
+        return logits, aux
     prefix_n, n_steps, pattern = cfg.scan_pattern()
     specs = cfg.layer_specs()
     s = tokens.shape[1]

@@ -19,6 +19,15 @@ Unlike the JAX functions, which return new caches, the port writes the
 cache in place: prefill fills positions ``[:S]`` and the recurrent state, a
 decode step position ``pos`` and the state.  Both run under
 ``torch.no_grad()``.
+
+Over a ``("data", "model")`` process mesh (``launch/mesh.py::LMMesh``,
+the dense-attention architectures) the parameters and the cache are
+DTensors laid out by ``lm/sharding.py``'s specs (the cache by
+``cache_shardings``: batch over "data", KV heads over "model", or the
+sequence where the heads are too few, the flash-decoding layout); each
+process writes its block of the cache in place; prefill and decode
+steps run eager (a CUDA graph does not capture the collectives) and
+return logits as DTensors (batch over "data", vocabulary over "model").
 """
 from __future__ import annotations
 
@@ -83,6 +92,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device,
                                      lead=(n_steps,)) for spec in pattern]}
 
 
+def init_cache_mesh(cfg: ArchConfig, batch: int, max_len: int, mesh,
+                    ctx_len: Optional[int] = None) -> dict:
+    """:func:`init_cache` over an ``LMMesh``: each process allocates only
+    its zero block of every leaf (``sharding.cache_shardings``), held as
+    DTensors."""
+    specs = S.cache_shardings(abstract_cache(cfg, batch, max_len), mesh)
+    spec_of = dict(S.leaves_with_paths(specs))
+
+    def block(path, leaf):
+        spec = spec_of[path]
+        local = torch.zeros(S.shard_shape(leaf.shape, spec, mesh),
+                            dtype=leaf.dtype, device=mesh.device)
+        return S.from_local(local, mesh, S.placements(spec, mesh), leaf.shape)
+
+    return S.map_with_paths(block, abstract_cache(cfg, batch, max_len))
+
+
 def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """The cache tree on the ``meta`` device: shapes and dtypes, no
     storage (the dry run's input, as the reference's ShapeDtypeStructs)."""
@@ -129,14 +155,55 @@ def decode_layer(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos):
     return x + o, cache
 
 
+def decode_layer_mesh(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos,
+                      run, layout):
+    """:func:`decode_layer` over a mesh (the dense-attention slice): ``x``
+    a DTensor, ``cache`` this process's block of the layer's K/V."""
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + L.attention_decode_mesh(p["mixer"], h, cfg, spec, cache, pos,
+                                    run, layout)
+    h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + L.mlp_mesh(p["mlp"], h, cfg, run)
+
+
+def _mesh_layers(params, cfg: ArchConfig):
+    """(layer params, spec) in execution order for DTensor parameters
+    (the stacked pattern unbound on its blocks)."""
+    prefix_n, n_steps, pattern = cfg.scan_pattern()
+    specs = cfg.layer_specs()
+    out = [(params["prefix"][i], specs[i]) for i in range(prefix_n)]
+    steps = [M.unstack(p, n_steps) for p in params["pattern"]]
+    for st in range(n_steps):
+        out += [(steps[j][st], spec) for j, spec in enumerate(pattern)]
+    return out
+
+
+def _local_layers(cache, cfg: ArchConfig):
+    """Each layer's block of a DTensor cache, as views of this process's
+    local tensors (written in place)."""
+    local = S.map_with_paths(lambda _, t: t.to_local(), cache)
+    return layer_caches(local, cfg)
+
+
+def _max_len(cache) -> int:
+    leaf = next(t for _, t in S.leaves_with_paths(cache))
+    return leaf.shape[-2]
+
+
 def make_serve_step(cfg: ArchConfig, mesh=None):
     """serve_step(params, cache, tokens (B,1), pos) -> (logits (B,1,V),
     cache); the cache is written in place.  ``pos`` is an int or a 0-d
     integer tensor, as the reference's ``pos ()``: the step reads it on the
     device only, so on the card it can be captured as a CUDA graph whose
     ``pos`` and ``tokens`` are static tensors (``launch/serve.py``).
-    ``mesh``: None or a layout of one device, run as no mesh."""
-    S.require_one_card(mesh, "serving")
+    ``mesh``: None or a layout of one device, run as no mesh; an
+    ``LMMesh``: ``params`` and ``cache`` DTensors (``init_cache_mesh`` or
+    a prefill's), ``tokens`` a DTensor or the whole (B, 1) on every
+    process, the logits a DTensor; eager, with the ``layers.FLASH_DECODE``
+    and ``layers.GQA_REPEAT`` knobs."""
+    mesh = S.executing_mesh(mesh, cfg, "serving")
+    if mesh is not None:
+        return _serve_step_mesh(cfg, mesh)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
@@ -148,6 +215,24 @@ def make_serve_step(cfg: ArchConfig, mesh=None):
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = M.final_softcap(cfg, M.logits_head(params, cfg, x))
         return logits, cache
+
+    return serve_step
+
+
+def _serve_step_mesh(cfg: ArchConfig, mesh):
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        dt = S.dt_api()
+        run = S.MeshRun(mesh, tokens.shape[0])
+        tokens = run.batch(tokens)
+        pos = L.decode_position(pos, mesh.device)
+        layout = L.CacheLayout(cfg, _max_len(cache), run)
+        x = M.embed_mesh(params, cfg, tokens, run, (run.bp, dt.Replicate()))
+        for (layer_p, spec), c in zip(_mesh_layers(params, cfg),
+                                      _local_layers(cache, cfg)):
+            x = decode_layer_mesh(layer_p, x, cfg, spec, c, pos, run, layout)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return M.head_mesh(params, cfg, x, run), cache
 
     return serve_step
 
@@ -207,8 +292,14 @@ def make_prefill(cfg: ArchConfig, max_len: Optional[int] = None, mesh=None):
     context stub.  As in the reference, the last logits are not soft-capped
     (``final_softcap``), unlike ``serve_step``'s and ``forward``'s; the
     greedy token is the same, tanh being monotone.  ``mesh``: None or a
-    layout of one device, run as no mesh."""
-    S.require_one_card(mesh, "serving")
+    layout of one device, run as no mesh; an ``LMMesh``: the
+    dense-attention slice over DTensor ``params``, the residual stream
+    under the reference's ``activation_constraint``, the cache made by
+    ``init_cache_mesh`` and filled block by block, the last logits a
+    DTensor."""
+    mesh = S.executing_mesh(mesh, cfg, "serving")
+    if mesh is not None:
+        return _prefill_mesh(cfg, max_len, mesh)
 
     @torch.no_grad()
     def prefill(params, tokens, context=None):
@@ -223,5 +314,35 @@ def make_prefill(cfg: ArchConfig, max_len: Optional[int] = None, mesh=None):
             x, _ = _prefill_layer(layer_p, x, cfg, spec, positions, ctx, c)
         x = L.rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
         return M.logits_head(params, cfg, x), cache
+
+    return prefill
+
+
+def _prefill_mesh(cfg: ArchConfig, max_len: Optional[int], mesh):
+    @torch.no_grad()
+    def prefill(params, tokens, context=None):
+        dt = S.dt_api()
+        b, s = tokens.shape
+        run = S.MeshRun(mesh, b)
+        tokens = run.batch(tokens)
+        cache = init_cache_mesh(cfg, b, max_len or s, mesh)
+        layout = L.CacheLayout(cfg, max_len or s, run)
+        positions = torch.arange(s, device=mesh.device)
+        x = M.embed_mesh(params, cfg, tokens, run, (run.bp, dt.Replicate()))
+        x = S.activation_constraint(x, mesh)
+        for (layer_p, spec), c in zip(_mesh_layers(params, cfg),
+                                      _local_layers(cache, cfg)):
+            h = L.rms_norm(x, layer_p["norm1"], cfg.norm_eps)
+            m, k, v = L.attention_mesh(layer_p["mixer"], h, cfg, spec,
+                                       positions, run)
+            layout.write_prefill(c, k, v)
+            x = x + m
+            h = L.rms_norm(x, layer_p["norm2"], cfg.norm_eps)
+            x = x + L.mlp_mesh(layer_p["mlp"], h, cfg, run)
+        whole = (run.bp, dt.Replicate())
+        last = S.from_local(x.redistribute(run.dm, whole).to_local()[:, -1:],
+                            mesh, whole)
+        last = L.rms_norm(last, params["final_norm"], cfg.norm_eps)
+        return M.head_mesh(params, cfg, last, run, softcap=False), cache
 
     return prefill

@@ -1,5 +1,6 @@
 """Sharding rules (``repro/lm/sharding.py``): parameter path -> partition
-spec over a mesh layout (``launch/mesh.py::MeshLayout``).
+spec over a mesh (``launch/mesh.py``), and those specs applied as DTensor
+placements over a process mesh (``LMMesh``).
 
 The reference's baseline strategy, rule for rule:
   * tensor parallel over "model": attention heads, ffn hidden, MoE experts,
@@ -19,15 +20,28 @@ the port's specs compare equal to JAX's.  Spec trees mirror the parameter
 (or cache) tree's dicts and lists, with the ``"/"``-joined paths JAX's
 ``tree_flatten_with_path`` gives (``pattern/0/mixer/wq``).
 
-The port executes on one card: the specs feed the accounting
-(``shard_shape``, ``launch/dryrun.py``).  The reference's activation and
-logits constraints come with multi-card execution, which has them to
-apply.
+Over a ``MeshLayout`` (no devices) the specs feed the accounting
+(``shard_shape``, ``launch/dryrun.py``).  Over an ``LMMesh`` they are
+DTensor placements (:func:`placements`: one per mesh axis, a tensor dim
+named by several axes sharded by them in mesh order, JAX's block order):
+:func:`distribute_params`, :func:`distribute_opt_state`,
+:func:`distribute_batch` and :func:`distribute_cache` cut each process's
+block from tensors every process holds whole (no communication), and
+:func:`gather` puts the blocks back together.  The reference's
+:func:`activation_constraint` and :func:`logits_constraint` are
+redistributions to its specs.  :class:`MeshRun` is what the LM's blocks
+use to run on local shards between redistributions (``lm/model.py``,
+``lm/layers.py``, ``lm/serve_lib.py``).  What runs over a mesh is the
+dense-attention slice (``attn``/``attn_local`` mixers, the dense MLP);
+:func:`executing_mesh` refuses the rest (ROADMAP item 14(c')).
 """
 from __future__ import annotations
 
 import math
+import sys
 from typing import Any, Optional
+
+import torch
 
 from . import layers as L
 
@@ -62,10 +76,48 @@ def spec_axes(spec) -> set:
     return out
 
 
-def require_one_card(mesh, what: str) -> None:
-    """``mesh`` is None or a layout of one device (run as no mesh)."""
-    if mesh is not None and mesh.size != 1:
-        raise L.unported(f"{what} over {mesh.size} devices")
+def is_lm_mesh(mesh) -> bool:
+    """``mesh`` is a process mesh (``launch/mesh.py::LMMesh``)."""
+    return getattr(mesh, "device_mesh", None) is not None
+
+
+def executing_mesh(mesh, cfg=None, what: str = "the LM",
+                   optimizer: Optional[str] = None):
+    """The mesh an entry point runs over: None for no mesh or a
+    ``MeshLayout`` of one device (run as no mesh), the ``LMMesh`` itself
+    for a process mesh.  Raises ``unported`` for a ``MeshLayout`` of more
+    devices (no devices behind it), for an architecture outside the
+    dense-attention slice over an ``LMMesh`` (MoE, MLA, Mamba, RWKV6,
+    cross-attention, the encoder, the modality stubs, MTP; a ``(1, 1)``
+    mesh included: the DTensor route covers only the slice), and for
+    ``adam8bit`` over more than one device (its quantisation blocks cross
+    the shards)."""
+    if mesh is None:
+        return None
+    if not is_lm_mesh(mesh):
+        if mesh.size != 1:
+            raise L.unported(
+                f"{what} over a MeshLayout of {mesh.size} devices (a layout "
+                "has no devices behind it: run over an LMMesh, "
+                "launch/mesh.py::make_lm_mesh)")
+        return None
+    if cfg is not None:
+        off = sorted({sp.mixer for sp in cfg.layer_specs()
+                      if sp.mixer not in L.ATTN_MIXERS}
+                     | {f"{sp.mlp} MLP" for sp in cfg.layer_specs()
+                        if sp.mlp != "dense"}
+                     | ({"the encoder and the context stub"}
+                        if cfg.enc_dec or cfg.cross_attn_every else set())
+                     | ({"MTP"} if cfg.mtp else set())
+                     | ({"RWKV channel mix"} if cfg.family == "ssm"
+                        else set()))
+        if off:
+            raise L.unported(f"{what} of {cfg.name} over a device mesh "
+                             f"({', '.join(off)})")
+    if optimizer == "adam8bit" and mesh.size > 1:
+        raise L.unported(f"adam8bit over {mesh.size} devices (its 256-value "
+                         "quantisation blocks cross the shards)")
+    return mesh
 
 
 def _fit2(dim_size: int, mesh) -> tuple | None:
@@ -237,6 +289,244 @@ def cache_shardings(cache: Any, mesh, long_context: bool = False):
     return map_with_paths(
         lambda path, leaf: cache_spec(path, tuple(leaf.shape), mesh,
                                       seq_axis_shard=seq_shard), cache)
+
+
+def activation_constraint(x, mesh, seq_shard: bool = True):
+    """Residual-stream constraint: batch over the dp axes, the sequence
+    over "model" (sequence parallelism) where ``seq_shard`` and it
+    divides; a redistribution of the DTensor ``x`` over an ``LMMesh``, the
+    identity without a mesh or over a one-device layout."""
+    if not is_lm_mesh(mesh):
+        executing_mesh(mesh, what="activation_constraint")
+        return x
+    if x.dim() != 3:
+        return x
+    seq = TP if (seq_shard and _fit(x.shape[1], TP, mesh)) else None
+    return x.redistribute(mesh.device_mesh,
+                          placements(P(dp_fit(x.shape[0], mesh), seq, None),
+                                     mesh))
+
+
+def logits_constraint(x, mesh):
+    """Logits (B, S, V): batch over the dp axes, vocabulary over "model"
+    where it divides (the identity without an ``LMMesh``, as above)."""
+    if not is_lm_mesh(mesh):
+        executing_mesh(mesh, what="logits_constraint")
+        return x
+    return x.redistribute(mesh.device_mesh,
+                          placements(P(dp_fit(x.shape[0], mesh), None,
+                                       _fit(x.shape[2], TP, mesh)), mesh))
+
+
+def dp_fit(n: int, mesh):
+    """The dp axes for a batch dim of ``n`` where they divide it."""
+    dp = _dp_axes(mesh)
+    k = _axes_size(mesh, dp)
+    return dp if (dp and n >= k and n % k == 0) else None
+
+
+# ---------------------------------------------------------------------------
+# Specs as DTensor placements over an LMMesh
+# ---------------------------------------------------------------------------
+
+def dt_api():
+    """``torch.distributed.tensor``, imported at first use (its import
+    takes a second; nothing without a process mesh needs it)."""
+    import torch.distributed.tensor as dt
+    return dt
+
+
+def is_dtensor(x) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _entry_axes(e) -> tuple:
+    return (e,) if isinstance(e, str) else tuple(e or ())
+
+
+def placements(spec, mesh) -> tuple:
+    """One placement per mesh axis: ``Shard(d)`` for each axis named by
+    entry ``d`` of ``spec``, ``Replicate()`` for the others.  A dim named
+    by several axes (``("data", "model")``) is sharded by them in mesh
+    order, the first axis outermost: JAX's block order for that entry.
+    Axes named against the mesh's order raise (a DTensor cannot hold that
+    order)."""
+    dt = dt_api()
+    out = [dt.Replicate()] * len(mesh.axis_names)
+    for dim, e in enumerate(spec):
+        idx = [mesh.axis_names.index(a) for a in _entry_axes(e)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {e!r} names its axes against the "
+                             f"mesh's order {mesh.axis_names}")
+        for i in idx:
+            out[i] = dt.Shard(dim)
+    return tuple(out)
+
+
+def block_slices(shape, spec, mesh, coords=None) -> tuple:
+    """This process's block of a ``shape`` laid out by ``spec``: JAX's
+    ``NamedSharding(mesh, spec).devices_indices_map(shape)`` at the
+    device with mesh coordinates ``coords`` (this process's by default)."""
+    at = dict(zip(mesh.axis_names, coords or mesh.coords))
+    block = shard_shape(shape, spec, mesh)
+    out = []
+    for dim, n in enumerate(block):
+        i = 0
+        for a in _entry_axes(spec[dim] if dim < len(spec) else None):
+            i = i * mesh.shape[a] + at[a]
+        out.append(slice(i * n, (i + 1) * n))
+    return tuple(out)
+
+
+def from_local(local: torch.Tensor, mesh, pl, shape=None):
+    """A DTensor over ``mesh`` from this process's block (no check, no
+    communication)."""
+    dt = dt_api()
+    kw = {}
+    if shape is not None:
+        kw = {"shape": torch.Size(shape),
+              "stride": torch.empty(shape, device="meta").stride()}
+    return dt.DTensor.from_local(local, mesh.device_mesh, pl,
+                                 run_check=False, **kw)
+
+
+def distribute(t: torch.Tensor, spec, mesh):
+    """``t``, the whole tensor, held alike by every process, as a DTensor
+    laid out by ``spec``: this process keeps a copy of its block."""
+    local = t[block_slices(t.shape, spec, mesh)].clone(
+        memory_format=torch.contiguous_format)
+    return from_local(local, mesh, placements(spec, mesh), t.shape)
+
+
+def distribute_tree(tree, specs, mesh):
+    """:func:`distribute` over a tree and its spec tree (leaves that are
+    DTensors already are kept)."""
+    spec_of = dict(leaves_with_paths(specs))
+    return map_with_paths(
+        lambda path, t: t if is_dtensor(t) else distribute(t, spec_of[path],
+                                                          mesh), tree)
+
+
+def distribute_params(params, mesh, fsdp: bool = True):
+    """A parameter tree laid out by :func:`params_shardings`."""
+    return distribute_tree(params, params_shardings(params, mesh, fsdp), mesh)
+
+
+def distribute_opt_state(opt_state, param_specs, mesh):
+    """An optimizer state laid out by ``train_lib.opt_state_shardings``
+    (Adam's m and v as their parameters, ``count`` replicated)."""
+    from .train_lib import opt_state_shardings
+    return distribute_tree(opt_state,
+                           opt_state_shardings(opt_state, param_specs, mesh),
+                           mesh)
+
+
+def distribute_batch(batch: dict, mesh):
+    """A training batch (``tokens``, ``labels`` (B, S); ``context`` (B, T,
+    D)) with the batch dim over the dp axes (``train_lib.batch_specs``)."""
+    dp = batch_spec(mesh)
+    specs = {k: P(dp[0] if dp else None, *([None] * (v.dim() - 1)))
+             for k, v in batch.items()}
+    return distribute_tree(batch, specs, mesh)
+
+
+def distribute_cache(cache, mesh, long_context: bool = False):
+    """A serving cache laid out by :func:`cache_shardings`."""
+    return distribute_tree(cache, cache_shardings(cache, mesh, long_context),
+                           mesh)
+
+
+def gather(tree):
+    """Whole tensors of a tree of DTensors (``full_tensor``; other leaves
+    kept): for tests and checkpoints."""
+    return map_with_paths(
+        lambda _, t: t.full_tensor() if is_dtensor(t) else t, tree)
+
+
+def unbind0(t) -> tuple:
+    """``t.unbind(0)``; a DTensor's leading (layer) dim, which the rules
+    never shard, unbound on its block, each step a DTensor."""
+    if not is_dtensor(t):
+        return t.unbind(0)
+    dt = dt_api()
+    if any(isinstance(p, dt.Shard) and p.dim == 0 for p in t.placements):
+        raise ValueError("the stacked layer dim is sharded")
+    pl = tuple(dt.Shard(p.dim - 1) if isinstance(p, dt.Shard) else p
+               for p in t.placements)
+    return tuple(dt.DTensor.from_local(x, t.device_mesh, pl, run_check=False)
+                 for x in t.to_local().unbind(0))
+
+
+class MeshRun:
+    """The local computation of one call over an ``LMMesh`` (Megatron's
+    tensor and sequence parallelism over "model", ZeRO over "data").
+
+    A block takes the residual stream (a DTensor: batch over "data" where
+    it divides, the sequence over "model" or replicated), gathers the
+    sequence (:meth:`act`), its weights over "data" (:meth:`weight`,
+    keeping their "model" shard where the block is tensor parallel), runs
+    the plain functions on this process's local tensors, and hands back
+    its output as a partial sum over "model" (tensor parallel) or whole,
+    reduce-scattered or sliced to the stream's placements (:meth:`out`).
+    The gradient placements given to ``to_local`` say what each process's
+    local gradient is (a partial sum where it covers a part of the
+    batch, of the heads or of the sequence), so DTensor's backward of each
+    redistribution is the matching collective: a weight's gradient comes
+    back reduce-scattered over "data" (ZeRO), an activation's
+    all-gathered or reduced over "model"."""
+
+    def __init__(self, mesh, batch: int):
+        dt = dt_api()
+        self.mesh, self.dm = mesh, mesh.device_mesh
+        self.mp, self.mi = mesh.shape[TP], mesh.index(TP)
+        sharded = dp_fit(batch, mesh) is not None
+        self.bp = dt.Shard(0) if sharded else dt.Replicate()
+        self.dgrad = dt.Partial() if sharded else dt.Replicate()
+
+    def _part(self, tp: bool):
+        dt = dt_api()
+        return dt.Partial() if tp else dt.Replicate()
+
+    def heads(self, n: int, tp: bool) -> slice:
+        """This process's block of ``n`` heads (all without ``tp``)."""
+        if not tp:
+            return slice(None)
+        k = n // self.mp
+        return slice(self.mi * k, (self.mi + 1) * k)
+
+    def batch(self, t):
+        """A batch tensor (B, ...) as a DTensor over this run's batch
+        placement (kept if it is one)."""
+        if is_dtensor(t):
+            return t
+        return distribute(t, P(dp_fit(t.shape[0], self.mesh),
+                               *([None] * (t.dim() - 1))), self.mesh)
+
+    def act(self, x, tp: bool) -> torch.Tensor:
+        """The block's input, whole along the sequence, local to this
+        process's batch rows; its gradient a partial sum over "model"
+        where the block is tensor parallel."""
+        dt = dt_api()
+        return x.redistribute(self.dm, (self.bp, dt.Replicate())).to_local(
+            grad_placements=(self.bp, self._part(tp)))
+
+    def weight(self, w, keep_model: bool, tp: bool) -> torch.Tensor:
+        """A weight gathered over "data" (ZeRO), keeping its "model" shard
+        where ``keep_model``, as a local tensor; its gradient a partial sum
+        over "data" (this process's batch rows) and over "model" where the
+        block is tensor parallel and the weight whole."""
+        dt = dt_api()
+        mpl = w.placements[1] if keep_model else dt.Replicate()
+        g = mpl if isinstance(mpl, dt.Shard) else self._part(tp)
+        return w.redistribute(self.dm, (dt.Replicate(), mpl)).to_local(
+            grad_placements=(self.dgrad, g))
+
+    def out(self, o: torch.Tensor, tp: bool, like):
+        """A block's local output (a partial sum over "model" where
+        ``tp``) as a DTensor with the placements ``like``."""
+        return from_local(o, self.mesh, (self.bp, self._part(tp))
+                          ).redistribute(self.dm, like)
 
 
 def shard_shape(shape, spec, mesh) -> tuple:

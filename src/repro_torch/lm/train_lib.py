@@ -10,12 +10,19 @@ port's ``optim``: ``clip_by_global_norm``, the optimizer's update and
 log-sum-exp on the card, a plain chunked backward).  Nothing in a step
 reads a value back to the host.
 
-The step runs on one card: ``mesh`` is None or a layout of one device
-(``launch/mesh.py``).  The reference's sharding helpers
+``mesh``: None or a layout of one device runs the step on one card; a
+``("data", "model")`` process mesh (``launch/mesh.py::LMMesh``) runs it
+over DTensors laid out by ``lm/sharding.py``'s specs (parameters,
+optimizer state and batch: ``distribute_params``,
+``distribute_opt_state``, ``distribute_batch``) for the dense-attention
+architectures with ``adam`` or ``adamw`` (``adam8bit`` over one process
+only): each gradient is brought to its parameter's placements (the ZeRO
+reduce-scatter over "data") before the global norm, which sums over the
+shards, and the update.  The reference's sharding helpers
 (``abstract_params``, ``abstract_train_state``, ``opt_state_shardings``,
 ``batch_specs``, ``context_spec``) give the training state and batch on the
-``meta`` device with their spec trees (``lm/sharding.py``) for any layout:
-the dry run's accounting (``launch/dryrun.py``).
+``meta`` device with their spec trees for any layout: the dry run's
+accounting (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -33,9 +40,10 @@ from . import sharding as S
 
 @dataclasses.dataclass(frozen=True)
 class TrainHParams:
-    """The reference's fields and defaults.  ``seq_shard_activations``
-    constrains the residual stream's sharding over a mesh in the
-    reference; on one card it has no effect."""
+    """The reference's fields and defaults.  ``seq_shard_activations``:
+    over a process mesh the residual stream's sequence is sharded over
+    "model" between layers (the reference's ``activation_constraint``);
+    without a mesh it has no effect."""
     lr: float = 3e-4
     weight_decay: float = 0.1
     grad_clip: float = 1.0
@@ -55,8 +63,8 @@ def make_optimizer(hp: TrainHParams):
     return adam(hp.lr)
 
 
-def cross_entropy(logits, labels, z_loss: float = 0.0):
-    """Token CE with an fp32 logsumexp; ignores labels < 0."""
+def _ce_sums(logits, labels, z_loss: float):
+    """(sum of the valid tokens' CE, their count), fp32 0-d."""
     logits32 = logits.to(torch.float32)
     lse = torch.logsumexp(logits32, dim=-1)
     gold = logits32.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
@@ -64,18 +72,45 @@ def cross_entropy(logits, labels, z_loss: float = 0.0):
     if z_loss:
         ce = ce + z_loss * lse ** 2
     valid = (labels >= 0).to(torch.float32)
-    return (ce * valid).sum() / valid.sum().clamp_min(1.0)
+    return (ce * valid).sum(), valid.sum()
 
 
-def make_loss_fn(cfg: ArchConfig, hp: TrainHParams):
+def cross_entropy(logits, labels, z_loss: float = 0.0):
+    """Token CE with an fp32 logsumexp; ignores labels < 0.  Logits that
+    are a DTensor (over a process mesh) are gathered along the vocabulary
+    on each process's batch rows; the sums are reduced over "data", so the
+    loss is a replicated 0-d DTensor."""
+    if not S.is_dtensor(logits):
+        total, n = _ce_sums(logits, labels, z_loss)
+        return total / n.clamp_min(1.0)
+    dt = S.dt_api()
+    dm, bp = logits.device_mesh, logits.placements[0]
+    local = logits.redistribute(dm, (bp, dt.Replicate())).to_local(
+        grad_placements=(bp, dt.Replicate()))
+    lab = labels.to_local() if S.is_dtensor(labels) else labels
+    part = dt.Partial() if isinstance(bp, dt.Shard) else dt.Replicate()
+    total, n = (dt.DTensor.from_local(t, dm, (part, dt.Replicate()),
+                                      run_check=False).redistribute(
+        dm, (dt.Replicate(), dt.Replicate()))
+        for t in _ce_sums(local, lab, z_loss))
+    return total / n.clamp_min(1.0)
+
+
+def make_loss_fn(cfg: ArchConfig, hp: TrainHParams, mesh=None):
     """loss_fn(params, batch) -> (loss, metrics): the CE (with z-loss), plus
     ``aux_loss_coef`` x the MoE aux loss when ``cfg.n_experts``, plus
     ``mtp_coef`` x the MTP head's CE (predicting t + 2 from ``hidden[:, :-1]``
-    and ``tokens[:, 1:]``, no z-loss) when ``cfg.mtp``."""
+    and ``tokens[:, 1:]``, no z-loss) when ``cfg.mtp``.  Over an ``LMMesh``
+    the batch is distributed first where it is not yet."""
+    mesh = S.executing_mesh(mesh, cfg, "training")
+
     def loss_fn(params, batch):
+        if mesh is not None:
+            batch = S.distribute_batch(batch, mesh)
         tokens, labels = batch["tokens"], batch["labels"]
         out = M.forward(params, cfg, tokens, batch.get("context"),
-                        return_hidden=bool(cfg.mtp), remat=hp.remat)
+                        return_hidden=bool(cfg.mtp), remat=hp.remat,
+                        mesh=mesh, seq_shard=hp.seq_shard_activations)
         logits, aux = out[0], out[-1]
         loss = cross_entropy(logits, labels, hp.z_loss)
         metrics = {"ce": loss}
@@ -99,10 +134,13 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams, mesh=None):
     (params, opt_state, metrics), metrics holding ``ce`` (and ``aux``,
     ``mtp`` where the architecture has them), ``loss`` and ``grad_norm``
     (before clipping), all 0-d tensors on the parameters' device.
-    ``mesh``: None or a layout of one device, run as no mesh."""
-    S.require_one_card(mesh, "training")
+    ``mesh``: None or a layout of one device, run as no mesh; an
+    ``LMMesh``: ``params``, ``opt_state`` and the returned ones are
+    DTensors laid out by the specs, the metrics replicated 0-d DTensors
+    (the same bits on every process)."""
+    mesh = S.executing_mesh(mesh, cfg, "training", hp.optimizer)
     opt = make_optimizer(hp)
-    loss_fn = make_loss_fn(cfg, hp)
+    loss_fn = make_loss_fn(cfg, hp, mesh)
 
     def train_step(params, opt_state, batch):
         with torch.enable_grad():
@@ -113,6 +151,12 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams, mesh=None):
             # zeros, as jax.grad gives it
             grads_flat = torch.autograd.grad(loss, flat, allow_unused=True,
                                              materialize_grads=True)
+        if mesh is not None:
+            # each gradient in its parameter's placements: the partial sums
+            # over "data" reduce-scattered (ZeRO), whatever layout the
+            # backward left them in
+            grads_flat = [g.redistribute(p.device_mesh, p.placements)
+                          for g, p in zip(grads_flat, flat)]
         by_leaf = {id(p): g for p, g in zip(flat, grads_flat)}
         grads = tree_map(lambda p: by_leaf[id(p)], leaves)
         grads, gnorm = clip_by_global_norm(grads, hp.grad_clip)

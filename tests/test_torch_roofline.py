@@ -448,7 +448,49 @@ def test_run_cell_on_reduced_configs(name, tmp_path):
 
 
 def test_dryrun_cli_refuses_the_jax_layer_knobs(tmp_path):
-    for flag in ("--gqa-repeat", "--flash-decode"):
-        with pytest.raises(NotImplementedError, match="GQA_REPEAT|FLASH_DECODE"):
-            dryrun.main(["--arch", "qwen2-1.5b", "--shape", "train_4k",
-                         "--out", str(tmp_path), flag])
+    """The reference's layer knobs are taken, as its dry run takes them:
+    each flag sets the layers' knob, and a decode cell's JSON says which
+    knobs its per-device attention was counted under."""
+    from repro_torch.lm import layers as TLL
+    try:
+        for flag, knob in (("--gqa-repeat", "gqa_repeat"),
+                           ("--flash-decode", "flash_decode")):
+            out = tmp_path / flag.strip("-")
+            dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
+                         "--mesh", "card", "--out", str(out), flag])
+            assert getattr(TLL, knob.upper()) is True
+            res = json.loads((out / "qwen2-1.5b__decode_32k__card.json"
+                              ).read_text())
+            assert res["ok"] and res["decode_attention"][knob] is True
+    finally:
+        TLL.set_gqa_repeat(False)
+        TLL.set_flash_decode(False)
+
+
+def test_flash_decode_dryrun_counts_the_device_slice():
+    """qwen2-1.5b's decode_32k cell (B 128, S 32,768, 28 layers, bf16) at
+    16 x 16: with ``--flash-decode`` each device's attention reads its 8
+    batch rows' q and o for all 12 heads, its 2,048-key slice of both KV
+    heads (every key visible at the last position) and writes the rows'
+    fp32 log-sum-exp; without it the cache, whose 2 KV heads "model"
+    cannot shard, is attended whole.  The merge's all-reduces are not
+    counted (the JSON says so)."""
+    from repro_torch.lm import layers as TLL
+    mesh = MeshLayout((16, 16), ("data", "model"))
+    bl, hq, hkv, hd, s, es, layers = 8, 12, 2, 128, 32768, 2, 28
+    q_and_o = 2 * bl * hq * hd * es
+    flash = layers * (q_and_o + bl * hkv * (s // 16) * 2 * hd * es
+                      + 4 * bl * hq)
+    whole = layers * (q_and_o + bl * hkv * s * 2 * hd * es)
+    try:
+        TLL.set_flash_decode(True)
+        on = dryrun.run_cell("qwen2-1.5b", "decode_32k", mesh)
+    finally:
+        TLL.set_flash_decode(False)
+    off = dryrun.run_cell("qwen2-1.5b", "decode_32k", mesh)
+    assert on["ok"] and off["ok"]
+    assert on["decode_attention"]["bytes_per_chip"] == flash
+    assert off["decode_attention"]["bytes_per_chip"] == whole
+    assert "all-reduces" in on["decode_attention"]["not_counted"]
+    assert on["counted"] == off["counted"]
+    assert off["bytes_per_chip"] - on["bytes_per_chip"] == whole - flash
