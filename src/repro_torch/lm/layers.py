@@ -18,16 +18,20 @@ any kernel).  MoE, Mamba and RWKV6 are plain PyTorch, as the JAX package
 leaves them to XLA.
 
 Over a ``("data", "model")`` process mesh (``launch/mesh.py::LMMesh``)
-the dense-attention slice runs on local shards (``lm/sharding.py::
-MeshRun``): :func:`attention_mesh`, :func:`mlp_mesh` and
-:func:`attention_decode_mesh` take the residual stream as a DTensor and
-call the kernels on this process's heads, batch rows or cache slice, with
+every block runs on local shards (``lm/sharding.py::MeshRun``): the
+``*_mesh`` functions take the normed residual stream as a DTensor, call
+the plain functions above them (and the kernels) on this process's batch
+rows, heads, channels, experts or cache slice, and put their outputs back
+in the stream's placements: :func:`attention_mesh`, :func:`mla_mesh`,
+:func:`cross_mesh`, :func:`mamba_mesh`, :func:`rwkv_mesh`,
+:func:`mlp_mesh`, :func:`moe_mesh` (routed over the whole batch, as GSPMD
+routes the reference's), :func:`cmix_mesh` and their decode forms, with
 the reference's two mesh knobs, :data:`GQA_REPEAT` and
 :data:`FLASH_DECODE` (off by default, as there).  The reference's
-``maybe_constrain`` has no counterpart: the blocks put their outputs in
-the residual stream's placements.  What stays unported over a mesh is
-ROADMAP item 14(c') (the other mixers, graphed mesh decode, adam8bit
-across shards) and 14(b') (serving over processes).
+``maybe_constrain`` has no counterpart.  What stays unported over a mesh
+is the rest of ROADMAP item 14(c') (adam8bit across shards, the
+long-context cache layout, graphed decode over more than one device) and
+14(b') (serving over processes).
 """
 from __future__ import annotations
 
@@ -73,13 +77,11 @@ def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: what remains of the JAX package is "
         "multi-card execution of the rest of the LM (ROADMAP Queue 1 item "
-        "14(c'): the MoE, MLA, Mamba, RWKV6 and cross-attention mixers, the "
-        "encoder and MTP over a device mesh, graphed decode over more than "
-        "one device, adam8bit across shards) and serving over processes "
-        "(item 14(b')); the port trains, prefills and decodes the "
-        "dense-attention architectures over an LMMesh "
-        "(launch/mesh.py::make_lm_mesh) and every registry architecture on "
-        "one card")
+        "14(c'): adam8bit across shards, the long-context cache layout "
+        "over a device mesh, graphed decode over more than one device) and "
+        "serving over processes (item 14(b')); the port trains, prefills "
+        "and decodes every registry architecture over an LMMesh "
+        "(launch/mesh.py::make_lm_mesh) and on one card")
 
 
 def dt(cfg: ArchConfig) -> torch.dtype:
@@ -310,23 +312,31 @@ def attention_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, positions, run,
 
 
 def mlp_mesh(p, h, cfg: ArchConfig, run):
-    """:func:`mlp_layer` over a mesh: the hidden width over "model" where
-    it divides (column- then row-parallel), else replicated."""
-    tp = cfg.d_ff >= run.mp and cfg.d_ff % run.mp == 0
+    """:func:`mlp_layer` over a mesh: the hidden width (``d_ff``, or the
+    shared experts') over "model" where it divides (column- then
+    row-parallel), else replicated."""
+    f = p["w_gate"].shape[-1]
+    tp = f >= run.mp and f % run.mp == 0
     hl = run.act(h, tp)
     lp = {k: run.weight(p[k], tp, tp) for k in ("w_gate", "w_up", "w_down")}
     return run.out(mlp_layer(lp, hl, cfg.act), tp, h.placements)
 
 
 class CacheLayout:
-    """How a layer's K/V cache (B, Hkv, S_max, hd) lies over the mesh
-    (``sharding.cache_spec``): ``"heads"`` (the KV heads over "model"),
-    ``"seq"`` (the flash-decoding layout: the sequence over "model", this
-    process's slice starting at key ``base``) or ``"replicated"``."""
+    """How a layer's cache lies over the mesh (``sharding.cache_spec``):
+    K/V (B, Hkv, S_max, hd), and the cross-attention's ck/cv (B, Hkv, T,
+    hd), by ``"heads"`` (the KV heads over "model"), ``"seq"`` (the
+    flash-decoding layout: the sequence over "model", this process's slice
+    starting at key ``base``) or ``"replicated"``; MLA's latent ckv/k_rope
+    (B, S_max, r), which has no head dim (``heads=0``, the sequence at
+    ``dim`` 1), by ``"seq"`` or ``"replicated"``."""
 
-    def __init__(self, cfg: ArchConfig, s_max: int, run):
+    def __init__(self, cfg: ArchConfig, s_max: int, run, heads=None,
+                 names=("k", "v"), dim: int = 2):
         mp = run.mp
-        if cfg.n_kv_heads >= mp and cfg.n_kv_heads % mp == 0:
+        heads = cfg.n_kv_heads if heads is None else heads
+        self.names, self.dim = names, dim
+        if heads and heads >= mp and heads % mp == 0:
             self.mode = "heads"
         elif s_max % mp == 0:
             self.mode = "seq"
@@ -335,35 +345,55 @@ class CacheLayout:
         self.s_loc = s_max // mp if self.mode == "seq" else s_max
         self.base = run.mi * self.s_loc if self.mode == "seq" else 0
 
-    def write_prefill(self, cache, k, v):
-        """Keys and values of positions [0, S) into this process's rows."""
-        s = k.shape[2]
+    def write_prefill(self, cache, *new):
+        """Positions [0, S) of each of ``names``' new entries into this
+        process's rows."""
+        d = self.dim
+        s = new[0].shape[d]
         lo, hi = self.base, min(self.base + self.s_loc, s)
         if hi > lo:
-            cache["k"][:, :, :hi - lo] = k[:, :, lo:hi]
-            cache["v"][:, :, :hi - lo] = v[:, :, lo:hi]
+            for name, t in zip(self.names, new):
+                cache[name].narrow(d, 0, hi - lo).copy_(t.narrow(d, lo,
+                                                                 hi - lo))
 
-    def write_decode(self, cache, k_new, v_new, pos):
-        """Position ``pos`` (a device tensor) into the slice that owns it,
-        with no host read: elsewhere the row at the clamped index is
-        written back unchanged."""
+    def write_decode(self, cache, *new_and_pos):
+        """Position ``pos`` (a device tensor, last) of each new entry into
+        the slice that owns it, with no host read: elsewhere the row at
+        the clamped index is written back unchanged."""
+        *new, pos = new_and_pos
+        d = self.dim
         if self.mode != "seq":
-            cache["k"].index_copy_(2, pos.reshape(1), k_new)
-            cache["v"].index_copy_(2, pos.reshape(1), v_new)
+            for name, t in zip(self.names, new):
+                cache[name].index_copy_(d, pos.reshape(1), t)
             return
         r = (pos - self.base).clamp(0, self.s_loc - 1).reshape(1)
         own = (pos >= self.base) & (pos < self.base + self.s_loc)
-        for name, new in (("k", k_new), ("v", v_new)):
+        for name, t in zip(self.names, new):
             c = cache[name]
-            c.index_copy_(2, r, torch.where(own, new, c.index_select(2, r)))
+            c.index_copy_(d, r, torch.where(own, t, c.index_select(d, r)))
 
 
-def _gather_heads(q, run):
-    """q (B_local, Hq / mp, 1, hd) of this process's heads -> all heads."""
-    from . import sharding as S
-    dt = S.dt_api()
-    return S.from_local(q, run.mesh, (run.bp, dt.Shard(1))).redistribute(
-        run.dm, (run.bp, dt.Replicate())).to_local()
+def cache_layouts(cfg: ArchConfig, s_max, ctx_len, run) -> dict:
+    """The layer caches' layouts by kind ("kv", "mla", "cross"), for the
+    kinds whose length is given."""
+    out = {}
+    if s_max is not None:
+        out["kv"] = CacheLayout(cfg, s_max, run)
+        out["mla"] = CacheLayout(cfg, s_max, run, heads=0,
+                                 names=("ckv", "k_rope"), dim=1)
+    if ctx_len is not None:
+        out["cross"] = CacheLayout(cfg, ctx_len, run, names=("ck", "cv"))
+    return out
+
+
+def lse_merge(o, lse, run):
+    """The outputs ``o`` (..., d) of each process's slice of the keys
+    merged over "model" by their log-sum-exp ``lse`` (o's shape without
+    its last dim): m = max lse, w = exp(lse - m), O = sum(w o) / sum(w), in
+    fp32, on every process; three all-reduces.  A slice that sees no key
+    (lse -inf, or ~-1e30 from a finite mask) has weight 0."""
+    w = torch.exp(lse - run.reduce_model(lse, "max"))[..., None]
+    return run.reduce_model(w * o.to(torch.float32)) / run.reduce_model(w)
 
 
 def flash_decode_sharded(q, k_slice, v_slice, pos, window: int,
@@ -373,25 +403,12 @@ def flash_decode_sharded(q, k_slice, v_slice, pos, window: int,
     process of "model", K/V this process's sequence slice of the cache,
     whose row 0 is key ``base``.  The decode kernel attends the slice
     (keys < pos + 1 by their global index, ``kv_base``) and returns its
-    rows' log-sum-exp; the slices merge over "model" as
-    m = max lse, w = exp(lse - m), O = sum(w O) / sum(w), in fp32: three
-    all-reduces of (B, Hq, 1[, hd]) values and no gather of the cache.  A
-    slice that sees no key has lse = -inf and weight 0."""
-    from . import sharding as S
-    dt = S.dt_api()
+    rows' log-sum-exp; the slices merge over "model" by
+    :func:`lse_merge`: three all-reduces of (B, Hq, 1[, hd]) values and no
+    gather of the cache."""
     o, lse = flash_attn.flash_decode(q, k_slice, v_slice, pos, window,
                                      softcap, kv_base=base, return_lse=True)
-
-    def reduce(t, op):
-        return S.from_local(t, run.mesh, (run.bp, dt.Partial(op))
-                            ).redistribute(run.dm, (run.bp, dt.Replicate())
-                                           ).to_local()
-
-    m = reduce(lse, "max")
-    w = torch.exp(lse - m)[..., None]
-    num = reduce(w * o.to(torch.float32), "sum")
-    den = reduce(w, "sum")
-    return (num / den).to(q.dtype)
+    return lse_merge(o, lse, run).to(q.dtype)
 
 
 def attention_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache,
@@ -431,7 +448,7 @@ def attention_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache,
         o = decode_attention_op(q, cache["k"], cache["v"], pos, window, cap)
         out_tp = True
     elif flash:
-        qa = _gather_heads(q, run) if q_tp else q
+        qa = run.gather_model(q, 1) if q_tp else q
         o = flash_decode_sharded(qa, cache["k"], cache["v"], pos, window,
                                  cap, run, layout.base)
         out_tp = q_tp
@@ -440,12 +457,7 @@ def attention_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache,
     else:
         k, v = cache["k"], cache["v"]
         if layout.mode == "seq":
-            from . import sharding as S
-            dt = S.dt_api()
-            k, v = (S.from_local(c, run.mesh, (run.bp, dt.Shard(2))
-                                 ).redistribute(run.dm, (run.bp,
-                                                         dt.Replicate())
-                                                ).to_local() for c in (k, v))
+            k, v = run.gather_model(k, 2), run.gather_model(v, 2)
         if mode == "repeat":
             k, v = _repeat_kv(k, v, cfg, run)
         o = decode_attention_op(q, k, v, pos, window, cap)
@@ -504,6 +516,19 @@ def mla_layer(p, x, cfg: ArchConfig, spec: LayerSpec, positions):
     return mla_attend(p, cfg, *mla_compress(p, x, cfg, positions))
 
 
+def _mla_scores(cfg: ArchConfig, q_c, q_rope, ckv32, k_rope, pos, base=0):
+    """The absorbed decode's scores (B, H, 1, T) in fp32 over a latent
+    cache whose row 0 is key ``base``: (q_c ckv^T + q_rope k_rope^T) /
+    sqrt(qk_nope + qk_rope), -1e30 past ``pos``."""
+    s = (torch.einsum("bhsr,btr->bhst", q_c.to(torch.float32), ckv32)
+         + torch.einsum("bhse,bte->bhst", q_rope.to(torch.float32),
+                        k_rope.to(torch.float32)))
+    s = s / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)   # no host copy
+    keys = torch.arange(ckv32.shape[1], device=s.device)
+    mask = (keys + base if base else keys) <= pos
+    return torch.where(mask, s, torch.full((), -1e30, device=s.device))
+
+
 def mla_decode(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos):
     """Absorbed decode over the ``ckv`` (B, S_max, kv_lora_rank) and
     ``k_rope`` (B, S_max, qk_rope) cache, written in place at ``pos``:
@@ -519,16 +544,79 @@ def mla_decode(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos):
     cache["k_rope"].index_copy_(1, idx, kr_new[:, 0])
     ckv = cache["ckv"].to(torch.float32)
     q_c = torch.einsum("bhse,rhe->bhsr", q_nope, p["w_uk"])      # absorb W_uk
-    s = (torch.einsum("bhsr,btr->bhst", q_c.to(torch.float32), ckv)
-         + torch.einsum("bhse,bte->bhst", q_rope.to(torch.float32),
-                        cache["k_rope"].to(torch.float32)))
-    s = s / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)   # no host copy
-    mask = torch.arange(ckv.shape[1], device=x.device) <= pos
-    s = torch.where(mask, s, torch.full((), -1e30, device=x.device))
-    w = torch.softmax(s, dim=-1)
+    w = torch.softmax(_mla_scores(cfg, q_c, q_rope, ckv, cache["k_rope"],
+                                  pos), dim=-1)
     o_c = torch.einsum("bhst,btr->bhsr", w, ckv)
     o = torch.einsum("bhsr,rhe->bhse", o_c.to(x.dtype), p["w_uv"])
     return torch.einsum("bhse,hed->bsd", o, p["wo"]), cache
+
+
+MLA_HEAD_KEYS = ("w_uq", "w_uk", "w_uv", "wo")
+
+
+def _mla_weights(p, cfg: ArchConfig, run):
+    """MLA's weights on this process and whether its heads are split: the
+    head-parallel ones (``MLA_HEAD_KEYS``) this process's heads where
+    "model" divides the heads, the compressions and norms whole."""
+    tp = cfg.n_heads >= run.mp and cfg.n_heads % run.mp == 0
+    return {k: run.weight(w, tp and k in MLA_HEAD_KEYS, tp)
+            for k, w in p.items()}, tp
+
+
+def mla_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, positions, run):
+    """:func:`mla_layer` over a mesh: the compressions on every process of
+    "model" (whole: they are FSDP-sharded only), the decompression, the
+    attention (the flash kernel's (192, 128) instance at deepseek-v3's
+    widths) and the output projection on this process's heads.  Returns
+    (out, ckv (B_local, S, r), k_rope (B_local, S, qk_rope)): the latent
+    cache's entries."""
+    lp, tp = _mla_weights(p, cfg, run)
+    q_nope, q_rope, ckv, k_rope = mla_compress(lp, run.act(h, tp), cfg,
+                                               positions)
+    o = mla_attend(lp, cfg, q_nope, q_rope, ckv, k_rope)
+    return run.out(o, tp, h.placements), ckv, k_rope[:, 0]
+
+
+def mla_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache, pos,
+                    run, layout: CacheLayout):
+    """:func:`mla_decode` over a mesh: ``cache`` this process's block of
+    the latent cache (``layout``, the sequence over "model" where it
+    divides), written in place at ``pos`` by the process that owns it.
+    Over a sequence-sharded cache every process scores all heads' queries
+    (gathered over "model": one all-gather of (B, H, 1, r + qk_rope))
+    against its slice, and the slices merge by their log-sum-exp
+    (:func:`lse_merge`: three all-reduces of (B, H, 1[, r]) values, no
+    gather of the cache); the latent output then goes through
+    this process's heads of W_uv and wo (one all-reduce)."""
+    pos = decode_position(pos, h.device)
+    lp, tp = _mla_weights(p, cfg, run)
+    hl = run.act(h, tp)
+    q_nope, q_rope, ckv_new, kr_new = mla_compress(
+        lp, hl, cfg, pos.expand(hl.shape[0], 1))
+    layout.write_decode(cache, ckv_new, kr_new[:, 0], pos)
+    ckv = cache["ckv"].to(torch.float32)
+    q_c = torch.einsum("bhse,rhe->bhsr", q_nope, lp["w_uk"])
+    if layout.mode == "seq" and run.mp > 1:
+        r = q_c.shape[-1]
+        qq = torch.cat([q_c, q_rope.to(q_c.dtype)], -1)
+        if tp:
+            qq = run.gather_model(qq, 1)
+        s = _mla_scores(cfg, qq[..., :r], qq[..., r:], ckv, cache["k_rope"],
+                        pos, layout.base)
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        tot = e.sum(-1, keepdim=True)
+        o_c = lse_merge(torch.einsum("bhst,btr->bhsr", e / tot, ckv),
+                        (m + torch.log(tot))[..., 0], run)
+        if tp:
+            o_c = o_c[:, run.heads(cfg.n_heads, True)]
+    else:
+        w = torch.softmax(_mla_scores(cfg, q_c, q_rope, ckv,
+                                      cache["k_rope"], pos), dim=-1)
+        o_c = torch.einsum("bhst,btr->bhsr", w, ckv)
+    o = torch.einsum("bhsr,rhe->bhse", o_c.to(hl.dtype), lp["w_uv"])
+    return run.out(torch.einsum("bhse,hed->bsd", o, lp["wo"]), tp,
+                   h.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -567,6 +655,42 @@ def cross_attention_layer(p, x, context, cfg: ArchConfig):
     Keys past T are masked by the kernel (the Pallas kernel attends to its
     zero padding there; the JAX LM's ``chunked_attention`` masks them)."""
     return cross_attend(p, x, *cross_kv(p, context, cfg))
+
+
+def cross_mesh(p, h, context, cfg: ArchConfig, run):
+    """:func:`cross_attention_layer` over a mesh: ``h`` the normed stream
+    and ``context`` (B, T, D) DTensors over the batch; q and the context's
+    K/V by heads as :func:`attn_mode` says, the non-causal attention on
+    this process's heads and batch rows.  Returns (out, k, v): k/v (B_local,
+    Hkv_local or Hkv, T, hd) before any repeat, what the cache keeps."""
+    mode = attn_mode(cfg, run.mp)
+    tp = mode != "replicated"
+    lp = {"wq": run.weight(p["wq"], tp, tp),
+          "ctx_norm": run.weight(p["ctx_norm"], False, tp)}
+    lp.update({k: run.weight(p[k], mode == "heads", tp) for k in ("wk", "wv")})
+    k, v = cross_kv(lp, run.act(context, tp), cfg)
+    kk, vv = _repeat_kv(k, v, cfg, run) if mode == "repeat" else (k, v)
+    q = torch.einsum("bsd,dhe->bhse", run.act(h, tp), lp["wq"])
+    o = chunked_attention(q, kk, vv, causal=False)
+    return run.out(_out_proj(p, o, run, tp), tp, h.placements), k, v
+
+
+def cross_decode_mesh(p, h, cfg: ArchConfig, cache, run, layout: CacheLayout):
+    """The cross-attention's decode over a mesh against this process's
+    block of the static ``ck``/``cv`` cache (``layout``): local by heads,
+    all-gathered along T where the cache lies sharded by it; the decode
+    kernel (one query row) on this process's heads."""
+    mode = attn_mode(cfg, run.mp)
+    tp = mode != "replicated"
+    q = torch.einsum("bsd,dhe->bhse", run.act(h, tp),
+                     run.weight(p["wq"], tp, tp))
+    k, v = cache["ck"], cache["cv"]
+    if layout.mode == "seq":
+        k, v = run.gather_model(k, 2), run.gather_model(v, 2)
+    if mode == "repeat":
+        k, v = _repeat_kv(k, v, cfg, run)
+    o = chunked_attention(q, k, v, causal=False)
+    return run.out(_out_proj(p, o, run, tp), tp, h.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -688,6 +812,144 @@ def moe_layer(p, x, cfg: ArchConfig, act="silu"):
     return out.reshape(b, s, d), aux
 
 
+def _expert_blocks(w, run):
+    """How the routed experts' weights (``w_gate`` (E, D, F)) lie over the
+    mesh: (blocks of experts, this process's block, experts over "data"
+    too (``sharding.EXPERT_2D``), F over "model", the work split over
+    "model" at all)."""
+    from . import sharding as S
+    dt = S.dt_api()
+    on = lambda pl, d: isinstance(pl, dt.Shard) and pl.dim == d
+    pl = w.placements
+    tp = on(pl[1], 0) or on(pl[1], 2)
+    if on(pl[0], 0):
+        return run.dp * run.mp, run.di * run.mp + run.mi, True, False, tp
+    if on(pl[1], 0):
+        return run.mp, run.mi, False, False, tp
+    return 1, 0, False, on(pl[1], 2), tp
+
+
+def moe_mesh(p, h, cfg: ArchConfig, run, act="silu"):
+    """:func:`moe_layer` over a mesh.  Returns (out, aux), both DTensors.
+
+    The routing is the whole batch's, as GSPMD keeps the reference's:
+    every process gathers every token (the normed stream, over both axes)
+    and routes all T = B S of them (capacity from T, positions from the
+    cumsum in the global token order, the aux loss's means over all
+    tokens), the same bits on each.  Each process then computes its own
+    experts' (C, D) slots (experts over "model", or over ("data",
+    "model") with ``EXPERT_2D``; where "model" does not divide the
+    experts, every expert with this process's block of F) and combines
+    them: with experts over "data" too for every token, a partial sum over
+    both axes; otherwise for its own batch rows only (slots of other rows'
+    tokens stay zero), a partial sum over "model"; either way reduced to
+    the stream's placements.  The shared experts join that sum on this
+    process's rows where their hidden width splits over "model" as the
+    routed work does (the reference's order of the sum: a ``(1, 1)`` mesh
+    gives its bits), else go through :func:`mlp_mesh`.  Gradients: each
+    process's local gradient of the
+    gathered tokens and of the router is a partial sum over the axes that
+    split the work (the aux loss's part on one process of each such axis),
+    whole over an axis that repeats it."""
+    from . import sharding as S
+    dt = S.dt_api()
+    n_blk, blk, e_data, f_tp, tp = _expert_blocks(p["w_gate"], run)
+    part, rep = dt.Partial(), dt.Replicate()
+    gd = part if (e_data or isinstance(run.bp, dt.Shard)) else rep
+    gm = part if tp else rep
+    xa = run.whole(h, (gd, gm))
+    b, s, d = xa.shape
+    t = b * s
+    xf = xa.reshape(t, d)
+    topw, topi, pos, keep, capacity, aux = moe_route(
+        {"router": run.whole(p["router"], (gd, gm))}, xf, cfg)
+
+    e_loc = cfg.n_experts // n_blk
+    e0 = blk * e_loc
+    names = ("w_gate", "w_up", "w_down")
+    if e_data:
+        ew = {k: p[k].to_local(grad_placements=p[k].placements)
+              for k in names}
+    else:
+        ew = {k: run.weight(p[k], k != "w_down" or not f_tp, tp)
+              for k in names}
+        if f_tp:    # w_down has no "model" rule: this process's F rows
+            f = ew["w_gate"].shape[2]
+            ew["w_down"] = ew["w_down"][:, run.mi * f:(run.mi + 1) * f]
+    # the tokens whose outputs this process adds: all, or its batch rows
+    rows = slice(0, t) if e_data else slice(run.rows.start * s,
+                                            run.rows.stop * s)
+    own = (topi >= e0) & (topi < e0 + e_loc)
+    mine = torch.zeros((t, 1), dtype=torch.bool, device=xf.device)
+    mine[rows] = True
+    dest = (topi - e0) * capacity + pos                            # (T, k)
+    n_slots = e_loc * capacity
+    slot_token = torch.full((n_slots + 1,), t, dtype=torch.int64,
+                            device=xf.device)
+    tokens = torch.arange(t, device=xf.device).unsqueeze(1).expand_as(dest)
+    slot_token.scatter_(0, torch.where(keep & own & mine, dest,
+                                       n_slots).reshape(-1),
+                        tokens.reshape(-1))
+    xpad = torch.cat([xf, xf.new_zeros((1, d))])
+    buf = F.embedding(slot_token[:-1], xpad).view(e_loc, capacity, d)
+    g = act_fn(act)(torch.bmm(buf, ew["w_gate"]))
+    u = torch.bmm(buf, ew["w_up"])
+    hh = torch.bmm(g * u, ew["w_down"]).view(n_slots, d)
+    hpad = torch.cat([hh, hh.new_zeros((1, d))])
+    out = torch.zeros((rows.stop - rows.start, d), dtype=xf.dtype,
+                      device=xf.device)
+    for j in range(cfg.top_k):
+        dj = torch.where(own[rows, j], dest[rows, j], n_slots)
+        w_j = (topw[rows, j] * keep[rows, j]).to(xf.dtype)
+        out = out + F.embedding(dj, hpad) * w_j[:, None]
+    # the shared experts on this process's rows where their F splits over
+    # "model" as the routed work does (the reference's sum, in its order)
+    shared = p.get("shared")
+    fs = shared["w_gate"].shape[-1] if shared else 0
+    inline = bool(shared) and not e_data and tp == (fs >= run.mp
+                                                    and fs % run.mp == 0)
+    if inline:
+        out = out + mlp_layer({k: run.weight(w, tp, tp)
+                               for k, w in shared.items()},
+                              xf if rows == slice(0, t) else xf[rows], act)
+    out = out.view(-1, s, d)
+    if e_data:
+        o = S.from_local(out, run.mesh, (part, part)).redistribute(
+            run.dm, h.placements)
+    else:
+        o = run.out(out, tp, h.placements)
+    if shared and not inline:
+        o = o + mlp_mesh(shared, h, cfg, run)
+    owner = ((gd == rep or run.di == 0) and (gm == rep or run.mi == 0))
+    return o, S.from_local(aux if owner else aux.detach(), run.mesh,
+                           (rep, rep))
+
+
+# ---------------------------------------------------------------------------
+# Channels split over "model" (Mamba's Di, RWKV6's heads)
+# ---------------------------------------------------------------------------
+
+class ChannelShard:
+    """A mixer's channels split over "model": ``own`` this process's block
+    of the ``width`` channels, ``psum`` the sum over "model" of a partial
+    each process computed from its channels (``MeshRun.psum``), ``lora``
+    whether RWKV6's decay LoRA is split too (its product then a partial
+    sum over all ``width`` channels)."""
+
+    def __init__(self, run, width: int, lora: bool = False):
+        n = width // run.mp
+        self.own = slice(run.mi * n, run.mi * n + n)
+        self.width, self.psum, self.lora = width, run.psum, lora
+
+
+def rms_norm_split(x, gamma, eps, tp: ChannelShard):
+    """:func:`rms_norm` over a width split over "model": x and gamma this
+    process's channels, the sum of squares summed over "model"."""
+    x32 = x.to(torch.float32)
+    var = tp.psum((x32 * x32).sum(-1, keepdim=True)) / tp.width
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + gamma)
+
+
 # ---------------------------------------------------------------------------
 # Mamba (jamba): selective SSM with a chunked scan
 # ---------------------------------------------------------------------------
@@ -768,10 +1030,15 @@ def _mamba_scan(u, dt_, B_, C_, A, chunk: int, h0=None):
     return torch.cat(ys, 1)[:, :s], h
 
 
-def _mamba_inputs(p, xin, cfg: ArchConfig):
-    """B, C (fp32) and dt (fp32, softplus) from the conv output xin."""
+def _mamba_inputs(p, xin, cfg: ArchConfig, tp=None):
+    """B, C (fp32) and dt (fp32, softplus) from the conv output xin; with
+    ``tp`` (a :class:`ChannelShard`) xin and ``w_bcdt``'s rows are this
+    process's channels, so B, C and dt's low rank are summed over "model"
+    before use."""
     n = cfg.ssm_d_state
     bcdt = xin @ p["w_bcdt"]
+    if tp is not None:
+        bcdt = tp.psum(bcdt)
     B_ = bcdt[..., :n].to(torch.float32)
     C_ = bcdt[..., n:2 * n].to(torch.float32)
     dt_ = softplus(bcdt[..., 2 * n:] @ p["w_dt"] + p["dt_bias"]).to(
@@ -780,9 +1047,11 @@ def _mamba_inputs(p, xin, cfg: ArchConfig):
 
 
 def mamba_layer(p, x, cfg: ArchConfig, state=None, chunk: int = 0,
-                return_state: bool = False):
+                return_state: bool = False, tp=None):
     """Full-sequence mamba mixer.  ``return_state`` also yields the decode
-    state {"conv" (B,K,Di) raw-input tail, "ssm" (B,Di,N)}."""
+    state {"conv" (B,K,Di) raw-input tail, "ssm" (B,Di,N)}.  With ``tp``
+    (:func:`mamba_mesh`) the weights and the state are this process's
+    channels and the output a partial sum over "model"."""
     if not chunk:   # adaptive: longer chunks at long sequence lengths
         chunk = 128 if x.shape[1] <= 8192 else 512
     s = x.shape[1]
@@ -791,7 +1060,7 @@ def mamba_layer(p, x, cfg: ArchConfig, state=None, chunk: int = 0,
     xpad = F.pad(xraw, (0, 0, k - 1, 0))                  # causal depthwise
     conv = sum(xpad[:, i:i + s] * p["conv_w"][i] for i in range(k))
     xin = F.silu(conv + p["conv_b"])
-    B_, C_, dt_ = _mamba_inputs(p, xin, cfg)
+    B_, C_, dt_ = _mamba_inputs(p, xin, cfg, tp)
     A = -torch.exp(p["A_log"])
     h0 = state["ssm"] if state is not None else None
     y, h_last = _mamba_scan(xin.to(torch.float32), dt_, B_, C_, A, chunk, h0)
@@ -803,14 +1072,14 @@ def mamba_layer(p, x, cfg: ArchConfig, state=None, chunk: int = 0,
     return out
 
 
-def mamba_decode(p, x, cfg: ArchConfig, state, pos):
+def mamba_decode(p, x, cfg: ArchConfig, state, pos, tp=None):
     """One-token decode with the carried (conv window, ssm state), both
-    written in place."""
+    written in place (``tp`` as in :func:`mamba_layer`)."""
     xin, z = (x @ p["w_in"]).chunk(2, dim=-1)             # (B,1,Di)
     conv_buf = torch.cat([state["conv"][:, 1:], xin], 1)  # (B,K,Di)
     conv = (conv_buf * p["conv_w"][None]).sum(1, keepdim=True)
     xin = F.silu(conv + p["conv_b"])
-    B_, C_, dt_ = _mamba_inputs(p, xin, cfg)
+    B_, C_, dt_ = _mamba_inputs(p, xin, cfg, tp)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt_[..., None] * A)                    # (B,1,Di,N)
     dBu = (dt_ * xin.to(torch.float32))[..., None] * B_[:, :, None, :]
@@ -821,6 +1090,51 @@ def mamba_decode(p, x, cfg: ArchConfig, state, pos):
     state["conv"].copy_(conv_buf)
     state["ssm"].copy_(h)
     return y @ p["w_out"], state
+
+
+def _mamba_weights(p, cfg: ArchConfig, run):
+    """Mamba's weights on this process and its :class:`ChannelShard`
+    (None where "model" does not split Di: the mixer replicated).  Di's
+    weights come as their "model" shards, except ``w_in`` (D, 2 Di), whose
+    contiguous shard would hold the x or the z half, gathered and cut to
+    this process's x and z channels, and ``w_dt`` (no "model" rule),
+    gathered and cut to its columns."""
+    di = cfg.ssm_expand * cfg.d_model
+    tp = run.mp > 1 and di % run.mp == 0
+    lp = {k: run.weight(w, tp, tp) for k, w in p.items()
+          if k not in ("w_in", "w_dt")}
+    w_in, w_dt = (run.weight(p[k], False, tp) for k in ("w_in", "w_dt"))
+    if not tp:
+        return dict(lp, w_in=w_in, w_dt=w_dt), None
+    sh = ChannelShard(run, di)
+    own = sh.own
+    lp["w_in"] = torch.cat([w_in[:, own],
+                            w_in[:, di + own.start:di + own.stop]], 1)
+    lp["w_dt"] = w_dt[:, own]
+    return lp, sh
+
+
+def mamba_mesh(p, h, cfg: ArchConfig, run, return_state: bool = False):
+    """:func:`mamba_layer` over a mesh: Di over "model" (the conv, the scan
+    and the state on this process's channels; B, C and dt summed over
+    "model"), the output projection's partial sums reduced to ``h``'s
+    placements.  ``return_state``: also this process's block of the
+    decode state."""
+    lp, sh = _mamba_weights(p, cfg, run)
+    out = mamba_layer(lp, run.act(h, sh is not None), cfg,
+                      return_state=return_state, tp=sh)
+    if return_state:
+        return run.out(out[0], sh is not None, h.placements), out[1]
+    return run.out(out, sh is not None, h.placements)
+
+
+def mamba_decode_mesh(p, h, cfg: ArchConfig, state, pos, run):
+    """:func:`mamba_decode` over a mesh, ``state`` this process's block
+    (its channels of ``conv`` and ``ssm``), written in place."""
+    lp, sh = _mamba_weights(p, cfg, run)
+    out, _ = mamba_decode(lp, run.act(h, sh is not None), cfg, state, pos,
+                          tp=sh)
+    return run.out(out, sh is not None, h.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -893,24 +1207,40 @@ def _rwkv_mix(p, x, xs):
     return lambda i: x + (xs - x) * p["mu"][i]
 
 
-def _rwkv_decay_logit(p, mix):
-    return (p["w0"] + torch.tanh(mix(3) @ p["w_lora_a"]) @ p["w_lora_b"]).to(
-        torch.float32).clamp(-20.0, 2.0)
+def _rwkv_decay_logit(p, mix, tp=None):
+    """w0 + tanh(mix_w A) B, clamped; with ``tp`` for this process's
+    channels, the LoRA's product (a partial sum where the LoRA is split)
+    summed over "model" before it is cut to them."""
+    t = torch.tanh(mix(3) @ p["w_lora_a"]) @ p["w_lora_b"]
+    if tp is not None:
+        t = (tp.psum(t) if tp.lora else t)[..., tp.own]
+    return (p["w0"] + t).to(torch.float32).clamp(-20.0, 2.0)
+
+
+def _rwkv_out_norm(o, p, cfg: ArchConfig, tp=None):
+    """The ``ln_g`` norm over the whole width (across heads: over "model"
+    with ``tp``)."""
+    if tp is None:
+        return rms_norm(o, p["ln_g"], cfg.norm_eps)
+    return rms_norm_split(o, p["ln_g"], cfg.norm_eps, tp)
 
 
 def rwkv_layer(p, x, cfg: ArchConfig, state=None, chunk: int = 0,
-               return_state: bool = False):
+               return_state: bool = False, tp=None):
+    """The time mix over a sequence.  With ``tp`` (:func:`rwkv_mesh`) the
+    r/k/v/g and output weights, ``u``, ``w0``, ``ln_g`` and the state are
+    this process's heads and the output a partial sum over "model"."""
     b, s, d = x.shape
     if not chunk:   # adaptive; the decay clamp keeps exp(0.35*chunk) in fp32
         chunk = 32 if s <= 4096 else 128
     hd = cfg.rwkv_head_dim
-    h = d // hd
+    h = p["w_r"].shape[1] // hd
     xs = F.pad(x, (0, 0, 1, 0))[:, :-1]               # token shift
     mix = _rwkv_mix(p, x, xs)
     r, k, v = mix(0) @ p["w_r"], mix(1) @ p["w_k"], mix(2) @ p["w_v"]
     # per-step log decay clamped to >= -0.35, as the reference clamps it
     # here (and not in rwkv_decode)
-    logw = torch.clamp_min(-torch.exp(_rwkv_decay_logit(p, mix)), -0.35)
+    logw = torch.clamp_min(-torch.exp(_rwkv_decay_logit(p, mix, tp)), -0.35)
     g = F.silu(mix(4) @ p["w_g"])
     hsplit = lambda a: a.reshape(b, s, h, hd)
     h0 = state["S"] if state is not None else None
@@ -918,36 +1248,83 @@ def rwkv_layer(p, x, cfg: ArchConfig, state=None, chunk: int = 0,
                        hsplit(k).to(torch.float32),
                        hsplit(v).to(torch.float32), hsplit(logw),
                        p["u"].to(torch.float32).reshape(h, hd), h0, chunk)
-    o = o.reshape(b, s, d).to(x.dtype)
-    o = rms_norm(o, p["ln_g"], cfg.norm_eps) * g
+    o = o.reshape(b, s, h * hd).to(x.dtype)
+    o = _rwkv_out_norm(o, p, cfg, tp) * g
     out = o @ p["w_o"]
     if return_state:
         return out, {"S": S, "shift": x[:, -1:, :]}
     return out
 
 
-def rwkv_decode(p, x, cfg: ArchConfig, state, pos):
+def rwkv_decode(p, x, cfg: ArchConfig, state, pos, tp=None):
     """state = {"S": (B,H,hd,hd), "shift": (B,1,D)}, written in place.  The
-    log decay is not clamped here (the reference's asymmetry)."""
+    log decay is not clamped here (the reference's asymmetry).  ``tp`` as
+    in :func:`rwkv_layer` (``S`` this process's heads)."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
-    h = d // hd
+    h = p["w_r"].shape[1] // hd
     mix = _rwkv_mix(p, x, state["shift"])
     heads = lambda a: a.reshape(b, h, hd).to(torch.float32)
     r, k, v = (heads(mix(0) @ p["w_r"]), heads(mix(1) @ p["w_k"]),
                heads(mix(2) @ p["w_v"]))
-    logw = -torch.exp(_rwkv_decay_logit(p, mix)).reshape(b, h, hd)
+    logw = -torch.exp(_rwkv_decay_logit(p, mix, tp)).reshape(b, h, hd)
     g = F.silu(mix(4) @ p["w_g"])
     u = p["u"].to(torch.float32).reshape(h, hd)
     S = state["S"]
     o = (torch.einsum("bhd,bhde->bhe", r, S)
          + (r * u * k).sum(-1, keepdim=True) * v)
     S_new = torch.exp(logw)[..., None] * S + k[..., None] * v[..., None, :]
-    o = o.reshape(b, 1, d).to(x.dtype)
-    o = rms_norm(o, p["ln_g"], cfg.norm_eps) * g
+    o = o.reshape(b, 1, h * hd).to(x.dtype)
+    o = _rwkv_out_norm(o, p, cfg, tp) * g
     state["S"].copy_(S_new)
     state["shift"].copy_(x)
     return o @ p["w_o"], state
+
+
+RWKV_HEAD_KEYS = ("w_r", "w_k", "w_v", "w_g", "w_o")
+
+
+def _rwkv_weights(p, cfg: ArchConfig, run):
+    """RWKV6's time-mix weights on this process and its
+    :class:`ChannelShard` (None where "model" does not divide the heads:
+    the mixer replicated): r/k/v/g column- and ``w_o`` row-parallel by
+    heads, the decay LoRA by its rank where the rules split it, ``mu``
+    whole, ``u``, ``w0`` and ``ln_g`` cut to this process's channels."""
+    from . import sharding as S
+    d = cfg.d_model
+    tp = run.mp > 1 and (d // cfg.rwkv_head_dim) % run.mp == 0
+    lora = tp and isinstance(p["w_lora_a"].placements[1], S.dt_api().Shard)
+    lp = {k: run.weight(w, tp and (k in RWKV_HEAD_KEYS or lora and k in (
+        "w_lora_a", "w_lora_b")), tp) for k, w in p.items()}
+    if not tp:
+        return lp, None
+    sh = ChannelShard(run, d, lora)
+    for k in ("w0", "u", "ln_g"):
+        lp[k] = lp[k][sh.own]
+    return lp, sh
+
+
+def rwkv_mesh(p, h, cfg: ArchConfig, run, return_state: bool = False):
+    """:func:`rwkv_layer` over a mesh: the heads over "model" (the chunked
+    recurrence on this process's heads), the decay LoRA's product and the
+    ``ln_g`` norm's sum of squares summed over "model", the output
+    projection's partial sums reduced to ``h``'s placements.
+    ``return_state``: also this process's block of the decode state (its
+    heads of ``S``; the token shift whole)."""
+    lp, sh = _rwkv_weights(p, cfg, run)
+    out = rwkv_layer(lp, run.act(h, sh is not None), cfg,
+                     return_state=return_state, tp=sh)
+    if return_state:
+        return run.out(out[0], sh is not None, h.placements), out[1]
+    return run.out(out, sh is not None, h.placements)
+
+
+def rwkv_decode_mesh(p, h, cfg: ArchConfig, state, pos, run):
+    """:func:`rwkv_decode` over a mesh, ``state`` this process's block."""
+    lp, sh = _rwkv_weights(p, cfg, run)
+    out, _ = rwkv_decode(lp, run.act(h, sh is not None), cfg, state, pos,
+                         tp=sh)
+    return run.out(out, sh is not None, h.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -970,3 +1347,19 @@ def rwkv_cmix(p, x, shift_state=None):
     rx = x + (xs - x) * p["mu"][1]
     k = torch.square(F.relu(kx @ p["w_k"]))
     return torch.sigmoid(rx @ p["w_r"]) * (k @ p["w_v"])
+
+
+def cmix_mesh(p, h, cfg: ArchConfig, run, shift_state=None):
+    """:func:`rwkv_cmix` over a mesh: F over "model" (``w_k``'s columns;
+    ``w_v`` (F, D), which the rules shard on D, gathered and cut to this
+    process's F rows), ``w_r`` whole; the product, a partial sum over
+    "model", reduced to ``h``'s placements.  ``shift_state`` this
+    process's rows of the decode's ``cmix_shift``."""
+    f = p["w_k"].shape[-1]
+    tp = run.mp > 1 and f % run.mp == 0
+    lp = {k: run.weight(p[k], tp and k == "w_k", tp)
+          for k in ("mu", "w_k", "w_r")}
+    w_v = run.weight(p["w_v"], False, tp)
+    lp["w_v"] = w_v[ChannelShard(run, f).own] if tp else w_v
+    return run.out(rwkv_cmix(lp, run.act(h, tp), shift_state), tp,
+                   h.placements)

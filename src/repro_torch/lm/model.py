@@ -16,12 +16,15 @@ period in the backward (``torch.utils.checkpoint``, non-reentrant), as the
 reference checkpoints them.
 
 ``mesh``: None, a ``MeshLayout`` of one device (run as no mesh), or a
-``("data", "model")`` process mesh (``launch/mesh.py::LMMesh``) for the
-dense-attention architectures, whose parameters are then DTensors laid
-out by ``lm/sharding.py``'s specs (``distribute_params``): the embedding
-and the LM head vocabulary-parallel, the residual stream under the
-reference's ``activation_constraint`` between layers, each block on local
-shards (``sharding.MeshRun``), the logits under ``logits_constraint``.
+``("data", "model")`` process mesh (``launch/mesh.py::LMMesh``) for every
+registry architecture, whose parameters are then DTensors laid out by
+``lm/sharding.py``'s specs (``distribute_params``): the embedding and the
+LM head vocabulary-parallel, the residual stream under the reference's
+``activation_constraint`` between layers, each block on local shards
+(``sharding.MeshRun``; ``layers``' ``*_mesh`` functions), the context
+through the encoder or the patch projection over the batch, the MoE
+layers' aux loss the whole batch's, MTP over the same blocks, the logits
+under ``logits_constraint``.
 """
 from __future__ import annotations
 
@@ -230,7 +233,7 @@ def embed(params, tokens):
 
 
 # ---------------------------------------------------------------------------
-# Over a process mesh: the dense-attention slice (sharding.MeshRun)
+# Over a process mesh (sharding.MeshRun)
 # ---------------------------------------------------------------------------
 
 def _vocab_tp(cfg: ArchConfig, run) -> bool:
@@ -271,18 +274,84 @@ def head_mesh(params, cfg: ArchConfig, x, run, softcap: bool = True):
                         (run.bp, dt.Shard(2) if tp else dt.Replicate()))
 
 
+def _zero_aux(run):
+    """A layer's aux loss without MoE over a mesh: 0, replicated."""
+    dt = S.dt_api()
+    return S.from_local(torch.zeros((), dtype=torch.float32,
+                                    device=run.mesh.device), run.mesh,
+                        (dt.Replicate(), dt.Replicate()))
+
+
+def apply_mixer_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, positions,
+                     run, context=None, causal=True):
+    """:func:`apply_mixer` over a mesh (``h`` and ``context`` DTensors)."""
+    if spec.mixer in L.ATTN_MIXERS:
+        return L.attention_mesh(p, h, cfg, spec, positions, run, causal)[0]
+    if spec.mixer == "mla":
+        return L.mla_mesh(p, h, cfg, spec, positions, run)[0]
+    if spec.mixer == "mamba":
+        return L.mamba_mesh(p, h, cfg, run)
+    if spec.mixer == "rwkv":
+        return L.rwkv_mesh(p, h, cfg, run)
+    if spec.mixer == "cross":
+        if context is None:
+            raise ValueError(f"{cfg.name}'s cross-attention layers need a "
+                             "context (frame or patch embeddings)")
+        return L.cross_mesh(p, h, context, cfg, run)[0]
+    raise ValueError(spec.mixer)
+
+
+def apply_mlp_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, run):
+    """:func:`apply_mlp` over a mesh: (out, aux), DTensors."""
+    if spec.mlp == "moe":
+        return L.moe_mesh(p, h, cfg, run, cfg.act)
+    if cfg.family == "ssm":
+        return L.cmix_mesh(p, h, cfg, run), _zero_aux(run)
+    return L.mlp_mesh(p, h, cfg, run), _zero_aux(run)
+
+
 def apply_layer_mesh(p, x, cfg: ArchConfig, spec: LayerSpec, positions,
-                     run):
+                     run, context=None, causal=True):
     """:func:`apply_layer` over a mesh, ``x`` the residual stream (a
-    DTensor; the norms run on its blocks, row by row)."""
+    DTensor; the norms run on its blocks, row by row).  Returns (x, aux)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + L.attention_mesh(p["mixer"], h, cfg, spec, positions, run)[0]
+    x = x + apply_mixer_mesh(p["mixer"], h, cfg, spec, positions, run,
+                             context, causal)
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp_mesh(p["mlp"], h, cfg, run)
+    o, aux = apply_mlp_mesh(p["mlp"], h, cfg, spec, run)
+    return x + o, aux
 
 
-def _forward_mesh(params, cfg: ArchConfig, tokens, remat: str, mesh,
-                  seq_shard: bool):
+def encode_context_mesh(params, cfg: ArchConfig, context, run,
+                        seq_shard: bool = True):
+    """:func:`encode_context` over a mesh: ``context`` (B, T, D) a DTensor
+    over the batch (the reference's ``context_spec``) or the whole batch
+    on every process; the projection on this process's rows, whisper's
+    encoder through :func:`apply_layer_mesh` (non-causal) with its stream
+    under ``activation_constraint``.  A DTensor, or None."""
+    if context is None:
+        return None
+    dt = S.dt_api()
+    ctx = run.batch(context).to(L.dt(cfg))
+    if not (cfg.enc_dec or cfg.cross_attn_every):
+        return ctx
+    w = run.weight(params["frame_proj" if cfg.enc_dec else "img_proj"],
+                   False, False)
+    x = S.from_local(run.act(ctx, False) @ w, run.mesh,
+                     (run.bp, dt.Replicate()))
+    if not cfg.enc_dec:
+        return x
+    pos = torch.arange(x.shape[1], device=run.mesh.device)
+    x = S.activation_constraint(x, run.mesh, seq_shard)
+    for layer_p in unstack(params["encoder"], cfg.n_enc_layers):
+        x, _ = apply_layer_mesh(layer_p, x, cfg, ENC_SPEC, pos, run,
+                                causal=False)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _forward_mesh(params, cfg: ArchConfig, tokens, context, remat: str,
+                  mesh, seq_shard: bool):
+    """(logits, hidden, aux) over ``mesh``."""
     prefix_n, n_steps, pattern = cfg.scan_pattern()
     specs = cfg.layer_specs()
     run = S.MeshRun(mesh, tokens.shape[0])
@@ -290,26 +359,31 @@ def _forward_mesh(params, cfg: ArchConfig, tokens, remat: str, mesh,
     positions = torch.arange(tokens.shape[1], device=mesh.device)
     dt = S.dt_api()
     x = embed_mesh(params, cfg, tokens, run, (run.bp, dt.Replicate()))
+    ctx = encode_context_mesh(params, cfg, context, run, seq_shard)
     x = S.activation_constraint(x, mesh, seq_shard)
 
-    def run_layers(layer_ps, layer_specs, h):
+    def run_layers(layer_ps, layer_specs, h, aux_acc):
         for layer_p, spec in zip(layer_ps, layer_specs):
-            h = apply_layer_mesh(layer_p, h, cfg, spec, positions, run)
-        return h
+            h, aux = apply_layer_mesh(layer_p, h, cfg, spec, positions, run,
+                                      ctx)
+            aux_acc = aux_acc + aux
+        return h, aux_acc
 
-    def block(layer_ps, layer_specs, h):
+    def block(layer_ps, layer_specs, h, aux_acc):
         if remat == "full":
-            return checkpoint(run_layers, layer_ps, layer_specs, h,
+            return checkpoint(run_layers, layer_ps, layer_specs, h, aux_acc,
                               use_reentrant=False, preserve_rng_state=False)
-        return run_layers(layer_ps, layer_specs, h)
+        return run_layers(layer_ps, layer_specs, h, aux_acc)
 
+    aux = _zero_aux(run)
     for i in range(prefix_n):
-        x = block([params["prefix"][i]], [specs[i]], x)
+        x, aux = block([params["prefix"][i]], [specs[i]], x, aux)
     steps = [unstack(p, n_steps) for p in params["pattern"]]
     for st in range(n_steps):
-        x = block([steps[j][st] for j in range(len(pattern))], pattern, x)
+        x, aux = block([steps[j][st] for j in range(len(pattern))], pattern,
+                       x, aux)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return head_mesh(params, cfg, x, run)
+    return head_mesh(params, cfg, x, run), x, aux
 
 
 def forward(params, cfg: ArchConfig, tokens, context=None,
@@ -326,18 +400,19 @@ def forward(params, cfg: ArchConfig, tokens, context=None,
     recomputation repeats the forward's operations, so loss and gradients
     are the same bits as with ``remat="none"``.
 
-    Over an ``LMMesh`` (the dense-attention architectures): ``params``
-    DTensors, ``tokens`` a DTensor or the whole batch on every process;
-    the logits a DTensor (batch over "data", vocabulary over "model"),
-    aux 0; ``seq_shard`` (``TrainHParams.seq_shard_activations``) shards
-    the residual stream's sequence over "model" between layers."""
-    mesh = S.executing_mesh(mesh, cfg, "forward")
+    Over an ``LMMesh``: ``params`` DTensors, ``tokens`` and ``context``
+    DTensors or the whole batch on every process; the logits (batch over
+    "data", vocabulary over "model"), the hidden states (the residual
+    stream's placements) and the aux loss (replicated) DTensors;
+    ``seq_shard`` (``TrainHParams.seq_shard_activations``) shards the
+    residual stream's sequence over "model" between layers."""
+    mesh = S.executing_mesh(mesh, "forward")
     if remat not in ("none", "full"):
         raise ValueError(f"remat is 'none' or 'full', not {remat!r}")
     if mesh is not None:
-        logits = _forward_mesh(params, cfg, tokens, remat, mesh, seq_shard)
-        aux = torch.zeros((), dtype=torch.float32, device=mesh.device)
-        return logits, aux
+        logits, x, aux = _forward_mesh(params, cfg, tokens, context, remat,
+                                       mesh, seq_shard)
+        return (logits, x, aux) if return_hidden else (logits, aux)
     prefix_n, n_steps, pattern = cfg.scan_pattern()
     specs = cfg.layer_specs()
     s = tokens.shape[1]
@@ -383,3 +458,24 @@ def mtp_logits(params, cfg: ArchConfig, hidden, tokens):
                        torch.arange(h.shape[1], device=h.device))
     h = L.rms_norm(h, params["mtp_norm"], cfg.norm_eps)
     return logits_head(params, cfg, h)
+
+
+def mtp_logits_mesh(params, cfg: ArchConfig, hidden, tokens, mesh):
+    """:func:`mtp_logits` over a mesh: ``hidden`` the final normed stream
+    and ``tokens`` the batch's (DTensors, or the whole batch), shifted
+    here (``hidden[:, :-1]``, ``tokens[:, 1:]``); the projection on this
+    process's rows, the MTP layer through :func:`apply_layer_mesh`, the
+    logits (not soft-capped) a DTensor as :func:`head_mesh` makes them."""
+    dt = S.dt_api()
+    run = S.MeshRun(mesh, hidden.shape[0])
+    rows = (run.bp, dt.Replicate())
+    tok = S.from_local(run.batch(tokens).to_local()[:, 1:], mesh, rows)
+    emb = run.act(embed_mesh(params, cfg, tok, run, rows), False)
+    h = torch.cat([run.act(hidden, False)[:, :-1], emb], -1)
+    h = S.from_local(h @ run.weight(params["mtp_proj"], False, False), mesh,
+                     rows)
+    h, _ = apply_layer_mesh(params["mtp_layer"], h, cfg, MTP_SPEC,
+                            torch.arange(h.shape[1], device=mesh.device),
+                            run)
+    h = L.rms_norm(h, params["mtp_norm"], cfg.norm_eps)
+    return head_mesh(params, cfg, h, run, softcap=False)

@@ -21,13 +21,15 @@ decode step position ``pos`` and the state.  Both run under
 ``torch.no_grad()``.
 
 Over a ``("data", "model")`` process mesh (``launch/mesh.py::LMMesh``,
-the dense-attention architectures) the parameters and the cache are
-DTensors laid out by ``lm/sharding.py``'s specs (the cache by
-``cache_shardings``: batch over "data", KV heads over "model", or the
-sequence where the heads are too few, the flash-decoding layout); each
-process writes its block of the cache in place; prefill and decode
-steps run eager (a CUDA graph does not capture the collectives) and
-return logits as DTensors (batch over "data", vocabulary over "model").
+every registry architecture) the parameters and the cache are DTensors
+laid out by ``lm/sharding.py``'s specs (the cache by ``cache_shardings``:
+batch over "data"; K/V and ck/cv by KV heads over "model", or the
+sequence where the heads are too few, the flash-decoding layout; MLA's
+latent cache by its sequence; Mamba's and RWKV6's state by channels or
+heads); each process writes its block of the cache in place; prefill and
+decode steps run eager (a CUDA graph does not capture the collectives)
+and return logits as DTensors (batch over "data", vocabulary over
+"model").
 """
 from __future__ import annotations
 
@@ -97,8 +99,8 @@ def init_cache_mesh(cfg: ArchConfig, batch: int, max_len: int, mesh,
     """:func:`init_cache` over an ``LMMesh``: each process allocates only
     its zero block of every leaf (``sharding.cache_shardings``), held as
     DTensors."""
-    specs = S.cache_shardings(abstract_cache(cfg, batch, max_len), mesh)
-    spec_of = dict(S.leaves_with_paths(specs))
+    whole = init_cache(cfg, batch, max_len, "meta", ctx_len)
+    spec_of = dict(S.leaves_with_paths(S.cache_shardings(whole, mesh)))
 
     def block(path, leaf):
         spec = spec_of[path]
@@ -106,7 +108,7 @@ def init_cache_mesh(cfg: ArchConfig, batch: int, max_len: int, mesh,
                             dtype=leaf.dtype, device=mesh.device)
         return S.from_local(local, mesh, S.placements(spec, mesh), leaf.shape)
 
-    return S.map_with_paths(block, abstract_cache(cfg, batch, max_len))
+    return S.map_with_paths(block, whole)
 
 
 def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
@@ -156,14 +158,37 @@ def decode_layer(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos):
 
 
 def decode_layer_mesh(p, x, cfg: ArchConfig, spec: LayerSpec, cache, pos,
-                      run, layout):
-    """:func:`decode_layer` over a mesh (the dense-attention slice): ``x``
-    a DTensor, ``cache`` this process's block of the layer's K/V."""
+                      run, layouts):
+    """:func:`decode_layer` over a mesh: ``x`` a DTensor, ``cache`` this
+    process's block of the layer's cache (``layouts``: by kind, from
+    ``layers.cache_layouts``), written in place."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    x = x + L.attention_decode_mesh(p["mixer"], h, cfg, spec, cache, pos,
-                                    run, layout)
+    mp = p["mixer"]
+    if spec.mixer in L.ATTN_MIXERS:
+        m = L.attention_decode_mesh(mp, h, cfg, spec, cache, pos, run,
+                                    layouts["kv"])
+    elif spec.mixer == "mla":
+        m = L.mla_decode_mesh(mp, h, cfg, spec, cache, pos, run,
+                              layouts["mla"])
+    elif spec.mixer == "mamba":
+        m = L.mamba_decode_mesh(mp, h, cfg, cache, pos, run)
+    elif spec.mixer == "rwkv":
+        m = L.rwkv_decode_mesh(mp, h, cfg, cache, pos, run)
+    elif spec.mixer == "cross":
+        m = L.cross_decode_mesh(mp, h, cfg, cache, run, layouts["cross"])
+    else:
+        raise ValueError(spec.mixer)
+    x = x + m
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp_mesh(p["mlp"], h, cfg, run)
+    if spec.mlp == "moe":
+        o, _ = L.moe_mesh(p["mlp"], h, cfg, run, cfg.act)
+    elif cfg.family == "ssm":
+        o = L.cmix_mesh(p["mlp"], h, cfg, run,
+                        shift_state=cache["cmix_shift"])
+        cache["cmix_shift"].copy_(run.act(h, False))
+    else:
+        o = L.mlp_mesh(p["mlp"], h, cfg, run)
+    return x + o
 
 
 def _mesh_layers(params, cfg: ArchConfig):
@@ -185,9 +210,16 @@ def _local_layers(cache, cfg: ArchConfig):
     return layer_caches(local, cfg)
 
 
-def _max_len(cache) -> int:
-    leaf = next(t for _, t in S.leaves_with_paths(cache))
-    return leaf.shape[-2]
+def _cache_lens(cache) -> tuple:
+    """(S_max, T): the self-attention's (or MLA's) cache length and the
+    cross-attention's context length, None where the cache has no such
+    leaf (their sequence is the second-last dim of each)."""
+    lens = {}
+    for path, t in S.leaves_with_paths(cache):
+        kind = {"k": 0, "ckv": 0, "ck": 1}.get(path.split("/")[-1])
+        if kind is not None:
+            lens[kind] = t.shape[-2]
+    return lens.get(0), lens.get(1)
 
 
 def make_serve_step(cfg: ArchConfig, mesh=None):
@@ -201,7 +233,7 @@ def make_serve_step(cfg: ArchConfig, mesh=None):
     a prefill's), ``tokens`` a DTensor or the whole (B, 1) on every
     process, the logits a DTensor; eager, with the ``layers.FLASH_DECODE``
     and ``layers.GQA_REPEAT`` knobs."""
-    mesh = S.executing_mesh(mesh, cfg, "serving")
+    mesh = S.executing_mesh(mesh, "serving")
     if mesh is not None:
         return _serve_step_mesh(cfg, mesh)
 
@@ -226,11 +258,12 @@ def _serve_step_mesh(cfg: ArchConfig, mesh):
         run = S.MeshRun(mesh, tokens.shape[0])
         tokens = run.batch(tokens)
         pos = L.decode_position(pos, mesh.device)
-        layout = L.CacheLayout(cfg, _max_len(cache), run)
+        layouts = L.cache_layouts(cfg, *_cache_lens(cache), run)
         x = M.embed_mesh(params, cfg, tokens, run, (run.bp, dt.Replicate()))
         for (layer_p, spec), c in zip(_mesh_layers(params, cfg),
                                       _local_layers(cache, cfg)):
-            x = decode_layer_mesh(layer_p, x, cfg, spec, c, pos, run, layout)
+            x = decode_layer_mesh(layer_p, x, cfg, spec, c, pos, run,
+                                  layouts)
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return M.head_mesh(params, cfg, x, run), cache
 
@@ -285,6 +318,40 @@ def _prefill_layer(p, x, cfg, spec, positions, ctx, cache):
     return x + o, cache
 
 
+def _prefill_layer_mesh(p, x, cfg, spec, positions, ctx, cache, run,
+                        layouts):
+    """:func:`_prefill_layer` over a mesh: ``x`` and ``ctx`` DTensors,
+    ``cache`` this process's block of the layer's cache, filled in place
+    (its heads, channels or sequence slice, ``layouts``)."""
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    mp = p["mixer"]
+    if spec.mixer in L.ATTN_MIXERS:
+        m, k, v = L.attention_mesh(mp, h, cfg, spec, positions, run)
+        layouts["kv"].write_prefill(cache, k, v)
+    elif spec.mixer == "mla":
+        m, ckv, krope = L.mla_mesh(mp, h, cfg, spec, positions, run)
+        layouts["mla"].write_prefill(cache, ckv, krope)
+    elif spec.mixer in ("mamba", "rwkv"):
+        layer = L.mamba_mesh if spec.mixer == "mamba" else L.rwkv_mesh
+        m, state = layer(mp, h, cfg, run, return_state=True)
+        for name, t in state.items():
+            cache[name].copy_(t)
+    elif spec.mixer == "cross":
+        if ctx is None:
+            raise ValueError(f"{cfg.name}'s cross-attention layers need a "
+                             "context (frame or patch embeddings)")
+        m, k, v = L.cross_mesh(mp, h, ctx, cfg, run)
+        layouts["cross"].write_prefill(cache, k, v)
+    else:
+        raise ValueError(spec.mixer)
+    x = x + m
+    h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    o, _ = M.apply_mlp_mesh(p["mlp"], h2, cfg, spec, run)
+    if cfg.family == "ssm":
+        cache["cmix_shift"].copy_(run.act(h2, False)[:, -1:, :])
+    return x + o
+
+
 def make_prefill(cfg: ArchConfig, max_len: Optional[int] = None, mesh=None):
     """prefill(params, tokens, context=None) -> (last_logits (B,1,V), cache).
 
@@ -292,12 +359,12 @@ def make_prefill(cfg: ArchConfig, max_len: Optional[int] = None, mesh=None):
     context stub.  As in the reference, the last logits are not soft-capped
     (``final_softcap``), unlike ``serve_step``'s and ``forward``'s; the
     greedy token is the same, tanh being monotone.  ``mesh``: None or a
-    layout of one device, run as no mesh; an ``LMMesh``: the
-    dense-attention slice over DTensor ``params``, the residual stream
-    under the reference's ``activation_constraint``, the cache made by
-    ``init_cache_mesh`` and filled block by block, the last logits a
-    DTensor."""
-    mesh = S.executing_mesh(mesh, cfg, "serving")
+    layout of one device, run as no mesh; an ``LMMesh``: DTensor
+    ``params``, ``tokens`` and ``context`` DTensors or the whole batch,
+    the residual stream under the reference's ``activation_constraint``,
+    the cache made by ``init_cache_mesh`` and filled block by block, the
+    last logits a DTensor."""
+    mesh = S.executing_mesh(mesh, "serving")
     if mesh is not None:
         return _prefill_mesh(cfg, max_len, mesh)
 
@@ -325,20 +392,17 @@ def _prefill_mesh(cfg: ArchConfig, max_len: Optional[int], mesh):
         b, s = tokens.shape
         run = S.MeshRun(mesh, b)
         tokens = run.batch(tokens)
-        cache = init_cache_mesh(cfg, b, max_len or s, mesh)
-        layout = L.CacheLayout(cfg, max_len or s, run)
+        ctx = M.encode_context_mesh(params, cfg, context, run)
+        t = None if ctx is None else ctx.shape[1]
+        cache = init_cache_mesh(cfg, b, max_len or s, mesh, t)
+        layouts = L.cache_layouts(cfg, max_len or s, t, run)
         positions = torch.arange(s, device=mesh.device)
         x = M.embed_mesh(params, cfg, tokens, run, (run.bp, dt.Replicate()))
         x = S.activation_constraint(x, mesh)
         for (layer_p, spec), c in zip(_mesh_layers(params, cfg),
                                       _local_layers(cache, cfg)):
-            h = L.rms_norm(x, layer_p["norm1"], cfg.norm_eps)
-            m, k, v = L.attention_mesh(layer_p["mixer"], h, cfg, spec,
-                                       positions, run)
-            layout.write_prefill(c, k, v)
-            x = x + m
-            h = L.rms_norm(x, layer_p["norm2"], cfg.norm_eps)
-            x = x + L.mlp_mesh(layer_p["mlp"], h, cfg, run)
+            x = _prefill_layer_mesh(layer_p, x, cfg, spec, positions, ctx, c,
+                                    run, layouts)
         whole = (run.bp, dt.Replicate())
         last = S.from_local(x.redistribute(run.dm, whole).to_local()[:, -1:],
                             mesh, whole)

@@ -31,9 +31,13 @@ block from tensors every process holds whole (no communication), and
 :func:`activation_constraint` and :func:`logits_constraint` are
 redistributions to its specs.  :class:`MeshRun` is what the LM's blocks
 use to run on local shards between redistributions (``lm/model.py``,
-``lm/layers.py``, ``lm/serve_lib.py``).  What runs over a mesh is the
-dense-attention slice (``attn``/``attn_local`` mixers, the dense MLP);
-:func:`executing_mesh` refuses the rest (ROADMAP item 14(c')).
+``lm/layers.py``, ``lm/serve_lib.py``): every registry architecture, its
+mixers (attention, MLA, Mamba, RWKV6, cross-attention), MoE (with
+:data:`EXPERT_2D`), the RWKV channel mix, the encoder and context stubs
+and MTP.  :func:`executing_mesh` refuses what is left of ROADMAP item
+14(c'): ``adam8bit`` over more than one device, the long-context cache
+layout (``cache_shardings(long_context=True)``) and a ``MeshLayout`` of
+more than one device.
 """
 from __future__ import annotations
 
@@ -81,17 +85,17 @@ def is_lm_mesh(mesh) -> bool:
     return getattr(mesh, "device_mesh", None) is not None
 
 
-def executing_mesh(mesh, cfg=None, what: str = "the LM",
-                   optimizer: Optional[str] = None):
+def executing_mesh(mesh, what: str = "the LM",
+                   optimizer: Optional[str] = None,
+                   long_context: bool = False):
     """The mesh an entry point runs over: None for no mesh or a
     ``MeshLayout`` of one device (run as no mesh), the ``LMMesh`` itself
-    for a process mesh.  Raises ``unported`` for a ``MeshLayout`` of more
-    devices (no devices behind it), for an architecture outside the
-    dense-attention slice over an ``LMMesh`` (MoE, MLA, Mamba, RWKV6,
-    cross-attention, the encoder, the modality stubs, MTP; a ``(1, 1)``
-    mesh included: the DTensor route covers only the slice), and for
-    ``adam8bit`` over more than one device (its quantisation blocks cross
-    the shards)."""
+    for a process mesh (every registry architecture).  Raises
+    ``unported`` for a ``MeshLayout`` of more devices (no devices behind
+    it), for ``adam8bit`` over more than one device (its 256-value
+    quantisation blocks cross the shards) and for the long-context cache
+    layout over an ``LMMesh`` (the sequence of a cache whose batch does not
+    divide over "data"; the reference lays it out only in its dry run)."""
     if mesh is None:
         return None
     if not is_lm_mesh(mesh):
@@ -101,22 +105,12 @@ def executing_mesh(mesh, cfg=None, what: str = "the LM",
                 "has no devices behind it: run over an LMMesh, "
                 "launch/mesh.py::make_lm_mesh)")
         return None
-    if cfg is not None:
-        off = sorted({sp.mixer for sp in cfg.layer_specs()
-                      if sp.mixer not in L.ATTN_MIXERS}
-                     | {f"{sp.mlp} MLP" for sp in cfg.layer_specs()
-                        if sp.mlp != "dense"}
-                     | ({"the encoder and the context stub"}
-                        if cfg.enc_dec or cfg.cross_attn_every else set())
-                     | ({"MTP"} if cfg.mtp else set())
-                     | ({"RWKV channel mix"} if cfg.family == "ssm"
-                        else set()))
-        if off:
-            raise L.unported(f"{what} of {cfg.name} over a device mesh "
-                             f"({', '.join(off)})")
     if optimizer == "adam8bit" and mesh.size > 1:
         raise L.unported(f"adam8bit over {mesh.size} devices (its 256-value "
                          "quantisation blocks cross the shards)")
+    if long_context:
+        raise L.unported(f"{what} with the long-context cache layout (the "
+                         "sequence over \"data\") over an LMMesh")
     return mesh
 
 
@@ -432,9 +426,10 @@ def distribute_batch(batch: dict, mesh):
 
 
 def distribute_cache(cache, mesh, long_context: bool = False):
-    """A serving cache laid out by :func:`cache_shardings`."""
-    return distribute_tree(cache, cache_shardings(cache, mesh, long_context),
-                           mesh)
+    """A serving cache laid out by :func:`cache_shardings` (the
+    long-context layout raises: :func:`executing_mesh`)."""
+    executing_mesh(mesh, what="distribute_cache", long_context=long_context)
+    return distribute_tree(cache, cache_shardings(cache, mesh), mesh)
 
 
 def gather(tree):
@@ -480,9 +475,15 @@ class MeshRun:
         dt = dt_api()
         self.mesh, self.dm = mesh, mesh.device_mesh
         self.mp, self.mi = mesh.shape[TP], mesh.index(TP)
+        self.dp, self.di = mesh.shape[FSDP], mesh.index(FSDP)
         sharded = dp_fit(batch, mesh) is not None
         self.bp = dt.Shard(0) if sharded else dt.Replicate()
         self.dgrad = dt.Partial() if sharded else dt.Replicate()
+        # this process's rows of the global batch: all of them where it is
+        # replicated over "data"
+        n = batch // self.dp if sharded else batch
+        lo = self.di * n if sharded else 0
+        self.rows = slice(lo, lo + n)
 
     def _part(self, tp: bool):
         dt = dt_api()
@@ -527,6 +528,53 @@ class MeshRun:
         ``tp``) as a DTensor with the placements ``like``."""
         return from_local(o, self.mesh, (self.bp, self._part(tp))
                           ).redistribute(self.dm, like)
+
+    def whole(self, x, grads) -> torch.Tensor:
+        """The DTensor ``x`` whole on every process (all-gathered over
+        both axes), as a local tensor whose gradient has the placements
+        ``grads``: what each process's local gradient is (a partial sum
+        where the processes split the work on it, whole where each does
+        all of it)."""
+        dt = dt_api()
+        return x.redistribute(self.dm, (dt.Replicate(), dt.Replicate())
+                              ).to_local(grad_placements=grads)
+
+    def reduce_model(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (or ``op``: "max") over "model" of each process's
+        ``t``, on every process; no autograd (:meth:`psum` has it)."""
+        dt = dt_api()
+        return from_local(t.contiguous(), self.mesh,
+                          (dt.Replicate(), dt.Partial(op))).redistribute(
+            self.dm, (dt.Replicate(), dt.Replicate())).to_local()
+
+    def gather_model(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The processes' blocks of ``t`` along ``dim``, concatenated in
+        "model" order, on every process (no autograd)."""
+        dt = dt_api()
+        return from_local(t.contiguous(), self.mesh,
+                          (dt.Replicate(), dt.Shard(dim))).redistribute(
+            self.dm, (dt.Replicate(), dt.Replicate())).to_local()
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over "model" of partial sums each process computed from
+        its channels, used by each process for its own channels: the
+        gradient is summed over "model" the same way (Megatron's all-reduce
+        whose consumers are not replicated)."""
+        return _ModelSum.apply(t, self)
+
+
+class _ModelSum(torch.autograd.Function):
+    """:meth:`MeshRun.psum`: an all-reduce over "model" forward and
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t, run):
+        ctx.run = run
+        return run.reduce_model(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.run.reduce_model(g), None
 
 
 def shard_shape(shape, spec, mesh) -> tuple:

@@ -14,11 +14,12 @@ reads a value back to the host.
 ``("data", "model")`` process mesh (``launch/mesh.py::LMMesh``) runs it
 over DTensors laid out by ``lm/sharding.py``'s specs (parameters,
 optimizer state and batch: ``distribute_params``,
-``distribute_opt_state``, ``distribute_batch``) for the dense-attention
-architectures with ``adam`` or ``adamw`` (``adam8bit`` over one process
-only): each gradient is brought to its parameter's placements (the ZeRO
-reduce-scatter over "data") before the global norm, which sums over the
-shards, and the update.  The reference's sharding helpers
+``distribute_opt_state``, ``distribute_batch``) for every registry
+architecture with ``adam`` or ``adamw`` (``adam8bit`` over one process
+only), the MoE aux loss and the MTP term included: each gradient is
+brought to its parameter's placements (the ZeRO reduce-scatter over
+"data") before the global norm, which sums over the shards, and the
+update.  The reference's sharding helpers
 (``abstract_params``, ``abstract_train_state``, ``opt_state_shardings``,
 ``batch_specs``, ``context_spec``) give the training state and batch on the
 ``meta`` device with their spec trees for any layout: the dry run's
@@ -102,7 +103,7 @@ def make_loss_fn(cfg: ArchConfig, hp: TrainHParams, mesh=None):
     ``mtp_coef`` x the MTP head's CE (predicting t + 2 from ``hidden[:, :-1]``
     and ``tokens[:, 1:]``, no z-loss) when ``cfg.mtp``.  Over an ``LMMesh``
     the batch is distributed first where it is not yet."""
-    mesh = S.executing_mesh(mesh, cfg, "training")
+    mesh = S.executing_mesh(mesh, "training")
 
     def loss_fn(params, batch):
         if mesh is not None:
@@ -119,8 +120,13 @@ def make_loss_fn(cfg: ArchConfig, hp: TrainHParams, mesh=None):
             metrics["aux"] = aux
         if cfg.mtp:
             hidden = out[1]
-            mtp_logits = M.mtp_logits(params, cfg, hidden[:, :-1],
-                                      tokens[:, 1:])
+            if mesh is None:
+                mtp_logits = M.mtp_logits(params, cfg, hidden[:, :-1],
+                                          tokens[:, 1:])
+            else:
+                mtp_logits = M.mtp_logits_mesh(params, cfg, hidden, tokens,
+                                               mesh)
+                labels = labels.to_local()
             mtp_loss = cross_entropy(mtp_logits, labels[:, 1:])
             loss = loss + hp.mtp_coef * mtp_loss
             metrics["mtp"] = mtp_loss
@@ -138,7 +144,7 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams, mesh=None):
     ``LMMesh``: ``params``, ``opt_state`` and the returned ones are
     DTensors laid out by the specs, the metrics replicated 0-d DTensors
     (the same bits on every process)."""
-    mesh = S.executing_mesh(mesh, cfg, "training", hp.optimizer)
+    mesh = S.executing_mesh(mesh, "training", hp.optimizer)
     opt = make_optimizer(hp)
     loss_fn = make_loss_fn(cfg, hp, mesh)
 

@@ -38,8 +38,6 @@ LAYOUTS = ((2, 2), (1, 4))
 KNOBS = {(2, 2): ((False, False), (True, False), (False, True)),
          (1, 4): ((False, False), (True, False), (False, True),
                   (True, True))}
-REFUSED = ("deepseek-v3-671b", "jamba-1.5-large-398b", "rwkv6-3b",
-           "whisper-medium", "llama-3.2-vision-90b", "llama4-scout-17b-a16e")
 
 
 def local_blocks(tree):
@@ -153,11 +151,6 @@ def _error(fn) -> str:
 def refusals(task, mesh) -> dict:
     """What stays out over a mesh of more than one device."""
     out = {}
-    for name, cfg in task["refused"].items():
-        out[name] = [_error(lambda: SL.make_prefill(cfg, mesh=mesh)),
-                     _error(lambda: SL.make_serve_step(cfg, mesh=mesh)),
-                     _error(lambda: TT.make_train_step(
-                         cfg, TT.TrainHParams(), mesh=mesh))]
     cfg = task["archs"]["qwen2"]["cfg"]
     out["adam8bit"] = [_error(lambda: TT.make_train_step(
         cfg, TT.TrainHParams(optimizer="adam8bit"), mesh=mesh))]

@@ -42,10 +42,10 @@ attention softcap 50, final softcap 30), weights from the JAX PRNG through
   attention's wq and wo) and 1 + L all-reduces.
 * The plain decode with ``kv_base`` and ``return_lse``: 4 slices merged by
   their log-sum-exp equal the whole cache's ``decode_ref``.
-* Refusals: each architecture outside the dense-attention slice and
-  ``adam8bit`` over 4 devices name item 14(c'); a ``MeshLayout`` of more
-  than one device; ``make_lm_mesh`` without a group, with the wrong world
-  size, and on CUDA without a card.
+* Refusals: ``adam8bit`` over 4 devices names item 14(c'); a
+  ``MeshLayout`` of more than one device; ``make_lm_mesh`` without a
+  group, with the wrong world size, and on CUDA without a card (the other
+  architectures run over a mesh: ``tests/test_torch_lm_mesh_archs.py``).
 
 One spawn of 4 processes; each waits at most 60 s in a rendezvous or
 collective and the spawn at most 150 s in all.  The JAX side runs in two
@@ -351,9 +351,7 @@ def run(tmp_path_factory):
                        "k": arrays[f"flash_k {i}"],
                        "v": arrays[f"flash_v {i}"], "pos": pos,
                        "window": window, "softcap": cap}
-                      for i, (_, pos, window, cap) in enumerate(FLASH)],
-            "refused": {name: bridge.arch_config_to_torch(
-                ARCHS[name].reduced(**NARROW)) for name in W.REFUSED}}
+                      for i, (_, pos, window, cap) in enumerate(FLASH)]}
     _publish(task, path)
     try:
         one = _one_process(archs, arrays)
@@ -603,7 +601,7 @@ def test_flash_decode_gathers_no_cache(run, key):
         assert got[False] == {"all_gather": 4 * n, "all_reduce": 1 + n}, got
 
 
-@pytest.mark.parametrize("name", W.REFUSED + ("adam8bit",))
+@pytest.mark.parametrize("name", ("adam8bit",))
 def test_out_of_slice_refusals_name_14c_prime(run, name):
     for res in run["procs"]:
         for msg in res[(2, 2)]["errors"][name]:
