@@ -17,6 +17,7 @@ MoE, Mamba, RWKV6, cross-attention, the encoder and MTP) and LM training.
     python3 chip_smoke.py --phase dd_procs  # the dd_procs phase alone
     python3 chip_smoke.py --phase ensemble_procs  # ensemble_procs alone
     python3 chip_smoke.py --phase lm_mesh   # the lm_mesh phase alone
+    python3 chip_smoke.py --phase serve_procs  # serve_procs alone
 
 Builds the kernels from ``src/repro_torch/kernels`` (one nvcc per CUDA
 source, all started together; Triton at first launch), then runs phases
@@ -171,7 +172,19 @@ device mesh and phase 14 the step accounting against the card:
    launches per executor call at batch 1, 2, 4;
    an expired deadline, a full queue and a ``serve_fail`` each failing only
    their own request or batch; the ``pipeline_executor_factory`` route at
-   batch 2 x 4 virtual ranks;
+   batch 2 x 4 virtual ranks; then serve_procs, the same serving over a
+   ``(replica x dd)`` process mesh (``pipeline_executor_factory(...,
+   mesh_for=...)``: the server on process 0, ``follow_dispatches`` on the
+   others, batch buckets 1, 2, 4 over 8 // batch dd ranks): (i) a (1, 1)
+   NCCL mesh in this process, every served result bit for bit against the
+   virtual route, the launches per dispatch equal, each model kernel
+   against its plain version on the batch-4 dispatch's rows; (ii) two gloo
+   processes sharing this card as (2, 1), within the DP gate with the same
+   bits on both, a request after a 5 s idle spell (the followers give up
+   on a header after 4 s; keep-alive headers every 0.5 s) with its earlier
+   bits, and 10 client MD steps; (iii) with 4 cards (2, 2) over
+   NCCL with 4 client MD threads for 100 steps (requests/s, p50/p99, ms
+   and collectives by tag per dispatch), else a line saying why not;
 11. lm_archs: deepseek-v3 (4 layers: 3 dense MLA + 1 MoE MLA, and the MTP
    head; B 2, prompt 1,024, 8 new), jamba-1.5-large (2 layers: mamba/dense,
    mamba/MoE; B 2, prompt 2,048, 8 new), rwkv6-3b (all 32 layers; B 4,
@@ -215,10 +228,15 @@ device mesh and phase 14 the step accounting against the card:
    its sequence) against its plain version over 4 slices at gemma2-2b's
    and qwen2-1.5b's head widths, bf16 and fp32, a slice with no visible
    key giving O = 0 and LSE = -inf, the slices merged by their LSE equal
-   to the whole cache, timed beside its bound and SDPA; (b) the main path:
-   a ``(1, 1)`` mesh through one NCCL process, bit for bit against no
-   mesh, eager on both sides: qwen2-1.5b's training step (12's
-   configuration, 2 steps: loss, grad_norm, every parameter) and gemma2-2b's
+   to the whole cache, timed beside its bound and SDPA, also at the
+   long-context slices a (4, 1) and a (2, 2) mesh give one process of
+   long_500k's 524,288 keys (131,072 and 262,144 keys, B 1); (b) the main
+   path: a ``(1, 1)`` mesh through one NCCL process, bit for bit against
+   no mesh, eager on both sides: qwen2-1.5b's training step (12's
+   configuration, 2 steps: loss, grad_norm, every parameter), the same
+   with ``adam8bit`` (B 2 x 1,024: every ``q``, ``s``, ``v16`` too), its
+   decode at B 1 into a seeded cache of 524,288 positions laid out with
+   ``long_context=True`` (8 greedy steps), and gemma2-2b's
    prefill and 31 greedy decode steps (8's configuration: the prefill
    logits, the 32 tokens, every step's logits); (c) two gloo processes
    sharing this card as ``(1, 2)`` (every collective DTensor issues on CUDA
@@ -228,7 +246,10 @@ device mesh and phase 14 the step accounting against the card:
    no-mesh greedy tokens; (d) with 4 cards, NCCL one card a process:
    ``(2, 2)`` training and serving at full depth, ``(1, 4)`` qwen2-1.5b's
    decode (B 4 x 2,048; Hkv 2 < 4, so the cache lies sharded by its
-   sequence) with ``FLASH_DECODE`` off and on and ``GQA_REPEAT`` on, else
+   sequence) with ``FLASH_DECODE`` off and on and ``GQA_REPEAT`` on,
+   ``adam8bit`` training at ``(2, 2)`` and the long-context decode at
+   ``(2, 2)`` and ``(4, 1)`` (the cache's sequence over "data": no cache
+   all-gather, three all-reduces a layer more than the plain layout), else
    a line saying why not.  Each case prints ms a training step and
    tokens/s, ms a prefill and a decode step, peak MiB per process and the
    collectives of one step by kind (``CommDebugMode``) with their ms
@@ -247,7 +268,8 @@ device mesh and phase 14 the step accounting against the card:
 15. a ``kernels`` JSON line (launches per force call, per MD step, per
    guarded MD run, per training step and ``force_rmse`` call, per
    request, per batched force call, per ensemble step, per served
-   dispatch, per overlap evaluation and per LM training step;
+   dispatch (on one process and over a process mesh), per overlap
+   evaluation and per LM training step;
    ``flash_attention`` and ``flash_decode`` also per prefill and decode
    step of each lm_archs architecture, the MLA instance's numbers, the
    LM training route's times, the lm_mesh main path's launches and the
@@ -259,6 +281,7 @@ card and the repository's ``src/`` beside it; it imports no JAX.
 import dataclasses
 import datetime
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -981,9 +1004,10 @@ def check_force_scatter(g, idx, mask, n, edge=False, library=True,
     PyTorch's indexing backward (``index_put_`` with accumulate, what
     autograd runs for ``coords[safe]``) with padded slots at atom 0 and,
     where row i holds atom i's slots (C == n, the gather's backward), at
-    their own atom; ``library=False`` leaves out the two PyTorch timings
-    (each padded slot an atomic add on atom 0: seconds a call at tens of
-    millions of padded slots).  With ``profile``, one call under
+    their own atom; ``library=False`` leaves out those two timings (each
+    padded slot an atomic add on atom 0: seconds a call at tens of
+    millions of padded slots) and times PyTorch's call on the valid slots
+    alone instead.  With ``profile``, one call under
     ``torch.profiler`` splits its device time by kernel (the list's sort
     passes, offsets and sums).  The card's list (``_build_list``) is held
     against ``reverse_list`` element for element; ``reverse_list_ms`` times
@@ -1045,25 +1069,36 @@ def check_force_scatter(g, idx, mask, n, edge=False, library=True,
             f"one force_scatter call over {c} x {k} slots onto {n} atoms")
     if edge:
         line["all_masked_zero_and_empty"] = True
-    if not library:
-        line["library_ms"] = None
-        return line
 
-    def library(safe):
-        return torch.zeros(n, 3, device=g.device).index_put_((safe,), g,
-                                                             accumulate=True)
+    def index_put(safe, vals=g):
+        return torch.zeros(n, 3, device=g.device).index_put_(
+            (safe,), vals, accumulate=True)
+
+    if not library:
+        # every padded slot an atomic add on atom 0 would take seconds: the
+        # library call on the valid slots alone (compacted before timing)
+        sel = (idx >= 0) & (mask > 0)
+        g_valid, i_valid = g[sel], idx[sel].long()
+        line.update({
+            "library_ms": time_ms(lambda: index_put(i_valid, g_valid)),
+            "library_max_abs_err": float((index_put(i_valid, g_valid).cpu()
+                                          - want).abs().max()) if n else 0.0,
+            "library": "zeros.index_put_((idx[valid],), g[valid], "
+                       "accumulate=True): the valid slots only, compacted "
+                       "before the timing"})
+        return line
 
     safe_zero = torch.where(idx >= 0, idx.long(), torch.zeros_like(idx.long()))
     line.update({
-        "library_ms": time_ms(lambda: library(safe_zero)),
-        "library_max_abs_err": float((library(safe_zero).cpu() - want)
+        "library_ms": time_ms(lambda: index_put(safe_zero)),
+        "library_max_abs_err": float((index_put(safe_zero).cpu() - want)
                                      .abs().max()) if n else 0.0,
         "library": "zeros.index_put_((safe,), g, accumulate=True), the "
                    "backward of coords[safe]; padded slots at atom 0"})
     if c == n:
         own = torch.arange(c, device=idx.device)[:, None].expand(c, k)
         safe_own = torch.where((idx >= 0) & (mask > 0), idx.long(), own)
-        line["library_own_index_ms"] = time_ms(lambda: library(safe_own))
+        line["library_own_index_ms"] = time_ms(lambda: index_put(safe_own))
         line["library"] += (", and (library_own_index_ms) every masked or "
                             "padded slot at its own atom")
     return line
@@ -3755,6 +3790,462 @@ def serve_clients(server, msys, nn, box, xs):
 
 
 # ---------------------------------------------------------------------------
+# serve_procs: DP force serving over a (replica x dd) process mesh
+# ---------------------------------------------------------------------------
+
+SERVE_PROCS_DIR = Path(__file__).resolve().parent / "build" / "serve_procs"
+SERVE_PROCS_SHARDS = 2        # replica shards of the (2, 1) and (2, 2) layouts
+SERVE_PROCS_GLOO_STEPS = 10   # client MD steps of the two gloo processes
+# the two gloo processes' idle spell: process 0 idles SERVE_PROCS_IDLE_S,
+# longer than a follower waits for a header (SERVE_PROCS_FOLLOW_S; a
+# keep-alive header after an eighth of it idle)
+SERVE_PROCS_IDLE_S, SERVE_PROCS_FOLLOW_S = 5.0, 4.0
+
+
+def serve_procs_setup(model, device):
+    """The serve phase's system (a DP group of 4,096 atoms), its box and
+    types, one request per replica position (SERVE_BATCHES' largest), and
+    the DD configuration of a request over ``ranks`` ranks."""
+    from repro_torch.backend import ForceRequest
+    from repro_torch.core import suggest_config
+    from repro_torch.md import build_solvated_protein, mark_nn_group
+    from repro_torch.md.integrators import wrap
+    msys, pos, nn = build_solvated_protein(SERVE_RESIDUES, device=device)
+    msys = mark_nn_group(msys, nn)
+    box = msys.box.cpu()
+    nn_t = torch.as_tensor(nn)
+    types_nn = msys.types.cpu()[nn_t]
+    xs = replica_positions(pos, msys.box, max(SERVE_BATCHES))
+    coords_nn = xs[0].cpu()[nn_t].numpy()
+    desc = model.cfg.descriptor
+    return {"msys": msys, "nn": nn, "box": box, "types": types_nn,
+            "xs": xs, "n": len(nn),
+            "reqs": [ForceRequest(positions=wrap(x.cpu()[nn_t], box),
+                                  box=box, types=types_nn, tenant=f"r{k}")
+                     for k, x in enumerate(xs)],
+            "cfg_for": lambda nb, ranks: suggest_config(
+                nb, box.numpy(), ranks, desc.rcut, nbr_capacity=desc.sel,
+                coords=coords_nn)}
+
+
+def serve_procs_factory(model, s, device=None, backend=None, shards=1,
+                        timeout=None, idle=False):
+    """The served pipeline's executor factory: virtual (``device`` None:
+    8 // batch virtual ranks) or over the process mesh of each batch
+    bucket, ``min(batch, shards)`` replica shards x 8 // batch dd ranks
+    (the virtual route's ranks); with ``idle`` the followers wait
+    SERVE_PROCS_FOLLOW_S for a header."""
+    from repro_torch.launch.mesh import make_ensemble_mesh
+    from repro_torch.serve import pipeline_executor_factory
+    mesh_for = None
+    if device is not None:
+        def mesh_for(b):
+            return make_ensemble_mesh(min(b, shards), max(N_RANKS // b, 1),
+                                      device=device, backend=backend,
+                                      timeout=timeout)
+    kw = {"follow_timeout": datetime.timedelta(
+        seconds=SERVE_PROCS_FOLLOW_S)} if idle else {}
+    return pipeline_executor_factory(model, s["box"].numpy(),
+                                     s["types"].numpy(), s["cfg_for"],
+                                     mesh_for=mesh_for, **kw)
+
+
+def serve_procs_server(model, params, s, factory):
+    from repro_torch.serve import ForceServer, ServeConfig
+    return ForceServer(model, params, ServeConfig(
+        atom_buckets=(s["n"],), batch_buckets=SERVE_BATCHES,
+        nbr_capacity=SERVE_K, batch_window_s=0.5), executor_factory=factory)
+
+
+def serve_procs_sequence(server, s):
+    """The requests every route serves: the 4 requests at once (one
+    dispatch of the batch bucket 4), then 2 (bucket 2), then
+    ``evaluate_direct`` of the first (bucket 1).  Returns each result's
+    (energy, forces, overflow, batch bucket)."""
+    out = []
+    for group in (s["reqs"], s["reqs"][:2]):
+        futs = [server.submit(r) for r in group]
+        out += [f.result(300.0) for f in futs]
+    out.append(server.evaluate_direct(s["reqs"][0]))
+    for r in out:
+        if not r.ok:
+            fail(f"serve_procs: {r.error}")
+    return [(r.energy, r.forces, r.diagnostics["overflow"],
+             r.diagnostics["batch_bucket"]) for r in out]
+
+
+def serve_procs_dispatch(server, params, s, b):
+    """The bucket-``b`` executor and its padded arguments on the card."""
+    from repro_torch.serve import pad_group
+    arrs = [torch.as_tensor(a, device=server.device) for a in
+            pad_group(s["reqs"][:b], s["n"], SERVE_BATCHES)]
+    fn = server._bucket_fn(s["n"], b)
+    return lambda: fn(params, *arrs)
+
+
+def serve_procs_clients(server, s, steps, meshes):
+    """SERVE_CLIENTS MD threads through ``RemoteForceProvider``s against
+    ``server``: SERVE_WARM steps each, then ``steps`` each, timed: requests/s,
+    every request's latency, the dispatches' ms (host clock, synchronised
+    inside the dispatch) and the meshes' collectives by tag (this
+    process's)."""
+    import threading
+    from repro_torch.md import EngineConfig, MDEngine
+    from repro_torch.serve import RemoteForceProvider
+    window = {"t0": None}
+    latencies, dispatch_ms, errors = [], [], []
+    settle = server._settle
+
+    def timed_settle(fut, result, event):
+        settle(fut, result, event)
+        if window["t0"] is not None and fut.t_submit >= window["t0"]:
+            latencies.append((event, result.diagnostics["latency_s"]))
+
+    def timed(fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            if window["t0"] is not None:
+                dispatch_ms.append((int(args[1].shape[0]),
+                                    (time.perf_counter() - t0) * 1e3))
+            return out
+        return run
+
+    def start_window():
+        for m in meshes:
+            m.record = []
+        window["t0"] = time.monotonic()
+
+    barrier = threading.Barrier(SERVE_CLIENTS, action=start_window)
+    msys = s["msys"]
+
+    def client(i):
+        try:
+            prov = RemoteForceProvider(server, s["nn"], msys.types, s["box"],
+                                       msys.n_atoms, tenant=f"sim{i}",
+                                       timeout_s=300.0)
+            eng = MDEngine(msys, EngineConfig(**MD_CFG), special_force=prov)
+            st = eng.run(eng.init_state(s["xs"][i], 200.0, seed=i),
+                         SERVE_WARM)
+            barrier.wait(600.0)
+            check_finite_state(f"serve_procs client {i}",
+                               eng.run(st, steps))
+        except Exception as e:  # noqa: BLE001 — reported after the join
+            errors.append(e)
+            barrier.abort()
+
+    fns = dict(server._fns)
+    for key, fn in fns.items():
+        server._fns[key] = timed(fn)
+    server._settle = timed_settle
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - window["t0"]
+    finally:
+        server._fns.update(fns)
+        server._settle = settle
+    if errors:
+        raise errors[0]
+    n_req = SERVE_CLIENTS * steps
+    if len(latencies) != n_req or any(ev != "complete"
+                                      for ev, _ in latencies):
+        fail(f"serve_procs clients: {len(latencies)} answers for {n_req} "
+             f"requests, events {sorted({ev for ev, _ in latencies})}")
+    lat = np.array([x for _, x in latencies]) * 1e3
+    coll = {}
+    for m in meshes:
+        for tag, ms in m.collective_ms().items():
+            coll[tag] = coll.get(tag, 0.0) + ms
+        m.record = None
+    sizes = [b for b, _ in dispatch_ms]
+    return {"clients": SERVE_CLIENTS, "warmup_steps": SERVE_WARM,
+            "steps": steps, "requests": n_req, "window_s": wall,
+            "requests_per_s": n_req / wall,
+            "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                           "p99": float(np.percentile(lat, 99)),
+                           "max": float(lat.max())},
+            "dispatches": len(dispatch_ms),
+            "batch_sizes": {b: sizes.count(b) for b in sorted(set(sizes))},
+            "ms_per_dispatch_median": statistics.median(
+                [ms for _, ms in dispatch_ms]),
+            "collective_ms_per_dispatch_by_tag_process0": {
+                k: v / len(dispatch_ms) for k, v in coll.items()}}
+
+
+def serve_procs_child(task_path, rank):
+    """One process of a ``serve_procs`` group (``chip_smoke.py
+    --serve-procs-child TASK RANK``): joins the group through ``file://``
+    rendezvous; process 0 runs the ``ForceServer`` over the mesh (the
+    served sequence, then the task's client MD run), the others
+    ``follow_dispatches``; every process keeps each dispatch's outputs and
+    its collectives' ms.  Saves the result beside ``TASK``."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.dp import DPModel, paper_dpa1_config
+    from repro_torch.serve import follow_dispatches
+    task = torch.load(task_path, weights_only=False)
+    dev = torch.device(DEVICE, task["devices"][rank]) if DEVICE == "cuda" \
+        else torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=PROCS_GROUP_S)
+    dist.init_process_group(
+        task["backend"], init_method=f"file://{task['rendezvous']}",
+        rank=rank, world_size=task["world"], timeout=timeout)
+    try:
+        model = DPModel(paper_dpa1_config(ntypes=4, rcut=0.6, sel=64),
+                        device=dev)
+        params = model.init_params(torch.Generator().manual_seed(SEED))
+        s = serve_procs_setup(model, dev)
+        factory = serve_procs_factory(model, s, dev, task["backend"],
+                                      SERVE_PROCS_SHARDS, timeout,
+                                      idle=task["idle"])
+        out = {"process": rank, "device": str(dev)}
+        kernels.reset_launch_counts()
+        if rank == 0:
+            server = serve_procs_server(model, params, s, factory)
+            factory.kept = []
+            try:
+                server.warmup()
+                out["results"] = serve_procs_sequence(server, s)
+                if task["idle"]:
+                    # idle past the followers' header timeout, then serve
+                    # the first request alone again: evaluate_direct's bits
+                    time.sleep(SERVE_PROCS_IDLE_S)
+                    res = server.evaluate_direct(s["reqs"][0])
+                    if not res.ok:
+                        fail(f"serve_procs: after the idle spell: "
+                             f"{res.error}")
+                    out["idle"] = (res.energy, res.forces)
+                out["layouts"] = {b: dict(m.shape) for b, m in
+                                  factory.meshes.items()}
+                if task["steps"]:
+                    out["clients"] = serve_procs_clients(
+                        server, s, task["steps"],
+                        list(factory.meshes.values()))
+            finally:
+                server.stop()
+            out["kept"] = factory.kept
+        else:
+            out["kept"] = follow_dispatches(factory, params, SERVE_BATCHES,
+                                            keep=True)
+        out["launches"] = {k: n for k, n in kernels.launch_counts().items()
+                           if n}
+        torch.save(out, f"{task_path}.out{rank}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def serve_procs_spawn(case, world, backend, devices, steps, idle=False):
+    """Start ``world`` children on ``devices`` and wait for all (the
+    dd_procs phase's rules: any failure, or a group still running after
+    PROCS_CHILD_S, fails the phase)."""
+    task = SERVE_PROCS_DIR / f"{case}.pt"
+    torch.save({"world": world, "backend": backend, "devices": devices,
+                "steps": steps, "idle": idle,
+                "rendezvous": str(SERVE_PROCS_DIR / f"{case}.rendezvous")},
+               task)
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--serve-procs-child", str(task), str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline = time.perf_counter() + PROCS_CHILD_S
+    logs = {}
+    try:
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1.0))[0]
+    except subprocess.TimeoutExpired:
+        fail(f"serve_procs {case}: the {world} processes did not finish in "
+             f"{PROCS_CHILD_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"serve_procs {case}: process {r} exited {p.returncode}:\n"
+                 f"{logs[r][-6000:]}")
+    return [torch.load(f"{task}.out{r}", weights_only=False)
+            for r in range(world)]
+
+
+def serve_procs_gates(case, outs, want):
+    """Process 0's served results within the DP gate of ``want`` (E rtol
+    1e-5, F atol 1e-4 x max|F|), overflow flags and buckets exact, and
+    every process's kept dispatches the same bits as process 0's."""
+    got = outs[0]["results"]
+    errs = []
+    for (e, f, ovf, b), (e0, f0, ovf0, b0) in zip(got, want):
+        if (ovf, b) != (ovf0, b0):
+            fail(f"serve_procs {case}: overflow/bucket {(ovf, b)} vs "
+                 f"{(ovf0, b0)}")
+        if abs(float(e) - float(e0)) > 1e-5 * abs(float(e0)):
+            fail(f"serve_procs {case}: E {float(e)} vs {float(e0)}")
+        errs.append(check(f"serve_procs {case} forces", f, f0,
+                          atol=1e-4 * float(f0.abs().max())))
+    kept = outs[0]["kept"]
+    for out in outs[1:]:
+        if len(out["kept"]) != len(kept) or not all(
+                a[:3] == b[:3] and all(torch.equal(x, y)
+                                       for x, y in zip(a[3:], b[3:]))
+                for a, b in zip(out["kept"], kept)):
+            fail(f"serve_procs {case}: process {out['process']}'s "
+                 "dispatches differ from process 0's")
+    return max(errs)
+
+
+def phase_serve_procs(model, params, smi):
+    """DP force serving over a process mesh (``pipeline_executor_factory(
+    ..., mesh_for=...)``, the ``ForceServer`` on process 0,
+    ``follow_dispatches`` on the others), the serve phase's model and DP
+    group, batch buckets 1, 2 and 4 (each request over 8 // batch dd
+    ranks): (i) a (1, 1) NCCL mesh in this process against the virtual
+    route, every served result bit for bit, the launches per dispatch
+    equal, each model kernel against its plain version on the batch-4
+    dispatch's rows; (ii) two gloo processes sharing this card as (2, 1):
+    within the DP gate of (i), the same bits on both processes, a request
+    served after an idle spell longer than the followers' header timeout
+    with the bits it got before, and SERVE_PROCS_GLOO_STEPS client MD
+    steps; (iii) with 4 cards (2, 2) over
+    NCCL, 4 client MD threads on process 0 for SERVE_STEPS, else a line
+    saying why not.  Returns the launches per served dispatch over the
+    (1, 1) mesh."""
+    import shutil
+
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    shutil.rmtree(SERVE_PROCS_DIR, ignore_errors=True)
+    SERVE_PROCS_DIR.mkdir(parents=True)
+    s = serve_procs_setup(model, DEVICE)
+    n = s["n"]
+    # the virtual route
+    vserver = serve_procs_server(model, params, s,
+                                 serve_procs_factory(model, s))
+    try:
+        vserver.warmup()
+        want = serve_procs_sequence(vserver, s)
+        vfn = serve_procs_dispatch(vserver, params, s, max(SERVE_BATCHES))
+        with torch.no_grad():
+            v_counts, _ = launches_of(vfn)
+            v_ms = host_ms(vfn)
+    finally:
+        vserver.stop()
+    del vserver, vfn
+    torch.cuda.empty_cache()
+    # (i) one process, (1, 1) NCCL
+    timeout = datetime.timedelta(seconds=PROCS_GROUP_S)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{SERVE_PROCS_DIR / 'one.rendezvous'}",
+        rank=0, world_size=1, timeout=timeout)
+    try:
+        dev = torch.device(DEVICE, torch.cuda.current_device()) \
+            if DEVICE == "cuda" else torch.device(DEVICE)
+        factory = serve_procs_factory(model, s, dev, None, 1, timeout)
+        server = serve_procs_server(model, params, s, factory)
+        try:
+            server.warmup()
+            got = serve_procs_sequence(server, s)
+            fn = serve_procs_dispatch(server, params, s, max(SERVE_BATCHES))
+            with torch.no_grad():
+                counts, _ = launches_of(fn)
+                (_, seen), cf_calls = record_cell_filter(
+                    lambda: record_model_kernels(fn))
+                phase = "serve_procs (1, 1) batch 4"
+                checks = {"force_scatter": check_dd_model_kernels(seen,
+                                                                  phase),
+                          "cell_filter": check_cell_filter_calls(cf_calls,
+                                                                 phase)}
+                del seen, cf_calls
+                ms = host_ms(fn)
+            layouts = {b: dict(m.shape) for b, m in factory.meshes.items()}
+        finally:
+            server.stop()
+    finally:
+        dist.destroy_process_group()
+    del server, factory, fn
+    torch.cuda.empty_cache()
+    if not all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               and a[2:] == b[2:] for a, b in zip(got, want)):
+        fail("serve_procs (1, 1): a served result differs from the "
+             "virtual route's")
+    if counts != v_counts:
+        fail(f"serve_procs (1, 1): launches per dispatch {counts} vs the "
+             f"virtual route's {v_counts}")
+    check_launch_pattern(counts, {**{k: 1 for k in SINGLE_DOMAIN_KERNELS},
+                                  "force_scatter": 2, "cell_filter": 2},
+                         "serve_procs (1, 1) dispatch")
+    per = {k: n for k, n in counts.items() if n}
+    print(json.dumps({
+        "phase": "serve_procs", "case": "nccl_1x1", "device": smi,
+        "dp_atoms": n, "batch_buckets": SERVE_BATCHES,
+        "layouts_by_bucket": layouts, "served": len(got),
+        "bitwise_equal_virtual": True,
+        "launches_per_dispatch_batch4": per,
+        "virtual_launches_per_dispatch_batch4": {
+            k: v for k, v in v_counts.items() if v},
+        "ms_per_dispatch_batch4": ms, "virtual_ms_per_dispatch_batch4": v_ms,
+        "ms_is": "host clock, median of 3 synchronised executor calls",
+        "kernel_checks": {"cell_filter": list(checks["cell_filter"])}}),
+        flush=True)
+    # (ii) two processes sharing this card: gloo on CUDA tensors, (2, 1)
+    card = torch.cuda.current_device()
+    outs = serve_procs_spawn("gloo_2_processes", 2, "gloo", [card, card],
+                             SERVE_PROCS_GLOO_STEPS, idle=True)
+    err = serve_procs_gates("gloo_2_processes", outs, want)
+    e_idle, f_idle = outs[0]["idle"]
+    e_dir, f_dir = outs[0]["results"][-1][:2]
+    if not (torch.equal(e_idle, e_dir) and torch.equal(f_idle, f_dir)):
+        fail("serve_procs gloo_2_processes: the request after the idle "
+             "spell differs from the same request before it")
+    print(json.dumps({
+        "phase": "serve_procs", "case": "gloo_2_processes", "device": smi,
+        "layouts_by_bucket": outs[0]["layouts"],
+        "F_max_abs_err_vs_1x1": err, "E_tol": "rtol 1e-5",
+        "F_tol": "atol 1e-4*max|F|", "processes_bit_identical": True,
+        "idle_s": SERVE_PROCS_IDLE_S, "follow_timeout_s": SERVE_PROCS_FOLLOW_S,
+        "served_after_idle_bitwise": True,
+        "dispatches": len(outs[0]["kept"]),
+        "clients": outs[0].get("clients"),
+        "launches_by_process": [o["launches"] for o in outs]}), flush=True)
+    del outs
+    # (iii) four cards: NCCL, one card a process, (2, 2)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 4:
+        outs = serve_procs_spawn("nccl_4_cards", 4, "nccl", [0, 1, 2, 3],
+                                 SERVE_STEPS)
+        err = serve_procs_gates("nccl_4_cards", outs, want)
+        print(json.dumps({
+            "phase": "serve_procs", "case": "nccl_4_cards", "device": smi,
+            "layouts_by_bucket": outs[0]["layouts"],
+            "F_max_abs_err_vs_1x1": err, "processes_bit_identical": True,
+            "dispatches": len(outs[0]["kept"]),
+            "clients": outs[0]["clients"],
+            "launches_by_process": [o["launches"] for o in outs]}),
+            flush=True)
+        del outs
+    else:
+        print(json.dumps({
+            "phase": "serve_procs", "case": "nccl_4_cards", "ran": False,
+            "why": f"{n_cards} CUDA device(s) here: the (2, 2) layout takes "
+                   "4 processes and NCCL one card a process"}), flush=True)
+    shutil.rmtree(SERVE_PROCS_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "serve_procs", "device": smi,
+                      "s": time.perf_counter() - t_phase}), flush=True)
+    return per
+
+
+# ---------------------------------------------------------------------------
 # train: DPA-1 force-matching training (the paper's Fig. 7 pipeline)
 # ---------------------------------------------------------------------------
 
@@ -4706,6 +5197,19 @@ def check_mla_instance(args, phase="lm_archs",
             q, k, v, causal, window, softcap, q_offset).float(),
         want, atol=1e-2 * float(want.abs().max()))
     line["library_ms"] = time_ms(lib)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+
+    def lib32():
+        return F.scaled_dot_product_attention(q32, k32, v32, is_causal=causal)
+
+    want = lib32()
+    line["fp32_library_max_err"] = check(
+        "MLA instance vs sdpa (fp32)", flash_attn.flash_attention(
+            q32, k32, v32, causal, window, softcap, q_offset),
+        want, atol=1e-4 * float(want.abs().max()))
+    line["fp32_library_ms"] = time_ms(lib32)
+    del q32, k32, v32, want
+    torch.cuda.empty_cache()
     print(json.dumps(line), flush=True)
     return line
 
@@ -5593,6 +6097,19 @@ LM_MESH_SLICES = (("gemma2-2b", 8, 4, 256, 6_176, 4_000, 0, 50.0),
                   ("gemma2-2b window 2000", 8, 4, 256, 6_176, 4_000, 2_000,
                    50.0),
                   ("qwen2-1.5b", 12, 2, 128, 2_080, 1_500, 0, 0.0))
+# the long-context decode: qwen2-1.5b at B 1 over long_500k's 524,288
+# positions (the reference's dry run lays such a cache's sequence over
+# "data"), LM_MESH_LONG_STEPS greedy steps into its last positions; and the
+# slice instance at the slices a (4, 1) and a (2, 2) mesh give one process
+# (its KV heads: 2, or 1 over "model"), B 1: (name, Hq, Hkv, D, S_max, pos,
+# window, softcap, slices, batch)
+LM_MESH_LONG = 524_288
+LM_MESH_LONG_STEPS = 8
+LM_MESH_LONG_SLICES = (
+    ("qwen2-1.5b long_500k (4, 1)", 12, 2, 128, LM_MESH_LONG,
+     LM_MESH_LONG - LM_MESH_LONG_STEPS, 0, 0.0, 4, 1),
+    ("qwen2-1.5b long_500k (2, 2)", 6, 1, 128, LM_MESH_LONG,
+     LM_MESH_LONG - LM_MESH_LONG_STEPS, 0, 0.0, 2, 1))
 
 
 def lm_mesh_comm(fn):
@@ -5638,30 +6155,33 @@ def lm_mesh_cfg(arch, layers=None):
 
 
 @torch.no_grad()
-def check_decode_slices(smi):
+def check_decode_slices(smi, cases=LM_MESH_SLICES):
     """The decode kernel's slice instance (``flash_decode(...,
-    kv_base=j * S / 4, return_lse=True)``) against its plain version
-    (``ref.decode_ref``) on the card, bf16 and fp32, at each of
-    ``LM_MESH_SLICES``: each slice's O at the flash gates (atol 1e-2 /
-    1e-4 x max|plain|), its LSE within 1e-3 where finite and -inf exactly
-    where the plain version's is (a slice with no visible key: O = 0, no
-    NaN), a repeat bit for bit, and the 4 slices merged by their LSE
-    against the kernel over the whole cache.  The slice with the most
-    visible keys timed beside its plain version, its bound (the slice's
-    bytes, ``decode_work``) and, at softcap 0, SDPA on the same keys."""
+    kv_base=j * S / n, return_lse=True)``) against its plain version
+    (``ref.decode_ref``) on the card, bf16 and fp32, at each case
+    (``LM_MESH_SLICES``: B 4, 4 slices; or the case's slices and batch):
+    each slice's O at the flash gates (atol 1e-2 / 1e-4 x max|plain|), its
+    LSE within 1e-3 where finite and -inf exactly where the plain
+    version's is (a slice with no visible key: O = 0, no NaN), a repeat bit
+    for bit, and the slices merged by their LSE against the kernel over
+    the whole cache.  The slice with the most visible keys timed beside
+    its plain version, its bound (the slice's bytes, ``decode_work``) and
+    SDPA on the same keys (at softcap 0: the yardstick where the case's
+    softcap is not, with the kernel's time at softcap 0 beside it)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attn, ref
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
     rows = []
-    for name, hq, hkv, d, s, pos, window, cap in LM_MESH_SLICES:
+    for name, hq, hkv, d, s, pos, window, cap, *rest in cases:
+        n_sl, b = rest or (4, 4)
         base32 = [torch.randn(shape, generator=g, device=DEVICE)
-                  for shape in ((4, hq, 1, d), (4, hkv, s, d), (4, hkv, s, d))]
-        sl, p = s // 4, torch.tensor(pos, device=DEVICE)
+                  for shape in ((b, hq, 1, d), (b, hkv, s, d), (b, hkv, s, d))]
+        sl, p = s // n_sl, torch.tensor(pos, device=DEVICE)
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
             q, k, v = (t.to(dtype) for t in base32)
             tag = "bf16" if dtype == torch.bfloat16 else "fp32"
             outs, lses, errs, empty, vis = [], [], [], [], []
-            for j in range(4):
+            for j in range(n_sl):
                 kj, vj = k[:, :, j * sl:(j + 1) * sl], v[:, :, j * sl:(j + 1) * sl]
                 o, lse = flash_attn.flash_decode(q, kj, vj, p, window, cap,
                                                  kv_base=j * sl,
@@ -5689,7 +6209,7 @@ def check_decode_slices(smi):
                 vis.append(max(0, min((j + 1) * sl, pos + 1) - lo))
                 outs.append(o.float())
                 lses.append(lse)
-            if 3 not in empty:
+            if (n_sl - 1) * sl > pos and n_sl - 1 not in empty:
                 fail(f"decode slices {name}: the slice past pos saw a key")
             lse = torch.stack(lses)
             w = torch.exp(lse - lse.amax(0))[..., None]
@@ -5720,20 +6240,25 @@ def check_decode_slices(smi):
                     "bound_ms": max(t_ops, t_bytes),
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                     "library_ms": None}
-            if cap == 0.0:
-                lo = max(j * sl, pos - window + 1 if window else 0) - j * sl
-                hi = min(sl, pos + 1 - j * sl)
-                lk, lv = kj[:, :, lo:hi], vj[:, :, lo:hi]
-                lib = lambda: F.scaled_dot_product_attention(
-                    q, lk, lv, enable_gqa=True)
-                check(f"decode slice {name} {tag} vs sdpa",
-                      flash_attn.flash_decode(q, kj, vj, p, window, cap,
-                                              kv_base=j * sl).float(),
-                      lib().float(), atol=tol * float(
-                          lib().float().abs().max()))
-                line["library_ms"] = time_ms(lib)
-                line["library_is"] = ("scaled_dot_product_attention on the "
-                                      "slice's visible keys (O only, no LSE)")
+            lo = max(j * sl, pos - window + 1 if window else 0) - j * sl
+            hi = min(sl, pos + 1 - j * sl)
+            lk, lv = kj[:, :, lo:hi], vj[:, :, lo:hi]
+            lib = lambda: F.scaled_dot_product_attention(
+                q, lk, lv, enable_gqa=True)
+            check(f"decode slice {name} {tag} vs sdpa (softcap 0)",
+                  flash_attn.flash_decode(q, kj, vj, p, window, 0.0,
+                                          kv_base=j * sl).float(),
+                  lib().float(), atol=tol * float(
+                      lib().float().abs().max()))
+            line["library_ms"] = time_ms(lib)
+            line["library_is"] = ("scaled_dot_product_attention on the "
+                                  "slice's visible keys (O only, no LSE)")
+            if cap != 0.0:
+                line["library_is"] += (f"; at softcap 0, the case's softcap "
+                                       f"{cap} has no PyTorch call")
+                line["softcap0_ms"] = time_ms(lambda: flash_attn.flash_decode(
+                    q, kj, vj, p, window, 0.0, kv_base=j * sl,
+                    return_lse=True))
             print(json.dumps(line), flush=True)
             rows.append(line)
         del base32, q, k, v
@@ -5741,16 +6266,17 @@ def check_decode_slices(smi):
     return rows
 
 
-def lm_mesh_train(cfg, params, batch, mesh, steps):
-    """``steps`` training steps (Adam, ``remat="full"``) over ``mesh`` (None:
-    no mesh), each synchronised and timed: per step the loss and grad_norm
-    (whole tensors), the ms; the final parameters and state, the step,
-    the batch as the step takes it, the kernels' launches and the peak
-    memory."""
+def lm_mesh_train(cfg, params, batch, mesh, steps, optimizer="adam"):
+    """``steps`` training steps (Adam, or ``optimizer``; ``remat="full"``)
+    over ``mesh`` (None: no mesh), each synchronised and timed: per step
+    the loss and grad_norm (whole tensors), the ms; the final parameters
+    and state, the step, the batch as the step takes it, the kernels'
+    launches and the peak memory."""
     from repro_torch import kernels
     from repro_torch.lm import sharding as S
     from repro_torch.lm import train_lib as TL
-    step, opt = TL.make_train_step(cfg, TL.TrainHParams(), mesh=mesh)
+    step, opt = TL.make_train_step(cfg, TL.TrainHParams(optimizer=optimizer),
+                                   mesh=mesh)
     state, b = opt.init(params), batch
     if mesh is not None:
         state = S.distribute_opt_state(state, S.params_shardings(params,
@@ -5820,6 +6346,151 @@ def same_tree_bits(a, b) -> bool:
     la, lb = S.leaves_with_paths(a), S.leaves_with_paths(b)
     return all(pa == pb and torch.equal(x, y)
                for (pa, x), (pb, y) in zip(la, lb))
+
+
+def long_cache(cfg, device):
+    """``cfg``'s cache at B 1 x LM_MESH_LONG (~15 GB bf16 for qwen2-1.5b),
+    its keys and values at every position before the last
+    LM_MESH_LONG_STEPS drawn from a seed (N(0, 1), in place, layer by
+    layer: the same values on every card)."""
+    from repro_torch.lm import serve_lib as SL
+    from repro_torch.lm import sharding as S
+    cache = SL.init_cache(cfg, 1, LM_MESH_LONG, device)
+    g = torch.Generator(device=device).manual_seed(SEED + 13)
+    n = LM_MESH_LONG - LM_MESH_LONG_STEPS
+    for path, t in S.leaves_with_paths(cache):
+        if path.split("/")[-1] in ("k", "v"):
+            for layer in (t if path.startswith("pattern") else [t]):
+                layer[:, :, :n].normal_(generator=g)
+    return cache
+
+
+@torch.no_grad()
+def lm_mesh_long_decode(cfg, params, cache, mesh, forced=None):
+    """LM_MESH_LONG_STEPS greedy decode steps of B 1 into ``cache``'s last
+    positions over ``mesh`` (None: no mesh), eager, from a seeded first
+    token (fed ``forced``'s tokens after it where given), each
+    synchronised and timed: the logits (whole), the tokens, the ms, the
+    launches, the peak memory and the step."""
+    from repro_torch import kernels
+    from repro_torch.lm import serve_lib as SL
+    from repro_torch.lm import sharding as S
+    dev = mesh.device if mesh is not None else DEVICE
+    step = SL.make_serve_step(cfg, mesh=mesh)
+    pos0 = LM_MESH_LONG - LM_MESH_LONG_STEPS
+    nxt = torch.tensor([[int(np.random.default_rng(SEED + 14).integers(
+        0, cfg.vocab))]], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    logits, toks, ms = [], [], []
+    for i in range(LM_MESH_LONG_STEPS):
+        t0 = time.perf_counter()
+        lg, cache = step(params, cache, nxt, pos0 + i)
+        logits.append(S.gather(lg))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(logits[-1].argmax(-1))
+        nxt = toks[-1] if forced is None else forced[:, i:i + 1]
+    return {"logits": logits, "tokens": torch.cat(toks, 1), "ms": ms,
+            "step": step, "first": nxt,
+            "launches": {k: n for k, n in kernels.launch_counts().items()
+                         if n},
+            "peak_MiB": torch.cuda.max_memory_allocated() / 2 ** 20}
+
+
+def lm_mesh_one_card_adam8bit(mesh, smi):
+    """(1, 1): qwen2-1.5b's training step with ``adam8bit`` (B 2 x 1,024,
+    2 steps) against no mesh, bit for bit: loss, grad_norm, every
+    parameter and every state leaf (``q``, ``s``, ``v16``, the small
+    leaves' fp32 ``m``, ``count``).  Returns the mesh run's launches."""
+    from repro_torch.launch.train import make_batch
+    from repro_torch.lm import model as LM
+    from repro_torch.lm import sharding as S
+    cfg = lm_mesh_cfg(LM_TRAIN_ARCH)
+    params = LM.init_params(cfg, torch.Generator(
+        device=DEVICE).manual_seed(SEED), device=DEVICE)
+    batch = make_batch(cfg, 0, *LM_MESH_TRAIN, DEVICE)
+    ref = lm_mesh_train(cfg, params, batch, None, LM_MESH_STEPS, "adam8bit")
+    got = lm_mesh_train(cfg, params, batch, mesh, LM_MESH_STEPS, "adam8bit")
+    del params
+    same = (all(torch.equal(a[k], b[k]) for a, b in zip(got["rec"],
+                                                        ref["rec"])
+                for k in ("loss", "grad_norm"))
+            and same_tree_bits(S.gather(got["params"]), ref["params"])
+            and same_tree_bits(S.gather(got["state"]), ref["state"]))
+    if not same:
+        fail("lm_mesh (1, 1) adam8bit training: the DTensor route differs "
+             "from no mesh")
+    n_q = sum(p.endswith("/q") for p, _ in S.leaves_with_paths(ref["state"]))
+    line = {"phase": "lm_mesh", "case": "nccl_1x1", "what": "train adam8bit",
+            "arch": cfg.name, "layers": cfg.n_layers, "device": smi,
+            "batch": LM_MESH_TRAIN[0], "seq": LM_MESH_TRAIN[1],
+            "bitwise_equal_no_mesh": True,
+            "state_leaves_compared": "q, s, v16, m, count",
+            "quantized_leaves": n_q,
+            "loss_by_step": [float(r["loss"]) for r in got["rec"]],
+            "ms_by_step": [r["ms"] for r in got["rec"]],
+            "no_mesh_ms_by_step": [r["ms"] for r in ref["rec"]],
+            "launches_per_step": {k: n // LM_MESH_STEPS for k, n in
+                                  got["launches"].items()},
+            "peak_MiB": got["peak_MiB"], "no_mesh_peak_MiB": ref["peak_MiB"],
+            "ms_is": "host clock around each synchronised step; the first "
+                     "step includes its warm-up"}
+    print(json.dumps(line), flush=True)
+    launches = got["launches"]
+    del got, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_mesh_one_card_long(mesh, smi):
+    """(1, 1): qwen2-1.5b at B 1 decoding into long_500k's cache (524,288
+    positions, seeded) with ``distribute_cache(..., long_context=True)``
+    against no mesh, bit for bit (every step's logits, the 8 tokens).  On
+    one card "data" has size 1, so the batch divides over it and the
+    layout is the plain one: this shows the path is wired, not the
+    sequence split.  Returns the mesh run's launches."""
+    from repro_torch.lm import model as LM
+    from repro_torch.lm import sharding as S
+    cfg = lm_mesh_cfg(LM_TRAIN_ARCH)
+    params = LM.init_params(cfg, torch.Generator(
+        device=DEVICE).manual_seed(SEED), device=DEVICE)
+    t0 = time.perf_counter()
+    cache = long_cache(cfg, DEVICE)
+    fill_s = time.perf_counter() - t0
+    cache_mib = sum(t.numel() * t.element_size()
+                    for _, t in S.leaves_with_paths(cache)) / 2 ** 20
+    dcache = S.distribute_cache(cache, mesh, long_context=True)
+    dparams = S.distribute_params(params, mesh)
+    got = lm_mesh_long_decode(cfg, dparams, dcache, mesh)
+    _, counts, comm_ms = lm_mesh_comm(lambda: got["step"](
+        dparams, dcache, got["first"], LM_MESH_LONG - 1))
+    del dcache, dparams
+    torch.cuda.empty_cache()
+    ref = lm_mesh_long_decode(cfg, params, cache, None)
+    del cache, params
+    torch.cuda.empty_cache()
+    if not (torch.equal(got["tokens"], ref["tokens"]) and all(
+            torch.equal(a, b) for a, b in zip(got["logits"],
+                                              ref["logits"]))):
+        fail("lm_mesh (1, 1) long-context decode: the DTensor route differs "
+             "from no mesh")
+    line = {"phase": "lm_mesh", "case": "nccl_1x1", "what": "long decode",
+            "arch": cfg.name, "layers": cfg.n_layers, "device": smi,
+            "batch": 1, "cache_positions": LM_MESH_LONG,
+            "cache_MiB": cache_mib, "fill_s": fill_s,
+            "steps": LM_MESH_LONG_STEPS, "long_context": True,
+            "data_axis": 1, "bitwise_equal_no_mesh": True,
+            "decode_ms_per_step_median": statistics.median(got["ms"]),
+            "no_mesh_decode_ms_per_step_median": statistics.median(ref["ms"]),
+            "launches_per_step": {k: n // LM_MESH_LONG_STEPS for k, n in
+                                  got["launches"].items()},
+            "collectives_per_decode_step": counts, "collective_ms": comm_ms,
+            "peak_MiB": got["peak_MiB"], "no_mesh_peak_MiB": ref["peak_MiB"],
+            "ms_is": "host clock around each synchronised eager step"}
+    print(json.dumps(line), flush=True)
+    return got["launches"]
 
 
 def lm_mesh_one_card(smi):
@@ -5926,6 +6597,10 @@ def lm_mesh_one_card(smi):
         out["serve"] = line
         del got, ref, dparams
         torch.cuda.empty_cache()
+        out["launches"]["train_adam8bit"] = lm_mesh_one_card_adam8bit(mesh,
+                                                                      smi)
+        out["launches"]["long_context_decode"] = lm_mesh_one_card_long(mesh,
+                                                                       smi)
         archs, out["mla"] = lm_mesh_archs_one_card(mesh, smi)
         out["launches"].update(archs)
     finally:
@@ -6199,8 +6874,10 @@ def lm_mesh_child(task_path, rank):
             params = LM.init_params(cfg, torch.Generator(
                 device=dev).manual_seed(SEED), device=dev)
             if job["kind"] == "train":
-                batch = make_batch(cfg, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
-                got = lm_mesh_train(cfg, params, batch, mesh, LM_MESH_STEPS)
+                batch = make_batch(cfg, 0, *job.get(
+                    "batch_seq", (LM_TRAIN_BATCH, LM_TRAIN_SEQ)), dev)
+                got = lm_mesh_train(cfg, params, batch, mesh, LM_MESH_STEPS,
+                                    job.get("optimizer", "adam"))
                 _, counts, ms = lm_mesh_comm(lambda: got["step"](
                     got["params"], got["state"], got["batch"]))
                 res.update(loss=[float(r["loss"]) for r in got["rec"]],
@@ -6209,6 +6886,9 @@ def lm_mesh_child(task_path, rank):
                            ms=[r["ms"] for r in got["rec"]],
                            launches=got["launches"], peak_MiB=got["peak_MiB"],
                            collectives_per_step=counts, collective_ms=ms)
+            elif job["kind"] == "long":
+                res.update(lm_mesh_child_long(cfg, params, mesh, job, dev))
+                del params
             else:
                 ref = torch.load(job["ref"], weights_only=False)
                 tokens = ref["prompt"].to(dev)
@@ -6274,6 +6954,50 @@ def lm_mesh_child(task_path, rank):
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def lm_mesh_child_long(cfg, params, mesh, job, dev):
+    """A child's long-context job: the seeded long_500k cache laid out by
+    ``distribute_cache(..., long_context=True)`` (the sequence over
+    "data": the batch of 1 does not divide there), the decode steps fed
+    the no-mesh tokens, each step's logits against the no-mesh ones, and
+    the collectives of one step beside those of the same step over the
+    plain layout (the sequence whole on every process of "data"): no
+    cache all-gather, the merge's all-reduces."""
+    from repro_torch.lm import serve_lib as SL
+    from repro_torch.lm import sharding as S
+    ref = torch.load(job["ref"], weights_only=False)
+    dparams = S.distribute_params(params, mesh)
+    cache = long_cache(cfg, dev)
+    dcache = S.distribute_cache(cache, mesh, long_context=True)
+    del cache
+    torch.cuda.empty_cache()
+    placements = {p: [str(x) for x in t.placements]
+                  for p, t in S.leaves_with_paths(dcache)
+                  if p.split("/")[-1] == "k"}
+    got = lm_mesh_long_decode(cfg, dparams, dcache, mesh,
+                              forced=ref["tokens"].to(dev))
+    nxt, pos = ref["tokens"][:, -1:].to(dev), LM_MESH_LONG - 1
+    _, counts, ms = lm_mesh_comm(lambda: got["step"](dparams, dcache, nxt,
+                                                     pos))
+    local_mib = sum(t.to_local().numel() * t.to_local().element_size()
+                    for _, t in S.leaves_with_paths(dcache)) / 2 ** 20
+    del dcache
+    torch.cuda.empty_cache()
+    plain = SL.init_cache_mesh(cfg, 1, LM_MESH_LONG, mesh)
+    _, plain_counts, _ = lm_mesh_comm(lambda: got["step"](dparams, plain,
+                                                          nxt, pos))
+    del plain
+    errs = [check(f"lm_mesh {job['name']} logits {i}", a.float(),
+                  b.to(dev).float(), atol=LM_BF16_TOL * float(
+                      b.float().abs().max()))
+            for i, (a, b) in enumerate(zip(got["logits"], ref["logits"]))]
+    return {"tokens": got["tokens"].cpu(), "max_abs_err_by_step": errs,
+            "decode_ms": got["ms"], "launches": got["launches"],
+            "peak_MiB": got["peak_MiB"], "cache_block_MiB": local_mib,
+            "k_placements": placements,
+            "collectives_per_decode_step": counts,
+            "plain_layout_collectives": plain_counts, "collective_ms": ms}
 
 
 def lm_mesh_spawn(case, world, backend, devices, jobs, probe=False):
@@ -6357,6 +7081,11 @@ def serve_flips(cfg, ref_calls, got_calls, prompt):
     return flips, noise
 
 
+def lm_mesh_ref_key(job):
+    return (job["kind"], job["arch"], job.get("layers"), job.get("batch"),
+            job.get("optimizer"), job.get("batch_seq"))
+
+
 def lm_mesh_refs(jobs):
     """The no-mesh references of the children's jobs on this card, at the
     jobs' depths: a training job's loss and grad_norm by step, a serving
@@ -6365,16 +7094,29 @@ def lm_mesh_refs(jobs):
     from repro_torch.lm import model as LM
     refs = {}
     for job in jobs:
-        key = (job["kind"], job["arch"], job.get("layers"), job.get("batch"))
+        key = lm_mesh_ref_key(job)
         if key in refs:
             job["ref"] = refs[key].get("path")
             continue
         cfg = lm_mesh_cfg(job["arch"], job.get("layers"))
         params = LM.init_params(cfg, torch.Generator(
             device=DEVICE).manual_seed(SEED), device=DEVICE)
-        if job["kind"] == "train":
-            batch = make_batch(cfg, 0, LM_TRAIN_BATCH, LM_TRAIN_SEQ, DEVICE)
-            got = lm_mesh_train(cfg, params, batch, None, LM_MESH_STEPS)
+        if job["kind"] == "long":
+            cache = long_cache(cfg, DEVICE)
+            got = lm_mesh_long_decode(cfg, params, cache, None)
+            del cache
+            path = LM_MESH_DIR / f"ref_long_{job['arch']}.pt"
+            torch.save({"tokens": got["tokens"].cpu(),
+                        "logits": [lg.cpu() for lg in got["logits"]],
+                        "ms": got["ms"], "peak_MiB": got["peak_MiB"]}, path)
+            refs[key] = {"path": str(path), "ms": got["ms"],
+                         "peak_MiB": got["peak_MiB"]}
+            job["ref"] = str(path)
+        elif job["kind"] == "train":
+            batch = make_batch(cfg, 0, *job.get(
+                "batch_seq", (LM_TRAIN_BATCH, LM_TRAIN_SEQ)), DEVICE)
+            got = lm_mesh_train(cfg, params, batch, None, LM_MESH_STEPS,
+                                job.get("optimizer", "adam"))
             refs[key] = {"loss": [float(r["loss"]) for r in got["rec"]],
                          "grad_norm": [float(r["grad_norm"])
                                        for r in got["rec"]]}
@@ -6410,9 +7152,55 @@ def lm_mesh_report(case, jobs, outs, refs, smi, backend):
                 "backend": backend, "layout": job["layout"],
                 "arch": job["arch"], "layers": job.get("layers") or "all",
                 "device": smi}
-        if job["kind"] == "train":
-            ref = refs[(job["kind"], job["arch"], job.get("layers"),
-                        job.get("batch"))]
+        if job["kind"] == "long":
+            ref = torch.load(job["ref"], weights_only=False)
+            n_attn = lm_mesh_cfg(job["arch"], job.get("layers")).n_layers
+            for r in res:
+                for i, (a, b) in enumerate(zip(r["tokens"][0].tolist(),
+                                               ref["tokens"][0].tolist())):
+                    top = ref["logits"][i][0, -1].float().topk(2).values
+                    margin = float(top[0] - top[1])
+                    if a != b and margin > 2 * r["max_abs_err_by_step"][i]:
+                        fail(f"lm_mesh {case} {job['name']}: token {i} "
+                             f"{a} vs no mesh {b} (margin {margin:.3g})")
+                got, plain = (r["collectives_per_decode_step"],
+                              r["plain_layout_collectives"])
+                if got.get("allgather", 0) != plain.get("allgather", 0):
+                    fail(f"lm_mesh {case} {job['name']}: {got} all-gathers "
+                         f"against the plain layout's {plain}: a cache "
+                         "gathered")
+                if got.get("allreduce", 0) != plain.get("allreduce", 0) \
+                        + 3 * n_attn:
+                    fail(f"lm_mesh {case} {job['name']}: {got} all-reduces "
+                         f"against the plain layout's {plain} + 3 a layer")
+            line.update(
+                batch=1, cache_positions=LM_MESH_LONG,
+                steps=LM_MESH_LONG_STEPS, long_context=True,
+                k_placements=res[0]["k_placements"],
+                tokens_equal_no_mesh=all(torch.equal(r["tokens"],
+                                                     ref["tokens"])
+                                         for r in res),
+                max_abs_err=max(e for r in res
+                                for e in r["max_abs_err_by_step"]),
+                gate=f"atol {LM_BF16_TOL}*max|no-mesh logits| per step, fed "
+                     "the no-mesh greedy tokens; a token may differ only "
+                     "where the no-mesh top-2 margin is within 2 x the "
+                     "step's error",
+                decode_ms_per_step_median_by_process=[
+                    statistics.median(r["decode_ms"]) for r in res],
+                no_mesh_decode_ms_per_step_median=statistics.median(
+                    ref["ms"]),
+                peak_MiB_by_process=[r["peak_MiB"] for r in res],
+                no_mesh_peak_MiB=ref["peak_MiB"],
+                cache_block_MiB_by_process=[r["cache_block_MiB"]
+                                            for r in res],
+                collectives_per_decode_step=res[0][
+                    "collectives_per_decode_step"],
+                plain_layout_collectives=res[0]["plain_layout_collectives"],
+                collective_ms_by_process=[r["collective_ms"] for r in res],
+                launches_by_process=[r["launches"] for r in res])
+        elif job["kind"] == "train":
+            ref = refs[lm_mesh_ref_key(job)]
             rtol = LM_TRAIN_TOL[torch.bfloat16][1]
             for r in res:
                 if r["loss"] != res[0]["loss"] or \
@@ -6427,9 +7215,13 @@ def lm_mesh_report(case, jobs, outs, refs, smi, backend):
             line.update(loss=res[0]["loss"], no_mesh_loss=ref["loss"],
                         grad_norm=res[0]["grad_norm"],
                         no_mesh_grad_norm=ref["grad_norm"],
+                        optimizer=job.get("optimizer", "adam"),
+                        batch_seq=job.get("batch_seq", (LM_TRAIN_BATCH,
+                                                        LM_TRAIN_SEQ)),
                         ms_by_step_by_process=[r["ms"] for r in res],
-                        tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / max(
-                            r["ms"][-1] for r in res) * 1e3,
+                        tokens_per_s=math.prod(job.get(
+                            "batch_seq", (LM_TRAIN_BATCH, LM_TRAIN_SEQ)))
+                        / max(r["ms"][-1] for r in res) * 1e3,
                         peak_MiB_by_process=[r["peak_MiB"] for r in res],
                         collectives_per_step=res[0]["collectives_per_step"],
                         collective_ms_by_process=[r["collective_ms"]
@@ -6490,25 +7282,31 @@ def lm_mesh_rows(res):
         "fp32_plain_ms": mla["fp32_plain_ms"],
         "bound_ms": mla["bf16_bound_ms"], "bound_by": mla["bf16_bound_by"],
         "fp32_bound_ms": mla["fp32_bound_ms"],
-        "library_ms": mla["library_ms"]}
+        "library_ms": mla["library_ms"],
+        "fp32_library_ms": mla["fp32_library_ms"]}
     rows["flash_decode"]["lm_mesh_slice_instance"] = {
         "shape": f"{main['case']}: q {main['q']}, k/v slice "
                  f"{main['k_slice']} (1 of 4), pos {main['pos']}, bf16",
         **{k: main[k] for k in keys},
         "by_case": [{k: r[k] for k in ("case", "dtype", "empty_slices")
                      + keys} for r in res["slices"]]}
+    rows["flash_decode"]["lm_mesh_long_slices"] = [
+        {k: r[k] for k in ("case", "dtype", "q", "k_slice", "pos") + keys}
+        for r in res["long_slices"]]
     return rows
 
 
 def phase_lm_mesh(smi):
     """The LM over a ``("data", "model")`` process mesh (``lm.make_lm_mesh``,
     DTensor placements from ``lm/sharding.py``): (a) the decode kernel's
-    slice instance (``kv_base``, LSE) against its plain version; (b) a
-    ``(1, 1)`` NCCL mesh, bit for bit against no mesh, the phase's main
-    path (qwen2-1.5b training, gemma2-2b serving; deepseek-v3, jamba,
-    rwkv6-3b and whisper-medium serving, rwkv6 and whisper training;
-    published widths), with the MLA instance at a (1, 4) mesh's local
-    heads; (c)
+    slice instance (``kv_base``, LSE) against its plain version, also at
+    the long-context slices (131,072 and 262,144 keys); (b) a ``(1, 1)``
+    NCCL mesh, bit for bit against no mesh, the phase's main path
+    (qwen2-1.5b training with Adam and with ``adam8bit``, its long-context
+    decode at B 1 over long_500k's 524,288 positions, gemma2-2b serving;
+    deepseek-v3, jamba, rwkv6-3b and whisper-medium serving, rwkv6 and
+    whisper training; published widths), with the MLA instance at a (1, 4)
+    mesh's local heads; (c)
     two gloo processes sharing this card as ``(1, 2)`` (every collective
     DTensor issues through gloo on CUDA tensors), 4 layers of each at full
     width, against no mesh at the same depth; (d) with 4 cards, NCCL one
@@ -6518,13 +7316,16 @@ def phase_lm_mesh(smi):
     deepseek-v3 (4 layers) serving at ``(2, 2)`` with EXPERT_2D off and on,
     at ``(1, 4)`` (MLA's absorbed decode over a latent cache sharded by
     its sequence) and at ``(2, 2)`` with a batch of 1 (replicated over
-    "data"), else a line saying why not.  Returns the main path's
+    "data"), qwen2-1.5b's ``adam8bit`` training at ``(2, 2)`` and its
+    long-context decode at ``(2, 2)`` and ``(4, 1)`` (the cache's sequence
+    over "data"), else a line saying why not.  Returns the main path's
     launches, the slice rows and the MLA line."""
     import shutil
     t_phase = time.perf_counter()
     shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
     LM_MESH_DIR.mkdir(parents=True)
     slices = check_decode_slices(smi)
+    long_slices = check_decode_slices(smi, LM_MESH_LONG_SLICES)
     one = lm_mesh_one_card(smi)
     launches = {}
     for part in one["launches"].values():
@@ -6568,11 +7369,24 @@ def phase_lm_mesh(smi):
                  dict(ds, name="deepseek_2x2_expert_2d", layout=(2, 2),
                       expert_2d=True),
                  dict(ds, name="deepseek_mla_decode_1x4", layout=(1, 4)),
-                 dict(ds, name="deepseek_2x2_b1", layout=(2, 2), batch=1)]
+                 dict(ds, name="deepseek_2x2_b1", layout=(2, 2), batch=1),
+                 {"name": "train_adam8bit_2x2", "kind": "train",
+                  "arch": LM_TRAIN_ARCH, "layout": (2, 2),
+                  "optimizer": "adam8bit", "batch_seq": LM_MESH_TRAIN}]
+        jobs += [{"name": f"long_decode_{a}x{b}", "kind": "long",
+                  "arch": LM_TRAIN_ARCH, "layout": (a, b)}
+                 for a, b in ((2, 2), (4, 1))]
         refs = lm_mesh_refs(jobs)
         torch.cuda.empty_cache()
         outs = lm_mesh_spawn("nccl_4_cards", 4, "nccl", [0, 1, 2, 3], jobs)
         lm_mesh_report("nccl_4_cards", jobs, outs, refs, smi, "nccl")
+        print(json.dumps({
+            "phase": "lm_mesh", "case": "nccl_4_cards",
+            "job": "long_decode jamba-1.5-large-398b", "ran": False,
+            "why": "jamba's first attention layer is layer 8 of 72; 8 "
+                   "layers carry ~77 GB of MoE weights, which each process "
+                   "draws whole before its block is cut: more than a "
+                   "card holds"}), flush=True)
     else:
         print(json.dumps({
             "phase": "lm_mesh", "case": "nccl_4_cards", "ran": False,
@@ -6581,7 +7395,8 @@ def phase_lm_mesh(smi):
     shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
     print(json.dumps({"phase": "lm_mesh", "device": smi,
                       "s": time.perf_counter() - t_phase}), flush=True)
-    return {"launches": one["launches"], "slices": slices, "mla": one["mla"]}
+    return {"launches": one["launches"], "slices": slices,
+            "long_slices": long_slices, "mla": one["mla"]}
 
 
 def device_profile(fn, phase, what, host_ops=False):
@@ -6698,6 +7513,8 @@ def main():
         return dd_procs_child(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:2] == ["--lm-mesh-child"]:
         return lm_mesh_child(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--serve-procs-child"]:
+        return serve_procs_child(sys.argv[2], int(sys.argv[3]))
     from repro_torch.dp import DPModel, paper_dpa1_config
     from repro_torch.kernels import build
 
@@ -6776,6 +7593,13 @@ def main():
         phase_serve(model, params)
         print("[serve] every check passed (serve phase alone)", flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "serve_procs"]:
+        per = phase_serve_procs(model, params, smi)
+        print(json.dumps({"serve_procs_launches_per_dispatch": per}),
+              flush=True)
+        print("[serve_procs] every check passed (serve_procs phase alone)",
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "dd_procs"]:
         phase_dd_procs(model, params, smi)
         print("[dd_procs] every check passed (dd_procs phase alone)",
@@ -6812,6 +7636,8 @@ def main():
     ens_procs_launches = phase_ensemble_procs(model, params, smi)
     torch.cuda.empty_cache()
     serve_launches = phase_serve(model, params)
+    torch.cuda.empty_cache()
+    serve_procs_launches = phase_serve_procs(model, params, smi)
     del model, params
     torch.cuda.empty_cache()
     train_launches = phase_train()
@@ -6835,6 +7661,8 @@ def main():
                     ens["batched_force_call"][name],
                 "launches_per_ensemble_step": ens["ensemble_step"][name],
                 "launches_per_served_dispatch": serve_launches[name],
+                "launches_per_served_dispatch_over_processes":
+                    serve_procs_launches.get(name, 0),
                 "launches_per_overlap_evaluation":
                     ens["overlap_evaluation"][name],
                 "launches_per_lm_train_step": lm_train_launches.get(name, 0)}
@@ -6956,7 +7784,8 @@ def main():
                 "bound_ms": mla["bf16_bound_ms"],
                 "bound_by": mla["bf16_bound_by"],
                 "fp32_bound_ms": mla["fp32_bound_ms"],
-                "library_ms": mla["library_ms"]}
+                "library_ms": mla["library_ms"],
+                "fp32_library_ms": mla["fp32_library_ms"]}
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"[chip_smoke] {time.perf_counter() - T0:.1f} s in all", flush=True)
     print(json.dumps({"ok": True, "device": {

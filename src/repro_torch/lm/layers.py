@@ -27,11 +27,11 @@ in the stream's placements: :func:`attention_mesh`, :func:`mla_mesh`,
 :func:`mlp_mesh`, :func:`moe_mesh` (routed over the whole batch, as GSPMD
 routes the reference's), :func:`cmix_mesh` and their decode forms, with
 the reference's two mesh knobs, :data:`GQA_REPEAT` and
-:data:`FLASH_DECODE` (off by default, as there).  The reference's
-``maybe_constrain`` has no counterpart.  What stays unported over a mesh
-is the rest of ROADMAP item 14(c') (adam8bit across shards, the
-long-context cache layout, graphed decode over more than one device) and
-14(b') (serving over processes).
+:data:`FLASH_DECODE` (off by default, as there), and the long-context
+cache layout (the sequence over "data", decoded slice by slice and merged
+by the log-sum-exp over "data").  The reference's ``maybe_constrain`` has
+no counterpart.  A decode step over more than one device runs eager (a
+CUDA graph does not capture the collectives).
 """
 from __future__ import annotations
 
@@ -75,12 +75,10 @@ DRAW_WHOLE = 2 ** 28
 
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: what remains of the JAX package is "
-        "multi-card execution of the rest of the LM (ROADMAP Queue 1 item "
-        "14(c'): adam8bit across shards, the long-context cache layout "
-        "over a device mesh, graphed decode over more than one device) and "
-        "serving over processes (item 14(b')); the port trains, prefills "
-        "and decodes every registry architecture over an LMMesh "
+        f"{what} is not ported: multi-card execution runs over devices "
+        "(ROADMAP Queue 1 item 14); the port trains (any optimizer), "
+        "prefills and decodes (the long-context cache layout too) every "
+        "registry architecture over an LMMesh "
         "(launch/mesh.py::make_lm_mesh) and on one card")
 
 
@@ -323,27 +321,46 @@ def mlp_mesh(p, h, cfg: ArchConfig, run):
 
 
 class CacheLayout:
-    """How a layer's cache lies over the mesh (``sharding.cache_spec``):
-    K/V (B, Hkv, S_max, hd), and the cross-attention's ck/cv (B, Hkv, T,
-    hd), by ``"heads"`` (the KV heads over "model"), ``"seq"`` (the
-    flash-decoding layout: the sequence over "model", this process's slice
-    starting at key ``base``) or ``"replicated"``; MLA's latent ckv/k_rope
-    (B, S_max, r), which has no head dim (``heads=0``, the sequence at
-    ``dim`` 1), by ``"seq"`` or ``"replicated"``."""
+    """How a layer's cache lies over the mesh, read from its placements
+    (``sharding.cache_spec``): K/V (B, Hkv, S_max, hd), and the
+    cross-attention's ck/cv (B, Hkv, T, hd), with their KV heads over
+    "model" (``heads``) or whole, and their sequence over ``seq_axis``:
+    "model" (the flash-decoding layout), "data" (the long-context layout,
+    where the batch does not divide over "data") or None; MLA's latent
+    ckv/k_rope (B, S_max, r), which has no head dim, the sequence at
+    ``dim`` 1.  This process's slice of the sequence starts at key
+    ``base`` and holds ``s_loc`` keys.  ``mode`` names the model-axis
+    layout: ``"heads"``, ``"seq"`` (the sequence over "model") or
+    ``"replicated"``."""
 
-    def __init__(self, cfg: ArchConfig, s_max: int, run, heads=None,
-                 names=("k", "v"), dim: int = 2):
-        mp = run.mp
-        heads = cfg.n_kv_heads if heads is None else heads
+    def __init__(self, names, dim: int, s_max: int, run, heads: bool = False,
+                 seq_axis=None):
         self.names, self.dim = names, dim
-        if heads and heads >= mp and heads % mp == 0:
-            self.mode = "heads"
-        elif s_max % mp == 0:
-            self.mode = "seq"
-        else:
-            self.mode = "replicated"
-        self.s_loc = s_max // mp if self.mode == "seq" else s_max
-        self.base = run.mi * self.s_loc if self.mode == "seq" else 0
+        self.heads, self.seq_axis = heads, seq_axis
+        self.s_loc = s_max // run.size(seq_axis) if seq_axis else s_max
+        self.base = run.index(seq_axis) * self.s_loc if seq_axis else 0
+
+    @property
+    def mode(self) -> str:
+        if self.heads:
+            return "heads"
+        return "seq" if self.seq_axis == "model" else "replicated"
+
+    @classmethod
+    def of(cls, path: str, t, names, dim: int, head_dim, run):
+        """The layout of cache leaf ``t`` (a DTensor at ``path``; a
+        stacked pattern leaf has a leading layer dim)."""
+        off = 1 if path.startswith("pattern") else 0
+        heads, seq_axis = False, None
+        for axis, pl in zip(run.mesh.axis_names, t.placements):
+            d = getattr(pl, "dim", None)
+            if d is None:
+                continue
+            if head_dim is not None and d == head_dim + off:
+                heads = heads or axis == "model"
+            elif d == dim + off:
+                seq_axis = axis
+        return cls(names, dim, t.shape[dim + off], run, heads, seq_axis)
 
     def write_prefill(self, cache, *new):
         """Positions [0, S) of each of ``names``' new entries into this
@@ -362,7 +379,7 @@ class CacheLayout:
         the clamped index is written back unchanged."""
         *new, pos = new_and_pos
         d = self.dim
-        if self.mode != "seq":
+        if self.seq_axis is None:
             for name, t in zip(self.names, new):
                 cache[name].index_copy_(d, pos.reshape(1), t)
             return
@@ -373,42 +390,51 @@ class CacheLayout:
             c.index_copy_(d, r, torch.where(own, t, c.index_select(d, r)))
 
 
-def cache_layouts(cfg: ArchConfig, s_max, ctx_len, run) -> dict:
-    """The layer caches' layouts by kind ("kv", "mla", "cross"), for the
-    kinds whose length is given."""
+# cache kind -> (leaf names, sequence dim, head dim) of a layer's view
+CACHE_KINDS = {"kv": (("k", "v"), 2, 1), "mla": (("ckv", "k_rope"), 1, None),
+               "cross": (("ck", "cv"), 2, 1)}
+
+
+def cache_layouts(cache, run) -> dict:
+    """The layer caches' layouts by kind ("kv", "mla", "cross"), read
+    from the placements of the first leaf of each kind in the DTensor
+    ``cache`` (every layer of a kind lies alike)."""
+    from . import sharding as S
     out = {}
-    if s_max is not None:
-        out["kv"] = CacheLayout(cfg, s_max, run)
-        out["mla"] = CacheLayout(cfg, s_max, run, heads=0,
-                                 names=("ckv", "k_rope"), dim=1)
-    if ctx_len is not None:
-        out["cross"] = CacheLayout(cfg, ctx_len, run, names=("ck", "cv"))
+    for path, t in S.leaves_with_paths(cache):
+        for kind, (names, dim, head_dim) in CACHE_KINDS.items():
+            if kind not in out and path.split("/")[-1] == names[0]:
+                out[kind] = CacheLayout.of(path, t, names, dim, head_dim,
+                                           run)
     return out
 
 
-def lse_merge(o, lse, run):
+def lse_merge(o, lse, run, axis: str = "model"):
     """The outputs ``o`` (..., d) of each process's slice of the keys
-    merged over "model" by their log-sum-exp ``lse`` (o's shape without
-    its last dim): m = max lse, w = exp(lse - m), O = sum(w o) / sum(w), in
-    fp32, on every process; three all-reduces.  A slice that sees no key
-    (lse -inf, or ~-1e30 from a finite mask) has weight 0."""
-    w = torch.exp(lse - run.reduce_model(lse, "max"))[..., None]
-    return run.reduce_model(w * o.to(torch.float32)) / run.reduce_model(w)
+    merged over ``axis`` (the axis the cache's sequence lies on) by their
+    log-sum-exp ``lse`` (o's shape without its last dim): m = max lse, w =
+    exp(lse - m), O = sum(w o) / sum(w), in fp32, on every process; three
+    all-reduces.  A slice that sees no key (lse -inf, or ~-1e30 from a
+    finite mask) has weight 0."""
+    w = torch.exp(lse - run.reduce(lse, "max", axis))[..., None]
+    return (run.reduce(w * o.to(torch.float32), "sum", axis)
+            / run.reduce(w, "sum", axis))
 
 
 def flash_decode_sharded(q, k_slice, v_slice, pos, window: int,
-                         softcap: float, run, base: int):
+                         softcap: float, run, base: int,
+                         axis: str = "model"):
     """Distributed flash decoding (the reference's
-    ``_flash_decode_sharded``): q (B, Hq, 1, hd) with every head on every
-    process of "model", K/V this process's sequence slice of the cache,
-    whose row 0 is key ``base``.  The decode kernel attends the slice
-    (keys < pos + 1 by their global index, ``kv_base``) and returns its
-    rows' log-sum-exp; the slices merge over "model" by
+    ``_flash_decode_sharded``): q (B, Hq, 1, hd) with the same heads on
+    every process of ``axis``, K/V this process's sequence slice of the
+    cache, whose row 0 is key ``base``.  The decode kernel attends the
+    slice (keys < pos + 1 by their global index, ``kv_base``) and returns
+    its rows' log-sum-exp; the slices merge over ``axis`` by
     :func:`lse_merge`: three all-reduces of (B, Hq, 1[, hd]) values and no
     gather of the cache."""
     o, lse = flash_attn.flash_decode(q, k_slice, v_slice, pos, window,
                                      softcap, kv_base=base, return_lse=True)
-    return lse_merge(o, lse, run).to(q.dtype)
+    return lse_merge(o, lse, run, axis).to(q.dtype)
 
 
 def attention_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache,
@@ -430,7 +456,13 @@ def attention_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache,
       decodes its heads locally, which needs no merge; the two agree
       within fp32 rounding.
     * "replicated" cache: attended whole, as the seq cache after its
-      gather."""
+      gather.
+    * The long-context layout (the sequence over "data"; the batch, which
+      "data" does not divide, replicated there): every process attends
+      its slice on the heads the layouts above give it (the cache's KV
+      heads over "model", or every head, repeated with GQA_REPEAT) by
+      :func:`flash_decode_sharded`, the slices merged over "data", whatever
+      FLASH_DECODE says: no gather of the cache."""
     pos = decode_position(pos, h.device)
     mode = attn_mode(cfg, run.mp)
     tp = mode != "replicated"
@@ -444,11 +476,18 @@ def attention_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache,
                                 run, mode, q_tp)
     layout.write_decode(cache, k_new, v_new, pos)
     window, cap = layer_window(cfg, spec), cfg.attn_softcap
-    if layout.mode == "heads":
+    if layout.seq_axis == "data":
+        k, v = cache["k"], cache["v"]
+        if mode == "repeat" and not layout.heads:
+            k, v = _repeat_kv(k, v, cfg, run)
+        o = flash_decode_sharded(q, k, v, pos, window, cap, run, layout.base,
+                                 "data")
+        out_tp = tp
+    elif layout.mode == "heads":
         o = decode_attention_op(q, cache["k"], cache["v"], pos, window, cap)
         out_tp = True
     elif flash:
-        qa = run.gather_model(q, 1) if q_tp else q
+        qa = run.gather(q, 1) if q_tp else q
         o = flash_decode_sharded(qa, cache["k"], cache["v"], pos, window,
                                  cap, run, layout.base)
         out_tp = q_tp
@@ -457,7 +496,7 @@ def attention_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache,
     else:
         k, v = cache["k"], cache["v"]
         if layout.mode == "seq":
-            k, v = run.gather_model(k, 2), run.gather_model(v, 2)
+            k, v = run.gather(k, 2), run.gather(v, 2)
         if mode == "repeat":
             k, v = _repeat_kv(k, v, cfg, run)
         o = decode_attention_op(q, k, v, pos, window, cap)
@@ -587,7 +626,10 @@ def mla_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache, pos,
     against its slice, and the slices merge by their log-sum-exp
     (:func:`lse_merge`: three all-reduces of (B, H, 1[, r]) values, no
     gather of the cache); the latent output then goes through
-    this process's heads of W_uv and wo (one all-reduce)."""
+    this process's heads of W_uv and wo (one all-reduce).  With the
+    long-context layout (the sequence over "data", the batch replicated
+    there) each process scores its own heads against its slice and the
+    slices merge over "data" the same way, with no gather of the queries."""
     pos = decode_position(pos, h.device)
     lp, tp = _mla_weights(p, cfg, run)
     hl = run.act(h, tp)
@@ -596,11 +638,19 @@ def mla_decode_mesh(p, h, cfg: ArchConfig, spec: LayerSpec, cache, pos,
     layout.write_decode(cache, ckv_new, kr_new[:, 0], pos)
     ckv = cache["ckv"].to(torch.float32)
     q_c = torch.einsum("bhse,rhe->bhsr", q_nope, lp["w_uk"])
-    if layout.mode == "seq" and run.mp > 1:
+    if layout.seq_axis == "data":
+        s = _mla_scores(cfg, q_c, q_rope, ckv, cache["k_rope"], pos,
+                        layout.base)
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        tot = e.sum(-1, keepdim=True)
+        o_c = lse_merge(torch.einsum("bhst,btr->bhsr", e / tot, ckv),
+                        (m + torch.log(tot))[..., 0], run, "data")
+    elif layout.mode == "seq" and run.mp > 1:
         r = q_c.shape[-1]
         qq = torch.cat([q_c, q_rope.to(q_c.dtype)], -1)
         if tp:
-            qq = run.gather_model(qq, 1)
+            qq = run.gather(qq, 1)
         s = _mla_scores(cfg, qq[..., :r], qq[..., r:], ckv, cache["k_rope"],
                         pos, layout.base)
         m = s.amax(-1, keepdim=True)
@@ -685,8 +735,9 @@ def cross_decode_mesh(p, h, cfg: ArchConfig, cache, run, layout: CacheLayout):
     q = torch.einsum("bsd,dhe->bhse", run.act(h, tp),
                      run.weight(p["wq"], tp, tp))
     k, v = cache["ck"], cache["cv"]
-    if layout.mode == "seq":
-        k, v = run.gather_model(k, 2), run.gather_model(v, 2)
+    if layout.seq_axis is not None:
+        k, v = (run.gather(k, 2, layout.seq_axis),
+                run.gather(v, 2, layout.seq_axis))
     if mode == "repeat":
         k, v = _repeat_kv(k, v, cfg, run)
     o = chunked_attention(q, k, v, causal=False)

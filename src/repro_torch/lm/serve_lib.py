@@ -26,7 +26,9 @@ laid out by ``lm/sharding.py``'s specs (the cache by ``cache_shardings``:
 batch over "data"; K/V and ck/cv by KV heads over "model", or the
 sequence where the heads are too few, the flash-decoding layout; MLA's
 latent cache by its sequence; Mamba's and RWKV6's state by channels or
-heads); each process writes its block of the cache in place; prefill and
+heads; ``distribute_cache(..., long_context=True)``: the reference's
+layout for a batch that "data" does not divide, the sequence over
+"data"); each process writes its block of the cache in place; prefill and
 decode steps run eager (a CUDA graph does not capture the collectives)
 and return logits as DTensors (batch over "data", vocabulary over
 "model").
@@ -210,18 +212,6 @@ def _local_layers(cache, cfg: ArchConfig):
     return layer_caches(local, cfg)
 
 
-def _cache_lens(cache) -> tuple:
-    """(S_max, T): the self-attention's (or MLA's) cache length and the
-    cross-attention's context length, None where the cache has no such
-    leaf (their sequence is the second-last dim of each)."""
-    lens = {}
-    for path, t in S.leaves_with_paths(cache):
-        kind = {"k": 0, "ckv": 0, "ck": 1}.get(path.split("/")[-1])
-        if kind is not None:
-            lens[kind] = t.shape[-2]
-    return lens.get(0), lens.get(1)
-
-
 def make_serve_step(cfg: ArchConfig, mesh=None):
     """serve_step(params, cache, tokens (B,1), pos) -> (logits (B,1,V),
     cache); the cache is written in place.  ``pos`` is an int or a 0-d
@@ -232,7 +222,9 @@ def make_serve_step(cfg: ArchConfig, mesh=None):
     ``LMMesh``: ``params`` and ``cache`` DTensors (``init_cache_mesh`` or
     a prefill's), ``tokens`` a DTensor or the whole (B, 1) on every
     process, the logits a DTensor; eager, with the ``layers.FLASH_DECODE``
-    and ``layers.GQA_REPEAT`` knobs."""
+    and ``layers.GQA_REPEAT`` knobs; the cache's layout (the long-context
+    one too: ``sharding.distribute_cache(..., long_context=True)``) is
+    read from its placements."""
     mesh = S.executing_mesh(mesh, "serving")
     if mesh is not None:
         return _serve_step_mesh(cfg, mesh)
@@ -258,7 +250,7 @@ def _serve_step_mesh(cfg: ArchConfig, mesh):
         run = S.MeshRun(mesh, tokens.shape[0])
         tokens = run.batch(tokens)
         pos = L.decode_position(pos, mesh.device)
-        layouts = L.cache_layouts(cfg, *_cache_lens(cache), run)
+        layouts = L.cache_layouts(cache, run)
         x = M.embed_mesh(params, cfg, tokens, run, (run.bp, dt.Replicate()))
         for (layer_p, spec), c in zip(_mesh_layers(params, cfg),
                                       _local_layers(cache, cfg)):
@@ -395,7 +387,7 @@ def _prefill_mesh(cfg: ArchConfig, max_len: Optional[int], mesh):
         ctx = M.encode_context_mesh(params, cfg, context, run)
         t = None if ctx is None else ctx.shape[1]
         cache = init_cache_mesh(cfg, b, max_len or s, mesh, t)
-        layouts = L.cache_layouts(cfg, max_len or s, t, run)
+        layouts = L.cache_layouts(cache, run)
         positions = torch.arange(s, device=mesh.device)
         x = M.embed_mesh(params, cfg, tokens, run, (run.bp, dt.Replicate()))
         x = S.activation_constraint(x, mesh)

@@ -34,10 +34,12 @@ use to run on local shards between redistributions (``lm/model.py``,
 ``lm/layers.py``, ``lm/serve_lib.py``): every registry architecture, its
 mixers (attention, MLA, Mamba, RWKV6, cross-attention), MoE (with
 :data:`EXPERT_2D`), the RWKV channel mix, the encoder and context stubs
-and MTP.  :func:`executing_mesh` refuses what is left of ROADMAP item
-14(c'): ``adam8bit`` over more than one device, the long-context cache
-layout (``cache_shardings(long_context=True)``) and a ``MeshLayout`` of
-more than one device.
+and MTP, ``adam8bit``'s quantized state (``optim/adam.py``) and the
+long-context cache layout (``cache_shardings(long_context=True)``: a
+cache's sequence over "data" where its batch does not divide there,
+decoded slice by slice and merged by the log-sum-exp over "data").
+:func:`executing_mesh` refuses a ``MeshLayout`` of more than one device
+(no devices behind it).
 """
 from __future__ import annotations
 
@@ -85,17 +87,12 @@ def is_lm_mesh(mesh) -> bool:
     return getattr(mesh, "device_mesh", None) is not None
 
 
-def executing_mesh(mesh, what: str = "the LM",
-                   optimizer: Optional[str] = None,
-                   long_context: bool = False):
+def executing_mesh(mesh, what: str = "the LM"):
     """The mesh an entry point runs over: None for no mesh or a
     ``MeshLayout`` of one device (run as no mesh), the ``LMMesh`` itself
     for a process mesh (every registry architecture).  Raises
     ``unported`` for a ``MeshLayout`` of more devices (no devices behind
-    it), for ``adam8bit`` over more than one device (its 256-value
-    quantisation blocks cross the shards) and for the long-context cache
-    layout over an ``LMMesh`` (the sequence of a cache whose batch does not
-    divide over "data"; the reference lays it out only in its dry run)."""
+    it)."""
     if mesh is None:
         return None
     if not is_lm_mesh(mesh):
@@ -105,12 +102,6 @@ def executing_mesh(mesh, what: str = "the LM",
                 "has no devices behind it: run over an LMMesh, "
                 "launch/mesh.py::make_lm_mesh)")
         return None
-    if optimizer == "adam8bit" and mesh.size > 1:
-        raise L.unported(f"adam8bit over {mesh.size} devices (its 256-value "
-                         "quantisation blocks cross the shards)")
-    if long_context:
-        raise L.unported(f"{what} with the long-context cache layout (the "
-                         "sequence over \"data\") over an LMMesh")
     return mesh
 
 
@@ -426,10 +417,13 @@ def distribute_batch(batch: dict, mesh):
 
 
 def distribute_cache(cache, mesh, long_context: bool = False):
-    """A serving cache laid out by :func:`cache_shardings` (the
-    long-context layout raises: :func:`executing_mesh`)."""
-    executing_mesh(mesh, what="distribute_cache", long_context=long_context)
-    return distribute_tree(cache, cache_shardings(cache, mesh), mesh)
+    """A serving cache laid out by :func:`cache_shardings` (with
+    ``long_context``, the sequence of a cache whose batch does not divide
+    over "data" sharded there; ``make_serve_step`` reads the layout from
+    the cache's placements)."""
+    executing_mesh(mesh, what="distribute_cache")
+    return distribute_tree(cache, cache_shardings(cache, mesh, long_context),
+                           mesh)
 
 
 def gather(tree):
@@ -539,20 +533,34 @@ class MeshRun:
         return x.redistribute(self.dm, (dt.Replicate(), dt.Replicate())
                               ).to_local(grad_placements=grads)
 
-    def reduce_model(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """The sum (or ``op``: "max") over "model" of each process's
+    def size(self, axis: str) -> int:
+        return self.mp if axis == TP else self.dp
+
+    def index(self, axis: str) -> int:
+        """This process's coordinate along ``axis`` ("data" or "model")."""
+        return self.mi if axis == TP else self.di
+
+    def _along(self, axis: str, pl) -> tuple:
+        """Placements with ``pl`` on ``axis`` and Replicate on the other."""
+        dt = dt_api()
+        return (pl, dt.Replicate()) if axis == FSDP else (dt.Replicate(), pl)
+
+    def reduce(self, t: torch.Tensor, op: str = "sum",
+               axis: str = TP) -> torch.Tensor:
+        """The sum (or ``op``: "max") over ``axis`` of each process's
         ``t``, on every process; no autograd (:meth:`psum` has it)."""
         dt = dt_api()
         return from_local(t.contiguous(), self.mesh,
-                          (dt.Replicate(), dt.Partial(op))).redistribute(
+                          self._along(axis, dt.Partial(op))).redistribute(
             self.dm, (dt.Replicate(), dt.Replicate())).to_local()
 
-    def gather_model(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+    def gather(self, t: torch.Tensor, dim: int, axis: str = TP
+               ) -> torch.Tensor:
         """The processes' blocks of ``t`` along ``dim``, concatenated in
-        "model" order, on every process (no autograd)."""
+        ``axis`` order, on every process (no autograd)."""
         dt = dt_api()
         return from_local(t.contiguous(), self.mesh,
-                          (dt.Replicate(), dt.Shard(dim))).redistribute(
+                          self._along(axis, dt.Shard(dim))).redistribute(
             self.dm, (dt.Replicate(), dt.Replicate())).to_local()
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
@@ -570,11 +578,11 @@ class _ModelSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, run):
         ctx.run = run
-        return run.reduce_model(t)
+        return run.reduce(t)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.run.reduce_model(g), None
+        return ctx.run.reduce(g), None
 
 
 def shard_shape(shape, spec, mesh) -> tuple:

@@ -144,7 +144,7 @@ def make_train_step(cfg: ArchConfig, hp: TrainHParams, mesh=None):
     ``LMMesh``: ``params``, ``opt_state`` and the returned ones are
     DTensors laid out by the specs, the metrics replicated 0-d DTensors
     (the same bits on every process)."""
-    mesh = S.executing_mesh(mesh, "training", hp.optimizer)
+    mesh = S.executing_mesh(mesh, "training")
     opt = make_optimizer(hp)
     loss_fn = make_loss_fn(cfg, hp, mesh)
 

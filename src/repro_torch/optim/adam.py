@@ -7,10 +7,14 @@ over nested dicts and lists of tensors, with the reference's state layout
 slots ``{"q", "s"}``, ``{"v16"}`` or ``{"m"}``), so the port's ``ckpt``
 saves it under JAX's key strings and a checkpoint restores in either
 package.  ``update`` runs on the parameters' device and never reads a
-value back to the host.
+value back to the host.  Over a process mesh (``lm/sharding.py``) the
+leaves are DTensors: Adam's and SGD's updates are elementwise on them, and
+``adam8bit``'s quantized blocks, which cross the shards, are updated by
+:func:`_update_shards`.
 """
 from __future__ import annotations
 
+import sys
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -177,28 +181,90 @@ def adam8bit(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         bc1 = 1 - b1 ** count.to(torch.float32)
         bc2 = 1 - b2 ** count.to(torch.float32)
 
-        def upd(g, ms, vs, p):
-            g = g.to(torch.float32)
-            m = _dequantize(ms["q"], ms["s"], g.shape) if "q" in ms else ms["m"]
-            v = vs["v16"].to(torch.float32) if "v16" in vs else vs["m"]
+        def step(g, m, v, p):
+            """The elementwise core: the new moments and the update."""
             m = b1 * m + (1 - b1) * g
             v = (b2 * v + (1 - b2) * g * g).clamp_min(0.0)
             u = -lr_t * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
                          + weight_decay * p.to(torch.float32))
-            if "q" in ms:
-                q, s = _quantize(m)
-                new_m = {"q": q, "s": s}
-            else:
-                new_m = {"m": m}
-            new_v = ({"v16": v.to(torch.bfloat16)} if "v16" in vs
-                     else {"m": v})
-            return u, new_m, new_v
+            return m, v, u
+
+        def upd(g, ms, vs, p):
+            if _is_dtensor(g):
+                return _update_shards(g, ms, vs, p, step)
+            g = g.to(torch.float32)
+            m = _dequantize(ms["q"], ms["s"], g.shape) if "q" in ms else ms["m"]
+            v = vs["v16"].to(torch.float32) if "v16" in vs else vs["m"]
+            m, v, u = step(g, m, v, p)
+            return u, _m_slot(m, ms, _quantize), _v_slot(v, vs)
 
         out = tree_map(upd, grads, state["m"], state["v"], params)
         updates, m, v = _unzip(out, grads, 3)
         return updates, {"m": m, "v": v, "count": count}
 
     return Optimizer(init, update)
+
+
+def _is_dtensor(x) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _m_slot(m, ms, quantize) -> dict:
+    """The new first-moment slot of ``ms``'s kind: ``quantize(m)``'s
+    blocks, or ``m`` itself."""
+    if "q" in ms:
+        q, s = quantize(m)
+        return {"q": q, "s": s}
+    return {"m": m}
+
+
+def _v_slot(v, vs) -> dict:
+    return {"v16": v.to(torch.bfloat16)} if "v16" in vs else {"m": v}
+
+
+def _update_shards(g, ms, vs, p, step):
+    """:func:`adam8bit`'s update of one leaf whose gradient, parameter and
+    slots are DTensors over a process mesh (``lm/sharding.py``'s layout:
+    ``v16`` and the fp32 slots as laid out, ``q`` and ``s`` blocks of the
+    whole flattened parameter over "data" or replicated).  It computes
+    what the one-device update computes for the whole tensor, bit for
+    bit: ``q`` and ``s`` are gathered whole and dequantized, the first
+    moment cut to the parameter's block (no communication), the same
+    elementwise ``step`` run on that block, and the new first moment
+    gathered whole to quantize it, each process keeping its block rows.
+    Collectives: the all-gather of ``q`` and ``s`` (where sharded) and of
+    the new fp32 moment, per quantized leaf.  Every new leaf keeps its
+    old placements; the update takes the parameter's."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = g.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+
+    def cut(t, like):
+        """A tensor every process holds whole -> a DTensor laid out as
+        ``like`` (each process keeps its block: no communication)."""
+        return DTensor.from_local(t, mesh, whole, run_check=False
+                                  ).redistribute(mesh, like.placements)
+
+    def quantize(m):
+        q, s = _quantize(m.full_tensor())
+        return cut(q, ms["q"]), cut(s, ms["s"])
+
+    g = g.to(torch.float32)
+    if "q" in ms:
+        m = cut(_dequantize(ms["q"].full_tensor(), ms["s"].full_tensor(),
+                            g.shape), g)
+    else:
+        m = ms["m"].redistribute(mesh, g.placements)
+    old_v = vs["v16"] if "v16" in vs else vs["m"]
+    v = old_v.redistribute(mesh, g.placements).to(torch.float32)
+    m, v, u = step(g, m, v, p.redistribute(mesh, g.placements))
+    new_m = _m_slot(m, ms, quantize)
+    if "m" in new_m:
+        new_m["m"] = m.redistribute(mesh, ms["m"].placements)
+    new_v = _v_slot(v, vs)
+    return u, new_m, {k: t.redistribute(mesh, old_v.placements)
+                      for k, t in new_v.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,16 @@ unit to scale: a resident evaluator behind a request queue that
   ``MDEngine(special_force=...)`` provider behind the
   :class:`repro_torch.backend.ForceBackend` protocol;
 * :mod:`repro_torch.serve.batching` — bucket choice and padding;
-* :mod:`repro_torch.serve.metrics` — per-tenant queue depth / latency / rps.
+* :mod:`repro_torch.serve.metrics` — per-tenant queue depth / latency / rps;
+* :func:`pipeline_executor_factory` with ``mesh_for`` and
+  :func:`follow_dispatches` — serving over a ``(replica x dd)`` process
+  mesh, the server on process 0 and a follower on every other.
 """
 from ..backend import (ForceBackend, ForceRequest, ForceResult,  # noqa: F401
                        StatefulForceBackend)
 from .batching import BucketingConfig, choose_bucket, pad_group  # noqa: F401
 from .client import RemoteForceProvider  # noqa: F401
 from .metrics import MetricsRegistry, TenantMetrics  # noqa: F401
-from .server import (ForceFuture, ForceServer, ServerOverloaded,  # noqa: F401
-                     ServeConfig, pipeline_executor_factory)
+from .server import (ForceFuture, ForceServer, ServeConfig,  # noqa: F401
+                     ServeGroupBroken, ServerOverloaded, follow_dispatches,
+                     pipeline_executor_factory)

@@ -13,7 +13,9 @@ while the processes run this one's).  For each job (an
 architecture at a ``("data", "model")`` layout, ``EXPERT_2D`` off or on)
 it runs two Adam training steps (``remat="none"``; not for a
 ``serve_only`` job), a prefill and greedy
-decode steps over DTensors (``lm/sharding.py``), where asked then the
+decode steps over DTensors (``lm/sharding.py``; the prefill's cache laid
+out again in the long-context layout, or with the sequence of the leaves
+it names alone over "data", where the job says), where asked then the
 collectives of one MLA or Mamba decode mixer (``CommDebugMode``), and for
 an MoE architecture ``layers.moe_mesh`` on a given normed stream with
 the routing it used recorded.  It saves its local
@@ -33,6 +35,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from lm_mesh_worker import relayout
 from repro_torch.lm import layers as L
 from repro_torch.lm import make_lm_mesh
 from repro_torch.lm import model as M
@@ -76,7 +79,7 @@ def train(cfg, params, batch, mesh, steps=2, optimizer="adam",
 
 
 def serve(cfg, params, prompt, max_len, new, mesh, context=None,
-          collectives=None):
+          collectives=None, long_context=False):
     """Prefill ``prompt`` (with ``context``) and ``new`` greedy decode
     steps: the tokens, the logits (prefill's and each step's, gathered)
     and this process's blocks of the final cache; with ``collectives``
@@ -87,6 +90,7 @@ def serve(cfg, params, prompt, max_len, new, mesh, context=None,
     if mesh is not None:
         params = S.distribute_params(params, mesh)
     last, cache = pre(params, prompt, context)
+    cache = relayout(cache, mesh, long_context)
     logits, tokens = [S.gather(last)], []
     nxt = logits[-1].argmax(-1)
     for i in range(new):
@@ -152,7 +156,7 @@ def mixer_collectives(cfg, params, cache, batch, pos, mesh, mixer) -> dict:
     for a batch of ``batch``."""
     from torch.distributed.tensor.debug import CommDebugMode
     run = S.MeshRun(mesh, batch)
-    layouts = L.cache_layouts(cfg, SL._cache_lens(cache)[0], None, run)
+    layouts = L.cache_layouts(cache, run)
     i, (layer_p, spec) = next((i, ls) for i, ls in enumerate(
         SL._mesh_layers(params, cfg)) if ls[1].mixer == mixer)
     c = {k: t.clone() for k, t in SL._local_layers(cache, cfg)[i].items()}
@@ -185,7 +189,8 @@ def run_job(job, mesh, new) -> dict:
         res = {} if job.get("serve_only") else {
             "train": train(cfg, params, job["batch"], mesh)}
         res["serve"] = serve(cfg, params, job["prompt"], job["max_len"], new,
-                             mesh, job["context"], job["collectives"])
+                             mesh, job["context"], job["collectives"],
+                             job.get("long_context", False))
         if job.get("moe_h") is not None:
             res["moe"] = moe_case(cfg, params, job["moe_h"], mesh)
     finally:

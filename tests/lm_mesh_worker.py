@@ -9,14 +9,19 @@ dict (the narrow configurations and their weights, the batch, the
 prompts, the flash-decoding cases) that the test moves into place when
 it is whole.  It builds the ``(2, 2)`` and ``(1, 4)``
 ``("data", "model")`` meshes (``lm.make_lm_mesh``), and at each runs the
-LM's training step, prefill and greedy decode over DTensors
-(``lm/sharding.py``), with the ``FLASH_DECODE`` and ``GQA_REPEAT`` knobs
-off and on; it saves its local blocks, the gathered results and the
+LM's training step (Adam, and ``adam8bit``: its update alone on a given
+state and gradients, and two steps), prefill and greedy decode over
+DTensors (``lm/sharding.py``), with the ``FLASH_DECODE`` and
+``GQA_REPEAT`` knobs off and on; at ``(2, 2)`` and ``(4, 1)`` it serves
+a batch of 1 with the long-context cache layout (the sequence over
+"data"), at ``(2, 2)`` also a one-KV-head model with its K/V's
+sequence alone over "data".  It saves its local blocks, the gathered results and the
 collectives of a decode step to ``TASK.out<RANK>`` for the test to hold
 against one process, JAX and the other processes.  Imports no JAX.  The
-test imports :func:`train` and :func:`serve` for its own runs with no
-mesh and over a ``(1, 1)`` mesh.
+test imports :func:`train`, :func:`serve` and :func:`adam8bit_update`
+for its own runs with no mesh and over a ``(1, 1)`` mesh.
 """
+import dataclasses
 import datetime
 import logging
 import os
@@ -31,8 +36,12 @@ from repro_torch.lm import make_lm_mesh
 from repro_torch.lm import serve_lib as SL
 from repro_torch.lm import sharding as S
 from repro_torch.lm import train_lib as TT
+from repro_torch.optim import adam8bit
 
 LAYOUTS = ((2, 2), (1, 4))
+# the long-context layout: the serving batch of 1 does not divide over
+# "data", so the cache's sequence lies there
+LONG_LAYOUTS = ((2, 2), (4, 1))
 # (FLASH_DECODE, GQA_REPEAT) by layout: each knob off and on at each;
 # both on where they act (the (1, 4) cache lies sharded by its sequence)
 KNOBS = {(2, 2): ((False, False), (True, False), (False, True)),
@@ -73,19 +82,91 @@ def train(cfg, params, batch, mesh, steps=2, optimizer="adam"):
     return out
 
 
-def serve(cfg, params, prompt, max_len, new, mesh):
+def adam8bit_update(a8, params, mesh):
+    """One ``adam8bit`` update (``min_size`` ``a8["min_size"]``) of the
+    state ``a8["state"]`` by the gradients ``a8["grads"]``, over ``mesh``
+    (None: no mesh): the updates and the new state (gathered), and over a
+    mesh this process's blocks of the new state."""
+    opt = adam8bit(a8["lr"], weight_decay=a8["weight_decay"],
+                   min_size=a8["min_size"])
+    p, g, st = params, a8["grads"], a8["state"]
+    if mesh is not None:
+        specs = S.params_shardings(params, mesh)
+        p = S.distribute_params(params, mesh)
+        g = S.distribute_tree(g, specs, mesh)
+        st = S.distribute_opt_state(st, specs, mesh)
+    u, new = opt.update(g, st, p)
+    out = {"updates": S.gather(u), "state": S.gather(new)}
+    if mesh is not None:
+        out["blocks"] = local_blocks(new)
+    return out
+
+
+def seq_over_data(cache, mesh, names):
+    """A whole cache laid out by ``distribute_cache(..., long_context=True)``
+    except its leaves named in ``names`` (K/V (B, Hkv, S, hd), MLA's
+    ckv/k_rope (B, S, r)), whose sequence alone lies over "data": no
+    heads and no sequence over "model".  ``cache_spec`` gives that layout
+    where "model" divides neither the KV heads nor S_max and "data"
+    divides S_max, which no mesh of 4 processes offers."""
+    spec_of = dict(S.leaves_with_paths(
+        S.cache_shardings(cache, mesh, long_context=True)))
+
+    def spec(path, t):
+        if path.split("/")[-1] not in names:
+            return spec_of[path]
+        out = [None] * t.dim()
+        out[-2] = "data"
+        return S.P(*out)
+
+    return S.distribute_tree(cache, S.map_with_paths(spec, cache), mesh)
+
+
+def relayout(cache, mesh, long_context):
+    """The prefill's ``cache`` laid out again: ``long_context`` True by
+    ``distribute_cache(..., long_context=True)``, a tuple of leaf names by
+    :func:`seq_over_data`; False keeps it."""
+    if not long_context:
+        return cache
+    if long_context is True:
+        return S.distribute_cache(S.gather(cache), mesh, long_context=True)
+    return seq_over_data(S.gather(cache), mesh, long_context)
+
+
+def mqa(cfg, params):
+    """A configuration and weights with one KV head (the first of each
+    layer's): a cache whose heads "model" does not divide."""
+    cut = lambda path, t: (t[..., :1, :] if path.split("/")[-1] in
+                           ("wk", "wv", "bk", "bv") else t)
+    return (dataclasses.replace(cfg, n_kv_heads=1),
+            S.map_with_paths(cut, params))
+
+
+def serve(cfg, params, prompt, max_len, new, mesh, long_context=False,
+          collect=False):
     """Prefill ``prompt`` and ``new`` greedy decode steps: the tokens, the
     logits (prefill's and each step's, gathered) and the final cache
-    (gathered; over a mesh also this process's blocks)."""
+    (gathered; over a mesh also this process's blocks); the prefill's
+    cache laid out again before the decode where ``long_context`` says
+    (:func:`relayout`); with ``collect`` the collectives of the first
+    decode step (:func:`comm_counts`)."""
+    from torch.distributed.tensor.debug import CommDebugMode
     pre = SL.make_prefill(cfg, max_len=max_len, mesh=mesh)
     dec = SL.make_serve_step(cfg, mesh=mesh)
     if mesh is not None:
         params = S.distribute_params(params, mesh)
     last, cache = pre(params, prompt)
+    cache = relayout(cache, mesh, long_context)
     logits, tokens = [S.gather(last)], []
     nxt = logits[-1].argmax(-1)
+    mode = None
     for i in range(new):
-        lg, cache = dec(params, cache, nxt, prompt.shape[1] + i)
+        if collect and i == 0:
+            mode = CommDebugMode()
+            with mode:
+                lg, cache = dec(params, cache, nxt, prompt.shape[1])
+        else:
+            lg, cache = dec(params, cache, nxt, prompt.shape[1] + i)
         logits.append(S.gather(lg))
         nxt = logits[-1].argmax(-1)
         tokens.append(nxt)
@@ -93,34 +174,76 @@ def serve(cfg, params, prompt, max_len, new, mesh):
            "cache": S.gather(cache)}
     if mesh is not None:
         out["cache_blocks"] = local_blocks(cache)
+    if mode is not None:
+        out["collectives"] = comm_counts(mode)
     return out
 
 
-def decode_collectives(cfg, params, prompt, max_len, mesh) -> dict:
-    """The collectives of one decode step (``CommDebugMode``), by kind,
-    with ``FLASH_DECODE`` off and on."""
+def comm_counts(mode) -> dict:
+    """A ``CommDebugMode``'s collectives, by kind."""
+    counts = {}
+    for op, n in mode.get_comm_counts().items():
+        name = str(op).split(".")[-1]
+        for kind in ("all_gather", "reduce_scatter", "all_reduce",
+                     "all_to_all", "broadcast"):
+            if kind in name:
+                counts[kind] = counts.get(kind, 0) + n
+    return counts
+
+
+def step_collectives(cfg, p, prompt, max_len, mesh, long_context=False):
+    """The collectives (``CommDebugMode``, by kind) of one decode step
+    after a prefill of ``prompt``, ``p`` laid out over ``mesh`` (the cache
+    laid out again with ``long_context``)."""
     from torch.distributed.tensor.debug import CommDebugMode
+    last, cache = SL.make_prefill(cfg, max_len, mesh)(p, prompt)
+    cache = relayout(cache, mesh, long_context)
+    nxt = S.gather(last).argmax(-1)
+    mode = CommDebugMode()
+    with mode:
+        SL.make_serve_step(cfg, mesh=mesh)(p, cache, nxt, prompt.shape[1])
+    return comm_counts(mode)
+
+
+def decode_collectives(cfg, params, prompt, max_len, mesh) -> dict:
+    """The collectives of one decode step, by kind, with ``FLASH_DECODE``
+    off and on."""
     p = S.distribute_params(params, mesh)
-    dec = SL.make_serve_step(cfg, mesh=mesh)
     out = {}
     for flash in (False, True):
         L.set_flash_decode(flash)
         try:
-            last, cache = SL.make_prefill(cfg, max_len, mesh)(p, prompt)
-            nxt = S.gather(last).argmax(-1)
-            mode = CommDebugMode()
-            with mode:
-                dec(p, cache, nxt, prompt.shape[1])
+            out[flash] = step_collectives(cfg, p, prompt, max_len, mesh)
         finally:
             L.set_flash_decode(False)
-        counts = {}
-        for op, n in mode.get_comm_counts().items():
-            name = str(op).split(".")[-1]
-            for kind in ("all_gather", "reduce_scatter", "all_reduce",
-                         "all_to_all", "broadcast"):
-                if kind in name:
-                    counts[kind] = counts.get(kind, 0) + n
-        out[flash] = counts
+    return out
+
+
+def long_context_runs(task, mesh) -> dict:
+    """The batch of 1 served with the long-context cache layout, and the
+    collectives of one decode step with it and without it (the cache's
+    sequence whole on every process of "data"); at ``(2, 2)`` also the
+    :func:`mqa` model served with its K/V's sequence alone over "data"
+    (whole heads), ``GQA_REPEAT`` off and on."""
+    a = task["archs"]["qwen2"]
+    prompt = a["prompt"][:1]
+    p = S.distribute_params(a["params"], mesh)
+    out = {"serve": serve(a["cfg"], a["params"], prompt, task["long_len"],
+                          task["new"], mesh, long_context=True, collect=True)}
+    out["collectives"] = {False: step_collectives(
+        a["cfg"], p, prompt, task["long_len"], mesh),
+        True: out["serve"].pop("collectives")}
+    if tuple(mesh.axis_sizes) == (2, 2):
+        cfg1, p1 = mqa(a["cfg"], a["params"])
+        out["whole_heads"] = {}
+        for repeat in (False, True):
+            L.set_gqa_repeat(repeat)
+            try:
+                out["whole_heads"][repeat] = serve(
+                    cfg1, p1, prompt, task["long_len"], task["new"], mesh,
+                    long_context=("k", "v"))
+            finally:
+                L.set_gqa_repeat(False)
     return out
 
 
@@ -140,23 +263,6 @@ def flash_cases(task, mesh) -> list:
     return out
 
 
-def _error(fn) -> str:
-    try:
-        fn()
-    except (NotImplementedError, ValueError, RuntimeError) as exc:
-        return f"{type(exc).__name__}: {exc}"
-    return ""
-
-
-def refusals(task, mesh) -> dict:
-    """What stays out over a mesh of more than one device."""
-    out = {}
-    cfg = task["archs"]["qwen2"]["cfg"]
-    out["adam8bit"] = [_error(lambda: TT.make_train_step(
-        cfg, TT.TrainHParams(optimizer="adam8bit"), mesh=mesh))]
-    return out
-
-
 def layout_runs(task, mesh) -> dict:
     out = {}
     for arch, a in task["archs"].items():
@@ -164,6 +270,11 @@ def layout_runs(task, mesh) -> dict:
         res = {"train": train(cfg, params, task["batch"], mesh),
                "adamw": train(cfg, params, task["batch"], mesh, steps=1,
                               optimizer="adamw")["params"][-1]}
+        if arch == "qwen2":
+            res["adam8bit"] = train(cfg, params, task["batch"], mesh,
+                                    optimizer="adam8bit")
+            res["adam8bit_update"] = adam8bit_update(task["a8"], params,
+                                                     mesh)
         for flash, repeat in KNOBS[tuple(mesh.axis_sizes)]:
             L.set_flash_decode(flash)
             L.set_gqa_repeat(repeat)
@@ -205,9 +316,11 @@ def main(task_path: str, rank: int) -> None:
             res.update(layout_runs(task, mesh))
             if shape == (1, 4):
                 res["flash"] = flash_cases(task, mesh)
-            else:
-                res["errors"] = refusals(task, mesh)
             out[shape] = res
+        for shape in LONG_LAYOUTS:
+            mesh = make_lm_mesh(*shape, device="cpu", timeout_s=timeout)
+            out[("long", shape)] = {"coords": mesh.coords,
+                                    **long_context_runs(task, mesh)}
         torch.save(out, f"{task_path}.out{rank}")
     finally:
         dist.destroy_process_group()

@@ -42,14 +42,38 @@ attention softcap 50, final softcap 30), weights from the JAX PRNG through
   attention's wq and wo) and 1 + L all-reduces.
 * The plain decode with ``kv_base`` and ``return_lse``: 4 slices merged by
   their log-sum-exp equal the whole cache's ``decode_ref``.
-* Refusals: ``adam8bit`` over 4 devices names item 14(c'); a
-  ``MeshLayout`` of more than one device; ``make_lm_mesh`` without a
-  group, with the wrong world size, and on CUDA without a card (the other
-  architectures run over a mesh: ``tests/test_torch_lm_mesh_archs.py``).
+* ``adam8bit`` (qwen2-like): one update (``min_size`` 64: the norms'
+  and biases' one padded block, which "data" does not divide, replicated;
+  the larger leaves' blocks over "data") on JAX's state after one update,
+  bridged, and seeded gradients, at each layout: the gathered ``q``,
+  ``s``, ``v16``, ``m`` and ``count`` equal one process's bit for bit and
+  JAX's as ``tests/test_torch_train.py::_state_equal`` holds them, the
+  updates bit for bit and within 1e-6 x max of JAX's; every process's
+  block of every state leaf is JAX's ``devices_indices_map`` slice.  Two
+  training steps (``min_size`` 4,096) within the Adam gates of one
+  process and of JAX (the gate's gradient estimate from the dequantized
+  first moments).
+* The long-context cache layout (qwen2-like, a batch of 1, a 64-key
+  cache) at ``(2, 2)`` (KV heads over "model", the sequence over "data")
+  and ``(4, 1)`` (the sequence over "data" in slices of 16): every
+  process's cache block is JAX's ``cache_shardings(long_context=True)``
+  slice; the prefill and 8 greedy decode steps give one process's and
+  JAX's tokens, logits within 1e-5 x max of one process and 1e-4 x max of
+  JAX (the first row of JAX's serve of the prompts); a decode step issues the all-gathers of the same step with the
+  sequence whole (no gather of a cache) and three all-reduces more per
+  layer (the merge over "data").  A one-KV-head variant at ``(2, 2)``
+  with its K/V's sequence alone over "data" (whole heads, laid out by
+  hand: no 4-process mesh has "model" dividing neither the heads nor
+  S_max), ``GQA_REPEAT`` off and on: within 1e-5 x max of one process.
+* Refusals: a ``MeshLayout`` of more than one device; ``make_lm_mesh``
+  without a group, with the wrong world size, and on CUDA without a card
+  (the other architectures run over a mesh:
+  ``tests/test_torch_lm_mesh_archs.py``).
 
 One spawn of 4 processes; each waits at most 60 s in a rendezvous or
-collective and the spawn at most 150 s in all.  The JAX side runs in two
-subprocesses (one per configuration) beside them, on one XLA thread each.
+collective and the spawn at most 300 s in all (a hang guard).  The JAX
+side runs in two subprocesses (one per configuration) beside them, on
+one XLA thread each.
 """
 import datetime
 import json
@@ -61,6 +85,7 @@ import time
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -68,8 +93,10 @@ import torch.distributed as dist
 
 import lm_mesh_worker as W
 from conftest import run_in_subprocess
+from test_torch_train import _state_equal
 from repro.configs import ARCHS
 from repro.lm import model as JM
+from repro.optim import adam8bit as jadam8bit
 from repro_torch import bridge
 from repro_torch.kernels import ref
 from repro_torch.launch.mesh import MeshLayout
@@ -77,17 +104,22 @@ from repro_torch.lm import make_lm_mesh
 from repro_torch.lm import serve_lib as SL
 from repro_torch.lm import sharding as S
 from repro_torch.lm import train_lib as TT
+from repro_torch.optim.adam import _dequantize
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).with_name("lm_mesh_worker.py")
-WORLD, SPAWN_S, GROUP_S = 4, 150, 60
+WORLD, SPAWN_S, GROUP_S = 4, 300, 60
 TOL, LR, B1 = 1e-4, 3e-4, 0.9
 NARROW = dict(n_layers=2, d_model=64, d_ff=128, vocab=128)
 # key -> (registry arch, PRNG seed, prompt length, cache length)
 ARCH = {"qwen2": ("qwen2-1.5b", 0, 12, 24),
         "gemma2": ("gemma2-2b", 1, 36, 48)}
 TRAIN_B, TRAIN_S, SERVE_B, NEW = 4, 16, 2, 8
+WD = 0.1                  # TrainHParams' weight decay
+A8_MIN = 64               # the adam8bit update's min_size
+LONG_LEN = 64             # the long-context cache's S_max
 LAYOUTS = W.LAYOUTS
+LONG_LAYOUTS = W.LONG_LAYOUTS
 KNOBS = W.KNOBS
 # flash-decoding cases: (B, Hq, Hkv, S, hd), pos, window, softcap; the
 # (1, 4) mesh cuts S into slices of 8
@@ -106,7 +138,8 @@ from jax.sharding import NamedSharding
 from repro.configs import ARCHS
 from repro.lm import layers as JL, model as JM, serve_lib as JS
 from repro.lm import sharding as JSH, train_lib as JT
-IN, OUT, ARCH, NARROW, LAYOUTS, NEW, FLASH = {args}
+IN, OUT, ARCH, NARROW, LAYOUTS, NEW, FLASH, A8_MIN, LONG_LEN, LONG = {args}
+from repro.optim import adam8bit
 data = np.load(IN)
 out, layouts = {{}}, {{}}
 
@@ -134,6 +167,8 @@ for key, (name, seed, prompt, max_len) in ARCH.items():
     p_shapes = jax.eval_shape(lambda: params)
     opt = JT.make_optimizer(JT.TrainHParams())
     o_shapes = jax.eval_shape(opt.init, p_shapes)
+    o8_shapes = jax.eval_shape(adam8bit(3e-4, weight_decay=0.1,
+                                        min_size=A8_MIN).init, p_shapes)
     c_shapes = JS.abstract_cache(cfg, data["prompt_" + key].shape[0],
                                  max_len)
     for shape in LAYOUTS:
@@ -142,6 +177,8 @@ for key, (name, seed, prompt, max_len) in ARCH.items():
         trees = {{"params": (p_shapes, p_sh),
                  "opt": (o_shapes, JT.opt_state_shardings(o_shapes, p_sh,
                                                           mesh)),
+                 "opt8": (o8_shapes, JT.opt_state_shardings(o8_shapes,
+                                                            p_sh, mesh)),
                  "batch": ({{"tokens": data["tokens"],
                             "labels": data["labels"]}},
                            {{k: v.sharding for k, v in JT.batch_specs(
@@ -154,6 +191,13 @@ for key, (name, seed, prompt, max_len) in ARCH.items():
             lay[what] = {{p: blocks(np.shape(x), sh[p], mesh)
                          for p, x in paths(tree)}}
         layouts[f"{{key}} {{shape[0]}},{{shape[1]}}"] = lay
+    c1 = JS.abstract_cache(cfg, 1, LONG_LEN)
+    for shape in LONG:
+        mesh = jax.make_mesh(tuple(shape), ("data", "model"))
+        sh = dict(paths(JSH.cache_shardings(c1, mesh, long_context=True)))
+        layouts[f"{{key}} long {{shape[0]}},{{shape[1]}}"] = {{
+            "cache": {{p: blocks(np.shape(x), sh[p], mesh)
+                      for p, x in paths(c1)}}}}
     # two training steps with no mesh
     step, opt = JT.make_train_step(cfg, JT.TrainHParams(remat="none"))
     step = jax.jit(step)
@@ -168,6 +212,19 @@ for key, (name, seed, prompt, max_len) in ARCH.items():
             out[f"{{key}} params {{i}} {{path}}"] = np.asarray(x)
         for path, x in paths(st["m"]):
             out[f"{{key}} m {{i}} {{path}}"] = np.asarray(x)
+    if key == "qwen2":
+        # two adam8bit steps
+        step8, _ = JT.make_train_step(cfg, JT.TrainHParams(
+            remat="none", optimizer="adam8bit"))
+        step8 = jax.jit(step8)
+        p = params
+        st = JT.make_optimizer(JT.TrainHParams(optimizer="adam8bit")).init(p)
+        for i in range(2):
+            p, st, m = step8(p, st, batch)
+            out[f"a8 loss {{i}}"] = np.asarray(m["loss"])
+            out[f"a8 grad_norm {{i}}"] = np.asarray(m["grad_norm"])
+            for path, x in paths(p):
+                out[f"a8 params {{i}} {{path}}"] = np.asarray(x)
     # prefill and greedy decode, GQA_REPEAT off and on
     for repeat in (False, True):
         JL.set_gqa_repeat(repeat)
@@ -295,7 +352,7 @@ def _error(fn) -> str:
     return ""
 
 
-def _one_process(archs, batch):
+def _one_process(archs, batch, a8):
     out = {}
     for key, a in archs.items():
         cfg, params = a["cfg"], a["params"]
@@ -305,7 +362,37 @@ def _one_process(archs, batch):
                                      "adamw")["params"][-1],
                     "serve": W.serve(cfg, params, prompt, a["max_len"], NEW,
                                      None)}
+        if key == "qwen2":
+            out[key].update(
+                adam8bit=W.train(cfg, params, _tbatch(batch), None,
+                                 optimizer="adam8bit"),
+                adam8bit_update=W.adam8bit_update(a8, params, None),
+                long=W.serve(cfg, params, prompt[:1], LONG_LEN, NEW, None),
+                long_mqa=W.serve(*W.mqa(cfg, params), prompt[:1], LONG_LEN,
+                                 NEW, None))
     return out
+
+
+def _adam8bit_inputs(params):
+    """JAX's adam8bit (``min_size`` A8_MIN) after one update by seeded
+    gradients, bridged, the next seeded gradients, and JAX's second
+    update from there (its updates and state, as numpy)."""
+    rng = np.random.default_rng(5)
+    grads = [S.map_with_paths(lambda _, t: torch.tensor(rng.normal(
+        0, 1e-2, tuple(t.shape)).astype(np.float32)).to(t.dtype), params)
+        for _ in range(2)]
+    to_jax = lambda tree: S.map_with_paths(
+        lambda _, t: jnp.asarray(t.float().numpy()).astype(
+            jnp.dtype(str(t.dtype).split(".")[-1])), tree)
+    jp = to_jax(params)
+    opt = jadam8bit(LR, weight_decay=WD, min_size=A8_MIN)
+    update = jax.jit(opt.update)
+    _, st1 = update(to_jax(grads[0]), jax.jit(opt.init)(jp), jp)
+    u2, st2 = update(to_jax(grads[1]), st1, jp)
+    a8 = {"state": bridge.opt_state_to_torch(jax.device_get(st1), "cpu"),
+          "grads": grads[1], "min_size": A8_MIN, "lr": LR,
+          "weight_decay": WD}
+    return a8, jax.device_get((u2, st2))
 
 
 def _tbatch(arrays):
@@ -329,7 +416,8 @@ def run(tmp_path_factory):
     def jax_side(key, flash):
         args = repr((str(tmp / "inputs.npz"), str(tmp / f"jax_{key}.npz"),
                      {key: ARCH[key]}, NARROW, [list(s) for s in LAYOUTS],
-                     NEW, flash))
+                     NEW, flash, A8_MIN, LONG_LEN,
+                     [list(s) for s in LONG_LAYOUTS]))
         jax_out[key] = run_in_subprocess(
             JAX_CODE.format(args=args), n_devices=4, timeout=SPAWN_S)
 
@@ -342,7 +430,9 @@ def run(tmp_path_factory):
     threads_before = torch.get_num_threads()
     torch.set_num_threads(1)
     archs = {key: _arch(key) for key in ARCH}
-    task = {"new": NEW, "batch": _tbatch(arrays),
+    a8, a8_jax = _adam8bit_inputs(archs["qwen2"]["params"])
+    task = {"new": NEW, "batch": _tbatch(arrays), "a8": a8,
+            "long_len": LONG_LEN,
             "archs": {key: {"cfg": a["cfg"], "params": a["params"],
                             "prompt": torch.tensor(arrays["prompt_" + key]),
                             "max_len": a["max_len"]}
@@ -354,7 +444,7 @@ def run(tmp_path_factory):
                       for i, (_, pos, window, cap) in enumerate(FLASH)]}
     _publish(task, path)
     try:
-        one = _one_process(archs, arrays)
+        one = _one_process(archs, arrays, a8)
         errors = {"no_group": _error(lambda: make_lm_mesh(1, 1,
                                                           device="cpu"))}
         two = MeshLayout((2, 1), ("data", "model"))
@@ -395,7 +485,7 @@ def run(tmp_path_factory):
         jx.update(np.load(tmp / f"jax_{key}.npz"))
     return {"procs": procs, "one": one, "unit": unit, "errors": errors,
             "archs": archs, "arrays": arrays, "jax_layouts": layouts,
-            "jax": jx}
+            "jax": jx, "a8_jax": a8_jax}
 
 
 def _coords(res):
@@ -601,12 +691,173 @@ def test_flash_decode_gathers_no_cache(run, key):
         assert got[False] == {"all_gather": 4 * n, "all_reduce": 1 + n}, got
 
 
-@pytest.mark.parametrize("name", ("adam8bit",))
-def test_out_of_slice_refusals_name_14c_prime(run, name):
+def _same_tree(a, b) -> bool:
+    la, lb = list(S.leaves_with_paths(a)), list(S.leaves_with_paths(b))
+    return len(la) == len(lb) and all(
+        pa == pb and x.dtype == y.dtype and torch.equal(x, y)
+        for (pa, x), (pb, y) in zip(la, lb))
+
+
+@pytest.mark.parametrize("shape", LAYOUTS, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_adam8bit_update_equals_one_process_and_jax(run, shape):
+    want = run["one"]["qwen2"]["adam8bit_update"]
+    ju, jst = run["a8_jax"]
+    leaves = dict(S.leaves_with_paths(want["state"]))
+    # the case holds both kinds of quantized leaf: blocks over "data",
+    # and one padded block replicated (a sharded bias's)
+    assert any(p.endswith("/q") and t.shape[0] == 1 for p, t in
+               leaves.items())
+    assert any(p.endswith("/q") and t.shape[0] % 2 == 0 for p, t in
+               leaves.items())
     for res in run["procs"]:
-        for msg in res[(2, 2)]["errors"][name]:
-            assert msg.startswith("NotImplementedError"), msg
-            assert "14(c')" in msg and "multi-card execution" in msg, msg
+        got = res[shape]["qwen2"]["adam8bit_update"]
+        assert _same_tree(got["state"], want["state"])
+        assert _same_tree(got["updates"], want["updates"])
+        _state_equal(got["state"], jst)
+        for (p, g), w in zip(S.leaves_with_paths(got["updates"]),
+                             jax.tree_util.tree_leaves(ju)):
+            _close(g, np.asarray(w), 1e-6, f"adam8bit update {p}")
+
+
+@pytest.mark.parametrize("shape", LAYOUTS, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_adam8bit_blocks_equal_jax_devices_indices_map(run, shape):
+    lay = run["jax_layouts"][f"qwen2 {shape[0]},{shape[1]}"]["opt8"]
+    whole = dict(S.leaves_with_paths(
+        run["one"]["qwen2"]["adam8bit_update"]["state"]))
+    for res in run["procs"]:
+        r = res[shape]
+        _check_blocks(r["qwen2"]["adam8bit_update"]["blocks"], whole, lay,
+                      _coords(r), "adam8bit state")
+
+
+def _first_moments(state_m, params) -> dict:
+    """adam8bit's first moments by parameter path (dequantized blocks)."""
+    shapes = {p: t.shape for p, t in S.leaves_with_paths(params)}
+    return {path: slot["m"] if "m" in slot else _dequantize(
+        slot["q"], slot["s"], shapes[path])
+        for path, slot in _slots(state_m)}
+
+
+def _slots(state_m, prefix=""):
+    """(parameter path, slot) of an adam8bit moment tree (a slot: a dict
+    of tensors, ``q``/``s``, ``v16`` or ``m``)."""
+    if isinstance(state_m, dict) and all(isinstance(v, torch.Tensor)
+                                         for v in state_m.values()):
+        yield prefix[:-1], state_m
+        return
+    items = (state_m.items() if isinstance(state_m, dict)
+             else enumerate(state_m))
+    for k, v in items:
+        yield from _slots(v, f"{prefix}{k}/")
+
+
+@pytest.mark.parametrize("shape", LAYOUTS, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_adam8bit_training_matches_one_process_and_jax(run, shape):
+    ref = run["one"]["qwen2"]["adam8bit"]
+    jx = run["jax"]
+    ms = [_first_moments(m, ref["params"][0]) for m in ref["m"]]
+    for res in run["procs"]:
+        got = res[shape]["qwen2"]["adam8bit"]
+        for i in range(2):
+            for k in ("loss", "grad_norm"):
+                for w in (float(ref["metrics"][i][k]),
+                          float(jx[f"a8 {k} {i}"])):
+                    assert abs(float(got["metrics"][i][k]) - w) <= \
+                        TOL * abs(w), (shape, i, k)
+            for path, g in S.leaves_with_paths(got["params"][i]):
+                for want, what in (
+                        (dict(S.leaves_with_paths(ref["params"][i]))[path],
+                         "one process"),
+                        (jx[f"a8 params {i} {path}"], "JAX")):
+                    _param_gate(g, _np(want), [_np(m[path])
+                                               for m in ms[:i + 1]],
+                                f"adam8bit {shape} step {i} {path} vs "
+                                f"{what}")
+
+
+@pytest.mark.parametrize("shape", LONG_LAYOUTS,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_long_context_cache_blocks_equal_jax(run, shape):
+    lay = run["jax_layouts"][f"qwen2 long {shape[0]},{shape[1]}"]["cache"]
+    seen = set()
+    for res in run["procs"]:
+        r = res[("long", shape)]
+        c = ",".join(str(x) for x in r["coords"])
+        seen.add(c)
+        whole = dict(S.leaves_with_paths(r["serve"]["cache"]))
+        _check_blocks(r["serve"]["cache_blocks"], whole, lay, c,
+                      "long-context cache")
+        # the sequence lies over "data": each process holds S / data keys
+        k = next(t for p, t in r["serve"]["cache_blocks"].items()
+                 if p.endswith("/k"))
+        assert k.shape[-2] == LONG_LEN // shape[0]
+    assert len(seen) == 4
+
+
+@pytest.mark.parametrize("shape", LONG_LAYOUTS,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_long_context_decode_matches_one_process_and_jax(run, shape):
+    """JAX's reference is the first row of its serve of the prompts (its
+    own cache length; a row's tokens and logits do not depend on the
+    other row's or on the masked keys past them)."""
+    want = run["one"]["qwen2"]["long"]
+    jx = run["jax"]
+    for res in run["procs"]:
+        got = res[("long", shape)]["serve"]
+        assert torch.equal(got["tokens"], want["tokens"])
+        assert np.array_equal(got["tokens"].numpy(),
+                              jx["qwen2 False tokens"][:1])
+        for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+            _close(g, w, 1e-5, f"long {shape} logits {i}")
+            _close(g, jx[f"qwen2 False logits {i}"][:1], TOL,
+                   f"long {shape} logits {i} vs JAX")
+        for (p, g), (_, w) in zip(S.leaves_with_paths(got["cache"]),
+                                  S.leaves_with_paths(want["cache"])):
+            _close(g, w, 1e-5, f"long {shape} cache {p}")
+
+
+@pytest.mark.parametrize("repeat", (False, True),
+                         ids=("replicated", "gqa_repeat"))
+def test_long_context_whole_heads_decode_matches_one_process(run, repeat):
+    """One KV head at ``(2, 2)``, its K/V's sequence alone over "data"
+    (every head on every process, nothing over "model"), ``GQA_REPEAT``
+    off and on: every process holds its data index's LONG_LEN / 2 keys of
+    the one-process cache within 1e-5 x max, the tokens equal one
+    process's, the logits within 1e-5 x max."""
+    want = run["one"]["qwen2"]["long_mqa"]
+    whole = dict(S.leaves_with_paths(want["cache"]))
+    n = LONG_LEN // 2
+    for res in run["procs"]:
+        r = res[("long", (2, 2))]
+        got = r["whole_heads"][repeat]
+        assert torch.equal(got["tokens"], want["tokens"])
+        for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+            _close(g, w, 1e-5, f"whole heads {repeat} logits {i}")
+        d = r["coords"][0]
+        kv = {p: b for p, b in got["cache_blocks"].items()
+              if p.split("/")[-1] in ("k", "v")}
+        assert kv
+        for p, b in kv.items():
+            assert b.shape[-3] == 1 and b.shape[-2] == n, (p, b.shape)
+            _close(b, whole[p][..., d * n:(d + 1) * n, :], 1e-5,
+                   f"whole heads {repeat} cache {p}")
+
+
+@pytest.mark.parametrize("shape", LONG_LAYOUTS,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_long_context_decode_gathers_no_cache(run, shape):
+    """One decode step, L = 2 attention layers: the long-context layout
+    issues the all-gathers of the same step over a cache whose sequence
+    is whole on every process of "data" (no gather of a cache) and 3 L
+    all-reduces more (the merge over "data")."""
+    n = NARROW["n_layers"]
+    for res in run["procs"]:
+        plain, long = (res[("long", shape)]["collectives"][lc]
+                       for lc in (False, True))
+        assert long.get("all_gather", 0) == plain.get("all_gather", 0), \
+            (plain, long)
+        assert long["all_reduce"] == plain.get("all_reduce", 0) + 3 * n, \
+            (plain, long)
 
 
 def test_mesh_refusals_without_devices(run):

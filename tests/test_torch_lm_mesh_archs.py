@@ -43,8 +43,15 @@ the MoE architectures also at ``(2, 2)`` with ``EXPERT_2D``.
   AdamW step, the prefill, the decode steps, the cache.
 * Collectives (``CommDebugMode``) of one decode step of an MLA mixer and
   of a Mamba mixer at ``(1, 4)``.
-* Refusals: the long-context cache layout over an LMMesh and a
-  ``MeshLayout`` of more than one device name their item.
+* The long-context cache layout: deepseek-v3's first prompt row served
+  at ``(2, 2)`` (where the layout is the plain one of the batch of 1
+  above, whose serve stands for it) and ``(4, 1)`` with
+  ``long_context=True`` (the cache blocks of JAX's
+  ``cache_shardings(long_context=True)``, the serving gates above); at
+  ``(1, 1)`` the layout is the plain one.  The same
+  row with MLA's latent cache's sequence alone over "data" (laid out by
+  hand), within 1e-5 x max of one process.
+* Refusals: a ``MeshLayout`` of more than one device names its item.
 
 One spawn of 4 processes, each waiting at most 300 s in a rendezvous or
 collective, the spawn at most 600 s in all (deadlines for a hang: alone
@@ -116,6 +123,28 @@ JOBS = [(key, layout, e2d) for key, (_, _, _, lays) in ARCH.items()
 JOB_IDS = [job_name(*j) for j in JOBS]
 ODD_JOBS = [(key, layout, e2d) for key, lays in ODD.items()
             for layout, e2d in lays]
+# serving the ODD_B rows with the long-context cache layout (the sequence
+# over "data" where "model" leaves it: MLA's latent cache lies over "model"
+# wherever S divides, as it does here, so only the batch replication is
+# new for MLA): key -> layouts
+LONG = {"deepseek": [(2, 2), (4, 1)]}
+LONG_JOBS = [(key, layout) for key, lays in LONG.items() for layout in lays]
+# MLA's latent cache with its sequence alone over "data" (laid out by
+# hand: cache_spec gives it where "model" does not divide S_max and "data"
+# does, which no mesh of 4 processes offers)
+MLA_LEAVES = ("ckv", "k_rope")
+
+
+def _long_is_odd(key, layout) -> bool:
+    """Whether the long-context layout is an ODD job's plain one: a batch
+    that "data" does not divide, and MLA's cache over "model" where S_max
+    divides (deepseek-v3 at (2, 2)); the ODD job's serve stands for it."""
+    return (layout, False) in ODD.get(key, ())
+
+
+def long_name(key, layout, by_hand=False):
+    return (f"{key} {layout[0]}x{layout[1]} long"
+            + (" seq over data" if by_hand else ""))
 
 
 def odd_name(key, layout, e2d):
@@ -149,7 +178,7 @@ from repro.configs import ARCHS
 from repro.lm import layers as JL, model as JM, serve_lib as JS
 from repro.lm import sharding as JSH, train_lib as JT
 import time
-IN, PARAMS, OUT, KEY, ARCH, NARROW, CAPACITY, NEW, MAX_LEN, WAIT = {args}
+IN, PARAMS, OUT, KEY, ARCH, NARROW, CAPACITY, NEW, MAX_LEN, WAIT, LONG = {args}
 data = np.load(IN)
 out, layouts = {{}}, {{}}
 name, seed, over, lays = ARCH
@@ -216,6 +245,14 @@ for shape, e2d in lays:
                      for p, x in paths(tree)}}
     layouts[f"{{shape[0]}},{{shape[1]}},{{e2d}}"] = lay
     JSH.set_expert_2d(False)
+# the long-context cache layout of the prompt's first row
+c1 = JS.abstract_cache(cfg, 1, MAX_LEN)
+for shape in LONG:
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"))
+    sh = dict(paths(JSH.cache_shardings(c1, mesh, long_context=True)))
+    layouts[f"long {{shape[0]}},{{shape[1]}}"] = {{
+        "cache": {{p: blocks(np.shape(x), sh[p], mesh)
+                  for p, x in paths(c1)}}}}
 # two training steps with no mesh
 step, opt = JT.make_train_step(cfg, JT.TrainHParams(remat="none"))
 step = jax.jit(step)
@@ -407,7 +444,20 @@ def _jobs(key, a) -> list:
          "expert_2d": e2d, "serve_only": True, "cfg": a["cfg"],
          "params": a["params"], "prompt": a["prompt"][:ODD_B],
          "context": None, "max_len": MAX_LEN, "collectives": None}
-        for layout, e2d in ODD.get(key, ())]
+        for layout, e2d in ODD.get(key, ())] + [
+        {"name": long_name(key, layout), "layout": layout,
+         "expert_2d": False, "serve_only": True, "long_context": True,
+         "cfg": a["cfg"], "params": a["params"],
+         "prompt": a["prompt"][:ODD_B], "context": None, "max_len": MAX_LEN,
+         "collectives": None}
+        for layout in LONG.get(key, ()) if not _long_is_odd(key, layout)
+    ] + [
+        {"name": long_name(key, layout, True), "layout": layout,
+         "expert_2d": False, "serve_only": True, "long_context": MLA_LEAVES,
+         "cfg": a["cfg"], "params": a["params"],
+         "prompt": a["prompt"][:ODD_B], "context": None, "max_len": MAX_LEN,
+         "collectives": None}
+        for layout in LONG.get(key, ())]
 
 
 def _join(path: Path, procs: list, deadline: float) -> list:
@@ -456,7 +506,7 @@ def _one_process(key, a, mesh=None):
             rows = slice(0, TRAIN_B // 2)        # the (2, 2) data shard 0
             out["moe_shard0"] = W.moe_case(cfg, params, a["moe_h"][rows],
                                            None)
-        if key in ODD:
+        if key in ODD or key in LONG:
             out["odd"] = W.serve(cfg, params, a["prompt"][:ODD_B], MAX_LEN,
                                  NEW, None)
     return out
@@ -475,7 +525,8 @@ def run(tmp_path_factory):
     def jax_side(key):
         args = repr((str(tmp / "inputs.npz"), str(tmp / f"params_{key}.npz"),
                      str(tmp / f"jax_{key}.npz"), key, ARCH[key], NARROW,
-                     CAPACITY, NEW, MAX_LEN, SPAWN_S))
+                     CAPACITY, NEW, MAX_LEN, SPAWN_S,
+                     [list(s) for s in LONG.get(key, ())]))
         jax_out[key] = run_in_subprocess(
             JAX_CODE.format(args=args), n_devices=4, timeout=SPAWN_S)
 
@@ -507,13 +558,15 @@ def run(tmp_path_factory):
             mesh = make_lm_mesh(1, 1, device="cpu", timeout_s=GROUP_S)
             unit = {key: _one_process(key, a, mesh)
                     for key, a in archs.items()}
-            cache = SL.abstract_cache(cfg, SERVE_B, MAX_LEN)
-            cache = S.map_with_paths(lambda _, t: torch.zeros(t.shape,
-                                                              dtype=t.dtype),
-                                     cache)
-            errors["long_context"] = [
-                _error(lambda: S.distribute_cache(cache, mesh,
-                                                  long_context=True))]
+            # at (1, 1) "data" divides every batch: the long-context layout
+            # is the plain one
+            cache = SL.abstract_cache(cfg, ODD_B, MAX_LEN)
+            cache = S.map_with_paths(
+                lambda _, t: torch.randn(t.shape).to(t.dtype), cache)
+            unit["long_context_cache"] = [
+                {p: (t.placements, t.to_local()) for p, t in
+                 S.leaves_with_paths(S.distribute_cache(cache, mesh, lc))}
+                for lc in (False, True)]
         finally:
             dist.destroy_process_group()
     finally:
@@ -855,6 +908,92 @@ def test_refusals_name_their_item(run):
     for msg in err["layout"]:
         assert msg.startswith("NotImplementedError"), msg
         assert "MeshLayout of 2 devices" in msg and "item 14" in msg
-    for msg in err["long_context"]:
-        assert msg.startswith("NotImplementedError"), msg
-        assert "long-context cache layout" in msg and "14(c')" in msg, msg
+
+
+def test_one_by_one_long_context_layout_is_the_plain_one(run):
+    plain, long = run["unit"]["long_context_cache"]
+    assert plain.keys() == long.keys()
+    for p, (pl, t) in plain.items():
+        assert long[p][0] == pl and torch.equal(long[p][1], t), p
+
+
+@pytest.mark.parametrize("job", LONG_JOBS,
+                         ids=[long_name(*j) for j in LONG_JOBS])
+def test_serving_with_the_long_context_layout(run, job):
+    """The first prompt row served with ``long_context=True``: every
+    process's cache block has JAX's ``cache_shardings(long_context=True)``
+    slice's shape, the blocks put together at those slices give one
+    process's cache within 1e-5 x max, and the tokens equal one process's
+    and JAX's, the logits within 1e-5 x max of one process and 1e-4 x max
+    of JAX.  Where that layout is an ODD job's plain one (deepseek-v3 at
+    ``(2, 2)``: MLA's cache over "model", the batch replicated), that
+    job's serve is read."""
+    key, layout = job
+    name = (odd_name(key, layout, False) if _long_is_odd(key, layout)
+            else long_name(*job))
+    lay = run["jax_layouts"][key][f"long {layout[0]},{layout[1]}"]["cache"]
+    want, jx = run["one"][key]["odd"], run["jax"][key]
+    for res in run["procs"]:
+        got = res[name]["serve"]
+        c = _coords(res, layout)
+        for p, b in got["cache"].items():
+            assert tuple(b.shape) == tuple(hi - lo for lo, hi in lay[p][c]), p
+        assert torch.equal(got["tokens"], want["tokens"]), job
+        assert np.array_equal(got["tokens"].numpy(), jx["odd tokens"]), job
+        for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+            _close(g, w, 1e-5, f"{job} logits {i}")
+            _close(g, jx[f"odd logits {i}"], TOL, f"{job} logits {i} vs JAX")
+    cache = _assemble(run["procs"], layout, lay,
+                      lambda res: res[name]["serve"]["cache"])
+    for p, w in want["cache"].items():
+        _close(cache[p], w, 1e-5, f"{job} cache {p}")
+
+
+def _seq_over_data(lay, layout, names) -> dict:
+    """JAX's layout ``lay`` with the sequence (the second-last dim) of the
+    leaves named in ``names`` alone over "data", every other dim whole."""
+    out = {}
+    for p, where in lay.items():
+        if p.split("/")[-1] not in names:
+            out[p] = where
+            continue
+        whole = [(0, max(w[d][1] for w in where.values()))
+                 for d in range(len(next(iter(where.values()))))]
+        n = whole[-2][1] // layout[0]
+        out[p] = {c: whole[:-2] + [(int(c.split(",")[0]) * n,
+                                    (int(c.split(",")[0]) + 1) * n)]
+                  + whole[-1:] for c in where}
+    return out
+
+
+@pytest.mark.parametrize("job", LONG_JOBS,
+                         ids=[long_name(*j, True) for j in LONG_JOBS])
+def test_serving_mla_with_its_sequence_over_data(run, job):
+    """The first prompt row served with MLA's latent cache's sequence
+    alone over "data" (nothing over "model"; the absorbed decode scores
+    this process's heads against its slice and merges the slices over
+    "data"): each process holds its data index's S_max / data positions,
+    the blocks put together give one process's cache within 1e-5 x max,
+    the tokens equal one process's and the logits are within 1e-5 x max
+    of one process's."""
+    key, layout = job
+    name = long_name(*job, True)
+    lay = _seq_over_data(
+        run["jax_layouts"][key][f"long {layout[0]},{layout[1]}"]["cache"],
+        layout, MLA_LEAVES)
+    want = run["one"][key]["odd"]
+    for res in run["procs"]:
+        got = res[name]["serve"]
+        c = _coords(res, layout)
+        seen = set()
+        for p, b in got["cache"].items():
+            assert tuple(b.shape) == tuple(hi - lo for lo, hi in lay[p][c]), p
+            seen.add(p.split("/")[-1])
+        assert set(MLA_LEAVES) <= seen
+        assert torch.equal(got["tokens"], want["tokens"]), job
+        for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+            _close(g, w, 1e-5, f"{job} logits {i}")
+    cache = _assemble(run["procs"], layout, lay,
+                      lambda res: res[name]["serve"]["cache"])
+    for p, w in want["cache"].items():
+        _close(cache[p], w, 1e-5, f"{job} cache {p}")

@@ -10,7 +10,9 @@
 * the server: concurrent tenants, an expired deadline, a full queue and a
   ``serve_fail`` each failing only their own request or batch, a
   ``serve_delay``, ``evaluate_direct`` and ``warmup``; the
-  ``pipeline_executor_factory`` route at batch 2 x 4 virtual ranks;
+  ``pipeline_executor_factory`` route at batch 2 x 4 virtual ranks, and
+  its refusal of a process mesh whose replica shards do not divide the
+  batch bucket (serving over processes: ``tests/test_torch_serve_procs.py``);
 * acceptance: ``MDEngine`` through ``RemoteForceProvider`` == the local
   ``DeepmdForceProvider`` (forces, then a 10-step trajectory).
 
@@ -39,6 +41,7 @@ from repro_torch.dp import DPModel
 from repro_torch.ensemble import BatchedDeepmdProvider
 from repro_torch.health import FaultPlan, FaultSpec
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import DDMesh, EnsembleMesh
 from repro_torch.md import (EngineConfig, MDEngine, build_solvated_protein,
                             mark_nn_group)
 from repro_torch.serve import (BucketingConfig, ForceServer,
@@ -315,9 +318,22 @@ def test_pipeline_executor_route(model_params):
                                        rtol=0, atol=1e-4)
     finally:
         server.stop()
-    with pytest.raises(ValueError, match="mesh"):
+    # over a process mesh: a mesh whose replica shards do not divide its
+    # batch bucket is refused when the server builds it (no group needed
+    # to build this one by hand: the check comes first)
+    three = EnsembleMesh(DDMesh(None, 1, 0, torch.device("cpu"), 4, "gloo"),
+                         None, 3, 0, 0)
+    over = pipeline_executor_factory(model, box, types, None,
+                                     mesh_for=lambda b: three)
+    with pytest.raises(ValueError, match="3 replica shards, which do not "
+                                         "divide the batch bucket 2"):
+        ForceServer(model, params, ServeConfig(atom_buckets=(n,),
+                                               batch_buckets=(2,)),
+                    executor_factory=over)
+    with pytest.raises(ValueError, match="ranks_for and mesh_for"):
         pipeline_executor_factory(model, box, types, None,
-                                  mesh_for=lambda b: None)
+                                  ranks_for=lambda b: 4,
+                                  mesh_for=lambda b: three)
 
 
 # -- acceptance: MDEngine through the served backend ------------------------
