@@ -4753,6 +4753,153 @@ def check_flash(name, args):
     return line
 
 
+# The bf16 prefill kernel's sweep, at every (DK, DV) instance: (b, hq, hkv,
+# sq, sk, causal, window, softcap, q_offset) with GQA groups 1, 2 and 6, Sq
+# and Sk off the 64- and 128-row and -key tiles, and rows with no visible
+# key (window 20 at q_offset 40 over 50 keys); a cache view besides
+FLASH_SWEEP_CASES = (
+    (2, 4, 4, 100, 100, True, 0, 0.0, 0),        # group 1
+    (1, 8, 4, 130, 70, False, 0, 50.0, 0),       # group 2, Sk < Sq
+    (1, 12, 2, 200, 333, True, 0, 0.0, 133),     # group 6, q_offset
+    (2, 6, 1, 257, 257, True, 96, 50.0, 0),      # group 6, window, softcap
+    (1, 4, 2, 64, 50, True, 20, 0.0, 40),        # rows with no visible key
+)
+# MLA's (192, 128) also at Sq 1 and 16 (the prefill kernel at every Sq)
+FLASH_SWEEP_MLA = ((2, 8, 8, 1, 1, True, 0, 0.0, 0),
+                   (2, 4, 4, 16, 40, True, 0, 50.0, 24))
+# Row 6a's path shapes: (name, b, hq, hkv, sq, sk, d, dv, causal, window,
+# softcap, lse), each at its path's softcap; whisper-medium's encoder is
+# its self-attention over 1,500 frames
+FLASH_PATHS = (
+    ("deepseek-v3 MLA prefill", 2, 128, 128, 1024, 1024, 192, 128, True, 0,
+     0.0, False),
+    ("deepseek-v3 MLA at a (1, 4) mesh's heads", 2, 32, 32, 1024, 1024, 192,
+     128, True, 0, 0.0, False),
+    ("qwen2-1.5b training forward + lse", 4, 12, 2, 2048, 2048, 128, 128,
+     True, 0, 0.0, True),
+    ("gemma2-2b global prefill", 4, 8, 4, 6144, 6144, 256, 256, True, 0,
+     50.0, False),
+    ("gemma2-2b local prefill", 4, 8, 4, 6144, 6144, 256, 256, True, 4096,
+     50.0, False),
+    ("gemma2-2b training forward + lse", 4, 8, 4, 2048, 2048, 256, 256,
+     True, 0, 50.0, True),
+    ("whisper-medium encoder", 4, 16, 16, 1500, 1500, 64, 64, False, 0,
+     0.0, False),
+)
+
+
+@torch.no_grad()
+def flash_prefill_sweep():
+    """The bf16 prefill kernel at every (DK, DV) instance against
+    ``ref.attention_ref`` at the bf16 gate (atol 1e-2 x max|plain|), on
+    ``FLASH_SWEEP_CASES`` (and MLA's at Sq 1 and 16) and on a cache view
+    with strides: rows with no visible key exactly 0 with an LSE of -inf;
+    a repeat bit for bit; the call with the LSE giving the serving call's
+    bits, its LSE against ``attention_lse_ref`` (atol 1e-4 x max(|lse|,
+    1))."""
+    from repro_torch.kernels import flash_attn, ref
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    rnd = lambda *s: torch.randn(*s, device=DEVICE, generator=gen).to(
+        torch.bfloat16)
+    errs, n = {}, 0
+    for d, dv in flash_attn.QK_V_DIMS:
+        cases = FLASH_SWEEP_CASES + (FLASH_SWEEP_MLA if dv != d else ())
+        for case in cases + (None,):
+            if case is None:    # a cache of 512 rows sliced to its first 300
+                b, hq, hkv, sq, sk = 2, 8, 4, 96, 300
+                causal, window, cap, off = True, 64, 50.0, 204
+                k = rnd(b, hkv, 512, d)[:, :, :sk]
+                v = rnd(b, hkv, 512, dv)[:, :, :sk]
+            else:
+                b, hq, hkv, sq, sk, causal, window, cap, off = case
+                k, v = rnd(b, hkv, sk, d), rnd(b, hkv, sk, dv)
+            q = rnd(b, hq, sq, d)
+            args = (causal, window, cap, off)
+            tag = f"({d}, {dv}) q {tuple(q.shape)} k {tuple(k.shape)} {args}"
+            out = flash_attn.flash_attention(q, k, v, *args)
+            want = ref.attention_ref(q, k, v, *args).float()
+            err = check(f"flash prefill sweep {tag}", out.float(), want,
+                        atol=1e-2 * float(want.abs().max()))
+            errs[str((d, dv))] = max(errs.get(str((d, dv)), 0.0), err)
+            if not torch.equal(out, flash_attn.flash_attention(q, k, v,
+                                                               *args)):
+                fail(f"flash prefill sweep {tag}: a repeat differs")
+            out_l, lse = flash_attn.flash_attention(q, k, v, *args,
+                                                    return_lse=True)
+            if not torch.equal(out, out_l):
+                fail(f"flash prefill sweep {tag}: the LSE call's bits differ")
+            vis = ref.attention_visible(sq, sk, causal, window, off,
+                                        DEVICE).any(1)
+            want_lse = ref.attention_lse_ref(q, k, *args)
+            if bool(out[:, :, ~vis].any()) or not bool(
+                    (lse[:, :, ~vis] == float("-inf")).all()):
+                fail(f"flash prefill sweep {tag}: a row with no visible key "
+                     "is not 0 with lse -inf")
+            check(f"flash prefill sweep {tag} lse", lse[:, :, vis],
+                  want_lse[:, :, vis],
+                  atol=1e-4 * max(1.0, float(want_lse[:, :, vis].abs().max())))
+            n += 1
+    line = {"phase": "lm", "check": "flash prefill sweep (bf16)", "cases": n,
+            "max_abs_err_by_instance": errs, "tol": "atol 1e-2*max|plain|",
+            "repeat_bitwise": True, "lse_call_bitwise": True}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+@torch.no_grad()
+def flash_path_times(paths=FLASH_PATHS):
+    """Row 6a's path shapes (``paths``), bf16, random inputs: the
+    kernel as its path calls it (with the LSE where the path asks), the
+    kernel at softcap 0, SDPA at softcap 0 (GQA; causal, or a boolean
+    causal + window mask; no LSE) and the bound (the visible pairs'
+    operations at the bf16 peak or the bytes, the LSE's included, at the
+    memory rate); the kernel at softcap 0 held to SDPA at the bf16 gate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn, ref
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 37)
+    rnd = lambda *s: torch.randn(*s, device=DEVICE, generator=gen).to(
+        torch.bfloat16)
+    lines = []
+    for (name, b, hq, hkv, sq, sk, d, dv, causal, window, cap,
+         lse) in paths:
+        q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, dv)
+        kw = ({"attn_mask": ref.attention_visible(sq, sk, True, window, 0,
+                                                  DEVICE)}
+              if window else {"is_causal": causal})
+
+        def kern(c):
+            return lambda: flash_attn.flash_attention(q, k, v, causal, window,
+                                                      c, 0, return_lse=lse)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **kw)
+
+        got, want = kern(0.0)(), sdpa().float()
+        err = check(f"{name} vs sdpa (softcap 0)",
+                    (got[0] if lse else got).float(), want,
+                    atol=1e-2 * float(want.abs().max()))
+        del got, want
+        flops, nbytes = flash_attn.attention_flops_bytes(
+            b, hq, hkv, sq, sk, d, dv, 2, causal, window, 0, lse)
+        t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+        line = {"phase": "lm", "name": "flash_attention", "case": name,
+                "q": [b, hq, sq, d], "kv": [b, hkv, sk, dv],
+                "causal": causal, "window": window, "softcap": cap,
+                "lse": lse, "max_err_vs_sdpa": err,
+                "kernel_ms": time_ms(kern(cap)),
+                "softcap0_kernel_ms": time_ms(kern(0.0)),
+                "sdpa_ms": time_ms(sdpa), "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        line["softcap0_over_sdpa"] = line["softcap0_kernel_ms"] / line["sdpa_ms"]
+        line["bound_share"] = line["bound_ms"] / line["kernel_ms"]
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        del q, k, v, kw
+        torch.cuda.empty_cache()
+    return lines
+
+
 def kernel_line(dtype, tol, name, kern, plain, bound):
     """One call's kernel against its plain version (atol tol x max|plain|),
     a repeat bit for bit, both timed, beside the bound."""
@@ -5015,6 +5162,8 @@ def phase_lm():
              "decode_local": kept[last], "decode_global": kept[last + 1]}
     rows["sdpa"] = {c: sdpa_yardstick(c, a) for c, a in calls.items()}
     check_decode_lengths(kept[last + 1])
+    rows["prefill_sweep"] = flash_prefill_sweep()
+    rows["prefill_paths"] = flash_path_times()
     del calls, kept
     torch.cuda.empty_cache()
 
@@ -7771,6 +7920,16 @@ def main():
                 **{arch: {k: v for k, v in line.items()
                           if k not in ("phase", "check", "arch")}
                    for arch, line in lm_train_attn.items()}}
+            # the bf16 prefill at every row 6a path shape (kernel, at
+            # softcap 0, SDPA at softcap 0, bound) and its edge sweep
+            rows[-1]["prefill_paths"] = [
+                {k: line[k] for k in ("case", "q", "kv", "softcap", "lse",
+                                      "kernel_ms", "softcap0_kernel_ms",
+                                      "sdpa_ms", "bound_ms", "bound_by")}
+                for line in lm_rows["prefill_paths"]]
+            rows[-1]["prefill_sweep"] = {
+                k: lm_rows["prefill_sweep"][k]
+                for k in ("cases", "max_abs_err_by_instance", "tol")}
             rows[-1]["mla_instance"] = {
                 "shape": "q/k (2, 128, 1024, 192), v (2, 128, 1024, 128), "
                          "bf16, causal (deepseek-v3 prefill, layer 0)",

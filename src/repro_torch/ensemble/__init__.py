@@ -14,6 +14,7 @@ takes the same host branches.
 """
 from ..launch.mesh import make_ensemble_mesh  # noqa: F401
 from .engine import EnsembleConfig, EnsembleEngine  # noqa: F401
-from .exchange import geometric_ladder, make_exchange_fn  # noqa: F401
+from .exchange import (geometric_ladder, make_exchange_fn,  # noqa: F401
+                       velocity_scale)
 from .provider import BatchedDeepmdProvider  # noqa: F401
 from .state import ReplicaState, replica_state, stack_states  # noqa: F401

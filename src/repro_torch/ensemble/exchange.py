@@ -57,6 +57,16 @@ def _uniforms(state: ReplicaState):
     return torch.stack(us).cpu(), torch.stack(states)
 
 
+def velocity_scale(ratio: torch.Tensor) -> torch.Tensor:
+    """sqrt(T_new / T_old) of float32 ratios, correctly rounded to float32
+    (what the reference's ``jnp.sqrt`` and ``np.sqrt`` give).  PyTorch's
+    vectorised float32 ``sqrt`` on the CPU can be 1 ulp off; the root of
+    the ratio taken in float64 and rounded once to float32 is exact, since
+    a float64 root of a float32 value rounds to the nearest float32
+    without double-rounding error."""
+    return torch.sqrt(ratio.to(torch.float64)).to(torch.float32)
+
+
 def make_exchange_fn(temp_table) -> Callable:
     """The exchange move for a static temperature table.
 
@@ -90,7 +100,7 @@ def make_exchange_fn(temp_table) -> Callable:
         target = torch.where(acc, k + 1, torch.where(move_dn, k - 1, k))
         new_ladder = torch.zeros_like(ladder)
         new_ladder[order] = target
-        scale = torch.sqrt(table[new_ladder] / table[ladder])
+        scale = velocity_scale(table[new_ladder] / table[ladder])
         dev = state.velocities.device
         velocities = state.velocities * scale.to(dev)[:, None, None]
         stats = {"attempted": int(is_lo.sum()), "accepted": int(acc.sum()),

@@ -25,31 +25,51 @@
 //
 // Three kernels, by rows per KV head (group * Sq) and dtype:
 //
-// * bf16 prefill (group * Sq > 16): flash_fwd_mma_kernel, on the tensor
-//   cores.  One CTA of 8 warps per (b, kv head, 128 query rows); each
-//   warp owns 16 rows; the row blocks that see the most keys go first.
-//   Q K^T and P V are mma.sync.m16n8k16 (bf16 operands, fp32 sums) fed by
-//   ldmatrix (.trans for V); wgmma is not used.  The
-//   scores, running (m, l) and the output accumulator stay in registers;
-//   the score fragments of two 8-key tiles are the A fragment of one
-//   16-key step of P V, so P goes to the product as bf16 from registers,
-//   never through shared memory.  Rounding P to bf16 is what the JAX LM's
-//   chunked_attention does (repro/lm/layers.py); the TPU kernel and the
-//   plain version keep P in fp32, so this instance differs from them by up
-//   to ~2^-9 of each probability, inside the 1e-2 x max gate.  Softcap is
-//   applied to the fp32 accumulator fragment as 1 - 2 / (exp(2x) + 1)
-//   (one ex2 and one fast divide, absolute error ~1e-7; tanh.approx.f32
-//   would err by ~5e-4, 2.5e-2 in a score capped at 50).  K and V tiles
-//   (64 keys) are double-buffered in shared memory with cp.async, the next
-//   block's load in flight during the current block's math.  Rows of Q, K
-//   and V are padded by 16 bytes in shared memory, which makes the
-//   ldmatrix reads conflict-free at every D.  Shared memory: Q 128 x D plus
-//   two stages of K and V, (128 + 4 * 64) * (D + 8) * 2 bytes: 198 KB at
-//   D = 256, 102 KB at D = 128 (one CTA per SM either way, by shared
-//   memory or by registers: 8 warps per SM); at (DK, DV) = (192, 128), Q and
-//   K rows of DK + 8 and V rows of DV + 8 elements, 134 KB.  Registers: the
-//   output accumulator is DV / 2 floats per thread (128 at D = 256);
-//   -Xptxas -v (printed by chip_smoke.py) gives the count and spills.
+// * bf16 prefill (group * Sq > 16): flash_fwd_wgmma_kernel, on Hopper's
+//   tensor-core path.  One CTA of three warpgroups per (b, kv head, 128
+//   query rows), the row blocks that see the most keys first:
+//   - Producer warpgroup (setmaxnreg 40): one thread streams the CTA's
+//     visible KV blocks (BK keys) by TMA (cp.async.bulk.tensor.4d over a
+//     (D, Sk, Hkv, B) tensor map built on the host from the view's
+//     strides, cuTensorMapEncodeTiled taken from the driver through
+//     cudaGetDriverEntryPoint, so no -lcuda; a __grid_constant__
+//     parameter, so a captured call replays) into a ring of STAGES stages
+//     (K and V of a stage on full mbarriers of their own, one empty
+//     mbarrier a stage).  TMA zero-fills rows past Sk; they are masked all
+//     the same.  Tiles are swizzled 128 B (64 B at D = 32), as the wgmma
+//     descriptors read them.
+//   - Two consumer warpgroups (setmaxnreg 232), 64 query rows each: Q by
+//     16-byte loads into the swizzled layout (rows r = i * group + g, so
+//     one K/V tile serves every q head of the group; 128 rows need not
+//     split into whole heads); S = Q K^T as wgmma.mma_async m64n{BK}k16
+//     (Q and K K-major in shared memory, fp32 sums in registers); the
+//     online softmax in registers, in log2 units, masks only on the
+//     blocks that need them, and a warpgroup skips (waits for and
+//     releases) the blocks none of its rows sees; O += P V as
+//     m64n{DV}k16 with A = P from registers (the accumulator fragment
+//     rounded to bf16 in place, as the JAX LM's chunked_attention rounds
+//     P; the TPU kernel and the plain version keep P in fp32: up to ~2^-9
+//     of each probability, inside the 1e-2 x max gate) and B = V MN-major
+//     through the transpose bit (no transposed copy).  Block it's S is
+//     issued with block it - 1's P V, and the softmax of block it runs
+//     while the latter does.  Epilogue: O / l as bf16, lse = m ln 2 + log
+//     l.
+//   - Instances (BK, STAGES; shared memory = 1 KB of alignment + Q 128 x
+//     DK + STAGES x BK x (DK + DV), bf16): (32, 32) 128, 4: 73 KB; (64,
+//     64) 128, 3: 113 KB; (128, 128) 128, 2: 161 KB; (192, 128) 128, 2:
+//     209 KB; (256, 256) 64, 2: 193 KB.  One CTA a SM.  Registers: 168 a
+//     thread at launch (384 threads), the consumers' output accumulator
+//     DV / 2 and scores BK / 2 floats a thread; -Xptxas -v (printed by
+//     chip_smoke.py): no spills.
+//   - A wait on an mbarrier that lasts over 10 s traps (a launch error the
+//     wrapper raises) instead of hanging the card.
+//   - On the H100 (PERF.md, row 6a): 1.3-2.3x faster than the mma.sync
+//     kernel it replaced at every LM path's shape in one call, at 11-40%
+//     of the bound; short loops (few KV blocks a CTA) pay each stage's
+//     load latency, since a stage is refilled only after its P V.  Every
+//     (DK, DV) runs here, (32, 32) too, though no path calls it and it is
+//     slower than the mma.sync kernel was (q (4, 16, 2048, 32), causal:
+//     0.330-0.334 ms against 0.254-0.255 in one call).
 // * fp32 prefill (group * Sq > 16): flash_fwd_kernel, fp32 FMAs from shared
 //   memory, 256 threads as 16 x 16, 64 rows per CTA.  fp32 stays off the
 //   tensor cores because fp32 inputs there mean TF32, which would break the
@@ -121,14 +141,16 @@
 // serving call) nothing else changes: the same arithmetic and the same
 // output bits, one store fewer.
 //
-// Template instances: flash_fwd_mma_kernel<DK, DV>, flash_fwd_kernel<float,
+// Template instances: flash_fwd_wgmma_kernel<DK, DV>, flash_fwd_kernel<float,
 // DK, DV, 64> with (DK, DV) = (D, D) and (192, 128),
 // flash_decode_kernel<float | bf16, D, 2 | 4 | 8 | 16>, D in {32, 64,
 // 128, 256}.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -354,12 +376,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 // ---------------------------------------------------------------------------
-// bf16 prefill on tensor cores: mma.sync.m16n8k16 (bf16 in, fp32 sums) fed
-// by ldmatrix, K/V double-buffered in shared memory with cp.async.
+// Shared by the kernels below
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BQ = 128;      // query rows per CTA (8 warps x 16 rows)
-constexpr int MMA_THREADS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -376,289 +395,695 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 // tanh from one ex2 and one fast divide: absolute error ~1e-7 (tanh.approx
 // would be ~5e-4, i.e. 2.5e-2 in a score soft-capped at 50)
 __device__ __forceinline__ float tanh_exp(float x) {
   return 1.f - __fdividef(2.f, __expf(2.f * x) + 1.f);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 prefill: wgmma.mma_async fed by TMA through an mbarrier ring; one
+// producer warpgroup, two consumer warpgroups of 64 query rows each.
+// ---------------------------------------------------------------------------
+
+constexpr int WG_ROWS = 64;          // query rows of a consumer warpgroup
+constexpr int PF_BQ = 2 * WG_ROWS;   // query rows of a CTA
+constexpr int PF_THREADS = 384;      // producer + two consumer warpgroups
+constexpr int PRODUCER_REGS = 40;    // setmaxnreg: 40 x 128 + 232 x 256
+constexpr int CONSUMER_REGS = 232;   // = 168 x 384, the launch's registers
+
+// Tiles of the (DK, DV) instance.  Q, K and V are kept in shared memory as
+// column chunks of CK (CV) elements, each chunk's rows one swizzle span of
+// 2 CK bytes (128 B, or 64 B at D = 32), swizzled as TMA writes them and
+// as the wgmma descriptors read them.  BK keys a stage; STAGES stages.
 template <int DK, int DV>
-constexpr size_t mma_smem_bytes() {
-  // Q plus two stages of K and V, rows padded by 16 bytes (width + 8
-  // elements)
-  return ((size_t)(MMA_BQ + 2 * BK) * (DK + 8) + (size_t)2 * BK * (DV + 8)) *
-         sizeof(__nv_bfloat16);
+struct Prefill {
+  static constexpr int BK = DK == 256 ? 64 : 128;
+  static constexpr int STAGES = DK == 32 ? 4 : (DK == 64 ? 3 : 2);
+  static constexpr int CK = DK < 64 ? DK : 64;
+  static constexpr int CV = DV < 64 ? DV : 64;
+  static constexpr int SWK = 2 * CK, SWV = 2 * CV;   // bytes a chunk row
+  static constexpr int Q_CHUNK = PF_BQ * SWK;        // bytes a chunk
+  static constexpr int K_CHUNK = BK * SWK;
+  static constexpr int V_CHUNK = BK * SWV;
+  static constexpr int Q_BYTES = PF_BQ * DK * 2;
+  static constexpr int K_BYTES = BK * DK * 2;
+  static constexpr int V_BYTES = BK * DV * 2;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  // 1,024 bytes to align the tiles (the swizzle repeats every 1,024), the
+  // tiles, three mbarriers a stage
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES +
+                              3 * STAGES * 8;
+  static_assert(SMEM <= 232448, "over the 227 KB a block can have");
+  static_assert(Q_CHUNK % 1024 == 0 && K_CHUNK % 1024 == 0 &&
+                V_CHUNK % 1024 == 0, "tiles must keep the swizzle's phase");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// Wait for the phase of `parity` to complete.  A wait of more than 10 s
+// can only be a fault of the ring's bookkeeping: it traps (a launch error
+// the wrapper raises) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 10000000000ull) __trap();
+}
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory, completing `bytes` of the barrier's transaction count
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving register reads or writes of an operand of
+// an asynchronous wgmma across the wait that completes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+// A wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle of `sw` bytes (128 -> 1, 64 -> 2).
+// K-major operands (Q, K): 8-row groups SBO = 8 sw apart, LBO unused (1);
+// MN-major V: 8-key groups SBO = 8 sw apart, sw-byte column chunks LBO
+// apart.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int sw) {
+  const uint64_t layout = sw == 128 ? 1 : 2;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
-template <int DK, int DV>
-__global__ void __launch_bounds__(MMA_THREADS, 1)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int hq, int hkv, int sq,
-                     int sk, long long k_bs, long long k_hs, long long v_bs,
-                     long long v_hs, int causal, int window, float softcap,
-                     int q_offset, float scale) {
-  constexpr int LDS = DK + 8;     // smem row stride of Q and K (elements)
-  constexpr int LDV = DV + 8;     // and of V
-  constexpr int CH = DK / 8;      // 16-byte pieces per row of Q and K
-  constexpr int CHV = DV / 8;     // and of V
-  constexpr int NT = DV / 8;      // n-tiles of the output
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + MMA_BQ * LDS;        // 2 stages
-  __nv_bfloat16* vs = ks + 2 * BK * LDS;        // 2 stages
+// wgmma.mma_async m64nNk16, bf16 in, fp32 accumulator fragment d (N / 2
+// registers a thread: n8 tile j holds (row g, cols 8j + 2t, +1) in d[4j],
+// d[4j + 1] and row g + 8 in d[4j + 2], d[4j + 3] of warp w's 16 rows,
+// g = lane / 4, t = lane % 4).  ss: A and B from shared memory, both
+// K-major; rs: A from registers (the m16k16 fragment of mma.sync), B from
+// shared memory MN-major (the transpose bit set).  scale_d 0 overwrites d.
+template <int N>
+struct Wgmma;
 
-  const int group = hq / hkv;
-  const int rows = group * sq;
-  // the last row blocks see the most keys under a causal mask: they go
-  // out first, so the short ones fill the tail
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * MMA_BQ;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  for (int e = tid; e < MMA_BQ * CH; e += MMA_THREADS) {
-    const int rr = e / CH, c = e % CH, r = r0 + rr;
-    const __nv_bfloat16* src = q;
-    if (r < rows) {
-      const long long head = (long long)b * hq + kvh * group + r % group;
-      src = q + (head * sq + r / group) * DK + c * 8;
-    }
-    cp_async16(qs + rr * LDS + c * 8, src, r < rows ? 16 : 0);
+template <>
+struct Wgmma<32> {
+  __device__ static void rs(float (&d)[16], const uint32_t (&a)[4],
+                            uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
-  cp_async_commit();
+};
 
-  const int last_row = min(r0 + MMA_BQ, rows) - 1;
-  const int qlo = q_offset + r0 / group, qhi = q_offset + last_row / group;
+template <>
+struct Wgmma<64> {
+  __device__ static void ss(float (&d)[32], uint64_t a, uint64_t b,
+                            int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+  __device__ static void rs(float (&d)[32], const uint32_t (&a)[4],
+                            uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ static void ss(float (&d)[64], uint64_t a, uint64_t b,
+                            int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+  }
+  __device__ static void rs(float (&d)[64], const uint32_t (&a)[4],
+                            uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  __device__ static void rs(float (&d)[128], const uint32_t (&a)[4],
+                            uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// KV blocks [jb0, jb1) of BK keys that some row in [first, last] sees
+template <int BK>
+__device__ __forceinline__ void kv_blocks(int first, int last, int group,
+                                          int q_offset, int sk, int causal,
+                                          int window, int& jb0, int& jb1) {
+  const int qlo = q_offset + first / group, qhi = q_offset + last / group;
   const int kv_begin = window > 0 ? max(0, qlo - window + 1) : 0;
   const int kv_end = causal ? min(sk, qhi + 1) : sk;
-  const int jb0 = kv_begin / BK;
-  const int jb1 = kv_end > kv_begin ? (kv_end + BK - 1) / BK : jb0;
+  jb0 = kv_begin / BK;
+  jb1 = kv_end > kv_begin ? (kv_end + BK - 1) / BK : jb0;
+}
 
-  const __nv_bfloat16* kb = k + b * k_bs + kvh * k_hs;
-  const __nv_bfloat16* vb = v + b * v_bs + kvh * v_hs;
-  auto load_kv = [&](int jb, int stage) {
-    const int c0 = jb * BK;
-    __nv_bfloat16* kd = ks + stage * BK * LDS;
-    __nv_bfloat16* vd = vs + stage * BK * LDV;
-    for (int e = tid; e < BK * CH; e += MMA_THREADS) {
-      const int rr = e / CH, c = e % CH;
-      const bool ok = c0 + rr < sk;
-      const long long off = ok ? (long long)(c0 + rr) * DK + c * 8 : 0;
-      cp_async16(kd + rr * LDS + c * 8, kb + off, ok ? 16 : 0);
-    }
-    for (int e = tid; e < BK * CHV; e += MMA_THREADS) {
-      const int rr = e / CHV, c = e % CHV;
-      const bool ok = c0 + rr < sk;
-      const long long off = ok ? (long long)(c0 + rr) * DV + c * 8 : 0;
-      cp_async16(vd + rr * LDV + c * 8, vb + off, ok ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-  if (jb0 < jb1) load_kv(jb0, 0);
+// A thread's two rows (g and g + 8 of its warp's 16) and the masks
+struct RowMask {
+  int sk, causal, window, qpos_lo, qpos_hi, t;
+  float sl2, cap_in, cap_out;   // cap_out > 0: soft-capped
+};
 
-  // this thread's two rows of the warp's 16: g and g + 8
-  const int row_lo = r0 + warp * 16 + g;
-  const int qpos_lo = q_offset + row_lo / group;
-  const int qpos_hi = q_offset + (row_lo + 8) / group;
-  const int wrow0 = r0 + warp * 16;
-  const int wq_min = q_offset + wrow0 / group;
-  const int wq_max = q_offset + (wrow0 + 15) / group;
-  const float sl2 = scale * LOG2E;
-  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
-  const float cap_out = softcap * LOG2E;
-
-  float oacc[NT][4];
+// One block's score fragment: scaled (and soft-capped) into log2 units,
+// masked (a key no row may see is NEG) unless the block is `full`, then
+// turned into probabilities exp2(x - m) with the running (m, l) of the
+// two rows updated; alpha, the factor that rescales the rows' output
+// accumulator.  l is this thread's partial (quad-summed at the end).
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
+                                               const RowMask& mk, int c0,
+                                               bool full, float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2]) {
+  float mx[2] = {NEG, NEG};
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
-  float m_lo = NEG, m_hi = NEG, l_lo = 0.f, l_hi = 0.f;   // m in log2 units
-
-  for (int jb = jb0; jb < jb1; ++jb) {
-    const int stage = (jb - jb0) & 1;
-    if (jb + 1 < jb1) {
-      load_kv(jb + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + stage * BK * LDS;
-    const __nv_bfloat16* vt = vs + stage * BK * LDV;
-    const int c0 = jb * BK;
-
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DK / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, qs + (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int n2 = 0; n2 < 4; ++n2) {
-        uint32_t bf[4];
-        const int mi = lane >> 3;
-        ldsm_x4(bf, kt + (n2 * 16 + (mi >> 1) * 8 + (lane & 7)) * LDS + kk * 16 +
-                        (mi & 1) * 8);
-        mma_bf16(s[2 * n2], a, bf[0], bf[1]);
-        mma_bf16(s[2 * n2 + 1], a, bf[2], bf[3]);
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e];
+      x = mk.cap_out > 0.f ? mk.cap_out * tanh_exp(x * mk.cap_in) : x * mk.sl2;
+      if (!full) {
+        const int kpos = c0 + 8 * j + 2 * mk.t + (e & 1);
+        const int qp = e < 2 ? mk.qpos_lo : mk.qpos_hi;
+        const bool vis = kpos < mk.sk && (!mk.causal || qp >= kpos) &&
+                         (mk.window <= 0 || qp - kpos < mk.window);
+        x = vis ? x : NEG;
       }
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }
-
-    // scale, softcap, mask; scores kept in log2 units
-    const bool full = c0 + BK <= sk && (!causal || wq_min >= c0 + BK - 1) &&
-                      (window <= 0 || wq_max - c0 < window);
-    float mx_lo = NEG, mx_hi = NEG;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e];
-        if (softcap > 0.f) {
-          x = cap_out * tanh_exp(x * cap_in);
-        } else {
-          x *= sl2;
-        }
-        if (!full) {
-          const int kpos = c0 + 8 * j + 2 * t + (e & 1);
-          const int qp = e < 2 ? qpos_lo : qpos_hi;
-          const bool vis = kpos < sk && (!causal || qp >= kpos) &&
-                           (window <= 0 || qp - kpos < window);
-          x = vis ? x : NEG;
-        }
-        s[j][e] = x;
-        if (e < 2) mx_lo = fmaxf(mx_lo, x); else mx_hi = fmaxf(mx_hi, x);
-      }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-    }
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float al_lo = exp2f(m_lo - mn_lo), al_hi = exp2f(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[j][e];
-        // masked scores are NEG: p = 0 exactly, also in a row with no
-        // visible key so far (m = NEG)
-        const float p = x > 0.5f * NEG ? exp2f(x - (e < 2 ? mn_lo : mn_hi)) : 0.f;
-        s[j][e] = p;
-        if (e < 2) sum_lo += p; else sum_hi += p;
-      }
-    l_lo = l_lo * al_lo + sum_lo;   // per-thread partial; quad-summed at the end
-    l_hi = l_hi * al_hi + sum_hi;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      oacc[j][0] *= al_lo;
-      oacc[j][1] *= al_lo;
-      oacc[j][2] *= al_hi;
-      oacc[j][3] *= al_hi;
-    }
-
-    // O += P V: P from registers as bf16 (the S fragments of two n-tiles
-    // are the A fragment of one 16-key step)
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const int mi = lane >> 3;
-#pragma unroll
-      for (int dt = 0; dt < DV / 16; ++dt) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, vt + (kc * 16 + (mi & 1) * 8 + (lane & 7)) * LDV + dt * 16 +
-                          (mi >> 1) * 8);
-        mma_bf16(oacc[2 * dt], a, bf[0], bf[1]);
-        mma_bf16(oacc[2 * dt + 1], a, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();   // this stage is consumed before it is refilled
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float mn = fmaxf(m[h], mx[h]);
+    alpha[h] = exp2f(m[h] - mn);
+    m[h] = mn;
   }
-  cp_async_wait<0>();
-
+  float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
-  }
-  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
-  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row_lo + 8 * half;
-    if (r >= rows) continue;
-    const long long head = (long long)b * hq + kvh * group + r % group;
-    __nv_bfloat16* dst = o + (head * sq + r / group) * DV + 2 * t;
-    const float inv = half ? inv_hi : inv_lo;
-    if (lse != nullptr && t == 0) {
-      // (m, l) in log2 units of the scaled score: lse = (m + log2 l) ln 2
-      const float lh = half ? l_hi : l_lo, mh = half ? m_hi : m_lo;
-      lse[head * sq + r / group] = lh > 0.f ? mh * LN2 + logf(lh) : -INFINITY;
+    for (int e = 0; e < 4; ++e) {
+      // masked scores are NEG: p = 0 exactly, also in a row with no
+      // visible key so far (m = NEG)
+      const float x = s[4 * j + e];
+      const float p = x > 0.5f * NEG ? exp2f(x - m[e >> 1]) : 0.f;
+      s[4 * j + e] = p;
+      sum[e >> 1] += p;
     }
+  l[0] = l[0] * alpha[0] + sum[0];
+  l[1] = l[1] * alpha[1] + sum[1];
+}
+
+// S = Q K^T of one block: DK / 16 steps of m64n{BK}k16, Q (this
+// warpgroup's 64 rows) and K (BK keys) K-major; a k16 step within a
+// swizzle row advances the start address by 32 bytes
+template <int DK, int DV>
+__device__ __forceinline__ void issue_qk(float (&s)[Prefill<DK, DV>::BK / 2],
+                                         uint32_t qa, uint32_t kt) {
+  using P = Prefill<DK, DV>;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          oacc[j][2 * half] * inv, oacc[j][2 * half + 1] * inv);
+  for (int kk = 0; kk < DK / 16; ++kk) {
+    const uint32_t ch = kk * 16 / P::CK, at = kk * 16 % P::CK * 2;
+    Wgmma<P::BK>::ss(
+        s, gmma_desc(qa + ch * P::Q_CHUNK + at, 16, 8 * P::SWK, P::SWK),
+        gmma_desc(kt + ch * P::K_CHUNK + at, 16, 8 * P::SWK, P::SWK), kk);
   }
 }
 
+// O += P V of one block: BK / 16 steps of m64n{DV}k16, P (bf16) from
+// registers, V MN-major (key rows of DV contiguous elements, no transposed
+// copy); a 16-key step advances the start address by 16 rows
 template <int DK, int DV>
-int launch_mma(const void* q, const void* k, const void* v, void* o,
-               float* lse, int b, int hq, int hkv, int sq, int sk,
-               long long k_bs, long long k_hs, long long v_bs, long long v_hs,
-               int causal, int window, float softcap, int q_offset,
-               cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<DK, DV>();
-  auto kern = flash_fwd_mma_kernel<DK, DV>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+__device__ __forceinline__ void issue_pv(
+    float (&o)[DV / 2], const uint32_t (&p)[Prefill<DK, DV>::BK / 4],
+    uint32_t vt) {
+  using P = Prefill<DK, DV>;
+#pragma unroll
+  for (int kc = 0; kc < P::BK / 16; ++kc) {
+    const uint32_t a[4] = {p[4 * kc], p[4 * kc + 1], p[4 * kc + 2],
+                           p[4 * kc + 3]};
+    Wgmma<DV>::rs(o, a, gmma_desc(vt + kc * 16 * P::SWV, P::V_CHUNK,
+                                  8 * P::SWV, P::SWV));
+  }
+}
+
+// The probabilities as bf16 pairs: the fragments of n8 tiles 2kc and
+// 2kc + 1 are the A fragment of 16-key step kc
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BK / 4],
+                                       const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int i = 0; i < BK / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmk,
+                       const __grid_constant__ CUtensorMap tmv,
+                       const __nv_bfloat16* __restrict__ q,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int hq, int hkv, int sq, int sk, int causal,
+                       int window, float softcap, int q_offset, float scale) {
+  using P = Prefill<DK, DV>;
+  constexpr int BK = P::BK, ST = P::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;      // the Q tile
+  unsigned char* qtile = smem_raw + (base - raw);
+  // stage st: K at base + Q_BYTES + st STAGE_BYTES, V after it; the
+  // barriers full_k, full_v and empty of stage st at bars + 8 (st, ST +
+  // st, 2 ST + st)
+  const uint32_t bars = base + P::Q_BYTES + ST * P::STAGE_BYTES;
+  auto k_tile = [&](int st) { return base + P::Q_BYTES + st * P::STAGE_BYTES; };
+  auto full_k = [&](int st) { return bars + 8 * st; };
+  auto full_v = [&](int st) { return bars + 8 * (ST + st); };
+  auto empty = [&](int st) { return bars + 8 * (2 * ST + st); };
+
+  const int group = hq / hkv, rows = group * sq;
+  // the last row blocks see the most keys under a causal mask: they go
+  // out first, so the short ones fill the tail
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * PF_BQ;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int active = min(2, (rows - r0 + WG_ROWS - 1) / WG_ROWS);
+  int jb0, jb1;
+  kv_blocks<BK>(r0, min(r0 + PF_BQ, rows) - 1, group, q_offset, sk, causal,
+                window, jb0, jb1);
+  const int n = jb1 - jb0;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty(st), 4 * active);   // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the ring full, K and V of a stage on
+    // barriers of their own (S needs only K)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      for (int it = 0; it < n; ++it) {
+        const int st = it % ST;
+        mbar_wait(empty(st), ((it / ST) & 1) ^ 1);
+        const int c0 = (jb0 + it) * BK;
+        const uint32_t kt = k_tile(st);
+        mbar_expect_tx(full_k(st), P::K_BYTES);
+#pragma unroll
+        for (int c = 0; c < DK / P::CK; ++c)
+          tma_load_4d(kt + c * P::K_CHUNK, &tmk, c * P::CK, c0, kvh, b,
+                      full_k(st));
+        mbar_expect_tx(full_v(st), P::V_BYTES);
+#pragma unroll
+        for (int c = 0; c < DV / P::CV; ++c)
+          tma_load_4d(kt + P::K_BYTES + c * P::V_CHUNK, &tmv, c * P::CV, c0,
+                      kvh, b, full_v(st));
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int cw = wg - 1;
+  if (cw >= active) return;     // no rows for this warpgroup
+  const int tid = threadIdx.x - 128 * wg, warp = tid >> 5, lane = tid & 31;
+  const int wr0 = r0 + cw * WG_ROWS;
+  const int wlast = min(wr0 + WG_ROWS, rows) - 1;
+
+  // the warpgroup's 64 rows of Q into its half of the swizzled tile: row
+  // r is query r / group of q head kvh * group + r % group (rows past
+  // the group's are zeros); every 16-byte load before the first store
+  {
+    constexpr int UPR = DK / 8, CU = P::CK / 8;   // 16-byte units a row, a chunk row
+    constexpr int NL = WG_ROWS * UPR / 128;
+    uint4 buf[NL];
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int e = tid + 128 * i, r = wr0 + e / UPR;
+      buf[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows) {
+        const long long head = (long long)b * hq + kvh * group + r % group;
+        buf[i] = __ldg(reinterpret_cast<const uint4*>(
+                           q + (head * sq + r / group) * DK) + e % UPR);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int e = tid + 128 * i, u = e % UPR;
+      const int off = (cw * WG_ROWS + e / UPR) * P::SWK + u % CU * 16;
+      const int phys = off ^ (((off >> 7) & (P::SWK / 16 - 1)) << 4);
+      *reinterpret_cast<uint4*>(qtile + u / CU * P::Q_CHUNK + phys) = buf[i];
+    }
+  }
+  // the stores (generic proxy) visible to wgmma (async proxy), then the
+  // warpgroup's other threads' rows
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+
+  int wjb0, wjb1;    // this warpgroup's blocks, inside the CTA's
+  kv_blocks<BK>(wr0, wlast, group, q_offset, sk, causal, window, wjb0, wjb1);
+  int i0 = wjb0 - jb0, i1 = wjb1 - jb0;
+  if (i1 <= i0) i0 = i1 = n;
+  const int row_lo = wr0 + warp * 16 + (lane >> 2);
+  RowMask mk;
+  mk.sk = sk;
+  mk.causal = causal;
+  mk.window = window;
+  mk.qpos_lo = q_offset + row_lo / group;
+  mk.qpos_hi = q_offset + (row_lo + 8) / group;
+  mk.t = lane & 3;
+  mk.sl2 = scale * LOG2E;
+  mk.cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  mk.cap_out = softcap > 0.f ? softcap * LOG2E : 0.f;
+  // the warp's rows need no mask in a block wholly inside Sk, the causal
+  // bound and the window
+  const int wq_min = q_offset + (wr0 + warp * 16) / group;
+  const int wq_max = q_offset + (wr0 + warp * 16 + 15) / group;
+  auto full = [&](int c0) {
+    return c0 + BK <= sk && (!causal || wq_min >= c0 + BK - 1) &&
+           (window <= 0 || wq_max - c0 < window);
+  };
+  auto release = [&](int it) {   // this warp is done with block it's stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(it % ST));
+  };
+  // blocks of the CTA that no row of this warpgroup sees: waited for (so
+  // the ring's phases stay in step) and released
+  auto skip = [&](int it) {
+    mbar_wait(full_k(it % ST), (it / ST) & 1);
+    mbar_wait(full_v(it % ST), (it / ST) & 1);
+    release(it);
+  };
+
+  float oacc[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, alpha[2];   // m in log2 units
+
+  for (int it = 0; it < i0; ++it) skip(it);
+  if (i0 < i1) {
+    float s[BK / 2];
+    uint32_t p[BK / 4];
+    {
+      const int st = i0 % ST;
+      mbar_wait(full_k(st), (i0 / ST) & 1);
+      wgmma_fence();
+      issue_qk<DK, DV>(s, base + cw * WG_ROWS * P::SWK, k_tile(st));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      const int c0 = (jb0 + i0) * BK;
+      online_softmax<BK>(s, mk, c0, full(c0), m, l, alpha);
+      pack_p<BK>(p, s);
+    }
+    // block it's S = Q K^T runs beside block it - 1's O += P V; the
+    // softmax of block it overlaps the latter
+    for (int it = i0 + 1; it < i1; ++it) {
+      const int st = it % ST, pst = (it - 1) % ST;
+      mbar_wait(full_k(st), (it / ST) & 1);
+      wgmma_fence();
+      issue_qk<DK, DV>(s, base + cw * WG_ROWS * P::SWK, k_tile(st));
+      wgmma_commit();
+      mbar_wait(full_v(pst), ((it - 1) / ST) & 1);
+      issue_pv<DK, DV>(oacc, p, k_tile(pst) + P::K_BYTES);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      const int c0 = (jb0 + it) * BK;
+      online_softmax<BK>(s, mk, c0, full(c0), m, l, alpha);
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      fence_regs(p);
+      release(it - 1);
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j) {
+        oacc[4 * j] *= alpha[0];
+        oacc[4 * j + 1] *= alpha[0];
+        oacc[4 * j + 2] *= alpha[1];
+        oacc[4 * j + 3] *= alpha[1];
+      }
+      pack_p<BK>(p, s);
+    }
+    const int st = (i1 - 1) % ST;
+    mbar_wait(full_v(st), ((i1 - 1) / ST) & 1);
+    wgmma_fence();
+    issue_pv<DK, DV>(oacc, p, k_tile(st) + P::K_BYTES);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    fence_regs(p);
+    release(i1 - 1);
+  }
+  for (int it = i1; it < n; ++it) skip(it);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row_lo + 8 * h;
+    if (r >= rows) continue;
+    const long long head = (long long)b * hq + kvh * group + r % group;
+    const long long row = head * sq + r / group;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    if (lse != nullptr && (lane & 3) == 0)
+      // (m, l) in log2 units of the scaled score: lse = (m + log2 l) ln 2
+      lse[row] = l[h] > 0.f ? m[h] * LN2 + logf(l[h]) : -INFINITY;
+    __nv_bfloat16* dst = o + row * DV + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          oacc[4 * j + 2 * h] * inv, oacc[4 * j + 2 * h + 1] * inv);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &res);
+#endif
+    return e == cudaSuccess && res == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// errors of this file's own (past the runtime's codes): error_string
+constexpr int ERR_NO_ENCODE = 100001;   // no cuTensorMapEncodeTiled
+constexpr int ERR_ENCODE = 100002;      // it refused the map (+ CUresult)
+
+// The tensor map of k or v: (D, Sk, Hkv, B), rows of D contiguous bf16,
+// the view's head and batch strides (elements; any, multiples of 8), a
+// box of `cols` x `bk` rows of one head; the swizzle span is the box's
+// row (128 B, or 64 B at D = 32).  TMA fills rows past Sk with zeros.  A
+// dimension of size 1 is never stepped, so its stride is the packed one.
+// With Sk = 0 no block is read: a map of one row over `ptr`.
+int kv_tensor_map(CUtensorMap* map, const void* ptr, int d, int sk, int hkv,
+                  int b, long long hs, long long bs, int cols, int bk) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return ERR_NO_ENCODE;
+  if (sk == 0) hkv = b = sk = 1;
+  const cuuint64_t row = (cuuint64_t)d * 2;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)sk, (cuuint64_t)hkv,
+                        (cuuint64_t)b};
+  cuuint64_t strides[3] = {
+      row, hkv > 1 ? (cuuint64_t)hs * 2 : row * sk,
+      b > 1 ? (cuuint64_t)bs * 2 : row * sk * hkv};
+  cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)bk, 1, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + 1000 * (int)r;
+}
+
+template <int DK, int DV>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int b, int hq, int hkv, int sq, int sk,
+                 long long k_bs, long long k_hs, long long v_bs,
+                 long long v_hs, int causal, int window, float softcap,
+                 int q_offset, cudaStream_t stream) {
+  using P = Prefill<DK, DV>;
+  CUtensorMap tmk, tmv;
+  int err = kv_tensor_map(&tmk, sk ? k : q, DK, sk, hkv, b, k_hs, k_bs,
+                          P::CK, P::BK);
+  if (err == 0)
+    err = kv_tensor_map(&tmv, sk ? v : q, DV, sk, hkv, b, v_hs, v_bs, P::CV,
+                        P::BK);
+  if (err != 0) return err;
+  auto kern = flash_fwd_wgmma_kernel<DK, DV>;
+  // once per instance, at its first call: a captured call only launches
+  static cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
   const long long rows = (long long)(hq / hkv) * sq;
-  dim3 grid((unsigned)((rows + MMA_BQ - 1) / MMA_BQ), (unsigned)hkv,
+  dim3 grid((unsigned)((rows + PF_BQ - 1) / PF_BQ), (unsigned)hkv,
             (unsigned)b);
-  kern<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      hq, hkv, sq, sk, k_bs, k_hs, v_bs, v_hs, causal, window, softcap, q_offset,
-      1.0f / sqrtf((float)DK));
+  kern<<<grid, PF_THREADS, P::SMEM, stream>>>(
+      tmk, tmv, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(o), lse, hq, hkv, sq, sk, causal, window,
+      softcap, q_offset, 1.0f / sqrtf((float)DK));
   return (int)cudaGetLastError();
 }
 // ---------------------------------------------------------------------------
@@ -1081,7 +1506,16 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // every kernel library exports this name (loaded RTLD_LOCAL, one each)
-const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
+const char* error_string(int e) {
+  static char msg[96];
+  if (e == ERR_NO_ENCODE) return "cuTensorMapEncodeTiled not found in the driver";
+  if (e >= ERR_ENCODE) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused a K/V map "
+             "(CUresult %d)", (e - ERR_ENCODE) / 1000);
+    return msg;
+  }
+  return cudaGetErrorString((cudaError_t)e);
+}
 
 // Prefill: Hq / Hkv * Sq > 16 rows per KV head, or any Sq when the value
 // width dv differs from the query/key width d (the decode kernel has no such
@@ -1108,9 +1542,9 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                ? launch_fp32<DK, DV>(q, k, v, o, lse_f, b, hq, hkv, sq, sk,  \
                                      k_bs, k_hs, v_bs, v_hs, causal, window, \
                                      softcap, q_offset, st)                  \
-               : launch_mma<DK, DV>(q, k, v, o, lse_f, b, hq, hkv, sq, sk,   \
-                                    k_bs, k_hs, v_bs, v_hs, causal, window,  \
-                                    softcap, q_offset, st);
+               : launch_wgmma<DK, DV>(q, k, v, o, lse_f, b, hq, hkv, sq, sk, \
+                                      k_bs, k_hs, v_bs, v_hs, causal,        \
+                                      window, softcap, q_offset, st);
   FLASH_CASE(32, 32)
   FLASH_CASE(64, 64)
   FLASH_CASE(128, 128)

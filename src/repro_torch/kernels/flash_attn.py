@@ -6,9 +6,11 @@ Replaces the Pallas ``repro/kernels/flash_attn.py::_flash_kernel``
 ``csrc/flash_attn.cu`` (built by :mod:`repro_torch.kernels.build`, bound
 with ctypes); that file's header says what bounds them on the H100 and what
 their design does about it: bf16 prefill (more than 16 query rows per KV
-head) on the tensor cores (``mma.sync``, P rounded to bf16 in registers),
-fp32 prefill on fp32 FMAs, and decode (at most 16 rows per KV head, fp32 or
-bf16) in a kernel bound by bytes that streams K/V through a cp.async ring.
+head) on Hopper's tensor-core path (``wgmma.mma_async`` fed by TMA through
+an mbarrier ring, a producer warpgroup and two consumer warpgroups; P
+rounded to bf16 in registers), fp32 prefill on fp32 FMAs, and decode (at
+most 16 rows per KV head, fp32 or bf16) in a kernel bound by bytes that
+streams K/V through a cp.async ring.
 The plain versions are :func:`~repro_torch.kernels.ref.attention_ref` and
 :func:`~repro_torch.kernels.ref.decode_ref`.  Forward only, as the TPU
 kernel is; for training the prefill kernels also return the rows'
@@ -35,7 +37,8 @@ Sk are taken without padding, keys past Sk (or the decode length) are
 masked (the Pallas kernel attends to its zero padding when
 ``causal=False``), and K and V are read per KV head (no copy per q head).
 K and V may be views whose rows are contiguous, such as a cache sliced to
-its filled length.  At decode the visible KV blocks are split over several
+its filled length (for the bf16 prefill also with head and batch strides
+of whole 16-byte units, :func:`_tma_ok`; others are copied).  At decode the visible KV blocks are split over several
 CTAs (:func:`decode_splits`) and their partials merged in split order by
 a second kernel.  Each wrapper counts its launches in
 ``<wrapper>.launches``, one per call.
@@ -129,6 +132,15 @@ def _rows_ok(t: torch.Tensor) -> bool:
     """Rows of D contiguous elements, 16-byte aligned (the kernels' loads)."""
     return (t.stride(3) == 1 and t.stride(2) == t.shape[3]
             and t.data_ptr() % 16 == 0)
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    """K or V as the bf16 prefill kernel's tensor map reads it: rows as
+    :func:`_rows_ok`, and head and batch strides of whole 16-byte units
+    (TMA's rule; a dimension of size 1 is never stepped)."""
+    unit = 16 // t.element_size()
+    return _rows_ok(t) and all(t.stride(i) % unit == 0
+                               for i in (0, 1) if t.shape[i] > 1)
 
 
 def _decode_launch(q, k, v, causal, window, softcap, q_offset, pos,
@@ -246,14 +258,16 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     q = q.contiguous()
     q = q if q.data_ptr() % 16 == 0 else q.clone()
-    k, v = (t if _rows_ok(t) else t.clone(memory_format=torch.contiguous_format)
+    decode = dv == d and (hq // hkv) * sq <= DECODE_ROWS and not return_lse
+    ok = _tma_ok if q.dtype == torch.bfloat16 and not decode else _rows_ok
+    k, v = (t if ok(t) else t.clone(memory_format=torch.contiguous_format)
             for t in (k, v))
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if not q.numel():
         out = q.new_empty((b, hq, sq, dv))
         return (out, lse) if return_lse else out
-    if dv == d and (hq // hkv) * sq <= DECODE_ROWS and not return_lse:
+    if decode:
         out = _decode_launch(q, k, v, causal, window, softcap, q_offset, None)
     else:
         out = q.new_empty((b, hq, sq, dv))

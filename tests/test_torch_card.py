@@ -55,10 +55,10 @@ an NVIDIA card).  No JAX here, so the card's machine runs them:
   against the CPU, and the same bits on a repeat;
 * ``flash_attention`` against its plain version (the five cases of the
   reference's flash tests, unmasked keys past a ragged Sk, decode against a
-  cache view, every head dimension the kernel has; in bf16 also the tensor-
-  core prefill's edges: GQA groups 1, 2 and 8, Sq off the 64-row tile,
-  Sk < Sq off the 64-key block, rows with no visible key, a strided cache
-  view): atol 1e-4 x max|plain| in fp32, 1e-2 x max|plain| in bf16 (the
+  cache view, every head dimension the kernel has; in bf16 also the wgmma
+  prefill's edges: GQA groups 1, 2, 6 and 8, Sq and Sk off the 64- and
+  128-row and -key tiles, rows with no visible key, cache views with
+  strides at every (D, DV) instance, one KV head among them): atol 1e-4 x max|plain| in fp32, 1e-2 x max|plain| in bf16 (the
   output is rounded to bf16 on both sides, and the bf16 kernel rounds the
   probabilities to bf16 for the PV product); a repeated call gives the
   same bits;
@@ -618,6 +618,12 @@ BF16_PREFILL_CASES = [  # b, hq, hkv, sq, sk, d, causal, window, cap, off
     (2, 4, 2, 33, 200, 256, True, 0, 0.0, 150),     # q_offset
     (1, 4, 2, 64, 50, 64, True, 20, 0.0, 40),       # rows with no visible key
     (1, 16, 2, 257, 300, 128, True, 96, 30.0, 43),  # group 8, all at once
+    # GQA group 6 (qwen2's); Sq and Sk off the 128-row and -key tiles
+    (1, 12, 2, 200, 333, 32, True, 0, 0.0, 133),
+    (2, 6, 1, 257, 257, 64, True, 96, 50.0, 0),
+    (1, 12, 2, 130, 129, 128, False, 0, 50.0, 0),
+    (1, 6, 1, 300, 385, 256, True, 0, 50.0, 85),
+    (1, 12, 2, 64, 50, 128, True, 20, 0.0, 40),     # group 6, no visible key
 ]
 
 
@@ -642,18 +648,24 @@ def test_flash_attention_bf16_tensor_core_prefill(card, b, hq, hkv, sq, sk,
 
 
 @pytest.mark.cuda
-def test_flash_attention_bf16_prefill_reads_a_cache_view(card):
-    gen = torch.Generator(device=card).manual_seed(11)
-    cache = torch.randn(2, 2, 4, 512, 128, device=card, generator=gen)
-    cache = cache.to(torch.bfloat16)      # {k, v} x (B, Hkv, S_max, D)
-    k, v = cache[0, :, :, :200], cache[1, :, :, :200]
-    assert not k.is_contiguous()
-    q = torch.randn(2, 8, 96, 128, device=card, generator=gen)
-    q = q.to(torch.bfloat16)
+@pytest.mark.parametrize("d,dv", flash_attn.QK_V_DIMS)
+@pytest.mark.parametrize("hkv", [4, 1])
+def test_flash_attention_bf16_prefill_reads_a_cache_view(card, d, dv, hkv):
+    """K and V sliced from caches of 512 rows (the tensor map takes the
+    views' head and batch strides; one KV head too), every instance."""
+    gen = torch.Generator(device=card).manual_seed(11 + d + hkv)
+    rnd = lambda *s: torch.randn(*s, device=card, generator=gen).to(
+        torch.bfloat16)
+    k = rnd(2, hkv, 512, d)[:, :, :200]     # (B, Hkv, S_max, D) caches
+    v = rnd(2, hkv, 512, dv)[:, :, :200]
+    assert not k.is_contiguous() and flash_attn._tma_ok(k)
+    q = rnd(2, 8, 96, d)
     got = flash_attn.flash_attention(q, k, v, True, 64, 50.0, 104)
     want = ref.attention_ref(q, k, v, True, 64, 50.0, 104)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=1e-2 * float(want.float().abs().max()))
+    assert torch.equal(got, flash_attn.flash_attention(q, k, v, True, 64,
+                                                       50.0, 104))
 
 
 DECODE_CASES = [  # hq, hkv, sq, window, cap
@@ -751,6 +763,8 @@ MLA_CASES = [  # b, h, sq, sk, causal, q_offset
     (2, 4, 16, 40, True, 24),     # 16 rows, a cache prefix before them
     (1, 8, 200, 200, True, 0),    # Sq > 16, off the 64-row tile
     (2, 2, 100, 1601, False, 0),  # non-causal, Sk off the 64-key block
+    (2, 4, 129, 300, True, 171),  # off the 128-row tile and key block
+    (1, 2, 257, 129, False, 0),   # Sk < Sq, both off the tiles
 ]
 
 
@@ -1295,6 +1309,9 @@ LM_TRAIN_CASES = [
     (2, 2, 12, 12, 192, 128, True, 0, 0.0, 0),       # MLA's (192, 128)
     (4, 2, 3, 40, 64, 64, True, 0, 0.0, 37),         # 6 rows per KV head
     (4, 2, 16, 20, 256, 256, True, 4, 0.0, 10),      # rows with no key
+    (12, 2, 130, 300, 128, 128, True, 0, 0.0, 170),  # group 6, ragged tiles
+    (6, 1, 257, 257, 32, 32, True, 96, 50.0, 0),     # group 6, window, cap
+    (2, 2, 16, 129, 192, 128, False, 0, 50.0, 0),    # MLA, 16 rows, softcap
 ]
 
 

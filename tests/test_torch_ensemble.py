@@ -48,7 +48,7 @@ from repro_torch.dp import DPModel
 from repro_torch.ensemble import (BatchedDeepmdProvider, EnsembleConfig,
                                   EnsembleEngine, ReplicaState,
                                   geometric_ladder, make_exchange_fn,
-                                  replica_state, stack_states)
+                                  replica_state, stack_states, velocity_scale)
 from repro_torch.health import FaultPlan, FaultSpec, GuardConfig
 from repro_torch.launch import remd
 from repro_torch.md import EngineConfig, MDEngine
@@ -131,6 +131,19 @@ def test_exchange_matches_jax_given_its_draws(case):
             np.testing.assert_array_equal(tstats[k].numpy(),
                                           np.asarray(jstats[k]))
     assert sorted(ts.ladder.tolist()) == list(range(r))
+
+
+def test_velocity_scale_is_correctly_rounded():
+    # the exchange's rescale against np.sqrt (IEEE, as jnp.sqrt) bit for
+    # bit, over ratios of ladder temperatures and seeded ratios near 1
+    rng = np.random.default_rng(7)
+    temps = rng.uniform(250.0, 700.0, 40).astype(np.float32)
+    ratio = np.concatenate([
+        (temps[:, None] / temps[None, :]).ravel(),
+        rng.uniform(0.5, 2.0, 400).astype(np.float32)]).astype(np.float32)
+    got = velocity_scale(torch.from_numpy(ratio))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.sqrt(ratio))
 
 
 def test_geometric_ladder_equals_jax():

@@ -15,7 +15,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.lm import layers as JL
 from repro_torch import kernels
-from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attn, ops
 from repro_torch.lm import layers as TL
 
 RNG = np.random.default_rng(0)
@@ -29,6 +29,10 @@ CASES = [  # b, hq, hkv, sq, sk, d, causal, window, cap, off
     (1, 4, 2, 72, 200, 64, False, 0, 0.0, 0),
     # decode: one query at the last position, window and softcap
     (2, 8, 4, 1, 300, 64, True, 128, 50.0, 299),
+    # GQA group 6 (qwen2's), Sq and Sk off the 64- and 128-row/key tiles
+    (1, 12, 2, 200, 333, 128, True, 0, 0.0, 133),
+    (2, 6, 1, 257, 257, 32, True, 96, 50.0, 0),
+    (1, 12, 2, 130, 129, 256, False, 0, 50.0, 0),
 ]
 
 
@@ -63,6 +67,45 @@ def test_attention_op_bf16_matches_jax_reference():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,causal,off", [
+    (2, 4, 16, 40, True, 24),       # MLA at Sq <= 16
+    (1, 2, 129, 257, True, 128),    # off the 64- and 128-row/key tiles
+])
+def test_attention_op_mla_widths_match_jax_reference(b, h, sq, sk, causal,
+                                                     off):
+    """MLA's (D, DV) = (192, 128): scores at q/k width 192, values 128."""
+    q = RNG.normal(0, 1, (b, h, sq, 192)).astype(np.float32)
+    k = RNG.normal(0, 1, (b, h, sk, 192)).astype(np.float32)
+    v = RNG.normal(0, 1, (b, h, sk, 128)).astype(np.float32)
+    got = ops.attention_op(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                           causal, 0, 0.0, off)
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal, 0, 0.0, off)
+    assert got.shape == (b, h, sq, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=3e-4, atol=3e-4)
+
+
+def test_tma_stride_check():
+    """K and V reach the bf16 prefill kernel's tensor map only with rows
+    of D contiguous elements at a 16-byte aligned address and head and
+    batch strides of whole 16-byte units; a dimension of size 1 may have
+    any stride; other views are copied by the wrapper."""
+    bf = torch.bfloat16
+    assert flash_attn._tma_ok(torch.empty(2, 4, 300, 128, dtype=bf))
+    cache = torch.empty(2, 2, 4, 512, 64, dtype=bf)    # a cache view
+    assert flash_attn._tma_ok(cache[0, :, :, :200])
+    base = torch.empty(8192, dtype=bf)
+    odd_heads = base.as_strided((2, 3, 5, 64), (3 * 324, 324, 64, 1))
+    assert flash_attn._rows_ok(odd_heads) and not flash_attn._tma_ok(odd_heads)
+    one_head = base.as_strided((2, 1, 5, 64), (328, 4, 64, 1))
+    assert flash_attn._tma_ok(one_head)
+    assert not flash_attn._tma_ok(base[1:4097].view(1, 1, 64, 64))
+    # float32: 16 bytes are 4 elements
+    f32 = torch.empty(4096).as_strided((2, 3, 5, 32), (3 * 164, 164, 32, 1))
+    assert flash_attn._tma_ok(f32)
 
 
 def test_row_without_visible_key_is_zero():
